@@ -8,18 +8,25 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each failing the run (non-zero exit, no result line) on error:
 
 1. card: name and power limit (nvidia-smi), torch's device name;
-2. build: compile the CUDA kernels from ``dynamo_tpu_torch/csrc`` and print
-   nvcc's register / shared-memory / spill lines;
+2. build: compile the CUDA kernels from ``dynamo_tpu_torch/csrc`` (four
+   sources) and print nvcc's register / shared-memory / spill lines;
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   at the Llama-3-8B shapes, in bf16, and time kernel, plain version,
-   ``scaled_dot_product_attention`` as the library yardstick, and the
-   card's bound for the same work;
+   at the Llama-3-8B shapes, with a planted fault that the limit must
+   reject, and time kernel, plain version, one PyTorch call as the library
+   yardstick, and the card's bound for the same work;
 4. model: the 8B geometry (random weights from a seed, on the card) runs
    one prefill and 4 decode steps through the kernels and through the
-   plain versions; the logits must agree;
+   plain versions, in three modes: bf16, int4 weights over an int8 KV
+   pool, and int8 weights over a bf16 pool; the logits must agree, and a
+   planted fault in each kernel of the mode must not; one decode step of
+   each mode is profiled, and the sampler's noise is timed;
 5. serve: the port's HTTP server answers concurrent, streamed,
-   prefix-cached and sampled ``/v1/completions`` at the 8B width, with the
-   kernels' launch counts taken over this phase alone.
+   prefix-cached and sampled ``/v1/completions`` at the 8B width in bf16,
+   with the kernels' launch counts taken over this phase alone;
+5b. serve quantized: the same server with ``--quantization int4
+   --kv-quantization int8`` answers concurrent greedy, streamed and seeded
+   sampled completions, with the launch counts taken over this phase
+   alone.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -27,6 +34,7 @@ The line before the last is the kernels' JSON summary; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -206,26 +214,10 @@ def check_paged_attention(cfg, dev) -> dict:
     from dynamo_tpu_torch.engine.kernels import paged_attention_cuda
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
-    seq_lens_l = [1, 15, 16, 17, 255, 1000, 2048, 0]
-    B = len(seq_lens_l)
-    num_blocks = B * M + 1
     scale = Dh ** -0.5
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    k_cache = torch.randn((num_blocks * bs, KVH * Dh), generator=gen,
-                          device=dev).bfloat16()
-    v_cache = torch.randn((num_blocks * bs, KVH * Dh), generator=gen,
-                          device=dev).bfloat16()
-    perm = (torch.randperm(num_blocks - 1, generator=gen, device=dev)
-            + 1).to(torch.int32)
-    tables = torch.zeros((B, M), dtype=torch.int32, device=dev)
-    used = 0
-    for b, n in enumerate(seq_lens_l):
-        nb = -(-n // bs)
-        tables[b, :nb] = perm[used:used + nb]
-        used += nb
-    seq_lens = torch.tensor(seq_lens_l, dtype=torch.int32, device=dev)
-    q = torch.randn((B, H, Dh), generator=gen, device=dev).bfloat16()
+    q, k_cache, v_cache, tables, seq_lens, seq_lens_l = paged_inputs(
+        cfg, dev, 2)
+    B = len(seq_lens_l)
     out = paged_attention_cuda(q, k_cache, v_cache, tables, seq_lens,
                                block_size=bs, scale=scale)
     ref = paged_attention_ref(q, k_cache, v_cache, tables, seq_lens,
@@ -281,6 +273,255 @@ def check_paged_attention(cfg, dev) -> dict:
             "row_rel_tolerance": KERNEL_ROW_REL_TOL, **case}
 
 
+def paged_inputs(cfg, dev, seed: int):
+    """PR 1's decode batch at the 8B shapes: slots of 1/15/16/17/255/1000/
+    2048/0 keys over a shuffled table of 16-token blocks, a random pool."""
+    import torch
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    lens = [1, 15, 16, 17, 255, 1000, 2048, 0]
+    B = len(lens)
+    num_blocks = B * M + 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    k_cache = torch.randn((num_blocks * bs, KVH * Dh), generator=gen,
+                          device=dev).bfloat16()
+    v_cache = torch.randn((num_blocks * bs, KVH * Dh), generator=gen,
+                          device=dev).bfloat16()
+    perm = (torch.randperm(num_blocks - 1, generator=gen, device=dev)
+            + 1).to(torch.int32)
+    tables = torch.zeros((B, M), dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(lens):
+        nb = -(-n // bs)
+        tables[b, :nb] = perm[used:used + nb]
+        used += nb
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((B, H, Dh), generator=gen, device=dev).bfloat16()
+    return q, k_cache, v_cache, tables, seq_lens, lens
+
+
+def check_paged_attention_int8(cfg, dev) -> dict:
+    """K3's int8 mode on PR 1's slot mix, the pool quantized row by row."""
+    import torch
+    import torch.nn.functional as F
+    from dynamo_tpu_torch.engine.attention import (dequant_kv_rows,
+                                                   flat_token_indices,
+                                                   paged_attention_ref,
+                                                   quantize_kv_rows)
+    from dynamo_tpu_torch.engine.kernels import paged_attention_int8_cuda
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C = KVH * Dh
+    bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    scale = Dh ** -0.5
+    q, k16, v16, tables, seq_lens, lens = paged_inputs(cfg, dev, 3)
+    B = len(lens)
+    k_cache, v_cache = quantize_kv_rows(k16), quantize_kv_rows(v16)
+    del k16, v16
+    out = paged_attention_int8_cuda(q, k_cache, v_cache, tables, seq_lens,
+                                    block_size=bs, scale=scale)
+    ref = paged_attention_ref(q, k_cache, v_cache, tables, seq_lens,
+                              block_size=bs, scale=scale)
+    # planted fault: the 2048-token slot's last block read with its scale
+    # lanes ignored (every scale 2^0 * (1 + 0/256) = 1)
+    longest = max(range(B), key=lambda b: lens[b])
+    rows = (tables[longest, (lens[longest] - 1) // bs].long() * bs
+            + torch.arange(bs, device=dev))
+    bad_k, bad_v = k_cache.clone(), v_cache.clone()
+    for t in (bad_k, bad_v):
+        t[rows, C:C + 2] = 0
+    fault = paged_attention_int8_cuda(q, bad_k, bad_v, tables, seq_lens,
+                                      block_size=bs, scale=scale)
+    del bad_k, bad_v
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise RuntimeError("paged_attention_int8: non-finite output")
+    if out[lens.index(0)].abs().max().item() != 0.0:
+        raise RuntimeError("paged_attention_int8: zero-length slot is not "
+                           "zero")
+    live = seq_lens > 0
+    err, rel = row_errors(out, ref, live)
+    _, fault_rel = row_errors(fault, ref, live)
+    slot_rel = [row_errors(out, ref, b)[1] if n else None
+                for b, n in enumerate(lens)]
+    ms = time_ms(lambda: paged_attention_int8_cuda(
+        q, k_cache, v_cache, tables, seq_lens, block_size=bs, scale=scale),
+        cold=True)
+    plain_ms = time_ms(lambda: paged_attention_ref(
+        q, k_cache, v_cache, tables, seq_lens, block_size=bs, scale=scale),
+        cold=True)
+    # library yardstick: SDPA over pages gathered and dequantized before
+    # timing
+    idx = flat_token_indices(tables, bs)
+    kg = dequant_kv_rows(k_cache[idx], C, torch.bfloat16).reshape(
+        B, M * bs, KVH, Dh).transpose(1, 2).contiguous()
+    vg = dequant_kv_rows(v_cache[idx], C, torch.bfloat16).reshape(
+        B, M * bs, KVH, Dh).transpose(1, 2).contiguous()
+    mask = (torch.arange(M * bs, device=dev)[None, :]
+            < seq_lens[:, None])[:, None, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kg, vg, attn_mask=mask, scale=scale,
+        enable_gqa=True), cold=True)
+    total = sum(lens)
+    nbytes = (2.0 * total * (C + 2) + 2 * 2.0 * B * cfg.num_heads * Dh
+              + 4.0 * B * M + 4.0 * B)
+    flops = 4.0 * cfg.num_heads * Dh * total
+    b_ms, b_by = bound(nbytes, flops)
+    case = {"B": B, "seq_lens": lens, "max_abs_err": err,
+            "max_row_rel_err": rel, "slot_row_rel_err": slot_rel,
+            "fault_row_rel_err": fault_rel, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention over dequantized pages",
+            "bound_ms": b_ms, "bound_by": b_by}
+    log(f"paged_attention_int8 {json.dumps(case)}")
+    check_limit("paged_attention_int8", rel, fault_rel)
+    return {"name": "paged_attention_int8", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "dynamo_tpu/engine/attention.py:743",
+            "row_rel_tolerance": KERNEL_ROW_REL_TOL, **case}
+
+
+def check_lm_head_int8(cfg, dev) -> dict:
+    """K5 at the 8B head, [4096, 128256] int8, for one prefill row and an
+    8-slot decode step."""
+    import torch
+    from dynamo_tpu_torch.engine.kernels import lm_head_int8_cuda
+    from dynamo_tpu_torch.engine.lm_head import lm_head_int8_ref
+    from dynamo_tpu_torch.engine.quant import quantize_array
+    D, V = cfg.hidden_size, cfg.vocab_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    head = quantize_array(torch.randn((D, V), generator=gen, device=dev)
+                          * D ** -0.5, keep_axes=(-1,))
+    q, scale = head.q, head.scale.reshape(-1).contiguous()
+    # the library yardstick reads a bf16 copy of the dequantized head
+    w16 = head.dequantize(torch.bfloat16)
+    cases = []
+    for B in (1, 8):
+        x = torch.randn((B, D), generator=gen, device=dev).bfloat16()
+        out = lm_head_int8_cuda(x, q, scale)
+        ref = lm_head_int8_ref(x, q, scale)
+        # planted fault: one 256-column strip (the first) left out
+        fault = torch.zeros_like(out)
+        fault[:, 256:] = lm_head_int8_cuda(x, q[:, 256:].contiguous(),
+                                           scale[256:].contiguous())
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"lm_head_int8 B={B}: non-finite output")
+        err, rel = row_errors(out, ref, slice(0, B))
+        _, fault_rel = row_errors(fault, ref, slice(0, B))
+        del fault
+        ms = time_ms(lambda: lm_head_int8_cuda(x, q, scale), cold=True)
+        plain_ms = time_ms(lambda: lm_head_int8_ref(x, q, scale), iters=5,
+                           cold=True)
+        lib_ms = time_ms(lambda: torch.matmul(x, w16), cold=True)
+        nbytes = 1.0 * D * V + 4.0 * V + 2.0 * B * D + 4.0 * B * V
+        b_ms, b_by = bound(nbytes, 2.0 * B * D * V)
+        case = {"B": B, "D": D, "V": V, "max_abs_err": err,
+                "max_row_rel_err": rel, "fault_row_rel_err": fault_rel,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library": "torch.matmul on a bf16 copy of the dequantized "
+                           "head",
+                "bound_ms": b_ms, "bound_by": b_by}
+        log(f"lm_head_int8 {json.dumps(case)}")
+        check_limit(f"lm_head_int8 B={B}", rel, fault_rel)
+        cases.append(case)
+    primary = next(c for c in cases if c["B"] == 8)
+    return {"name": "lm_head_int8", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/lm_head_int8.cu",
+            "replaces": "dynamo_tpu/engine/lm_head.py:66",
+            "row_rel_tolerance": KERNEL_ROW_REL_TOL, **primary,
+            "cases": cases}
+
+
+def int4pack_yardstick(x, w, ref):
+    """One PyTorch call computing x @ dequant(w) for the grouped-int4 weight
+    ``w``: ``torch._weight_int4pack_mm`` where this build has it for CUDA
+    and it reproduces the plain result, else ``torch.matmul`` on
+    pre-dequantized bf16 weights. Returns (fn, name)."""
+    import torch
+    from dynamo_tpu_torch.engine.quant import unpack_int4_rows
+    # torch's layout: uint8 [F, D/2], the even contraction row in the high
+    # nibble, values biased by 8, scale and zero point per (group, column)
+    u = (unpack_int4_rows(w.q).t().to(torch.int32) + 8)        # [F, D] 0..15
+    sz = torch.stack([w.scale, torch.zeros_like(w.scale)],
+                     -1).to(torch.bfloat16).contiguous()
+    try:
+        wp = torch._convert_weight_to_int4pack(
+            ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8).contiguous(), 8)
+
+        def fn():
+            return torch._weight_int4pack_mm(x, wp, 128, sz)
+        got = fn().float()
+        err = ((got - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+        if err < 0.05:
+            return fn, "torch._weight_int4pack_mm"
+        log(f"grouped_int4_matmul: _weight_int4pack_mm differs by {err}")
+    except (AttributeError, RuntimeError, TypeError) as e:
+        log(f"grouped_int4_matmul: _weight_int4pack_mm failed: "
+            f"{type(e).__name__}: {str(e)[:200]}")
+    w16 = w.dequantize(torch.bfloat16)
+    return (lambda: torch.matmul(x, w16),
+            "torch.matmul on pre-dequantized bf16 weights")
+
+
+def check_grouped_int4(cfg, dev) -> dict:
+    """K6 at the 8B layer shapes for a decode row, an 8-slot decode step
+    and a 512-token prefill bucket."""
+    import torch
+    from dynamo_tpu_torch.engine.kernels import grouped_int4_matmul_cuda
+    from dynamo_tpu_torch.engine.quant import quantize_array_grouped
+    from dynamo_tpu_torch.engine.quant_matmul import grouped_int4_matmul_ref
+    D, Fi = cfg.hidden_size, cfg.intermediate_size
+    KVD = cfg.num_kv_heads * cfg.head_dim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cases = []
+    for d, f in ((D, Fi), (Fi, D), (D, KVD)):
+        w = quantize_array_grouped(torch.randn((d, f), generator=gen,
+                                               device=dev) * d ** -0.5)
+        bad = w.scale.clone()
+        bad[-1] = bad[0]   # planted fault: last group's scales = first's
+        for n in (1, 8, 512):
+            x = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+            out = grouped_int4_matmul_cuda(x, w.q, w.scale)
+            ref = grouped_int4_matmul_ref(x, w.q, w.scale)
+            fault = grouped_int4_matmul_cuda(x, w.q, bad)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out).all():
+                raise RuntimeError(f"grouped_int4_matmul {d}x{f} N={n}: "
+                                   f"non-finite output")
+            err, rel = row_errors(out, ref, slice(0, n))
+            _, fault_rel = row_errors(fault, ref, slice(0, n))
+            ms = time_ms(lambda: grouped_int4_matmul_cuda(x, w.q, w.scale),
+                         cold=True)
+            plain_ms = time_ms(lambda: grouped_int4_matmul_ref(
+                x, w.q, w.scale), iters=5, cold=True)
+            lib_fn, lib_name = int4pack_yardstick(x, w, ref)
+            lib_ms = time_ms(lib_fn, cold=True)
+            nbytes = (0.5 * d * f + 4.0 * (d // 128) * f + 2.0 * n * d
+                      + 2.0 * n * f)
+            b_ms, b_by = bound(nbytes, 2.0 * n * d * f)
+            case = {"N": n, "D": d, "F": f, "max_abs_err": err,
+                    "max_row_rel_err": rel, "fault_row_rel_err": fault_rel,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "library": lib_name, "bound_ms": b_ms,
+                    "bound_by": b_by}
+            log(f"grouped_int4_matmul {json.dumps(case)}")
+            check_limit(f"grouped_int4_matmul {d}x{f} N={n}", rel,
+                        fault_rel)
+            cases.append(case)
+        del w, bad
+    primary = next(c for c in cases
+                   if (c["D"], c["F"], c["N"]) == (D, Fi, 8))
+    return {"name": "grouped_int4_matmul", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/grouped_int4_matmul.cu",
+            "replaces": "dynamo_tpu/engine/quant_matmul.py:46",
+            "row_rel_tolerance": KERNEL_ROW_REL_TOL, **primary,
+            "cases": cases}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the 8B model through the kernels and through the plain versions
 # ---------------------------------------------------------------------------
@@ -289,29 +530,31 @@ def check_paged_attention(cfg, dev) -> dict:
 # over max |plain|: the two paths round attention at different points in
 # every layer (the kernels keep scores in f32), and the differences ride the
 # residual stream through 32 bf16 layers. The same comparison is read with a
-# planted fault in each kernel (the prefill's last KV tile left out; the
-# decode step's last table entry read as the trash block); the limit sits
-# between the right and the faulty readings (PERF.md, Findings).
+# planted fault in each kernel of the mode (the prefill's last KV tile left
+# out; the decode step's last table entry read as the trash block; the int8
+# head's first 256-column strip left out; the grouped-int4 matmul reading
+# its last group's scales as the first group's); the limit sits between the
+# right and the faulty readings (PERF.md, Findings).
 MODEL_REL_TOL = 5e-2
 
+# the modes of phase 4: weight quantization and KV pool
+MODEL_MODES = {"bf16": ("none", "none"), "int4_kv8": ("int4", "int8"),
+               "int8": ("int8", "none")}
 
-class attention_impl:
-    """Context manager: the llama module calls ``prefill`` and ``decode`` in
-    place of its attention functions (which launch the kernels on CUDA
-    tensors)."""
 
-    def __init__(self, prefill, decode):
-        self._impl = (prefill, decode)
-
-    def __enter__(self):
-        from dynamo_tpu_torch.engine.models import llama
-        self._saved = (llama.flash_prefill, llama.paged_attention)
-        llama.flash_prefill, llama.paged_attention = self._impl
-        return self
-
-    def __exit__(self, *exc):
-        from dynamo_tpu_torch.engine.models import llama
-        llama.flash_prefill, llama.paged_attention = self._saved
+@contextlib.contextmanager
+def swapped(*repl):
+    """Set ``(module, attribute, value)`` triples for the duration; the
+    llama module and ``quant.mm`` call the swapped-in functions in place
+    of the kernels' wrappers."""
+    saved = [(m, a, getattr(m, a)) for m, a, _ in repl]
+    for m, a, v in repl:
+        setattr(m, a, v)
+    try:
+        yield
+    finally:
+        for m, a, v in saved:
+            setattr(m, a, v)
 
 
 def prefill_without_last_tile(q, k, v, *, scale, start_pos, seq_len, **_):
@@ -323,15 +566,38 @@ def prefill_without_last_tile(q, k, v, *, scale, start_pos, seq_len, **_):
 
 def decode_without_last_block(q, k_cache, v_cache, block_tables, seq_lens, *,
                               block_size, scale, **_):
-    """K3 with a planted fault: each slot's last table entry read as the
-    trash block."""
+    """K3 (either pool) with a planted fault: each slot's last table entry
+    read as the trash block."""
     import torch
-    from dynamo_tpu_torch.engine.kernels import paged_attention_cuda
+    from dynamo_tpu_torch.engine import kernels
     tables = block_tables.clone()
     last = (seq_lens.long() - 1).clamp(min=0) // block_size
     tables[torch.arange(tables.shape[0], device=tables.device), last] = 0
-    return paged_attention_cuda(q, k_cache, v_cache, tables, seq_lens,
-                                block_size=block_size, scale=scale)
+    fn = (kernels.paged_attention_int8_cuda if k_cache.dtype == torch.int8
+          else kernels.paged_attention_cuda)
+    return fn(q, k_cache, v_cache, tables, seq_lens, block_size=block_size,
+              scale=scale)
+
+
+def head_without_first_strip(x, q, scale):
+    """K5 with a planted fault: the first 256 vocab columns left out."""
+    import torch
+    from dynamo_tpu_torch.engine.kernels import lm_head_int8_cuda
+    x2 = x[None] if x.dim() == 1 else x
+    out = torch.zeros((x2.shape[0], q.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    out[:, 256:] = lm_head_int8_cuda(x2, q[:, 256:].contiguous(),
+                                     scale.reshape(-1)[256:].contiguous())
+    return out[0] if x.dim() == 1 else out
+
+
+def int4_last_group_as_first(x, packed, scale):
+    """K6 with a planted fault: the last group's scales read as the first
+    group's."""
+    from dynamo_tpu_torch.engine.kernels import grouped_int4_matmul_cuda
+    bad = scale.clone()
+    bad[-1] = bad[0]
+    return grouped_int4_matmul_cuda(x, packed, bad)
 
 
 def profile_decode_step(params, kv, cfg, table, B: int, M: int,
@@ -361,34 +627,75 @@ def profile_decode_step(params, kv, cfg, table, B: int, M: int,
         step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.monotonic() - t0) / n
+    prof = device_profile(step)
+    if prof["device_busy_share"] is not None:   # against the 5-step mean
+        prof["device_busy_share"] = prof["device_ms"] / wall_ms
+    return {"wall_ms": wall_ms, **prof}
+
+
+def device_profile(fn) -> dict:
+    """Device time of one call of ``fn`` by kernel (torch.profiler): total,
+    the kernel count and the top kernels, with the call's wall time."""
+    import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        step()
+        t0 = time.monotonic()
+        fn()
         torch.cuda.synchronize()
-    rows = []   # device kernels only: operator rows repeat their time
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    rows, launches = [], 0   # device kernels only: operator rows repeat
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
         if t > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
             rows.append((t / 1e3, e.key))
+            launches += e.count
     rows.sort(reverse=True)
     device_ms = sum(t for t, _ in rows)
-    return {"wall_ms": wall_ms,
+    return {"profiled_wall_ms": wall_ms,
             "device_ms": device_ms if rows else "not measured",
             "device_busy_share": device_ms / wall_ms if rows else None,
+            "device_kernels": launches if rows else "not measured",
             "top_kernels_ms": [[k[:60], t] for t, k in rows[:6]]}
 
 
-def check_model(cfg, dev, seed: int) -> dict:
+def check_sampling_noise(cfg, dev) -> dict:
+    """The sampler's Gumbel noise (JAX's threefry, in plain PyTorch) for
+    one and for eight sampled rows over the 8B vocabulary: CUDA-event time
+    and the kernels one draw launches."""
     import torch
+    from dynamo_tpu_torch.engine.sampling import gumbel_noise, make_slot_key
+    res = {}
+    for b in (1, 8):
+        keys = [make_slot_key(0, 7 + i, 100) for i in range(b)]
+        ms = time_ms(lambda: gumbel_noise(cfg.vocab_size, keys, dev))
+        prof = device_profile(lambda: gumbel_noise(cfg.vocab_size, keys,
+                                                   dev))
+        res[f"rows_{b}"] = {"ms": ms, "device_ms": prof["device_ms"],
+                            "device_kernels": prof["device_kernels"]}
+    log(f"sampling_noise {json.dumps(res)}")
+    return res
+
+
+def check_model(cfg, dev, seed: int, mode: str) -> dict:
+    import torch
+    from dynamo_tpu_torch.engine import attention, kernels, lm_head, quant
+    from dynamo_tpu_torch.engine import quant_matmul
     from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.engine.quant import init_params_quantized
     from dynamo_tpu_torch.engine.weights import init_params
+    weights, kv_quant = MODEL_MODES[mode]
     t0 = time.monotonic()
-    params = init_params(cfg, seed, dev, torch.bfloat16)
+    if weights == "none":
+        params = init_params(cfg, seed, dev, torch.bfloat16)
+    else:
+        params = init_params_quantized(cfg, seed, dev, torch.bfloat16,
+                                       bits=4 if weights == "int4" else 8)
     torch.cuda.synchronize()
-    log(f"model: 8B random weights on the card in "
-        f"{time.monotonic() - t0:.1f} s")
+    log(f"model {mode}: 8B random weights on the card in "
+        f"{time.monotonic() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     bs, M, B = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK, 8
     prompt_len, bucket, steps = 300, 512, 4
     gen = torch.Generator(device=dev)
@@ -401,7 +708,8 @@ def check_model(cfg, dev, seed: int) -> dict:
 
     def run():
         kv = state["kv"] = llama.init_kv_cache(cfg, M + 1, bs, dev,
-                                               torch.bfloat16)
+                                               torch.bfloat16,
+                                               quantization=kv_quant)
         out = [llama.prefill_forward(params, kv, tokens, table, 0,
                                      prompt_len, cfg, bs)[None]]
         toks = torch.zeros((B,), dtype=torch.long, device=dev)
@@ -421,40 +729,60 @@ def check_model(cfg, dev, seed: int) -> dict:
         return {"max_abs_err": err, "rel_err": err / spread,
                 "argmax_agreement": agree}
 
-    from dynamo_tpu_torch.engine import attention
+    # each kernel of the mode: (slot, plain version, planted fault)
+    slots = {"prefill": (llama, "flash_prefill", attention.flash_prefill_ref,
+                         prefill_without_last_tile),
+             "decode": (llama, "paged_attention",
+                        attention.paged_attention_ref,
+                        decode_without_last_block)}
+    if weights != "none":
+        slots["head"] = (llama, "lm_head_int8", lm_head.lm_head_int8_ref,
+                         head_without_first_strip)
+    if weights == "int4":
+        slots["int4"] = (quant, "grouped_int4_matmul",
+                         quant_matmul.grouped_int4_matmul_ref,
+                         int4_last_group_as_first)
     state = {}
     with torch.inference_mode():
         forced = torch.randint(3, cfg.vocab_size, (steps,), generator=gen,
                                device=dev)
-        with attention_impl(attention.flash_prefill_ref,
-                            attention.paged_attention_ref):
+        with swapped(*((m, a, plain) for m, a, plain, _ in slots.values())):
             ref = run()
         faults = {}
-        with attention_impl(prefill_without_last_tile,
-                            attention.paged_attention):
-            faults["prefill_last_tile"] = run()
-        with attention_impl(attention.flash_prefill,
-                            decode_without_last_block):
-            faults["decode_last_block"] = run()
+        for name, (m, a, _, fault) in slots.items():
+            with swapped((m, a, fault)):
+                faults[name] = run()
+        k6 = kernels.GROUPED_INT4_MATMUL.launches
         got = run()
+        k6 = kernels.GROUPED_INT4_MATMUL.launches - k6
         profile = profile_decode_step(params, state["kv"], cfg, table, B, M,
                                       prompt_len + steps)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
-        raise RuntimeError("model: non-finite logits")
+        raise RuntimeError(f"model {mode}: non-finite logits")
     spread = ref.abs().max().item()
-    res = {"max_abs_ref": spread, **compare(got),
+    res = {"mode": mode, "weights": weights, "kv": kv_quant,
+           "grouped_int4_launches_per_forward": k6 / (1 + steps),
+           "max_abs_ref": spread, **compare(got),
            "planted_faults": {k: compare(v) for k, v in faults.items()},
            "decode_step": profile}
     log(f"model {json.dumps(res)}")
-    del params
+    del params, state, got, ref, faults
     torch.cuda.empty_cache()
+    # every layer matmul of the 8B geometry passes the grouped kernel's
+    # shape rule: 7 launches per layer and forward under int4
+    want_k6 = 7 * cfg.num_layers if weights == "int4" else 0
+    if res["grouped_int4_launches_per_forward"] != want_k6:
+        raise RuntimeError(f"model {mode}: "
+                           f"{res['grouped_int4_launches_per_forward']} "
+                           f"grouped-int4 launches per forward, expected "
+                           f"{want_k6}")
     if not res["rel_err"] <= MODEL_REL_TOL:
-        raise RuntimeError(f"model: kernel and plain logits differ by "
+        raise RuntimeError(f"model {mode}: kernel and plain logits differ by "
                            f"{res['rel_err']} x {spread} > {MODEL_REL_TOL}")
     for k, v in res["planted_faults"].items():
         if not v["rel_err"] > MODEL_REL_TOL:
-            raise RuntimeError(f"model: the planted fault {k} "
+            raise RuntimeError(f"model {mode}: the planted fault {k} "
                                f"({v['rel_err']}) passes the limit "
                                f"{MODEL_REL_TOL}")
     return res
@@ -575,32 +903,45 @@ def check_unary(name: str, res: dict, max_tokens: int) -> dict:
     return {"latency_s": res["latency_s"], "text": ch[0]["text"][:60]}
 
 
-def serve_phase(cfg, seed: int, card: str) -> dict:
+# the kernels each served path must launch
+PATH_KERNELS = {
+    "bf16": ("flash_prefill", "paged_attention"),
+    "int4_kv8": ("flash_prefill", "paged_attention_int8", "lm_head_int8",
+                 "grouped_int4_matmul"),
+}
+
+
+def serve_phase(cfg, seed: int, card: str, mode: str) -> dict:
     """Serve from a temporary model directory (8B config + tokenizer)."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="dtt-8b-") as tmp:
         model_dir = os.path.join(tmp, "llama3-8b-random")
         write_model_dir(model_dir, cfg)
-        return _serve(cfg, seed, card, model_dir)
+        return _serve(cfg, seed, card, model_dir, mode)
 
 
-def _serve(cfg, seed: int, card: str, model_dir: str) -> dict:
+def _serve(cfg, seed: int, card: str, model_dir: str, mode: str) -> dict:
     import asyncio
+    import gc
     import threading
     import numpy as np
+    import torch
     from concurrent.futures import ThreadPoolExecutor
     from dynamo_tpu_torch.engine import kernels
     from dynamo_tpu_torch.launch import run as launcher
+    weights, kv_quant = MODEL_MODES[mode]
     args = launcher.build_parser().parse_args(
         ["in=http", "out=torch", "--model-path", model_dir,
          "--random-weights", "--http-host", "127.0.0.1",
          "--http-port", "0", "--max-model-len", str(MAX_MODEL_LEN),
          "--kv-block-size", str(KV_BLOCK), "--num-kv-blocks", "2048",
-         "--max-num-seqs", "8", "--device", "cuda"])
+         "--max-num-seqs", "8", "--device", "cuda",
+         "--quantization", weights, "--kv-quantization", kv_quant])
     launcher.parse_io(args.io)
     t0 = time.monotonic()
     core = launcher.build_core(args)
-    log(f"serve: engine core built in {time.monotonic() - t0:.1f} s")
+    log(f"serve {mode}: engine core built in {time.monotonic() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     ready = threading.Event()
     loop = asyncio.new_event_loop()
     holder = {}
@@ -628,14 +969,21 @@ def _serve(cfg, seed: int, card: str, model_dir: str) -> dict:
     max_tokens = 32
     greedy = {"model": name, "max_tokens": max_tokens, "temperature": 0,
               "nvext": {"ignore_eos": True}}
-    prompts = {"p100": mk(100), "p700": mk(700), "p1500": mk(1500),
-               "p1900": mk(1900)}
+    sampled = {"model": name, "prompt": "the time of the people who work to "
+               "make a good day", "max_tokens": max_tokens,
+               "temperature": 0.7, "top_p": 0.9, "seed": 1,
+               "nvext": {"ignore_eos": True}}
+    if mode == "bf16":
+        prompts = {"p100": mk(100), "p700": mk(700), "p1500": mk(1500),
+                   "p1900": mk(1900)}
+    else:
+        prompts = {"p700": mk(700), "p1900": mk(1900)}
     report = {}
     try:
         kernels.reset_launch_counts()
         pool = core.kv_manager.pool
-        # four concurrent greedy streams of mixed prompt lengths
-        with ThreadPoolExecutor(4) as ex:
+        # concurrent greedy streams of mixed prompt lengths
+        with ThreadPoolExecutor(len(prompts)) as ex:
             futs = {k: ex.submit(http_completion, port, {
                 **greedy, "prompt": p, "stream": True,
                 "stream_options": {"include_usage": True}})
@@ -645,22 +993,30 @@ def _serve(cfg, seed: int, card: str, model_dir: str) -> dict:
         # one more SSE stream, usage not requested
         report["sse"] = check_stream("sse", http_completion(port, {
             **greedy, "prompt": mk(200), "stream": True}), max_tokens, False)
-        # a repeated prompt: its full blocks hit the prefix cache, so the
-        # prefill runs only the tail, at start_pos > 0
-        hits0 = pool.match_hits
-        report["prefix_repeat"] = check_unary("prefix_repeat", http_completion(
-            port, {**greedy, "prompt": prompts["p700"]}), max_tokens)
-        hit_blocks = pool.match_hits - hits0
-        if hit_blocks < 700 // KV_BLOCK:
-            raise RuntimeError(f"prefix_repeat: {hit_blocks} prefix blocks "
-                               f"hit, expected {700 // KV_BLOCK}")
-        report["prefix_repeat"]["hit_blocks"] = hit_blocks
-        # a sampled text prompt
-        report["sampled_text"] = check_unary("sampled_text", http_completion(
-            port, {"model": name, "prompt": "the time of the people who "
-                   "work to make a good day", "max_tokens": max_tokens,
-                   "temperature": 0.7, "top_p": 0.9, "seed": 1,
-                   "nvext": {"ignore_eos": True}}), max_tokens)
+        if mode == "bf16":
+            # a repeated prompt: its full blocks hit the prefix cache, so
+            # the prefill runs only the tail, at start_pos > 0
+            hits0 = pool.match_hits
+            report["prefix_repeat"] = check_unary(
+                "prefix_repeat", http_completion(
+                    port, {**greedy, "prompt": prompts["p700"]}), max_tokens)
+            hit_blocks = pool.match_hits - hits0
+            if hit_blocks < 700 // KV_BLOCK:
+                raise RuntimeError(f"prefix_repeat: {hit_blocks} prefix "
+                                   f"blocks hit, expected {700 // KV_BLOCK}")
+            report["prefix_repeat"]["hit_blocks"] = hit_blocks
+        # a seeded sampled text prompt
+        report["sampled_text"] = check_unary(
+            "sampled_text", http_completion(port, sampled), max_tokens)
+        if mode != "bf16":
+            # sampling is keyed by (seed, request seed, step) alone: the
+            # same seeded request gives the same text again
+            again = check_unary("sampled_again", http_completion(
+                port, sampled), max_tokens)
+            if again["text"] != report["sampled_text"]["text"]:
+                raise RuntimeError(f"sampled_text: a seeded request gave "
+                                   f"{again['text']!r} after "
+                                   f"{report['sampled_text']['text']!r}")
         launches = {k: v.launches for k, v in kernels.KERNELS.items()}
     finally:
         if "task" in holder:
@@ -670,11 +1026,15 @@ def _serve(cfg, seed: int, card: str, model_dir: str) -> dict:
         raise RuntimeError("serve: server thread did not stop")
     loop.close()
     for k, v in report.items():
-        log(f"request {k} {json.dumps(v)} [{card}]")
-    log(f"serve: launches {json.dumps(launches)}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"serve: kernel {k} was never launched")
+        log(f"request {mode} {k} {json.dumps(v)} [{card}]")
+    log(f"serve {mode}: launches {json.dumps(launches)}")
+    for k in PATH_KERNELS[mode]:
+        if launches[k] <= 0:
+            raise RuntimeError(f"serve {mode}: kernel {k} was never "
+                               f"launched")
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -715,16 +1075,24 @@ def main() -> int:
 
     # 3. kernels at the 8B shapes
     cfg = bench_model_config("8b")
-    entries = [check_flash_prefill(cfg, dev), check_paged_attention(cfg, dev)]
+    entries = [check_flash_prefill(cfg, dev), check_paged_attention(cfg, dev),
+               check_paged_attention_int8(cfg, dev),
+               check_lm_head_int8(cfg, dev), check_grouped_int4(cfg, dev)]
 
-    # 4. the model through the kernels vs the plain versions
+    # 4. the model through the kernels vs the plain versions, per mode
     seed = 0
-    check_model(cfg, dev, seed)
+    for mode in MODEL_MODES:
+        check_model(cfg, dev, seed, mode)
+    check_sampling_noise(cfg, dev)
 
-    # 5. serving; the launch counts cover this phase alone
-    launches = serve_phase(cfg, seed, card)
+    # 5. serving, bf16 then quantized; each path's launch counts cover its
+    # own phase alone, and each kernel reports those of its path
+    by_path = {mode: serve_phase(cfg, seed, card, mode)
+               for mode in PATH_KERNELS}
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        path = next(m for m, ks in PATH_KERNELS.items() if e["name"] in ks)
+        e["launches"] = by_path[path][e["name"]]
+        e["launches_path"] = path
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

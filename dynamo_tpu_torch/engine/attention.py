@@ -3,7 +3,9 @@
 Counterpart of ``dynamo_tpu.engine.attention``. The KV pool keeps the
 JAX package's BLOCK-MAJOR layout: per layer ``[NTOK, KVH*Dh]`` where
 ``NTOK = num_blocks * block_size`` and a token's row holds every KV head
-side by side.
+side by side. An int8 pool's row is ``[KVH*Dh + KV_SCALE_LANES]`` int8:
+the values, then the row's scale as an (exponent, mantissa) byte pair,
+then pad lanes, in the JAX package's exact encoding (``quantize_kv_rows``).
 
 Each kernel has a plain PyTorch version of the same function in this
 module (``flash_prefill_ref``, ``paged_attention_ref``). The public
@@ -20,6 +22,64 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+# int8 KV rows carry their per-token scale in-row: exponent at lane C,
+# mantissa at C+1 (scale = 2^e * (1 + m/256)), padded to one 128-lane group
+# (a TPU tiling rule the port keeps so pool bytes equal the JAX package's)
+KV_SCALE_LANES = 128
+
+
+def kv_value_lanes(k_cache: torch.Tensor) -> int:
+    """C (= KVH*Dh value lanes) of a pool row, without the in-row scale
+    group of an int8 pool."""
+    lanes = k_cache.shape[-1]
+    return lanes - KV_SCALE_LANES if k_cache.dtype == torch.int8 else lanes
+
+
+def _encode_scale(absmax: torch.Tensor):
+    """absmax → (e, m 0..255, scale f32) with scale = 2^e * (1 + m/256)
+    ~ absmax/127; the JAX package's formula, step for step."""
+    target = torch.clamp(absmax, min=1e-30) / 127.0
+    e = torch.floor(torch.log2(target))
+    m = torch.clamp(torch.round((target / torch.exp2(e) - 1.0) * 256.0),
+                    0, 255)
+    return e, m, torch.exp2(e) * (1.0 + m / 256.0)
+
+
+def _decode_scale(e_lane: torch.Tensor, m_lane: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_encode_scale`` from the stored int8 lanes (m is
+    stored uint8-wrapped)."""
+    e = e_lane.float()
+    m = (m_lane.to(torch.int32) & 0xFF).float()
+    return torch.exp2(e) * (1.0 + m / 256.0)
+
+
+def quantize_kv_rows(x: torch.Tensor) -> torch.Tensor:
+    """Per-row int8 with in-row scale lanes: x ``[N, C]`` → int8
+    ``[N, C + KV_SCALE_LANES]`` (the JAX package's ``groups=1``
+    encoding)."""
+    N, C = x.shape
+    xf = x.float()
+    e, m, scale = _encode_scale(xf.abs().amax(dim=1))
+    q = torch.clamp(torch.round(xf / scale[:, None]), -127, 127)
+    rows = torch.zeros((N, C + KV_SCALE_LANES), dtype=torch.int8,
+                       device=x.device)
+    rows[:, :C] = q.to(torch.int8)
+    rows[:, C] = torch.clamp(e, -127, 127).to(torch.int8)
+    rows[:, C + 1] = m.to(torch.uint8).view(torch.int8)
+    return rows
+
+
+def dequant_kv_rows(rows: torch.Tensor, C: int,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of ``quantize_kv_rows`` for gathered rows
+    ``[..., C + KV_SCALE_LANES]``."""
+    if rows.shape[-1] != C + KV_SCALE_LANES:
+        raise ValueError(f"int8 pool row width {rows.shape[-1]} is not the "
+                         f"value lanes C={C} plus one {KV_SCALE_LANES}-lane "
+                         f"scale group")
+    scale = _decode_scale(rows[..., C], rows[..., C + 1])
+    return (rows[..., :C].float() * scale[..., None]).to(out_dtype)
 
 
 def softcap_scores(scores: torch.Tensor, cap: float) -> torch.Tensor:
@@ -101,14 +161,22 @@ def paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     ``dynamo_tpu.engine.attention.paged_attention_xla``. q: [B, H, Dh];
     k_cache/v_cache: [NTOK, KVH*Dh]; block_tables: [B, M]; seq_lens: [B]
     (kv length incl. the current token; 0 gives zeros); win_lo: [B] or
-    None (keys at or below it are masked). Returns [B, H, Dh]."""
+    None (keys at or below it are masked). An int8 pool
+    ([NTOK, KVH*Dh + KV_SCALE_LANES]) is dequantized to q's dtype after
+    the gather. Returns [B, H, Dh]."""
     B, H, Dh = q.shape
-    KVH = k_cache.shape[1] // Dh
+    C = kv_value_lanes(k_cache)
+    KVH = C // Dh
     g = H // KVH
     idx = flat_token_indices(block_tables, block_size)          # [B, T]
     T = idx.shape[1]
-    k = k_cache[idx].reshape(B, T, KVH, Dh)
-    v = v_cache[idx].reshape(B, T, KVH, Dh)
+    k = k_cache[idx]
+    v = v_cache[idx]
+    if k_cache.dtype == torch.int8:
+        k = dequant_kv_rows(k, C, q.dtype)
+        v = dequant_kv_rows(v, C, q.dtype)
+    k = k.reshape(B, T, KVH, Dh)
+    v = v.reshape(B, T, KVH, Dh)
     qg = q.reshape(B, KVH, g, Dh)
     scores = torch.einsum("bkgd,btkd->bkgt", qg, k).float() * scale
     if softcap:
@@ -132,8 +200,8 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Decode attention over the paged pool (contract of
     ``dynamo_tpu.engine.attention.paged_attention``). CPU tensors take the
     plain version; CUDA tensors run ``csrc/paged_attention.cu``, which
-    implements the global-window, uncapped bf16 case and refuses the
-    rest."""
+    implements the global-window, uncapped case over a bf16 pool or an
+    int8 pool with in-row scales, and refuses the rest."""
     if not q.is_cuda:
         return paged_attention_ref(q, k_cache, v_cache, block_tables,
                                    seq_lens, block_size=block_size,
@@ -143,6 +211,8 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise NotImplementedError(
             "the CUDA paged_attention kernel implements neither logit "
             "soft-capping nor sliding windows")
-    from .kernels import paged_attention_cuda
-    return paged_attention_cuda(q, k_cache, v_cache, block_tables, seq_lens,
-                                block_size=block_size, scale=scale)
+    from .kernels import paged_attention_cuda, paged_attention_int8_cuda
+    fn = (paged_attention_int8_cuda if k_cache.dtype == torch.int8
+          else paged_attention_cuda)
+    return fn(q, k_cache, v_cache, block_tables, seq_lens,
+              block_size=block_size, scale=scale)

@@ -3,11 +3,11 @@
 A copy of ``dynamo_tpu.engine.config``'s model side (``ModelConfig`` with
 every rope-scaling field, ``from_hf_config``, ``bench_model_config``) so the
 two packages parse the same config.json into the same geometry. The engine
-side (``EngineConfig``) keeps the fields the single-device serving path
-reads; the fields of paths this package does not implement yet (parallelism,
-speculation, ragged and multi-step dispatch, KV tiers, quantization) are
-accepted at their default and refuse any other value with
-``NotImplementedError``.
+side (``EngineConfig``) keeps only the fields the single-device serving
+path reads, weight and KV quantization included; a field of a path this
+package does not implement yet (parallelism, speculation, ragged and
+multi-step dispatch, KV tiers) is not a field, so passing it raises
+``TypeError``.
 """
 
 from __future__ import annotations
@@ -513,81 +513,57 @@ def bench_model_config(name: str) -> "ModelConfig":
                      f"|mla)")
 
 
-
-# EngineConfig fields of engine paths this package does not implement yet,
-# with the only value each accepts (the "off" setting)
-_UNSUPPORTED_DEFAULTS: Dict[str, Any] = {
-    "host_kv_blocks": 0, "kv_disk_dir": "", "kv_disk_blocks": 0,
-    "kv_remote_dir": "", "kv_remote_blocks": 0,
-    "kv_remote_admission": "auto", "offload_simulated_gbps": 0.0,
-    "prefill_chunk": 0, "tp": 1, "dp": 1, "sp": 1, "ep": 1, "pp": 1,
-    "sp_min_prefill_tokens": 512, "decode_steps_per_dispatch": 1,
-    "decode_dispatch_pipeline": False, "overlap_admission_fetch": False,
-    "lane_prefill_max_tokens": 0, "ragged_dispatch": False,
-    "ragged_max_tokens": 0, "ragged_max_seq_rows": 64, "spec_k": 0,
-    "spec_ngram_max": 4, "spec_ngram_min": 1, "spec_window": 1024,
-    "kv_contig_alloc": True, "kv_defrag_threshold": 0.0,
-    "kv_defrag_max_blocks": 64, "kv_quantization": "none",
-    "quantization": "none",
-}
+WEIGHT_QUANTIZATIONS = ("none", "int8", "int8-noembed", "int4", "int4-noembed")
+KV_QUANTIZATIONS = ("none", "int8")
 
 
 @dataclasses.dataclass
 class EngineConfig:
     """Serving-engine knobs of the single-device main path: whole-prompt
-    bucketed prefill, one decode step per dispatch, a paged bf16 KV pool
-    with prefix reuse. Field names and defaults follow
-    ``dynamo_tpu.engine.config.EngineConfig``; the fields listed in
-    ``_UNSUPPORTED_DEFAULTS`` are accepted only at the value given there."""
+    bucketed prefill, one decode step per dispatch, a paged KV pool (bf16,
+    or int8 rows with in-row scales) with prefix reuse, and weight-only
+    int8/int4 quantization. Field names and defaults follow
+    ``dynamo_tpu.engine.config.EngineConfig``; fields of paths this package
+    does not implement are absent, so passing one raises ``TypeError``."""
 
     max_model_len: int = 2048
-    kv_block_size: int = 16
+    kv_block_size: int = 16           # 0 = auto (auto_kv_block_size)
     num_kv_blocks: int = 512          # device KV pool size (blocks)
     max_num_seqs: int = 8             # decode batch slots
     enable_prefix_reuse: bool = True  # match prompt blocks against the pool
     prefill_buckets: List[int] = dataclasses.field(
         default_factory=lambda: [128, 256, 512, 1024, 2048])
     dtype: str = "bfloat16"
-    seed: int = 0
-    host_kv_blocks: int = 0
-    kv_disk_dir: str = ""
-    kv_disk_blocks: int = 0
-    kv_remote_dir: str = ""
-    kv_remote_blocks: int = 0
-    kv_remote_admission: str = "auto"
-    offload_simulated_gbps: float = 0.0
-    prefill_chunk: int = 0
-    tp: int = 1
-    dp: int = 1
-    sp: int = 1
-    ep: int = 1
-    pp: int = 1
-    sp_min_prefill_tokens: int = 512
-    decode_steps_per_dispatch: int = 1
-    decode_dispatch_pipeline: bool = False
-    overlap_admission_fetch: bool = False
-    lane_prefill_max_tokens: int = 0
-    ragged_dispatch: bool = False
-    ragged_max_tokens: int = 0
-    ragged_max_seq_rows: int = 64
-    spec_k: int = 0
-    spec_ngram_max: int = 4
-    spec_ngram_min: int = 1
-    spec_window: int = 1024
-    kv_contig_alloc: bool = True
-    kv_defrag_threshold: float = 0.0
-    kv_defrag_max_blocks: int = 64
+    # KV pool: "none" (the activation dtype) | "int8" (per-token int8 rows
+    # with the scale in-row, engine/attention.py quantize_kv_rows)
     kv_quantization: str = "none"
+    # weight-only: "none" | "int8" | "int8-noembed" | "int4" |
+    # "int4-noembed" (engine/quant.py); "-noembed" keeps the embedding in
+    # the load dtype
     quantization: str = "none"
+    seed: int = 0
+
+    @staticmethod
+    def auto_kv_block_size(model_cfg: "ModelConfig",
+                           kv_quantization: str = "none") -> int:
+        """``kv_block_size=0`` resolves as the JAX package resolves it: 64
+        for small-C geometries (KVH*Dh <= 128), 32 for int8 pools, else
+        16. The rule comes from TPU DMA and tiling; the CUDA kernels take
+        any block size."""
+        if model_cfg.num_kv_heads * model_cfg.head_dim <= 128:
+            return 64
+        return 32 if kv_quantization == "int8" else 16
 
     def __post_init__(self) -> None:
-        for name, default in _UNSUPPORTED_DEFAULTS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r} is not "
-                    f"implemented by the PyTorch engine (only {default!r})")
-        if self.kv_block_size <= 0:
-            raise ValueError("kv_block_size must be > 0")
+        if self.kv_block_size < 0:
+            raise ValueError("kv_block_size must be >= 0 (0 = auto-select "
+                             "at engine bring-up)")
+        if self.quantization not in WEIGHT_QUANTIZATIONS:
+            raise ValueError(f"unknown quantization {self.quantization!r} "
+                             f"({'|'.join(WEIGHT_QUANTIZATIONS)})")
+        if self.kv_quantization not in KV_QUANTIZATIONS:
+            raise ValueError(f"unknown kv quantization "
+                             f"{self.kv_quantization!r} (none|int8)")
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, "
                              f"got {self.dtype!r}")

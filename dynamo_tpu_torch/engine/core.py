@@ -10,9 +10,12 @@ PyTorch runs eagerly, so there are no compiled programs: prefill and decode
 are plain calls into ``models/llama.py`` that update the KV pool in place.
 Inactive decode slots aim at the trash block 0 with position 0, as in the
 JAX engine, so every decode step has the static ``[max_num_seqs]`` batch.
-Sampling noise comes from a ``torch.Generator`` per request on the device,
-seeded from the engine seed and the request's seed, so a seeded request
-reproduces its stream whatever else is batched with it.
+Sampling noise is the JAX engine's: each sampled token is keyed by (engine
+seed, request seed, the request's ``key_step``), so a seeded request
+reproduces the JAX engine's stream whatever else is batched with it, also
+across a recompute preemption. Weights may be int8/int4-quantized
+(``EngineConfig.quantization``) and the KV pool int8
+(``EngineConfig.kv_quantization``).
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from ..llm.protocols.common import FinishReason
 from .config import EngineConfig, ModelConfig
 from .device import resolve_device
 from .models import llama
-from .sampling import SlotSampling, gumbel_noise, sample_tokens
+from .quant import init_params_quantized, quantize_params
+from .sampling import SlotSampling, gumbel_noise, make_slot_key, sample_tokens
 from .weights import init_params
 
 logger = logging.getLogger("dynamo_tpu_torch.engine")
@@ -55,6 +59,10 @@ class EngineRequest:
     blocks: List[int] = dataclasses.field(default_factory=list)
     pos: int = 0                  # tokens currently in KV
     generated: int = 0
+    # monotone per-request sampling step: equals `generated` until a
+    # preemption, after which it keeps advancing (the JAX engine's rule),
+    # so recompute never reuses a consumed key
+    key_step: int = 0
     last_token: int = -1
     prefix_hit_tokens: int = 0
     seq: Optional[TokenBlockSequence] = None   # full token history + hashes
@@ -64,9 +72,6 @@ class EngineRequest:
     # recompute prefill after a preemption: streams are exact against an
     # uncontended run only up to the first of these
     numeric_boundaries: List[int] = dataclasses.field(default_factory=list)
-    # per-request sampling noise source (None for greedy requests); its
-    # state survives preemption, so recompute never reuses consumed noise
-    generator: Optional[torch.Generator] = None
 
     @property
     def cancelled(self) -> bool:
@@ -125,16 +130,35 @@ class EngineCore:
             model_cfg = dataclasses.replace(
                 model_cfg, rope_scaling=dataclasses.replace(
                     _rs, longrope_active="short"))
+        if engine_cfg.kv_block_size == 0:
+            # resolved before anything reads the block size
+            engine_cfg = dataclasses.replace(
+                engine_cfg, kv_block_size=EngineConfig.auto_kv_block_size(
+                    model_cfg, engine_cfg.kv_quantization))
         self.model_cfg = model_cfg
         self.cfg = engine_cfg
         self.dtype = _DTYPES[engine_cfg.dtype]
-        if params is None:
+        quantized = engine_cfg.quantization != "none"
+        # int4 = grouped-int4 layer matmuls with an int8 head and embed;
+        # "-noembed" keeps the embedding in the load dtype (quant.py)
+        qbits = 4 if engine_cfg.quantization.startswith("int4") else 8
+        qembed = not engine_cfg.quantization.endswith("-noembed")
+        if params is None and quantized:
+            # one tensor at a time: never the whole tree in self.dtype
+            params = init_params_quantized(model_cfg, engine_cfg.seed,
+                                           self.device, self.dtype,
+                                           include_embed=qembed, bits=qbits)
+        elif params is None:
             params = init_params(model_cfg, engine_cfg.seed, self.device,
                                  self.dtype)
+        elif quantized:
+            params = quantize_params(params, include_embed=qembed,
+                                     bits=qbits)
         self.params = params
         self.kv = llama.init_kv_cache(model_cfg, engine_cfg.num_kv_blocks,
                                       engine_cfg.kv_block_size, self.device,
-                                      self.dtype)
+                                      self.dtype,
+                                      quantization=engine_cfg.kv_quantization)
         self.kv_manager = KvBlockManager(
             engine_cfg.num_kv_blocks, engine_cfg.kv_block_size,
             enable_reuse=engine_cfg.enable_prefix_reuse)
@@ -318,32 +342,25 @@ class EngineCore:
         self._admit_with_plan(req, slot, plan)
         return True
 
-    def _generator_for(self, req: EngineRequest) -> Optional[torch.Generator]:
-        if req.sampling.temperature <= 0.0:
-            return None
-        if req.generator is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed((self.cfg.seed * 1_000_003 + req.sampling.seed)
-                            & 0x7FFF_FFFF_FFFF_FFFF)
-            req.generator = gen
-        return req.generator
-
     def _sample(self, logits: torch.Tensor,
                 reqs: List[Optional[EngineRequest]]) -> tuple:
         """Sample one token per row of ``logits`` [B, V] with each row's
-        request parameters (None rows sample greedily and are ignored)."""
+        request parameters, keyed at each request's ``key_step`` (None rows
+        sample greedily and are ignored)."""
         n = logits.shape[0]
         temperature = np.zeros((n,), np.float32)
         top_k = np.zeros((n,), np.int64)
         top_p = np.ones((n,), np.float32)
-        gens = []
+        keys = []
         for i, r in enumerate(reqs):
-            gens.append(None if r is None else self._generator_for(r))
+            sampled = r is not None and r.sampling.temperature > 0.0
+            keys.append(make_slot_key(self.cfg.seed, r.sampling.seed,
+                                      r.key_step) if sampled else None)
             if r is not None:
                 temperature[i] = r.sampling.temperature
                 top_k[i] = r.sampling.top_k
                 top_p[i] = r.sampling.top_p
-        noise = gumbel_noise(logits.shape[1], gens, self.device)
+        noise = gumbel_noise(logits.shape[1], keys, self.device)
         toks, logprobs = sample_tokens(
             logits, noise, torch.from_numpy(temperature).to(self.device),
             torch.from_numpy(top_k).to(self.device),
@@ -378,6 +395,7 @@ class EngineCore:
         self.total_prefill_tokens += len(chunk)
         req.pos = n_prompt
         req.generated = 1
+        req.key_step += 1
         # the prompt's full blocks now hold valid KV — register for reuse
         req.registered_blocks = self.kv_manager.register_full_blocks(
             req.blocks, plan.seq, already_registered=n_already)
@@ -428,6 +446,7 @@ class EngineCore:
                 req.blocks, req.seq, req.registered_blocks)
             req.pos += 1
             req.generated += 1
+            req.key_step += 1
             req.last_token = tok
             self.total_decode_tokens += 1
             # grow the block table if the *next* token starts a new block

@@ -26,10 +26,14 @@ from typing import Dict, List, Optional
 
 import torch
 
+from .attention import KV_SCALE_LANES
+from .quant_matmul import GROUP
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "dynamo_tpu_torch")
-SOURCES = ("flash_prefill.cu", "paged_attention.cu")
+SOURCES = ("flash_prefill.cu", "paged_attention.cu", "lm_head_int8.cu",
+           "grouped_int4_matmul.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -99,9 +103,18 @@ class _Library:
                 lib.dtt_flash_prefill_bf16.argtypes = [
                     vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, vp]
                 lib.dtt_flash_prefill_bf16.restype = ci
-                lib.dtt_paged_attention_bf16.argtypes = [
-                    vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, vp]
-                lib.dtt_paged_attention_bf16.restype = ci
+                for name in ("dtt_paged_attention_bf16",
+                             "dtt_paged_attention_int8"):
+                    fn = getattr(lib, name)
+                    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                   ci, ci, cf, vp]
+                    fn.restype = ci
+                lib.dtt_lm_head_int8.argtypes = [vp, vp, vp, vp, ci, ci, ci,
+                                                 vp]
+                lib.dtt_lm_head_int8.restype = ci
+                lib.dtt_grouped_int4_matmul.argtypes = [vp, vp, vp, vp, ci,
+                                                        ci, ci, vp]
+                lib.dtt_grouped_int4_matmul.restype = ci
                 self._lib = lib
             return self._lib
 
@@ -127,8 +140,13 @@ class Kernel:
 
 FLASH_PREFILL = Kernel("flash_prefill", "dtt_flash_prefill_bf16")
 PAGED_ATTENTION = Kernel("paged_attention", "dtt_paged_attention_bf16")
-KERNELS: Dict[str, Kernel] = {k.name: k for k in (FLASH_PREFILL,
-                                                  PAGED_ATTENTION)}
+PAGED_ATTENTION_INT8 = Kernel("paged_attention_int8",
+                              "dtt_paged_attention_int8")
+LM_HEAD_INT8 = Kernel("lm_head_int8", "dtt_lm_head_int8")
+GROUPED_INT4_MATMUL = Kernel("grouped_int4_matmul", "dtt_grouped_int4_matmul")
+KERNELS: Dict[str, Kernel] = {k.name: k for k in (
+    FLASH_PREFILL, PAGED_ATTENTION, PAGED_ATTENTION_INT8, LM_HEAD_INT8,
+    GROUPED_INT4_MATMUL)}
 
 
 def reset_launch_counts() -> None:
@@ -145,6 +163,8 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be {ndim}-D (got {tuple(t.shape)})")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -170,32 +190,92 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, block_tables: torch.Tensor,
-                         seq_lens: torch.Tensor, *, block_size: int,
-                         scale: float) -> torch.Tensor:
-    """q [B, H, Dh] bf16; one layer's pool [NTOK, KVH*Dh] bf16; tables [B, M]
-    and seq_lens [B] int32 → [B, H, Dh] (csrc/paged_attention.cu)."""
+def _paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
+           q, k_cache, v_cache, block_tables, seq_lens, block_size: int,
+           scale: float) -> torch.Tensor:
     _check(q, "q", torch.bfloat16, 3)
-    _check(k_cache, "k_cache", torch.bfloat16, 2)
-    _check(v_cache, "v_cache", torch.bfloat16, 2)
+    _check(k_cache, "k_cache", pool_dtype, 2)
+    _check(v_cache, "v_cache", pool_dtype, 2)
     _check(block_tables, "block_tables", torch.int32, 2)
     _check(seq_lens, "seq_lens", torch.int32, 1)
     B, H, Dh = q.shape
-    NTOK, C = k_cache.shape
+    NTOK, lanes = k_cache.shape
+    C = lanes - scale_lanes
     KVH = C // Dh
     if (v_cache.shape != k_cache.shape or C % Dh or H % KVH
             or Dh not in (64, 128) or H // KVH not in (1, 2, 4, 8)
             or block_tables.shape[0] != B or seq_lens.shape[0] != B
             or NTOK % block_size):
         raise ValueError(
-            f"paged_attention: unsupported shapes q={tuple(q.shape)} "
+            f"{kernel.name}: unsupported shapes q={tuple(q.shape)} "
             f"pool={tuple(k_cache.shape)} tables={tuple(block_tables.shape)} "
             f"seq_lens={tuple(seq_lens.shape)} block_size={block_size}")
     out = torch.empty_like(q)
     M = block_tables.shape[1]
-    PAGED_ATTENTION.launch(q.data_ptr(), k_cache.data_ptr(),
-                           v_cache.data_ptr(), block_tables.data_ptr(),
-                           seq_lens.data_ptr(), out.data_ptr(), B, H, KVH, Dh,
-                           M, int(block_size), float(scale), _stream(q))
+    kernel.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                  block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+                  B, H, KVH, Dh, M, int(block_size), float(scale),
+                  _stream(q))
+    return out
+
+
+def paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, block_tables: torch.Tensor,
+                         seq_lens: torch.Tensor, *, block_size: int,
+                         scale: float) -> torch.Tensor:
+    """q [B, H, Dh] bf16; one layer's pool [NTOK, KVH*Dh] bf16; tables [B, M]
+    and seq_lens [B] int32 → [B, H, Dh] (csrc/paged_attention.cu)."""
+    return _paged(PAGED_ATTENTION, torch.bfloat16, 0, q, k_cache, v_cache,
+                  block_tables, seq_lens, block_size, scale)
+
+
+def paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              seq_lens: torch.Tensor, *, block_size: int,
+                              scale: float) -> torch.Tensor:
+    """As ``paged_attention_cuda`` over an int8 pool [NTOK, KVH*Dh + 128]
+    with in-row scales (attention.quantize_kv_rows; the int8 entry point of
+    csrc/paged_attention.cu)."""
+    return _paged(PAGED_ATTENTION_INT8, torch.int8, KV_SCALE_LANES, q,
+                  k_cache, v_cache, block_tables, seq_lens, block_size, scale)
+
+
+def lm_head_int8_cuda(x: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """x [B, D] bf16 @ q [D, V] int8 * scale [V] f32 → [B, V] f32
+    (csrc/lm_head_int8.cu)."""
+    _check(x, "x", torch.bfloat16, 2)
+    _check(q, "q", torch.int8, 2)
+    _check(scale, "scale", torch.float32, 1)
+    B, D = x.shape
+    Dq, V = q.shape
+    if Dq != D or scale.shape[0] != V:
+        raise ValueError(f"lm_head_int8: unsupported shapes x={tuple(x.shape)} "
+                         f"q={tuple(q.shape)} scale={tuple(scale.shape)}")
+    out = torch.empty((B, V), dtype=torch.float32, device=x.device)
+    LM_HEAD_INT8.launch(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                        out.data_ptr(), B, D, V, _stream(x))
+    return out
+
+
+def grouped_int4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
+                             scale: torch.Tensor) -> torch.Tensor:
+    """x [N, D] bf16 @ packed int4 [D/2, F] int8 with scale [D/128, F] f32
+    → [N, F] bf16 (csrc/grouped_int4_matmul.cu); D % 256 == 0 and
+    F % 128 == 0 (quant_matmul.grouped_kernel_eligible)."""
+    _check(x, "x", torch.bfloat16, 2)
+    _check(packed, "packed", torch.int8, 2)
+    _check(scale, "scale", torch.float32, 2)
+    N, D = x.shape
+    half, F = packed.shape
+    if (2 * half != D or D % (2 * GROUP) or F % 128
+            or tuple(scale.shape) != (D // GROUP, F)):
+        raise ValueError(
+            f"grouped_int4_matmul: unsupported shapes x={tuple(x.shape)} "
+            f"packed={tuple(packed.shape)} scale={tuple(scale.shape)}")
+    out = torch.empty((N, F), dtype=torch.bfloat16, device=x.device)
+    GROUPED_INT4_MATMUL.launch(x.data_ptr(), packed.data_ptr(),
+                               scale.data_ptr(), out.data_ptr(), N, D, F,
+                               _stream(x))
     return out

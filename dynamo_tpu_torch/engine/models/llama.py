@@ -6,11 +6,17 @@ soft-caps). Parameters are a plain dict of tensors with the JAX package's
 names and layout (``param_shapes``): matmul weights ``[in, out]``, layer
 weights stacked on a leading ``[L, ...]`` axis.
 
+Matmul weights may be ``quant.QuantizedTensor`` leaves (int8 or packed
+int4); every projection goes through ``quant.mm``, and an int8 LM head
+through ``lm_head.lm_head_int8``.
+
 The KV cache is ``{"k": [L, NTOK, KVH*Dh], "v": ...}`` with block 0 the
-reserved trash block; each forward writes this step's K/V IN PLACE with
-``index_copy_`` (pad tokens and inactive slots aim at trash rows). Casts
-follow the JAX model: norms and rope in f32 cast back to the activation
-dtype, logits in f32.
+reserved trash block, or ``[L, NTOK, KVH*Dh + KV_SCALE_LANES]`` int8 rows
+with in-row scales; each forward writes this step's K/V IN PLACE with
+``index_copy_`` (pad tokens and inactive slots aim at trash rows) before
+attention reads it, so the current token sees the quantized values later
+steps see. Casts follow the JAX model: norms and rope in f32 cast back to
+the activation dtype, logits in f32.
 """
 
 from __future__ import annotations
@@ -22,9 +28,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..attention import (flash_prefill, flat_token_indices, paged_attention,
-                         softcap_scores)
+from ..attention import (KV_SCALE_LANES, dequant_kv_rows, flash_prefill,
+                         flat_token_indices, kv_value_lanes, paged_attention,
+                         quantize_kv_rows, softcap_scores)
 from ..config import ModelConfig
+from ..lm_head import lm_head_int8
+from ..quant import QuantizedTensor, mm
 
 Params = Dict[str, torch.Tensor]
 KVCache = Dict[str, torch.Tensor]
@@ -100,14 +109,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu(x: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor,
            down_w: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    g, u = x @ gate_w, x @ up_w
+    g, u = mm(x, gate_w), mm(x, up_w)
     if act in ("gelu_pytorch_tanh", "gelu"):   # gemma families
         gated = F.gelu(g, approximate="tanh")
     elif act == "silu":
         gated = F.silu(g)
     else:
         raise ValueError(f"unsupported hidden_act {act!r}")
-    return (gated * u) @ down_w
+    return mm(gated * u, down_w)
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +162,18 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 def init_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                  device, dtype=torch.bfloat16) -> KVCache:
-    """Zeroed pool ``[L, num_blocks * block_size, KVH*Dh]`` for k and v."""
-    shape = (cfg.num_layers, num_blocks * block_size,
-             cfg.num_kv_heads * cfg.head_dim)
+                  device, dtype=torch.bfloat16,
+                  quantization: str = "none") -> KVCache:
+    """Zeroed pool ``[L, num_blocks * block_size, KVH*Dh]`` for k and v in
+    ``dtype``; ``quantization="int8"``: int8 rows of ``KVH*Dh +
+    KV_SCALE_LANES`` lanes (attention.quantize_kv_rows)."""
+    C = cfg.num_kv_heads * cfg.head_dim
+    if quantization == "int8":
+        C, dtype = C + KV_SCALE_LANES, torch.int8
+    elif quantization != "none":
+        raise ValueError(f"unknown kv quantization {quantization!r} "
+                         f"(none|int8)")
+    shape = (cfg.num_layers, num_blocks * block_size, C)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -183,7 +200,13 @@ def _attn_scale(cfg: ModelConfig) -> float:
 
 def _embed(params: Params, tokens: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
-    x = params["embed"][tokens]
+    emb = params["embed"]
+    if isinstance(emb, QuantizedTensor):
+        # per-row int8: dequantized in the final-norm dtype, as in JAX
+        dt = params["final_norm"].dtype
+        x = emb.q[tokens].to(dt) * emb.scale[tokens].to(dt)
+    else:
+        x = emb[tokens]
     if cfg.embed_scale:   # gemma normalizer, applied in the embed dtype
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
     return x
@@ -192,7 +215,13 @@ def _embed(params: Params, tokens: torch.Tensor,
 def _logits(params: Params, x: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     head = params.get("lm_head")
-    out = x @ head if head is not None else x @ params["embed"].t()
+    if isinstance(head, QuantizedTensor) and not head.group:
+        # every int8 head, tied ones pre-transposed by quant.quantize_named
+        out = lm_head_int8(x, head.q, head.scale)
+    elif head is not None:
+        out = mm(x, head)
+    else:
+        out = x @ params["embed"].t()
     out = out.float()
     if cfg.final_logit_softcap:
         out = softcap_scores(out, cfg.final_logit_softcap)
@@ -217,7 +246,7 @@ def _run_layers(params: Params, kv: KVCache, x: torch.Tensor,
         lp = {name[len("layers."):]: w[li] for name, w in params.items()
               if name.startswith("layers.")}
         hn = rms_norm(x, lp["ln1"], eps, p1)
-        q, k, v = hn @ lp["wq"], hn @ lp["wk"], hn @ lp["wv"]
+        q, k, v = mm(hn, lp["wq"]), mm(hn, lp["wk"]), mm(hn, lp["wv"])
         if cfg.attention_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         q = q.reshape(N, H, Dh)
@@ -228,10 +257,17 @@ def _run_layers(params: Params, kv: KVCache, x: torch.Tensor,
             k = rms_norm(k, lp["k_norm"], eps, p1)
         q = apply_rope(q, positions, inv_freq, rope_att)
         k = apply_rope(k, positions, inv_freq, rope_att)
-        kv["k"][li].index_copy_(0, slots, k.reshape(N, -1).to(kv["k"].dtype))
-        kv["v"][li].index_copy_(0, slots, v.reshape(N, -1).to(kv["v"].dtype))
+        if kv["k"].dtype == torch.int8:
+            # one call for both sides: the rows are quantized one by one
+            k_rows, v_rows = quantize_kv_rows(
+                torch.cat([k.reshape(N, -1), v.reshape(N, -1)])).split(N)
+        else:
+            k_rows = k.reshape(N, -1).to(kv["k"].dtype)
+            v_rows = v.reshape(N, -1).to(kv["v"].dtype)
+        kv["k"][li].index_copy_(0, slots, k_rows)
+        kv["v"][li].index_copy_(0, slots, v_rows)
         attn = attn_fn(q, li, bool(sliding_flags[li]))
-        attn_out = attn.reshape(N, H * Dh) @ lp["wo"]
+        attn_out = mm(attn.reshape(N, H * Dh), lp["wo"])
         if cfg.post_norms:
             attn_out = rms_norm(attn_out, lp["ln1_post"], eps, p1)
         x = x + attn_out
@@ -272,8 +308,15 @@ def prefill_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
 
     def attn(q, li, sliding):
         # the whole block table (prefix KV + this chunk), dense
-        ks = kv["k"][li].index_select(0, idx).reshape(S, KVH, Dh)
-        vs = kv["v"][li].index_select(0, idx).reshape(S, KVH, Dh)
+        ks = kv["k"][li].index_select(0, idx)
+        vs = kv["v"][li].index_select(0, idx)
+        if ks.dtype == torch.int8:
+            # dequantize the gathered rows; the flash kernel runs unchanged
+            C = kv_value_lanes(ks)
+            ks = dequant_kv_rows(ks, C, q.dtype)
+            vs = dequant_kv_rows(vs, C, q.dtype)
+        ks = ks.reshape(S, KVH, Dh)
+        vs = vs.reshape(S, KVH, Dh)
         return flash_prefill(q, ks, vs, scale=scale, start_pos=start_pos,
                              seq_len=seq_len, sliding=sliding,
                              window=cfg.sliding_window,

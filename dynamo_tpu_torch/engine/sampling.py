@@ -2,15 +2,20 @@
 parameters, and the chosen token's logprob.
 
 Counterpart of ``dynamo_tpu.engine.sampling``. ``sample_tokens`` takes its
-Gumbel noise as an argument, so a test can hand both packages the same
-noise and expect the same tokens; on the engine path the noise comes from
-a per-request ``torch.Generator`` on the device (``gumbel_noise``).
+Gumbel noise as an argument. On the engine path the noise is the JAX
+engine's, bit for bit up to the last two float ops: row b is keyed by
+``make_slot_key(engine seed, request seed, key_step)`` (JAX's
+``PRNGKey`` → ``fold_in`` → ``fold_in`` on threefry2x32) and drawn as
+``jax.random.gumbel(key, (V,), float32)`` draws it (the partitionable
+counter layout of ``jax_threefry_partitionable=True``, the
+uniform-from-mantissa map, then ``-log(-log(u))``). The noise of a row is a
+pure function of those three integers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -39,17 +44,79 @@ class SlotSampling:
                    seed=int(opts.seed or 0))
 
 
-def gumbel_noise(vocab: int, generators: Sequence[Optional[torch.Generator]],
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl32(x, d: int):
+    return ((x << d) | (x >> (32 - d))) & _M32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block (20 rounds) of ``jax._src.prng``, on uint32
+    values held in Python ints or int64 tensors (broadcasting)."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl32(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
+
+
+def prng_key(seed: int) -> Tuple[int, int]:
+    """``jax.random.PRNGKey(seed)``: the seed's high and low 32 bits."""
+    return (seed >> 32) & _M32, seed & _M32
+
+
+def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
+    """``jax.random.fold_in``: the block applied to the counter pair
+    ``(0, data)``."""
+    return threefry2x32(key[0], key[1], 0, data & _M32)
+
+
+def make_slot_key(base_seed: int, request_seed: int,
+                  step: int) -> Tuple[int, int]:
+    """The JAX engine's per-(request seed, key_step) key
+    (``make_slot_keys``): ``fold_in(fold_in(PRNGKey(base), seed), step)``."""
+    return fold_in(fold_in(prng_key(base_seed), request_seed), step)
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """32-bit ``random_bits(key, (n,))`` for each key row: keys ``[B, 2]``
+    int64 → ``[B, n]`` int64 holding uint32 values. Partitionable layout:
+    counters (hi, lo) = (0, i), bits = both output words xor-ed."""
+    lo = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(lo), lo)
+    return b1 ^ b2
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.gumbel``'s low-resolution map: the top 23 bits as the
+    mantissa of a float in [1, 2), minus 1, then JAX's ``uniform(minval=
+    tiny, maxval=1)`` lift ``max(tiny, f * (1 - tiny) + tiny)`` (1 - tiny
+    rounds to 1 in f32), then ``-log(-log(u))``."""
+    tiny = torch.finfo(torch.float32).tiny
+    fbits = (bits >> 9) | 0x3F800000
+    floats = fbits.to(torch.int32).view(torch.float32) - 1.0
+    u = (floats + tiny).clamp_min(tiny)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_noise(vocab: int, keys: Sequence[Optional[Tuple[int, int]]],
                  device) -> torch.Tensor:
-    """[B, V] standard Gumbel noise, row b drawn from ``generators[b]``;
-    rows whose generator is None (greedy slots) are zeros."""
-    out = torch.zeros((len(generators), vocab), dtype=torch.float32,
-                      device=device)
-    for b, gen in enumerate(generators):
-        if gen is not None:
-            u = torch.rand(vocab, generator=gen, device=device,
-                           dtype=torch.float32)
-            out[b] = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    """[B, V] standard Gumbel noise, row b drawn from ``keys[b]``
+    (``make_slot_key``); rows whose key is None (greedy slots) are
+    zeros."""
+    out = torch.zeros((len(keys), vocab), dtype=torch.float32, device=device)
+    rows = [b for b, k in enumerate(keys) if k is not None]
+    if rows:
+        kt = torch.tensor([keys[b] for b in rows], dtype=torch.int64,
+                          device=device)
+        out[rows] = gumbel_from_bits(random_bits(kt, vocab))
     return out
 
 

@@ -2,10 +2,11 @@
 
 ``params_from_numpy`` takes the JAX package's parameter tree (names from
 ``param_shapes``, ``[in, out]`` matmul layout, layer weights stacked
-``[L, ...]``) as numpy arrays, so a test can run both packages on the same
-weights. ``init_params`` makes random weights from a seed directly on the
-device, one layer slice at a time, so the f32 staging buffer stays one
-slice large (the 8B geometry's bf16 tree alone is ~16 GB).
+``[L, ...]``, quantized leaves as their fields) as numpy arrays, so a test
+can run both packages on the same weights. ``init_params`` makes random
+weights from a seed directly on the device, one layer slice at a time, so
+the f32 staging buffer stays one slice large (the 8B geometry's bf16 tree
+alone is ~16 GB).
 """
 
 from __future__ import annotations
@@ -18,28 +19,65 @@ import torch
 from .config import ModelConfig
 from .device import resolve_device
 from .models.llama import param_shapes
+from .quant import QuantizedTensor
 
 _NORMS = ("ln1", "ln2", "ln1_post", "ln2_post", "q_norm", "k_norm")
 _BIASES = ("bq", "bk", "bv")
 
 
-def params_from_numpy(np_params: Mapping[str, np.ndarray], cfg: ModelConfig,
+def params_from_numpy(np_params: Mapping[str, object], cfg: ModelConfig,
                       device="cuda",
                       dtype: torch.dtype = torch.bfloat16
-                      ) -> Dict[str, torch.Tensor]:
+                      ) -> Dict[str, object]:
     """JAX-layout numpy tree → tensors on ``device`` in ``dtype``. Every
-    name of ``param_shapes(cfg)`` must be present with its shape."""
+    name of ``param_shapes(cfg)`` must be present with its shape (and a
+    tied tree quantized with its embedding also carries ``lm_head``). A
+    quantized leaf is a mapping ``{"q", "scale", "group", "packed4"}`` of
+    the JAX package's ``QuantizedArray`` fields; it becomes a
+    ``quant.QuantizedTensor`` with its int8 payload and f32 scale kept as
+    they are."""
     dev = resolve_device(device)
+    shapes = dict(param_shapes(cfg))
+    if "lm_head" in np_params and "lm_head" not in shapes:
+        shapes["lm_head"] = (cfg.hidden_size, cfg.vocab_size)
     out = {}
-    for name, shape in param_shapes(cfg).items():
+    for name, shape in shapes.items():
         if name not in np_params:
             raise KeyError(f"parameter {name!r} missing")
-        arr = np.array(np_params[name], dtype=np.float32)   # owned copy
-        if tuple(arr.shape) != tuple(shape):
-            raise ValueError(f"parameter {name!r}: shape {arr.shape} != "
-                             f"{shape}")
-        out[name] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
+        leaf = np_params[name]
+        if isinstance(leaf, Mapping):
+            t = QuantizedTensor(
+                torch.from_numpy(np.array(leaf["q"], dtype=np.int8)).to(dev),
+                torch.from_numpy(np.array(leaf["scale"],
+                                          dtype=np.float32)).to(dev),
+                int(leaf["group"]), bool(leaf["packed4"]))
+        else:
+            arr = np.array(leaf, dtype=np.float32)   # owned copy
+            t = torch.from_numpy(arr).to(device=dev, dtype=dtype)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"parameter {name!r}: shape {tuple(t.shape)} "
+                             f"!= {shape}")
+        out[name] = t
     return out
+
+
+def init_one_param(cfg: ModelConfig, name: str, shape, gen: torch.Generator,
+                   dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """One tensor of ``init_params``, drawn from ``gen`` (a stacked weight
+    one layer slice at a time)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in _NORMS or name == "final_norm":
+        fill = 0.0 if cfg.norm_plus_one else 1.0
+        return torch.full(shape, fill, dtype=dtype, device=dev)
+    if leaf in _BIASES:
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+    t = torch.empty(shape, dtype=dtype, device=dev)
+    slices = t if len(shape) == 3 else t[None]
+    for s in slices:
+        s.copy_(torch.randn(s.shape, generator=gen, device=dev,
+                            dtype=torch.float32) * fan_in ** -0.5)
+    return t
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda",
@@ -51,21 +89,5 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda",
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    out = {}
-    for name, shape in param_shapes(cfg).items():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in _NORMS or name == "final_norm":
-            fill = 0.0 if cfg.norm_plus_one else 1.0
-            out[name] = torch.full(shape, fill, dtype=dtype, device=dev)
-            continue
-        if leaf in _BIASES:
-            out[name] = torch.zeros(shape, dtype=dtype, device=dev)
-            continue
-        fan_in = shape[-2] if len(shape) > 1 else shape[-1]
-        t = torch.empty(shape, dtype=dtype, device=dev)
-        slices = t if len(shape) == 3 else t[None]
-        for s in slices:
-            s.copy_(torch.randn(s.shape, generator=gen, device=dev,
-                                dtype=torch.float32) * fan_in ** -0.5)
-        out[name] = t
-    return out
+    return {name: init_one_param(cfg, name, shape, gen, dev, dtype)
+            for name, shape in param_shapes(cfg).items()}

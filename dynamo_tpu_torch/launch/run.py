@@ -1,5 +1,6 @@
 """The launcher: ``python -m dynamo_tpu_torch.launch.run in=http out=torch
---model-path DIR [--random-weights] [--http-port N] [--device cuda|cpu]``.
+--model-path DIR [--random-weights] [--http-port N] [--device cuda|cpu]
+[--quantization int8|int4|...] [--kv-quantization int8]``.
 
 Counterpart of ``dynamo_tpu.launch.run`` for its main path: an OpenAI
 completions server over the canonical pipeline link preprocessor →
@@ -20,6 +21,8 @@ import os
 import sys
 from typing import Tuple
 
+from ..engine.config import KV_QUANTIZATIONS, WEIGHT_QUANTIZATIONS
+
 logger = logging.getLogger("dynamo_tpu_torch.launch")
 
 
@@ -38,10 +41,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs (default: the GPU)")
     p.add_argument("--max-model-len", type=int, default=4096)
-    p.add_argument("--kv-block-size", type=int, default=16)
+    p.add_argument("--kv-block-size", type=int, default=16,
+                   help="tokens per KV block (0 = auto-select)")
     p.add_argument("--num-kv-blocks", type=int, default=2048)
     p.add_argument("--max-num-seqs", type=int, default=8)
     p.add_argument("--no-prefix-reuse", action="store_true")
+    p.add_argument("--quantization", default="none",
+                   choices=list(WEIGHT_QUANTIZATIONS),
+                   help="weight-only quantization: int8 (per-channel) or "
+                        "int4 (grouped, int8 lm head); -noembed keeps the "
+                        "embedding in bf16")
+    p.add_argument("--kv-quantization", default="none",
+                   choices=list(KV_QUANTIZATIONS),
+                   help="int8 KV pool with per-token in-row scales")
     p.add_argument("--random-weights", action="store_true",
                    help="random weights from EngineConfig.seed (checkpoint "
                         "loading is not implemented yet)")
@@ -71,7 +83,8 @@ def model_name(args) -> str:
 
 
 def build_core(args):
-    """EngineCore from CLI flags (random bf16 weights, seed 0)."""
+    """EngineCore from CLI flags (random bf16 weights from seed 0,
+    quantized as the flags ask)."""
     from ..engine.config import EngineConfig, ModelConfig
     from ..engine.core import EngineCore
     if not args.random_weights:
@@ -82,8 +95,10 @@ def build_core(args):
                             kv_block_size=args.kv_block_size,
                             num_kv_blocks=args.num_kv_blocks,
                             max_num_seqs=args.max_num_seqs,
-                            enable_prefix_reuse=not args.no_prefix_reuse)
-    except (ValueError, NotImplementedError) as e:
+                            enable_prefix_reuse=not args.no_prefix_reuse,
+                            quantization=args.quantization,
+                            kv_quantization=args.kv_quantization)
+    except ValueError as e:
         raise SystemExit(str(e))
     model_cfg = ModelConfig.from_model_dir(args.model_path)
     return EngineCore(model_cfg, ecfg, device=args.device)

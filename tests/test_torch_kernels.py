@@ -4,17 +4,20 @@ These tests need an NVIDIA GPU (marker ``cuda``): a CUDA kernel has no
 CPU mode. Without a card each test skips inside the test, with a reason.
 The inputs are bf16; the plain versions round scores to bf16 before the
 softmax where the kernels keep f32. An output row (one query row of one
-head) is a convex combination of N(0, 1) value rows whose size falls as
-1/sqrt(keys seen), so each row's error is taken against its own scale:
-max |kernel - plain| over the row over the RMS of the plain row, at most
-ROW_REL_TOL (a few bf16 ulps of the row's largest values). A planted fault
-that leaves out the last keys must exceed it.
+head, or one row of a matmul) is taken against its own scale: max
+|kernel - plain| over the row over the RMS of the plain row, at most
+ROW_REL_TOL (a few bf16 ulps of the row's largest values; the int8 head's
+f32 logits differ by summation order alone). Each case plants a fault
+that must exceed it: attention leaves out keys or reads a wrong block or
+scale, the int8 head leaves out one 256-column strip, the grouped-int4
+matmul reads the last group's scales as the first group's.
 """
 
 import pytest
 import torch
 
-from dynamo_tpu_torch.engine import attention, kernels
+from dynamo_tpu_torch.engine import attention, kernels, lm_head, quant
+from dynamo_tpu_torch.engine import quant_matmul
 
 pytestmark = pytest.mark.cuda
 
@@ -100,3 +103,89 @@ def test_kernels_refuse_unsupported_options():
     with pytest.raises(ValueError):
         attention.flash_prefill(q.float(), k.float(), k.float(), scale=0.1,
                                 start_pos=0, seq_len=4)
+
+
+def _int8_pool(n_rows, C, gen, dev):
+    return attention.quantize_kv_rows(
+        torch.randn((n_rows, C), generator=gen, device=dev).bfloat16())
+
+
+def test_paged_attention_int8_kernel_matches_plain():
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, H, KVH, Dh, bs, M = 5, 32, 8, 128, 16, 8
+    lens = torch.tensor([1, 16, 17, 0, 128], dtype=torch.int32, device=dev)
+    pool = (B * M + 1) * bs
+    k = _int8_pool(pool, KVH * Dh, g, dev)
+    v = _int8_pool(pool, KVH * Dh, g, dev)
+    tables = (torch.randperm(B * M, generator=g, device=dev) + 1).reshape(
+        B, M).to(torch.int32)
+    q = torch.randn((B, H, Dh), generator=g, device=dev).bfloat16()
+    n0 = kernels.PAGED_ATTENTION_INT8.launches
+    out = attention.paged_attention(q, k, v, tables, lens, block_size=bs,
+                                    scale=Dh ** -0.5)
+    ref = attention.paged_attention_ref(q, k, v, tables, lens,
+                                        block_size=bs, scale=Dh ** -0.5)
+    # planted fault: the longest slot's last block read with its scale
+    # lanes ignored (every scale 2^0 * (1 + 0/256) = 1)
+    bad_k, bad_v = k.clone(), v.clone()
+    rows = tables[4, 7].long() * bs + torch.arange(bs, device=dev)
+    for t in (bad_k, bad_v):
+        t[rows, KVH * Dh:KVH * Dh + 2] = 0
+    fault = kernels.paged_attention_int8_cuda(q, bad_k, bad_v, tables, lens,
+                                              block_size=bs,
+                                              scale=Dh ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.PAGED_ATTENTION_INT8.launches == n0 + 2
+    assert torch.isfinite(out).all()
+    assert out[3].abs().max().item() == 0.0
+    live = lens > 0
+    assert _row_rel_err(out, ref, live) <= ROW_REL_TOL
+    assert _row_rel_err(fault, ref, live) > ROW_REL_TOL
+
+
+@pytest.mark.parametrize("B,D,V", [(1, 1024, 2048), (8, 1024, 4100),
+                                   (13, 512, 1000)])
+def test_lm_head_int8_kernel_matches_plain(B, D, V):
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(B)
+    x = torch.randn((B, D), generator=g, device=dev).bfloat16()
+    head = quant.quantize_array(
+        torch.randn((D, V), generator=g, device=dev) * D ** -0.5)
+    n0 = kernels.LM_HEAD_INT8.launches
+    out = lm_head.lm_head_int8(x, head.q, head.scale)
+    ref = lm_head.lm_head_int8_ref(x, head.q, head.scale)
+    # planted fault: the first 256-column strip left out
+    fault = torch.zeros_like(out)
+    fault[:, 256:] = kernels.lm_head_int8_cuda(
+        x, head.q[:, 256:].contiguous(),
+        head.scale.reshape(-1)[256:].contiguous())
+    torch.cuda.synchronize()
+    assert kernels.LM_HEAD_INT8.launches == n0 + 2
+    assert out.dtype == torch.float32 and out.shape == (B, V)
+    rows = slice(0, B)
+    assert _row_rel_err(out, ref, rows) <= ROW_REL_TOL
+    assert _row_rel_err(fault, ref, rows) > ROW_REL_TOL
+
+
+@pytest.mark.parametrize("N,D,F", [(1, 512, 384), (8, 768, 256),
+                                   (40, 512, 128), (130, 1024, 384)])
+def test_grouped_int4_kernel_matches_plain(N, D, F):
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(N)
+    x = torch.randn((N, D), generator=g, device=dev).bfloat16()
+    w = quant.quantize_array_grouped(
+        torch.randn((D, F), generator=g, device=dev) * D ** -0.5)
+    assert w.packed4 and quant_matmul.grouped_kernel_eligible(D, F, w.group)
+    n0 = kernels.GROUPED_INT4_MATMUL.launches
+    out = quant_matmul.grouped_int4_matmul(x, w.q, w.scale)
+    ref = quant_matmul.grouped_int4_matmul_ref(x, w.q, w.scale)
+    # planted fault: the last group's scales read as the first group's
+    bad = w.scale.clone()
+    bad[-1] = bad[0]
+    fault = kernels.grouped_int4_matmul_cuda(x, w.q, bad)
+    torch.cuda.synchronize()
+    assert kernels.GROUPED_INT4_MATMUL.launches == n0 + 2
+    assert out.dtype == torch.bfloat16 and out.shape == (N, F)
+    assert _row_rel_err(out, ref, slice(0, N)) <= ROW_REL_TOL
+    assert _row_rel_err(fault, ref, slice(0, N)) > ROW_REL_TOL

@@ -7,7 +7,8 @@ standard-library HTTP server, with the committed SentencePiece fixture
 ``/v1/models``, ``/health`` and ``/v1/completions`` (JSON and SSE with
 usage); its greedy tokens equal the JAX ``JaxEngine``'s on the same
 weights and prompt; unknown models give 404 and malformed JSON 400; and
-the launcher module starts and answers one request.
+the launcher module starts and answers one request, also with int4
+weights over an int8 KV pool.
 """
 
 import asyncio
@@ -235,13 +236,13 @@ async def test_greedy_tokens_match_jax_engine(server, model_dir, np_params):
     assert json.loads(body)["choices"][0]["text"] == want
 
 
-def test_launcher_serves_one_request(model_dir):
+def _launch_and_request(model_dir, *extra):
     proc = subprocess.Popen(
         [sys.executable, "-m", "dynamo_tpu_torch.launch.run", "in=http",
          "out=torch", "--model-path", model_dir, "--random-weights",
          "--device", "cpu", "--http-host",
          "127.0.0.1", "--http-port", "0", "--max-model-len", "256",
-         "--num-kv-blocks", "64"],
+         "--num-kv-blocks", "64", *extra],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
         text=True)
     try:
@@ -267,3 +268,13 @@ def test_launcher_serves_one_request(model_dir):
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(30)
+
+
+def test_launcher_serves_one_request(model_dir):
+    _launch_and_request(model_dir)
+
+
+def test_launcher_serves_quantized_request(model_dir):
+    # int4 weights (a whole-axis group at hidden 64) over an int8 KV pool
+    _launch_and_request(model_dir, "--quantization", "int4",
+                        "--kv-quantization", "int8")
