@@ -8,25 +8,39 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each failing the run (non-zero exit, no result line) on error:
 
 1. card: name and power limit (nvidia-smi), torch's device name;
-2. build: compile the CUDA kernels from ``dynamo_tpu_torch/csrc`` (four
-   sources) and print nvcc's register / shared-memory / spill lines;
+2. build: compile the CUDA kernels from ``dynamo_tpu_torch/csrc`` (five
+   sources, one nvcc each, all started together) and print nvcc's
+   register / shared-memory / spill lines;
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   at the Llama-3-8B shapes, with a planted fault that the limit must
+   at the Llama-3-8B shapes, with planted faults that the limit must
    reject, and time kernel, plain version, one PyTorch call as the library
-   yardstick, and the card's bound for the same work;
+   yardstick, and the card's bound for the same work (K1, K3 bf16 and
+   int8, K5, K6, K4 bf16 and int8 on a ragged mix of prefill chunks and
+   decode rows);
 4. model: the 8B geometry (random weights from a seed, on the card) runs
    one prefill and 4 decode steps through the kernels and through the
    plain versions, in three modes: bf16, int4 weights over an int8 KV
    pool, and int8 weights over a bf16 pool; the logits must agree, and a
    planted fault in each kernel of the mode must not; one decode step of
-   each mode is profiled, and the sampler's noise is timed;
+   each mode is profiled, and the sampler's noise is timed. In bf16 and
+   int4 + int8 KV the same weights then run two ragged dispatches (the
+   second mixes a decode row, a chunk continuing a prefix and a fresh
+   chunk) through K4 and through the plain versions, with a planted K4
+   fault, and one pure-decode ragged dispatch of 8 rows is profiled beside
+   the split decode step over the same rows;
 5. serve: the port's HTTP server answers concurrent, streamed,
    prefix-cached and sampled ``/v1/completions`` at the 8B width in bf16,
    with the kernels' launch counts taken over this phase alone;
 5b. serve quantized: the same server with ``--quantization int4
    --kv-quantization int8`` answers concurrent greedy, streamed and seeded
    sampled completions, with the launch counts taken over this phase
-   alone.
+   alone;
+5c. serve ragged: phase 5's requests with ``--ragged``: every admission
+   and decode step goes through K4 (K1 and K3 launch 0 times), some
+   dispatches mix prefill and decode rows, a seeded request gives the
+   same text twice, and the ragged metrics are printed;
+5d. serve ragged quantized: phase 5b's requests with ``--ragged
+   --quantization int4 --kv-quantization int8``, checked as 5c.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -381,6 +395,142 @@ def check_paged_attention_int8(cfg, dev) -> dict:
             "row_rel_tolerance": KERNEL_ROW_REL_TOL, **case}
 
 
+# the ragged mix of phase 3 at the 8B shapes, (rows, kv length) per slot:
+# a fresh 64-row chunk, a 64-row chunk continuing to 1000, a 4-row tail
+# ending at 1900, decode rows at 1, 17, 255 and 2048 keys, a slot with no
+# rows; then the trash sequence. 136 rows = 8 + 2 * 64, the auto capacity
+# of 8 slots at 64 rows per sequence
+RAGGED_MIX = [(64, 64), (64, 1000), (4, 1900), (1, 1), (1, 17), (1, 255),
+              (1, 2048), (0, 0), (0, 0)]
+RAGGED_MAX_ROWS = 64
+
+
+def ragged_inputs(cfg, dev, seed: int, int8: bool):
+    """RAGGED_MIX over a shuffled table of 16-token blocks and a random pool
+    (row-quantized for the int8 mode); the trash block 0 holds random rows
+    too. Returns q, pools, tables, starts, counts, kv lengths (tensors) and
+    the mix's starts as a list."""
+    import torch
+    from dynamo_tpu_torch.engine.attention import quantize_kv_rows
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    S = len(RAGGED_MIX)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    num_blocks = S * M + 1
+    k_cache, v_cache = (torch.randn((num_blocks * bs, KVH * Dh), generator=gen,
+                                    device=dev).bfloat16() for _ in range(2))
+    if int8:
+        k_cache, v_cache = quantize_kv_rows(k_cache), quantize_kv_rows(v_cache)
+    perm = (torch.randperm(num_blocks - 1, generator=gen, device=dev)
+            + 1).to(torch.int32)
+    tables = torch.zeros((S, M), dtype=torch.int32, device=dev)
+    starts, used, cursor = [], 0, 0
+    for s, (n, ctx) in enumerate(RAGGED_MIX):
+        nb = -(-ctx // bs)
+        tables[s, :nb] = perm[used:used + nb]
+        used += nb
+        starts.append(cursor)
+        cursor += n
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    q = torch.randn((cursor, H, Dh), generator=gen, device=dev).bfloat16()
+    return (q, k_cache, v_cache, tables, i32(starts),
+            i32([n for n, _ in RAGGED_MIX]), i32([c for _, c in RAGGED_MIX]),
+            starts)
+
+
+def check_ragged_attention(cfg, dev, int8: bool = False) -> dict:
+    """K4 (bf16 pool, or int8 rows with in-row scales) on RAGGED_MIX, with
+    two planted faults: the 2048-token row's last block read as the trash
+    block, and an off-by-one causal mask inside each chunk (its rows one
+    position early, so each misses its own key)."""
+    import torch
+    import torch.nn.functional as F
+    from dynamo_tpu_torch.engine.attention import (dequant_kv_rows,
+                                                   flat_token_indices,
+                                                   ragged_paged_attention_ref)
+    from dynamo_tpu_torch.engine import kernels
+    name = "ragged_paged_attention" + ("_int8" if int8 else "")
+    fn = (kernels.ragged_paged_attention_int8_cuda if int8
+          else kernels.ragged_paged_attention_cuda)
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C = KVH * Dh
+    bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
+        ragged_inputs(cfg, dev, 6 if int8 else 7, int8)
+    TT, S = q.shape[0], len(RAGGED_MIX)
+    kw = dict(block_size=bs, scale=Dh ** -0.5, max_rows=RAGGED_MAX_ROWS)
+    args = (q, k_cache, v_cache, tables, starts, counts, ctx)
+    out = fn(*args, **kw)
+    ref = ragged_paged_attention_ref(*args, **kw)
+    longest = max(range(S), key=lambda s: RAGGED_MIX[s][1])
+    bad_tables = tables.clone()
+    bad_tables[longest, (RAGGED_MIX[longest][1] - 1) // bs] = 0
+    fault_trash = fn(q, k_cache, v_cache, bad_tables, starts, counts, ctx,
+                     **kw)
+    fault_mask = fn(q, k_cache, v_cache, tables, starts, counts,
+                    torch.where(counts > 1, ctx - 1, ctx), **kw)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{name}: non-finite output")
+    err, rel = row_errors(out, ref, slice(0, TT))
+    _, trash_rel = row_errors(fault_trash, ref, slice(0, TT))
+    _, mask_rel = row_errors(fault_mask, ref, slice(0, TT))
+    del fault_trash, fault_mask
+    seq_rel = [row_errors(out, ref, slice(st, st + n))[1] if n else None
+               for st, (n, _) in zip(starts_l, RAGGED_MIX)]
+    # timed with a cold L2: in a forward pass a layer's KV was last touched
+    # a whole dispatch earlier
+    ms = time_ms(lambda: fn(*args, **kw), cold=True)
+    plain_ms = time_ms(lambda: ragged_paged_attention_ref(*args, **kw),
+                       iters=5, cold=True)
+    # library yardstick: one SDPA call over the sequences padded to
+    # [S, H, 64, Dh] against pre-gathered (and, int8, dequantized) pages with
+    # a boolean causal-and-length mask; padded rows see key 0
+    Lp = RAGGED_MAX_ROWS
+    qp = torch.zeros((S, H, Lp, Dh), dtype=torch.bfloat16, device=dev)
+    r = torch.arange(Lp, device=dev)
+    kv_pos = torch.arange(M * bs, device=dev)
+    mask = torch.zeros((S, 1, Lp, M * bs), dtype=torch.bool, device=dev)
+    for s, (st, (n, c)) in enumerate(zip(starts_l, RAGGED_MIX)):
+        qp[s, :, :n] = q[st:st + n].transpose(0, 1)
+        mask[s, 0] = (((kv_pos[None, :] <= (c - n + r)[:, None])
+                       & (kv_pos[None, :] < c) & (r < n)[:, None])
+                      | ((kv_pos[None, :] == 0) & (r >= n)[:, None]))
+    idx = flat_token_indices(tables, bs)
+    kg, vg = k_cache[idx], v_cache[idx]
+    if int8:
+        kg = dequant_kv_rows(kg, C, torch.bfloat16)
+        vg = dequant_kv_rows(vg, C, torch.bfloat16)
+    kg = kg.reshape(S, M * bs, KVH, Dh).transpose(1, 2).contiguous()
+    vg = vg.reshape(S, M * bs, KVH, Dh).transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qp, kg, vg, attn_mask=mask, scale=Dh ** -0.5, enable_gqa=True),
+        cold=True)
+    row_bytes = (C + 2) if int8 else 2.0 * C    # one K or V row, read once
+    nbytes = (2.0 * row_bytes * sum(c for _, c in RAGGED_MIX)
+              + 2 * 2.0 * TT * H * Dh + 4.0 * (S * M + 3 * S))
+    pairs = sum(c - n + i + 1 for n, c in RAGGED_MIX for i in range(n))
+    flops = 4.0 * H * Dh * pairs
+    b_ms, b_by = bound(nbytes, flops)
+    case = {"TT": TT, "mix": RAGGED_MIX, "max_abs_err": err,
+            "max_row_rel_err": rel, "seq_row_rel_err": seq_rel,
+            "fault_trash_row_rel_err": trash_rel,
+            "fault_mask_row_rel_err": mask_rel, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention over padded sequences "
+                       "and pre-gathered" + (" dequantized" if int8 else "")
+                       + " pages",
+            "bound_ms": b_ms, "bound_by": b_by}
+    log(f"{name} {json.dumps(case)}")
+    check_limit(f"{name} (last block as trash)", rel, trash_rel)
+    check_limit(f"{name} (off-by-one causal mask)", rel, mask_rel)
+    return {"name": name, "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": "dynamo_tpu/engine/attention.py:1255",
+            "row_rel_tolerance": KERNEL_ROW_REL_TOL, **case}
+
+
 def check_lm_head_int8(cfg, dev) -> dict:
     """K5 at the 8B head, [4096, 128256] int8, for one prefill row and an
     8-slot decode step."""
@@ -600,6 +750,174 @@ def int4_last_group_as_first(x, packed, scale):
     return grouped_int4_matmul_cuda(x, packed, bad)
 
 
+def ragged_without_last_block(q, k_cache, v_cache, block_tables, seq_starts,
+                              seq_counts, seq_lens, *, block_size, scale,
+                              max_rows, **_):
+    """K4 (either pool) with a planted fault: each sequence's last table
+    entry read as the trash block."""
+    import torch
+    from dynamo_tpu_torch.engine import kernels
+    tables = block_tables.clone()
+    last = (seq_lens.long() - 1).clamp(min=0) // block_size
+    tables[torch.arange(tables.shape[0], device=tables.device), last] = 0
+    fn = (kernels.ragged_paged_attention_int8_cuda
+          if k_cache.dtype == torch.int8 else kernels.ragged_paged_attention_cuda)
+    return fn(q, k_cache, v_cache, tables, seq_starts, seq_counts, seq_lens,
+              block_size=block_size, scale=scale, max_rows=max_rows)
+
+
+# phase 4's ragged dispatches over slots 0-2 of an 8-slot engine, as
+# {slot: (row count, first position)}: two fresh 64-row chunks, then a
+# mixed dispatch of a decode row, a 64-row chunk continuing a prefix and a
+# fresh 8-row chunk
+RAGGED_MODEL_DISPATCHES = [{0: (64, 0), 1: (64, 0)},
+                           {0: (1, 64), 1: (64, 64), 2: (8, 0)}]
+RAGGED_MODES = ("bf16", "int4_kv8")
+
+
+def ragged_batch(spans, tokens, tables, B: int, dev) -> tuple:
+    """The arrays of one ragged dispatch (rows packed in slot order, the
+    trash sequence last, as engine/ragged.py packs them): tokens,
+    positions, tables, row_slot, starts, counts, sample_rows."""
+    import torch
+    toks, pos, row_slot = [], [], []
+    starts = [0] * (B + 1)
+    counts = [0] * (B + 1)
+    sample = [0] * (B + 1)
+    for slot in sorted(spans):
+        n, p0 = spans[slot]
+        starts[slot] = len(toks)
+        counts[slot] = n
+        sample[slot] = len(toks) + n - 1
+        toks += tokens[slot][p0:p0 + n]
+        pos += list(range(p0, p0 + n))
+        row_slot += [slot] * n
+    starts[B] = len(toks)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    return (torch.tensor(toks, dtype=torch.long, device=dev), i32(pos),
+            tables, i32(row_slot), i32(starts), i32(counts), i32(sample))
+
+
+def check_ragged_model(params, cfg, dev, seed: int, mode: str,
+                       plain_swaps) -> dict:
+    """Phase 4 on the ragged path: RAGGED_MODEL_DISPATCHES through
+    ``llama.ragged_forward`` with the kernels and with the plain versions
+    (``plain_swaps``, K4's included), and with a planted K4 fault; then one
+    pure-decode ragged dispatch of 8 rows profiled beside the split decode
+    step over the same rows."""
+    import torch
+    from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.engine.models import llama
+    _, kv_quant = MODEL_MODES[mode]
+    bs, M, B = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK, 8
+    per_slot = 24                      # blocks per slot: 384 tokens
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    tokens = torch.randint(3, cfg.vocab_size, (B, 128), generator=gen,
+                           device=dev).tolist()
+    tables = torch.zeros((B + 1, M), dtype=torch.int32, device=dev)
+    for i in range(B):
+        tables[i, :per_slot] = torch.arange(1 + i * per_slot,
+                                            1 + (i + 1) * per_slot,
+                                            device=dev)
+    batches = [ragged_batch(sp, tokens, tables, B, dev)
+               for sp in RAGGED_MODEL_DISPATCHES]
+
+    def run():
+        kv = state["kv"] = llama.init_kv_cache(cfg, B * per_slot + 1, bs, dev,
+                                               torch.bfloat16,
+                                               quantization=kv_quant)
+        return torch.cat([llama.ragged_forward(params, kv, *b, cfg, bs,
+                                               RAGGED_MAX_ROWS)[:3]
+                          for b in batches])     # [dispatches * 3, V]
+
+    state = {}
+    k4 = kernels.KERNELS["ragged_paged_attention"
+                         + ("_int8" if kv_quant == "int8" else "")]
+    with torch.inference_mode():
+        with swapped(*plain_swaps):
+            ref = run()
+        with swapped((llama, "ragged_paged_attention",
+                      ragged_without_last_block)):
+            fault = run()
+        kernels.reset_launch_counts()
+        got = run()
+        launches = {k: v.launches for k, v in kernels.KERNELS.items()
+                    if v.launches}
+        profile = profile_ragged_decode(params, state["kv"], cfg, tables, B,
+                                        dev)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
+        raise RuntimeError(f"ragged model {mode}: non-finite logits")
+    spread = ref.abs().max().item()
+
+    def compare(logits) -> dict:
+        err = (logits - ref).abs().max().item()
+        agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        return {"max_abs_err": err, "rel_err": err / spread,
+                "argmax_agreement": agree}
+
+    res = {"mode": mode, "dispatches": RAGGED_MODEL_DISPATCHES,
+           "launches": launches, "max_abs_ref": spread, **compare(got),
+           "planted_fault_k4": compare(fault), "decode_dispatch": profile}
+    log(f"ragged_model {json.dumps(res)}")
+    want = {k4.name: cfg.num_layers * len(batches)}
+    if {k: launches.get(k, 0) for k in want} != want or any(
+            launches.get(k, 0) for k in ("flash_prefill", "paged_attention",
+                                         "paged_attention_int8")):
+        raise RuntimeError(f"ragged model {mode}: launches {launches}, "
+                           f"expected {want} and no split-path attention")
+    if not res["rel_err"] <= MODEL_REL_TOL:
+        raise RuntimeError(f"ragged model {mode}: kernel and plain logits "
+                           f"differ by {res['rel_err']} > {MODEL_REL_TOL}")
+    if not res["planted_fault_k4"]["rel_err"] > MODEL_REL_TOL:
+        raise RuntimeError(f"ragged model {mode}: the planted K4 fault "
+                           f"({res['planted_fault_k4']['rel_err']}) passes "
+                           f"the limit {MODEL_REL_TOL}")
+    return res
+
+
+def profile_ragged_decode(params, kv, cfg, tables, B: int, dev) -> dict:
+    """One pure-decode ragged dispatch of B rows (one per slot, each at
+    position 300 of its own blocks) beside the split decode step over the
+    same rows: wall time (mean of 5), device time, busy share, kernels."""
+    import torch
+    from dynamo_tpu_torch.engine.models import llama
+    pos = 300
+    toks = torch.arange(3, 3 + B, dtype=torch.long, device=dev)
+    positions = torch.full((B,), pos, dtype=torch.int32, device=dev)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    row_slot = i32(list(range(B)))
+    starts = i32(list(range(B)) + [B])
+    counts = i32([1] * B + [0])
+    sample = i32(list(range(B)) + [0])
+
+    def ragged():
+        return llama.ragged_forward(params, kv, toks, positions, tables,
+                                    row_slot, starts, counts, sample, cfg,
+                                    KV_BLOCK, RAGGED_MAX_ROWS)
+
+    def split():
+        return llama.decode_forward(params, kv, toks, positions,
+                                    tables[:B].contiguous(), cfg, KV_BLOCK)
+
+    out = {}
+    for name, step in (("ragged", ragged), ("split", split)):
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0) / 5
+        prof = device_profile(step)
+        if prof["device_busy_share"] is not None:
+            prof["device_busy_share"] = prof["device_ms"] / wall_ms
+        out[name] = {"wall_ms": wall_ms, **prof}
+    return out
+
+
 def profile_decode_step(params, kv, cfg, table, B: int, M: int,
                         pos: int) -> dict:
     """Where one decode step's time goes (8B, one live slot of B): host
@@ -758,6 +1076,7 @@ def check_model(cfg, dev, seed: int, mode: str) -> dict:
         profile = profile_decode_step(params, state["kv"], cfg, table, B, M,
                                       prompt_len + steps)
     torch.cuda.synchronize()
+    del state
     if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
         raise RuntimeError(f"model {mode}: non-finite logits")
     spread = ref.abs().max().item()
@@ -767,7 +1086,16 @@ def check_model(cfg, dev, seed: int, mode: str) -> dict:
            "planted_faults": {k: compare(v) for k, v in faults.items()},
            "decode_step": profile}
     log(f"model {json.dumps(res)}")
-    del params, state, got, ref, faults
+    del got, ref, faults
+    if mode in RAGGED_MODES:
+        # the same weights through the ragged path: K4 in place of K1/K3
+        plain_swaps = [(m, a, plain) for m, a, plain, _ in slots.values()
+                       if a not in ("flash_prefill", "paged_attention")]
+        plain_swaps.append((llama, "ragged_paged_attention",
+                            attention.ragged_paged_attention_ref))
+        res["ragged"] = check_ragged_model(params, cfg, dev, seed, mode,
+                                           plain_swaps)
+    del params
     torch.cuda.empty_cache()
     # every layer matmul of the 8B geometry passes the grouped kernel's
     # shape rule: 7 launches per layer and forward under int4
@@ -908,19 +1236,30 @@ PATH_KERNELS = {
     "bf16": ("flash_prefill", "paged_attention"),
     "int4_kv8": ("flash_prefill", "paged_attention_int8", "lm_head_int8",
                  "grouped_int4_matmul"),
+    "ragged": ("ragged_paged_attention",),
+    "ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
+                        "grouped_int4_matmul"),
 }
+# each served path's weights and KV pool (MODEL_MODES), and whether it
+# serves with --ragged
+SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
+               "ragged": ("bf16", True),
+               "ragged_int4_kv8": ("int4_kv8", True)}
+# the split path's attention kernels: on a ragged path every admission and
+# decode step goes through K4, so these launch 0 times there
+SPLIT_ATTENTION = ("flash_prefill", "paged_attention", "paged_attention_int8")
 
 
-def serve_phase(cfg, seed: int, card: str, mode: str) -> dict:
+def serve_phase(cfg, seed: int, card: str, path: str) -> dict:
     """Serve from a temporary model directory (8B config + tokenizer)."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="dtt-8b-") as tmp:
         model_dir = os.path.join(tmp, "llama3-8b-random")
         write_model_dir(model_dir, cfg)
-        return _serve(cfg, seed, card, model_dir, mode)
+        return _serve(cfg, seed, card, model_dir, path)
 
 
-def _serve(cfg, seed: int, card: str, model_dir: str, mode: str) -> dict:
+def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> dict:
     import asyncio
     import gc
     import threading
@@ -929,6 +1268,7 @@ def _serve(cfg, seed: int, card: str, model_dir: str, mode: str) -> dict:
     from concurrent.futures import ThreadPoolExecutor
     from dynamo_tpu_torch.engine import kernels
     from dynamo_tpu_torch.launch import run as launcher
+    mode, ragged = SERVE_PATHS[path]
     weights, kv_quant = MODEL_MODES[mode]
     args = launcher.build_parser().parse_args(
         ["in=http", "out=torch", "--model-path", model_dir,
@@ -936,11 +1276,13 @@ def _serve(cfg, seed: int, card: str, model_dir: str, mode: str) -> dict:
          "--http-port", "0", "--max-model-len", str(MAX_MODEL_LEN),
          "--kv-block-size", str(KV_BLOCK), "--num-kv-blocks", "2048",
          "--max-num-seqs", "8", "--device", "cuda",
-         "--quantization", weights, "--kv-quantization", kv_quant])
+         "--quantization", weights, "--kv-quantization", kv_quant]
+        + (["--ragged", "--ragged-max-seq-rows", str(RAGGED_MAX_ROWS)]
+           if ragged else []))
     launcher.parse_io(args.io)
     t0 = time.monotonic()
     core = launcher.build_core(args)
-    log(f"serve {mode}: engine core built in {time.monotonic() - t0:.1f} s, "
+    log(f"serve {path}: engine core built in {time.monotonic() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     ready = threading.Event()
     loop = asyncio.new_event_loop()
@@ -1008,7 +1350,7 @@ def _serve(cfg, seed: int, card: str, model_dir: str, mode: str) -> dict:
         # a seeded sampled text prompt
         report["sampled_text"] = check_unary(
             "sampled_text", http_completion(port, sampled), max_tokens)
-        if mode != "bf16":
+        if path != "bf16":
             # sampling is keyed by (seed, request seed, step) alone: the
             # same seeded request gives the same text again
             again = check_unary("sampled_again", http_completion(
@@ -1018,6 +1360,18 @@ def _serve(cfg, seed: int, card: str, model_dir: str, mode: str) -> dict:
                                    f"{again['text']!r} after "
                                    f"{report['sampled_text']['text']!r}")
         launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+        if ragged:
+            m = core.metrics()
+            report["ragged_metrics"] = {
+                "dispatches": core.ragged_dispatches,
+                "mixed_dispatches": core.ragged_mixed_dispatches,
+                "prefill_rows": core.ragged_prefill_rows_total,
+                "decode_rows": core.ragged_decode_rows_total,
+                "capacity": core.cfg.ragged_max_tokens,
+                "ragged_fill_ratio": m.ragged_fill_ratio,
+                "ragged_mixed_ratio": m.ragged_mixed_ratio,
+                "ragged_dispatches_saved_total":
+                    m.ragged_dispatches_saved_total}
     finally:
         if "task" in holder:
             loop.call_soon_threadsafe(holder["task"].cancel)
@@ -1026,12 +1380,20 @@ def _serve(cfg, seed: int, card: str, model_dir: str, mode: str) -> dict:
         raise RuntimeError("serve: server thread did not stop")
     loop.close()
     for k, v in report.items():
-        log(f"request {mode} {k} {json.dumps(v)} [{card}]")
-    log(f"serve {mode}: launches {json.dumps(launches)}")
-    for k in PATH_KERNELS[mode]:
+        log(f"request {path} {k} {json.dumps(v)} [{card}]")
+    log(f"serve {path}: launches {json.dumps(launches)}")
+    for k in PATH_KERNELS[path]:
         if launches[k] <= 0:
-            raise RuntimeError(f"serve {mode}: kernel {k} was never "
+            raise RuntimeError(f"serve {path}: kernel {k} was never "
                                f"launched")
+    if ragged:
+        split = {k: launches[k] for k in SPLIT_ATTENTION if launches[k]}
+        if split:
+            raise RuntimeError(f"serve {path}: split-path attention "
+                               f"launched on the ragged path: {split}")
+        if report["ragged_metrics"]["mixed_dispatches"] <= 0:
+            raise RuntimeError(f"serve {path}: no dispatch mixed prefill "
+                               f"and decode rows")
     del core
     gc.collect()
     torch.cuda.empty_cache()
@@ -1077,7 +1439,9 @@ def main() -> int:
     cfg = bench_model_config("8b")
     entries = [check_flash_prefill(cfg, dev), check_paged_attention(cfg, dev),
                check_paged_attention_int8(cfg, dev),
-               check_lm_head_int8(cfg, dev), check_grouped_int4(cfg, dev)]
+               check_lm_head_int8(cfg, dev), check_grouped_int4(cfg, dev),
+               check_ragged_attention(cfg, dev),
+               check_ragged_attention(cfg, dev, int8=True)]
 
     # 4. the model through the kernels vs the plain versions, per mode
     seed = 0
@@ -1085,10 +1449,11 @@ def main() -> int:
         check_model(cfg, dev, seed, mode)
     check_sampling_noise(cfg, dev)
 
-    # 5. serving, bf16 then quantized; each path's launch counts cover its
-    # own phase alone, and each kernel reports those of its path
-    by_path = {mode: serve_phase(cfg, seed, card, mode)
-               for mode in PATH_KERNELS}
+    # 5. serving: bf16, quantized, then both again with --ragged; each
+    # path's launch counts cover its own phase alone, and each kernel
+    # reports those of the first path that must launch it
+    by_path = {path: serve_phase(cfg, seed, card, path)
+               for path in PATH_KERNELS}
     for e in entries:
         path = next(m for m, ks in PATH_KERNELS.items() if e["name"] in ks)
         e["launches"] = by_path[path][e["name"]]

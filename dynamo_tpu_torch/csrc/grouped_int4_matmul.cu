@@ -39,7 +39,8 @@
 // Two tilings, chosen from N: for N <= 16 (decode) the row tile is 16 rows
 // padded with zeros and the 4 warps take every 4th group each, so 4 groups'
 // bytes are loaded at once, and their sums meet in shared memory at the
-// end; for larger N the row tile is 64 rows, one 16-row slice per warp,
+// end, added in a fixed warp order (no atomics: a run gives the same bits
+// every time, so a seeded sampled stream repeats); for larger N the row tile is 64 rows, one 16-row slice per warp,
 // and the warps share each group's weight tile. Loads are plain and
 // synchronous (no cp.async, TMA or wgmma yet), and the TPU kernel's even/odd
 // split of x is not needed: nibbles are unpacked into natural row order.
@@ -85,7 +86,8 @@ grouped_int4_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
   constexpr int kRows = 16 * WM;
   __shared__ __align__(16) int8_t sW[WK][kPackedRows * kWStride];
   __shared__ __align__(16) __nv_bfloat16 sX[WK][kRows * kXStride];
-  __shared__ float red[16][kCols];  // the group slices' sums (WK > 1)
+  static_assert(sizeof(float) * WK * 16 * kCols <= sizeof(sW),
+                "the group slices' sums reuse the weight tiles' space");
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, tig = lane % 4;
@@ -97,9 +99,6 @@ grouped_int4_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
   float acc[kCols / 8][4];
 #pragma unroll
   for (int j = 0; j < kCols / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  if (WK > 1) {
-    for (int i = threadIdx.x; i < 16 * kCols; i += kThreads) (&red[0][0])[i] = 0.f;
-  }
 
   for (int g0 = 0; g0 < n_groups; g0 += WK) {
     __syncthreads();  // the previous round's tiles are consumed
@@ -162,22 +161,32 @@ grouped_int4_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
   }
 
   if (WK > 1) {
-    // the group slices of the 16-row tile meet in shared memory
+    // the group slices of the 16-row tile meet in shared memory (the
+    // weight tiles' space, free now): each warp stores its slice, then the
+    // slices are added in warp order
     __syncthreads();
+    float* red = reinterpret_cast<float*>(&sW[0][0]);  // [WK][16][kCols]
+    float* mine = red + wk * 16 * kCols;
 #pragma unroll
     for (int j = 0; j < kCols / 8; ++j) {
       const int c = j * 8 + tig * 2;
-      atomicAdd(&red[gid][c], acc[j][0]);
-      atomicAdd(&red[gid][c + 1], acc[j][1]);
-      atomicAdd(&red[gid + 8][c], acc[j][2]);
-      atomicAdd(&red[gid + 8][c + 1], acc[j][3]);
+      mine[gid * kCols + c] = acc[j][0];
+      mine[gid * kCols + c + 1] = acc[j][1];
+      mine[(gid + 8) * kCols + c] = acc[j][2];
+      mine[(gid + 8) * kCols + c + 1] = acc[j][3];
     }
     __syncthreads();
     for (int i = threadIdx.x; i < 16 * (kCols / 2); i += kThreads) {
       const int r = i / (kCols / 2), c = (i % (kCols / 2)) * 2;
       if (row0 + r < N) {
-        __nv_bfloat162 v = __floats2bfloat162_rn(red[r][c], red[r][c + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(out + (long)(row0 + r) * F + col0 + c) = v;
+        float a = 0.f, b = 0.f;
+#pragma unroll
+        for (int sl = 0; sl < WK; ++sl) {
+          a += red[(sl * 16 + r) * kCols + c];
+          b += red[(sl * 16 + r) * kCols + c + 1];
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + (long)(row0 + r) * F + col0 + c) =
+            __floats2bfloat162_rn(a, b);
       }
     }
     return;

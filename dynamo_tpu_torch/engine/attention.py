@@ -1,4 +1,5 @@
-"""Attention for the PyTorch engine: causal prefill and paged decode.
+"""Attention for the PyTorch engine: causal prefill, paged decode and
+ragged mixed prefill+decode.
 
 Counterpart of ``dynamo_tpu.engine.attention``. The KV pool keeps the
 JAX package's BLOCK-MAJOR layout: per layer ``[NTOK, KVH*Dh]`` where
@@ -8,7 +9,8 @@ the values, then the row's scale as an (exponent, mantissa) byte pair,
 then pad lanes, in the JAX package's exact encoding (``quantize_kv_rows``).
 
 Each kernel has a plain PyTorch version of the same function in this
-module (``flash_prefill_ref``, ``paged_attention_ref``). The public
+module (``flash_prefill_ref``, ``paged_attention_ref``,
+``ragged_paged_attention_ref``). The public
 functions dispatch on the tensor's device alone: a CPU tensor takes the
 plain version, a CUDA tensor launches the hand-written kernel
 (``engine/kernels.py``, sources under ``csrc/``) or raises. There is no
@@ -216,3 +218,96 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
           else paged_attention_cuda)
     return fn(q, k_cache, v_cache, block_tables, seq_lens,
               block_size=block_size, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Ragged mixed prefill+decode
+# ---------------------------------------------------------------------------
+
+# per-sequence sliding-window base for GLOBAL layers: hugely negative so
+# win_base + row never masks anything
+RAGGED_WIN_SENTINEL = -(1 << 30)
+
+
+def ragged_paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               seq_starts: torch.Tensor,
+                               seq_counts: torch.Tensor,
+                               seq_lens: torch.Tensor, *, block_size: int,
+                               scale: float, max_rows: int,
+                               softcap: Optional[float] = None,
+                               win_base: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Plain version of ``ragged_paged_attention``: the JAX package's row
+    path (``llama.ragged_forward`` without the kernel). Each owned row r
+    of sequence s is expanded to s's block table and attends as one
+    decode query with ``seq_len = pos0 + r + 1`` (pos0 = seq_lens[s] -
+    seq_counts[s]) and, with ``win_base``, ``win_lo = win_base[s] + r``,
+    through ``paged_attention_ref``. Rows no sequence owns get zeros, as
+    from the kernel. A count above ``max_rows`` is refused: the kernel
+    computes at most ``max_rows`` rows of a sequence."""
+    if int(seq_counts.max()) > max_rows:
+        raise ValueError(f"a sequence owns more than max_rows={max_rows} "
+                         f"rows")
+    # each flat row's owning sequence and its index r in that span (rows
+    # no sequence owns: sequence 0, r 0, not owned)
+    t = torch.arange(q.shape[0], device=q.device)[:, None]
+    starts = seq_starts.long()[None, :]
+    inside = (t >= starts) & (t < starts + seq_counts.long()[None, :])
+    owned = inside.any(dim=1)
+    owner = inside.to(torch.int8).argmax(dim=1)
+    r = torch.where(owned, t[:, 0] - seq_starts.long()[owner],
+                    torch.zeros_like(owner))
+    pos0 = seq_lens.long()[owner] - seq_counts.long()[owner]
+    row_lens = torch.where(owned, pos0 + r + 1, torch.zeros_like(r))
+    win_lo = None
+    if win_base is not None:
+        win_lo = win_base.long()[owner] + r
+    return paged_attention_ref(q, k_cache, v_cache, block_tables[owner],
+                               row_lens, block_size=block_size, scale=scale,
+                               softcap=softcap, win_lo=win_lo)
+
+
+def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, block_tables: torch.Tensor,
+                           seq_starts: torch.Tensor, seq_counts: torch.Tensor,
+                           seq_lens: torch.Tensor, *, block_size: int,
+                           scale: float, max_rows: int,
+                           softcap: Optional[float] = None,
+                           win_base: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Ragged mixed prefill+decode attention in one call (contract of
+    ``dynamo_tpu.engine.attention.ragged_paged_attention_pallas``).
+
+    q: [TT, H, Dh] flat token rows; block_tables: [S, M]; sequence s
+    owns rows [seq_starts[s], seq_starts[s] + seq_counts[s]) at the
+    consecutive positions ending at seq_lens[s] - 1 (a decode step is a
+    count of 1, a prefill chunk a longer span, a count of 0 skips the
+    sequence); ``max_rows`` bounds any count. ``win_base``: [S] first-row
+    sliding floor (pos0 - window), or RAGGED_WIN_SENTINEL / None for
+    global layers. The pool is bf16 or int8 rows with in-row scales.
+    Returns [TT, H, Dh] in q's dtype; rows no sequence owns are zeros.
+
+    CPU tensors take the plain version; CUDA tensors run
+    ``csrc/ragged_paged_attention.cu`` (K4), which implements the
+    global-window, uncapped case and refuses the rest. The kernel's
+    shape rule (not the TPU kernel's VMEM budget, ``ragged_supported``):
+    Dh 64 or 128, H/KVH in {1, 2, 4, 8}, the pool's rows a whole number
+    of blocks; any row budget."""
+    if not q.is_cuda:
+        return ragged_paged_attention_ref(
+            q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
+            seq_lens, block_size=block_size, scale=scale, max_rows=max_rows,
+            softcap=softcap, win_base=win_base)
+    if softcap or win_base is not None:
+        raise NotImplementedError(
+            "the CUDA ragged_paged_attention kernel implements neither "
+            "logit soft-capping nor sliding windows")
+    from .kernels import (ragged_paged_attention_cuda,
+                          ragged_paged_attention_int8_cuda)
+    fn = (ragged_paged_attention_int8_cuda if k_cache.dtype == torch.int8
+          else ragged_paged_attention_cuda)
+    return fn(q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
+              seq_lens, block_size=block_size, scale=scale,
+              max_rows=max_rows)

@@ -520,9 +520,10 @@ KV_QUANTIZATIONS = ("none", "int8")
 @dataclasses.dataclass
 class EngineConfig:
     """Serving-engine knobs of the single-device main path: whole-prompt
-    bucketed prefill, one decode step per dispatch, a paged KV pool (bf16,
-    or int8 rows with in-row scales) with prefix reuse, and weight-only
-    int8/int4 quantization. Field names and defaults follow
+    bucketed prefill and one decode step per dispatch, or ragged mixed
+    prefill+decode dispatch; a paged KV pool (bf16, or int8 rows with
+    in-row scales) with prefix reuse; weight-only int8/int4
+    quantization. Field names and defaults follow
     ``dynamo_tpu.engine.config.EngineConfig``; fields of paths this package
     does not implement are absent, so passing one raises ``TypeError``."""
 
@@ -542,6 +543,20 @@ class EngineConfig:
     # the load dtype
     quantization: str = "none"
     seed: int = 0
+    # ragged dispatch (engine/ragged.py): every engine step packs pending
+    # prefill chunks and decode rows into ONE mixed batch served by one
+    # forward pass, whose attention is the ragged kernel; admissions ride
+    # the batch as prefill lanes (continuous batching is the only code
+    # path)
+    ragged_dispatch: bool = False
+    # token capacity of one ragged dispatch (the [sum(T_i)] row budget).
+    # 0 = auto: max_num_seqs + 2*ragged_max_seq_rows. Must cover one row
+    # per slot.
+    ragged_max_tokens: int = 0
+    # per-sequence row budget per dispatch: how much of one prompt a
+    # single dispatch may consume — longer prompts stream across
+    # consecutive dispatches
+    ragged_max_seq_rows: int = 64
 
     @staticmethod
     def auto_kv_block_size(model_cfg: "ModelConfig",
@@ -567,6 +582,21 @@ class EngineConfig:
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, "
                              f"got {self.dtype!r}")
+        if self.ragged_dispatch:
+            if self.ragged_max_seq_rows <= 0:
+                raise ValueError("ragged_max_seq_rows must be > 0")
+            if self.ragged_max_tokens == 0:
+                self.ragged_max_tokens = (self.max_num_seqs
+                                          + 2 * self.ragged_max_seq_rows)
+            if self.ragged_max_tokens < max(self.max_num_seqs + 1,
+                                            self.ragged_max_seq_rows):
+                raise ValueError(
+                    f"ragged_max_tokens={self.ragged_max_tokens} must "
+                    f"cover one decode row per slot plus prefill "
+                    f"headroom (>= max_num_seqs+1 = "
+                    f"{self.max_num_seqs + 1}) and at least one full "
+                    f"per-sequence chunk (>= ragged_max_seq_rows = "
+                    f"{self.ragged_max_seq_rows})")
         self.prefill_buckets = sorted(
             b for b in self.prefill_buckets if b <= self.max_model_len) or [
                 self.max_model_len]

@@ -4,7 +4,11 @@ async scheduling loop driving the model's prefill and decode steps.
 Counterpart of ``dynamo_tpu.engine.core`` for the single-device main path:
 submit, admission with prefix reuse, bucketed whole-prompt prefill, one
 decode step per dispatch for every ready slot, finish on EOS / budget /
-cancellation, and recompute preemption when the KV pool runs out.
+cancellation, and recompute preemption when the KV pool runs out. With
+``EngineConfig.ragged_dispatch`` every engine step is instead ONE ragged
+dispatch (``engine/ragged.py``, ``llama.ragged_forward``): admissions ride
+it as prefill lanes, chunk by chunk, beside the decode rows of the other
+slots.
 
 PyTorch runs eagerly, so there are no compiled programs: prefill and decode
 are plain calls into ``models/llama.py`` that update the KV pool in place.
@@ -36,6 +40,7 @@ from .config import EngineConfig, ModelConfig
 from .device import resolve_device
 from .models import llama
 from .quant import init_params_quantized, quantize_params
+from .ragged import RaggedBatch, build_ragged_batch
 from .sampling import SlotSampling, gumbel_noise, make_slot_key, sample_tokens
 from .weights import init_params
 
@@ -72,6 +77,10 @@ class EngineRequest:
     # recompute prefill after a preemption: streams are exact against an
     # uncontended run only up to the first of these
     numeric_boundaries: List[int] = dataclasses.field(default_factory=list)
+    # ragged serving: the prompt being consumed chunk by chunk (incl. any
+    # prefix-hit tokens); while pos < len(lane_prompt) the slot is a
+    # prefill lane of the ragged batch, after that a decode row
+    lane_prompt: Optional[List[int]] = None
 
     @property
     def cancelled(self) -> bool:
@@ -100,6 +109,11 @@ class ForwardPassMetrics:
     preemptions_total: int = 0
     prefill_tokens_total: int = 0
     decode_tokens_total: int = 0
+    # ragged dispatch: used rows over capacity, the share of dispatches
+    # that mixed prefill and decode, and the split-path dispatches saved
+    ragged_fill_ratio: float = 0.0
+    ragged_mixed_ratio: float = 0.0
+    ragged_dispatches_saved_total: int = 0
 
 
 _FINISH = object()  # queue sentinel
@@ -181,6 +195,12 @@ class EngineCore:
         self.preemptions = 0
         self.requests_cancelled_total = 0
         self.requests_deadline_exceeded_total = 0
+        self.ragged_dispatches = 0
+        self.ragged_rows_total = 0
+        self.ragged_prefill_rows_total = 0
+        self.ragged_decode_rows_total = 0
+        self.ragged_mixed_dispatches = 0
+        self.ragged_dispatches_saved = 0
 
     # ------------------------------------------------------------- lifecycle
     def ensure_started(self) -> None:
@@ -219,6 +239,15 @@ class EngineCore:
     def metrics(self) -> ForwardPassMetrics:
         total = self.cfg.num_kv_blocks - 1
         used = self.kv_manager.pool.used_blocks
+        ragged = {}
+        if self.ragged_dispatches:
+            ragged = dict(
+                ragged_fill_ratio=(self.ragged_rows_total
+                                   / (self.ragged_dispatches
+                                      * self.cfg.ragged_max_tokens)),
+                ragged_mixed_ratio=(self.ragged_mixed_dispatches
+                                    / self.ragged_dispatches),
+                ragged_dispatches_saved_total=self.ragged_dispatches_saved)
         return ForwardPassMetrics(
             request_active_slots=sum(1 for s in self.slots if s is not None),
             request_total_slots=self.B,
@@ -233,7 +262,7 @@ class EngineCore:
             kv_block_size=self.cfg.kv_block_size,
             preemptions_total=self.preemptions,
             prefill_tokens_total=self.total_prefill_tokens,
-            decode_tokens_total=self.total_decode_tokens)
+            decode_tokens_total=self.total_decode_tokens, **ragged)
 
     # ------------------------------------------------------------ scheduler
     def _free_slot_index(self) -> int:
@@ -293,9 +322,12 @@ class EngineCore:
                     break
                 progressed = True
                 await asyncio.sleep(0)   # let the admission's first token out
-            # 2) one decode step for every active slot
+            # 2) one decode step (or ragged dispatch) for every active slot
             if any(s is not None for s in self.slots):
-                self._decode_step()
+                if self.cfg.ragged_dispatch:
+                    self._ragged_step()
+                else:
+                    self._decode_step()
                 progressed = True
             if not progressed:
                 self._work_event.clear()
@@ -343,10 +375,11 @@ class EngineCore:
         return True
 
     def _sample(self, logits: torch.Tensor,
-                reqs: List[Optional[EngineRequest]]) -> tuple:
+                reqs: List[Optional[EngineRequest]],
+                steps: Optional[List[int]] = None) -> tuple:
         """Sample one token per row of ``logits`` [B, V] with each row's
-        request parameters, keyed at each request's ``key_step`` (None rows
-        sample greedily and are ignored)."""
+        request parameters, keyed at ``steps[i]`` (default: each request's
+        ``key_step``). None rows sample greedily and are ignored."""
         n = logits.shape[0]
         temperature = np.zeros((n,), np.float32)
         top_k = np.zeros((n,), np.int64)
@@ -354,8 +387,10 @@ class EngineCore:
         keys = []
         for i, r in enumerate(reqs):
             sampled = r is not None and r.sampling.temperature > 0.0
-            keys.append(make_slot_key(self.cfg.seed, r.sampling.seed,
-                                      r.key_step) if sampled else None)
+            keys.append(make_slot_key(
+                self.cfg.seed, r.sampling.seed,
+                r.key_step if steps is None else steps[i])
+                if sampled else None)
             if r is not None:
                 temperature[i] = r.sampling.temperature
                 top_k[i] = r.sampling.top_k
@@ -375,6 +410,11 @@ class EngineCore:
         req.seq = plan.seq
         req.prefix_hit_tokens = plan.hit_tokens
         n_already = len(plan.hit_blocks)
+        if self.cfg.ragged_dispatch and n_prompt > req.prefix_hit_tokens:
+            # ragged serving: every admission rides the ragged batch as a
+            # prefill lane — no prefill dispatch of its own
+            self._admit_lane(req, slot, n_already)
+            return
         # prefill only the un-matched suffix — the prefix KV is already in
         # the pool's blocks (the TTFT win of prefix reuse)
         chunk = req.prompt[req.prefix_hit_tokens:]
@@ -408,6 +448,170 @@ class EngineCore:
                      1e3 * (time.monotonic() - t0))
         self._emit(req, tok, logprob)
         self._maybe_finish_after_emit(req)
+
+    def _admit_lane(self, req: EngineRequest, slot: int,
+                    n_already: int) -> None:
+        """Ragged admission: no prefill dispatch — the prompt rides the
+        ragged batch as a prefill lane. Blocks are allocated (by the
+        caller's plan) but NOT registered yet: their KV is written chunk by
+        chunk, so registration follows the harvest as in decode."""
+        n_prompt = len(req.prompt)
+        hit = req.prefix_hit_tokens
+        # the first generated token comes from the ragged forward here (an
+        # uncontended split-path run derives it via the prefill path) — a
+        # numeric boundary for the exactness contract
+        req.numeric_boundaries.append(req.emitted_total)
+        req.lane_prompt = list(req.prompt)
+        req.pos = hit
+        req.generated = 0
+        # sampling-key parity with the prefill path: the row consuming the
+        # last prompt token samples the first generation at the request's
+        # CURRENT key_step; the dispatch keys a span at key_step + len - 1
+        req.key_step -= n_prompt - hit - 1
+        req.last_token = req.prompt[hit]
+        # the hash chain restarts from the hit prefix and grows per row
+        req.seq = TokenBlockSequence(self.cfg.kv_block_size,
+                                     req.prompt[:hit])
+        req.registered_blocks = n_already
+        self.slots[slot] = req
+        self._block_tables[slot, :] = 0
+        self._block_tables[slot, :len(req.blocks)] = req.blocks
+        logger.debug("lane-admitted %s into slot %d (prompt=%d, hit=%d)",
+                     req.rid, slot, n_prompt, hit)
+
+    # --------------------------------------------------------------- ragged
+    def _ragged_step(self) -> None:
+        """One ragged dispatch: grow blocks, pack every slot's pending work
+        (mid-prompt lanes up to ragged_max_seq_rows prompt rows, decoding
+        slots one row) into one batch, run it, harvest."""
+        pending = self._ragged_dispatch_fresh()
+        if pending is not None:
+            self._harvest_ragged(pending)
+
+    def _ragged_dispatch_fresh(self) -> Optional[dict]:
+        """Grow, pack and run one host-fed ragged dispatch. Block growth
+        runs BEFORE packing at each slot's largest possible span (the
+        packer only ever shrinks a span; over-grown blocks stay owned by
+        their request); a slot that cannot grow preempts or finishes as the
+        split path would. Returns the un-harvested dispatch, or None."""
+        cfg = self.cfg
+        Lmax = cfg.ragged_max_seq_rows
+        capacity = self.M * cfg.kv_block_size
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            in_prompt = (s.lane_prompt is not None
+                         and s.pos < len(s.lane_prompt))
+            want = min(len(s.lane_prompt) - s.pos, Lmax) if in_prompt else 1
+            if s.pos + want + 1 > capacity:
+                self._release_slot(s)
+                self._finish_request(s, FinishReason.LENGTH)
+                continue
+            need = self._blocks_needed(s.pos + want + 1)
+            if need > len(s.blocks):
+                new = self.kv_manager.pool.alloc_uninit(need - len(s.blocks))
+                if new is None:
+                    self._preempt_or_finish(s)
+                    continue
+                s.blocks.extend(new)
+                self._block_tables[i, :len(s.blocks)] = s.blocks
+        decode_rows = []
+        prefill_lanes = []
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            if s.lane_prompt is not None and s.pos < len(s.lane_prompt):
+                prefill_lanes.append(
+                    (i, s.lane_prompt[s.pos:s.pos + Lmax], s.pos))
+            else:
+                decode_rows.append((i, s.last_token, s.pos))
+        batch = build_ragged_batch(cfg.ragged_max_tokens, self.B,
+                                   decode_rows, prefill_lanes, Lmax)
+        if batch is None:
+            return None
+        return self._ragged_dispatch(batch)
+
+    def _ragged_dispatch(self, batch: RaggedBatch) -> dict:
+        """Run one ragged dispatch over ``batch`` and sample one token per
+        slot (the trash sequence is slot B). A span that ends in a sample
+        keys it at ``key_step + len - 1`` — the key the split path uses
+        there, by the lane admission's offset (== key_step for a decode
+        row). Spans that end mid-prompt, and the trash slot, sample
+        greedily and are discarded. PyTorch runs eagerly, so the dispatch
+        carries only the used rows (the dead rows of the batch's capacity
+        would attend nothing). Returns the un-harvested dispatch."""
+        n = batch.rows_used
+        tables = np.zeros((self.B + 1, self.M), np.int32)
+        tables[:self.B] = self._block_tables
+        reqs: List[Optional[EngineRequest]] = [None] * (self.B + 1)
+        steps = [0] * (self.B + 1)
+        for sq in batch.seqs:
+            s = self.slots[sq.slot]
+            if (sq.mode == "prefill"
+                    and s.pos + sq.length < len(s.lane_prompt)):
+                continue
+            reqs[sq.slot] = s
+            steps[sq.slot] = s.key_step + sq.length - 1
+
+        def dev(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a).to(self.device)
+
+        with torch.inference_mode():
+            logits = llama.ragged_forward(
+                self.params, self.kv, dev(batch.tokens[:n].astype(np.int64)),
+                dev(batch.positions[:n]), dev(tables),
+                dev(batch.row_slot[:n]), dev(batch.seq_starts),
+                dev(batch.seq_counts), dev(batch.sample_rows),
+                self.model_cfg, self.cfg.kv_block_size,
+                self.cfg.ragged_max_seq_rows)
+            toks, logprobs = self._sample(logits, reqs, steps)
+        self.ragged_dispatches += 1
+        self.ragged_rows_total += n
+        self.ragged_prefill_rows_total += batch.prefill_rows
+        self.ragged_decode_rows_total += n - batch.prefill_rows
+        if batch.mixed:
+            self.ragged_mixed_dispatches += 1
+        self.ragged_dispatches_saved += batch.dispatches_replaced - 1
+        return {"batch": batch, "toks": toks, "logprobs": logprobs}
+
+    def _harvest_ragged(self, pending: dict) -> None:
+        """Apply one ragged dispatch: per span, the consumed prompt rows'
+        bookkeeping (hash chain, registration, pos/key_step) and, when the
+        span ends in a sample (a decode row, or the row consuming the LAST
+        prompt token), the emission and finish checks of one decode
+        step."""
+        toks, logprobs = pending["toks"], pending["logprobs"]
+        for sq in pending["batch"].seqs:
+            i = sq.slot
+            req = self.slots[i]
+            if req.cancelled:
+                self._release_slot(req)
+                self._finish_request(req, FinishReason.CANCELLED)
+                continue
+            if sq.mode == "prefill":
+                for _ in range(sq.length):
+                    req.seq.append(req.lane_prompt[req.pos])
+                    req.registered_blocks = \
+                        self.kv_manager.register_full_blocks(
+                            req.blocks, req.seq, req.registered_blocks)
+                    req.pos += 1
+                    req.key_step += 1
+                self.total_prefill_tokens += sq.length
+                if req.pos < len(req.lane_prompt):
+                    continue               # still mid-prompt: no sample
+                req.lane_prompt = None     # plain decode from here on
+            else:
+                req.seq.append(int(req.last_token))
+                req.registered_blocks = self.kv_manager.register_full_blocks(
+                    req.blocks, req.seq, req.registered_blocks)
+                req.pos += 1
+                req.key_step += 1
+                self.total_decode_tokens += 1
+            tok = int(toks[i])
+            req.generated += 1
+            req.last_token = tok
+            self._emit(req, tok, float(logprobs[i]))
+            self._maybe_finish_after_emit(req)
 
     # --------------------------------------------------------------- decode
     def _decode_step(self) -> None:
@@ -481,7 +685,9 @@ class EngineCore:
         LENGTH."""
         others = any(s is not None and s is not req for s in self.slots)
         budget_left = req.max_new_tokens - req.generated
-        emitted_len = (0 if req.seq is None
+        in_prompt = (req.lane_prompt is not None
+                     and req.pos < len(req.lane_prompt))
+        emitted_len = (0 if in_prompt or req.seq is None
                        else len(req.seq.tokens) - len(req.prompt))
         new_len = len(req.prompt) + emitted_len + 1
         bs = self.cfg.kv_block_size
@@ -494,10 +700,18 @@ class EngineCore:
         self.preemptions += 1
         logger.info("preempting %s after %d tokens (KV exhausted; "
                     "recompute on re-admission)", req.rid, req.generated)
-        req.numeric_boundaries.append(req.emitted_total)
-        emitted = req.seq.tokens[len(req.prompt):] if req.seq else []
-        self._release_slot(req)
-        req.prompt = list(req.prompt) + list(emitted) + [req.last_token]
+        if in_prompt:
+            # a lane preempted mid-prompt emitted nothing: it re-queues with
+            # its prompt unchanged (no recompute boundary: no sampled token
+            # depended on re-derived state) and its key offset undone
+            self._release_slot(req)
+            req.key_step += len(req.lane_prompt) - req.pos - 1
+        else:
+            req.numeric_boundaries.append(req.emitted_total)
+            emitted = req.seq.tokens[len(req.prompt):] if req.seq else []
+            self._release_slot(req)
+            req.prompt = list(req.prompt) + list(emitted) + [req.last_token]
+        req.lane_prompt = None
         req.max_new_tokens = budget_left
         req.seq = None               # admission rebuilds the hash chain
         req.slot = -1

@@ -8,7 +8,8 @@ sources and flags, so an edited source rebuilds and a stale library is
 never loaded.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-output with ``torch.empty``, launches on PyTorch's current stream, raises
+output (``torch.empty``, or ``torch.zeros`` where the kernel writes only
+some rows), launches on PyTorch's current stream, raises
 when the C entry point returns a CUDA error, and counts its launches in
 ``Kernel.launches``. Nothing here runs on import: the CPU tests import
 every module of the package.
@@ -33,7 +34,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "dynamo_tpu_torch")
 SOURCES = ("flash_prefill.cu", "paged_attention.cu", "lm_head_int8.cu",
-           "grouped_int4_matmul.cu")
+           "grouped_int4_matmul.cu", "ragged_paged_attention.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -109,6 +110,12 @@ class _Library:
                     fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                    ci, ci, cf, vp]
                     fn.restype = ci
+                for name in ("dtt_ragged_paged_attention_bf16",
+                             "dtt_ragged_paged_attention_int8"):
+                    fn = getattr(lib, name)
+                    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                   ci, ci, ci, ci, ci, ci, cf, vp]
+                    fn.restype = ci
                 lib.dtt_lm_head_int8.argtypes = [vp, vp, vp, vp, ci, ci, ci,
                                                  vp]
                 lib.dtt_lm_head_int8.restype = ci
@@ -144,9 +151,14 @@ PAGED_ATTENTION_INT8 = Kernel("paged_attention_int8",
                               "dtt_paged_attention_int8")
 LM_HEAD_INT8 = Kernel("lm_head_int8", "dtt_lm_head_int8")
 GROUPED_INT4_MATMUL = Kernel("grouped_int4_matmul", "dtt_grouped_int4_matmul")
+RAGGED_PAGED_ATTENTION = Kernel("ragged_paged_attention",
+                                "dtt_ragged_paged_attention_bf16")
+RAGGED_PAGED_ATTENTION_INT8 = Kernel("ragged_paged_attention_int8",
+                                     "dtt_ragged_paged_attention_int8")
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     FLASH_PREFILL, PAGED_ATTENTION, PAGED_ATTENTION_INT8, LM_HEAD_INT8,
-    GROUPED_INT4_MATMUL)}
+    GROUPED_INT4_MATMUL, RAGGED_PAGED_ATTENTION,
+    RAGGED_PAGED_ATTENTION_INT8)}
 
 
 def reset_launch_counts() -> None:
@@ -190,26 +202,41 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def _paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
-           q, k_cache, v_cache, block_tables, seq_lens, block_size: int,
-           scale: float) -> torch.Tensor:
+def _check_paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
+                 q, k_cache, v_cache, block_tables, seq_lens,
+                 block_size: int) -> tuple:
+    """The checks shared by K3 and K4: q [N, H, Dh] bf16, one layer's pool
+    [NTOK, KVH*Dh + scale_lanes] of ``pool_dtype``, tables [S, M] and
+    seq_lens [S] int32. Returns (H, KVH, Dh)."""
     _check(q, "q", torch.bfloat16, 3)
     _check(k_cache, "k_cache", pool_dtype, 2)
     _check(v_cache, "v_cache", pool_dtype, 2)
     _check(block_tables, "block_tables", torch.int32, 2)
     _check(seq_lens, "seq_lens", torch.int32, 1)
-    B, H, Dh = q.shape
+    _, H, Dh = q.shape
     NTOK, lanes = k_cache.shape
     C = lanes - scale_lanes
     KVH = C // Dh
-    if (v_cache.shape != k_cache.shape or C % Dh or H % KVH
+    if (v_cache.shape != k_cache.shape or C % Dh or KVH == 0 or H % KVH
             or Dh not in (64, 128) or H // KVH not in (1, 2, 4, 8)
-            or block_tables.shape[0] != B or seq_lens.shape[0] != B
+            or seq_lens.shape[0] != block_tables.shape[0]
             or NTOK % block_size):
         raise ValueError(
             f"{kernel.name}: unsupported shapes q={tuple(q.shape)} "
             f"pool={tuple(k_cache.shape)} tables={tuple(block_tables.shape)} "
             f"seq_lens={tuple(seq_lens.shape)} block_size={block_size}")
+    return H, KVH, Dh
+
+
+def _paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
+           q, k_cache, v_cache, block_tables, seq_lens, block_size: int,
+           scale: float) -> torch.Tensor:
+    H, KVH, Dh = _check_paged(kernel, pool_dtype, scale_lanes, q, k_cache,
+                              v_cache, block_tables, seq_lens, block_size)
+    B = q.shape[0]
+    if block_tables.shape[0] != B:
+        raise ValueError(f"{kernel.name}: {block_tables.shape[0]} tables for "
+                         f"{B} query rows")
     out = torch.empty_like(q)
     M = block_tables.shape[1]
     kernel.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -239,6 +266,61 @@ def paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     csrc/paged_attention.cu)."""
     return _paged(PAGED_ATTENTION_INT8, torch.int8, KV_SCALE_LANES, q,
                   k_cache, v_cache, block_tables, seq_lens, block_size, scale)
+
+
+def _ragged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
+            q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
+            seq_lens, block_size: int, scale: float,
+            max_rows: int) -> torch.Tensor:
+    H, KVH, Dh = _check_paged(kernel, pool_dtype, scale_lanes, q, k_cache,
+                              v_cache, block_tables, seq_lens, block_size)
+    _check(seq_starts, "seq_starts", torch.int32, 1)
+    _check(seq_counts, "seq_counts", torch.int32, 1)
+    TT = q.shape[0]
+    S, M = block_tables.shape
+    if seq_starts.shape[0] != S or seq_counts.shape[0] != S:
+        raise ValueError(f"{kernel.name}: starts {tuple(seq_starts.shape)} "
+                         f"and counts {tuple(seq_counts.shape)} for {S} "
+                         f"sequences")
+    # only owned rows are written: the rest read as zeros
+    out = torch.zeros_like(q)
+    kernel.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                  block_tables.data_ptr(), seq_starts.data_ptr(),
+                  seq_counts.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+                  TT, S, H, KVH, Dh, M, min(int(max_rows), TT),
+                  int(block_size), float(scale), _stream(q))
+    return out
+
+
+def ragged_paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                seq_starts: torch.Tensor,
+                                seq_counts: torch.Tensor,
+                                seq_lens: torch.Tensor, *, block_size: int,
+                                scale: float, max_rows: int) -> torch.Tensor:
+    """q [TT, H, Dh] bf16 flat rows; one layer's pool [NTOK, KVH*Dh] bf16;
+    tables [S, M], starts/counts/seq_lens [S] int32 → [TT, H, Dh], rows no
+    sequence owns zero (csrc/ragged_paged_attention.cu)."""
+    return _ragged(RAGGED_PAGED_ATTENTION, torch.bfloat16, 0, q, k_cache,
+                   v_cache, block_tables, seq_starts, seq_counts, seq_lens,
+                   block_size, scale, max_rows)
+
+
+def ragged_paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                                     v_cache: torch.Tensor,
+                                     block_tables: torch.Tensor,
+                                     seq_starts: torch.Tensor,
+                                     seq_counts: torch.Tensor,
+                                     seq_lens: torch.Tensor, *,
+                                     block_size: int, scale: float,
+                                     max_rows: int) -> torch.Tensor:
+    """As ``ragged_paged_attention_cuda`` over an int8 pool [NTOK, KVH*Dh +
+    128] with in-row scales (the int8 entry point of
+    csrc/ragged_paged_attention.cu)."""
+    return _ragged(RAGGED_PAGED_ATTENTION_INT8, torch.int8, KV_SCALE_LANES, q,
+                   k_cache, v_cache, block_tables, seq_starts, seq_counts,
+                   seq_lens, block_size, scale, max_rows)
 
 
 def lm_head_int8_cuda(x: torch.Tensor, q: torch.Tensor,

@@ -28,9 +28,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..attention import (KV_SCALE_LANES, dequant_kv_rows, flash_prefill,
-                         flat_token_indices, kv_value_lanes, paged_attention,
-                         quantize_kv_rows, softcap_scores)
+from ..attention import (KV_SCALE_LANES, RAGGED_WIN_SENTINEL,
+                         dequant_kv_rows, flash_prefill, flat_token_indices,
+                         kv_value_lanes, paged_attention, quantize_kv_rows,
+                         ragged_paged_attention, softcap_scores)
 from ..config import ModelConfig
 from ..lm_head import lm_head_int8
 from ..quant import QuantizedTensor, mm
@@ -233,7 +234,7 @@ def _run_layers(params: Params, kv: KVCache, x: torch.Tensor,
                 cfg: ModelConfig, attn_fn) -> torch.Tensor:
     """The transformer stack: per layer qkv projection, rope, the in-place
     KV write at ``slots``, ``attn_fn(q, li, sliding)`` (the one thing the
-    prefill and decode paths differ in), wo residual, MLP. Returns the
+    prefill, decode and ragged paths differ in), wo residual, MLP. Returns the
     final-normed hidden states."""
     N = x.shape[0]
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -357,3 +358,55 @@ def decode_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
     x = _embed(params, tokens, cfg)
     x = _run_layers(params, kv, x, positions, slots, cfg, attn)
     return _logits(params, x, cfg)
+
+
+def ragged_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
+                   positions: torch.Tensor, block_tables: torch.Tensor,
+                   row_slot: torch.Tensor, seq_starts: torch.Tensor,
+                   seq_counts: torch.Tensor, sample_rows: torch.Tensor,
+                   cfg: ModelConfig, block_size: int,
+                   max_rows: int) -> torch.Tensor:
+    """Ragged mixed prefill+decode step: one forward pass serves prefill
+    chunks and decode rows together (engine/ragged.py packs them).
+
+    tokens/positions: [TT] flat token rows; block_tables: [S, M] int32
+    whose LAST row is all zeros (the trash sequence dead rows aim at);
+    row_slot: [TT] row → sequence; seq_starts/seq_counts: [S] int32 each
+    sequence's contiguous row span, ascending starts (a decode step is a
+    span of 1); sample_rows: [S] the row whose hidden state each
+    sequence's logits come from (its last row; inactive sequences point
+    at row 0 and their sample is discarded). Writes every row's KV in
+    place at (its sequence's table, its position), then attends with
+    ``ragged_paged_attention`` in every layer. Returns logits [S, V]
+    f32."""
+    TT = tokens.shape[0]
+    dev = tokens.device
+    scale = _attn_scale(cfg)
+    pos = positions.long()
+    row_tables = block_tables[row_slot.long()]                    # [TT, M]
+    slots = (row_tables.long()[torch.arange(TT, device=dev), pos // block_size]
+             * block_size + pos % block_size)
+    # each sequence's kv length after this dispatch and its first row's
+    # position (a count-0 sequence reads 0; its start may lie past the rows)
+    last_rows = torch.clamp(seq_starts.long()
+                            + torch.clamp(seq_counts.long() - 1, min=0),
+                            max=TT - 1)
+    seq_ctx = torch.where(seq_counts > 0, positions[last_rows] + 1,
+                          torch.zeros_like(seq_counts)).to(torch.int32)
+    pos0 = seq_ctx - seq_counts
+
+    def attn(q, li, sliding):
+        win_base = None
+        if cfg.sliding_window is not None and sliding:
+            win_base = torch.where(
+                seq_counts > 0, pos0 - cfg.sliding_window,
+                torch.full_like(pos0, RAGGED_WIN_SENTINEL))
+        return ragged_paged_attention(
+            q, kv["k"][li], kv["v"][li], block_tables, seq_starts,
+            seq_counts, seq_ctx, block_size=block_size, scale=scale,
+            max_rows=max_rows, softcap=cfg.attn_logit_softcap or None,
+            win_base=win_base)
+
+    x = _embed(params, tokens, cfg)
+    x = _run_layers(params, kv, x, positions, slots, cfg, attn)
+    return _logits(params, x[sample_rows.long()], cfg)

@@ -1,6 +1,7 @@
 """The launcher: ``python -m dynamo_tpu_torch.launch.run in=http out=torch
 --model-path DIR [--random-weights] [--http-port N] [--device cuda|cpu]
-[--quantization int8|int4|...] [--kv-quantization int8]``.
+[--quantization int8|int4|...] [--kv-quantization int8] [--ragged
+[--ragged-max-tokens N] [--ragged-max-seq-rows N]]``.
 
 Counterpart of ``dynamo_tpu.launch.run`` for its main path: an OpenAI
 completions server over the canonical pipeline link preprocessor →
@@ -54,6 +55,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-quantization", default="none",
                    choices=list(KV_QUANTIZATIONS),
                    help="int8 KV pool with per-token in-row scales")
+    p.add_argument("--ragged", action="store_true",
+                   help="unified ragged dispatch (engine/ragged.py): ONE "
+                        "forward pass serves mixed prefill+decode batches "
+                        "— admissions ride the batch as prefill lanes, "
+                        "continuous batching becomes the only serving "
+                        "code path")
+    p.add_argument("--ragged-max-tokens", type=int, default=0,
+                   help="token capacity of one ragged dispatch (0 = "
+                        "auto: max_num_seqs + 2*ragged-max-seq-rows)")
+    p.add_argument("--ragged-max-seq-rows", type=int, default=64,
+                   help="per-sequence row budget per ragged dispatch "
+                        "(longer prompts stream across dispatches)")
     p.add_argument("--random-weights", action="store_true",
                    help="random weights from EngineConfig.seed (checkpoint "
                         "loading is not implemented yet)")
@@ -97,7 +110,10 @@ def build_core(args):
                             max_num_seqs=args.max_num_seqs,
                             enable_prefix_reuse=not args.no_prefix_reuse,
                             quantization=args.quantization,
-                            kv_quantization=args.kv_quantization)
+                            kv_quantization=args.kv_quantization,
+                            ragged_dispatch=args.ragged,
+                            ragged_max_tokens=args.ragged_max_tokens,
+                            ragged_max_seq_rows=args.ragged_max_seq_rows)
     except ValueError as e:
         raise SystemExit(str(e))
     model_cfg = ModelConfig.from_model_dir(args.model_path)

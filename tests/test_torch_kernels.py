@@ -8,8 +8,8 @@ head, or one row of a matmul) is taken against its own scale: max
 |kernel - plain| over the row over the RMS of the plain row, at most
 ROW_REL_TOL (a few bf16 ulps of the row's largest values; the int8 head's
 f32 logits differ by summation order alone). Each case plants a fault
-that must exceed it: attention leaves out keys or reads a wrong block or
-scale, the int8 head leaves out one 256-column strip, the grouped-int4
+that must exceed it: attention leaves out keys, reads a wrong block or
+scale, or (ragged) shifts its causal mask by one, the int8 head leaves out one 256-column strip, the grouped-int4
 matmul reads the last group's scales as the first group's.
 """
 
@@ -184,8 +184,95 @@ def test_grouped_int4_kernel_matches_plain(N, D, F):
     bad = w.scale.clone()
     bad[-1] = bad[0]
     fault = kernels.grouped_int4_matmul_cuda(x, w.q, bad)
+    again = kernels.grouped_int4_matmul_cuda(x, w.q, w.scale)
     torch.cuda.synchronize()
-    assert kernels.GROUPED_INT4_MATMUL.launches == n0 + 2
+    assert kernels.GROUPED_INT4_MATMUL.launches == n0 + 3
+    # the same bits every run (a seeded sampled stream must repeat)
+    assert torch.equal(out, again)
     assert out.dtype == torch.bfloat16 and out.shape == (N, F)
     assert _row_rel_err(out, ref, slice(0, N)) <= ROW_REL_TOL
     assert _row_rel_err(fault, ref, slice(0, N)) > ROW_REL_TOL
+
+
+def _ragged_inputs(gen, dev, int8: bool, H=32, KVH=8, Dh=128):
+    """A ragged mix (default: the 8B head shapes): a 40-row chunk
+    continuing a 100-token context (two KV tiles), a fresh 20-row chunk,
+    decode rows at 1 and 128 keys, a zero-count slot, the trash sequence;
+    three rows past the spans that no sequence owns."""
+    bs, M = 16, 8
+    spans = [(40, 100), (20, 20), (1, 1), (1, 128), (0, 0), (0, 0)]
+    S = len(spans)
+    starts, counts, ctx, cursor = [], [], [], 0
+    for n, c in spans:
+        starts.append(cursor)
+        counts.append(n)
+        ctx.append(c)
+        cursor += n
+    pool = (S * M + 1) * bs
+    if int8:
+        k, v = _int8_pool(pool, KVH * Dh, gen, dev), _int8_pool(
+            pool, KVH * Dh, gen, dev)
+    else:
+        k, v = (torch.randn((pool, KVH * Dh), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+    tables = (torch.randperm(S * M, generator=gen, device=dev) + 1).reshape(
+        S, M).to(torch.int32)
+    tables[-1] = 0                                  # the trash sequence
+    q = torch.randn((cursor + 3, H, Dh), generator=gen, device=dev).bfloat16()
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    return q, k, v, tables, i32(starts), i32(counts), i32(ctx), bs, Dh
+
+
+# (H, KVH, Dh): the 8B heads (g = 4, 16 rows per CTA), then g = 1 (64 rows
+# per CTA) and g = 8 (8 rows per CTA) at the other compiled head dim
+RAGGED_GEOMS = [(32, 8, 128), (8, 8, 64), (16, 2, 64)]
+
+
+@pytest.mark.parametrize("geom", RAGGED_GEOMS,
+                         ids=lambda p: "h{}-kvh{}-dh{}".format(*p))
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_paged_attention_kernel_matches_plain(int8, geom):
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, tables, starts, counts, ctx, bs, Dh = _ragged_inputs(
+        g, dev, int8, *geom)
+    kernel = (kernels.RAGGED_PAGED_ATTENTION_INT8 if int8
+              else kernels.RAGGED_PAGED_ATTENTION)
+    fn = (kernels.ragged_paged_attention_int8_cuda if int8
+          else kernels.ragged_paged_attention_cuda)
+    kw = dict(block_size=bs, scale=Dh ** -0.5, max_rows=64)
+    n0 = kernel.launches
+    out = attention.ragged_paged_attention(q, k, v, tables, starts, counts,
+                                           ctx, **kw)
+    ref = attention.ragged_paged_attention_ref(q, k, v, tables, starts,
+                                               counts, ctx, **kw)
+    # planted fault: an off-by-one causal mask — each chunk's rows sit one
+    # position early, so each misses its own key
+    fault = fn(q, k, v, tables, starts, counts,
+               torch.where(counts > 1, ctx - 1, ctx), **kw)
+    again = fn(q, k, v, tables, starts, counts, ctx, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 3
+    assert torch.equal(out, again)
+    assert torch.isfinite(out).all()
+    owned = torch.zeros(q.shape[0], dtype=torch.bool, device=dev)
+    for st, n in zip(starts.tolist(), counts.tolist()):
+        owned[st:st + n] = True
+    assert out[~owned].abs().max().item() == 0.0
+    assert _row_rel_err(out, ref, owned) <= ROW_REL_TOL
+    assert _row_rel_err(fault, ref, owned) > ROW_REL_TOL
+
+
+def test_ragged_kernel_refuses_unsupported_options():
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, tables, starts, counts, ctx, bs, Dh = _ragged_inputs(g, dev,
+                                                                  False)
+    with pytest.raises(NotImplementedError):
+        attention.ragged_paged_attention(q, k, v, tables, starts, counts, ctx,
+                                         block_size=bs, scale=0.1,
+                                         max_rows=64, softcap=5.0)
+    with pytest.raises(ValueError):
+        attention.ragged_paged_attention(q, k, v, tables, starts,
+                                         counts[:-1], ctx, block_size=bs,
+                                         scale=0.1, max_rows=64)

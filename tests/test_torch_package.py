@@ -79,6 +79,7 @@ def test_package_imports_no_jax_nor_missing_packages():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "dynamo_tpu_torch.launch.run" in res["modules"]
     assert "dynamo_tpu_torch.engine.kernels" in res["modules"]
+    assert "dynamo_tpu_torch.engine.ragged" in res["modules"]
     assert res["usage"]["completion_tokens"] == 3
     bad = [m for m in res["loaded"]
            if m.split(".")[0] in FORBIDDEN]
@@ -117,10 +118,16 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         EngineCore(cfg, EngineConfig(max_model_len=64, num_kv_blocks=8))
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineCore(cfg, EngineConfig(max_model_len=64, num_kv_blocks=8,
+                                     ragged_dispatch=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg, 0)
     args = launcher.build_parser().parse_args(
         ["--model-path", "unused", "--random-weights"])
     assert args.device == "cuda"
+    args = launcher.build_parser().parse_args(
+        ["--model-path", "unused", "--random-weights", "--ragged"])
+    assert args.device == "cuda" and args.ragged
     # a field of a path the port does not implement is not a field
     with pytest.raises(TypeError):
         EngineConfig(spec_k=2)

@@ -8,7 +8,7 @@ standard-library HTTP server, with the committed SentencePiece fixture
 usage); its greedy tokens equal the JAX ``JaxEngine``'s on the same
 weights and prompt; unknown models give 404 and malformed JSON 400; and
 the launcher module starts and answers one request, also with int4
-weights over an int8 KV pool.
+weights over an int8 KV pool and with ragged dispatch.
 """
 
 import asyncio
@@ -272,6 +272,11 @@ def _launch_and_request(model_dir, *extra):
 
 def test_launcher_serves_one_request(model_dir):
     _launch_and_request(model_dir)
+
+
+def test_launcher_serves_ragged_request(model_dir):
+    # every admission and decode step through the ragged dispatch
+    _launch_and_request(model_dir, "--ragged", "--ragged-max-seq-rows", "8")
 
 
 def test_launcher_serves_quantized_request(model_dir):
