@@ -14,9 +14,11 @@ Phases, each failing the run (non-zero exit, no result line) on error:
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at the Llama-3-8B shapes, with planted faults that the limit must
    reject, and time kernel, plain version, one PyTorch call as the library
-   yardstick, and the card's bound for the same work (K1, K3 bf16 and
-   int8, K5, K6, K4 bf16 and int8 on a ragged mix of prefill chunks and
-   decode rows);
+   yardstick, and the card's bound for the same work (K1, K2 on five ring
+   hops with its m and l held to limits of their own, K3 bf16 and int8,
+   K5, K6, K4 bf16 and int8 on a ragged mix of prefill chunks and decode
+   rows); then the ring over 2 and 4 shards on the one card against K1
+   over the whole sequence, with a dropped hop planted;
 4. model: the 8B geometry (random weights from a seed, on the card) runs
    one prefill and 4 decode steps through the kernels and through the
    plain versions, in three modes: bf16, int4 weights over an int8 KV
@@ -27,7 +29,11 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    second mixes a decode row, a chunk continuing a prefix and a fresh
    chunk) through K4 and through the plain versions, with a planted K4
    fault, and one pure-decode ragged dispatch of 8 rows is profiled beside
-   the split decode step over the same rows;
+   the split decode step over the same rows. The bf16 weights also run the
+   sequence-parallel prefill (sp = 2 on the one card, 1900 of 2048 tokens)
+   through K2 against the whole-prompt prefill through K1, over a bf16 and
+   an int8 pool, with a dropped ring hop planted, and both prefills are
+   timed;
 5. serve: the port's HTTP server answers concurrent, streamed,
    prefix-cached and sampled ``/v1/completions`` at the 8B width in bf16,
    with the kernels' launch counts taken over this phase alone;
@@ -40,7 +46,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    dispatches mix prefill and decode rows, a seeded request gives the
    same text twice, and the ragged metrics are printed;
 5d. serve ragged quantized: phase 5b's requests with ``--ragged
-   --quantization int4 --kv-quantization int8``, checked as 5c.
+   --quantization int4 --kv-quantization int8``, checked as 5c;
+5e. serve sp: phase 5's requests on a server whose mesh places sp = 2
+   shards on the one card: the 700-, 1500- and 1900-token prompts prefill
+   through the ring (K2), the others through K1; a seeded request gives
+   the same text twice; each stream's TTFT/ITL is printed beside phase
+   5's, with the share of greedy tokens the two servers agree on.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -64,6 +75,7 @@ L2_FLUSH_BYTES = 256 << 20     # 5x the H100's 50 MB L2
 
 KV_BLOCK = 16
 MAX_MODEL_LEN = 2048
+SP_TRUE_LEN = 1900             # the sequence-parallel prompt, in a 2048 bucket
 
 
 def log(msg: str) -> None:
@@ -209,6 +221,219 @@ def check_flash_prefill(cfg, dev) -> dict:
             "replaces": "dynamo_tpu/engine/attention.py:220",
             "row_rel_tolerance": KERNEL_ROW_REL_TOL, **cases[0],
             "cases": cases}
+
+
+# K2 returns m and l besides the unnormalized acc, and the ring merges them
+# as numbers, so they get limits of their own over the rows that see a key:
+# |dm| (natural units) and |dl| / l. Kernel and plain version take the same
+# exact bf16 products summed in f32 and differ by summation order and the
+# kernel's base-2 detour (~1e-5). The planted faults: m returned in the
+# kernel's base-2 units (off by 0.44 m), and the last 64-key tile the rows
+# can see left out (l off by that tile's share of the row).
+PARTIAL_M_ATOL = 1e-3
+PARTIAL_L_RTOL = 1e-3
+LOG2E = 1.4426950408889634
+# K2's ring hops at the 8B shapes, Tl = Sl = 1024 (a 2048-token bucket over
+# sp = 2), as (hop, start_pos, seq_len): shard 0's and 1's own chunk, shard
+# 1 on shard 0's chunk, shard 0 on shard 1's chunk (dead: every key after
+# every query), a padded tail, and a chunk that some rows of one CTA see and
+# others do not
+PARTIAL_HOPS = [("diagonal", 0, 1024), ("past", 1024, 1024),
+                ("dead", -1024, 1024), ("tail", 0, 700),
+                ("straddle", -100, 1024)]
+
+
+def partial_errors(got, ref, seen) -> tuple:
+    """(row-relative error of acc / l, max |dm|, max |dl| / l) over the
+    (row, head) pairs ``seen`` that see a key."""
+    (acc, m, l), (racc, rm, rl) = got, ref
+    _, rel = row_errors(acc / l[..., None], racc / rl[..., None], seen)
+    return (rel, (m - rm)[seen].abs().max().item(),
+            ((l - rl).abs() / rl)[seen].max().item())
+
+
+def sdpa_with_lse(q, k, v, mask, scale):
+    """The library yardstick of K2: one PyTorch call that yields the
+    attention output and its log-sum-exp (m + log l),
+    ``aten._scaled_dot_product_efficient_attention`` with an additive mask
+    broadcast over the heads, over K/V expanded to every query head
+    beforehand."""
+    import torch
+    H, KVH = q.shape[1], k.shape[1]
+    q4 = q.transpose(0, 1)[None].contiguous()
+    k4, v4 = (x.repeat_interleave(H // KVH, dim=1).transpose(0, 1)[None]
+              .contiguous() for x in (k, v))
+    bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device)
+    bias.masked_fill_(~mask, float("-inf"))
+    bias = bias[None, None].expand(1, H, *mask.shape)
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        q4, k4, v4, bias, True, 0.0, False, scale=scale)
+
+
+def check_flash_prefill_partial(cfg, dev) -> dict:
+    """K2 on PARTIAL_HOPS at the 8B shapes: acc / l row-relative, |dm| and
+    |dl| / l against the plain version on the rows that see a key, exact
+    zeros and NEG_INF on the rows that do not, two planted faults."""
+    import torch
+    from dynamo_tpu_torch.engine.attention import (NEG_INF,
+                                                   flash_prefill_partial_ref)
+    from dynamo_tpu_torch.engine.kernels import flash_prefill_partial_cuda
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Tl = MAX_MODEL_LEN // 2
+    scale = Dh ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    q = torch.randn((Tl, H, Dh), generator=gen, device=dev).bfloat16()
+    k = torch.randn((Tl, KVH, Dh), generator=gen, device=dev).bfloat16()
+    v = torch.randn((Tl, KVH, Dh), generator=gen, device=dev).bfloat16()
+    cases = []
+    for hop, start, seq_len in PARTIAL_HOPS:
+        kw = dict(scale=scale, start_pos=start, seq_len=seq_len)
+        got = flash_prefill_partial_cuda(q, k, v, **kw)
+        ref = flash_prefill_partial_ref(q, k, v, **kw)
+        pos = start + torch.arange(Tl, device=dev)
+        seen = (pos >= 0)[:, None].expand(Tl, H)
+        keys = max(0, min(seq_len, start + Tl))     # the keys any row sees
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(x).all() for x in got):
+            raise RuntimeError(f"flash_prefill_partial {hop}: non-finite "
+                               f"output")
+        case = {"hop": hop, "start_pos": start, "seq_len": seq_len,
+                "live_rows": int(seen[:, 0].sum())}
+        dead = ~seen
+        if dead.any():
+            exact = bool((got[0][dead] == 0).all() and (got[2][dead] == 0).all()
+                         and (got[1][dead] == NEG_INF).all())
+            case["dead_rows_exact"] = exact
+            if not exact:
+                raise RuntimeError(f"flash_prefill_partial {hop}: a row that "
+                                   f"sees no key is not (0, NEG_INF, 0)")
+        if seen.any():
+            fault = flash_prefill_partial_cuda(
+                q, k, v, scale=scale, start_pos=start,
+                seq_len=keys - FAULT_KEYS)
+            rel, dm, dl = partial_errors(got, ref, seen)
+            _, base2_dm, _ = partial_errors(
+                (got[0], got[1] * LOG2E, got[2]), ref, seen)
+            tile_rel, _, tile_dl = partial_errors(fault, ref, seen)
+            del fault
+            case.update({
+                "max_abs_err": (got[0] - ref[0])[seen].abs().max().item(),
+                "max_row_rel_err": rel, "max_m_abs_err": dm,
+                "max_l_rel_err": dl, "fault_base2_m_abs_err": base2_dm,
+                "fault_last_tile_row_rel_err": tile_rel,
+                "fault_last_tile_l_rel_err": tile_dl})
+            check_limit(f"flash_prefill_partial {hop} (last tile)", rel,
+                        tile_rel)
+            if not (dm <= PARTIAL_M_ATOL and dl <= PARTIAL_L_RTOL):
+                raise RuntimeError(f"flash_prefill_partial {hop}: |dm| {dm} "
+                                   f"or |dl|/l {dl} over its limit")
+            if not (base2_dm > PARTIAL_M_ATOL and tile_dl > PARTIAL_L_RTOL):
+                raise RuntimeError(f"flash_prefill_partial {hop}: a planted "
+                                   f"fault passes the m/l limits ({base2_dm}, "
+                                   f"{tile_dl})")
+        else:
+            case["max_abs_err"] = (got[0] - ref[0]).abs().max().item()
+        del got, ref
+        case["ms"] = time_ms(lambda: flash_prefill_partial_cuda(q, k, v, **kw))
+        case["plain_ms"] = time_ms(lambda: flash_prefill_partial_ref(
+            q, k, v, **kw), iters=5)
+        mask = ((torch.arange(Tl, device=dev)[None, :] <= pos[:, None])
+                & (torch.arange(Tl, device=dev)[None, :] < seq_len))
+        case["library_ms"] = time_ms(sdpa_with_lse(q, k, v, mask, scale))
+        case["library"] = ("aten._scaled_dot_product_efficient_attention "
+                           "(compute_log_sumexp, additive mask)")
+        pairs = sum(max(0, min(start + t + 1, seq_len)) for t in range(Tl))
+        nbytes = (2.0 * case["live_rows"] * H * Dh + 2 * 2.0 * keys * KVH * Dh
+                  + 4.0 * Tl * H * Dh + 2 * 4.0 * Tl * H)
+        case["bound_ms"], case["bound_by"] = bound(nbytes,
+                                                   4.0 * H * Dh * pairs)
+        if hop == "diagonal":
+            # as a ring hop finds it after the layer's projections
+            case["cold_ms"] = time_ms(lambda: flash_prefill_partial_cuda(
+                q, k, v, **kw), cold=True)
+        log(f"flash_prefill_partial {json.dumps(case)}")
+        cases.append(case)
+    return {"name": "flash_prefill_partial", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/flash_prefill.cu",
+            "replaces": "dynamo_tpu/engine/attention.py:436",
+            "row_rel_tolerance": KERNEL_ROW_REL_TOL,
+            "m_abs_tolerance": PARTIAL_M_ATOL,
+            "l_rel_tolerance": PARTIAL_L_RTOL, **cases[0], "cases": cases}
+
+
+def ring_dropping_one_hop(n: int):
+    """``flash_prefill_partial`` with a planted fault for rings of n
+    shards: in every ring, shard 1's partial at hop 1 (shard 0's chunk,
+    all in its past) comes back as a dead hop."""
+    import torch
+    from dynamo_tpu_torch.engine.attention import (NEG_INF,
+                                                   flash_prefill_partial)
+    calls = [0]
+
+    def fn(q, k, v, **kw):
+        i = calls[0] % (n * n)       # calls run hop-major: s * n + r
+        calls[0] += 1
+        acc, m, l = flash_prefill_partial(q, k, v, **kw)
+        if i == n + 1:
+            return (torch.zeros_like(acc), torch.full_like(m, NEG_INF),
+                    torch.zeros_like(l))
+        return acc, m, l
+    return fn
+
+
+def check_ring(cfg, dev) -> dict:
+    """The ring over sp = 2 and 4 shards of a 2048-token sequence on the
+    one card, kv_len 1900, against K1 over the whole sequence; a planted
+    fault drops one hop's partial."""
+    import torch
+    from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.engine.kernels import flash_prefill_cuda
+    from dynamo_tpu_torch.parallel import ring_attention as ring_mod
+    from dynamo_tpu_torch.parallel.sharding import make_mesh
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    T, kv_len = MAX_MODEL_LEN, SP_TRUE_LEN
+    scale = Dh ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    q = torch.randn((T, H, Dh), generator=gen, device=dev).bfloat16()
+    k = torch.randn((T, KVH, Dh), generator=gen, device=dev).bfloat16()
+    v = torch.randn((T, KVH, Dh), generator=gen, device=dev).bfloat16()
+    ref = flash_prefill_cuda(q, k, v, scale=scale, start_pos=0,
+                             seq_len=kv_len)
+    k1_ms = time_ms(lambda: flash_prefill_cuda(q, k, v, scale=scale,
+                                               start_pos=0, seq_len=kv_len))
+    res = {"T": T, "kv_len": kv_len, "k1_ms": k1_ms}
+    for sp in (2, 4):
+        mesh = make_mesh(sp=sp, devices=[dev] * sp)
+        shards = [x.chunk(sp) for x in (q, k, v)]
+
+        def ring():
+            return torch.cat(ring_mod.ring_attention(
+                *shards, mesh, scale=scale, kv_len=kv_len))
+        n0 = kernels.FLASH_PREFILL_PARTIAL.launches
+        out = ring()
+        launches = kernels.FLASH_PREFILL_PARTIAL.launches - n0
+        with swapped((ring_mod, "flash_prefill_partial",
+                      ring_dropping_one_hop(sp))):
+            fault = ring()
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"ring sp={sp}: non-finite output")
+        err, rel = row_errors(out, ref, slice(0, kv_len))
+        _, fault_rel = row_errors(fault, ref, slice(0, kv_len))
+        case = {"sp": sp, "distinct_cards": len(mesh.distinct_devices),
+                "k2_launches": launches, "max_abs_err": err,
+                "max_row_rel_err": rel, "fault_dropped_hop_row_rel_err":
+                    fault_rel, "ms": time_ms(ring)}
+        log(f"ring {json.dumps(case)} [vs K1 over the whole sequence, "
+            f"{k1_ms} ms]")
+        check_limit(f"ring sp={sp} (dropped hop)", rel, fault_rel)
+        if launches != sp * sp:
+            raise RuntimeError(f"ring sp={sp}: {launches} K2 launches, "
+                               f"expected {sp * sp}")
+        res[f"sp{sp}"] = case
+    return res
 
 
 def check_limit(what: str, rel: float, fault_rel: float) -> None:
@@ -877,6 +1102,128 @@ def check_ragged_model(params, cfg, dev, seed: int, mode: str,
     return res
 
 
+# phase 4's sequence-parallel prefill: the pool rows the prompt wrote, as
+# max |sp - whole-prompt| over max |whole-prompt| per side (k, v), the
+# int8 pool's rows dequantized first. The rows of layer 0 are equal (same
+# projections of the same embeddings); later layers inherit the attention
+# rounding differences of the layers before, as the logits do.
+SP_POOL_REL_TOL = 5e-2
+# the ring-hop fault (shard 1 loses shard 0's chunk in every layer) must
+# move the logits by more than this
+SP_FAULT_MIN_REL = 0.15
+
+
+def pool_rows(kv, rows, C: int):
+    """The pool's k and v rows ``rows`` of every layer in f32 (int8 rows
+    dequantized)."""
+    import torch
+    from dynamo_tpu_torch.engine.attention import dequant_kv_rows
+    out = []
+    for name in ("k", "v"):
+        r = kv[name][:, rows]
+        out.append(dequant_kv_rows(r, C, torch.float32)
+                   if r.dtype == torch.int8 else r.float())
+    return out
+
+
+def check_model_sp(params, cfg, dev, seed: int) -> dict:
+    """``prefill_forward_sp`` (sp = 2 on the one card, bucket 2048,
+    true_len 1900) through K2 against ``prefill_forward`` through K1, over
+    a bf16 pool and an int8 pool: logits, the prompt's pool rows, the K2
+    launch count (32 layers x sp^2 hops), a planted ring-hop fault; then
+    wall and device time of each prefill (bf16 pool)."""
+    import torch
+    from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.parallel import ring_attention as ring_mod
+    from dynamo_tpu_torch.parallel.sharding import make_mesh
+    sp, bs, M = 2, KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    T, true_len = MAX_MODEL_LEN, SP_TRUE_LEN
+    mesh = make_mesh(sp=sp, devices=[dev] * sp)
+    log(f"sp mesh: {sp} shards over {len(mesh.distinct_devices)} distinct "
+        f"card(s)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    tokens = torch.randint(3, cfg.vocab_size, (T,), generator=gen, device=dev)
+    table = torch.arange(1, M + 1, dtype=torch.int32, device=dev)
+    rows = torch.arange(bs, bs + true_len, device=dev)   # blocks 1.. hold it
+    C = cfg.num_kv_heads * cfg.head_dim
+    out = {}
+    for kv_quant in ("none", "int8"):
+        def run(use_sp: bool, kv=None):
+            if kv is None:
+                kv = llama.init_kv_cache(cfg, M + 1, bs, dev, torch.bfloat16,
+                                         quantization=kv_quant)
+            if use_sp:
+                logits = llama.prefill_forward_sp(params, kv, tokens, table,
+                                                  true_len, cfg, bs, mesh)
+            else:
+                logits = llama.prefill_forward(params, kv, tokens, table, 0,
+                                               true_len, cfg, bs)
+            return logits, kv
+
+        with torch.inference_mode():
+            ref, kv_ref = run(False)
+            kernels.reset_launch_counts()
+            got, kv_sp = run(True)
+            launches = {k: v.launches for k, v in kernels.KERNELS.items()
+                        if v.launches}
+            with swapped((ring_mod, "flash_prefill_partial",
+                          ring_dropping_one_hop(sp))):
+                fault, _ = run(True)
+            pool = [(a - b).abs().max().item() / b.abs().max().item()
+                    for a, b in zip(pool_rows(kv_sp, rows, C),
+                                    pool_rows(kv_ref, rows, C))]
+            del kv_ref, kv_sp
+            timing = {}
+            if kv_quant == "none":
+                # each prefill again over one pool (its writes repeat):
+                # wall time (mean of 3) and one profiled call
+                _, kv = run(False)
+                for name, use_sp in (("whole_prompt_k1", False),
+                                     ("sp_ring_k2", True)):
+                    run(use_sp, kv)
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    for _ in range(3):
+                        run(use_sp, kv)
+                    torch.cuda.synchronize()
+                    wall_ms = 1e3 * (time.monotonic() - t0) / 3
+                    prof = device_profile(lambda: run(use_sp, kv))
+                    timing[name] = {"wall_ms": wall_ms, **prof}
+                del kv
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
+            raise RuntimeError(f"model sp {kv_quant}: non-finite logits")
+        spread = ref.abs().max().item()
+        rel = (got - ref).abs().max().item() / spread
+        fault_rel = (fault - ref).abs().max().item() / spread
+        res = {"kv": kv_quant, "sp": sp, "bucket": T, "true_len": true_len,
+               "launches": launches, "max_abs_ref": spread, "rel_err": rel,
+               "argmax_equal": bool(got.argmax() == ref.argmax()),
+               "pool_rel_err_k_v": pool,
+               "planted_fault_dropped_hop_rel_err": fault_rel,
+               "prefill": timing}
+        log(f"model_sp {json.dumps(res)}")
+        want = {"flash_prefill_partial": cfg.num_layers * sp * sp}
+        if ({k: launches.get(k, 0) for k in want} != want
+                or launches.get("flash_prefill", 0)):
+            raise RuntimeError(f"model sp {kv_quant}: launches {launches}, "
+                               f"expected {want} and no K1")
+        if not rel <= MODEL_REL_TOL:
+            raise RuntimeError(f"model sp {kv_quant}: sp and whole-prompt "
+                               f"logits differ by {rel} > {MODEL_REL_TOL}")
+        if not max(pool) <= SP_POOL_REL_TOL:
+            raise RuntimeError(f"model sp {kv_quant}: pool rows differ by "
+                               f"{pool} > {SP_POOL_REL_TOL}")
+        if not fault_rel > SP_FAULT_MIN_REL:
+            raise RuntimeError(f"model sp {kv_quant}: the dropped-hop fault "
+                               f"({fault_rel}) does not move the logits by "
+                               f"more than {SP_FAULT_MIN_REL}")
+        out[kv_quant] = res
+    return out
+
+
 def profile_ragged_decode(params, kv, cfg, tables, B: int, dev) -> dict:
     """One pure-decode ragged dispatch of B rows (one per slot, each at
     position 300 of its own blocks) beside the split decode step over the
@@ -1095,6 +1442,9 @@ def check_model(cfg, dev, seed: int, mode: str) -> dict:
                             attention.ragged_paged_attention_ref))
         res["ragged"] = check_ragged_model(params, cfg, dev, seed, mode,
                                            plain_swaps)
+    if mode == "bf16":
+        # the same weights through the sequence-parallel prefill (K2)
+        res["sp"] = check_model_sp(params, cfg, dev, seed)
     del params
     torch.cuda.empty_cache()
     # every layer matmul of the 8B geometry passes the grouped kernel's
@@ -1217,7 +1567,10 @@ def check_stream(name: str, res: dict, max_tokens: int,
     return {"ttft_ms": 1e3 * t[0] if t else None,
             "itl_ms_mean": 1e3 * sum(itl) / len(itl) if itl else None,
             "itl_ms_max": 1e3 * max(itl) if itl else None,
-            "text_chunks": len(t), "latency_s": res["latency_s"]}
+            "text_chunks": len(t), "latency_s": res["latency_s"],
+            # each token's text, for comparing two servers (not printed)
+            "_texts": [c["choices"][0].get("text") for c in res["chunks"]
+                       if c.get("choices")]}
 
 
 def check_unary(name: str, res: dict, max_tokens: int) -> dict:
@@ -1239,19 +1592,23 @@ PATH_KERNELS = {
     "ragged": ("ragged_paged_attention",),
     "ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
                         "grouped_int4_matmul"),
+    "sp": ("flash_prefill_partial", "flash_prefill", "paged_attention"),
 }
+# the sequence-parallel server (5e): sp = 2 shards on the one card
+SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
 # serves with --ragged
 SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
                "ragged": ("bf16", True),
-               "ragged_int4_kv8": ("int4_kv8", True)}
+               "ragged_int4_kv8": ("int4_kv8", True), "sp": ("bf16", False)}
 # the split path's attention kernels: on a ragged path every admission and
 # decode step goes through K4, so these launch 0 times there
 SPLIT_ATTENTION = ("flash_prefill", "paged_attention", "paged_attention_int8")
 
 
-def serve_phase(cfg, seed: int, card: str, path: str) -> dict:
-    """Serve from a temporary model directory (8B config + tokenizer)."""
+def serve_phase(cfg, seed: int, card: str, path: str) -> tuple:
+    """Serve from a temporary model directory (8B config + tokenizer).
+    Returns (launch counts, per-request report)."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="dtt-8b-") as tmp:
         model_dir = os.path.join(tmp, "llama3-8b-random")
@@ -1259,7 +1616,7 @@ def serve_phase(cfg, seed: int, card: str, path: str) -> dict:
         return _serve(cfg, seed, card, model_dir, path)
 
 
-def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> dict:
+def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
     import asyncio
     import gc
     import threading
@@ -1267,7 +1624,9 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> dict:
     import torch
     from concurrent.futures import ThreadPoolExecutor
     from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.engine.models import llama
     from dynamo_tpu_torch.launch import run as launcher
+    from dynamo_tpu_torch.parallel.sharding import make_mesh
     mode, ragged = SERVE_PATHS[path]
     weights, kv_quant = MODEL_MODES[mode]
     args = launcher.build_parser().parse_args(
@@ -1281,9 +1640,25 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> dict:
            if ragged else []))
     launcher.parse_io(args.io)
     t0 = time.monotonic()
-    core = launcher.build_core(args)
+    mesh = None
+    if path == "sp":
+        mesh = make_mesh(sp=SERVE_SP, devices=["cuda:0"] * SERVE_SP)
+        log(f"serve sp: {SERVE_SP} shards over "
+            f"{len(mesh.distinct_devices)} distinct card(s)")
+    core = launcher.build_core(args, mesh=mesh)
     log(f"serve {path}: engine core built in {time.monotonic() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    # which prefill each admission took: (true_len, start_pos) per call
+    prefills = {"sp": [], "plain": []}
+    orig_sp, orig_plain = llama.prefill_forward_sp, llama.prefill_forward
+
+    def sp_prefill(*a, **kw):
+        prefills["sp"].append((a[4], 0))
+        return orig_sp(*a, **kw)
+
+    def plain_prefill(*a, **kw):
+        prefills["plain"].append((a[5], a[4]))
+        return orig_plain(*a, **kw)
     ready = threading.Event()
     loop = asyncio.new_event_loop()
     holder = {}
@@ -1321,7 +1696,11 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> dict:
     else:
         prompts = {"p700": mk(700), "p1900": mk(1900)}
     report = {}
+    stack = contextlib.ExitStack()
     try:
+        stack.enter_context(swapped((llama, "prefill_forward_sp", sp_prefill),
+                                    (llama, "prefill_forward",
+                                     plain_prefill)))
         kernels.reset_launch_counts()
         pool = core.kv_manager.pool
         # concurrent greedy streams of mixed prompt lengths
@@ -1372,7 +1751,10 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> dict:
                 "ragged_mixed_ratio": m.ragged_mixed_ratio,
                 "ragged_dispatches_saved_total":
                     m.ragged_dispatches_saved_total}
+        if path == "sp":
+            report["prefills"] = {k: sorted(v) for k, v in prefills.items()}
     finally:
+        stack.close()
         if "task" in holder:
             loop.call_soon_threadsafe(holder["task"].cancel)
         th.join(120)
@@ -1380,7 +1762,8 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> dict:
         raise RuntimeError("serve: server thread did not stop")
     loop.close()
     for k, v in report.items():
-        log(f"request {path} {k} {json.dumps(v)} [{card}]")
+        shown = {a: b for a, b in v.items() if not a.startswith("_")}
+        log(f"request {path} {k} {json.dumps(shown)} [{card}]")
     log(f"serve {path}: launches {json.dumps(launches)}")
     for k in PATH_KERNELS[path]:
         if launches[k] <= 0:
@@ -1394,10 +1777,50 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> dict:
         if report["ragged_metrics"]["mixed_dispatches"] <= 0:
             raise RuntimeError(f"serve {path}: no dispatch mixed prefill "
                                f"and decode rows")
+    if path == "sp":
+        check_sp_dispatch(cfg, prefills, launches)
     del core
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, report
+
+
+def check_sp_dispatch(cfg, prefills: dict, launches: dict) -> None:
+    """5e: the prompts of at least sp_min_prefill_tokens (512) with no
+    prefix hit took the ring (p700, p1500, p1900); p100, the 200-token SSE
+    prompt, the sampled text and the prefix-cached repeat took the
+    whole-prompt prefill; K2 launched 32 x sp^2 per ring prefill and K1 32
+    per other prefill."""
+    sp_lens = sorted(n for n, _ in prefills["sp"])
+    plain = prefills["plain"]
+    if sp_lens != [700, 1500, 1900]:
+        raise RuntimeError(f"serve sp: the ring prefilled {sp_lens}, "
+                           f"expected [700, 1500, 1900]")
+    if (100 not in [n for n, _ in plain]
+            or not any(start > 0 for _, start in plain)):
+        raise RuntimeError(f"serve sp: p100 or the prefix-cached repeat did "
+                           f"not take the whole-prompt prefill: {plain}")
+    want = {"flash_prefill_partial": cfg.num_layers * SERVE_SP ** 2
+            * len(sp_lens), "flash_prefill": cfg.num_layers * len(plain)}
+    if {k: launches[k] for k in want} != want:
+        raise RuntimeError(f"serve sp: launches {launches}, expected {want}")
+
+
+def compare_servers(card: str, base: dict, other: dict, path: str) -> None:
+    """Print each streamed request's TTFT and ITL on ``path`` beside the
+    bf16 server's (phase 5) for the same prompts, and the share of token
+    texts the two greedy streams agree on (a number, not a gate: random
+    weights give near-uniform logits, where a last-bit difference can
+    decide a token)."""
+    for k, v in other.items():
+        if "_texts" not in v or "_texts" not in base.get(k, {}):
+            continue
+        a, b = base[k]["_texts"], v["_texts"]
+        agree = sum(x == y for x, y in zip(a, b)) / max(len(a), 1)
+        row = {"ttft_ms": [base[k]["ttft_ms"], v["ttft_ms"]],
+               "itl_ms_mean": [base[k]["itl_ms_mean"], v["itl_ms_mean"]],
+               "greedy_token_agreement": agree}
+        log(f"request bf16-vs-{path} {k} {json.dumps(row)} [{card}]")
 
 
 def main() -> int:
@@ -1437,11 +1860,14 @@ def main() -> int:
 
     # 3. kernels at the 8B shapes
     cfg = bench_model_config("8b")
-    entries = [check_flash_prefill(cfg, dev), check_paged_attention(cfg, dev),
+    entries = [check_flash_prefill(cfg, dev),
+               check_flash_prefill_partial(cfg, dev),
+               check_paged_attention(cfg, dev),
                check_paged_attention_int8(cfg, dev),
                check_lm_head_int8(cfg, dev), check_grouped_int4(cfg, dev),
                check_ragged_attention(cfg, dev),
                check_ragged_attention(cfg, dev, int8=True)]
+    entries[1]["ring"] = check_ring(cfg, dev)
 
     # 4. the model through the kernels vs the plain versions, per mode
     seed = 0
@@ -1449,14 +1875,16 @@ def main() -> int:
         check_model(cfg, dev, seed, mode)
     check_sampling_noise(cfg, dev)
 
-    # 5. serving: bf16, quantized, then both again with --ragged; each
-    # path's launch counts cover its own phase alone, and each kernel
-    # reports those of the first path that must launch it
+    # 5. serving: bf16, quantized, both again with --ragged, then bf16 with
+    # sequence-parallel prefill; each path's launch counts cover its own
+    # phase alone, and each kernel reports those of the first path that
+    # must launch it
     by_path = {path: serve_phase(cfg, seed, card, path)
                for path in PATH_KERNELS}
+    compare_servers(card, by_path["bf16"][1], by_path["sp"][1], "sp")
     for e in entries:
         path = next(m for m, ks in PATH_KERNELS.items() if e["name"] in ks)
-        e["launches"] = by_path[path][e["name"]]
+        e["launches"] = by_path[path][0][e["name"]]
         e["launches_path"] = path
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -31,6 +31,25 @@
 // shared memory (3 x 64 x (Dh+8) bf16, the +8 pad spreads rows over banks).
 // Loads are plain 16-byte vector loads; cp.async / TMA double buffering and
 // wgmma are left for a later version.
+//
+// K2, the partial mode (template flag Partial; K1's instantiation is the
+// same code as before the flag). Replaces the Pallas kernel under
+// `flash_prefill_partial` (dynamo_tpu/engine/attention.py), K1's body run
+// in partial mode: one hop of ring attention. Same inputs, but start_pos
+// may be negative (queries before this KV chunk see nothing); returns the
+// UNNORMALIZED f32 accumulator acc [T, H, Dh] and the row state m, l
+// [T, H] f32, which the caller merges across hops with the online-softmax
+// recurrence. What differs from K1, and why:
+// - m is returned in natural units (m_log2 * ln 2): the loop keeps it in
+//   the base-2 domain of exp2f, but the merge computes exp(m_a - m_b).
+// - A row that sees no key (qpos < 0, or key >= seq_len for all keys) gets
+//   acc = 0, l = 0 and m = -1e30 exactly (JAX's NEG_INF). Its masked
+//   scores are -inf and its base stays 0, so p = exp2f(-inf) = 0 and
+//   alpha = 0: the row stays zero whether its CTA walks tiles for other,
+//   live rows or walks none (n_keys <= 0 makes n_tiles 0, and every row
+//   is still written).
+// - Bound: same work as K1 per visible (query, key) pair, plus 4 bytes
+//   per output value instead of 2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,6 +61,8 @@ constexpr int kRows = 64;      // query rows per CTA
 constexpr int kKeys = 64;      // keys per KV tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf = -1e30f;  // JAX's NEG_INF: the m of a row with no key
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {
@@ -79,10 +100,13 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat
   }
 }
 
-template <int Dh>
+// out: bf16 [T, H, Dh] (K1), or f32 acc [T, H, Dh] with m_out/l_out
+// [T, H] f32 (Partial, K2; K1 gets null pointers there)
+template <int Dh, bool Partial>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     const __nv_bfloat16* __restrict__ v, void* __restrict__ out_raw,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
                      int T, int H, int KVH, int S, int start_pos, int seq_len,
                      float scale_log2) {
   constexpr int kStride = Dh + 8;
@@ -242,12 +266,36 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     l0 += __shfl_xor_sync(0xffffffff, l0, off);
     l1 += __shfl_xor_sync(0xffffffff, l1, off);
   }
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   const int R0 = row0 + warp * 16 + gid, R1 = R0 + 8;
   const int t0 = R0 / g, t1 = R1 / g;
-  __nv_bfloat16* out0 = out + ((long)t0 * H + kvh * g + R0 % g) * Dh;
-  __nv_bfloat16* out1 = out + ((long)t1 * H + kvh * g + R1 % g) * Dh;
+  const long i0 = (long)t0 * H + kvh * g + R0 % g;  // (position, head) of each row
+  const long i1 = (long)t1 * H + kvh * g + R1 % g;
+  if constexpr (Partial) {
+    // unnormalized f32 accumulator; pad rows t >= T are not written
+    float* acc = static_cast<float*>(out_raw);
+#pragma unroll
+    for (int j = 0; j < kDTiles; ++j) {
+      int c = j * 8 + tig * 2;
+      if (t0 < T) *reinterpret_cast<float2*>(acc + i0 * Dh + c) = make_float2(o[j][0], o[j][1]);
+      if (t1 < T) *reinterpret_cast<float2*>(acc + i1 * Dh + c) = make_float2(o[j][2], o[j][3]);
+    }
+    if (tig == 0) {  // m and l are the same in the 4 threads of a quad
+      if (t0 < T) {
+        m_out[i0] = m0 == -INFINITY ? kNegInf : m0 * kLn2;
+        l_out[i0] = l0;
+      }
+      if (t1 < T) {
+        m_out[i1] = m1 == -INFINITY ? kNegInf : m1 * kLn2;
+        l_out[i1] = l1;
+      }
+    }
+    return;
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(out_raw);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  __nv_bfloat16* out0 = out + i0 * Dh;
+  __nv_bfloat16* out1 = out + i1 * Dh;
 #pragma unroll
   for (int j = 0; j < kDTiles; ++j) {
     int c = j * 8 + tig * 2;
@@ -258,21 +306,40 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-template <int Dh>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int T, int H,
-                   int KVH, int S, int start_pos, int seq_len, float scale,
-                   cudaStream_t stream) {
+template <int Dh, bool Partial>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* m_out,
+                   float* l_out, int T, int H, int KVH, int S, int start_pos, int seq_len,
+                   float scale, cudaStream_t stream) {
   const int smem = (kRows + 2 * kKeys) * (Dh + 8) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<Dh>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<Dh, Partial>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int g = H / KVH;
   dim3 grid((T * g + kRows - 1) / kRows, KVH);
-  flash_prefill_kernel<Dh><<<grid, kThreads, smem, stream>>>(
+  flash_prefill_kernel<Dh, Partial><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), T, H, KVH, S,
-      start_pos, seq_len, scale * 1.4426950408889634f);
+      static_cast<const __nv_bfloat16*>(v), out, m_out, l_out, T, H, KVH, S, start_pos,
+      seq_len, scale * 1.4426950408889634f);
   return cudaGetLastError();
+}
+
+template <bool Partial>
+int dispatch(const void* q, const void* k, const void* v, void* out, float* m_out, float* l_out,
+             int T, int H, int KVH, int Dh, int S, int start_pos, int seq_len, float scale,
+             void* stream) {
+  if (T <= 0) return 0;
+  if (H % KVH != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Dh) {
+    case 64:
+      return (int)launch<64, Partial>(q, k, v, out, m_out, l_out, T, H, KVH, S, start_pos,
+                                      seq_len, scale, st);
+    case 128:
+      return (int)launch<128, Partial>(q, k, v, out, m_out, l_out, T, H, KVH, S, start_pos,
+                                       seq_len, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -281,15 +348,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int T
 extern "C" int dtt_flash_prefill_bf16(const void* q, const void* k, const void* v, void* out,
                                       int T, int H, int KVH, int Dh, int S, int start_pos,
                                       int seq_len, float scale, void* stream) {
-  if (T <= 0) return 0;
-  if (H % KVH != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 64:
-      return (int)launch<64>(q, k, v, out, T, H, KVH, S, start_pos, seq_len, scale, st);
-    case 128:
-      return (int)launch<128>(q, k, v, out, T, H, KVH, S, start_pos, seq_len, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k, v, out, nullptr, nullptr, T, H, KVH, Dh, S, start_pos, seq_len,
+                         scale, stream);
+}
+
+// K2: acc [T, H, Dh], m and l [T, H], all f32; start_pos may be negative.
+// seq_len is clipped to [0, S]: keys past S are zero-filled, not masked.
+extern "C" int dtt_flash_prefill_partial_bf16(const void* q, const void* k, const void* v,
+                                              void* acc, void* m, void* l, int T, int H,
+                                              int KVH, int Dh, int S, int start_pos,
+                                              int seq_len, float scale, void* stream) {
+  seq_len = seq_len < 0 ? 0 : (seq_len > S ? S : seq_len);
+  return dispatch<true>(q, k, v, acc, static_cast<float*>(m), static_cast<float*>(l), T, H,
+                        KVH, Dh, S, start_pos, seq_len, scale, stream);
 }

@@ -1,5 +1,5 @@
-"""Attention for the PyTorch engine: causal prefill, paged decode and
-ragged mixed prefill+decode.
+"""Attention for the PyTorch engine: causal prefill, its partial form for
+ring attention, paged decode and ragged mixed prefill+decode.
 
 Counterpart of ``dynamo_tpu.engine.attention``. The KV pool keeps the
 JAX package's BLOCK-MAJOR layout: per layer ``[NTOK, KVH*Dh]`` where
@@ -9,8 +9,8 @@ the values, then the row's scale as an (exponent, mantissa) byte pair,
 then pad lanes, in the JAX package's exact encoding (``quantize_kv_rows``).
 
 Each kernel has a plain PyTorch version of the same function in this
-module (``flash_prefill_ref``, ``paged_attention_ref``,
-``ragged_paged_attention_ref``). The public
+module (``flash_prefill_ref``, ``flash_prefill_partial_ref``,
+``paged_attention_ref``, ``ragged_paged_attention_ref``). The public
 functions dispatch on the tensor's device alone: a CPU tensor takes the
 plain version, a CUDA tensor launches the hand-written kernel
 (``engine/kernels.py``, sources under ``csrc/``) or raises. There is no
@@ -138,6 +138,53 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     from .kernels import flash_prefill_cuda
     return flash_prefill_cuda(q, k, v, scale=scale, start_pos=start_pos,
                               seq_len=seq_len)
+
+
+def flash_prefill_partial_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, scale: float,
+                              start_pos: int, seq_len: int) -> tuple:
+    """Plain version of ``flash_prefill_partial``: the dense-score formula
+    with the JAX partial kernel's arithmetic. Scores are taken in f32 (m
+    and l are compared as numbers, so they are not rounded to q's dtype
+    first), masked to NEG_INF, m is their row max, p = exp(s - m) is
+    zeroed on rows whose m is still NEG_INF (a row that sees no key), l
+    is p's row sum, and acc is p cast to v's dtype times v, summed in
+    f32. Returns (acc [T, H, Dh], m [T, H], l [T, H]), all f32."""
+    T, H, Dh = q.shape
+    S, KVH, _ = k.shape
+    g = H // KVH
+    qg = q.reshape(T, KVH, g, Dh).float()
+    s = torch.einsum("tkgd,skd->kgts", qg, k.float()) * scale
+    positions = start_pos + torch.arange(T, device=q.device)
+    kv_pos = torch.arange(S, device=q.device)
+    mask = (kv_pos[None, :] <= positions[:, None]) & (kv_pos[None, :] < seq_len)
+    s = s.masked_fill(~mask[None, None], NEG_INF)
+    m = s.amax(dim=-1)                                        # [KVH, g, T]
+    p = torch.exp(s - m[..., None])
+    p = torch.where((m > NEG_INF / 2)[..., None], p, torch.zeros_like(p))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("kgts,skd->tkgd", p.to(v.dtype).float(), v.float())
+    return (acc.reshape(T, H, Dh), m.permute(2, 0, 1).reshape(T, H),
+            l.permute(2, 0, 1).reshape(T, H))
+
+
+def flash_prefill_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: float, start_pos: int,
+                          seq_len: int) -> tuple:
+    """One ring hop of sequence-parallel attention (contract of
+    ``dynamo_tpu.engine.attention.flash_prefill_partial``): q [T, H, Dh]
+    at positions start_pos + t (start_pos may be NEGATIVE: those queries
+    come before this KV chunk and see nothing), k/v [S, KVH, Dh] at
+    positions 0..seq_len. Returns the UNNORMALIZED (acc [T, H, Dh], m
+    [T, H], l [T, H]) in f32; a row that sees no key gets acc = 0, l = 0,
+    m = NEG_INF. CPU tensors take the plain version; CUDA tensors run the
+    partial mode of ``csrc/flash_prefill.cu`` (K2)."""
+    if not q.is_cuda:
+        return flash_prefill_partial_ref(q, k, v, scale=scale,
+                                         start_pos=start_pos, seq_len=seq_len)
+    from .kernels import flash_prefill_partial_cuda
+    return flash_prefill_partial_cuda(q, k, v, scale=scale,
+                                      start_pos=start_pos, seq_len=seq_len)
 
 
 # ---------------------------------------------------------------------------

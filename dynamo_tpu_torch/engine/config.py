@@ -3,11 +3,11 @@
 A copy of ``dynamo_tpu.engine.config``'s model side (``ModelConfig`` with
 every rope-scaling field, ``from_hf_config``, ``bench_model_config``) so the
 two packages parse the same config.json into the same geometry. The engine
-side (``EngineConfig``) keeps only the fields the single-device serving
-path reads, weight and KV quantization included; a field of a path this
-package does not implement yet (parallelism, speculation, ragged and
-multi-step dispatch, KV tiers) is not a field, so passing it raises
-``TypeError``.
+side (``EngineConfig``) keeps only the fields the serving paths of this
+package read: weight and KV quantization, ragged dispatch and
+sequence-parallel prefill included; a field of a path this package does
+not implement yet (tp/dp/ep/pp, speculation, multi-step dispatch, KV
+tiers) is not a field, so passing it raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -519,11 +519,11 @@ KV_QUANTIZATIONS = ("none", "int8")
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Serving-engine knobs of the single-device main path: whole-prompt
-    bucketed prefill and one decode step per dispatch, or ragged mixed
-    prefill+decode dispatch; a paged KV pool (bf16, or int8 rows with
-    in-row scales) with prefix reuse; weight-only int8/int4
-    quantization. Field names and defaults follow
+    """Serving-engine knobs: whole-prompt bucketed prefill (or, over an sp
+    mesh, sequence-parallel prefill of long cold prompts) and one decode
+    step per dispatch, or ragged mixed prefill+decode dispatch; a paged
+    KV pool (bf16, or int8 rows with in-row scales) with prefix reuse;
+    weight-only int8/int4 quantization. Field names and defaults follow
     ``dynamo_tpu.engine.config.EngineConfig``; fields of paths this package
     does not implement are absent, so passing one raises ``TypeError``."""
 
@@ -557,6 +557,12 @@ class EngineConfig:
     # single dispatch may consume — longer prompts stream across
     # consecutive dispatches
     ragged_max_seq_rows: int = 64
+    # sequence-parallel (ring attention) prefill over the mesh's sp axis;
+    # the mesh itself is EngineCore's argument and must agree
+    sp: int = 1
+    # shortest cold prefill worth the ring path; shorter prompts take the
+    # whole-prompt prefill
+    sp_min_prefill_tokens: int = 512
 
     @staticmethod
     def auto_kv_block_size(model_cfg: "ModelConfig",
@@ -597,6 +603,15 @@ class EngineConfig:
                     f"{self.max_num_seqs + 1}) and at least one full "
                     f"per-sequence chunk (>= ragged_max_seq_rows = "
                     f"{self.ragged_max_seq_rows})")
+            if self.sp > 1:
+                raise NotImplementedError(
+                    "ragged dispatch with sequence-parallel prefill is "
+                    "not implemented (long cold prompts would bypass "
+                    "the ragged batch; run one or the other). Ragged "
+                    "composes with tp, int8 KV, MLA, sliding windows, "
+                    "speculative decoding (spec_k), and "
+                    "decode_dispatch_pipeline — see docs/"
+                    "ragged_attention.md §composition")
         self.prefill_buckets = sorted(
             b for b in self.prefill_buckets if b <= self.max_model_len) or [
                 self.max_model_len]

@@ -4,7 +4,10 @@ async scheduling loop driving the model's prefill and decode steps.
 Counterpart of ``dynamo_tpu.engine.core`` for the single-device main path:
 submit, admission with prefix reuse, bucketed whole-prompt prefill, one
 decode step per dispatch for every ready slot, finish on EOS / budget /
-cancellation, and recompute preemption when the KV pool runs out. With
+cancellation, and recompute preemption when the KV pool runs out. Over a
+mesh with an sp axis (``parallel/sharding.py``), long cold prompts prefill
+sequence-parallel (``llama.prefill_forward_sp``, ring attention); decode
+stays on the engine's device. With
 ``EngineConfig.ragged_dispatch`` every engine step is instead ONE ragged
 dispatch (``engine/ragged.py``, ``llama.ragged_forward``): admissions ride
 it as prefill lanes, chunk by chunk, beside the decode rows of the other
@@ -36,6 +39,7 @@ import torch
 from ..llm.kv.blocks import TokenBlockSequence
 from ..llm.kv.pool import KvBlockManager
 from ..llm.protocols.common import FinishReason
+from ..parallel.sharding import replicate_params
 from .config import EngineConfig, ModelConfig
 from .device import resolve_device
 from .models import llama
@@ -124,8 +128,19 @@ class EngineCore:
     """The model-executing scheduler. Owns params + KV pool on ``device``."""
 
     def __init__(self, model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                 params: Optional[dict] = None, device="cuda"):
+                 params: Optional[dict] = None, device="cuda", mesh=None):
         self.device = resolve_device(device)
+        # sequence-parallel prefill (parallel/sharding.py): the mesh is
+        # authoritative, and EngineConfig.sp must agree when set
+        self.mesh = mesh
+        self._sp = mesh.shape["sp"] if mesh is not None else 1
+        if engine_cfg.sp > 1 and engine_cfg.sp != self._sp:
+            raise ValueError(f"EngineConfig.sp={engine_cfg.sp} but the mesh "
+                             f"carries sp={self._sp}")
+        if self._sp > 1:
+            # re-run the config's checks against the mesh's sp (ragged
+            # dispatch refuses it)
+            engine_cfg = dataclasses.replace(engine_cfg, sp=self._sp)
         if model_cfg.num_experts > 0 or model_cfg.kv_lora_rank > 0:
             raise NotImplementedError(
                 "MoE and MLA families are not implemented by the PyTorch "
@@ -169,6 +184,10 @@ class EngineCore:
             params = quantize_params(params, include_embed=qembed,
                                      bits=qbits)
         self.params = params
+        # the weights on each distinct device of the sp mesh (one copy per
+        # extra device; none on a mesh that repeats the engine's device)
+        self._replicas = (replicate_params(params, mesh.devices)
+                          if self._sp > 1 else None)
         self.kv = llama.init_kv_cache(model_cfg, engine_cfg.num_kv_blocks,
                                       engine_cfg.kv_block_size, self.device,
                                       self.dtype,
@@ -423,13 +442,27 @@ class EngineCore:
         table[:len(req.blocks)] = req.blocks
         padded = np.zeros((bucket,), np.int64)
         padded[:len(chunk)] = chunk
+        # sequence-parallel prefill for long cold prompts, on the JAX
+        # engine's conditions: the ring has neither soft-caps nor windows
+        use_sp = (self._sp > 1
+                  and req.prefix_hit_tokens == 0
+                  and len(chunk) >= self.cfg.sp_min_prefill_tokens
+                  and bucket % self._sp == 0
+                  and not self.model_cfg.attn_logit_softcap
+                  and self.model_cfg.sliding_window is None)
         with torch.inference_mode():
-            logits = llama.prefill_forward(
-                self.params, self.kv,
-                torch.from_numpy(padded).to(self.device),
-                torch.from_numpy(table).to(self.device),
-                req.prefix_hit_tokens, len(chunk), self.model_cfg,
-                self.cfg.kv_block_size)
+            tokens = torch.from_numpy(padded).to(self.device)
+            table_t = torch.from_numpy(table).to(self.device)
+            if use_sp:
+                logits = llama.prefill_forward_sp(
+                    self.params, self.kv, tokens, table_t, len(chunk),
+                    self.model_cfg, self.cfg.kv_block_size, self.mesh,
+                    replicas=self._replicas)
+            else:
+                logits = llama.prefill_forward(
+                    self.params, self.kv, tokens, table_t,
+                    req.prefix_hit_tokens, len(chunk), self.model_cfg,
+                    self.cfg.kv_block_size)
             toks, logprobs = self._sample(logits[None, :], [req])
         tok, logprob = int(toks[0]), float(logprobs[0])
         self.total_prefill_tokens += len(chunk)
@@ -443,9 +476,9 @@ class EngineCore:
         self.slots[slot] = req
         self._block_tables[slot, :] = 0
         self._block_tables[slot, :len(req.blocks)] = req.blocks
-        logger.debug("admitted %s into slot %d (prompt=%d, hit=%d, %.1fms)",
-                     req.rid, slot, n_prompt, plan.hit_tokens,
-                     1e3 * (time.monotonic() - t0))
+        logger.debug("admitted %s into slot %d (prompt=%d, hit=%d, sp=%s, "
+                     "%.1fms)", req.rid, slot, n_prompt, plan.hit_tokens,
+                     use_sp, 1e3 * (time.monotonic() - t0))
         self._emit(req, tok, logprob)
         self._maybe_finish_after_emit(req)
 

@@ -9,9 +9,9 @@ never loaded.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output (``torch.empty``, or ``torch.zeros`` where the kernel writes only
-some rows), launches on PyTorch's current stream, raises
-when the C entry point returns a CUDA error, and counts its launches in
-``Kernel.launches``. Nothing here runs on import: the CPU tests import
+some rows), launches on the current stream of the tensor's device with
+that device current, raises when the C entry point returns a CUDA error,
+and counts its launches in ``Kernel.launches``. Nothing here runs on import: the CPU tests import
 every module of the package.
 """
 
@@ -104,6 +104,10 @@ class _Library:
                 lib.dtt_flash_prefill_bf16.argtypes = [
                     vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, vp]
                 lib.dtt_flash_prefill_bf16.restype = ci
+                lib.dtt_flash_prefill_partial_bf16.argtypes = [
+                    vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf,
+                    vp]
+                lib.dtt_flash_prefill_partial_bf16.restype = ci
                 for name in ("dtt_paged_attention_bf16",
                              "dtt_paged_attention_int8"):
                     fn = getattr(lib, name)
@@ -137,8 +141,13 @@ class Kernel:
         self.symbol = symbol
         self.launches = 0
 
-    def launch(self, *args) -> None:
-        err = getattr(LIBRARY.get(), self.symbol)(*args)
+    def launch(self, t: torch.Tensor, *args) -> None:
+        """Call the entry point with ``args`` and the current stream of
+        ``t``'s device, under that device: ``<<<>>>`` launches on the
+        current device, which need not be the tensor's."""
+        fn = getattr(LIBRARY.get(), self.symbol)
+        with torch.cuda.device(t.device):
+            err = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error "
                                f"{err}")
@@ -146,6 +155,8 @@ class Kernel:
 
 
 FLASH_PREFILL = Kernel("flash_prefill", "dtt_flash_prefill_bf16")
+FLASH_PREFILL_PARTIAL = Kernel("flash_prefill_partial",
+                               "dtt_flash_prefill_partial_bf16")
 PAGED_ATTENTION = Kernel("paged_attention", "dtt_paged_attention_bf16")
 PAGED_ATTENTION_INT8 = Kernel("paged_attention_int8",
                               "dtt_paged_attention_int8")
@@ -156,7 +167,8 @@ RAGGED_PAGED_ATTENTION = Kernel("ragged_paged_attention",
 RAGGED_PAGED_ATTENTION_INT8 = Kernel("ragged_paged_attention_int8",
                                      "dtt_ragged_paged_attention_int8")
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
-    FLASH_PREFILL, PAGED_ATTENTION, PAGED_ATTENTION_INT8, LM_HEAD_INT8,
+    FLASH_PREFILL, FLASH_PREFILL_PARTIAL, PAGED_ATTENTION,
+    PAGED_ATTENTION_INT8, LM_HEAD_INT8,
     GROUPED_INT4_MATMUL, RAGGED_PAGED_ATTENTION,
     RAGGED_PAGED_ATTENTION_INT8)}
 
@@ -179,10 +191,6 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        scale: float, start_pos: int,
                        seq_len: int) -> torch.Tensor:
@@ -196,10 +204,35 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"k={tuple(k.shape)} v={tuple(v.shape)} (Dh 64|128, "
                          f"H % KVH == 0)")
     out = torch.empty_like(q)
-    FLASH_PREFILL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    FLASH_PREFILL.launch(q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), T, H, KVH, Dh, S, int(start_pos),
-                         int(seq_len), float(scale), _stream(q))
+                         int(seq_len), float(scale))
     return out
+
+
+def flash_prefill_partial_cuda(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, scale: float,
+                               start_pos: int, seq_len: int) -> tuple:
+    """K2, one ring hop: q [T, H, Dh], k/v [S, KVH, Dh] bf16, start_pos may
+    be negative → (acc [T, H, Dh], m [T, H], l [T, H]), all f32, acc
+    unnormalized (the partial entry point of csrc/flash_prefill.cu). The
+    kernel writes every row, so the outputs are ``torch.empty``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t, name, torch.bfloat16, 3)
+    T, H, Dh = q.shape
+    S, KVH, Dh_k = k.shape
+    if v.shape != k.shape or Dh_k != Dh or H % KVH or Dh not in (64, 128):
+        raise ValueError(f"flash_prefill_partial: unsupported shapes "
+                         f"q={tuple(q.shape)} k={tuple(k.shape)} "
+                         f"v={tuple(v.shape)} (Dh 64|128, H % KVH == 0)")
+    acc = torch.empty((T, H, Dh), dtype=torch.float32, device=q.device)
+    m = torch.empty((T, H), dtype=torch.float32, device=q.device)
+    l = torch.empty((T, H), dtype=torch.float32, device=q.device)
+    FLASH_PREFILL_PARTIAL.launch(q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                 T, H, KVH, Dh, S, int(start_pos),
+                                 int(seq_len), float(scale))
+    return acc, m, l
 
 
 def _check_paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
@@ -239,10 +272,9 @@ def _paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
                          f"{B} query rows")
     out = torch.empty_like(q)
     M = block_tables.shape[1]
-    kernel.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+    kernel.launch(q, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-                  B, H, KVH, Dh, M, int(block_size), float(scale),
-                  _stream(q))
+                  B, H, KVH, Dh, M, int(block_size), float(scale))
     return out
 
 
@@ -284,11 +316,11 @@ def _ragged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
                          f"sequences")
     # only owned rows are written: the rest read as zeros
     out = torch.zeros_like(q)
-    kernel.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+    kernel.launch(q, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   block_tables.data_ptr(), seq_starts.data_ptr(),
                   seq_counts.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
                   TT, S, H, KVH, Dh, M, min(int(max_rows), TT),
-                  int(block_size), float(scale), _stream(q))
+                  int(block_size), float(scale))
     return out
 
 
@@ -336,8 +368,8 @@ def lm_head_int8_cuda(x: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"lm_head_int8: unsupported shapes x={tuple(x.shape)} "
                          f"q={tuple(q.shape)} scale={tuple(scale.shape)}")
     out = torch.empty((B, V), dtype=torch.float32, device=x.device)
-    LM_HEAD_INT8.launch(x.data_ptr(), q.data_ptr(), scale.data_ptr(),
-                        out.data_ptr(), B, D, V, _stream(x))
+    LM_HEAD_INT8.launch(x, x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                        out.data_ptr(), B, D, V)
     return out
 
 
@@ -357,7 +389,6 @@ def grouped_int4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
             f"grouped_int4_matmul: unsupported shapes x={tuple(x.shape)} "
             f"packed={tuple(packed.shape)} scale={tuple(scale.shape)}")
     out = torch.empty((N, F), dtype=torch.bfloat16, device=x.device)
-    GROUPED_INT4_MATMUL.launch(x.data_ptr(), packed.data_ptr(),
-                               scale.data_ptr(), out.data_ptr(), N, D, F,
-                               _stream(x))
+    GROUPED_INT4_MATMUL.launch(x, x.data_ptr(), packed.data_ptr(),
+                               scale.data_ptr(), out.data_ptr(), N, D, F)
     return out

@@ -17,10 +17,16 @@ with in-row scales; each forward writes this step's K/V IN PLACE with
 attention reads it, so the current token sees the quantized values later
 steps see. Casts follow the JAX model: norms and rope in f32 cast back to
 the activation dtype, logits in f32.
+
+Every forward pass runs the same per-layer body (``_layer``) over token
+shards: one shard on one device for prefill, decode and ragged dispatch;
+one shard per mesh device for the sequence-parallel prefill
+(``prefill_forward_sp``), where only attention crosses shards.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -229,24 +235,43 @@ def _logits(params: Params, x: torch.Tensor,
     return out
 
 
-def _run_layers(params: Params, kv: KVCache, x: torch.Tensor,
-                positions: torch.Tensor, slots: torch.Tensor,
-                cfg: ModelConfig, attn_fn) -> torch.Tensor:
-    """The transformer stack: per layer qkv projection, rope, the in-place
-    KV write at ``slots``, ``attn_fn(q, li, sliding)`` (the one thing the
-    prefill, decode and ragged paths differ in), wo residual, MLP. Returns the
-    final-normed hidden states."""
-    N = x.shape[0]
+@dataclasses.dataclass
+class _Shard:
+    """Token rows on one device: their hidden states ``x``, positions and
+    rope frequencies there, their pool slots (on the pool's device), and
+    the weights on that device."""
+
+    params: Params
+    x: torch.Tensor
+    positions: torch.Tensor
+    slots: torch.Tensor
+    inv_freq: torch.Tensor
+
+
+def _shard(params: Params, x: torch.Tensor, positions: torch.Tensor,
+           slots: torch.Tensor, cfg: ModelConfig) -> _Shard:
+    return _Shard(params, x, positions, slots,
+                  torch.from_numpy(rope_inv_freq(cfg)).to(x.device))
+
+
+def _layer(shards, kv: KVCache, li: int, cfg: ModelConfig, attn_fn) -> None:
+    """Layer ``li`` over token shards, updating each ``shard.x``: per shard
+    the qkv projection, rope and the in-place KV write at its slots; then
+    ``attn_fn(qs, ks, vs)`` → one attention output per shard, the one step
+    that crosses shards; then per shard the wo residual and the MLP. The
+    single-device paths pass one shard (``_run_layers``), the
+    sequence-parallel prefill one per mesh device."""
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    inv_freq = torch.from_numpy(rope_inv_freq(cfg)).to(x.device)
     rope_att = rope_attention_scaling(cfg)
-    sliding_flags = sliding_layer_mask(cfg)
     p1 = cfg.norm_plus_one
     eps = cfg.rms_norm_eps
-    for li in range(cfg.num_layers):
-        lp = {name[len("layers."):]: w[li] for name, w in params.items()
-              if name.startswith("layers.")}
-        hn = rms_norm(x, lp["ln1"], eps, p1)
+    pool_dev = kv["k"].device
+    lps = [{name[len("layers."):]: w[li] for name, w in sh.params.items()
+            if name.startswith("layers.")} for sh in shards]
+    qs, ks, vs = [], [], []
+    for sh, lp in zip(shards, lps):
+        N = sh.x.shape[0]
+        hn = rms_norm(sh.x, lp["ln1"], eps, p1)
         q, k, v = mm(hn, lp["wq"]), mm(hn, lp["wk"]), mm(hn, lp["wv"])
         if cfg.attention_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
@@ -256,8 +281,8 @@ def _run_layers(params: Params, kv: KVCache, x: torch.Tensor,
         if cfg.qk_norm:
             q = rms_norm(q, lp["q_norm"], eps, p1)
             k = rms_norm(k, lp["k_norm"], eps, p1)
-        q = apply_rope(q, positions, inv_freq, rope_att)
-        k = apply_rope(k, positions, inv_freq, rope_att)
+        q = apply_rope(q, sh.positions, sh.inv_freq, rope_att)
+        k = apply_rope(k, sh.positions, sh.inv_freq, rope_att)
         if kv["k"].dtype == torch.int8:
             # one call for both sides: the rows are quantized one by one
             k_rows, v_rows = quantize_kv_rows(
@@ -265,19 +290,50 @@ def _run_layers(params: Params, kv: KVCache, x: torch.Tensor,
         else:
             k_rows = k.reshape(N, -1).to(kv["k"].dtype)
             v_rows = v.reshape(N, -1).to(kv["v"].dtype)
-        kv["k"][li].index_copy_(0, slots, k_rows)
-        kv["v"][li].index_copy_(0, slots, v_rows)
-        attn = attn_fn(q, li, bool(sliding_flags[li]))
-        attn_out = mm(attn.reshape(N, H * Dh), lp["wo"])
+        kv["k"][li].index_copy_(0, sh.slots, k_rows.to(pool_dev))
+        kv["v"][li].index_copy_(0, sh.slots, v_rows.to(pool_dev))
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    for sh, lp, attn in zip(shards, lps, attn_fn(qs, ks, vs)):
+        attn_out = mm(attn.reshape(sh.x.shape[0], H * Dh), lp["wo"])
         if cfg.post_norms:
             attn_out = rms_norm(attn_out, lp["ln1_post"], eps, p1)
-        x = x + attn_out
+        x = sh.x + attn_out
         hn2 = rms_norm(x, lp["ln2"], eps, p1)
         mlp_out = swiglu(hn2, lp["gate"], lp["up"], lp["down"], cfg.hidden_act)
         if cfg.post_norms:
             mlp_out = rms_norm(mlp_out, lp["ln2_post"], eps, p1)
-        x = x + mlp_out
-    return rms_norm(x, params["final_norm"], eps, p1)
+        sh.x = x + mlp_out
+
+
+def _run_layers(params: Params, kv: KVCache, x: torch.Tensor,
+                positions: torch.Tensor, slots: torch.Tensor,
+                cfg: ModelConfig, attn_fn) -> torch.Tensor:
+    """The transformer stack on one device: ``_layer`` over one shard of
+    every row, with ``attn_fn(q, li, sliding)`` (the one thing the
+    prefill, decode and ragged paths differ in). Returns the final-normed
+    hidden states."""
+    sh = _shard(params, x, positions, slots, cfg)
+    sliding_flags = sliding_layer_mask(cfg)
+    for li in range(cfg.num_layers):
+        sliding = bool(sliding_flags[li])
+        _layer([sh], kv, li, cfg,
+               lambda qs, ks, vs: [attn_fn(qs[0], li, sliding)])
+    return rms_norm(sh.x, params["final_norm"], cfg.rms_norm_eps,
+                    cfg.norm_plus_one)
+
+
+def _chunk_slots(block_table: torch.Tensor, positions: torch.Tensor,
+                 true_len: int, block_size: int) -> torch.Tensor:
+    """Flat pool slot of each chunk token; pads go to slot 0 (the trash
+    block) and may sit past the table, so the block index is clamped
+    before the gather."""
+    M = block_table.shape[0]
+    valid = torch.arange(positions.shape[0], device=positions.device) < true_len
+    blk = block_table.long()[torch.clamp(positions // block_size, max=M - 1)]
+    return torch.where(valid, blk * block_size + positions % block_size,
+                       torch.zeros_like(positions))
 
 
 def prefill_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
@@ -294,14 +350,9 @@ def prefill_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
     """
     T = tokens.shape[0]
     dev = tokens.device
-    M = block_table.shape[0]
     scale = _attn_scale(cfg)
     positions = start_pos + torch.arange(T, device=dev)
-    valid = torch.arange(T, device=dev) < true_len
-    # pads may sit past the table: clamp the block index before the gather
-    blk = block_table.long()[torch.clamp(positions // block_size, max=M - 1)]
-    slots = torch.where(valid, blk * block_size + positions % block_size,
-                        torch.zeros_like(positions))
+    slots = _chunk_slots(block_table, positions, true_len, block_size)
     seq_len = start_pos + true_len
     idx = flat_token_indices(block_table[None, :], block_size)[0]   # [S]
     S = idx.shape[0]
@@ -326,6 +377,56 @@ def prefill_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
     x = _embed(params, tokens, cfg)
     x = _run_layers(params, kv, x, positions, slots, cfg, attn)
     return _logits(params, x[max(true_len - 1, 0)], cfg)
+
+
+def prefill_forward_sp(params: Params, kv: KVCache, tokens: torch.Tensor,
+                       block_table: torch.Tensor, true_len: int,
+                       cfg: ModelConfig, block_size: int, mesh,
+                       replicas=None) -> torch.Tensor:
+    """Sequence-parallel whole-prompt prefill (contract of
+    ``dynamo_tpu.engine.models.llama.prefill_forward_sp``): ``prefill_
+    forward`` at start_pos 0 with the token axis sharded over the mesh's
+    sp axis. Shard r's T/sp rows live on ``mesh.devices[r]`` through every
+    layer, with the weights there (``replicas``: weights per distinct mesh
+    device, default ``parallel.sharding.replicate_params(params, ...)``);
+    only attention crosses shards, as a ring (``parallel.ring_attention``,
+    K2 hops on the card) over each layer's fresh K/V, as in JAX. KV rows
+    go into the pool on its own device (an int8 pool quantizes them as
+    ``prefill_forward`` does). T must divide by sp; global-attention,
+    uncapped models only. Returns the last valid token's logits [V] f32
+    on the pool's device."""
+    from ...parallel.ring_attention import ring_attention
+    from ...parallel.sharding import replicate_params
+    if cfg.sliding_window is not None or cfg.attn_logit_softcap:
+        raise NotImplementedError("the sp ring implements neither sliding "
+                                  "windows nor logit soft-capping")
+    n = mesh.shape["sp"]
+    T = tokens.shape[0]
+    if T % n:
+        raise ValueError(f"prefill_forward_sp: {T} tokens do not divide "
+                         f"over sp={n}")
+    Tl = T // n
+    dev = kv["k"].device
+    positions = torch.arange(T, device=dev)
+    slots = _chunk_slots(block_table, positions, true_len, block_size)
+    replicas = replicas or replicate_params(params, mesh.devices)
+    shards = []
+    for r, d in enumerate(mesh.devices):
+        rows = slice(r * Tl, (r + 1) * Tl)
+        p = replicas[d]
+        shards.append(_shard(p, _embed(p, tokens[rows].to(d), cfg),
+                             positions[rows].to(d), slots[rows], cfg))
+    scale = _attn_scale(cfg)
+    for li in range(cfg.num_layers):
+        _layer(shards, kv, li, cfg,
+               lambda qs, ks, vs: ring_attention(qs, ks, vs, mesh,
+                                                 scale=scale,
+                                                 kv_len=true_len))
+    r, i = divmod(max(true_len - 1, 0), Tl)
+    sh = shards[r]
+    last = rms_norm(sh.x[i], sh.params["final_norm"], cfg.rms_norm_eps,
+                    cfg.norm_plus_one)
+    return _logits(sh.params, last, cfg).to(dev)
 
 
 def decode_forward(params: Params, kv: KVCache, tokens: torch.Tensor,

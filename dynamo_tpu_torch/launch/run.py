@@ -1,7 +1,7 @@
 """The launcher: ``python -m dynamo_tpu_torch.launch.run in=http out=torch
 --model-path DIR [--random-weights] [--http-port N] [--device cuda|cpu]
 [--quantization int8|int4|...] [--kv-quantization int8] [--ragged
-[--ragged-max-tokens N] [--ragged-max-seq-rows N]]``.
+[--ragged-max-tokens N] [--ragged-max-seq-rows N]] [--sp N]``.
 
 Counterpart of ``dynamo_tpu.launch.run`` for its main path: an OpenAI
 completions server over the canonical pipeline link preprocessor →
@@ -67,6 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ragged-max-seq-rows", type=int, default=64,
                    help="per-sequence row budget per ragged dispatch "
                         "(longer prompts stream across dispatches)")
+    p.add_argument("--sequence-parallel-size", "--sp", type=int, default=1,
+                   dest="sp",
+                   help="sequence-parallel prefill of long cold prompts "
+                        "(ring attention) over the first SP cards, or over "
+                        "SP shards on the CPU with --device cpu")
     p.add_argument("--random-weights", action="store_true",
                    help="random weights from EngineConfig.seed (checkpoint "
                         "loading is not implemented yet)")
@@ -95,15 +100,23 @@ def model_name(args) -> str:
         os.path.normpath(args.model_path))
 
 
-def build_core(args):
+def build_core(args, mesh=None):
     """EngineCore from CLI flags (random bf16 weights from seed 0,
-    quantized as the flags ask)."""
+    quantized as the flags ask). ``mesh``: a mesh the caller built
+    (``parallel.sharding.make_mesh``, which may repeat one card); by
+    default ``--sp`` > 1 builds one over the first cards, or over
+    ``["cpu"] * sp`` with ``--device cpu``."""
     from ..engine.config import EngineConfig, ModelConfig
     from ..engine.core import EngineCore
+    from ..parallel.sharding import make_mesh
     if not args.random_weights:
         raise SystemExit("checkpoint loading is not implemented yet: pass "
                          "--random-weights")
     try:
+        if mesh is None and args.sp > 1:
+            mesh = make_mesh(sp=args.sp, devices=(["cpu"] * args.sp
+                                                  if args.device == "cpu"
+                                                  else None))
         ecfg = EngineConfig(max_model_len=args.max_model_len,
                             kv_block_size=args.kv_block_size,
                             num_kv_blocks=args.num_kv_blocks,
@@ -113,11 +126,12 @@ def build_core(args):
                             kv_quantization=args.kv_quantization,
                             ragged_dispatch=args.ragged,
                             ragged_max_tokens=args.ragged_max_tokens,
-                            ragged_max_seq_rows=args.ragged_max_seq_rows)
-    except ValueError as e:
+                            ragged_max_seq_rows=args.ragged_max_seq_rows,
+                            sp=mesh.shape["sp"] if mesh is not None else 1)
+    except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
     model_cfg = ModelConfig.from_model_dir(args.model_path)
-    return EngineCore(model_cfg, ecfg, device=args.device)
+    return EngineCore(model_cfg, ecfg, device=args.device, mesh=mesh)
 
 
 def build_pipeline(args, core):

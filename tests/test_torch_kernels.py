@@ -63,6 +63,93 @@ def test_flash_prefill_kernel_matches_plain(T, S, start, true_len, H, KVH, Dh):
     assert _row_rel_err(fault, ref, slice(0, true_len)) > ROW_REL_TOL
 
 
+# K2's m and l are compared as numbers: both sides take exact bf16 products
+# summed in f32, so they differ by summation order and the kernel's base-2
+# detour (|dm| ~1e-5); m returned in base-2 units is off by 0.44 m, and a
+# left-out key tile moves l by its share of the row
+PARTIAL_M_ATOL = 1e-3
+PARTIAL_L_RTOL = 1e-3
+
+
+def _partial_errors(got, ref, seen):
+    """(row-relative error of acc / l, max |dm|, max |dl| / l) over the
+    rows that see a key."""
+    (acc, m, l), (racc, rm, rl) = got, ref
+    rel = _row_rel_err(acc / l[..., None], racc / rl[..., None], seen)
+    return (rel, (m - rm)[seen].abs().max().item(),
+            ((l - rl).abs() / rl)[seen].max().item())
+
+
+@pytest.mark.parametrize("T,S,start,seq_len,H,KVH,Dh", [
+    (96, 96, 0, 96, 8, 2, 128),        # the diagonal hop
+    (96, 96, 96, 96, 8, 8, 64),        # every key in the past, g = 1
+    (96, 96, -40, 96, 32, 8, 128),     # dead and live rows in one CTA
+    (96, 96, 0, 50, 8, 2, 128),        # the padded tail
+])
+def test_flash_prefill_partial_kernel_matches_plain(T, S, start, seq_len, H,
+                                                    KVH, Dh):
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(T + start)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).bfloat16()
+               for shape in ((T, H, Dh), (S, KVH, Dh), (S, KVH, Dh)))
+    kw = dict(scale=Dh ** -0.5, start_pos=start, seq_len=seq_len)
+    n0 = kernels.FLASH_PREFILL_PARTIAL.launches
+    got = attention.flash_prefill_partial(q, k, v, **kw)
+    again = kernels.flash_prefill_partial_cuda(q, k, v, **kw)
+    ref = attention.flash_prefill_partial_ref(q, k, v, **kw)
+    # planted fault: the last 16 keys the rows can see left out
+    last = min(seq_len, start + T)
+    fault = kernels.flash_prefill_partial_cuda(
+        q, k, v, scale=Dh ** -0.5, start_pos=start, seq_len=last - 16)
+    torch.cuda.synchronize()
+    assert kernels.FLASH_PREFILL_PARTIAL.launches == n0 + 3
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    seen = (start + torch.arange(T, device=dev) >= 0)[:, None].expand(T, H)
+    rel, dm, dl = _partial_errors(got, ref, seen)
+    assert rel <= ROW_REL_TOL and dm <= PARTIAL_M_ATOL and dl <= PARTIAL_L_RTOL
+    # the rows that see nothing: exact zeros and NEG_INF
+    assert (got[0][~seen] == 0).all() and (got[2][~seen] == 0).all()
+    assert (got[1][~seen] == attention.NEG_INF).all()
+    # planted faults: m in the kernel's base-2 units; keys left out
+    base2 = (got[0], got[1] * 1.4426950408889634, got[2])
+    assert _partial_errors(base2, ref, seen)[1] > PARTIAL_M_ATOL
+    frel, _, fdl = _partial_errors(fault, ref, seen)
+    assert frel > ROW_REL_TOL and fdl > PARTIAL_L_RTOL
+
+
+def test_flash_prefill_partial_kernel_dead_hop():
+    dev = _device()
+    q = torch.randn((64, 8, 128), device=dev).bfloat16()
+    k = torch.randn((64, 2, 128), device=dev).bfloat16()
+    for start, seq_len in ((-64, 64), (0, 0)):
+        acc, m, l = attention.flash_prefill_partial(
+            q, k, k, scale=0.1, start_pos=start, seq_len=seq_len)
+        torch.cuda.synchronize()
+        assert (acc == 0).all() and (l == 0).all()
+        assert (m == attention.NEG_INF).all()
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ring_attention_on_one_card_matches_flash_prefill(sp):
+    from dynamo_tpu_torch.parallel.ring_attention import ring_attention
+    from dynamo_tpu_torch.parallel.sharding import make_mesh
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(sp)
+    T, H, KVH, Dh, kv_len = 256, 8, 2, 128, 230
+    q, k, v = (torch.randn(shape, generator=g, device=dev).bfloat16()
+               for shape in ((T, H, Dh), (T, KVH, Dh), (T, KVH, Dh)))
+    mesh = make_mesh(sp=sp, devices=[dev] * sp)
+    n0 = kernels.FLASH_PREFILL_PARTIAL.launches
+    out = torch.cat(ring_attention(q.chunk(sp), k.chunk(sp), v.chunk(sp),
+                                   mesh, scale=Dh ** -0.5, kv_len=kv_len))
+    ref = attention.flash_prefill(q, k, v, scale=Dh ** -0.5, start_pos=0,
+                                  seq_len=kv_len)
+    torch.cuda.synchronize()
+    assert kernels.FLASH_PREFILL_PARTIAL.launches == n0 + sp * sp
+    assert out.dtype == torch.bfloat16
+    assert _row_rel_err(out, ref, slice(0, T)) <= ROW_REL_TOL
+
+
 def test_paged_attention_kernel_matches_plain():
     dev = _device()
     g = torch.Generator(device=dev).manual_seed(0)
