@@ -15,10 +15,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    at the Llama-3-8B shapes, with planted faults that the limit must
    reject, and time kernel, plain version, one PyTorch call as the library
    yardstick, and the card's bound for the same work (K1, K2 on five ring
-   hops with its m and l held to limits of their own, K3 bf16 and int8,
-   K5, K6, K4 bf16 and int8 on a ragged mix of prefill chunks and decode
-   rows); then the ring over 2 and 4 shards on the one card against K1
-   over the whole sequence, with a dropped hop planted;
+   hops with its m and l held to limits of their own, K3 bf16 and int8 on
+   a mixed 8-slot batch with repeated bits and a planted fault in its
+   split merge, on and around the split boundaries, and on a full batch
+   of 8 x 2048 keys, K5, K6, K4 bf16 and int8 on a ragged mix of prefill
+   chunks and decode rows); then the ring over 2 and 4 shards on the one
+   card against K1 over the whole sequence, with a dropped hop planted;
 4. model: the 8B geometry (random weights from a seed, on the card) runs
    one prefill and 4 decode steps through the kernels and through the
    plain versions, in three modes: bf16, int4 weights over an int8 KV
@@ -445,80 +447,21 @@ def check_limit(what: str, rel: float, fault_rel: float) -> None:
                            f"the limit {KERNEL_ROW_REL_TOL}")
 
 
-def check_paged_attention(cfg, dev) -> dict:
-    import torch
-    import torch.nn.functional as F
-    from dynamo_tpu_torch.engine.attention import (flat_token_indices,
-                                                   paged_attention_ref)
-    from dynamo_tpu_torch.engine.kernels import paged_attention_cuda
-    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
-    scale = Dh ** -0.5
-    q, k_cache, v_cache, tables, seq_lens, seq_lens_l = paged_inputs(
-        cfg, dev, 2)
-    B = len(seq_lens_l)
-    out = paged_attention_cuda(q, k_cache, v_cache, tables, seq_lens,
-                               block_size=bs, scale=scale)
-    ref = paged_attention_ref(q, k_cache, v_cache, tables, seq_lens,
-                              block_size=bs, scale=scale)
-    # planted fault: the longest slot's last table entry read as the trash
-    # block (which holds other random rows here)
-    longest = max(range(B), key=lambda b: seq_lens_l[b])
-    bad_tables = tables.clone()
-    bad_tables[longest, (seq_lens_l[longest] - 1) // bs] = 0
-    fault = paged_attention_cuda(q, k_cache, v_cache, bad_tables, seq_lens,
-                                 block_size=bs, scale=scale)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        raise RuntimeError("paged_attention: non-finite output")
-    if out[seq_lens_l.index(0)].abs().max().item() != 0.0:
-        raise RuntimeError("paged_attention: zero-length slot is not zero")
-    live = seq_lens > 0
-    err, rel = row_errors(out, ref, live)
-    _, fault_rel = row_errors(fault, ref, live)
-    # each slot's own reading, for the record
-    slot_rel = [row_errors(out, ref, b)[1] if n else None
-                for b, n in enumerate(seq_lens_l)]
-    # timed with a cold L2: in a decode step the KV of a layer was last
-    # touched a whole step earlier
-    ms = time_ms(lambda: paged_attention_cuda(
-        q, k_cache, v_cache, tables, seq_lens, block_size=bs, scale=scale),
-        cold=True)
-    plain_ms = time_ms(lambda: paged_attention_ref(
-        q, k_cache, v_cache, tables, seq_lens, block_size=bs, scale=scale),
-        cold=True)
-    idx = flat_token_indices(tables, bs)
-    kg = k_cache[idx].reshape(B, M * bs, KVH, Dh).transpose(1, 2).contiguous()
-    vg = v_cache[idx].reshape(B, M * bs, KVH, Dh).transpose(1, 2).contiguous()
-    mask = (torch.arange(M * bs, device=dev)[None, :]
-            < seq_lens[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), cold=True)
-    total = sum(seq_lens_l)
-    nbytes = (2.0 * total * KVH * Dh * 2 + 2 * 2.0 * B * H * Dh
-              + 4.0 * B * M + 4.0 * B)
-    flops = 4.0 * H * Dh * total
-    b_ms, b_by = bound(nbytes, flops)
-    case = {"B": B, "seq_lens": seq_lens_l, "max_abs_err": err,
-            "max_row_rel_err": rel, "slot_row_rel_err": slot_rel,
-            "fault_row_rel_err": fault_rel, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
-    log(f"paged_attention {json.dumps(case)}")
-    check_limit("paged_attention", rel, fault_rel)
-    return {"name": "paged_attention", "route": "cuda",
-            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "dynamo_tpu/engine/attention.py:743",
-            "row_rel_tolerance": KERNEL_ROW_REL_TOL, **case}
+# K3's inputs: the mixed decode batch it has been read on since its first
+# version; its split boundaries (128-key chunks) at the 8B table width;
+# the full batch, where bytes and not latency decide
+PAGED_MIX = [1, 15, 16, 17, 255, 1000, 2048, 0]
+PAGED_FULL = [2048] * 8
 
 
-def paged_inputs(cfg, dev, seed: int):
-    """PR 1's decode batch at the 8B shapes: slots of 1/15/16/17/255/1000/
-    2048/0 keys over a shuffled table of 16-token blocks, a random pool."""
+def paged_inputs(cfg, dev, seed: int, lens, int8: bool = False):
+    """A decode batch at the 8B shapes: slots of ``lens`` keys over a
+    shuffled table of 16-token blocks, a random pool (row-quantized for
+    the int8 mode). Returns q, pools, tables, seq_lens."""
     import torch
+    from dynamo_tpu_torch.engine.attention import quantize_kv_rows
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
-    lens = [1, 15, 16, 17, 255, 1000, 2048, 0]
     B = len(lens)
     num_blocks = B * M + 1
     gen = torch.Generator(device=dev)
@@ -527,6 +470,8 @@ def paged_inputs(cfg, dev, seed: int):
                           device=dev).bfloat16()
     v_cache = torch.randn((num_blocks * bs, KVH * Dh), generator=gen,
                           device=dev).bfloat16()
+    if int8:
+        k_cache, v_cache = quantize_kv_rows(k_cache), quantize_kv_rows(v_cache)
     perm = (torch.randperm(num_blocks - 1, generator=gen, device=dev)
             + 1).to(torch.int32)
     tables = torch.zeros((B, M), dtype=torch.int32, device=dev)
@@ -537,84 +482,194 @@ def paged_inputs(cfg, dev, seed: int):
         used += nb
     seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     q = torch.randn((B, H, Dh), generator=gen, device=dev).bfloat16()
-    return q, k_cache, v_cache, tables, seq_lens, lens
+    return q, k_cache, v_cache, tables, seq_lens
 
 
-def check_paged_attention_int8(cfg, dev) -> dict:
-    """K3's int8 mode on PR 1's slot mix, the pool quantized row by row."""
+def paged_bound(cfg, lens, int8: bool) -> tuple:
+    """K3's bound: each key read once for K and once for V (an int8 row's
+    two scale bytes once per token), q and out, tables and lengths."""
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C, B, M = KVH * Dh, len(lens), MAX_MODEL_LEN // KV_BLOCK
+    total = sum(lens)
+    row = C + 2 if int8 else 2 * C
+    nbytes = 2.0 * total * row + 2 * 2.0 * B * H * Dh + 4.0 * B * M + 4.0 * B
+    return bound(nbytes, 4.0 * H * Dh * total)
+
+
+def paged_library_ms(cfg, q, k_cache, v_cache, tables, seq_lens) -> float:
+    """The yardstick: SDPA over pages gathered (and, from an int8 pool,
+    dequantized) before timing, every slot padded to the table's 2048
+    keys under a mask; cold L2."""
     import torch
     import torch.nn.functional as F
     from dynamo_tpu_torch.engine.attention import (dequant_kv_rows,
-                                                   flat_token_indices,
-                                                   paged_attention_ref,
-                                                   quantize_kv_rows)
-    from dynamo_tpu_torch.engine.kernels import paged_attention_int8_cuda
+                                                   flat_token_indices)
+    KVH, Dh = cfg.num_kv_heads, cfg.head_dim
+    C, bs, M = KVH * Dh, KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    B = q.shape[0]
+    idx = flat_token_indices(tables, bs)
+
+    def gathered(cache):
+        rows = cache[idx]
+        if cache.dtype == torch.int8:
+            rows = dequant_kv_rows(rows, C, torch.bfloat16)
+        return rows.reshape(B, M * bs, KVH, Dh).transpose(1, 2).contiguous()
+    kg, vg = gathered(k_cache), gathered(v_cache)
+    mask = (torch.arange(M * bs, device=q.device)[None, :]
+            < seq_lens[:, None])[:, None, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kg, vg, attn_mask=mask, scale=Dh ** -0.5,
+        enable_gqa=True), cold=True)
+
+
+def check_paged_attention(cfg, dev, int8: bool = False) -> dict:
+    """K3 (bf16 pool, or int8 rows with in-row scales) on the slot mix
+    of PAGED_MIX, the row's reading since K3's first version, with its
+    planted faults (the longest
+    slot's last table entry read as the trash block; in int8 that block's
+    scale lanes zeroed); repeated bits; the kernel's own split partials
+    (read from the scratch it was given) merged in plain PyTorch against
+    its output, and that merge with one split's partial left out as the
+    planted merge fault; the lengths on and around the split boundaries;
+    and the full batch (8 slots x 2048 keys), timed with its bound and
+    library yardstick."""
+    import torch
+    from dynamo_tpu_torch.engine import attention, kernels
+    name = "paged_attention" + ("_int8" if int8 else "")
+    fn = (kernels.paged_attention_int8_cuda if int8
+          else kernels.paged_attention_cuda)
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    C = KVH * Dh
+    C, g = KVH * Dh, cfg.num_heads // cfg.num_kv_heads
     bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
-    scale = Dh ** -0.5
-    q, k16, v16, tables, seq_lens, lens = paged_inputs(cfg, dev, 3)
+    chunk, S = attention.decode_split_plan(M, bs)
+    kw = dict(block_size=bs, scale=Dh ** -0.5)
+    lens = PAGED_MIX
     B = len(lens)
-    k_cache, v_cache = quantize_kv_rows(k16), quantize_kv_rows(v16)
-    del k16, v16
-    out = paged_attention_int8_cuda(q, k_cache, v_cache, tables, seq_lens,
-                                    block_size=bs, scale=scale)
-    ref = paged_attention_ref(q, k_cache, v_cache, tables, seq_lens,
-                              block_size=bs, scale=scale)
-    # planted fault: the 2048-token slot's last block read with its scale
-    # lanes ignored (every scale 2^0 * (1 + 0/256) = 1)
+    q, k_cache, v_cache, tables, seq_lens = paged_inputs(
+        cfg, dev, 3 if int8 else 2, lens, int8)
+    scratch = kernels.paged_scratch(q, KVH, M, bs)
+    out = fn(q, k_cache, v_cache, tables, seq_lens, scratch=scratch, **kw)
+    again = fn(q, k_cache, v_cache, tables, seq_lens, **kw)
+    ref = attention.paged_attention_ref(q, k_cache, v_cache, tables,
+                                        seq_lens, **kw)
     longest = max(range(B), key=lambda b: lens[b])
-    rows = (tables[longest, (lens[longest] - 1) // bs].long() * bs
-            + torch.arange(bs, device=dev))
-    bad_k, bad_v = k_cache.clone(), v_cache.clone()
-    for t in (bad_k, bad_v):
-        t[rows, C:C + 2] = 0
-    fault = paged_attention_int8_cuda(q, bad_k, bad_v, tables, seq_lens,
-                                      block_size=bs, scale=scale)
-    del bad_k, bad_v
+    last = (lens[longest] - 1) // bs
+    if int8:
+        # planted fault: the 2048-token slot's last block read with its
+        # scale lanes ignored (every scale 2^0 * (1 + 0/256) = 1)
+        rows = tables[longest, last].long() * bs + torch.arange(bs,
+                                                                device=dev)
+        bad_k, bad_v = k_cache.clone(), v_cache.clone()
+        for t in (bad_k, bad_v):
+            t[rows, C:C + 2] = 0
+        fault = fn(q, bad_k, bad_v, tables, seq_lens, **kw)
+        del bad_k, bad_v
+    else:
+        # planted fault: the longest slot's last table entry read as the
+        # trash block (which holds other random rows here)
+        bad_tables = tables.clone()
+        bad_tables[longest, last] = 0
+        fault = fn(q, k_cache, v_cache, bad_tables, seq_lens, **kw)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
-        raise RuntimeError("paged_attention_int8: non-finite output")
+        raise RuntimeError(f"{name}: non-finite output")
     if out[lens.index(0)].abs().max().item() != 0.0:
-        raise RuntimeError("paged_attention_int8: zero-length slot is not "
-                           "zero")
+        raise RuntimeError(f"{name}: zero-length slot is not zero")
+    if not torch.equal(out, again):
+        raise RuntimeError(f"{name}: two calls gave different bits")
     live = seq_lens > 0
     err, rel = row_errors(out, ref, live)
     _, fault_rel = row_errors(fault, ref, live)
     slot_rel = [row_errors(out, ref, b)[1] if n else None
                 for b, n in enumerate(lens)]
-    ms = time_ms(lambda: paged_attention_int8_cuda(
-        q, k_cache, v_cache, tables, seq_lens, block_size=bs, scale=scale),
-        cold=True)
-    plain_ms = time_ms(lambda: paged_attention_ref(
-        q, k_cache, v_cache, tables, seq_lens, block_size=bs, scale=scale),
-        cold=True)
-    # library yardstick: SDPA over pages gathered and dequantized before
-    # timing
-    idx = flat_token_indices(tables, bs)
-    kg = dequant_kv_rows(k_cache[idx], C, torch.bfloat16).reshape(
-        B, M * bs, KVH, Dh).transpose(1, 2).contiguous()
-    vg = dequant_kv_rows(v_cache[idx], C, torch.bfloat16).reshape(
-        B, M * bs, KVH, Dh).transpose(1, 2).contiguous()
-    mask = (torch.arange(M * bs, device=dev)[None, :]
-            < seq_lens[:, None])[:, None, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kg, vg, attn_mask=mask, scale=scale,
-        enable_gqa=True), cold=True)
-    total = sum(lens)
-    nbytes = (2.0 * total * (C + 2) + 2 * 2.0 * B * cfg.num_heads * Dh
-              + 4.0 * B * M + 4.0 * B)
-    flops = 4.0 * cfg.num_heads * Dh * total
-    b_ms, b_by = bound(nbytes, flops)
-    case = {"B": B, "seq_lens": lens, "max_abs_err": err,
-            "max_row_rel_err": rel, "slot_row_rel_err": slot_rel,
-            "fault_row_rel_err": fault_rel, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms,
-            "library": "scaled_dot_product_attention over dequantized pages",
-            "bound_ms": b_ms, "bound_by": b_by}
-    log(f"paged_attention_int8 {json.dumps(case)}")
-    check_limit("paged_attention_int8", rel, fault_rel)
-    return {"name": "paged_attention_int8", "route": "cuda",
+    # the merge: the kernel's partials of every slot with two or more live
+    # splits, merged in plain PyTorch, against the kernel's own merge; then
+    # the planted merge fault, each such slot's first split left out
+    multi = [b for b, n in enumerate(lens) if n > chunk]
+    sel = torch.tensor(multi, device=dev)
+    km, kl, kacc = (t[sel].clone() for t in attention.split_scratch_views(
+        scratch, B, KVH, S, g, Dh))
+    for i, b in enumerate(multi):
+        n = -(-lens[b] // chunk)
+        km[i, :, n:], kl[i, :, n:], kacc[i, :, n:] = float("-inf"), 0, 0
+    _, merge_rel = row_errors(attention.merge_split_partials(km, kl, kacc),
+                              out[sel], slice(None))
+    km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
+    _, merge_fault_rel = row_errors(
+        attention.merge_split_partials(km, kl, kacc), ref[sel], slice(None))
+    del km, kl, kacc
+    # timed with a cold L2: in a decode step the KV of a layer was last
+    # touched a whole step earlier
+    ms = time_ms(lambda: fn(q, k_cache, v_cache, tables, seq_lens, **kw),
+                 cold=True)
+    plain_ms = time_ms(lambda: attention.paged_attention_ref(
+        q, k_cache, v_cache, tables, seq_lens, **kw), cold=True)
+    lib_ms = paged_library_ms(cfg, q, k_cache, v_cache, tables, seq_lens)
+    b_ms, b_by = paged_bound(cfg, lens, int8)
+    case = {"B": B, "seq_lens": lens, "chunk_tokens": chunk, "splits": S,
+            "max_abs_err": err, "max_row_rel_err": rel,
+            "slot_row_rel_err": slot_rel, "fault_row_rel_err": fault_rel,
+            "repeat_bits_equal": True,
+            "kernel_partials_merged_row_rel_err": merge_rel,
+            "merge_fault_row_rel_err": merge_fault_rel,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": ("scaled_dot_product_attention over pages gathered "
+                        + ("and dequantized " if int8 else "")
+                        + "before timing, each slot padded to 2048 keys"),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+    del q, k_cache, v_cache, out, again, ref, fault, scratch
+
+    # the split boundaries (and the whole table) against the plain version
+    blens = [chunk - 1, chunk, chunk + 1, 2 * chunk, M * bs, 0]
+    q, k_cache, v_cache, tables, seq_lens = paged_inputs(cfg, dev, 5, blens,
+                                                         int8)
+    out = fn(q, k_cache, v_cache, tables, seq_lens, **kw)
+    ref = attention.paged_attention_ref(q, k_cache, v_cache, tables,
+                                        seq_lens, **kw)
+    torch.cuda.synchronize()
+    if out[blens.index(0)].abs().max().item() != 0.0:
+        raise RuntimeError(f"{name}: zero-length slot is not zero")
+    case["boundary"] = {"seq_lens": blens, "slot_row_rel_err": [
+        row_errors(out, ref, b)[1] if n else None
+        for b, n in enumerate(blens)]}
+    _, case["boundary"]["max_row_rel_err"] = row_errors(out, ref,
+                                                        seq_lens > 0)
+    del q, k_cache, v_cache, out, ref
+
+    # the full batch: 8 x 2048 keys, every CTA live
+    q, k_cache, v_cache, tables, seq_lens = paged_inputs(cfg, dev, 6,
+                                                         PAGED_FULL, int8)
+    out = fn(q, k_cache, v_cache, tables, seq_lens, **kw)
+    again = fn(q, k_cache, v_cache, tables, seq_lens, **kw)
+    ref = attention.paged_attention_ref(q, k_cache, v_cache, tables,
+                                        seq_lens, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise RuntimeError(f"{name}: two full-batch calls gave different "
+                           f"bits")
+    full = {"seq_lens": PAGED_FULL}
+    full["max_abs_err"], full["max_row_rel_err"] = row_errors(
+        out, ref, slice(None))
+    full["ms"] = time_ms(lambda: fn(q, k_cache, v_cache, tables, seq_lens,
+                                    **kw), cold=True)
+    full["plain_ms"] = time_ms(lambda: attention.paged_attention_ref(
+        q, k_cache, v_cache, tables, seq_lens, **kw), cold=True)
+    full["library_ms"] = paged_library_ms(cfg, q, k_cache, v_cache, tables,
+                                          seq_lens)
+    full["bound_ms"], full["bound_by"] = paged_bound(cfg, PAGED_FULL, int8)
+    full["bound_share"] = full["bound_ms"] / full["ms"]
+    case["full_batch"] = full
+    del q, k_cache, v_cache, out, again, ref
+    torch.cuda.empty_cache()
+    log(f"{name} {json.dumps(case)}")
+    check_limit(name, rel, fault_rel)
+    check_limit(f"{name} merge", merge_rel, merge_fault_rel)
+    for what, r in (("boundary", case["boundary"]["max_row_rel_err"]),
+                    ("full batch", full["max_row_rel_err"])):
+        if not r <= KERNEL_ROW_REL_TOL:
+            raise RuntimeError(f"{name} {what}: row-relative error {r} > "
+                               f"{KERNEL_ROW_REL_TOL}")
+    return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
             "replaces": "dynamo_tpu/engine/attention.py:743",
             "row_rel_tolerance": KERNEL_ROW_REL_TOL, **case}
@@ -1310,18 +1365,28 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0)
     rows, launches = [], 0   # device kernels only: operator rows repeat
+    # K3's two kernels, either pool; the merge is launched early
+    # (programmatic dependent launch), so its time includes its wait for
+    # the split kernel and the two overlap
+    k3 = {"split": [0.0, 0], "merge": [0.0, 0]}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
         if t > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
             rows.append((t / 1e3, e.key))
             launches += e.count
+            for part, acc in k3.items():
+                if f"paged_attention_{part}_kernel" in e.key:
+                    acc[0] += t / 1e3
+                    acc[1] += e.count
     rows.sort(reverse=True)
     device_ms = sum(t for t, _ in rows)
     return {"profiled_wall_ms": wall_ms,
             "device_ms": device_ms if rows else "not measured",
             "device_busy_share": device_ms / wall_ms if rows else None,
             "device_kernels": launches if rows else "not measured",
+            "k3_split_ms_kernels": k3["split"] if rows else "not measured",
+            "k3_merge_ms_kernels": k3["merge"] if rows else "not measured",
             "top_kernels_ms": [[k[:60], t] for t, k in rows[:6]]}
 
 
@@ -1863,7 +1928,7 @@ def main() -> int:
     entries = [check_flash_prefill(cfg, dev),
                check_flash_prefill_partial(cfg, dev),
                check_paged_attention(cfg, dev),
-               check_paged_attention_int8(cfg, dev),
+               check_paged_attention(cfg, dev, int8=True),
                check_lm_head_int8(cfg, dev), check_grouped_int4(cfg, dev),
                check_ragged_attention(cfg, dev),
                check_ragged_attention(cfg, dev, int8=True)]

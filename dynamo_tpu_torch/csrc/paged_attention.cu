@@ -10,43 +10,68 @@
 // bf16; one layer's pool k_cache/v_cache [NTOK, KVH*Dh] bf16 (token row =
 // block id * block_size + offset); block_tables [B, M] int32; seq_lens [B]
 // int32, the number of keys each sequence sees (the current token
-// included). A sequence with seq_len 0 gets zeros; an inactive slot
-// (position 0, zero table) reads the trash block's row 0 and stays finite.
-// Returns [B, H, Dh].
+// included; keys past M * block_size are not read). A sequence with
+// seq_len 0 gets zeros; an inactive slot (position 0, zero table) reads the
+// trash block's row 0 and stays finite. Returns [B, H, Dh]. `scratch` is
+// f32 workspace the caller allocates when the plan below has more than one
+// split (B*KVH*splits*G*(Dh + 2) floats, layout in `Scratch`), else null.
 //
-// int8 mode (the Pallas kernel's `quant_lanes` mode, `dequant_tile`): pool
-// rows are C + 128 int8 lanes (C = KVH*Dh): the values, then the row's
-// scale as an exponent byte at lane C and a mantissa byte at C+1 (read
-// & 0xFF), scale = 2^e * (1 + m/256), then 126 pad lanes that are never
-// read. Each value is dequantized in f32 (value * scale, exact: the scale
-// is built with ldexpf) before the dot, as dequant_tile does. The int8
-// floor is sum_b seq_len_b * (Dh + 2) bytes per KV head and stream, about
-// half the bf16 one; the kernel shares the bf16 path's latency bound and
-// adds a dependent load of the two scale bytes per token, so it is slower
-// than the bf16 mode (0.41 against 0.29 ms on PR 1's slot mix, PERF.md).
+// int8 mode (the Pallas kernel's `quant_lanes` mode): pool rows are C + 128
+// int8 lanes (C = KVH*Dh): the values, then the row's scale as an exponent
+// byte at lane C and a mantissa byte at C+1 (read & 0xFF), scale = 2^e *
+// (1 + m/256), then pad lanes that are never read. The scale is taken out
+// of the dot: score = s_t * (q . k_t) and V's weight p_t * s_t. value *
+// scale is exact in f32, so against the Pallas kernel's dequantize-first
+// form only the order of the sums changes.
 //
 // Bound on an H100. The work's floor is bytes: every key of every sequence
-// is read once for K and once for V (sum_b seq_len_b * KVH*Dh * 2 B * 2)
-// against ~4 flop per byte, far below the card's ~295 flop/byte balance
-// point. This kernel is not near that floor: it is bound by load latency.
-// Each thread has one dependent table-then-row load in flight per
-// iteration (the block id must arrive before the row's address is known),
-// a CTA has 8 tokens in flight, so a 2048-token slot takes 256 serial
-// round trips to memory. At B = 8 with seq_lens up to 2048 it runs at
-// ~1.5% of the byte floor (PERF.md). Not yet fixed: loading several tokens
-// per thread before using them, and splitting long sequences across CTAs
-// (split-K), are the next steps.
+// is read once for K and once for V (sum_b seq_len_b * KVH * row bytes *
+// 2, row bytes Dh*2 in bf16 and Dh + 2 in int8) against ~4 flop per byte
+// at g = 4, far below the card's ~295 flop/byte balance point; tensor
+// cores would not shorten anything, so the dots are plain f32 FMAs. What
+// keeps a decode kernel from that floor is latency: the block id must
+// arrive before a row's address is known, and one CTA that walks a whole
+// 2048-token context serially pays that round trip hundreds of times (the
+// first design did, at 69x the floor on a mixed 8-slot batch; PERF.md).
 //
-// Design: one CTA of 4 warps per (sequence, KV head); its g = H/KVH query
-// heads share every K/V row the CTA reads, so the pool is streamed once per
-// KV head, not once per query head. The CTA reads its own block table (no
-// scalar prefetch or DMA waves as on the TPU). Dh/8 threads cover one
-// token's row with one 16-byte load each; a warp walks 32/(Dh/8) tokens at
-// a time and the 4 warps interleave over the sequence. Each such thread
-// group keeps an f32 online softmax (m, l, acc) per query head in
-// registers; the groups are merged through shared memory at the end. At
-// B = 8 that is 64 CTAs, half the SMs: splitting a sequence across CTAs
-// (flash-decoding) is left for a later version.
+// Design (flash-decoding):
+// - Each sequence is cut into chunks of `chunk_tokens(block_size)` keys (128
+//   rounded up to whole blocks; attention.decode_split_plan is the same
+//   plan in Python; 64 and 256 measured slower). The grid is (KVH, B,
+//   splits) with splits = ceil(M * block_size / chunk), sized on the host
+//   from the table width, never from seq_lens (they live on the device). A
+//   CTA whose chunk starts at or after seq_len exits at once; split 0 of a
+//   zero-length sequence writes its zeros.
+// - A CTA of 8 warps turns its chunk's table entries into one pool row per
+//   token (shared memory) while it loads q, then issues every K row of the
+//   chunk and then every V row as 16-byte `cp.async` copies (one KV head's
+//   slice per token, plus the 16-byte scale chunk at lane C in int8), in
+//   two commit groups. It waits on K alone, so V's copies stay in flight
+//   while the scores and the chunk's softmax are computed: two memory round
+//   trips per CTA in all, and the 16 chunks of a 2048-token slot run in
+//   parallel. (One bulk TMA copy per row on an mbarrier measured slower.)
+// - Scores: two threads per token, each over half of Dh, q broadcast from
+//   shared memory; rows are stored with a 16-byte skew (scale chunk or pad)
+//   so that neighbouring rows start in different banks. int8 values become
+//   f32 by a byte permute and a subtraction (no I2F). P.V: Dh/8 threads per
+//   row; the row groups of a warp meet by shuffles, the warps in shared
+//   memory aliased on the K rows.
+// - A (sequence, KV head) with one live split writes its output directly
+//   and touches no scratch. Otherwise each split writes f32 (m, l,
+//   acc[g][Dh]) to scratch and a second kernel of the same entry point,
+//   one CTA per (KV head, sequence), merges the live splits in index order
+//   (a split with m = -inf weighs 0, not NaN). Every sum runs in a fixed
+//   order, no float atomics: two calls give the same bits. The merge is
+//   launched from the same C call with programmatic dependent launch, so
+//   its launch overlaps the split kernel's tail; it adds one device kernel
+//   per call when splits > 1 and no Python.
+// - Shared memory per CTA: 2 * chunk * (row bytes + 16) + f32 q and
+//   probabilities, 74-78 KB at bf16 Dh 128 (dynamic, above 48 KB after
+//   cudaFuncSetAttribute once per instantiation and device): 3 CTAs per
+//   SM, each with a whole chunk's loads in flight. With the compute left
+//   out the loads alone take ~90% of the full-batch time (PERF.md): the
+//   remaining gap to the byte floor is in how the gathered 256-byte row
+//   slices stream, not in the arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,164 +79,464 @@
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kChunkTarget = 128;   // attention.DECODE_CHUNK_TOKENS
+constexpr int kMaxDevices = 64;
 
-// Eight values of one token row, from lane `lane0` of pool row `row`, in f32.
-template <bool kInt8>
-__device__ __forceinline__ void load_row8(const void* __restrict__ cache, long row, int C,
-                                          int lane0, float (&out)[8]) {
-  if constexpr (kInt8) {
-    const int8_t* base = static_cast<const int8_t*>(cache) + row * (C + 128);
-    const uint2 raw = *reinterpret_cast<const uint2*>(base + lane0);
-    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-    const int ex = base[C];
-    const int mant = static_cast<uint8_t>(base[C + 1]);
-    const float scale = ldexpf(1.f + mant * (1.f / 256.f), ex);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(e[i]) * scale;
-  } else {
-    const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(cache) + row * C;
-    const uint4 raw = *reinterpret_cast<const uint4*>(base + lane0);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
+__host__ __device__ inline int chunk_tokens(int block_size) {
+  return block_size * ((kChunkTarget + block_size - 1) / block_size);
+}
+
+// one token's slice of one KV head, in the pool and in shared memory
+template <int Dh, bool kInt8>
+struct Row {
+  static constexpr int kValBytes = kInt8 ? Dh : Dh * 2;
+  static constexpr int kPieces = kValBytes / 16 + (kInt8 ? 1 : 0);  // 16-byte copies
+  static constexpr int kSmem = kValBytes + 16;                      // + scale chunk or pad
+};
+
+// The scratch of one call: acc [B, KVH, S, G, Dh], then m and l [B, KVH,
+// S, G], all f32 (attention.split_scratch_views reads the same layout).
+template <int Dh, int G>
+struct Scratch {
+  float* acc;
+  float* m;
+  float* l;
+  __device__ Scratch(float* base, int B, int KVH, int S) {
+    const long n = (long)B * KVH * S * G;
+    acc = base;
+    m = base + n * Dh;
+    l = m + n;
   }
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four int8 lanes of a word to f32, exactly: (b ^ 0x80) as the low byte
+// of 2^23's mantissa, less 2^23 + 128 (a PRMT and an FADD, not an I2F).
+__device__ __forceinline__ void int8x4_to_f32(unsigned w, float* f) {
+  const unsigned x = w ^ 0x80808080u;
+  f[0] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+__device__ __forceinline__ float row_scale(const uint8_t* s) {
+  return ldexpf(1.f + s[1] * (1.f / 256.f), static_cast<int8_t>(s[0]));
+}
+
+// Issue the copies of rows [0, n_tok) of the chunk, whose pool rows are
+// `rows` (one KV head's slice, and the scale chunk in int8).
+template <int Dh, bool kInt8>
+__device__ __forceinline__ void issue_rows(uint8_t* dst, const void* cache, const int* rows,
+                                           int n_tok, int C, int kvh) {
+  using R = Row<Dh, kInt8>;
+  const uint8_t* pool = static_cast<const uint8_t*>(cache);
+  const long stride = kInt8 ? (long)C + 128 : (long)C * 2;  // bytes per pool row
+  for (int i = threadIdx.x; i < n_tok * R::kPieces; i += kThreads) {
+    const int t = i / R::kPieces, p = i % R::kPieces;
+    const uint8_t* row = pool + rows[t] * stride;
+    const uint8_t* src = (kInt8 && p == R::kPieces - 1) ? row + C
+                                                         : row + (long)kvh * R::kValBytes + p * 16;
+    cp_async16(dst + t * R::kSmem + p * 16, src);
+  }
+}
+
+// Block-wide reduction of G values per thread, in a fixed order (the same
+// bits every call); every thread gets the results.
+template <int G, bool kMax>
+__device__ __forceinline__ void block_reduce(float (&v)[G], float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o = __shfl_xor_sync(0xffffffff, v[h], off);
+      v[h] = kMax ? fmaxf(v[h], o) : v[h] + o;
+    }
+    if (lane == 0) red[warp * G + h] = v[h];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    float r = red[h];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, red[w * G + h]) : r + red[w * G + h];
+    v[h] = r;
+  }
+  __syncthreads();
+}
+
+template <int Dh, int G, bool kInt8>
+__host__ __device__ inline size_t kv_region_bytes(int chunk) {
+  const size_t rows = (size_t)chunk * Row<Dh, kInt8>::kSmem;
+  const size_t red = (size_t)kWarps * G * Dh * sizeof(float);  // P.V partials, aliased
+  return rows > red ? rows : red;
+}
+
+template <int Dh, int G, bool kInt8>
+inline size_t smem_bytes(int chunk, int block_size) {
+  return kv_region_bytes<Dh, G, kInt8>(chunk) + (size_t)chunk * Row<Dh, kInt8>::kSmem +
+         sizeof(float) * ((size_t)G * Dh + (size_t)G * chunk + kWarps * G + 2 * G) +
+         sizeof(int) * (size_t)chunk;
 }
 
 template <int Dh, int G, bool kInt8>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_cache,
-                       const void* __restrict__ v_cache,
-                       const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
-                       __nv_bfloat16* __restrict__ out, int H, int KVH, int M, int block_size,
-                       float scale_log2) {
-  constexpr int kTpt = Dh / 8;            // threads per token row
-  constexpr int kSubPerWarp = 32 / kTpt;  // tokens a warp reads at once
-  constexpr int kSubs = kWarps * kSubPerWarp;
-  __shared__ float sm_m[kSubs][G];
-  __shared__ float sm_l[kSubs][G];
-  __shared__ float sm_acc[kSubs][G][Dh];
-
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sub = warp * kSubPerWarp + lane / kTpt;
-  const int d0 = (lane % kTpt) * 8;
-  const int L = seq_lens[b];
-  const int C = KVH * Dh;
-  const int* table = block_tables + (long)b * M;
-
-  float qv[G][8];
-#pragma unroll
-  for (int h = 0; h < G; ++h) {
-    uint4 raw = *reinterpret_cast<const uint4*>(q + ((long)b * H + kvh * G + h) * Dh + d0);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) qv[h][i] = __bfloat162float(e[i]);
+paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_cache,
+                             const void* __restrict__ v_cache,
+                             const int* __restrict__ block_tables,
+                             const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ scratch, int H, int KVH, int M, int block_size,
+                             float scale_log2) {
+  using R = Row<Dh, kInt8>;
+  constexpr int kTpt = Dh / 8;  // threads per row in P.V, 8 values each
+  constexpr int kSubs = kThreads / kTpt;
+  // the merge kernel may be scheduled now: it waits for this grid itself
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int chunk = chunk_tokens(block_size);
+  const int L = min(seq_lens[b], M * block_size);
+  const int t0 = split * chunk;
+  __nv_bfloat16* o = out + ((long)b * H + kvh * G) * Dh;
+  if (t0 >= L) {
+    if (split == 0)
+      for (int i = tid; i < G * Dh; i += kThreads) o[i] = __float2bfloat16(0.f);
+    return;
   }
-  float m[G], l[G], acc[G][8];
+  const int n_tok = min(chunk, L - t0);
+  const int n_live = (L + chunk - 1) / chunk;
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* sK = smem;
+  uint8_t* sV = sK + kv_region_bytes<Dh, G, kInt8>(chunk);
+  float* sQ = reinterpret_cast<float*>(sV + (size_t)chunk * R::kSmem);
+  float* sP = sQ + G * Dh;      // [G][chunk]: scores, then probabilities
+  float* sRed = sP + G * chunk;  // [kWarps][G]
+  float* sML = sRed + kWarps * G;  // m[G], l[G]
+  int* sRow = reinterpret_cast<int*>(sML + 2 * G);  // pool row of each token
+  float* sAcc = reinterpret_cast<float*>(sK);  // [kWarps][G][Dh], after the scores
+
+  const int* table = block_tables + (long)b * M + t0 / block_size;
+  for (int t = tid; t < n_tok; t += kThreads)
+    sRow[t] = table[t / block_size] * block_size + t % block_size;
+  const __nv_bfloat16* qb = q + ((long)b * H + kvh * G) * Dh;
+  for (int i = tid; i < G * Dh; i += kThreads) sQ[i] = __bfloat162float(qb[i]);
+  __syncthreads();
+  const int C = KVH * Dh;
+  issue_rows<Dh, kInt8>(sK, k_cache, sRow, n_tok, C, kvh);
+  cp_async_commit();
+  issue_rows<Dh, kInt8>(sV, v_cache, sRow, n_tok, C, kvh);
+  cp_async_commit();
+  cp_async_wait<1>();  // K has landed, V is still in flight
+  __syncthreads();
+
+  // scores in the exp2 domain: two threads per token, each over half of
+  // Dh, met by one shuffle; at Dh 128 bf16 the second half walks its
+  // pieces rotated by a quarter row so that the halves of a row never
+  // share a bank
+  constexpr int kVals = kInt8 ? 16 : 8;  // values per 16-byte piece
+  constexpr int kHalf = Dh / kVals / 2;  // pieces per half row
+  constexpr int kRot = kHalf % 8 == 0 ? kHalf / 2 : 0;
+  const int half = tid & 1;
+  for (int base = 0; base < n_tok; base += kThreads / 2) {  // warp-uniform trips
+    const int t = base + tid / 2;
+    const bool valid = t < n_tok;
+    const uint8_t* kr = sK + t * R::kSmem;
+    float dot[G];
+#pragma unroll
+    for (int h = 0; h < G; ++h) dot[h] = 0.f;
+    if (valid) {
+#pragma unroll
+      for (int j = 0; j < kHalf; ++j) {
+        const int p = half * kHalf + (j + half * kRot) % kHalf;
+        const uint4 raw = *reinterpret_cast<const uint4*>(kr + p * 16);
+        float kf[kVals];
+        if constexpr (kInt8) {
+          int8x4_to_f32(raw.x, kf);
+          int8x4_to_f32(raw.y, kf + 4);
+          int8x4_to_f32(raw.z, kf + 8);
+          int8x4_to_f32(raw.w, kf + 12);
+        } else {
+          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+          for (int i = 0; i < kVals; ++i) kf[i] = __bfloat162float(e[i]);
+        }
+#pragma unroll
+        for (int h = 0; h < G; ++h) {
+          const float4* qh = reinterpret_cast<const float4*>(sQ + h * Dh + p * kVals);
+#pragma unroll
+          for (int i = 0; i < kVals / 4; ++i) {
+            const float4 qq = qh[i];
+            dot[h] += qq.x * kf[4 * i] + qq.y * kf[4 * i + 1] + qq.z * kf[4 * i + 2] +
+                      qq.w * kf[4 * i + 3];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < G; ++h) dot[h] += __shfl_xor_sync(0xffffffff, dot[h], 1);
+    if (valid && half == 0) {
+      const float ks = kInt8 ? row_scale(kr + Dh) * scale_log2 : scale_log2;
+#pragma unroll
+      for (int h = 0; h < G; ++h) sP[h * chunk + t] = dot[h] * ks;
+    }
+  }
+  __syncthreads();
+
+  // the chunk's softmax: m, p = exp2(s - m), l
+  float m[G], l[G];
 #pragma unroll
   for (int h = 0; h < G; ++h) {
     m[h] = -INFINITY;
-    l[h] = 0.f;
+    for (int t = tid; t < n_tok; t += kThreads) m[h] = fmaxf(m[h], sP[h * chunk + t]);
+  }
+  block_reduce<G, true>(m, sRed);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[h][i] = 0.f;
+  for (int h = 0; h < G; ++h) {
+    l[h] = 0.f;
+    for (int t = tid; t < n_tok; t += kThreads) {
+      const float p = exp2f(sP[h * chunk + t] - m[h]);
+      sP[h * chunk + t] = p;
+      l[h] += p;
+    }
+  }
+  block_reduce<G, false>(l, sRed);
+  if (tid < G) {
+#pragma unroll
+    for (int h = 0; h < G; ++h)
+      if (tid == h) {
+        sML[h] = m[h];
+        sML[G + h] = l[h];
+      }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if constexpr (kInt8) {  // V's row scales into the probabilities (l has them unscaled)
+    for (int t = tid; t < n_tok; t += kThreads) {
+      const float vs = row_scale(sV + t * R::kSmem + Dh);
+#pragma unroll
+      for (int h = 0; h < G; ++h) sP[h * chunk + t] *= vs;
+    }
+    __syncthreads();
   }
 
-  // warp-uniform trip count: every lane of a warp runs every iteration so
-  // the shuffles below always see the full warp
-  for (int base = warp * kSubPerWarp; base < L; base += kSubs) {
-    const int t = base + lane / kTpt;
-    const bool valid = t < L;
-    float kf[8], vf[8];
-    if (valid) {
-      const long row = (long)table[t / block_size] * block_size + t % block_size;
-      load_row8<kInt8>(k_cache, row, C, kvh * Dh + d0, kf);
-      load_row8<kInt8>(v_cache, row, C, kvh * Dh + d0, vf);
-    } else {
+  // P.V: Dh/8 threads per row, kSubs rows at a time
+  const int piece = tid % kTpt, sub = tid / kTpt;
+  float acc[G][8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) kf[i] = vf[i] = 0.f;
+  for (int h = 0; h < G; ++h)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[h][i] = 0.f;
+  for (int t = sub; t < n_tok; t += kSubs) {
+    const uint8_t* vr = sV + t * R::kSmem;
+    float vf[8];
+    if constexpr (kInt8) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(vr + piece * 8);
+      int8x4_to_f32(raw.x, vf);
+      int8x4_to_f32(raw.y, vf + 4);
+    } else {
+      const uint4 raw = *reinterpret_cast<const uint4*>(vr + piece * 16);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) vf[i] = __bfloat162float(e[i]);
     }
 #pragma unroll
     for (int h = 0; h < G; ++h) {
-      float dot = 0.f;
+      const float w = sP[h * chunk + t];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) dot += qv[h][i] * kf[i];
-#pragma unroll
-      for (int off = kTpt / 2; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffff, dot, off);
-      if (valid) {
-        const float s = dot * scale_log2;
-        const float m_new = fmaxf(m[h], s);
-        const float alpha = exp2f(m[h] - m_new);
-        const float p = exp2f(s - m_new);
-        l[h] = l[h] * alpha + p;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[h][i] = acc[h][i] * alpha + p * vf[i];
-        m[h] = m_new;
-      }
+      for (int i = 0; i < 8; ++i) acc[h][i] += w * vf[i];
     }
   }
-
-  // merge the kSubs partial softmaxes
+  // the row groups of a warp, then the warps, in a fixed order
 #pragma unroll
-  for (int h = 0; h < G; ++h) {
-    if (lane % kTpt == 0) {
-      sm_m[sub][h] = m[h];
-      sm_l[sub][h] = l[h];
-    }
+  for (int h = 0; h < G; ++h)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) sm_acc[sub][h][d0 + i] = acc[h][i];
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int off = kTpt; off < 32; off <<= 1)
+        acc[h][i] += __shfl_xor_sync(0xffffffff, acc[h][i], off);
+  if (lane < kTpt) {
+#pragma unroll
+    for (int h = 0; h < G; ++h)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sAcc[(warp * G + h) * Dh + piece * 8 + i] = acc[h][i];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * Dh; idx += kThreads) {
-    const int h = idx / Dh, d = idx % Dh;
-    float mx = -INFINITY;
+
+  if (n_live == 1) {
+    for (int i = tid; i < G * Dh; i += kThreads) {
+      float a = sAcc[i];
 #pragma unroll
-    for (int s = 0; s < kSubs; ++s) mx = fmaxf(mx, sm_m[s][h]);
-    float res = 0.f;
-    if (mx != -INFINITY) {
-      float num = 0.f, den = 0.f;
-#pragma unroll
-      for (int s = 0; s < kSubs; ++s) {
-        const float w = exp2f(sm_m[s][h] - mx);
-        num += w * sm_acc[s][h][d];
-        den += w * sm_l[s][h];
-      }
-      res = num / den;
+      for (int w = 1; w < kWarps; ++w) a += sAcc[w * G * Dh + i];
+      o[i] = __float2bfloat16(a / sML[G + i / Dh]);
     }
-    out[((long)b * H + kvh * G + h) * Dh + d] = __float2bfloat16(res);
+    return;
   }
+  Scratch<Dh, G> sc(scratch, gridDim.y, KVH, gridDim.z);
+  const long slot = (((long)b * KVH + kvh) * gridDim.z + split) * G;
+  for (int i = tid; i < G * Dh; i += kThreads) {
+    float a = sAcc[i];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) a += sAcc[w * G * Dh + i];
+    sc.acc[slot * Dh + i] = a;
+  }
+  if (tid < G) {
+    sc.m[slot + tid] = sML[tid];
+    sc.l[slot + tid] = sML[G + tid];
+  }
+}
+
+// One CTA per (KV head, sequence): the live splits' partials merged in
+// index order; sequences with one live split were written by their split.
+// Every split's (m, l) comes into shared memory in one parallel load, the
+// weights exp2(m_s - max m) and 1 / sum(w l) are formed once per head, and
+// each thread then sums 4 lanes of acc over the splits with independent
+// 16-byte loads.
+template <int Dh, int G>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_merge_kernel(const float* __restrict__ scratch, const int* __restrict__ seq_lens,
+                             __nv_bfloat16* __restrict__ out, int H, int KVH, int M,
+                             int block_size, int S) {
+  extern __shared__ float sW[];  // [S][G] m, then weights; [S][G] l; [G] 1/den
+  float* sL = sW + S * G;
+  float* sInv = sL + S * G;
+  const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int chunk = chunk_tokens(block_size);
+  const int L = min(seq_lens[b], M * block_size);
+  const int n = (L + chunk - 1) / chunk;
+  // launched early (programmatic dependent launch): every CTA waits here
+  // for the split kernel's grid to finish and its writes to land, so that
+  // what follows in the stream is ordered after both kernels
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (n <= 1) return;
+  Scratch<Dh, G> sc(const_cast<float*>(scratch), gridDim.y, KVH, S);
+  const long slot0 = ((long)b * KVH + kvh) * S * G;
+  for (int i = tid; i < n * G; i += kThreads) {
+    sW[i] = sc.m[slot0 + i];
+    sL[i] = sc.l[slot0 + i];
+  }
+  __syncthreads();
+  if (tid < G) {
+    float mx = -INFINITY;
+    for (int s = 0; s < n; ++s) mx = fmaxf(mx, sW[s * G + tid]);
+    float den = 0.f;
+    for (int s = 0; s < n; ++s) {
+      const float ms = sW[s * G + tid];
+      const float w = ms == -INFINITY ? 0.f : exp2f(ms - mx);
+      sW[s * G + tid] = w;
+      den += w * sL[s * G + tid];
+    }
+    sInv[tid] = den > 0.f ? 1.f / den : 0.f;
+  }
+  __syncthreads();
+  constexpr int kQuads = Dh / 4;
+  const float4* acc = reinterpret_cast<const float4*>(sc.acc + slot0 * Dh);
+  __nv_bfloat16* o = out + ((long)b * H + kvh * G) * Dh;
+  for (int i = tid; i < G * kQuads; i += kThreads) {
+    const int h = i / kQuads;
+    float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int s = 0; s < n; ++s) {
+      const float4 a = acc[(long)s * G * kQuads + i];
+      const float w = sW[s * G + h];
+      r.x += w * a.x;
+      r.y += w * a.y;
+      r.z += w * a.z;
+      r.w += w * a.w;
+    }
+    const float inv = sInv[h];
+    o[4 * i] = __float2bfloat16(r.x * inv);
+    o[4 * i + 1] = __float2bfloat16(r.y * inv);
+    o[4 * i + 2] = __float2bfloat16(r.z * inv);
+    o[4 * i + 3] = __float2bfloat16(r.w * inv);
+  }
+}
+
+// Raise the instantiation's dynamic shared-memory limit on the current
+// device once (to the largest size asked for so far).
+template <int Dh, int G, bool kInt8>
+cudaError_t ensure_smem(size_t bytes) {
+  static size_t granted[kMaxDevices] = {};
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(paged_attention_split_kernel<Dh, G, kInt8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) granted[dev] = bytes;
+  return err;
 }
 
 template <int Dh, int G, bool kInt8>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tables,
-                   const int* seq_lens, void* out, int B, int H, int KVH, int M,
+                   const int* seq_lens, void* out, void* scratch, int B, int H, int KVH, int M,
                    int block_size, float scale, cudaStream_t stream) {
-  dim3 grid(KVH, B);
-  paged_attention_kernel<Dh, G, kInt8><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), k, v, tables, seq_lens,
-      static_cast<__nv_bfloat16*>(out), H, KVH, M, block_size, scale * 1.4426950408889634f);
+  const int chunk = chunk_tokens(block_size);
+  const int splits = (M * block_size + chunk - 1) / chunk;
+  const size_t merge_smem = sizeof(float) * (2 * (size_t)splits * G + G);
+  if (splits > 1 && (scratch == nullptr || merge_smem > 48 * 1024)) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<Dh, G, kInt8>(chunk, block_size);
+  cudaError_t err = ensure_smem<Dh, G, kInt8>(smem);
+  if (err != cudaSuccess) return err;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  float* sc = static_cast<float*>(scratch);
+  paged_attention_split_kernel<Dh, G, kInt8><<<dim3(KVH, B, splits), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k, v, tables, seq_lens, o, sc, H, KVH, M, block_size,
+      scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  // programmatic dependent launch: the merge's launch overlaps the split
+  // kernel's tail instead of following its end
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(KVH, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = merge_smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, paged_attention_merge_kernel<Dh, G>,
+                           static_cast<const float*>(sc), seq_lens, o, H, KVH, M, block_size,
+                           splits);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int Dh, bool kInt8>
 cudaError_t launch_g(int g, const void* q, const void* k, const void* v, const int* tables,
-                     const int* seq_lens, void* out, int B, int H, int KVH, int M,
+                     const int* seq_lens, void* out, void* scratch, int B, int H, int KVH, int M,
                      int block_size, float scale, cudaStream_t stream) {
   switch (g) {
     case 1:
-      return launch<Dh, 1, kInt8>(q, k, v, tables, seq_lens, out, B, H, KVH, M, block_size,
-                                  scale, stream);
+      return launch<Dh, 1, kInt8>(q, k, v, tables, seq_lens, out, scratch, B, H, KVH, M,
+                                  block_size, scale, stream);
     case 2:
-      return launch<Dh, 2, kInt8>(q, k, v, tables, seq_lens, out, B, H, KVH, M, block_size,
-                                  scale, stream);
+      return launch<Dh, 2, kInt8>(q, k, v, tables, seq_lens, out, scratch, B, H, KVH, M,
+                                  block_size, scale, stream);
     case 4:
-      return launch<Dh, 4, kInt8>(q, k, v, tables, seq_lens, out, B, H, KVH, M, block_size,
-                                  scale, stream);
+      return launch<Dh, 4, kInt8>(q, k, v, tables, seq_lens, out, scratch, B, H, KVH, M,
+                                  block_size, scale, stream);
     case 8:
-      return launch<Dh, 8, kInt8>(q, k, v, tables, seq_lens, out, B, H, KVH, M, block_size,
-                                  scale, stream);
+      return launch<Dh, 8, kInt8>(q, k, v, tables, seq_lens, out, scratch, B, H, KVH, M,
+                                  block_size, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -219,21 +544,21 @@ cudaError_t launch_g(int g, const void* q, const void* k, const void* v, const i
 
 template <bool kInt8>
 int dispatch(const void* q, const void* k_cache, const void* v_cache, const void* block_tables,
-             const void* seq_lens, void* out, int B, int H, int KVH, int Dh, int M,
+             const void* seq_lens, void* out, void* scratch, int B, int H, int KVH, int Dh, int M,
              int block_size, float scale, void* stream) {
   if (B <= 0) return 0;
-  if (H % KVH != 0) return (int)cudaErrorInvalidValue;
+  if (H % KVH != 0 || M <= 0 || block_size <= 0) return (int)cudaErrorInvalidValue;
   const int g = H / KVH;
   const int* tables = static_cast<const int*>(block_tables);
   const int* lens = static_cast<const int*>(seq_lens);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 64:
-      return (int)launch_g<64, kInt8>(g, q, k_cache, v_cache, tables, lens, out, B, H, KVH, M,
-                                      block_size, scale, st);
+      return (int)launch_g<64, kInt8>(g, q, k_cache, v_cache, tables, lens, out, scratch, B, H,
+                                      KVH, M, block_size, scale, st);
     case 128:
-      return (int)launch_g<128, kInt8>(g, q, k_cache, v_cache, tables, lens, out, B, H, KVH, M,
-                                       block_size, scale, st);
+      return (int)launch_g<128, kInt8>(g, q, k_cache, v_cache, tables, lens, out, scratch, B, H,
+                                       KVH, M, block_size, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -243,19 +568,19 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache, const void
 
 // Both return a cudaError_t (0 = launched). Head dims 64/128 and GQA group
 // sizes 1/2/4/8 are compiled. The int8 entry takes pools of KVH*Dh + 128
-// int8 lanes per row.
+// int8 lanes per row. `scratch`: see the contract above.
 extern "C" int dtt_paged_attention_bf16(const void* q, const void* k_cache, const void* v_cache,
                                         const void* block_tables, const void* seq_lens,
-                                        void* out, int B, int H, int KVH, int Dh, int M,
-                                        int block_size, float scale, void* stream) {
-  return dispatch<false>(q, k_cache, v_cache, block_tables, seq_lens, out, B, H, KVH, Dh, M,
-                         block_size, scale, stream);
+                                        void* out, void* scratch, int B, int H, int KVH, int Dh,
+                                        int M, int block_size, float scale, void* stream) {
+  return dispatch<false>(q, k_cache, v_cache, block_tables, seq_lens, out, scratch, B, H, KVH, Dh,
+                         M, block_size, scale, stream);
 }
 
 extern "C" int dtt_paged_attention_int8(const void* q, const void* k_cache, const void* v_cache,
                                         const void* block_tables, const void* seq_lens,
-                                        void* out, int B, int H, int KVH, int Dh, int M,
-                                        int block_size, float scale, void* stream) {
-  return dispatch<true>(q, k_cache, v_cache, block_tables, seq_lens, out, B, H, KVH, Dh, M,
-                        block_size, scale, stream);
+                                        void* out, void* scratch, int B, int H, int KVH, int Dh,
+                                        int M, int block_size, float scale, void* stream) {
+  return dispatch<true>(q, k_cache, v_cache, block_tables, seq_lens, out, scratch, B, H, KVH, Dh,
+                        M, block_size, scale, stream);
 }

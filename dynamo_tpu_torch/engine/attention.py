@@ -10,7 +10,9 @@ then pad lanes, in the JAX package's exact encoding (``quantize_kv_rows``).
 
 Each kernel has a plain PyTorch version of the same function in this
 module (``flash_prefill_ref``, ``flash_prefill_partial_ref``,
-``paged_attention_ref``, ``ragged_paged_attention_ref``). The public
+``paged_attention_ref``, ``ragged_paged_attention_ref``), and K3's split
+arithmetic (``paged_attention_partials_ref``, ``merge_split_partials``)
+is kept in plain form for the tests. The public
 functions dispatch on the tensor's device alone: a CPU tensor takes the
 plain version, a CUDA tensor launches the hand-written kernel
 (``engine/kernels.py``, sources under ``csrc/``) or raises. There is no
@@ -239,6 +241,102 @@ def paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgt,btkd->bkgd", probs, v).reshape(B, H, Dh)
     # a zero-length (padded) slot gets zeros, as from the kernels
     return out * (seq_lens > 0).to(out.dtype)[:, None, None]
+
+
+# K3 cuts each sequence into chunks of this many keys (rounded up to whole
+# blocks), one CTA per chunk and KV head, and merges the chunks' partial
+# softmaxes (csrc/paged_attention.cu, kChunkTarget)
+DECODE_CHUNK_TOKENS = 128
+
+
+def decode_split_plan(max_blocks: int, block_size: int) -> tuple:
+    """(chunk tokens, splits) of K3 for a table of ``max_blocks`` entries:
+    the kernel's plan, sized from the table width alone (seq_lens live on
+    the device)."""
+    chunk = block_size * -(-DECODE_CHUNK_TOKENS // block_size)
+    return chunk, -(-(max_blocks * block_size) // chunk)
+
+
+def split_scratch_views(scratch: torch.Tensor, B: int, KVH: int, S: int,
+                        g: int, Dh: int) -> tuple:
+    """K3's f32 scratch as (m [B, KVH, S, g], l [B, KVH, S, g], acc [B, KVH,
+    S, g, Dh]): acc first, then m, then l, as the kernel lays them out."""
+    n = B * KVH * S * g
+    acc = scratch[:n * Dh].view(B, KVH, S, g, Dh)
+    m = scratch[n * Dh:n * (Dh + 1)].view(B, KVH, S, g)
+    l = scratch[n * (Dh + 1):n * (Dh + 2)].view(B, KVH, S, g)
+    return m, l, acc
+
+
+def paged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 seq_lens: torch.Tensor, *, block_size: int,
+                                 scale: float) -> tuple:
+    """The split form of ``paged_attention_ref`` with K3's arithmetic, for
+    the tests (``merge_split_partials`` completes it): each (sequence, KV head, split of ``decode_split_plan``)
+    gives f32 (m, l, acc) over its chunk of keys, with scores in the exp2
+    domain (s = scale·log2(e)·q·k, an int8 key's scale taken out of the
+    dot), m their max, p = exp2(s - m), l = Σp and acc = Σ p·v (an int8
+    value's scale folded into p). A split that sees no key gives (-inf, 0,
+    0). Returns (m [B, KVH, S, g], l [B, KVH, S, g], acc [B, KVH, S, g,
+    Dh])."""
+    B, H, Dh = q.shape
+    C = kv_value_lanes(k_cache)
+    KVH = C // Dh
+    g = H // KVH
+    M = block_tables.shape[1]
+    chunk, S = decode_split_plan(M, block_size)
+    idx = flat_token_indices(block_tables, block_size)          # [B, T]
+    T = idx.shape[1]
+
+    def rows(cache):
+        r = cache[idx]
+        if cache.dtype != torch.int8:
+            return r.float().reshape(B, T, KVH, Dh), None
+        sc = _decode_scale(r[..., C], r[..., C + 1])             # [B, T]
+        return r[..., :C].float().reshape(B, T, KVH, Dh), sc
+    k, ks = rows(k_cache)
+    v, vs = rows(v_cache)
+    qg = q.float().reshape(B, KVH, g, Dh)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k)
+    if ks is not None:
+        s = s * ks[:, None, None, :]
+    s = s * (scale * 1.4426950408889634)
+    live = torch.arange(T, device=q.device)[None, :] < seq_lens.long()[:, None]
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    pad = S * chunk - T                     # the plan covers the table
+    s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
+    s = s.reshape(B, KVH, g, S, chunk)
+    m = s.amax(-1)                                             # [B, KVH, g, S]
+    p = torch.exp2(s - m[..., None])
+    p = torch.where(torch.isneginf(s), torch.zeros_like(p), p)
+    l = p.sum(-1)
+    if vs is not None:
+        p = p * torch.nn.functional.pad(vs, (0, pad)).reshape(
+            B, 1, 1, S, chunk)
+    vpad = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).reshape(
+        B, S, chunk, KVH, Dh)
+    acc = torch.einsum("bkgsc,bsckd->bksgd", p, vpad)
+    return m.permute(0, 1, 3, 2), l.permute(0, 1, 3, 2), acc
+
+
+def merge_split_partials(m: torch.Tensor, l: torch.Tensor,
+                         acc: torch.Tensor) -> torch.Tensor:
+    """K3's merge of the splits' (m, l, acc) (layout of
+    ``paged_attention_partials_ref``) → [B, KVH*g, Dh] f32: weights
+    exp2(m_s - max m), a split with m = -inf weighing 0 (not NaN), and 0
+    where no split saw a key."""
+    B, KVH, S, g, Dh = acc.shape
+    mx = m.amax(2, keepdim=True)
+    w = torch.where(torch.isneginf(m), torch.zeros_like(m),
+                    torch.exp2(m - mx))
+    num = (w[..., None] * acc).sum(2)                          # [B, KVH, g, Dh]
+    den = (w * l).sum(2)[..., None]
+    out = torch.where(den > 0, num / torch.where(den > 0, den,
+                                                  torch.ones_like(den)),
+                      torch.zeros_like(num))
+    return out.reshape(B, KVH * g, Dh)
 
 
 def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,

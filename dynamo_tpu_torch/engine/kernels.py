@@ -9,7 +9,7 @@ never loaded.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output (``torch.empty``, or ``torch.zeros`` where the kernel writes only
-some rows), launches on the current stream of the tensor's device with
+some rows) and any scratch (``torch.empty``), launches on the current stream of the tensor's device with
 that device current, raises when the C entry point returns a CUDA error,
 and counts its launches in ``Kernel.launches``. Nothing here runs on import: the CPU tests import
 every module of the package.
@@ -27,7 +27,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .attention import KV_SCALE_LANES
+from .attention import KV_SCALE_LANES, decode_split_plan
 from .quant_matmul import GROUP
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -111,8 +111,8 @@ class _Library:
                 for name in ("dtt_paged_attention_bf16",
                              "dtt_paged_attention_int8"):
                     fn = getattr(lib, name)
-                    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                   ci, ci, cf, vp]
+                    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                   ci, ci, ci, cf, vp]
                     fn.restype = ci
                 for name in ("dtt_ragged_paged_attention_bf16",
                              "dtt_ragged_paged_attention_int8"):
@@ -261,9 +261,22 @@ def _check_paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
     return H, KVH, Dh
 
 
+def paged_scratch(q: torch.Tensor, KVH: int, M: int,
+                  block_size: int) -> Optional[torch.Tensor]:
+    """K3's f32 workspace for q [B, H, Dh] over a table of M entries, on
+    q's device (``attention.split_scratch_views`` reads it), or None when
+    the plan has one split."""
+    B, H, Dh = q.shape
+    _, S = decode_split_plan(M, block_size)
+    if S == 1:
+        return None
+    return torch.empty(B * KVH * S * (H // KVH) * (Dh + 2),
+                       dtype=torch.float32, device=q.device)
+
+
 def _paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
            q, k_cache, v_cache, block_tables, seq_lens, block_size: int,
-           scale: float) -> torch.Tensor:
+           scale: float, scratch: Optional[torch.Tensor]) -> torch.Tensor:
     H, KVH, Dh = _check_paged(kernel, pool_dtype, scale_lanes, q, k_cache,
                               v_cache, block_tables, seq_lens, block_size)
     B = q.shape[0]
@@ -272,8 +285,17 @@ def _paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
                          f"{B} query rows")
     out = torch.empty_like(q)
     M = block_tables.shape[1]
+    want = paged_scratch(q, KVH, M, block_size)
+    if scratch is None:
+        scratch = want
+    elif (want is None or scratch.device != q.device
+          or scratch.dtype != torch.float32 or not scratch.is_contiguous()
+          or scratch.numel() != want.numel()):
+        raise ValueError(f"{kernel.name}: scratch must be what "
+                         f"paged_scratch allocates")
     kernel.launch(q, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(),
                   B, H, KVH, Dh, M, int(block_size), float(scale))
     return out
 
@@ -281,23 +303,31 @@ def _paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
 def paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, block_tables: torch.Tensor,
                          seq_lens: torch.Tensor, *, block_size: int,
-                         scale: float) -> torch.Tensor:
+                         scale: float,
+                         scratch: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """q [B, H, Dh] bf16; one layer's pool [NTOK, KVH*Dh] bf16; tables [B, M]
-    and seq_lens [B] int32 → [B, H, Dh] (csrc/paged_attention.cu)."""
+    and seq_lens [B] int32 → [B, H, Dh] (csrc/paged_attention.cu).
+    ``scratch``: the split partials' workspace (``paged_scratch``); left
+    None the wrapper allocates it. A caller that passes it can read the
+    partials of every sequence with more than one live split afterwards."""
     return _paged(PAGED_ATTENTION, torch.bfloat16, 0, q, k_cache, v_cache,
-                  block_tables, seq_lens, block_size, scale)
+                  block_tables, seq_lens, block_size, scale, scratch)
 
 
 def paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                               v_cache: torch.Tensor,
                               block_tables: torch.Tensor,
                               seq_lens: torch.Tensor, *, block_size: int,
-                              scale: float) -> torch.Tensor:
+                              scale: float,
+                              scratch: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """As ``paged_attention_cuda`` over an int8 pool [NTOK, KVH*Dh + 128]
     with in-row scales (attention.quantize_kv_rows; the int8 entry point of
     csrc/paged_attention.cu)."""
     return _paged(PAGED_ATTENTION_INT8, torch.int8, KV_SCALE_LANES, q,
-                  k_cache, v_cache, block_tables, seq_lens, block_size, scale)
+                  k_cache, v_cache, block_tables, seq_lens, block_size, scale,
+                  scratch)
 
 
 def _ragged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,

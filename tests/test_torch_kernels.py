@@ -180,6 +180,102 @@ def test_paged_attention_kernel_matches_plain():
     assert _row_rel_err(fault, ref, live) > ROW_REL_TOL
 
 
+def _paged_pool(gen, dev, int8, n_rows, C):
+    if int8:
+        return _int8_pool(n_rows, C, gen, dev), _int8_pool(n_rows, C, gen, dev)
+    return tuple(torch.randn((n_rows, C), generator=gen, device=dev).bfloat16()
+                 for _ in range(2))
+
+
+def _split_case(dev, int8, lens, H, KVH, Dh, M, bs=16, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lens)
+    k, v = _paged_pool(g, dev, int8, (B * M + 1) * bs, KVH * Dh)
+    tables = (torch.randperm(B * M, generator=g, device=dev) + 1).reshape(
+        B, M).to(torch.int32)
+    q = torch.randn((B, H, Dh), generator=g, device=dev).bfloat16()
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, k, v, tables, lens
+
+
+# K3 splits each sequence into 128-key chunks (attention.decode_split_plan):
+# lengths on and around the split boundaries of a 384-key table, a
+# zero-length slot and an inactive one (position 0, the trash block), for
+# every compiled (Dh, g) in both pools. The kernel's own partials (read
+# from the scratch it was given) must match the plain split form's (m in
+# the exp2 domain within 1e-3, l within 1e-3 relative: the same bf16
+# products summed in another order) and merge to its output; leaving out
+# one split's partial in that merge must fail the row-relative limit.
+K3_GEOMS = [(Dh, g) for Dh in (64, 128) for g in (1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("Dh,g", K3_GEOMS,
+                         ids=lambda p: str(p))
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_attention_split_kernel_matches_plain(int8, Dh, g):
+    dev = _device()
+    KVH, M, bs = 2, 24, 16
+    chunk, S = attention.decode_split_plan(M, bs)
+    lens = [0, 1, chunk - 1, chunk, chunk + 1, 2 * chunk, M * bs, 1]
+    q, k, v, tables, seq_lens = _split_case(dev, int8, lens, KVH * g, KVH,
+                                            Dh, M, bs)
+    tables[-1] = 0
+    kernel = kernels.PAGED_ATTENTION_INT8 if int8 else kernels.PAGED_ATTENTION
+    fn = (kernels.paged_attention_int8_cuda if int8
+          else kernels.paged_attention_cuda)
+    kw = dict(block_size=bs, scale=Dh ** -0.5)
+    scratch = kernels.paged_scratch(q, KVH, M, bs)
+    n0 = kernel.launches
+    out = fn(q, k, v, tables, seq_lens, scratch=scratch, **kw)
+    again = attention.paged_attention(q, k, v, tables, seq_lens, **kw)
+    ref = attention.paged_attention_ref(q, k, v, tables, seq_lens, **kw)
+    pm, pl, pacc = attention.paged_attention_partials_ref(
+        q, k, v, tables, seq_lens, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 2
+    assert torch.equal(out, again)
+    assert torch.isfinite(out).all()
+    assert out[0].abs().max().item() == 0.0
+    live = seq_lens > 0
+    assert _row_rel_err(out, ref, live) <= ROW_REL_TOL
+    # the kernel's partials, for the sequences with two or more live splits
+    km, kl, kacc = attention.split_scratch_views(scratch, len(lens), KVH, S,
+                                                 g, Dh)
+    multi = [b for b, n in enumerate(lens) if n > chunk]
+    for b in multi:
+        n = -(-lens[b] // chunk)
+        assert (km[b, :, :n] - pm[b, :, :n]).abs().max().item() <= 1e-3
+        assert ((kl[b, :, :n] - pl[b, :, :n]).abs()
+                / pl[b, :, :n]).max().item() <= 1e-3
+    sel = torch.tensor(multi, device=dev)
+    km, kl, kacc = (t[sel, :, :].clone() for t in (km, kl, kacc))
+    for i, b in enumerate(multi):         # splits past the live ones: empty
+        n = -(-lens[b] // chunk)
+        km[i, :, n:], kl[i, :, n:], kacc[i, :, n:] = float("-inf"), 0, 0
+    merged = attention.merge_split_partials(km, kl, kacc)
+    assert _row_rel_err(merged, out[sel], slice(None)) <= ROW_REL_TOL
+    km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
+    dropped = attention.merge_split_partials(km, kl, kacc)
+    assert _row_rel_err(dropped, ref[sel], slice(None)) > ROW_REL_TOL
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_attention_kernel_full_batch(int8):
+    """Eight slots of 2048 keys at the 8B heads: every CTA of the grid is
+    live, and two calls give the same bits."""
+    dev = _device()
+    M = 128
+    q, k, v, tables, seq_lens = _split_case(dev, int8, [M * 16] * 8, 32, 8,
+                                            128, M)
+    kw = dict(block_size=16, scale=128 ** -0.5)
+    out = attention.paged_attention(q, k, v, tables, seq_lens, **kw)
+    again = attention.paged_attention(q, k, v, tables, seq_lens, **kw)
+    ref = attention.paged_attention_ref(q, k, v, tables, seq_lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert _row_rel_err(out, ref, slice(None)) <= ROW_REL_TOL
+
+
 def test_kernels_refuse_unsupported_options():
     dev = _device()
     q = torch.zeros((4, 8, 64), dtype=torch.bfloat16, device=dev)

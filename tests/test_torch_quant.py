@@ -40,6 +40,7 @@ from dynamo_tpu_torch.engine.lm_head import lm_head_int8
 from dynamo_tpu_torch.engine.quant_matmul import (grouped_int4_matmul,
                                                   grouped_kernel_eligible)
 from dynamo_tpu_torch.engine.weights import init_params
+from tests.test_torch_attention import SPLIT_BS, SPLIT_M, row_rel, split_case
 
 
 def _np(a):
@@ -232,6 +233,40 @@ def test_paged_attention_int8_matches_jax_xla(paged_int8_case):
     got, _, xla, lens = paged_int8_case
     live = lens > 0
     np.testing.assert_allclose(got[live], xla[live], atol=2e-5, rtol=1e-5)
+
+
+# K3's split arithmetic over an int8 pool (the int8 scales taken out of the
+# dot, as csrc/paged_attention.cu does): the plain split form against the
+# Pallas kernel in interpret mode and the XLA path, on and around the split
+# boundaries of a 320-key table, for each compiled group size; a merge that
+# leaves out one split must fail (cases shared with test_torch_attention.py)
+@pytest.fixture(scope="module", params=[1, 2, 4, 8], ids=lambda g: f"g{g}")
+def int8_split_case(request):
+    return split_case(request.param, int8=True)
+
+
+def test_paged_split_ref_int8_matches_jax_pallas(int8_split_case):
+    got, _, pallas, _, lens = int8_split_case
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=1e-5)
+    assert not got[lens == 0].any()          # zero-length slot: zeros
+
+
+def test_paged_split_ref_int8_matches_jax_xla(int8_split_case):
+    got, _, _, xla, lens = int8_split_case
+    live = lens > 0
+    np.testing.assert_allclose(got[live], xla[live], atol=2e-5, rtol=1e-5)
+
+
+def test_paged_split_ref_int8_dropped_split_fails(int8_split_case):
+    _, (m, l, acc), pallas, _, lens = int8_split_case
+    chunk, _ = tattn.decode_split_plan(SPLIT_M, SPLIT_BS)
+    multi = [b for b, n in enumerate(lens) if n > chunk]
+    m, l, acc = m.clone(), l.clone(), acc.clone()
+    m[multi, :, 0], l[multi, :, 0], acc[multi, :, 0] = float("-inf"), 0, 0
+    dropped = tattn.merge_split_partials(m, l, acc).numpy()
+    assert np.isfinite(dropped).all()
+    assert row_rel(dropped[multi], pallas[multi]).min() > 0.1
 
 
 def test_init_params_quantized_equals_quantize_params():
