@@ -18,9 +18,12 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    hops with its m and l held to limits of their own, K3 bf16 and int8 on
    a mixed 8-slot batch with repeated bits and a planted fault in its
    split merge, on and around the split boundaries, and on a full batch
-   of 8 x 2048 keys, K5, K6, K4 bf16 and int8 on a ragged mix of prefill
-   chunks and decode rows); then the ring over 2 and 4 shards on the one
-   card against K1 over the whole sequence, with a dropped hop planted;
+   of 8 x 2048 keys, K5 at 1, 2, 4 and 8 rows with repeated bits, K6, K4
+   bf16 and int8 on a ragged mix of prefill chunks and decode rows with
+   repeated bits and a planted fault in its split merge, on and around
+   the split boundaries, and on a full ragged batch of 8 slots at 2048
+   keys); then the ring over 2 and 4 shards on the one card against K1
+   over the whole sequence, with a dropped hop planted;
 4. model: the 8B geometry (random weights from a seed, on the card) runs
    one prefill and 4 decode steps through the kernels and through the
    plain versions, in three modes: bf16, int4 weights over an int8 KV
@@ -31,7 +34,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    second mixes a decode row, a chunk continuing a prefix and a fresh
    chunk) through K4 and through the plain versions, with a planted K4
    fault, and one pure-decode ragged dispatch of 8 rows is profiled beside
-   the split decode step over the same rows. The bf16 weights also run the
+   the split decode step over the same rows (device time and kernel count
+   of the step, with K3's, K4's and K5's share). The bf16 weights also run the
    sequence-parallel prefill (sp = 2 on the one card, 1900 of 2048 tokens)
    through K2 against the whole-prompt prefill through K1, over a bf16 and
    an int8 pool, with a dropped ring hop planted, and both prefills are
@@ -682,11 +686,24 @@ def check_paged_attention(cfg, dev, int8: bool = False) -> dict:
 # of 8 slots at 64 rows per sequence
 RAGGED_MIX = [(64, 64), (64, 1000), (4, 1900), (1, 1), (1, 17), (1, 255),
               (1, 2048), (0, 0), (0, 0)]
+# K4's split boundaries (128-key chunks, 256 for a tile of 5 or more
+# rows): decode rows that see 127, 128, 129 and 256 keys, a 20-row chunk
+# whose rows straddle the first boundary, a 64-row chunk ending at 1100
+# (four wide tiles over five 256-key splits), a slot with no rows, a first
+# decode row; then the trash sequence
+RAGGED_BOUNDARY = [(1, 127), (1, 128), (1, 129), (1, 256), (20, 140),
+                   (64, 1100), (0, 0), (1, 1), (0, 0)]
+# the full ragged batch: two 64-row chunks ending at 2048 and 6 decode rows
+# at 2048 keys (8 slots at full context); then the trash sequence
+RAGGED_FULL = [(64, 2048), (64, 2048)] + [(1, 2048)] * 6 + [(0, 0)]
+# phase 4's pure-decode ragged step, one layer: 8 decode rows at position
+# 300; then the trash sequence
+RAGGED_DECODE = [(1, 301)] * 8 + [(0, 0)]
 RAGGED_MAX_ROWS = 64
 
 
-def ragged_inputs(cfg, dev, seed: int, int8: bool):
-    """RAGGED_MIX over a shuffled table of 16-token blocks and a random pool
+def ragged_inputs(cfg, dev, seed: int, int8: bool, mix=RAGGED_MIX):
+    """``mix`` over a shuffled table of 16-token blocks and a random pool
     (row-quantized for the int8 mode); the trash block 0 holds random rows
     too. Returns q, pools, tables, starts, counts, kv lengths (tensors) and
     the mix's starts as a list."""
@@ -694,7 +711,7 @@ def ragged_inputs(cfg, dev, seed: int, int8: bool):
     from dynamo_tpu_torch.engine.attention import quantize_kv_rows
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
-    S = len(RAGGED_MIX)
+    S = len(mix)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     num_blocks = S * M + 1
@@ -706,7 +723,7 @@ def ragged_inputs(cfg, dev, seed: int, int8: bool):
             + 1).to(torch.int32)
     tables = torch.zeros((S, M), dtype=torch.int32, device=dev)
     starts, used, cursor = [], 0, 0
-    for s, (n, ctx) in enumerate(RAGGED_MIX):
+    for s, (n, ctx) in enumerate(mix):
         nb = -(-ctx // bs)
         tables[s, :nb] = perm[used:used + nb]
         used += nb
@@ -715,33 +732,85 @@ def ragged_inputs(cfg, dev, seed: int, int8: bool):
     i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
     q = torch.randn((cursor, H, Dh), generator=gen, device=dev).bfloat16()
     return (q, k_cache, v_cache, tables, i32(starts),
-            i32([n for n, _ in RAGGED_MIX]), i32([c for _, c in RAGGED_MIX]),
-            starts)
+            i32([n for n, _ in mix]), i32([c for _, c in mix]), starts)
+
+
+def ragged_library_ms(cfg, q, k_cache, v_cache, tables, starts_l,
+                      mix) -> float:
+    """The yardstick: one SDPA call over the sequences padded to [S, H, 64,
+    Dh] against pre-gathered (and, int8, dequantized) pages with a boolean
+    causal-and-length mask; padded rows see key 0; cold L2."""
+    import torch
+    import torch.nn.functional as F
+    from dynamo_tpu_torch.engine.attention import (dequant_kv_rows,
+                                                   flat_token_indices)
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C, bs, M = KVH * Dh, KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    S, dev, Lp = len(mix), q.device, RAGGED_MAX_ROWS
+    qp = torch.zeros((S, H, Lp, Dh), dtype=torch.bfloat16, device=dev)
+    r = torch.arange(Lp, device=dev)
+    kv_pos = torch.arange(M * bs, device=dev)
+    mask = torch.zeros((S, 1, Lp, M * bs), dtype=torch.bool, device=dev)
+    for s, (st, (n, c)) in enumerate(zip(starts_l, mix)):
+        qp[s, :, :n] = q[st:st + n].transpose(0, 1)
+        mask[s, 0] = (((kv_pos[None, :] <= (c - n + r)[:, None])
+                       & (kv_pos[None, :] < c) & (r < n)[:, None])
+                      | ((kv_pos[None, :] == 0) & (r >= n)[:, None]))
+    idx = flat_token_indices(tables, bs)
+    kg, vg = k_cache[idx], v_cache[idx]
+    if k_cache.dtype == torch.int8:
+        kg = dequant_kv_rows(kg, C, torch.bfloat16)
+        vg = dequant_kv_rows(vg, C, torch.bfloat16)
+    kg = kg.reshape(S, M * bs, KVH, Dh).transpose(1, 2).contiguous()
+    vg = vg.reshape(S, M * bs, KVH, Dh).transpose(1, 2).contiguous()
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qp, kg, vg, attn_mask=mask, scale=Dh ** -0.5, enable_gqa=True),
+        cold=True)
+
+
+def ragged_bound(cfg, mix, int8: bool) -> tuple:
+    """K4's bound: each sequence's keys read once for K and once for V (an
+    int8 row's two scale bytes once per key), q and out, the tables and
+    the per-sequence scalars; 4*H*Dh operations per visible (row, key)."""
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    C, S, M = KVH * Dh, len(mix), MAX_MODEL_LEN // KV_BLOCK
+    TT = sum(n for n, _ in mix)
+    row_bytes = (C + 2) if int8 else 2.0 * C    # one K or V row, read once
+    nbytes = (2.0 * row_bytes * sum(c for _, c in mix)
+              + 2 * 2.0 * TT * H * Dh + 4.0 * (S * M + 3 * S))
+    pairs = sum(c - n + i + 1 for n, c in mix for i in range(n))
+    return bound(nbytes, 4.0 * H * Dh * pairs)
 
 
 def check_ragged_attention(cfg, dev, int8: bool = False) -> dict:
     """K4 (bf16 pool, or int8 rows with in-row scales) on RAGGED_MIX, with
     two planted faults: the 2048-token row's last block read as the trash
     block, and an off-by-one causal mask inside each chunk (its rows one
-    position early, so each misses its own key)."""
+    position early, so each misses its own key); repeated bits; the
+    kernel's own split partials (read from the scratch it was given, for
+    the rows whose tile has two or more live splits) merged in plain
+    PyTorch against its output, and that merge with each such row's first
+    split left out as the planted merge fault; RAGGED_BOUNDARY against the
+    plain version; and RAGGED_FULL and RAGGED_DECODE, timed with their
+    bounds and library yardsticks."""
     import torch
-    import torch.nn.functional as F
-    from dynamo_tpu_torch.engine.attention import (dequant_kv_rows,
-                                                   flat_token_indices,
-                                                   ragged_paged_attention_ref)
-    from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.engine import attention, kernels
+    from dynamo_tpu_torch.engine.attention import ragged_paged_attention_ref
     name = "ragged_paged_attention" + ("_int8" if int8 else "")
     fn = (kernels.ragged_paged_attention_int8_cuda if int8
           else kernels.ragged_paged_attention_cuda)
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    C = KVH * Dh
+    g = H // KVH
     bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    chunk, splits = attention.decode_split_plan(M, bs)
     q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
         ragged_inputs(cfg, dev, 6 if int8 else 7, int8)
     TT, S = q.shape[0], len(RAGGED_MIX)
     kw = dict(block_size=bs, scale=Dh ** -0.5, max_rows=RAGGED_MAX_ROWS)
     args = (q, k_cache, v_cache, tables, starts, counts, ctx)
-    out = fn(*args, **kw)
+    scratch = kernels.paged_scratch(q, KVH, M, bs)
+    out = fn(*args, scratch=scratch, **kw)
+    again = fn(*args, **kw)
     ref = ragged_paged_attention_ref(*args, **kw)
     longest = max(range(S), key=lambda s: RAGGED_MIX[s][1])
     bad_tables = tables.clone()
@@ -753,58 +822,120 @@ def check_ragged_attention(cfg, dev, int8: bool = False) -> dict:
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         raise RuntimeError(f"{name}: non-finite output")
+    if not torch.equal(out, again):
+        raise RuntimeError(f"{name}: two calls gave different bits")
     err, rel = row_errors(out, ref, slice(0, TT))
     _, trash_rel = row_errors(fault_trash, ref, slice(0, TT))
     _, mask_rel = row_errors(fault_mask, ref, slice(0, TT))
-    del fault_trash, fault_mask
+    del fault_trash, fault_mask, again
     seq_rel = [row_errors(out, ref, slice(st, st + n))[1] if n else None
                for st, (n, _) in zip(starts_l, RAGGED_MIX)]
+    # the merge: the kernel's partials of the rows whose tile has two or
+    # more live splits, merged in plain PyTorch, against the kernel's own
+    # merge; then the planted merge fault, each such row's first split
+    # left out
+    _, live = attention.ragged_row_plan(starts, counts, ctx, TT, g, M, bs)
+    multi = [r for r in range(TT) if live[r] > 1]
+    sel = torch.tensor(multi, device=dev)
+    km, kl, kacc = (t[sel].clone() for t in attention.split_scratch_views(
+        scratch, TT, KVH, splits, g, Dh))
+    for i, r in enumerate(multi):
+        n = int(live[r])
+        km[i, :, n:], kl[i, :, n:], kacc[i, :, n:] = float("-inf"), 0, 0
+    _, merge_rel = row_errors(attention.merge_split_partials(km, kl, kacc),
+                              out[sel], slice(None))
+    km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
+    _, merge_fault_rel = row_errors(
+        attention.merge_split_partials(km, kl, kacc), ref[sel], slice(None))
+    del km, kl, kacc, scratch
     # timed with a cold L2: in a forward pass a layer's KV was last touched
     # a whole dispatch earlier
     ms = time_ms(lambda: fn(*args, **kw), cold=True)
     plain_ms = time_ms(lambda: ragged_paged_attention_ref(*args, **kw),
                        iters=5, cold=True)
-    # library yardstick: one SDPA call over the sequences padded to
-    # [S, H, 64, Dh] against pre-gathered (and, int8, dequantized) pages with
-    # a boolean causal-and-length mask; padded rows see key 0
-    Lp = RAGGED_MAX_ROWS
-    qp = torch.zeros((S, H, Lp, Dh), dtype=torch.bfloat16, device=dev)
-    r = torch.arange(Lp, device=dev)
-    kv_pos = torch.arange(M * bs, device=dev)
-    mask = torch.zeros((S, 1, Lp, M * bs), dtype=torch.bool, device=dev)
-    for s, (st, (n, c)) in enumerate(zip(starts_l, RAGGED_MIX)):
-        qp[s, :, :n] = q[st:st + n].transpose(0, 1)
-        mask[s, 0] = (((kv_pos[None, :] <= (c - n + r)[:, None])
-                       & (kv_pos[None, :] < c) & (r < n)[:, None])
-                      | ((kv_pos[None, :] == 0) & (r >= n)[:, None]))
-    idx = flat_token_indices(tables, bs)
-    kg, vg = k_cache[idx], v_cache[idx]
-    if int8:
-        kg = dequant_kv_rows(kg, C, torch.bfloat16)
-        vg = dequant_kv_rows(vg, C, torch.bfloat16)
-    kg = kg.reshape(S, M * bs, KVH, Dh).transpose(1, 2).contiguous()
-    vg = vg.reshape(S, M * bs, KVH, Dh).transpose(1, 2).contiguous()
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qp, kg, vg, attn_mask=mask, scale=Dh ** -0.5, enable_gqa=True),
-        cold=True)
-    row_bytes = (C + 2) if int8 else 2.0 * C    # one K or V row, read once
-    nbytes = (2.0 * row_bytes * sum(c for _, c in RAGGED_MIX)
-              + 2 * 2.0 * TT * H * Dh + 4.0 * (S * M + 3 * S))
-    pairs = sum(c - n + i + 1 for n, c in RAGGED_MIX for i in range(n))
-    flops = 4.0 * H * Dh * pairs
-    b_ms, b_by = bound(nbytes, flops)
-    case = {"TT": TT, "mix": RAGGED_MIX, "max_abs_err": err,
+    lib_ms = ragged_library_ms(cfg, q, k_cache, v_cache, tables, starts_l,
+                               RAGGED_MIX)
+    b_ms, b_by = ragged_bound(cfg, RAGGED_MIX, int8)
+    case = {"TT": TT, "mix": RAGGED_MIX, "chunk_tokens": chunk,
+            "splits": splits, "max_abs_err": err,
             "max_row_rel_err": rel, "seq_row_rel_err": seq_rel,
             "fault_trash_row_rel_err": trash_rel,
-            "fault_mask_row_rel_err": mask_rel, "ms": ms,
+            "fault_mask_row_rel_err": mask_rel, "repeat_bits_equal": True,
+            "multi_split_rows": len(multi),
+            "kernel_partials_merged_row_rel_err": merge_rel,
+            "merge_fault_row_rel_err": merge_fault_rel, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "scaled_dot_product_attention over padded sequences "
                        "and pre-gathered" + (" dequantized" if int8 else "")
                        + " pages",
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+    del q, k_cache, v_cache, out, ref, args
+
+    # the split boundaries against the plain version
+    q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
+        ragged_inputs(cfg, dev, 8, int8, RAGGED_BOUNDARY)
+    bargs = (q, k_cache, v_cache, tables, starts, counts, ctx)
+    out = fn(*bargs, **kw)
+    ref = ragged_paged_attention_ref(*bargs, **kw)
+    torch.cuda.synchronize()
+    case["boundary"] = {"mix": RAGGED_BOUNDARY, "seq_row_rel_err": [
+        row_errors(out, ref, slice(st, st + n))[1] if n else None
+        for st, (n, _) in zip(starts_l, RAGGED_BOUNDARY)]}
+    _, case["boundary"]["max_row_rel_err"] = row_errors(
+        out, ref, slice(0, q.shape[0]))
+    del q, k_cache, v_cache, out, ref, bargs
+
+    # the full ragged batch: 8 slots at 2048 keys, every split live
+    q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
+        ragged_inputs(cfg, dev, 9, int8, RAGGED_FULL)
+    fargs = (q, k_cache, v_cache, tables, starts, counts, ctx)
+    out = fn(*fargs, **kw)
+    again = fn(*fargs, **kw)
+    ref = ragged_paged_attention_ref(*fargs, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise RuntimeError(f"{name}: two full-batch calls gave different "
+                           f"bits")
+    full = {"mix": RAGGED_FULL, "TT": q.shape[0]}
+    full["max_abs_err"], full["max_row_rel_err"] = row_errors(
+        out, ref, slice(0, q.shape[0]))
+    del out, again, ref
+    full["ms"] = time_ms(lambda: fn(*fargs, **kw), cold=True)
+    full["plain_ms"] = time_ms(lambda: ragged_paged_attention_ref(
+        *fargs, **kw), iters=3, cold=True)
+    full["library_ms"] = ragged_library_ms(cfg, q, k_cache, v_cache, tables,
+                                           starts_l, RAGGED_FULL)
+    full["bound_ms"], full["bound_by"] = ragged_bound(cfg, RAGGED_FULL, int8)
+    full["bound_share"] = full["bound_ms"] / full["ms"]
+    case["full_batch"] = full
+    del q, k_cache, v_cache, fargs
+
+    # one layer of the pure-decode ragged step: latency, not bytes, decides
+    q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
+        ragged_inputs(cfg, dev, 10, int8, RAGGED_DECODE)
+    dargs = (q, k_cache, v_cache, tables, starts, counts, ctx)
+    out = fn(*dargs, **kw)
+    ref = ragged_paged_attention_ref(*dargs, **kw)
+    torch.cuda.synchronize()
+    dec = {"mix": RAGGED_DECODE}
+    _, dec["max_row_rel_err"] = row_errors(out, ref, slice(0, q.shape[0]))
+    dec["ms"] = time_ms(lambda: fn(*dargs, **kw), cold=True)
+    dec["library_ms"] = ragged_library_ms(cfg, q, k_cache, v_cache, tables,
+                                          starts_l, RAGGED_DECODE)
+    dec["bound_ms"], dec["bound_by"] = ragged_bound(cfg, RAGGED_DECODE, int8)
+    case["decode_step"] = dec
+    del q, k_cache, v_cache, out, ref, dargs
+    torch.cuda.empty_cache()
     log(f"{name} {json.dumps(case)}")
     check_limit(f"{name} (last block as trash)", rel, trash_rel)
     check_limit(f"{name} (off-by-one causal mask)", rel, mask_rel)
+    check_limit(f"{name} merge", merge_rel, merge_fault_rel)
+    for what, r in (("boundary", case["boundary"]["max_row_rel_err"]),
+                    ("full batch", full["max_row_rel_err"]),
+                    ("decode step", dec["max_row_rel_err"])):
+        if not r <= KERNEL_ROW_REL_TOL:
+            raise RuntimeError(f"{name} {what}: row-relative error {r} > "
+                               f"{KERNEL_ROW_REL_TOL}")
     return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
             "replaces": "dynamo_tpu/engine/attention.py:1255",
@@ -812,8 +943,9 @@ def check_ragged_attention(cfg, dev, int8: bool = False) -> dict:
 
 
 def check_lm_head_int8(cfg, dev) -> dict:
-    """K5 at the 8B head, [4096, 128256] int8, for one prefill row and an
-    8-slot decode step."""
+    """K5 at the 8B head, [4096, 128256] int8, for one prefill row and
+    decode batches of 2, 4 and 8 rows: repeated bits, and the first
+    128-column strip left out as the planted fault."""
     import torch
     from dynamo_tpu_torch.engine.kernels import lm_head_int8_cuda
     from dynamo_tpu_torch.engine.lm_head import lm_head_int8_ref
@@ -827,20 +959,24 @@ def check_lm_head_int8(cfg, dev) -> dict:
     # the library yardstick reads a bf16 copy of the dequantized head
     w16 = head.dequantize(torch.bfloat16)
     cases = []
-    for B in (1, 8):
+    for B in (1, 2, 4, 8):
         x = torch.randn((B, D), generator=gen, device=dev).bfloat16()
         out = lm_head_int8_cuda(x, q, scale)
+        again = lm_head_int8_cuda(x, q, scale)
         ref = lm_head_int8_ref(x, q, scale)
-        # planted fault: one 256-column strip (the first) left out
+        # planted fault: one 128-column strip (the first) left out
         fault = torch.zeros_like(out)
-        fault[:, 256:] = lm_head_int8_cuda(x, q[:, 256:].contiguous(),
-                                           scale[256:].contiguous())
+        fault[:, 128:] = lm_head_int8_cuda(x, q[:, 128:].contiguous(),
+                                           scale[128:].contiguous())
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
             raise RuntimeError(f"lm_head_int8 B={B}: non-finite output")
+        if not torch.equal(out, again):
+            raise RuntimeError(f"lm_head_int8 B={B}: two calls gave "
+                               f"different bits")
         err, rel = row_errors(out, ref, slice(0, B))
         _, fault_rel = row_errors(fault, ref, slice(0, B))
-        del fault
+        del fault, again
         ms = time_ms(lambda: lm_head_int8_cuda(x, q, scale), cold=True)
         plain_ms = time_ms(lambda: lm_head_int8_ref(x, q, scale), iters=5,
                            cold=True)
@@ -849,10 +985,11 @@ def check_lm_head_int8(cfg, dev) -> dict:
         b_ms, b_by = bound(nbytes, 2.0 * B * D * V)
         case = {"B": B, "D": D, "V": V, "max_abs_err": err,
                 "max_row_rel_err": rel, "fault_row_rel_err": fault_rel,
+                "repeat_bits_equal": True,
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "library": "torch.matmul on a bf16 copy of the dequantized "
                            "head",
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
         log(f"lm_head_int8 {json.dumps(case)}")
         check_limit(f"lm_head_int8 B={B}", rel, fault_rel)
         cases.append(case)
@@ -1365,18 +1502,23 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0)
     rows, launches = [], 0   # device kernels only: operator rows repeat
-    # K3's two kernels, either pool; the merge is launched early
-    # (programmatic dependent launch), so its time includes its wait for
-    # the split kernel and the two overlap
-    k3 = {"split": [0.0, 0], "merge": [0.0, 0]}
+    # [ms, kernels] of each hand-written kernel of a step, either pool:
+    # K3's two kernels (the merge is launched early, by programmatic
+    # dependent launch, so its time includes its wait for the split kernel
+    # and the two overlap), K4 and K5
+    mine = {"k3_split": [0.0, 0], "k3_merge": [0.0, 0], "k4": [0.0, 0],
+            "k5": [0.0, 0]}
+    names = {"k3_split": "paged_attention_split_kernel",
+             "k3_merge": "paged_attention_merge_kernel",
+             "k4": "ragged_attention_kernel", "k5": "lm_head_int8_kernel"}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
         if t > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
             rows.append((t / 1e3, e.key))
             launches += e.count
-            for part, acc in k3.items():
-                if f"paged_attention_{part}_kernel" in e.key:
+            for part, acc in mine.items():
+                if names[part] in e.key:
                     acc[0] += t / 1e3
                     acc[1] += e.count
     rows.sort(reverse=True)
@@ -1385,8 +1527,8 @@ def device_profile(fn) -> dict:
             "device_ms": device_ms if rows else "not measured",
             "device_busy_share": device_ms / wall_ms if rows else None,
             "device_kernels": launches if rows else "not measured",
-            "k3_split_ms_kernels": k3["split"] if rows else "not measured",
-            "k3_merge_ms_kernels": k3["merge"] if rows else "not measured",
+            **{f"{part}_ms_kernels": acc if rows else "not measured"
+               for part, acc in mine.items()},
             "top_kernels_ms": [[k[:60], t] for t, k in rows[:6]]}
 
 

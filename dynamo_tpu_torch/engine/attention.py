@@ -10,9 +10,10 @@ then pad lanes, in the JAX package's exact encoding (``quantize_kv_rows``).
 
 Each kernel has a plain PyTorch version of the same function in this
 module (``flash_prefill_ref``, ``flash_prefill_partial_ref``,
-``paged_attention_ref``, ``ragged_paged_attention_ref``), and K3's split
-arithmetic (``paged_attention_partials_ref``, ``merge_split_partials``)
-is kept in plain form for the tests. The public
+``paged_attention_ref``, ``ragged_paged_attention_ref``), and the split
+arithmetic of K3 and K4 (``paged_attention_partials_ref``,
+``ragged_attention_partials_ref``, ``merge_split_partials``) is kept in
+plain form for the tests. The public
 functions dispatch on the tensor's device alone: a CPU tensor takes the
 plain version, a CUDA tensor launches the hand-written kernel
 (``engine/kernels.py``, sources under ``csrc/``) or raises. There is no
@@ -245,7 +246,8 @@ def paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
 
 # K3 cuts each sequence into chunks of this many keys (rounded up to whole
 # blocks), one CTA per chunk and KV head, and merges the chunks' partial
-# softmaxes (csrc/paged_attention.cu, kChunkTarget)
+# softmaxes (csrc/paged_attention.cu, kChunkTarget); K4 cuts each row
+# tile's keys the same way (csrc/ragged_paged_attention.cu)
 DECODE_CHUNK_TOKENS = 128
 
 
@@ -272,21 +274,26 @@ def paged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
                                  v_cache: torch.Tensor,
                                  block_tables: torch.Tensor,
                                  seq_lens: torch.Tensor, *, block_size: int,
-                                 scale: float) -> tuple:
+                                 scale: float,
+                                 chunk: Optional[int] = None) -> tuple:
     """The split form of ``paged_attention_ref`` with K3's arithmetic, for
     the tests (``merge_split_partials`` completes it): each (sequence, KV head, split of ``decode_split_plan``)
     gives f32 (m, l, acc) over its chunk of keys, with scores in the exp2
     domain (s = scale·log2(e)·q·k, an int8 key's scale taken out of the
     dot), m their max, p = exp2(s - m), l = Σp and acc = Σ p·v (an int8
     value's scale folded into p). A split that sees no key gives (-inf, 0,
-    0). Returns (m [B, KVH, S, g], l [B, KVH, S, g], acc [B, KVH, S, g,
-    Dh])."""
+    0). ``chunk``: keys per split (a whole number of blocks) in place of
+    the plan's; the split axis keeps the plan's length, the splits past
+    the table empty. Returns (m [B, KVH, S, g], l [B, KVH, S, g], acc [B,
+    KVH, S, g, Dh])."""
     B, H, Dh = q.shape
     C = kv_value_lanes(k_cache)
     KVH = C // Dh
     g = H // KVH
     M = block_tables.shape[1]
-    chunk, S = decode_split_plan(M, block_size)
+    plan_chunk, S_plan = decode_split_plan(M, block_size)
+    chunk = chunk or plan_chunk
+    S = -(-(M * block_size) // chunk)
     idx = flat_token_indices(block_tables, block_size)          # [B, T]
     T = idx.shape[1]
 
@@ -318,7 +325,13 @@ def paged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
     vpad = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).reshape(
         B, S, chunk, KVH, Dh)
     acc = torch.einsum("bkgsc,bsckd->bksgd", p, vpad)
-    return m.permute(0, 1, 3, 2), l.permute(0, 1, 3, 2), acc
+    m, l = m.permute(0, 1, 3, 2), l.permute(0, 1, 3, 2)
+    if S < S_plan:                          # empty splits past the table
+        extra = S_plan - S
+        m = torch.nn.functional.pad(m, (0, 0, 0, extra), value=float("-inf"))
+        l = torch.nn.functional.pad(l, (0, 0, 0, extra))
+        acc = torch.nn.functional.pad(acc, (0, 0, 0, 0, 0, extra))
+    return m, l, acc
 
 
 def merge_split_partials(m: torch.Tensor, l: torch.Tensor,
@@ -412,6 +425,96 @@ def ragged_paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return paged_attention_ref(q, k_cache, v_cache, block_tables[owner],
                                row_lens, block_size=block_size, scale=scale,
                                softcap=softcap, win_lo=win_lo)
+
+
+# K4 takes 64 (row, head) query vectors per CTA: 64 / g rows of one
+# sequence times the g query heads of one KV head
+RAGGED_CTA_VECTORS = 64
+
+
+def ragged_row_tiles(max_rows: int, g: int) -> int:
+    """K4's row tiles per sequence: ``max_rows`` rows at 64 / g a tile."""
+    per = RAGGED_CTA_VECTORS // g
+    return -(-max_rows // per)
+
+
+def ragged_row_plan(seq_starts: torch.Tensor, seq_counts: torch.Tensor,
+                    seq_lens: torch.Tensor, TT: int, g: int, M: int,
+                    block_size: int) -> tuple:
+    """K4's plan per flat row: (its tile's chunk in keys, its tile's live
+    splits: the keys the tile's last row sees, in those chunks), both
+    [TT] long, 0 for rows no sequence owns. A tile of at most 16 live
+    (row, head) query vectors takes the chunk of ``decode_split_plan``, a
+    wider one twice that: where many rows share each key, longer chunks
+    leave fewer partials to merge. Where a tile has 2 or more live splits,
+    K4 writes its rows' partials of those splits to its scratch."""
+    base, _ = decode_split_plan(M, block_size)
+    per = RAGGED_CTA_VECTORS // g
+    chunks = torch.zeros(TT, dtype=torch.long)
+    live = torch.zeros(TT, dtype=torch.long)
+    for st, n, ln in zip(seq_starts.tolist(), seq_counts.tolist(),
+                         seq_lens.tolist()):
+        for r in range(n):
+            r0 = r - r % per
+            rows = min(per, n - r0)
+            chunk = base * (2 if rows * g > 16 else 1)
+            keys = min(ln - n + r0 + rows, M * block_size)
+            chunks[st + r] = chunk
+            live[st + r] = -(-keys // chunk)
+    return chunks, live
+
+
+def ragged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  seq_starts: torch.Tensor,
+                                  seq_counts: torch.Tensor,
+                                  seq_lens: torch.Tensor, *, block_size: int,
+                                  scale: float, max_rows: int) -> tuple:
+    """The split form of ``ragged_paged_attention_ref`` with K4's
+    arithmetic, for the tests (``merge_split_partials`` completes it): each
+    owned row r of sequence s is a decode query over s's table that sees
+    ``pos0 + r + 1`` keys, cut into splits of its row tile's chunk
+    (``ragged_row_plan``) as K3 cuts a sequence
+    (``paged_attention_partials_ref``: exp2-domain scores, an int8 row's
+    scale taken out of the dot and folded into p). A split a row cannot
+    see, and every split of a row no sequence owns, gives (-inf, 0, 0).
+    Returns (m [TT, KVH, S, g], l [TT, KVH, S, g], acc [TT, KVH, S, g,
+    Dh]) with S from ``decode_split_plan``, the layout
+    ``split_scratch_views`` reads from K4's scratch."""
+    if int(seq_counts.max()) > max_rows:
+        raise ValueError(f"a sequence owns more than max_rows={max_rows} "
+                         f"rows")
+    t = torch.arange(q.shape[0], device=q.device)[:, None]
+    starts = seq_starts.long()[None, :]
+    inside = (t >= starts) & (t < starts + seq_counts.long()[None, :])
+    owned = inside.any(dim=1)
+    owner = inside.to(torch.int8).argmax(dim=1)
+    r = t[:, 0] - seq_starts.long()[owner]
+    row_lens = torch.where(
+        owned, seq_lens.long()[owner] - seq_counts.long()[owner] + r + 1,
+        torch.zeros_like(r)).to(torch.int32)
+    TT, H, Dh = q.shape
+    g = H // (kv_value_lanes(k_cache) // Dh)
+    chunks, _ = ragged_row_plan(seq_starts, seq_counts, seq_lens, TT, g,
+                                block_tables.shape[1], block_size)
+    chunks = chunks.to(q.device)
+    parts = None
+    for chunk in sorted(set(chunks.tolist()) - {0}) or [0]:
+        rows = (chunks == chunk) if chunk else torch.ones_like(owned)
+        got = paged_attention_partials_ref(
+            q[rows], k_cache, v_cache, block_tables[owner[rows]],
+            row_lens[rows], block_size=block_size, scale=scale,
+            chunk=chunk or None)
+        if parts is None:
+            parts = [torch.empty((TT,) + t.shape[1:], dtype=t.dtype,
+                                 device=t.device) for t in got]
+            parts[0].fill_(float("-inf"))
+            parts[1].zero_()
+            parts[2].zero_()
+        for dst, src in zip(parts, got):
+            dst[rows] = src
+    return tuple(parts)
 
 
 def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -9,10 +9,12 @@ never loaded.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output (``torch.empty``, or ``torch.zeros`` where the kernel writes only
-some rows) and any scratch (``torch.empty``), launches on the current stream of the tensor's device with
-that device current, raises when the C entry point returns a CUDA error,
-and counts its launches in ``Kernel.launches``. Nothing here runs on import: the CPU tests import
-every module of the package.
+some rows) and any scratch (``torch.empty``; K4's merge tickets are one
+zeroed buffer per device and stream that the kernel leaves zeroed),
+launches on the current stream of the tensor's device with that device
+current, raises when the C entry point returns a CUDA error, and counts
+its launches in ``Kernel.launches``. Nothing here runs on import: the CPU
+tests import every module of the package.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .attention import KV_SCALE_LANES, decode_split_plan
+from .attention import (KV_SCALE_LANES, decode_split_plan,
+                        ragged_row_tiles)
 from .quant_matmul import GROUP
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -117,8 +120,8 @@ class _Library:
                 for name in ("dtt_ragged_paged_attention_bf16",
                              "dtt_ragged_paged_attention_int8"):
                     fn = getattr(lib, name)
-                    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                   ci, ci, ci, ci, ci, ci, cf, vp]
+                    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                   ci, ci, ci, ci, ci, ci, ci, ci, cf, vp]
                     fn.restype = ci
                 lib.dtt_lm_head_int8.argtypes = [vp, vp, vp, vp, ci, ci, ci,
                                                  vp]
@@ -263,15 +266,30 @@ def _check_paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
 
 def paged_scratch(q: torch.Tensor, KVH: int, M: int,
                   block_size: int) -> Optional[torch.Tensor]:
-    """K3's f32 workspace for q [B, H, Dh] over a table of M entries, on
-    q's device (``attention.split_scratch_views`` reads it), or None when
-    the plan has one split."""
+    """The f32 workspace of K3 (q [B, H, Dh]) and K4 (q [TT, H, Dh]) over a
+    table of M entries, on q's device (``attention.split_scratch_views``
+    reads it), or None when the plan has one split."""
     B, H, Dh = q.shape
     _, S = decode_split_plan(M, block_size)
     if S == 1:
         return None
     return torch.empty(B * KVH * S * (H // KVH) * (Dh + 2),
                        dtype=torch.float32, device=q.device)
+
+
+def _split_scratch(kernel: Kernel, q: torch.Tensor, KVH: int, M: int,
+                   block_size: int,
+                   scratch: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The caller's scratch, checked against ``paged_scratch``, or that."""
+    want = paged_scratch(q, KVH, M, block_size)
+    if scratch is None:
+        return want
+    if (want is None or scratch.device != q.device
+            or scratch.dtype != torch.float32 or not scratch.is_contiguous()
+            or scratch.numel() != want.numel()):
+        raise ValueError(f"{kernel.name}: scratch must be what "
+                         f"paged_scratch allocates")
+    return scratch
 
 
 def _paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
@@ -285,14 +303,7 @@ def _paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
                          f"{B} query rows")
     out = torch.empty_like(q)
     M = block_tables.shape[1]
-    want = paged_scratch(q, KVH, M, block_size)
-    if scratch is None:
-        scratch = want
-    elif (want is None or scratch.device != q.device
-          or scratch.dtype != torch.float32 or not scratch.is_contiguous()
-          or scratch.numel() != want.numel()):
-        raise ValueError(f"{kernel.name}: scratch must be what "
-                         f"paged_scratch allocates")
+    scratch = _split_scratch(kernel, q, KVH, M, block_size, scratch)
     kernel.launch(q, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
                   None if scratch is None else scratch.data_ptr(),
@@ -330,10 +341,27 @@ def paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                   scratch)
 
 
+# K4's merge tickets, one int32 per (sequence, KV head, row tile), per
+# (device, stream): zero when allocated and left zero by every launch (the
+# item's last CTA resets its ticket), so no call pays a memset. Launches on
+# one stream run in order, so they never share a ticket while it counts.
+_TICKETS: Dict[tuple, torch.Tensor] = {}
+
+
+def _ragged_tickets(q: torch.Tensor, n: int) -> torch.Tensor:
+    key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 2 * (0 if t is None else t.numel())),
+                        dtype=torch.int32, device=q.device)
+        _TICKETS[key] = t
+    return t
+
+
 def _ragged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
             q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
-            seq_lens, block_size: int, scale: float,
-            max_rows: int) -> torch.Tensor:
+            seq_lens, block_size: int, scale: float, max_rows: int,
+            scratch: Optional[torch.Tensor]) -> torch.Tensor:
     H, KVH, Dh = _check_paged(kernel, pool_dtype, scale_lanes, q, k_cache,
                               v_cache, block_tables, seq_lens, block_size)
     _check(seq_starts, "seq_starts", torch.int32, 1)
@@ -344,13 +372,21 @@ def _ragged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
         raise ValueError(f"{kernel.name}: starts {tuple(seq_starts.shape)} "
                          f"and counts {tuple(seq_counts.shape)} for {S} "
                          f"sequences")
+    max_rows = min(int(max_rows), TT)
+    scratch = _split_scratch(kernel, q, KVH, M, block_size, scratch)
+    tickets = None
+    if scratch is not None:
+        tickets = _ragged_tickets(
+            q, S * KVH * ragged_row_tiles(max_rows, H // KVH))
     # only owned rows are written: the rest read as zeros
     out = torch.zeros_like(q)
     kernel.launch(q, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   block_tables.data_ptr(), seq_starts.data_ptr(),
                   seq_counts.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-                  TT, S, H, KVH, Dh, M, min(int(max_rows), TT),
-                  int(block_size), float(scale))
+                  None if scratch is None else scratch.data_ptr(),
+                  None if tickets is None else tickets.data_ptr(),
+                  TT, S, H, KVH, Dh, M, max_rows, int(block_size),
+                  float(scale))
     return out
 
 
@@ -360,13 +396,18 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                                 seq_starts: torch.Tensor,
                                 seq_counts: torch.Tensor,
                                 seq_lens: torch.Tensor, *, block_size: int,
-                                scale: float, max_rows: int) -> torch.Tensor:
+                                scale: float, max_rows: int,
+                                scratch: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """q [TT, H, Dh] bf16 flat rows; one layer's pool [NTOK, KVH*Dh] bf16;
     tables [S, M], starts/counts/seq_lens [S] int32 → [TT, H, Dh], rows no
-    sequence owns zero (csrc/ragged_paged_attention.cu)."""
+    sequence owns zero (csrc/ragged_paged_attention.cu). ``scratch``: the
+    split partials' workspace (``paged_scratch``); left None the wrapper
+    allocates it. A caller that passes it can read the partials of every
+    row tile with more than one live split afterwards."""
     return _ragged(RAGGED_PAGED_ATTENTION, torch.bfloat16, 0, q, k_cache,
                    v_cache, block_tables, seq_starts, seq_counts, seq_lens,
-                   block_size, scale, max_rows)
+                   block_size, scale, max_rows, scratch)
 
 
 def ragged_paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -376,13 +417,15 @@ def ragged_paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                                      seq_counts: torch.Tensor,
                                      seq_lens: torch.Tensor, *,
                                      block_size: int, scale: float,
-                                     max_rows: int) -> torch.Tensor:
+                                     max_rows: int,
+                                     scratch: Optional[torch.Tensor] = None
+                                     ) -> torch.Tensor:
     """As ``ragged_paged_attention_cuda`` over an int8 pool [NTOK, KVH*Dh +
     128] with in-row scales (the int8 entry point of
     csrc/ragged_paged_attention.cu)."""
     return _ragged(RAGGED_PAGED_ATTENTION_INT8, torch.int8, KV_SCALE_LANES, q,
                    k_cache, v_cache, block_tables, seq_starts, seq_counts,
-                   seq_lens, block_size, scale, max_rows)
+                   seq_lens, block_size, scale, max_rows, scratch)
 
 
 def lm_head_int8_cuda(x: torch.Tensor, q: torch.Tensor,

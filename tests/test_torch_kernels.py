@@ -9,8 +9,9 @@ head, or one row of a matmul) is taken against its own scale: max
 ROW_REL_TOL (a few bf16 ulps of the row's largest values; the int8 head's
 f32 logits differ by summation order alone). Each case plants a fault
 that must exceed it: attention leaves out keys, reads a wrong block or
-scale, or (ragged) shifts its causal mask by one, the int8 head leaves out one 256-column strip, the grouped-int4
-matmul reads the last group's scales as the first group's.
+scale, or (ragged) shifts its causal mask by one, a split merge (K3, K4)
+leaves out one split, the int8 head leaves out one strip of columns, the
+grouped-int4 matmul reads the last group's scales as the first group's.
 """
 
 import pytest
@@ -351,6 +352,35 @@ def test_lm_head_int8_kernel_matches_plain(B, D, V):
     assert _row_rel_err(fault, ref, rows) > ROW_REL_TOL
 
 
+# K5 on the tensor cores: one pass over the weights serves up to 16 rows
+# (B = 9 takes two n-tiles); a V that is not a multiple of 16 (or 128, the
+# strip) and a D that is not a multiple of 8 take the masked plain-load
+# edge. Repeated calls give the same bits; the first strip (128 columns)
+# left out must fail the row limit.
+@pytest.mark.parametrize("D,V", [(1000, 1001), (1032, 4112), (1001, 2000)])
+@pytest.mark.parametrize("B", [1, 3, 8, 9])
+def test_lm_head_int8_kernel_edges(B, D, V):
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(B + V)
+    x = torch.randn((B, D), generator=g, device=dev).bfloat16()
+    head = quant.quantize_array(
+        torch.randn((D, V), generator=g, device=dev) * D ** -0.5)
+    scale = head.scale.reshape(-1).contiguous()
+    n0 = kernels.LM_HEAD_INT8.launches
+    out = kernels.lm_head_int8_cuda(x, head.q, scale)
+    again = lm_head.lm_head_int8(x, head.q, head.scale)
+    ref = lm_head.lm_head_int8_ref(x, head.q, head.scale)
+    fault = torch.zeros_like(out)
+    fault[:, 128:] = kernels.lm_head_int8_cuda(
+        x, head.q[:, 128:].contiguous(), scale[128:].contiguous())
+    torch.cuda.synchronize()
+    assert kernels.LM_HEAD_INT8.launches == n0 + 3
+    assert torch.equal(out, again)
+    assert out.dtype == torch.float32 and out.shape == (B, V)
+    assert _row_rel_err(out, ref, slice(0, B)) <= ROW_REL_TOL
+    assert _row_rel_err(fault, ref, slice(0, B)) > ROW_REL_TOL
+
+
 @pytest.mark.parametrize("N,D,F", [(1, 512, 384), (8, 768, 256),
                                    (40, 512, 128), (130, 1024, 384)])
 def test_grouped_int4_kernel_matches_plain(N, D, F):
@@ -459,3 +489,97 @@ def test_ragged_kernel_refuses_unsupported_options():
         attention.ragged_paged_attention(q, k, v, tables, starts,
                                          counts[:-1], ctx, block_size=bs,
                                          scale=0.1, max_rows=64)
+
+
+# K4 splits each row tile's keys into chunks (K3's 128-key plan, twice
+# that for wide tiles: attention.ragged_row_plan) and merges
+# them in the launch: a 768-key table (six 128-key splits at 16-token
+# blocks) with decode rows that see 127, 128, 129 and 256 keys, a 20-row
+# chunk whose rows straddle the first boundary, a 16-row chunk ending at
+# 700 keys (a wide tile over three 256-key splits where g >= 4), a chunk that
+# ends on the table's last key, a zero-count sequence, the trash sequence
+# and three rows no sequence owns, for every geometry of RAGGED_GEOMS in
+# both pools. The
+# kernel's own partials (read from the scratch it was given, for the rows
+# whose tile has two or more live splits) must match the plain split form's
+# (m in the exp2 domain within 1e-3, l within 1e-3 relative: the same bf16
+# products summed in another order) and merge to its output; leaving out
+# each such row's first split in that merge must fail the row limit.
+SPLIT_SPANS = [(1, 127), (1, 128), (1, 129), (1, 256), (20, 140), (0, 0),
+               (16, 700), (12, 768), (0, 0)]
+
+
+def _ragged_split_inputs(gen, dev, int8, H, KVH, Dh, bs=16, M=48):
+    S = len(SPLIT_SPANS)
+    starts, cursor = [], 0
+    for n, _ in SPLIT_SPANS:
+        starts.append(cursor)
+        cursor += n
+    k, v = _paged_pool(gen, dev, int8, (S * M + 1) * bs, KVH * Dh)
+    tables = (torch.randperm(S * M, generator=gen, device=dev) + 1).reshape(
+        S, M).to(torch.int32)
+    tables[-1] = 0                                  # the trash sequence
+    q = torch.randn((cursor + 3, H, Dh), generator=gen, device=dev).bfloat16()
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    return (q, k, v, tables, i32(starts), i32([n for n, _ in SPLIT_SPANS]),
+            i32([c for _, c in SPLIT_SPANS]))
+
+
+@pytest.mark.parametrize("geom", RAGGED_GEOMS,
+                         ids=lambda p: "h{}-kvh{}-dh{}".format(*p))
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_split_kernel_matches_plain(int8, geom):
+    dev = _device()
+    H, KVH, Dh = geom
+    g, bs, M = H // KVH, 16, 48
+    gen = torch.Generator(device=dev).manual_seed(5)
+    args = _ragged_split_inputs(gen, dev, int8, H, KVH, Dh, bs, M)
+    q, k, v, tables, starts, counts, ctx = args
+    TT = q.shape[0]
+    kernel = (kernels.RAGGED_PAGED_ATTENTION_INT8 if int8
+              else kernels.RAGGED_PAGED_ATTENTION)
+    fn = (kernels.ragged_paged_attention_int8_cuda if int8
+          else kernels.ragged_paged_attention_cuda)
+    kw = dict(block_size=bs, scale=Dh ** -0.5, max_rows=32)
+    chunk, S = attention.decode_split_plan(M, bs)
+    scratch = kernels.paged_scratch(q, KVH, M, bs)
+    n0 = kernel.launches
+    out = fn(*args, scratch=scratch, **kw)
+    again = attention.ragged_paged_attention(*args, **kw)
+    ref = attention.ragged_paged_attention_ref(*args, **kw)
+    pm, pl, _ = attention.ragged_attention_partials_ref(*args, **kw)
+    # planted fault: an off-by-one causal mask inside each chunk
+    fault = fn(q, k, v, tables, starts, counts,
+               torch.where(counts > 1, ctx - 1, ctx), **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 3
+    assert torch.equal(out, again)
+    assert torch.isfinite(out).all()
+    owned = torch.zeros(TT, dtype=torch.bool, device=dev)
+    for st, n in zip(starts.tolist(), counts.tolist()):
+        owned[st:st + n] = True
+    assert out[~owned].abs().max().item() == 0.0
+    assert _row_rel_err(out, ref, owned) <= ROW_REL_TOL
+    assert _row_rel_err(fault, ref, owned) > ROW_REL_TOL
+    # the kernel's partials of the rows whose tile has two or more splits
+    _, live = attention.ragged_row_plan(starts, counts, ctx, TT, g, M, bs)
+    multi = [r for r in range(TT) if live[r] > 1]
+    assert multi
+    km, kl, kacc = (t[multi].clone() for t in attention.split_scratch_views(
+        scratch, TT, KVH, S, g, Dh))
+    for i, r in enumerate(multi):
+        n = int(live[r])
+        got_m, want_m = km[i, :, :n], pm[r, :, :n].to(dev)
+        assert torch.equal(torch.isneginf(got_m), torch.isneginf(want_m))
+        fin = torch.isfinite(want_m)
+        assert (got_m[fin] - want_m[fin]).abs().max().item() <= 1e-3
+        want_l = pl[r, :, :n].to(dev)
+        assert ((kl[i, :, :n][fin] - want_l[fin]).abs()
+                / want_l[fin]).max().item() <= 1e-3
+        km[i, :, n:], kl[i, :, n:], kacc[i, :, n:] = float("-inf"), 0, 0
+    merged = attention.merge_split_partials(km, kl, kacc)
+    assert _row_rel_err(merged, out[multi], slice(None)) <= ROW_REL_TOL
+    # planted merge fault: each such row's first split left out
+    km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
+    dropped = attention.merge_split_partials(km, kl, kacc)
+    assert _row_rel_err(dropped, ref[multi], slice(None)) > ROW_REL_TOL
