@@ -14,11 +14,16 @@ Phases, each failing the run (non-zero exit, no result line) on error:
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at the Llama-3-8B shapes, with planted faults that the limit must
    reject, and time kernel, plain version, one PyTorch call as the library
-   yardstick, and the card's bound for the same work (K1, K2 on five ring
-   hops with its m and l held to limits of their own, K3 bf16 and int8 on
-   a mixed 8-slot batch with repeated bits and a planted fault in its
-   split merge, on and around the split boundaries, and on a full batch
-   of 8 x 2048 keys, K5 at 1, 2, 4 and 8 rows with repeated bits, K6, K4
+   yardstick, and the card's bound for the same work (K1 on a fresh
+   prompt, a prefix hit, a padded bucket and the 1900-token prompt of
+   phase 4, K2 on five ring hops with its m and l held to limits of their
+   own, K3 bf16 and int8 on a mixed 8-slot batch with repeated bits and a
+   planted fault in its split merge, on and around the split boundaries,
+   and on a full batch of 8 x 2048 keys, K5 at 1, 2, 4 and 8 rows with
+   repeated bits, K6 at the four 8B layer shapes for 1, 8, 16, 17 and 512
+   rows with repeated bits and, where it splits the contraction, its own
+   partials merged in plain PyTorch and a planted fault that leaves one
+   split out of that merge, K4
    bf16 and int8 on a ragged mix of prefill chunks and decode rows with
    repeated bits and a planted fault in its split merge, on and around
    the split boundaries, and on a full ragged batch of 8 slots at 2048
@@ -35,11 +40,11 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    chunk) through K4 and through the plain versions, with a planted K4
    fault, and one pure-decode ragged dispatch of 8 rows is profiled beside
    the split decode step over the same rows (device time and kernel count
-   of the step, with K3's, K4's and K5's share). The bf16 weights also run the
-   sequence-parallel prefill (sp = 2 on the one card, 1900 of 2048 tokens)
-   through K2 against the whole-prompt prefill through K1, over a bf16 and
-   an int8 pool, with a dropped ring hop planted, and both prefills are
-   timed;
+   of the step, with K3's, K4's, K5's and K6's share). The bf16 weights
+   also run the sequence-parallel prefill (sp = 2 on the one card, 1900 of
+   2048 tokens) through K2 against the whole-prompt prefill through K1,
+   over a bf16 and an int8 pool, with a dropped ring hop planted, and both
+   prefills are timed and profiled (K1's and K2's device time among them);
 5. serve: the port's HTTP server answers concurrent, streamed,
    prefix-cached and sampled ``/v1/completions`` at the 8B width in bf16,
    with the kernels' launch counts taken over this phase alone;
@@ -179,9 +184,10 @@ def check_flash_prefill(cfg, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     cases = []
-    # (T, start_pos, true_len): fresh prompt, prefix hit, padded bucket
+    # (T, start_pos, true_len): fresh prompt, prefix hit, padded bucket,
+    # and the whole-prompt prefill of phase 4 (1900 tokens in a 2048 bucket)
     for T, start, true_len in ((512, 0, 512), (256, 1024, 256),
-                               (512, 0, 300)):
+                               (512, 0, 300), (MAX_MODEL_LEN, 0, SP_TRUE_LEN)):
         seq_len = start + true_len
         q = torch.randn((T, H, Dh), generator=gen, device=dev).bfloat16()
         k = torch.randn((S, KVH, Dh), generator=gen, device=dev).bfloat16()
@@ -1033,51 +1039,84 @@ def int4pack_yardstick(x, w, ref):
             "torch.matmul on pre-dequantized bf16 weights")
 
 
+# K6's cases: the four 8B layer shapes (wq/wo, gate/up, down, wk/wv) at a
+# decode row, an 8-slot step, the two sides of the decode/prefill tiling
+# edge (16 and 17 rows) and a 512-token prefill bucket
+INT4_ROWS = (1, 8, 16, 17, 512)
+
+
 def check_grouped_int4(cfg, dev) -> dict:
-    """K6 at the 8B layer shapes for a decode row, an 8-slot decode step
-    and a 512-token prefill bucket."""
+    """K6 at the 8B layer shapes for INT4_ROWS: repeated bits, the last
+    group's scales read as the first's as a planted fault, and where the
+    contraction is split, the kernel's own split partials merged in plain
+    PyTorch (within the limit) and merged with one split left out (the
+    second planted fault)."""
     import torch
-    from dynamo_tpu_torch.engine.kernels import grouped_int4_matmul_cuda
+    from dynamo_tpu_torch.engine.kernels import (grouped_int4_matmul_cuda,
+                                                 grouped_int4_scratch)
     from dynamo_tpu_torch.engine.quant import quantize_array_grouped
-    from dynamo_tpu_torch.engine.quant_matmul import grouped_int4_matmul_ref
+    from dynamo_tpu_torch.engine.quant_matmul import (
+        grouped_int4_matmul_ref, int4_split_plan, merge_int4_split_partials)
     D, Fi = cfg.hidden_size, cfg.intermediate_size
     KVD = cfg.num_kv_heads * cfg.head_dim
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     cases = []
-    for d, f in ((D, Fi), (Fi, D), (D, KVD)):
+    for d, f in ((D, Fi), (Fi, D), (D, KVD), (D, D)):
         w = quantize_array_grouped(torch.randn((d, f), generator=gen,
                                                device=dev) * d ** -0.5)
         bad = w.scale.clone()
         bad[-1] = bad[0]   # planted fault: last group's scales = first's
-        for n in (1, 8, 512):
+        for n in INT4_ROWS:
             x = torch.randn((n, d), generator=gen, device=dev).bfloat16()
-            out = grouped_int4_matmul_cuda(x, w.q, w.scale)
+            splits, per = int4_split_plan(n, d, f)
+            scratch = grouped_int4_scratch(x, f)
+            out = grouped_int4_matmul_cuda(x, w.q, w.scale, scratch=scratch)
+            again = grouped_int4_matmul_cuda(x, w.q, w.scale)
             ref = grouped_int4_matmul_ref(x, w.q, w.scale)
             fault = grouped_int4_matmul_cuda(x, w.q, bad)
             torch.cuda.synchronize()
             if not torch.isfinite(out).all():
                 raise RuntimeError(f"grouped_int4_matmul {d}x{f} N={n}: "
                                    f"non-finite output")
+            if not torch.equal(out, again):
+                raise RuntimeError(f"grouped_int4_matmul {d}x{f} N={n}: two "
+                                   f"calls gave different bits")
             err, rel = row_errors(out, ref, slice(0, n))
             _, fault_rel = row_errors(fault, ref, slice(0, n))
-            ms = time_ms(lambda: grouped_int4_matmul_cuda(x, w.q, w.scale),
-                         cold=True)
-            plain_ms = time_ms(lambda: grouped_int4_matmul_ref(
+            del fault, again
+            case = {"N": n, "D": d, "F": f, "splits": splits,
+                    "groups_per_split": per,
+                    "ctas": (f // 128) * splits
+                    * (1 if n <= 16 else -(-n // 128)),
+                    "max_abs_err": err, "max_row_rel_err": rel,
+                    "fault_row_rel_err": fault_rel, "repeat_bits_equal": True}
+            check_limit(f"grouped_int4_matmul {d}x{f} N={n}", rel, fault_rel)
+            if scratch is not None:
+                # the kernel's own partials, merged in split order, and
+                # merged with the last split left out
+                _, merge_rel = row_errors(
+                    merge_int4_split_partials(scratch, torch.bfloat16), out,
+                    slice(0, n))
+                _, drop_rel = row_errors(
+                    merge_int4_split_partials(scratch[:-1], torch.bfloat16),
+                    ref, slice(0, n))
+                case.update({"own_partials_row_rel_err": merge_rel,
+                             "fault_dropped_split_row_rel_err": drop_rel})
+                check_limit(f"grouped_int4_matmul {d}x{f} N={n} (dropped "
+                            f"split)", merge_rel, drop_rel)
+                del scratch
+            case["ms"] = time_ms(lambda: grouped_int4_matmul_cuda(
+                x, w.q, w.scale), cold=True)
+            case["plain_ms"] = time_ms(lambda: grouped_int4_matmul_ref(
                 x, w.q, w.scale), iters=5, cold=True)
-            lib_fn, lib_name = int4pack_yardstick(x, w, ref)
-            lib_ms = time_ms(lib_fn, cold=True)
+            lib_fn, case["library"] = int4pack_yardstick(x, w, ref)
+            case["library_ms"] = time_ms(lib_fn, cold=True)
             nbytes = (0.5 * d * f + 4.0 * (d // 128) * f + 2.0 * n * d
                       + 2.0 * n * f)
-            b_ms, b_by = bound(nbytes, 2.0 * n * d * f)
-            case = {"N": n, "D": d, "F": f, "max_abs_err": err,
-                    "max_row_rel_err": rel, "fault_row_rel_err": fault_rel,
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "library": lib_name, "bound_ms": b_ms,
-                    "bound_by": b_by}
+            case["bound_ms"], case["bound_by"] = bound(nbytes,
+                                                       2.0 * n * d * f)
             log(f"grouped_int4_matmul {json.dumps(case)}")
-            check_limit(f"grouped_int4_matmul {d}x{f} N={n}", rel,
-                        fault_rel)
             cases.append(case)
         del w, bad
     primary = next(c for c in cases
@@ -1502,15 +1541,18 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0)
     rows, launches = [], 0   # device kernels only: operator rows repeat
-    # [ms, kernels] of each hand-written kernel of a step, either pool:
-    # K3's two kernels (the merge is launched early, by programmatic
+    # [ms, kernels] of each hand-written kernel of a call, either pool: K1,
+    # K2, K3's two kernels (the merge is launched early, by programmatic
     # dependent launch, so its time includes its wait for the split kernel
-    # and the two overlap), K4 and K5
-    mine = {"k3_split": [0.0, 0], "k3_merge": [0.0, 0], "k4": [0.0, 0],
-            "k5": [0.0, 0]}
-    names = {"k3_split": "paged_attention_split_kernel",
-             "k3_merge": "paged_attention_merge_kernel",
-             "k4": "ragged_attention_kernel", "k5": "lm_head_int8_kernel"}
+    # and the two overlap), K4, K5 and K6 (both tilings)
+    names = {"k1": ("flash_prefill_kernel",),
+             "k2": ("flash_prefill_partial_kernel",),
+             "k3_split": ("paged_attention_split_kernel",),
+             "k3_merge": ("paged_attention_merge_kernel",),
+             "k4": ("ragged_attention_kernel",),
+             "k5": ("lm_head_int8_kernel",),
+             "k6": ("int4_decode_kernel", "int4_prefill_kernel")}
+    mine = {part: [0.0, 0] for part in names}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
@@ -1518,7 +1560,7 @@ def device_profile(fn) -> dict:
             rows.append((t / 1e3, e.key))
             launches += e.count
             for part, acc in mine.items():
-                if names[part] in e.key:
+                if any(n in e.key for n in names[part]):
                     acc[0] += t / 1e3
                     acc[1] += e.count
     rows.sort(reverse=True)

@@ -15,35 +15,61 @@
 // the f32 sum, as the Pallas kernel does. Shapes: D % 256 == 0 (an even
 // number of groups) and F % 128 == 0, the rule of `grouped_kernel_eligible`.
 //
-// Bound on an H100. At decode (N <= 8) the work is a weights read: 0.5 B
+// Bound on an H100. At decode (N <= 16) the work is a weights read: 0.5 B
 // per weight plus 4 B per group scale against 4N flop per weight, so the
-// floor is the bytes (~116 MB per Llama-3-8B layer, ~35 us at 3.35 TB/s).
-// At prefill (N = 128...2048) it is 4*N flop per packed byte, above the
-// card's balance point from N of about 128 on, so long prefills are
-// floored by tensor-core operations. This kernel is far from both floors
-// (PERF.md, an H100 80GB HBM3 at 700 W): 7x (4096 -> 14336) to 80x
-// (4096 -> 1024, 16 CTAs) the byte floor at N = 8, and 11-31x the
-// operations floor at N = 512. A CTA has at most four groups of loads in
-// flight and waits on them before its MMAs, narrow outputs leave most SMs
-// idle, and every weight byte is unpacked from shared memory one at a
-// time. Split-K over more CTAs, cp.async double buffering and wgmma are
-// the next steps.
+// floor is the bytes (~116 MB per Llama-3-8B layer, ~35 us at 3.35 TB/s);
+// what it takes is enough weight bytes in flight on every SM. At prefill
+// (N = 128...2048) it is 4N flop per packed byte, above the card's balance
+// point from N of about 128 on, so long prefills are floored by
+// tensor-core operations. The first design (PERF.md: 3-5x slower than
+// `torch._weight_int4pack_mm` at decode) launched one CTA per 64 columns
+// with no split of the contraction (16-64 CTAs on 132 SMs for three of the
+// four 8B shapes), kept at most four groups of plain synchronous loads in
+// flight, and unpacked every byte with two int-to-float conversions.
 //
-// Design: one CTA of 4 warps per (row tile, 64 output columns). Per group
-// the CTA copies the group's 64 packed rows of its columns and the group's
-// 128 columns of x into shared memory with 16-byte loads, then each warp
-// splits nibbles with sign extension ((int8_t)(b << 4) >> 4 for row 2d,
-// (int8_t)b >> 4 for row 2d+1) straight into the bf16 B fragments of
-// mma.sync m16n8k16 (f32 accumulate), forms the group's partial over its 16
-// rows x 64 columns, and adds partial * scale[g, col] to its accumulator.
-// Two tilings, chosen from N: for N <= 16 (decode) the row tile is 16 rows
-// padded with zeros and the 4 warps take every 4th group each, so 4 groups'
-// bytes are loaded at once, and their sums meet in shared memory at the
-// end, added in a fixed warp order (no atomics: a run gives the same bits
-// every time, so a seeded sampled stream repeats); for larger N the row tile is 64 rows, one 16-row slice per warp,
-// and the warps share each group's weight tile. Loads are plain and
-// synchronous (no cp.async, TMA or wgmma yet), and the TPU kernel's even/odd
-// split of x is not needed: nibbles are unpacked into natural row order.
+// Design, two tilings chosen from N:
+// - Nibbles to bf16 without I2F: a 32-bit word of 4 packed bytes (4
+//   columns of one packed row) is XORed with 0x88 per byte, then each byte
+//   is spread by one byte permute to bits 0-7 and 16-23 of its own
+//   register, masked to its two nibbles and ORed with 0x4300 per half:
+//   bf16 (0x4300 | (u ^ 8)) = 128 + n + 8 exactly for the signed nibble n,
+//   so one bf16x2 subtraction of 136 gives the pair (w[2d], w[2d+1]) of
+//   one column, which is one MMA register (k 2d, 2d+1) as it stands.
+// - Decode (N <= 16), split-K. The host's plan (`int4_split_plan` in
+//   engine/quant_matmul.py, passed in as `splits`) cuts the D/128 groups
+//   into `splits` equal ranges of ceil(groups / splits) (the last may be
+//   shorter, none empty) so that the grid of (F/128 column strips) x
+//   splits reaches about 2 x 132 CTAs at every 8B shape (twice that
+//   measured no faster). A CTA of 4 warps streams its strip's packed rows
+//   through a 4-stage cp.async ring, one group (64 packed rows x 128
+//   columns, x's 128 columns of the batch rows and the group's 128 scales)
+//   per stage. mma.sync m16n8k16 takes the
+//   output columns as M and the batch rows as N, so N <= 8 fills one n8
+//   tile and N <= 16 two. Each warp owns 32 columns over two m-tiles in
+//   K5's order (row gid <- column 4 gid, gid + 8 <- 4 gid + 1, the second
+//   m-tile the next two): one 32-bit shared load of a packed row feeds
+//   four MMA rows, and each thread ends with 4 consecutive columns of its
+//   batch rows. Each group's partial is scaled into the f32 accumulator.
+//   With one split the CTA writes bf16; with more, each CTA writes its f32
+//   partial to scratch [splits, N, F], takes an atomic ticket for its
+//   strip (the zeroed buffer the wrapper keeps per device and stream), and
+//   the last of the strip's CTAs sums the splits in index order, writes
+//   bf16 and resets the ticket. The ticket picks who sums, never the
+//   order, so two calls give the same bits; no floating-point atomics.
+// - Prefill (N > 16): a CTA of 8 warps per (128 rows, 128 columns), a
+//   4-stage cp.async ring of one group per stage (x [128 x 128] bf16,
+//   packed [64 x 128], the scales). Warps are 2 x 4 over rows x columns,
+//   64 x 32 each; x fragments come through ldmatrix, the weights are the
+//   B operand (one packed byte is one B register) with the same 32-bit
+//   word per four n-tiles, and the per-group f32 partial is scaled into
+//   the accumulator at each group's end; each thread stores 8 consecutive
+//   columns of a row in one 16-byte store. Where its (row tile, strip)
+//   CTAs would fill fewer than half the SMs, the plan splits the
+//   contraction to about two CTAs per SM, reduced as in the decode tiling
+//   with one ticket per (row tile, strip).
+// The TPU kernel's even/odd split of x is not needed: nibbles are unpacked
+// into natural row order. wgmma with the unpacked weights as the register
+// A operand is the next step for the prefill tiling.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,13 +77,29 @@
 
 namespace {
 
-constexpr int kGroup = 128;           // contraction rows per scale group
+constexpr int kGroup = 128;            // contraction rows per scale group
 constexpr int kPackedRows = kGroup / 2;
-constexpr int kCols = 64;             // output columns per CTA
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kWStride = kCols + 16;  // bytes per packed row in shared memory
-constexpr int kXStride = kGroup + 8;  // bf16 per x row in shared memory
+constexpr int kStrip = 128;            // output columns per CTA
+constexpr int kWRow = kStrip + 32;     // bytes per packed row in shared memory: rows tig
+                                       // .. tig + 3 of one 32-bit column word hit 32 banks
+constexpr int kXRow = kGroup * 2 + 16; // bytes per x row in shared memory
+constexpr int kDecodeRows = 16;        // the decode tiling's largest N
+constexpr int kStages = 4;
+
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kPreWarps = 8;
+constexpr int kPreThreads = kPreWarps * 32;
+constexpr int kPreRows = 128;          // x rows per prefill CTA
+
+// One ring stage: a group's packed rows of the strip, `rows` x rows, scales.
+template <int Rows>
+struct Stage {
+  static constexpr int kW = kPackedRows * kWRow;
+  static constexpr int kX = Rows * kXRow;
+  static constexpr int kS = kStrip * 4;
+  static constexpr int kBytes = kW + kX + kS;
+};
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {
@@ -68,160 +110,417 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One packed byte → bf16x2 (row 2d in the low half, row 2d+1 in the high).
-__device__ __forceinline__ uint32_t unpack_pair(int8_t byte) {
-  const int lo = static_cast<int8_t>(static_cast<uint8_t>(byte) << 4) >> 4;
-  const int hi = byte >> 4;
-  __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi));
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
-// WM warps along the rows (16 rows each), kWarps / WM warps along the groups.
-template <int WM>
-__global__ void __launch_bounds__(kThreads)
-grouped_int4_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
-                    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int N,
-                    int D, int F) {
-  constexpr int WK = kWarps / WM;
-  constexpr int kRows = 16 * WM;
-  __shared__ __align__(16) int8_t sW[WK][kPackedRows * kWStride];
-  __shared__ __align__(16) __nv_bfloat16 sX[WK][kRows * kXStride];
-  static_assert(sizeof(float) * WK * 16 * kCols <= sizeof(sW),
-                "the group slices' sums reuse the weight tiles' space");
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int wm = warp % WM, wk = warp / WM;
-  const int col0 = blockIdx.x * kCols;
-  const int row0 = blockIdx.y * kRows;
-  const int n_groups = D / kGroup;
-
-  float acc[kCols / 8][4];
+// The 4 packed bytes of `w` (4 columns of one packed row) as 4 bf16x2
+// registers, register j holding (w[2d], w[2d+1]) of column j, exactly.
+__device__ __forceinline__ void unpack4(uint32_t w, uint32_t (&r)[4]) {
+  const uint32_t x = w ^ 0x88888888u;  // each nibble u -> u ^ 8 = n + 8
+  const uint32_t y = x >> 4;           // byte j's high nibble in its low bits
+  const uint32_t bias = 0x43084308u;   // bf16x2 (136, 136)
 #pragma unroll
-  for (int j = 0; j < kCols / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int g0 = 0; g0 < n_groups; g0 += WK) {
-    __syncthreads();  // the previous round's tiles are consumed
-    // packed weights: WK groups x 64 rows x 4 vectors of 16 bytes
-    for (int i = threadIdx.x; i < WK * kPackedRows * (kCols / 16); i += kThreads) {
-      const int s = i / (kPackedRows * (kCols / 16));
-      const int r = (i / (kCols / 16)) % kPackedRows;
-      const int c = (i % (kCols / 16)) * 16;
-      const int g = g0 + s;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (g < n_groups)
-        v = *reinterpret_cast<const uint4*>(packed + (long)(g * kPackedRows + r) * F + col0 + c);
-      *reinterpret_cast<uint4*>(&sW[s][r * kWStride + c]) = v;
-    }
-    // x: WK groups x kRows rows x 16 vectors of 8 bf16
-    for (int i = threadIdx.x; i < WK * kRows * (kGroup / 8); i += kThreads) {
-      const int s = i / (kRows * (kGroup / 8));
-      const int r = (i / (kGroup / 8)) % kRows;
-      const int c = (i % (kGroup / 8)) * 8;
-      const int g = g0 + s;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (g < n_groups && row0 + r < N)
-        v = *reinterpret_cast<const uint4*>(x + (long)(row0 + r) * D + g * kGroup + c);
-      *reinterpret_cast<uint4*>(&sX[s][r * kXStride + c]) = v;
-    }
-    __syncthreads();
-
-    const int g = g0 + wk;
-    if (g >= n_groups) continue;
-    const int8_t* w = sW[wk];
-    const __nv_bfloat16* xs = sX[wk] + (wm * 16) * kXStride;
-    float part[kCols / 8][4];
-#pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kGroup / 16; ++ks) {
-      uint32_t a[4];
-      const int c = ks * 16 + tig * 2;
-      a[0] = *reinterpret_cast<const uint32_t*>(xs + gid * kXStride + c);
-      a[1] = *reinterpret_cast<const uint32_t*>(xs + (gid + 8) * kXStride + c);
-      a[2] = *reinterpret_cast<const uint32_t*>(xs + gid * kXStride + c + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(xs + (gid + 8) * kXStride + c + 8);
-      // B[k][n] for k = ks*16 + tig*2 (+1) lives in packed row ks*8 + tig,
-      // k + 8 in packed row ks*8 + tig + 4
-      const int8_t* w0 = w + (ks * 8 + tig) * kWStride + gid;
-      const int8_t* w1 = w0 + 4 * kWStride;
-#pragma unroll
-      for (int j = 0; j < kCols / 8; ++j)
-        mma_bf16_16816(part[j], a, unpack_pair(w0[j * 8]), unpack_pair(w1[j * 8]));
-    }
-    const float* srow = scale + (long)g * F + col0 + tig * 2;
-#pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
-      const float2 s = *reinterpret_cast<const float2*>(srow + j * 8);
-      acc[j][0] += part[j][0] * s.x;
-      acc[j][1] += part[j][1] * s.y;
-      acc[j][2] += part[j][2] * s.x;
-      acc[j][3] += part[j][3] * s.y;
-    }
+  for (int j = 0; j < 4; ++j) {
+    // byte j of x to byte 0, byte j of y to byte 2
+    const uint32_t p = __byte_perm(x, y, j | ((4 + j) << 8));
+    const uint32_t v = (p & 0x000F000Fu) | 0x43004300u;
+    __nv_bfloat162 b = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                               *reinterpret_cast<const __nv_bfloat162*>(&bias));
+    r[j] = *reinterpret_cast<uint32_t*>(&b);
   }
+}
 
-  if (WK > 1) {
-    // the group slices of the 16-row tile meet in shared memory (the
-    // weight tiles' space, free now): each warp stores its slice, then the
-    // slices are added in warp order
-    __syncthreads();
-    float* red = reinterpret_cast<float*>(&sW[0][0]);  // [WK][16][kCols]
-    float* mine = red + wk * 16 * kCols;
-#pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
-      const int c = j * 8 + tig * 2;
-      mine[gid * kCols + c] = acc[j][0];
-      mine[gid * kCols + c + 1] = acc[j][1];
-      mine[(gid + 8) * kCols + c] = acc[j][2];
-      mine[(gid + 8) * kCols + c + 1] = acc[j][3];
+// Stage group g: its 64 packed rows of columns [col0, col0 + 128), x's
+// rows [row0, row0 + Rows) of its 128 columns (rows past N zero) and its
+// 128 scales, by Threads threads.
+template <int Rows, int Threads>
+__device__ __forceinline__ void load_stage(uint8_t* st, const __nv_bfloat16* __restrict__ x,
+                                           const int8_t* __restrict__ packed,
+                                           const float* __restrict__ scale, int N, int D, int F,
+                                           long col0, int row0, int g) {
+  constexpr int kWPieces = kPackedRows * (kStrip / 16);
+  for (int i = threadIdx.x; i < kWPieces; i += Threads) {
+    const int r = i / (kStrip / 16), p = i % (kStrip / 16);
+    cp_async16(st + r * kWRow + p * 16, packed + (long)(g * kPackedRows + r) * F + col0 + p * 16,
+               16);
+  }
+  uint8_t* sx = st + Stage<Rows>::kW;
+  constexpr int kXPieces = Rows * (kGroup / 8);
+  for (int i = threadIdx.x; i < kXPieces; i += Threads) {
+    const int r = i / (kGroup / 8), p = i % (kGroup / 8);
+    const bool ok = row0 + r < N;
+    cp_async16(sx + r * kXRow + p * 16,
+               ok ? x + (long)(row0 + r) * D + g * kGroup + p * 8 : x, ok ? 16 : 0);
+  }
+  uint8_t* ss = sx + Stage<Rows>::kX;
+  for (int i = threadIdx.x; i < kStrip / 4; i += Threads)
+    cp_async16(ss + i * 16, scale + (long)g * F + col0 + i * 4, 16);
+}
+
+// After the CTA wrote its split's partial: its item's ticket (one thread,
+// after a fence cumulative over what the barrier ordered before it).
+// True in every thread of the item's last CTA, which resets the ticket.
+__device__ __forceinline__ bool last_split(int* ticket, int splits) {
+  __shared__ bool sLast;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const bool last = atomicAdd(ticket, 1) == splits - 1;
+    if (last) {
+      *ticket = 0;  // every split of the item has counted
+      __threadfence();
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < 16 * (kCols / 2); i += kThreads) {
-      const int r = i / (kCols / 2), c = (i % (kCols / 2)) * 2;
-      if (row0 + r < N) {
-        float a = 0.f, b = 0.f;
+    sLast = last;
+  }
+  __syncthreads();
+  return sLast;
+}
+
+// The item's last CTA: rows [row0, row1) x columns [col0, col0 + 128) of
+// the splits' f32 partials [splits, N, F] summed in index order, eight
+// loads from L2 in flight per thread, written as bf16.
+template <int Threads>
+__device__ __forceinline__ void sum_splits(const float* __restrict__ partials,
+                                           __nv_bfloat16* __restrict__ out, int N, int F,
+                                           long col0, int row0, int row1, int splits) {
+  const long plane = (long)N * F;
+  for (int item = threadIdx.x; item < (row1 - row0) * (kStrip / 4); item += Threads) {
+    const long off = (long)(row0 + item / (kStrip / 4)) * F + col0 + (item % (kStrip / 4)) * 4;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < splits; s0 += 8) {
+      float4 v[8];
 #pragma unroll
-        for (int sl = 0; sl < WK; ++sl) {
-          a += red[(sl * 16 + r) * kCols + c];
-          b += red[(sl * 16 + r) * kCols + c + 1];
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + (long)(row0 + r) * F + col0 + c) =
-            __floats2bfloat162_rn(a, b);
+      for (int k = 0; k < 8; ++k)
+        v[k] = s0 + k < splits
+                   ? __ldcg(reinterpret_cast<const float4*>(partials + (s0 + k) * plane + off))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (s0 + k >= splits) break;
+        sum.x += v[k].x;
+        sum.y += v[k].y;
+        sum.z += v[k].z;
+        sum.w += v[k].w;
       }
     }
-    return;
-  }
-  const int r0 = row0 + wm * 16 + gid, r1 = r0 + 8;
-#pragma unroll
-  for (int j = 0; j < kCols / 8; ++j) {
-    const int c = col0 + j * 8 + tig * 2;
-    if (r0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out + (long)r0 * F + c) =
-          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-    if (r1 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out + (long)r1 * F + c) =
-          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+    __nv_bfloat162 v0 = __floats2bfloat162_rn(sum.x, sum.y);
+    __nv_bfloat162 v1 = __floats2bfloat162_rn(sum.z, sum.w);
+    *reinterpret_cast<uint2*>(out + off) =
+        make_uint2(*reinterpret_cast<uint32_t*>(&v0), *reinterpret_cast<uint32_t*>(&v1));
   }
 }
 
-template <int WM>
-cudaError_t launch(const void* x, const void* packed, const void* scale, void* out, int N,
-                   int D, int F, cudaStream_t stream) {
-  dim3 grid(F / kCols, (N + 16 * WM - 1) / (16 * WM));
-  grouped_int4_kernel<WM><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(packed),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), N, D, F);
+// Decode: one CTA per (column strip, split); NT batch n-tiles of 8 rows.
+template <int NT>
+__global__ void __launch_bounds__(kDecThreads)
+int4_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
+                   const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ partials, int* __restrict__ tickets, int N, int D, int F,
+                   int gps) {
+  using St = Stage<8 * NT>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const long col0 = (long)blockIdx.x * kStrip;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int n_groups = D / kGroup;
+  const int g0 = split * gps;
+  const int n_g = min(gps, n_groups - g0);
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_g)
+      load_stage<8 * NT, kDecThreads>(smem + s * St::kBytes, x, packed, scale, N, D, F, col0, 0,
+                                      g0 + s);
+    cp_async_commit();
+  }
+
+  const int wcol = warp * 32 + 4 * gid;  // this thread's column word in the strip
+  for (int i = 0; i < n_g; ++i) {
+    cp_async_wait<kStages - 2>();  // group i has landed
+    __syncthreads();               // ... for every thread, and stage i - 1 is consumed
+    const int ni = i + kStages - 1;
+    if (ni < n_g)
+      load_stage<8 * NT, kDecThreads>(smem + (ni % kStages) * St::kBytes, x, packed, scale, N,
+                                      D, F, col0, 0, g0 + ni);
+    cp_async_commit();
+
+    const uint8_t* sw = smem + (i % kStages) * St::kBytes;
+    const uint8_t* sx = sw + St::kW;
+    float part[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kGroup / 16; ++ks) {
+      // k pair tig of this k-step is packed row 8 ks + tig, pair tig + 4 row 8 ks + tig + 4
+      uint32_t lo[4], hi[4];
+      unpack4(*reinterpret_cast<const uint32_t*>(sw + (ks * 8 + tig) * kWRow + wcol), lo);
+      unpack4(*reinterpret_cast<const uint32_t*>(sw + (ks * 8 + tig + 4) * kWRow + wcol), hi);
+      uint32_t b0[NT], b1[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint8_t* xr = sx + (nt * 8 + gid) * kXRow + (ks * 16 + tig * 2) * 2;
+        b0[nt] = *reinterpret_cast<const uint32_t*>(xr);
+        b1[nt] = *reinterpret_cast<const uint32_t*>(xr + 16);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const uint32_t a[4] = {lo[2 * mt], lo[2 * mt + 1], hi[2 * mt], hi[2 * mt + 1]};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(part[mt][nt], a, b0[nt], b1[nt]);
+      }
+    }
+    // the group's scales of this thread's 4 columns
+    const float4 sc = *reinterpret_cast<const float4*>(sx + St::kX + wcol * 4);
+    const float s[4] = {sc.x, sc.y, sc.z, sc.w};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        acc[mt][nt][0] += part[mt][nt][0] * s[2 * mt];
+        acc[mt][nt][1] += part[mt][nt][1] * s[2 * mt];
+        acc[mt][nt][2] += part[mt][nt][2] * s[2 * mt + 1];
+        acc[mt][nt][3] += part[mt][nt][3] * s[2 * mt + 1];
+      }
+  }
+
+  // thread (gid, tig) holds columns wcol .. wcol + 3 of batch rows
+  // nt * 8 + tig * 2 + {0, 1}
+  const long col = col0 + wcol;
+  if (splits == 1) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int b = nt * 8 + tig * 2 + e;
+        if (b >= N) continue;
+        __nv_bfloat162 v0 = __floats2bfloat162_rn(acc[0][nt][e], acc[0][nt][2 + e]);
+        __nv_bfloat162 v1 = __floats2bfloat162_rn(acc[1][nt][e], acc[1][nt][2 + e]);
+        *reinterpret_cast<uint2*>(out + (long)b * F + col) =
+            make_uint2(*reinterpret_cast<uint32_t*>(&v0), *reinterpret_cast<uint32_t*>(&v1));
+      }
+    return;
+  }
+
+  // several splits: this split's f32 partial, then the strip's ticket
+  float* mine = partials + (long)split * N * F;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int b = nt * 8 + tig * 2 + e;
+      if (b < N)
+        *reinterpret_cast<float4*>(mine + (long)b * F + col) =
+            make_float4(acc[0][nt][e], acc[0][nt][2 + e], acc[1][nt][e], acc[1][nt][2 + e]);
+    }
+  if (last_split(tickets + blockIdx.x, splits))
+    sum_splits<kDecThreads>(partials, out, N, F, col0, 0, N, splits);
+}
+
+// Prefill: one CTA per (128 columns, 128 rows, split); warps 2 (rows) x 4
+// (columns).
+__global__ void __launch_bounds__(kPreThreads)
+int4_prefill_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
+                    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ partials, int* __restrict__ tickets, int N, int D, int F,
+                    int gps) {
+  using St = Stage<kPreRows>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const long col0 = (long)blockIdx.x * kStrip;
+  const int row0 = blockIdx.y * kPreRows;
+  const int split = blockIdx.z, splits = gridDim.z;
+  const int g0 = split * gps;
+  const int n_g = min(gps, D / kGroup - g0);
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_g)
+      load_stage<kPreRows, kPreThreads>(smem + s * St::kBytes, x, packed, scale, N, D, F, col0,
+                                        row0, g0 + s);
+    cp_async_commit();
+  }
+
+  const int wcol = wn * 32 + 4 * gid;  // this thread's column word of the warp's 32 columns
+  // ldmatrix row addresses: lane -> row (lane % 16) of an m-tile, k half lane / 16
+  const int a_row = wm * 64 + (lane & 15), a_k = (lane >> 4) * 8;
+  for (int i = 0; i < n_g; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int ni = i + kStages - 1;
+    if (ni < n_g)
+      load_stage<kPreRows, kPreThreads>(smem + (ni % kStages) * St::kBytes, x, packed, scale, N,
+                                        D, F, col0, row0, g0 + ni);
+    cp_async_commit();
+
+    const uint8_t* sw = smem + (i % kStages) * St::kBytes;
+    const uint8_t* sx = sw + St::kW;
+    float part[4][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kGroup / 16; ++ks) {
+      // B of n-tile j, column gid = column word gid's byte j
+      uint32_t lo[4], hi[4];
+      unpack4(*reinterpret_cast<const uint32_t*>(sw + (ks * 8 + tig) * kWRow + wcol), lo);
+      unpack4(*reinterpret_cast<const uint32_t*>(sw + (ks * 8 + tig + 4) * kWRow + wcol), hi);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4(a, sx + (a_row + mt * 16) * kXRow + (ks * 16 + a_k) * 2);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16_16816(part[mt][j], a, lo[j], hi[j]);
+      }
+    }
+    // C (mt, j): columns 8 tig + j (c0, c2) and 8 tig + 4 + j (c1, c3)
+    const float* ss = reinterpret_cast<const float*>(sx + St::kX) + wn * 32 + 8 * tig;
+    const float4 s0 = *reinterpret_cast<const float4*>(ss);
+    const float4 s1 = *reinterpret_cast<const float4*>(ss + 4);
+    const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[mt][j][0] += part[mt][j][0] * s[j];
+        acc[mt][j][1] += part[mt][j][1] * s[4 + j];
+        acc[mt][j][2] += part[mt][j][2] * s[j];
+        acc[mt][j][3] += part[mt][j][3] * s[4 + j];
+      }
+  }
+
+  // each thread: rows (gid, gid + 8) of each m-tile, columns 8 tig .. 8 tig + 7
+  const long col = col0 + wn * 32 + 8 * tig;
+  float* mine = partials + (long)split * N * F;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wm * 64 + mt * 16 + gid + 8 * h;
+      if (r >= N) continue;
+      if (splits > 1) {
+        float4* p = reinterpret_cast<float4*>(mine + (long)r * F + col);
+        p[0] = make_float4(acc[mt][0][2 * h], acc[mt][1][2 * h], acc[mt][2][2 * h],
+                           acc[mt][3][2 * h]);
+        p[1] = make_float4(acc[mt][0][2 * h + 1], acc[mt][1][2 * h + 1], acc[mt][2][2 * h + 1],
+                           acc[mt][3][2 * h + 1]);
+        continue;
+      }
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        __nv_bfloat162 v = __floats2bfloat162_rn(acc[mt][j][2 * h], acc[mt][j + 1][2 * h]);
+        __nv_bfloat162 u =
+            __floats2bfloat162_rn(acc[mt][j][2 * h + 1], acc[mt][j + 1][2 * h + 1]);
+        w[j / 2] = *reinterpret_cast<uint32_t*>(&v);
+        w[2 + j / 2] = *reinterpret_cast<uint32_t*>(&u);
+      }
+      *reinterpret_cast<uint4*>(out + (long)r * F + col) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  if (splits > 1 && last_split(tickets + blockIdx.y * gridDim.x + blockIdx.x, splits))
+    sum_splits<kPreThreads>(partials, out, N, F, col0, row0, min(row0 + kPreRows, N), splits);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int NT>
+cudaError_t launch_decode(const __nv_bfloat16* x, const int8_t* packed, const float* scale,
+                          __nv_bfloat16* out, float* partials, int* tickets, int N, int D, int F,
+                          int splits, int gps, cudaStream_t stream) {
+  constexpr int smem = kStages * Stage<8 * NT>::kBytes;
+  const cudaError_t attr = allow_smem(int4_decode_kernel<NT>, smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(F / kStrip, splits);
+  int4_decode_kernel<NT><<<grid, kDecThreads, smem, stream>>>(x, packed, scale, out, partials,
+                                                              tickets, N, D, F, gps);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_prefill(const __nv_bfloat16* x, const int8_t* packed, const float* scale,
+                           __nv_bfloat16* out, float* partials, int* tickets, int N, int D,
+                           int F, int splits, int gps, cudaStream_t stream) {
+  constexpr int smem = kStages * Stage<kPreRows>::kBytes;
+  const cudaError_t attr = allow_smem(int4_prefill_kernel, smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid(F / kStrip, (N + kPreRows - 1) / kPreRows, splits);
+  int4_prefill_kernel<<<grid, kPreThreads, smem, stream>>>(x, packed, scale, out, partials,
+                                                           tickets, N, D, F, gps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t (0 = launched).
+// Returns a cudaError_t (0 = launched). `splits`: the host's split count
+// (`int4_split_plan`); with more than one, `partials` is f32 [splits, N,
+// F] scratch and `tickets` int32 zeros, one per column strip (N <= 16) or
+// per (128-row tile, column strip), which the launch leaves zero.
 extern "C" int dtt_grouped_int4_matmul(const void* x, const void* packed, const void* scale,
-                                       void* out, int N, int D, int F, void* stream) {
+                                       void* out, void* partials, void* tickets, int N, int D,
+                                       int F, int splits, void* stream) {
   if (N <= 0) return 0;
-  if (D % (2 * kGroup) != 0 || F % 128 != 0) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || F <= 0 || D % (2 * kGroup) != 0 || F % kStrip != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_groups = D / kGroup;
+  if (splits < 1 || splits > n_groups) return (int)cudaErrorInvalidValue;
+  const int gps = (n_groups + splits - 1) / splits;
+  if ((n_groups + gps - 1) / gps != splits) return (int)cudaErrorInvalidValue;  // an empty split
+  if (splits > 1 && (partials == nullptr || tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const int8_t* pb = static_cast<const int8_t*>(packed);
+  const float* sb = static_cast<const float*>(scale);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  float* pp = static_cast<float*>(partials);
+  int* tk = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 16) return (int)launch<1>(x, packed, scale, out, N, D, F, st);
-  return (int)launch<kWarps>(x, packed, scale, out, N, D, F, st);
+  if (N > kDecodeRows)
+    return (int)launch_prefill(xb, pb, sb, ob, pp, tk, N, D, F, splits, gps, st);
+  return N <= 8 ? (int)launch_decode<1>(xb, pb, sb, ob, pp, tk, N, D, F, splits, gps, st)
+                : (int)launch_decode<2>(xb, pb, sb, ob, pp, tk, N, D, F, splits, gps, st);
 }

@@ -9,10 +9,10 @@ never loaded.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output (``torch.empty``, or ``torch.zeros`` where the kernel writes only
-some rows) and any scratch (``torch.empty``; K4's merge tickets are one
-zeroed buffer per device and stream that the kernel leaves zeroed),
-launches on the current stream of the tensor's device with that device
-current, raises when the C entry point returns a CUDA error, and counts
+some rows) and any scratch (``torch.empty``; K4's and K6's merge tickets
+are one zeroed buffer per device and stream that the kernels leave
+zeroed), launches on the current stream of the tensor's device with that
+device current, raises when the C entry point returns a CUDA error, and counts
 its launches in ``Kernel.launches``. Nothing here runs on import: the CPU
 tests import every module of the package.
 """
@@ -31,7 +31,8 @@ import torch
 
 from .attention import (KV_SCALE_LANES, decode_split_plan,
                         ragged_row_tiles)
-from .quant_matmul import GROUP
+from .quant_matmul import (DECODE_ROWS, GROUP, PREFILL_ROWS, STRIP,
+                           int4_split_plan)
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -126,8 +127,9 @@ class _Library:
                 lib.dtt_lm_head_int8.argtypes = [vp, vp, vp, vp, ci, ci, ci,
                                                  vp]
                 lib.dtt_lm_head_int8.restype = ci
-                lib.dtt_grouped_int4_matmul.argtypes = [vp, vp, vp, vp, ci,
-                                                        ci, ci, vp]
+                lib.dtt_grouped_int4_matmul.argtypes = [vp, vp, vp, vp, vp,
+                                                        vp, ci, ci, ci, ci,
+                                                        vp]
                 lib.dtt_grouped_int4_matmul.restype = ci
                 self._lib = lib
             return self._lib
@@ -341,14 +343,15 @@ def paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                   scratch)
 
 
-# K4's merge tickets, one int32 per (sequence, KV head, row tile), per
-# (device, stream): zero when allocated and left zero by every launch (the
-# item's last CTA resets its ticket), so no call pays a memset. Launches on
-# one stream run in order, so they never share a ticket while it counts.
+# The merge tickets of K4 (one int32 per sequence, KV head and row tile)
+# and K6 (one per row tile and column strip), per (device, stream): zero
+# when allocated and left zero by every launch (the last CTA of an item
+# resets its ticket), so no call pays a memset. Launches on one stream run
+# in order, so they never share a ticket while it counts.
 _TICKETS: Dict[tuple, torch.Tensor] = {}
 
 
-def _ragged_tickets(q: torch.Tensor, n: int) -> torch.Tensor:
+def _tickets(q: torch.Tensor, n: int) -> torch.Tensor:
     key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
@@ -376,7 +379,7 @@ def _ragged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
     scratch = _split_scratch(kernel, q, KVH, M, block_size, scratch)
     tickets = None
     if scratch is not None:
-        tickets = _ragged_tickets(
+        tickets = _tickets(
             q, S * KVH * ragged_row_tiles(max_rows, H // KVH))
     # only owned rows are written: the rest read as zeros
     out = torch.zeros_like(q)
@@ -446,22 +449,51 @@ def lm_head_int8_cuda(x: torch.Tensor, q: torch.Tensor,
     return out
 
 
+def grouped_int4_scratch(x: torch.Tensor,
+                         F: int) -> Optional[torch.Tensor]:
+    """K6's f32 split partials [splits, N, F] for x [N, D] @ W [D, F] on
+    x's device (``quant_matmul.int4_split_plan``), or None when the plan
+    has one split."""
+    N, D = x.shape
+    splits, _ = int4_split_plan(N, D, F)
+    if splits == 1:
+        return None
+    return torch.empty((splits, N, F), dtype=torch.float32, device=x.device)
+
+
 def grouped_int4_matmul_cuda(x: torch.Tensor, packed: torch.Tensor,
-                             scale: torch.Tensor) -> torch.Tensor:
+                             scale: torch.Tensor,
+                             scratch: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """x [N, D] bf16 @ packed int4 [D/2, F] int8 with scale [D/128, F] f32
     → [N, F] bf16 (csrc/grouped_int4_matmul.cu); D % 256 == 0 and
-    F % 128 == 0 (quant_matmul.grouped_kernel_eligible)."""
+    F % 128 == 0 (quant_matmul.grouped_kernel_eligible). ``scratch``: the
+    split partials (``grouped_int4_scratch``); left None the wrapper
+    allocates it. A caller that passes it can read every split's partial
+    afterwards."""
     _check(x, "x", torch.bfloat16, 2)
     _check(packed, "packed", torch.int8, 2)
     _check(scale, "scale", torch.float32, 2)
     N, D = x.shape
     half, F = packed.shape
-    if (2 * half != D or D % (2 * GROUP) or F % 128
+    if (2 * half != D or D % (2 * GROUP) or F % STRIP
             or tuple(scale.shape) != (D // GROUP, F)):
         raise ValueError(
             f"grouped_int4_matmul: unsupported shapes x={tuple(x.shape)} "
             f"packed={tuple(packed.shape)} scale={tuple(scale.shape)}")
+    splits, _ = int4_split_plan(N, D, F)
+    if scratch is None:
+        scratch = grouped_int4_scratch(x, F)
+    elif (splits == 1 or scratch.device != x.device
+          or scratch.dtype != torch.float32 or not scratch.is_contiguous()
+          or tuple(scratch.shape) != (splits, N, F)):
+        raise ValueError("grouped_int4_matmul: scratch must be what "
+                         "grouped_int4_scratch allocates")
+    tiles = 1 if N <= DECODE_ROWS else -(-N // PREFILL_ROWS)
+    tickets = None if scratch is None else _tickets(x, F // STRIP * tiles)
     out = torch.empty((N, F), dtype=torch.bfloat16, device=x.device)
-    GROUPED_INT4_MATMUL.launch(x, x.data_ptr(), packed.data_ptr(),
-                               scale.data_ptr(), out.data_ptr(), N, D, F)
+    GROUPED_INT4_MATMUL.launch(
+        x, x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), N, D, F, splits)
     return out

@@ -6,13 +6,27 @@ version (``grouped_int4_matmul_ref``), a CUDA tensor launches the
 hand-written kernel ``csrc/grouped_int4_matmul.cu`` or raises. Whether a
 weight goes through it at all is decided before any launch, from shapes
 only (``grouped_kernel_eligible``, the JAX package's rule).
+
+Where its grid alone would leave SMs idle the kernel splits the
+contraction across CTAs by ``int4_split_plan`` and sums the splits' f32
+partials in index order; ``grouped_int4_matmul_split_ref`` is that
+arithmetic in plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 GROUP = 128          # contraction rows per scale group
+STRIP = 128          # output columns per CTA of the kernel
+DECODE_ROWS = 16     # the largest N of the kernel's decode tiling
+PREFILL_ROWS = 128   # x rows per CTA of its prefill tiling
+SMS = 132            # streaming multiprocessors of an H100
+# decode CTAs per SM the split aims at: shared memory lets four share an SM,
+# but more splits measured no faster (PERF.md, Findings)
+DECODE_CTAS_PER_SM = 2
 
 
 def grouped_kernel_eligible(d: int, f: int, group: int) -> bool:
@@ -38,6 +52,70 @@ def grouped_int4_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
     xg = x.float().reshape(N, gn, GROUP).transpose(0, 1)        # [gn, N, 128]
     part = torch.bmm(xg, w)                                      # [gn, N, F]
     return (part * scale.float()[:, None, :]).sum(0).to(x.dtype)
+
+
+def int4_split_plan(n: int, d: int, f: int,
+                    sms: int = SMS) -> Tuple[int, int]:
+    """(splits, groups per split) of the kernel for x [n, d] @ W [d, f]:
+    the d/128 groups cut into ``splits`` ranges of ``groups per split``
+    (the last may be shorter, none is empty). The decode tiling (n <=
+    DECODE_ROWS, f/128 CTAs) splits until its CTAs reach about
+    DECODE_CTAS_PER_SM per SM; the prefill tiling ((f/128) x ceil(n/128)
+    CTAs, one per SM at a time) splits only where those fill fewer than
+    half the ``sms`` SMs, then to about two per SM."""
+    groups = d // GROUP
+    tiles = f // STRIP
+    if n <= DECODE_ROWS:
+        target = DECODE_CTAS_PER_SM * sms
+    else:
+        tiles *= -(-n // PREFILL_ROWS)
+        if 2 * tiles >= sms:
+            return 1, groups
+        target = 2 * sms
+    want = min(groups, -(-target // tiles))
+    per = -(-groups // want)
+    return -(-groups // per), per
+
+
+def grouped_int4_split_partials_ref(x: torch.Tensor, packed: torch.Tensor,
+                                    scale: torch.Tensor,
+                                    plan: Tuple[int, int]) -> torch.Tensor:
+    """The kernel's split partials in plain PyTorch: for each split of
+    ``plan`` (``int4_split_plan``), the f32 sum in group order of its
+    groups' partial products, each scaled by ``scale[g, :]``. →
+    ``[splits, N, F]`` f32, the kernel's scratch layout."""
+    from .quant import unpack_int4_rows
+    splits, per = plan
+    N, D = x.shape
+    F = packed.shape[1]
+    gn = D // GROUP
+    w = unpack_int4_rows(packed).float().reshape(gn, GROUP, F)
+    xg = x.float().reshape(N, gn, GROUP).transpose(0, 1)        # [gn, N, 128]
+    part = torch.bmm(xg, w) * scale.float()[:, None, :]          # [gn, N, F]
+    out = torch.zeros((splits, N, F), dtype=torch.float32, device=x.device)
+    for s in range(splits):
+        for g in range(s * per, min((s + 1) * per, gn)):
+            out[s] += part[g]
+    return out
+
+
+def merge_int4_split_partials(partials: torch.Tensor,
+                              dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's reduction: ``[splits, N, F]`` f32 partials summed in
+    split order (f32), → ``[N, F]`` in ``dtype``."""
+    acc = torch.zeros_like(partials[0])
+    for p in partials:
+        acc = acc + p
+    return acc.to(dtype)
+
+
+def grouped_int4_matmul_split_ref(x: torch.Tensor, packed: torch.Tensor,
+                                  scale: torch.Tensor,
+                                  plan: Tuple[int, int]) -> torch.Tensor:
+    """``grouped_int4_matmul_ref`` in the kernel's split form: per-split
+    f32 partials by ``plan``, then the fixed-order reduction."""
+    return merge_int4_split_partials(
+        grouped_int4_split_partials_ref(x, packed, scale, plan), x.dtype)
 
 
 def grouped_int4_matmul(x: torch.Tensor, packed: torch.Tensor,

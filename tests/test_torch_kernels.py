@@ -11,7 +11,9 @@ f32 logits differ by summation order alone). Each case plants a fault
 that must exceed it: attention leaves out keys, reads a wrong block or
 scale, or (ragged) shifts its causal mask by one, a split merge (K3, K4)
 leaves out one split, the int8 head leaves out one strip of columns, the
-grouped-int4 matmul reads the last group's scales as the first group's.
+grouped-int4 matmul reads the last group's scales as the first group's
+(and, where it splits the contraction, its partials are merged with one
+split left out).
 """
 
 import pytest
@@ -41,6 +43,10 @@ def _device():
     (40, 128, 0, 40, 8, 2, 128),
     (33, 200, 64, 20, 8, 8, 64),      # prefix hit, padded rows, g = 1
     (16, 64, 0, 16, 32, 8, 128),
+    # S off the 64-key tile, T over many row blocks (the second a grid of
+    # more CTAs than three per SM hold at once)
+    (300, 1000, 600, 300, 16, 2, 64),
+    (1100, 1100, 0, 1030, 32, 8, 128),
 ])
 def test_flash_prefill_kernel_matches_plain(T, S, start, true_len, H, KVH, Dh):
     dev = _device()
@@ -86,6 +92,8 @@ def _partial_errors(got, ref, seen):
     (96, 96, 96, 96, 8, 8, 64),        # every key in the past, g = 1
     (96, 96, -40, 96, 32, 8, 128),     # dead and live rows in one CTA
     (96, 96, 0, 50, 8, 2, 128),        # the padded tail
+    (300, 1000, 500, 1000, 16, 2, 128),   # S off the tile, many row blocks
+    (1100, 1100, -60, 400, 32, 8, 128),   # many CTAs, dead rows first
 ])
 def test_flash_prefill_partial_kernel_matches_plain(T, S, start, seq_len, H,
                                                     KVH, Dh):
@@ -382,7 +390,12 @@ def test_lm_head_int8_kernel_edges(B, D, V):
 
 
 @pytest.mark.parametrize("N,D,F", [(1, 512, 384), (8, 768, 256),
-                                   (40, 512, 128), (130, 1024, 384)])
+                                   (40, 512, 128), (130, 1024, 384),
+                                   # the two sides of the tiling edge
+                                   (16, 1024, 128), (17, 256, 128),
+                                   (16, 4096, 1024), (17, 4096, 1024),
+                                   # 8B plans with a shorter last split
+                                   (8, 14336, 4096), (16, 4096, 14336)])
 def test_grouped_int4_kernel_matches_plain(N, D, F):
     dev = _device()
     g = torch.Generator(device=dev).manual_seed(N)
@@ -397,7 +410,8 @@ def test_grouped_int4_kernel_matches_plain(N, D, F):
     bad = w.scale.clone()
     bad[-1] = bad[0]
     fault = kernels.grouped_int4_matmul_cuda(x, w.q, bad)
-    again = kernels.grouped_int4_matmul_cuda(x, w.q, w.scale)
+    scratch = kernels.grouped_int4_scratch(x, F)
+    again = kernels.grouped_int4_matmul_cuda(x, w.q, w.scale, scratch=scratch)
     torch.cuda.synchronize()
     assert kernels.GROUPED_INT4_MATMUL.launches == n0 + 3
     # the same bits every run (a seeded sampled stream must repeat)
@@ -405,6 +419,16 @@ def test_grouped_int4_kernel_matches_plain(N, D, F):
     assert out.dtype == torch.bfloat16 and out.shape == (N, F)
     assert _row_rel_err(out, ref, slice(0, N)) <= ROW_REL_TOL
     assert _row_rel_err(fault, ref, slice(0, N)) > ROW_REL_TOL
+    splits, _ = quant_matmul.int4_split_plan(N, D, F)
+    assert (scratch is None) == (splits == 1)
+    if scratch is not None:
+        # the kernel's split partials: merged in order they give its output;
+        # one split left out must fail the limit
+        merge = quant_matmul.merge_int4_split_partials
+        assert _row_rel_err(merge(scratch, torch.bfloat16), out,
+                            slice(0, N)) <= ROW_REL_TOL
+        assert _row_rel_err(merge(scratch[:-1], torch.bfloat16), ref,
+                            slice(0, N)) > ROW_REL_TOL
 
 
 def _ragged_inputs(gen, dev, int8: bool, H=32, KVH=8, Dh=128):
