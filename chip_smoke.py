@@ -44,7 +44,14 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    also run the sequence-parallel prefill (sp = 2 on the one card, 1900 of
    2048 tokens) through K2 against the whole-prompt prefill through K1,
    over a bf16 and an int8 pool, with a dropped ring hop planted, and both
-   prefills are timed and profiled (K1's and K2's device time among them);
+   prefills are timed and profiled (K1's and K2's device time among them).
+   In each mode the decode program (``engine/programs.py``) replays its
+   CUDA graph at K = 1 and K = 8 against the same program run eagerly
+   (live slots' tokens, logprobs and logits and the pool, bit for bit),
+   K = 8 against eight K = 1 dispatches (the same tokens), a planted
+   fault (static inputs left stale) must be caught, and wall / device /
+   launches per token are read for the eager step, the graphed K = 1
+   step and the K = 8 dispatch;
 5. serve: the port's HTTP server answers concurrent, streamed,
    prefix-cached and sampled ``/v1/completions`` at the 8B width in bf16,
    with the kernels' launch counts taken over this phase alone;
@@ -62,7 +69,19 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    shards on the one card: the 700-, 1500- and 1900-token prompts prefill
    through the ring (K2), the others through K1; a seeded request gives
    the same text twice; each stream's TTFT/ITL is printed beside phase
-   5's, with the share of greedy tokens the two servers agree on.
+   5's, with the share of greedy tokens the two servers agree on;
+5f. serve dispatch modes: phase 5b's requests, a 1500-token prompt and a
+   64-token stream posted while the others decode, on a server with
+   ``--decode-steps-per-dispatch 8 --decode-dispatch-pipeline
+   --lane-prefill-max-tokens 128 --prefill-chunk 512``: some admission
+   rides the batch as a lane, the 700-, 1500- and 1900-token prompts
+   prefill in 2, 3 and 4 chunks (32 K1 launches a chunk), the host fetches
+   fewer times than a quarter of the decode tokens, a seeded request gives
+   the same text twice, and each stream's TTFT/ITL is printed beside
+   5b's, with the share of greedy tokens the two agree on.
+
+Every split-path decode dispatch of phases 5-5f replays a captured graph;
+its launches count through the program's replay accounting.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1574,6 +1593,164 @@ def device_profile(fn) -> dict:
             "top_kernels_ms": [[k[:60], t] for t, k in rows[:6]]}
 
 
+# the decode program of phase 4 (engine/programs.py): K steps per dispatch
+PROGRAM_K = 8
+
+
+def program_inputs(pos: int, table, B: int, M: int,
+                   second_table=None) -> dict:
+    """One dispatch's host inputs: slot 0 greedy over ``table`` at
+    ``pos``; with ``second_table`` slot 1 too, sampled with a seed and
+    top-p 0.9 (so the filtered branch runs); the other slots inactive."""
+    import numpy as np
+    tables = np.zeros((B, M), np.int32)
+    tables[0] = table.cpu().numpy()
+    inp = dict(tokens=np.array([11, 12] + [0] * (B - 2), np.int64),
+               positions=np.zeros((B,), np.int32), tables=tables,
+               seeds=np.arange(B, dtype=np.int64),
+               steps0=np.zeros((B,), np.int64),
+               temperature=np.zeros((B,), np.float32),
+               top_k=np.zeros((B,), np.int64),
+               top_p=np.ones((B,), np.float32))
+    inp["positions"][0] = inp["steps0"][0] = pos
+    if second_table is not None:
+        tables[1] = second_table.cpu().numpy()
+        inp["positions"][1] = inp["steps0"][1] = pos
+        inp["temperature"][1], inp["top_p"][1] = 0.7, 0.9
+    return inp
+
+
+def check_decode_program(params, kv, cfg, table, B: int, M: int,
+                         pos: int, mode: str) -> dict:
+    """The decode program over the 8B weights and the pool phase 4 filled:
+    a graph replay against the same program run eagerly from the same
+    pool (tokens, logprobs, logits of the live slots and the pool rows
+    outside the trash block, bit for bit) at K = 1 and K = 8; K = 8
+    against eight K = 1 dispatches (the same tokens); a planted fault
+    (the static inputs left stale for a second dispatch) that must differ
+    from the eager run; then wall / device / launches per token of the
+    eager step, the graphed K = 1 step and the K = 8 dispatch, one live
+    slot of B, greedy."""
+    import numpy as np
+    import torch
+    from dynamo_tpu_torch.engine.programs import DecodeProgram
+    dev = kv["k"].device
+    n_used = int((table > 0).sum().item())
+    second = torch.zeros_like(table)
+    second[:n_used] = torch.arange(1 + n_used, 1 + 2 * n_used, device=dev)
+    prog = DecodeProgram(params, kv, cfg, KV_BLOCK, B, M, PROGRAM_K, 0, dev)
+    inp = program_inputs(pos, table, B, M, second)
+    live = [0, 1]
+    snap = {n: t.clone() for n, t in kv.items()}
+
+    def restore():
+        for n, t in kv.items():
+            t.copy_(snap[n])
+
+    res = {}
+    for K in (1, PROGRAM_K):
+        restore()
+        d = prog.dispatch(K, "filtered", inp, with_logits=True)
+        toks, lps = d.fetch()
+        logits = d.logits.clone()
+        pool = {n: t[:, KV_BLOCK:].clone() for n, t in kv.items()}
+        restore()
+        e = prog.run_eager(K, "filtered", inp, with_logits=True)
+        same = {"tokens": bool((toks[:, live] == e.toks.cpu().numpy()
+                                [:, live]).all()),
+                "logprobs": bool((lps[:, live] == e.logprobs.cpu().numpy()
+                                  [:, live]).all()),
+                "logits": torch.equal(logits[:, live], e.logits[:, live]),
+                "pool": all(torch.equal(pool[n], kv[n][:, KV_BLOCK:])
+                            for n in kv)}
+        res[f"k{K}_replay_equals_eager"] = same
+        del pool, logits, e
+    # K = 8 against eight K = 1 dispatches fed on the host
+    restore()
+    toks8, _ = prog.dispatch(PROGRAM_K, "filtered", inp).fetch()
+    restore()
+    step = {k: v.copy() for k, v in inp.items()}
+    toks1 = []
+    for _ in range(PROGRAM_K):
+        t, _ = prog.dispatch(1, "filtered", step).fetch()
+        toks1.append(t[0])
+        step["tokens"] = t[0].copy()
+        step["positions"][live] += 1
+        step["steps0"][live] += 1
+    res["k8_equals_eight_k1"] = bool(
+        (toks8[:, live] == np.stack(toks1)[:, live]).all())
+    # the planted fault: a second dispatch whose inputs never reach the
+    # graph (its static inputs keep the first dispatch's tokens)
+    other = {k: v.copy() for k, v in inp.items()}
+    other["tokens"] = other["tokens"] + 1000
+    restore()
+    prog.dispatch(1, "filtered", inp, with_logits=True).fetch()
+    upload = prog._upload
+    prog._upload = lambda inputs: None
+    try:
+        restore()
+        stale = prog.dispatch(1, "filtered", other,
+                              with_logits=True).logits.clone()
+    finally:
+        prog._upload = upload
+    restore()
+    right = prog.run_eager(1, "filtered", other, with_logits=True).logits
+    res["planted_stale_inputs_caught"] = not torch.equal(
+        stale[:, live], right[:, live])
+    del stale, right
+    restore()
+    del snap
+    res["profile"] = profile_program(prog, pos, table, B, M)
+    res["captures"], res["replays"] = prog.captures, prog.replays
+    bad = [k for k, v in res.items() if v is False
+           or (isinstance(v, dict) and False in v.values())]
+    log(f"program {mode} {json.dumps(res)}")
+    if bad:
+        raise RuntimeError(f"decode program {mode}: {bad} failed")
+    return res
+
+
+def profile_program(prog, pos: int, table, B: int, M: int) -> dict:
+    """Per token (one live slot of B, greedy): host wall time (mean of 5
+    calls ending in the host fetch), device time and device kernels from
+    the profiler, and for a replay its CUDA-event time, of the eager
+    step, the graphed K = 1 step and the K = 8 dispatch."""
+    import torch
+    inp = program_inputs(pos, table, B, M)
+    runs = {"eager_k1": (1, lambda: prog.run_eager(1, "greedy",
+                                                   inp).fetch()),
+            "graph_k1": (1, lambda: prog.dispatch(1, "greedy",
+                                                  inp).fetch()),
+            f"graph_k{PROGRAM_K}": (PROGRAM_K, lambda: prog.dispatch(
+                PROGRAM_K, "greedy", inp).fetch())}
+    out = {}
+    for name, (K, fn) in runs.items():
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(5):
+            fn()
+        wall_ms = 1e3 * (time.monotonic() - t0) / 5
+        prof = device_profile(fn)
+        row = {"wall_ms_per_token": wall_ms / K,
+               "device_ms_per_token": (prof["device_ms"] / K
+                                       if prof["device_kernels"]
+                                       != "not measured" else
+                                       "not measured"),
+               "device_kernels_per_token": (prof["device_kernels"] / K
+                                            if prof["device_kernels"]
+                                            != "not measured" else
+                                            "not measured"),
+               "device_busy_share": (prof["device_ms"] / wall_ms
+                                     if prof["device_kernels"]
+                                     != "not measured" else None)}
+        if name.startswith("graph"):
+            row["event_ms_per_token"] = time_ms(fn, iters=5, warmup=1) / K
+        out[name] = row
+    return out
+
+
 def check_sampling_noise(cfg, dev) -> dict:
     """The sampler's Gumbel noise (JAX's threefry, in plain PyTorch) for
     one and for eight sampled rows over the 8B vocabulary: CUDA-event time
@@ -1671,6 +1848,8 @@ def check_model(cfg, dev, seed: int, mode: str) -> dict:
         k6 = kernels.GROUPED_INT4_MATMUL.launches - k6
         profile = profile_decode_step(params, state["kv"], cfg, table, B, M,
                                       prompt_len + steps)
+        program = check_decode_program(params, state["kv"], cfg, table, B,
+                                       M, prompt_len + steps + 1, mode)
     torch.cuda.synchronize()
     del state
     if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
@@ -1680,7 +1859,7 @@ def check_model(cfg, dev, seed: int, mode: str) -> dict:
            "grouped_int4_launches_per_forward": k6 / (1 + steps),
            "max_abs_ref": spread, **compare(got),
            "planted_faults": {k: compare(v) for k, v in faults.items()},
-           "decode_step": profile}
+           "decode_step": profile, "program": program}
     log(f"model {json.dumps(res)}")
     del got, ref, faults
     if mode in RAGGED_MODES:
@@ -1842,6 +2021,8 @@ PATH_KERNELS = {
     "ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
                         "grouped_int4_matmul"),
     "sp": ("flash_prefill_partial", "flash_prefill", "paged_attention"),
+    "dispatch": ("flash_prefill", "paged_attention_int8", "lm_head_int8",
+                 "grouped_int4_matmul"),
 }
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
@@ -1849,7 +2030,16 @@ SERVE_SP = 2
 # serves with --ragged
 SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
                "ragged": ("bf16", True),
-               "ragged_int4_kv8": ("int4_kv8", True), "sp": ("bf16", False)}
+               "ragged_int4_kv8": ("int4_kv8", True), "sp": ("bf16", False),
+               "dispatch": ("int4_kv8", False)}
+# the dispatch modes' server (5f): K = 8 steps a dispatch, pipelined, lane
+# prefill of admissions of up to 128 un-cached tokens into a busy batch,
+# prompts prefilled in chunks of 512
+DISPATCH_K, DISPATCH_CHUNK, DISPATCH_LANE = 8, 512, 128
+DISPATCH_FLAGS = ["--decode-steps-per-dispatch", str(DISPATCH_K),
+                  "--decode-dispatch-pipeline",
+                  "--lane-prefill-max-tokens", str(DISPATCH_LANE),
+                  "--prefill-chunk", str(DISPATCH_CHUNK)]
 # the split path's attention kernels: on a ragged path every admission and
 # decode step goes through K4, so these launch 0 times there
 SPLIT_ATTENTION = ("flash_prefill", "paged_attention", "paged_attention_int8")
@@ -1886,7 +2076,8 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
          "--max-num-seqs", "8", "--device", "cuda",
          "--quantization", weights, "--kv-quantization", kv_quant]
         + (["--ragged", "--ragged-max-seq-rows", str(RAGGED_MAX_ROWS)]
-           if ragged else []))
+           if ragged else [])
+        + (DISPATCH_FLAGS if path == "dispatch" else []))
     launcher.parse_io(args.io)
     t0 = time.monotonic()
     mesh = None
@@ -1930,6 +2121,20 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         raise RuntimeError(f"serve: server not ready: {holder.get('error')}")
     port = args.http_port
     name = launcher.model_name(args)
+    # bring-up: a short greedy and a short sampled request, so that the
+    # decode program's graphs (greedy and filtered sampling) are captured
+    # before the measured requests; the capture time is reported
+    warm = np.random.default_rng(seed + 2).integers(
+        259, cfg.vocab_size, size=16).tolist()
+    t0 = time.monotonic()
+    for extra in ({"temperature": 0}, {"temperature": 0.7, "top_p": 0.9,
+                                       "seed": 2}):
+        http_completion(port, {"model": name, "prompt": warm,
+                               "max_tokens": 4,
+                               "nvext": {"ignore_eos": True}, **extra})
+    bring_up = {"warm_requests_s": time.monotonic() - t0,
+                "graph_captures": core.program.captures,
+                "graph_capture_s": core.program.capture_s}
     rng = np.random.default_rng(seed)
     mk = lambda n: rng.integers(259, cfg.vocab_size, size=n).tolist()  # noqa: E731
     max_tokens = 32
@@ -1944,7 +2149,15 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                    "p1900": mk(1900)}
     else:
         prompts = {"p700": mk(700), "p1900": mk(1900)}
-    report = {}
+    if path == "dispatch":
+        # 5b's prompts and a 1500-token one (2, 4 and 3 chunks of 512),
+        # and a 64-token stream posted once a slot decodes: it rides the
+        # batch as a lane
+        extra = np.random.default_rng(seed + 1)
+        prompts["p1500"] = extra.integers(259, cfg.vocab_size,
+                                          size=1500).tolist()
+        lane_prompt = extra.integers(259, cfg.vocab_size, size=64).tolist()
+    report = {"bring_up": bring_up}
     stack = contextlib.ExitStack()
     try:
         stack.enter_context(swapped((llama, "prefill_forward_sp", sp_prefill),
@@ -1953,11 +2166,24 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         kernels.reset_launch_counts()
         pool = core.kv_manager.pool
         # concurrent greedy streams of mixed prompt lengths
-        with ThreadPoolExecutor(len(prompts)) as ex:
+        with ThreadPoolExecutor(len(prompts) + 1) as ex:
             futs = {k: ex.submit(http_completion, port, {
                 **greedy, "prompt": p, "stream": True,
                 "stream_options": {"include_usage": True}})
                 for k, p in prompts.items()}
+            if path == "dispatch":
+                def lane_request():
+                    # posted once a slot decodes (a racy read of the
+                    # engine's slot list from this thread is enough)
+                    t_end = time.monotonic() + 300
+                    while not any(x is not None for x in core.slots):
+                        if time.monotonic() > t_end:
+                            raise RuntimeError("lane64: no slot decoded")
+                        time.sleep(0.002)
+                    return http_completion(port, {
+                        **greedy, "prompt": lane_prompt, "stream": True,
+                        "stream_options": {"include_usage": True}})
+                futs["lane64"] = ex.submit(lane_request)
             for k, f in futs.items():
                 report[k] = check_stream(k, f.result(), max_tokens, True)
         # one more SSE stream, usage not requested
@@ -2002,6 +2228,17 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                     m.ragged_dispatches_saved_total}
         if path == "sp":
             report["prefills"] = {k: sorted(v) for k, v in prefills.items()}
+        if path == "dispatch":
+            report["dispatch_metrics"] = {
+                "lane_admissions": core.lane_admissions,
+                "host_roundtrips": core.host_roundtrips,
+                "host_stall_s": core.host_stall_s,
+                "decode_tokens": core.total_decode_tokens,
+                "prefill_tokens": core.total_prefill_tokens,
+                "graph_captures": core.program.captures,
+                "graph_capture_s": core.program.capture_s,
+                "graph_replays": core.program.replays,
+                "prefill_calls": list(prefills["plain"])}
     finally:
         stack.close()
         if "task" in holder:
@@ -2028,6 +2265,8 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                                f"and decode rows")
     if path == "sp":
         check_sp_dispatch(cfg, prefills, launches)
+    if path == "dispatch":
+        check_dispatch_modes(cfg, report["dispatch_metrics"], launches)
     del core
     gc.collect()
     torch.cuda.empty_cache()
@@ -2055,9 +2294,36 @@ def check_sp_dispatch(cfg, prefills: dict, launches: dict) -> None:
         raise RuntimeError(f"serve sp: launches {launches}, expected {want}")
 
 
-def compare_servers(card: str, base: dict, other: dict, path: str) -> None:
+def check_dispatch_modes(cfg, m: dict, launches: dict) -> None:
+    """5f: some admission rode the decode batch as a lane; the 700-, 1500-
+    and 1900-token prompts prefilled in 2, 3 and 4 chunks of 512 (every
+    other admission in one call) and K1 launched 32 times a call; the
+    host fetched fewer times than a quarter of the decode tokens."""
+    if m["lane_admissions"] <= 0:
+        raise RuntimeError("serve dispatch: no lane admission")
+    groups = []                   # one admission's prefill calls
+    for true_len, start in m["prefill_calls"]:
+        if start == 0 or not groups:
+            groups.append([])
+        groups[-1].append(true_len)
+    chunks = {sum(g): len(g) for g in groups if sum(g) > DISPATCH_CHUNK}
+    if chunks != {700: 2, 1500: 3, 1900: 4}:
+        raise RuntimeError(f"serve dispatch: chunked prefills {chunks}, "
+                           f"expected {{700: 2, 1500: 3, 1900: 4}}")
+    want = cfg.num_layers * len(m["prefill_calls"])
+    if launches["flash_prefill"] != want:
+        raise RuntimeError(f"serve dispatch: {launches['flash_prefill']} "
+                           f"K1 launches for {len(m['prefill_calls'])} "
+                           f"prefill calls, expected {want}")
+    if not m["host_roundtrips"] < m["decode_tokens"] / 4:
+        raise RuntimeError(f"serve dispatch: {m['host_roundtrips']} host "
+                           f"fetches for {m['decode_tokens']} decode tokens")
+
+
+def compare_servers(card: str, base: dict, other: dict, path: str,
+                    base_path: str = "bf16") -> None:
     """Print each streamed request's TTFT and ITL on ``path`` beside the
-    bf16 server's (phase 5) for the same prompts, and the share of token
+    ``base_path`` server's for the same prompts, and the share of token
     texts the two greedy streams agree on (a number, not a gate: random
     weights give near-uniform logits, where a last-bit difference can
     decide a token)."""
@@ -2069,7 +2335,8 @@ def compare_servers(card: str, base: dict, other: dict, path: str) -> None:
         row = {"ttft_ms": [base[k]["ttft_ms"], v["ttft_ms"]],
                "itl_ms_mean": [base[k]["itl_ms_mean"], v["itl_ms_mean"]],
                "greedy_token_agreement": agree}
-        log(f"request bf16-vs-{path} {k} {json.dumps(row)} [{card}]")
+        log(f"request {base_path}-vs-{path} {k} {json.dumps(row)} "
+            f"[{card}]")
 
 
 def main() -> int:
@@ -2131,6 +2398,8 @@ def main() -> int:
     by_path = {path: serve_phase(cfg, seed, card, path)
                for path in PATH_KERNELS}
     compare_servers(card, by_path["bf16"][1], by_path["sp"][1], "sp")
+    compare_servers(card, by_path["int4_kv8"][1], by_path["dispatch"][1],
+                    "dispatch", "int4_kv8")
     for e in entries:
         path = next(m for m, ks in PATH_KERNELS.items() if e["name"] in ks)
         e["launches"] = by_path[path][0][e["name"]]

@@ -4,10 +4,12 @@ A copy of ``dynamo_tpu.engine.config``'s model side (``ModelConfig`` with
 every rope-scaling field, ``from_hf_config``, ``bench_model_config``) so the
 two packages parse the same config.json into the same geometry. The engine
 side (``EngineConfig``) keeps only the fields the serving paths of this
-package read: weight and KV quantization, ragged dispatch and
-sequence-parallel prefill included; a field of a path this package does
-not implement yet (tp/dp/ep/pp, speculation, multi-step dispatch, KV
-tiers) is not a field, so passing it raises ``TypeError``.
+package read: weight and KV quantization, ragged dispatch,
+sequence-parallel prefill, chunked prefill and the dispatch modes
+(K-step decode, the pipelined harvest, lane prefill) included; a field of
+a path this package does not implement yet (tp/dp/ep/pp, speculation, KV
+tiers, the deferred admission fetch) is not a field, so passing it raises
+``TypeError``.
 """
 
 from __future__ import annotations
@@ -519,9 +521,10 @@ KV_QUANTIZATIONS = ("none", "int8")
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Serving-engine knobs: whole-prompt bucketed prefill (or, over an sp
-    mesh, sequence-parallel prefill of long cold prompts) and one decode
-    step per dispatch, or ragged mixed prefill+decode dispatch; a paged
+    """Serving-engine knobs: whole-prompt bucketed or chunked prefill (or,
+    over an sp mesh, sequence-parallel prefill of long cold prompts) and K
+    decode steps per dispatch (optionally pipelined, with lane prefill), or
+    ragged mixed prefill+decode dispatch; a paged
     KV pool (bf16, or int8 rows with in-row scales) with prefix reuse;
     weight-only int8/int4 quantization. Field names and defaults follow
     ``dynamo_tpu.engine.config.EngineConfig``; fields of paths this package
@@ -534,6 +537,7 @@ class EngineConfig:
     enable_prefix_reuse: bool = True  # match prompt blocks against the pool
     prefill_buckets: List[int] = dataclasses.field(
         default_factory=lambda: [128, 256, 512, 1024, 2048])
+    prefill_chunk: int = 0            # 0 = whole-prompt prefill
     dtype: str = "bfloat16"
     # KV pool: "none" (the activation dtype) | "int8" (per-token int8 rows
     # with the scale in-row, engine/attention.py quantize_kv_rows)
@@ -563,6 +567,33 @@ class EngineConfig:
     # shortest cold prefill worth the ring path; shorter prompts take the
     # whole-prompt prefill
     sp_min_prefill_tokens: int = 512
+    # decode steps fused into one dispatch (engine/programs.py; one CUDA
+    # graph replay on the card): tokens are harvested to the host once per
+    # dispatch, so the device->host round trip and the host's launch work
+    # are paid once per K tokens. K>1 trades step-granular EOS/cancel
+    # reaction (worst case K-1 wasted steps per sequence) for throughput.
+    # Ignored under ragged_dispatch.
+    decode_steps_per_dispatch: int = 1
+    # defer each K-dispatch's harvest one dispatch: the next batch chains
+    # off on-device tokens while the previous results copy to the host —
+    # steady-state cost max(fetch, compute) instead of fetch+compute.
+    # Finish/cancel reaction widens to <=2K-1 steps. Requires K > 1.
+    # Note on exactness: under RECOMPUTE PREEMPTION (any dispatch mode,
+    # pipelined or not) a stream is bit-exact vs an uncontended run only up
+    # to its first preemption point — the re-admission prefill's numerics
+    # differ slightly from the decode program's, which can flip a greedy
+    # argmax at near-tie logits.
+    decode_dispatch_pipeline: bool = False
+    # continuous-batching lane prefill: when the engine is ALREADY decoding,
+    # an admission whose un-hit prompt suffix is <= this many tokens skips
+    # the dedicated prefill and instead rides the decode batch — its
+    # prompt tokens are fed as "planned" inputs to the K-step decode
+    # program (one per step through its slot) and the transition to
+    # sampling happens on device mid-dispatch. Idle engines still use the
+    # dedicated prefill (better TTFT: one compute-bound dispatch instead
+    # of len(prompt) steps). 0 disables; requires
+    # decode_steps_per_dispatch > 1.
+    lane_prefill_max_tokens: int = 0
 
     @staticmethod
     def auto_kv_block_size(model_cfg: "ModelConfig",
@@ -588,7 +619,19 @@ class EngineConfig:
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, "
                              f"got {self.dtype!r}")
+        if (self.decode_dispatch_pipeline
+                and self.decode_steps_per_dispatch <= 1
+                and not self.ragged_dispatch):
+            raise ValueError(
+                "decode_dispatch_pipeline requires decode_steps_per_dispatch"
+                " > 1 (the pipeline defers multi-step harvests)")
         if self.ragged_dispatch:
+            if self.decode_dispatch_pipeline:
+                raise NotImplementedError(
+                    "the pipelined ragged dispatch (decode_dispatch_"
+                    "pipeline with ragged_dispatch) is not implemented "
+                    "yet (ROADMAP A1): run the ragged dispatch "
+                    "unpipelined, or the split path pipelined")
             if self.ragged_max_seq_rows <= 0:
                 raise ValueError("ragged_max_seq_rows must be > 0")
             if self.ragged_max_tokens == 0:
@@ -612,6 +655,11 @@ class EngineConfig:
                     "speculative decoding (spec_k), and "
                     "decode_dispatch_pipeline — see docs/"
                     "ragged_attention.md §composition")
+        if self.lane_prefill_max_tokens > 0 \
+                and self.decode_steps_per_dispatch <= 1:
+            raise ValueError(
+                "lane_prefill_max_tokens requires decode_steps_per_dispatch"
+                " > 1 (planned tokens feed the multi-step program)")
         self.prefill_buckets = sorted(
             b for b in self.prefill_buckets if b <= self.max_model_len) or [
                 self.max_model_len]

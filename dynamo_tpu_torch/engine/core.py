@@ -2,21 +2,28 @@
 async scheduling loop driving the model's prefill and decode steps.
 
 Counterpart of ``dynamo_tpu.engine.core`` for the single-device main path:
-submit, admission with prefix reuse, bucketed whole-prompt prefill, one
-decode step per dispatch for every ready slot, finish on EOS / budget /
-cancellation, and recompute preemption when the KV pool runs out. Over a
-mesh with an sp axis (``parallel/sharding.py``), long cold prompts prefill
-sequence-parallel (``llama.prefill_forward_sp``, ring attention); decode
-stays on the engine's device. With
+submit, admission with prefix reuse, bucketed whole-prompt or chunked
+prefill (``EngineConfig.prefill_chunk``), decode dispatches of K steps for
+every ready slot (``decode_steps_per_dispatch``; each harvested once,
+optionally one dispatch late so that the next chains off the device's
+tokens: ``decode_dispatch_pipeline``), lane prefill of short admissions
+into a busy decode batch (``lane_prefill_max_tokens``), finish on EOS /
+budget / cancellation, and recompute preemption when the KV pool runs out.
+Over a mesh with an sp axis (``parallel/sharding.py``), long cold prompts
+prefill sequence-parallel (``llama.prefill_forward_sp``, ring attention);
+decode stays on the engine's device. With
 ``EngineConfig.ragged_dispatch`` every engine step is instead ONE ragged
 dispatch (``engine/ragged.py``, ``llama.ragged_forward``): admissions ride
 it as prefill lanes, chunk by chunk, beside the decode rows of the other
 slots.
 
-PyTorch runs eagerly, so there are no compiled programs: prefill and decode
-are plain calls into ``models/llama.py`` that update the KV pool in place.
-Inactive decode slots aim at the trash block 0 with position 0, as in the
-JAX engine, so every decode step has the static ``[max_num_seqs]`` batch.
+Prefill and ragged dispatch are eager calls into ``models/llama.py`` that
+update the KV pool in place. A decode dispatch is the decode program
+(``engine/programs.py``): on the card one CUDA graph replay, the port's
+form of the JAX engine's compiled ``decode`` / ``decode_k`` programs; on
+the CPU the same function run eagerly. Inactive decode slots aim at the
+trash block 0 with position 0, as in the JAX engine, so every decode
+dispatch has the static ``[max_num_seqs]`` batch.
 Sampling noise is the JAX engine's: each sampled token is keyed by (engine
 seed, request seed, the request's ``key_step``), so a seeded request
 reproduces the JAX engine's stream whatever else is batched with it, also
@@ -43,6 +50,7 @@ from ..parallel.sharding import replicate_params
 from .config import EngineConfig, ModelConfig
 from .device import resolve_device
 from .models import llama
+from .programs import DecodeProgram, sampling_variant
 from .quant import init_params_quantized, quantize_params
 from .ragged import RaggedBatch, build_ragged_batch
 from .sampling import SlotSampling, gumbel_noise, make_slot_key, sample_tokens
@@ -208,10 +216,31 @@ class EngineCore:
         self._block_tables = np.zeros((self.B, self.M), dtype=np.int32)
         self._positions = np.zeros((self.B,), dtype=np.int32)
         self._tokens = np.zeros((self.B,), dtype=np.int64)
+        # per-slot sampling parameters (set at admission, as in the JAX
+        # engine; a vacated slot keeps its last values)
+        self._samp = {
+            "temperature": np.zeros((self.B,), np.float32),
+            "top_k": np.zeros((self.B,), np.int64),
+            "top_p": np.ones((self.B,), np.float32),
+        }
+        self._seeds = np.zeros((self.B,), np.int64)
+        # the decode program (K steps per dispatch; a CUDA graph per K and
+        # sampling variant on the card) and the pipelined dispatch whose
+        # harvest is deferred one dispatch
+        self.program = DecodeProgram(
+            self.params, self.kv, model_cfg, engine_cfg.kv_block_size,
+            self.B, self.M, max(engine_cfg.decode_steps_per_dispatch, 1),
+            engine_cfg.seed, self.device)
+        self._pending: Optional[dict] = None
         # serving stats
         self.total_prefill_tokens = 0
         self.total_decode_tokens = 0
         self.preemptions = 0
+        self.lane_admissions = 0
+        # synchronous device→host fetches the engine loop has paid (decode
+        # harvests and admission token fetches) and the seconds it waited
+        self.host_roundtrips = 0
+        self.host_stall_s = 0.0
         self.requests_cancelled_total = 0
         self.requests_deadline_exceeded_total = 0
         self.ragged_dispatches = 0
@@ -248,6 +277,9 @@ class EngineCore:
                 # every pending request (_fail_pending) and was logged
                 pass
             self._loop_task = None
+        if self._pending is not None:     # drain the pipelined dispatch
+            self._harvest(self._pending)
+            self._pending = None
 
     async def submit(self, req: EngineRequest) -> None:
         self.ensure_started()
@@ -309,6 +341,7 @@ class EngineCore:
 
     def _fail_pending(self, exc: BaseException) -> None:
         self._dead = exc
+        self._pending = None
         for req in list(self._inflight_reqs.values()):
             req.out_queue.put_nowait((_FINISH, FinishReason.ERROR))
         self._inflight_reqs.clear()
@@ -348,6 +381,13 @@ class EngineCore:
                 else:
                     self._decode_step()
                 progressed = True
+            elif self._pending is not None:
+                # every request finished mid-harvest with a chained dispatch
+                # still in flight: drain it so the dead requests and its
+                # buffers are not held across an idle period
+                self._harvest(self._pending)
+                self._pending = None
+                progressed = True
             if not progressed:
                 self._work_event.clear()
                 try:
@@ -360,7 +400,8 @@ class EngineCore:
 
     def _sweep_cancelled(self) -> bool:
         """Cancelled/deadline-exceeded requests leave the waiting queue
-        before taking a slot, and their slots are vacated at once."""
+        before taking a slot, and their slots are vacated at once — unless
+        a pipelined dispatch is in flight, whose harvest finishes them."""
         progressed = False
         if not self.waiting.empty():
             survivors: List[EngineRequest] = []
@@ -373,11 +414,12 @@ class EngineCore:
                     survivors.append(r)
             for r in survivors:
                 self.waiting.put_nowait(r)
-        for req in list(self.slots):
-            if req is not None and req.cancelled:
-                self._release_slot(req)
-                self._finish_request(req, FinishReason.CANCELLED)
-                progressed = True
+        if self._pending is None:
+            for req in list(self.slots):
+                if req is not None and req.cancelled:
+                    self._release_slot(req)
+                    self._finish_request(req, FinishReason.CANCELLED)
+                    progressed = True
         return progressed
 
     # ---------------------------------------------------------------- admit
@@ -429,9 +471,18 @@ class EngineCore:
         req.seq = plan.seq
         req.prefix_hit_tokens = plan.hit_tokens
         n_already = len(plan.hit_blocks)
-        if self.cfg.ragged_dispatch and n_prompt > req.prefix_hit_tokens:
+        suffix_len = n_prompt - req.prefix_hit_tokens
+        if self.cfg.ragged_dispatch and suffix_len > 0:
             # ragged serving: every admission rides the ragged batch as a
             # prefill lane — no prefill dispatch of its own
+            self._admit_lane(req, slot, n_already)
+            return
+        if (self.cfg.lane_prefill_max_tokens > 0
+                and self.cfg.decode_steps_per_dispatch > 1
+                and 0 < suffix_len <= self.cfg.lane_prefill_max_tokens
+                and any(s is not None for s in self.slots)):
+            # lane prefill: the engine is already decoding — ride the
+            # decode batch instead of stalling it with a prefill dispatch
             self._admit_lane(req, slot, n_already)
             return
         # prefill only the un-matched suffix — the prefix KV is already in
@@ -458,12 +509,16 @@ class EngineCore:
                     self.params, self.kv, tokens, table_t, len(chunk),
                     self.model_cfg, self.cfg.kv_block_size, self.mesh,
                     replicas=self._replicas)
+            elif (self.cfg.prefill_chunk > 0
+                    and len(chunk) > self.cfg.prefill_chunk):
+                logits = self._chunked_prefill(req, chunk, table_t)
             else:
                 logits = llama.prefill_forward(
                     self.params, self.kv, tokens, table_t,
                     req.prefix_hit_tokens, len(chunk), self.model_cfg,
                     self.cfg.kv_block_size)
             toks, logprobs = self._sample(logits[None, :], [req])
+        self.host_roundtrips += 1
         tok, logprob = int(toks[0]), float(logprobs[0])
         self.total_prefill_tokens += len(chunk)
         req.pos = n_prompt
@@ -476,30 +531,65 @@ class EngineCore:
         self.slots[slot] = req
         self._block_tables[slot, :] = 0
         self._block_tables[slot, :len(req.blocks)] = req.blocks
+        self._set_slot_sampling(slot, req)
         logger.debug("admitted %s into slot %d (prompt=%d, hit=%d, sp=%s, "
                      "%.1fms)", req.rid, slot, n_prompt, plan.hit_tokens,
                      use_sp, 1e3 * (time.monotonic() - t0))
         self._emit(req, tok, logprob)
         self._maybe_finish_after_emit(req)
 
+    def _chunked_prefill(self, req: EngineRequest, chunk: list,
+                         table_t: torch.Tensor) -> torch.Tensor:
+        """Prompt prefill as a sequence of fixed-size chunk dispatches
+        (EngineConfig.prefill_chunk): each chunk continues at ``start_pos``
+        against the KV already written — the mechanism of a prefix-reuse
+        continuation — and the tail pads to the chunk size too, so one
+        shape serves any prompt length. Returns the last chunk's logits
+        (only the final chunk's sample matters)."""
+        C = self.cfg.prefill_chunk
+        off = req.prefix_hit_tokens
+        logits = None
+        for lo in range(0, len(chunk), C):
+            piece = chunk[lo:lo + C]
+            padded = np.zeros((C,), np.int64)
+            padded[:len(piece)] = piece
+            logits = llama.prefill_forward(
+                self.params, self.kv, torch.from_numpy(padded).to(self.device),
+                table_t, off, len(piece), self.model_cfg,
+                self.cfg.kv_block_size)
+            off += len(piece)
+        return logits
+
+    def _set_slot_sampling(self, slot: int, req: EngineRequest) -> None:
+        """The slot's rows of the decode program's sampling inputs."""
+        self._samp["temperature"][slot] = req.sampling.temperature
+        self._samp["top_k"][slot] = req.sampling.top_k
+        self._samp["top_p"][slot] = req.sampling.top_p
+        self._seeds[slot] = req.sampling.seed
+
     def _admit_lane(self, req: EngineRequest, slot: int,
                     n_already: int) -> None:
-        """Ragged admission: no prefill dispatch — the prompt rides the
-        ragged batch as a prefill lane. Blocks are allocated (by the
-        caller's plan) but NOT registered yet: their KV is written chunk by
+        """Continuous-batching admission: no prefill dispatch — the prompt
+        rides the decode batch as planned tokens (split path, see
+        EngineConfig.lane_prefill_max_tokens) or the ragged batch as a
+        prefill lane. Blocks are allocated (by the caller's plan) but NOT
+        registered yet: their KV is written step by step or chunk by
         chunk, so registration follows the harvest as in decode."""
+        self.lane_admissions += 1
         n_prompt = len(req.prompt)
         hit = req.prefix_hit_tokens
-        # the first generated token comes from the ragged forward here (an
-        # uncontended split-path run derives it via the prefill path) — a
-        # numeric boundary for the exactness contract
+        # the first generated token comes from the decode program or the
+        # ragged forward here (an uncontended run derives it via the
+        # prefill path) — a numeric boundary for the exactness contract
         req.numeric_boundaries.append(req.emitted_total)
         req.lane_prompt = list(req.prompt)
         req.pos = hit
         req.generated = 0
-        # sampling-key parity with the prefill path: the row consuming the
-        # last prompt token samples the first generation at the request's
-        # CURRENT key_step; the dispatch keys a span at key_step + len - 1
+        # sampling-key parity with the prefill path: the step (or row)
+        # consuming the last prompt token samples the first generation at
+        # the request's CURRENT key_step; planned steps before it burn
+        # earlier (possibly negative) keys whose samples are discarded, and
+        # a ragged dispatch keys a span at key_step + len - 1
         req.key_step -= n_prompt - hit - 1
         req.last_token = req.prompt[hit]
         # the hash chain restarts from the hit prefix and grows per row
@@ -509,6 +599,7 @@ class EngineCore:
         self.slots[slot] = req
         self._block_tables[slot, :] = 0
         self._block_tables[slot, :len(req.blocks)] = req.blocks
+        self._set_slot_sampling(slot, req)
         logger.debug("lane-admitted %s into slot %d (prompt=%d, hit=%d)",
                      req.rid, slot, n_prompt, hit)
 
@@ -647,8 +738,39 @@ class EngineCore:
             self._maybe_finish_after_emit(req)
 
     # --------------------------------------------------------------- decode
+    def _dispatch_inputs(self, steps: np.ndarray, planned=None,
+                         pmask=None, mask=None) -> dict:
+        """The decode program's inputs from the host mirrors (the program
+        copies them: the mirrors may change while a dispatch runs)."""
+        return {"tokens": self._tokens, "positions": self._positions,
+                "tables": self._block_tables, "seeds": self._seeds,
+                "steps0": steps, "temperature": self._samp["temperature"],
+                "top_k": self._samp["top_k"], "top_p": self._samp["top_p"],
+                "planned": planned, "planned_mask": pmask,
+                "chain_mask": mask}
+
+    def _variant(self) -> str:
+        live = np.array([s is not None for s in self.slots])
+        return sampling_variant(self._samp["temperature"],
+                                self._samp["top_k"], self._samp["top_p"],
+                                live)
+
+    def _fetch(self, dispatch) -> tuple:
+        """The dispatch's (toks [K, B], logprobs [K, B]) on the host: one
+        device→host round trip, its wait counted."""
+        self.host_roundtrips += 1
+        t0 = time.monotonic()
+        out = dispatch.fetch()
+        self.host_stall_s += time.monotonic() - t0
+        return out
+
     def _decode_step(self) -> None:
+        K = self.cfg.decode_steps_per_dispatch
+        if K > 1:
+            self._decode_step_multi(K)
+            return
         active_idx = [i for i, s in enumerate(self.slots) if s is not None]
+        steps = np.zeros((self.B,), np.int64)
         for i in range(self.B):
             s = self.slots[i]
             if s is None:
@@ -658,14 +780,12 @@ class EngineCore:
             else:
                 self._tokens[i] = s.last_token
                 self._positions[i] = s.pos
+                steps[i] = s.key_step
         with torch.inference_mode():
-            logits = llama.decode_forward(
-                self.params, self.kv,
-                torch.from_numpy(self._tokens).to(self.device),
-                torch.from_numpy(self._positions).to(self.device),
-                torch.from_numpy(self._block_tables).to(self.device),
-                self.model_cfg, self.cfg.kv_block_size)
-            toks, logprobs = self._sample(logits, list(self.slots))
+            dispatch = self.program.dispatch(
+                1, self._variant(), self._dispatch_inputs(steps))
+        toks, logprobs = self._fetch(dispatch)
+        toks, logprobs = toks[0], logprobs[0]
         bs = self.cfg.kv_block_size
         for i in active_idx:
             req = self.slots[i]
@@ -710,6 +830,180 @@ class EngineCore:
                 self._block_tables[i, len(req.blocks) - 1] = new[0]
             self._emit(req, tok, float(logprobs[i]))
             self._maybe_finish_after_emit(req)
+
+    def _decode_step_multi(self, K: int) -> None:
+        """K decode steps, one dispatch, one host harvest: sampled tokens
+        chain into the next step on the device, so the device→host fetch
+        and the host's dispatch work are paid once per K tokens.
+        EOS/cancel/max_tokens are applied at harvest: device steps past a
+        finish are discarded (the K-1-steps-of-waste trade,
+        EngineConfig).
+
+        With ``decode_dispatch_pipeline`` the harvest is deferred one
+        dispatch: the next K-batch launches chained off the previous
+        dispatch's ON-DEVICE tokens, so the device→host copy overlaps the
+        next dispatch's compute. Finish reaction widens to <=2K-1 steps."""
+        if self._pending is not None:
+            nxt = self._dispatch_pipelined(K)
+            prev, self._pending = self._pending, None
+            self._harvest(prev)
+            if nxt is not None:
+                self._pending = nxt
+                return
+            # couldn't chain (slot churn / growth failure): fall through to
+            # a fresh host-fed dispatch against the harvested state
+        if not self._prepare_multi(K):
+            return
+        pending = self._dispatch_multi(K)
+        if self.cfg.decode_dispatch_pipeline:
+            self._pending = pending
+        else:
+            self._harvest(pending)
+
+    def _prepare_multi(self, K: int, ahead_mask=None) -> bool:
+        """Capacity check + block-table pre-grow for the next K steps.
+        ``ahead_mask`` flags slots whose request has K un-harvested steps
+        already in flight (pipelined dispatch). Returns False when nothing
+        is left to decode — or, with a mask, when the pipeline must drain
+        before growth/finish decisions can be made safely (blocks already
+        grown for earlier slots in the pass stay owned by their
+        requests)."""
+        capacity = self.M * self.cfg.kv_block_size
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            in_flight = bool(ahead_mask is not None and ahead_mask[i])
+            pos_eff = s.pos + (K if in_flight else 0)
+            if pos_eff + K + 1 > capacity:
+                # within K tokens of the context capacity: finish now
+                # rather than let the program write past the block table
+                if in_flight:
+                    return False
+                self._release_slot(s)
+                self._finish_request(s, FinishReason.LENGTH)
+                continue
+            need = self._blocks_needed(pos_eff + K + 1)
+            if need > len(s.blocks):
+                new = self.kv_manager.pool.alloc_uninit(need - len(s.blocks))
+                if new is None:
+                    # out of KV memory: preempt (recompute) when other
+                    # sequences keep the pool contended, else finish — but
+                    # never with un-harvested tokens in flight
+                    if in_flight:
+                        return False
+                    self._preempt_or_finish(s)
+                    continue
+                s.blocks.extend(new)
+                self._block_tables[i, :len(s.blocks)] = s.blocks
+        return any(s is not None for s in self.slots)
+
+    def _dispatch_pipelined(self, K: int) -> Optional[dict]:
+        """Steady-state pipelined dispatch: chain off the in-flight batch's
+        device tokens. Returns the new pending record, or None when the
+        pipeline must drain first: chaining requires the slot→request
+        mapping to be IDENTICAL to the in-flight dispatch's, so any churn
+        (admission, finish, preemption) costs one un-overlapped
+        dispatch."""
+        prev = self._pending
+        if prev["K"] != K:
+            return None
+        now = list(self.slots)
+        if any(now[i] is not prev["reqs"][i] for i in range(self.B)):
+            return None
+        mask = np.array([s is not None for s in now], dtype=bool)
+        if not mask.any():
+            return None
+        if not self._prepare_multi(K, ahead_mask=mask):
+            return None
+        return self._dispatch_multi(K, chain=prev["dispatch"].chain,
+                                    mask=mask)
+
+    def _dispatch_multi(self, K: int, chain=None, mask=None) -> dict:
+        """Launch one K-step dispatch. ``mask`` flags slots chained off the
+        in-flight dispatch: their input token comes from ``chain`` (device)
+        and their positions/keys run K steps ahead of harvested host
+        state; everything else feeds host-known last_tokens."""
+        if mask is None:
+            mask = np.zeros((self.B,), dtype=bool)
+        steps = np.zeros((self.B,), np.int64)
+        for i in range(self.B):
+            s = self.slots[i]
+            ahead = K if mask[i] else 0
+            if s is None:
+                self._tokens[i] = 0
+                self._positions[i] = 0
+                self._block_tables[i, :] = 0  # trash block
+            else:
+                self._tokens[i] = s.last_token
+                self._positions[i] = s.pos + ahead
+                steps[i] = s.key_step + ahead
+        # lane-prefill planned inputs: stateless from positions (which
+        # already include the pipelined +K lookahead), so chained and
+        # host-fed dispatches agree without extra bookkeeping
+        planned = pmask = None
+        for i, s in enumerate(self.slots):
+            if s is None or s.lane_prompt is None:
+                continue
+            if planned is None:
+                planned = np.zeros((K, self.B), np.int64)
+                pmask = np.zeros((K, self.B), bool)
+            pos0 = int(self._positions[i])
+            n_pr = len(s.lane_prompt)
+            for k in range(K):
+                p = pos0 + k
+                if p < n_pr:
+                    planned[k, i] = s.lane_prompt[p]
+                    pmask[k, i] = True
+        with torch.inference_mode():
+            dispatch = self.program.dispatch(
+                K, self._variant(),
+                self._dispatch_inputs(steps, planned, pmask, mask),
+                chain=chain)
+        return {"dispatch": dispatch, "K": K, "reqs": list(self.slots)}
+
+    def _harvest(self, pending: dict) -> None:
+        """Apply one dispatch's results: emissions, seq bookkeeping,
+        EOS/budget/cancel finishes. Device overrun past a finish — or past
+        a slot whose request changed since dispatch — is discarded."""
+        toks_k, logprobs_k = self._fetch(pending["dispatch"])  # [K, B]
+        K = pending["K"]
+        for i, req in enumerate(pending["reqs"]):
+            if req is None or self.slots[i] is not req:
+                continue
+            input_tok = req.last_token
+            for k in range(K):
+                if req.cancelled:
+                    self._release_slot(req)
+                    self._finish_request(req, FinishReason.CANCELLED)
+                    break
+                in_prompt = (req.lane_prompt is not None
+                             and req.pos < len(req.lane_prompt))
+                if in_prompt:
+                    input_tok = req.lane_prompt[req.pos]
+                tok = int(toks_k[k, i])
+                if req.seq is not None:
+                    req.seq.append(input_tok)
+                    req.registered_blocks = \
+                        self.kv_manager.register_full_blocks(
+                            req.blocks, req.seq, req.registered_blocks)
+                req.pos += 1
+                req.key_step += 1
+                if in_prompt and req.pos < len(req.lane_prompt):
+                    # mid-prompt planned step: the sampled token is
+                    # discarded; the next input comes from the prompt
+                    self.total_prefill_tokens += 1
+                    continue
+                if in_prompt:               # consumed the LAST prompt token
+                    self.total_prefill_tokens += 1
+                    req.lane_prompt = None  # plain decode from here on
+                req.generated += 1
+                req.last_token = tok
+                self.total_decode_tokens += 1
+                self._emit(req, tok, float(logprobs_k[k, i]))
+                self._maybe_finish_after_emit(req)
+                if self.slots[i] is not req:
+                    break                      # finished: drop device overrun
+                input_tok = tok
 
     def _preempt_or_finish(self, req: EngineRequest) -> None:
         """KV exhaustion policy: recompute preemption when the pool is

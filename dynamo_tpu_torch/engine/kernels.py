@@ -13,8 +13,11 @@ some rows) and any scratch (``torch.empty``; K4's and K6's merge tickets
 are one zeroed buffer per device and stream that the kernels leave
 zeroed), launches on the current stream of the tensor's device with that
 device current, raises when the C entry point returns a CUDA error, and counts
-its launches in ``Kernel.launches``. Nothing here runs on import: the CPU
-tests import every module of the package.
+its launches in ``Kernel.launches``. A call made while a CUDA graph is being
+captured launches nothing and counts nothing; the capturing program
+(``engine/programs.py``) adds the launches its graph holds to the counts at
+every replay (``add_launches``). Nothing here runs on import: the CPU tests
+import every module of the package.
 """
 
 from __future__ import annotations
@@ -156,7 +159,10 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error "
                                f"{err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            CAPTURED[self.name] = CAPTURED.get(self.name, 0) + 1
+        else:
+            self.launches += 1
 
 
 FLASH_PREFILL = Kernel("flash_prefill", "dtt_flash_prefill_bf16")
@@ -178,9 +184,20 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     RAGGED_PAGED_ATTENTION_INT8)}
 
 
+# launches recorded into the CUDA graph being captured, by kernel name: the
+# capturing program reads and clears it (engine/programs.py)
+CAPTURED: Dict[str, int] = {}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
@@ -347,14 +364,25 @@ def paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
 # and K6 (one per row tile and column strip), per (device, stream): zero
 # when allocated and left zero by every launch (the last CTA of an item
 # resets its ticket), so no call pays a memset. Launches on one stream run
-# in order, so they never share a ticket while it counts.
+# in order, so they never share a ticket while it counts. A captured graph
+# holds the address of the buffer it was captured with: a buffer that grows
+# keeps the old one alive (_RETIRED_TICKETS), and none may grow during a
+# capture (the program's warm-up call on the capture stream sizes it).
 _TICKETS: Dict[tuple, torch.Tensor] = {}
+_RETIRED_TICKETS: List[torch.Tensor] = []
 
 
 def _tickets(q: torch.Tensor, n: int) -> torch.Tensor:
     key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"merge tickets for {n} items would be allocated during a "
+                f"CUDA graph capture: run the captured call once on the "
+                f"capture stream first")
+        if t is not None:
+            _RETIRED_TICKETS.append(t)
         t = torch.zeros(max(n, 2 * (0 if t is None else t.numel())),
                         dtype=torch.int32, device=q.device)
         _TICKETS[key] = t

@@ -215,6 +215,8 @@ def _embed(params: Params, tokens: torch.Tensor,
     else:
         x = emb[tokens]
     if cfg.embed_scale:   # gemma normalizer, applied in the embed dtype
+        # a 0-dim CPU tensor enters a CUDA kernel as a scalar argument: no
+        # copy, so a captured decode program may run this
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
     return x
 
@@ -248,10 +250,24 @@ class _Shard:
     inv_freq: torch.Tensor
 
 
+# rope_inv_freq per (rope fields, device), copied to the device once: a
+# captured decode program (engine/programs.py) cannot copy from pageable
+# host memory
+_INV_FREQ: Dict[tuple, torch.Tensor] = {}
+
+
+def _inv_freq(cfg: ModelConfig, device: torch.device) -> torch.Tensor:
+    key = (cfg.head_dim, cfg.rope_theta, repr(cfg.rope_scaling),
+           cfg.max_position_embeddings, str(device))
+    t = _INV_FREQ.get(key)
+    if t is None:
+        t = _INV_FREQ[key] = torch.from_numpy(rope_inv_freq(cfg)).to(device)
+    return t
+
+
 def _shard(params: Params, x: torch.Tensor, positions: torch.Tensor,
            slots: torch.Tensor, cfg: ModelConfig) -> _Shard:
-    return _Shard(params, x, positions, slots,
-                  torch.from_numpy(rope_inv_freq(cfg)).to(x.device))
+    return _Shard(params, x, positions, slots, _inv_freq(cfg, x.device))
 
 
 def _layer(shards, kv: KVCache, li: int, cfg: ModelConfig, attn_fn) -> None:

@@ -10,6 +10,12 @@ engine's, bit for bit up to the last two float ops: row b is keyed by
 counter layout of ``jax_threefry_partitionable=True``, the
 uniform-from-mantissa map, then ``-log(-log(u))``). The noise of a row is a
 pure function of those three integers.
+
+Inside a decode program (``engine/programs.py``, a CUDA graph on the card)
+nothing may read a device value on the host: the keys come from
+``make_slot_keys`` on the device, the noise from ``gumbel_noise_from_keys``,
+and the caller passes ``sample_tokens`` its filtered-or-plain decision,
+which the host knows from the slots' parameters.
 """
 
 from __future__ import annotations
@@ -85,6 +91,20 @@ def make_slot_key(base_seed: int, request_seed: int,
     return fold_in(fold_in(prng_key(base_seed), request_seed), step)
 
 
+def make_slot_keys(base_seed: int, seeds: torch.Tensor,
+                   steps: torch.Tensor) -> torch.Tensor:
+    """``make_slot_key`` over tensors: seeds [B] and steps [B] int64 (on
+    any device) → keys [B, 2] int64 holding uint32 words, bit-equal to the
+    scalar form row by row. A negative step folds in as its low 32 bits,
+    as JAX folds an int32 (a lane admission keys its planned steps below
+    its ``key_step``)."""
+    k1, k2 = prng_key(base_seed)
+    zero = torch.zeros_like(seeds)
+    a1, a2 = threefry2x32(k1, k2, zero, seeds & _M32)
+    b1, b2 = threefry2x32(a1, a2, zero, steps & _M32)
+    return torch.stack([b1, b2], dim=-1)
+
+
 def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     """32-bit ``random_bits(key, (n,))`` for each key row: keys ``[B, 2]``
     int64 → ``[B, n]`` int64 holding uint32 values. Partitionable layout:
@@ -120,18 +140,40 @@ def gumbel_noise(vocab: int, keys: Sequence[Optional[Tuple[int, int]]],
     return out
 
 
+def gumbel_noise_from_keys(vocab: int, keys: torch.Tensor) -> torch.Tensor:
+    """[B, V] standard Gumbel noise, row b drawn from ``keys[b]`` ([B, 2]
+    int64, ``make_slot_keys``): the same bits as ``gumbel_noise`` for the
+    same keys, with no host value read."""
+    return gumbel_from_bits(random_bits(keys, vocab))
+
+
+def greedy_tokens(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``sample_tokens`` for a batch whose every row is greedy: (argmax
+    tokens [B] int64, their logprobs [B] f32), the same bits."""
+    tok = torch.argmax(logits, dim=-1)
+    chosen = torch.gather(torch.log_softmax(logits, dim=-1), 1,
+                          tok[:, None])[:, 0]
+    return tok, chosen
+
+
 def sample_tokens(logits: torch.Tensor, gumbel: torch.Tensor,
                   temperature: torch.Tensor, top_k: torch.Tensor,
-                  top_p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                  top_p: torch.Tensor, filtered: Optional[bool] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """logits: [B, V] f32; gumbel: [B, V] noise; per-slot params [B].
     Returns (tokens [B] int64, logprobs [B] f32 of the chosen token under
-    the unscaled distribution)."""
+    the unscaled distribution). ``filtered``: whether any row has top-k or
+    top-p, which picks the sorted branch (JAX's ``lax.cond``; a row with
+    neither gets the same token from both); None reads it from the
+    tensors, a device-to-host sync."""
     B, V = logits.shape
     logprobs_all = torch.log_softmax(logits, dim=-1)
     greedy_tok = torch.argmax(logits, dim=-1)
     temp = torch.clamp(temperature, min=1e-6)[:, None]
     scaled = logits / temp
-    if bool(((top_p < 1.0) | (top_k > 0)).any()):
+    if filtered is None:
+        filtered = bool(((top_p < 1.0) | (top_k > 0)).any())
+    if filtered:
         order = torch.argsort(-scaled, dim=-1, stable=True)       # [B, V] desc
         sorted_logits = torch.gather(scaled, 1, order)
         sorted_probs = torch.softmax(sorted_logits, dim=-1)

@@ -1,7 +1,9 @@
 """The launcher: ``python -m dynamo_tpu_torch.launch.run in=http out=torch
 --model-path DIR [--random-weights] [--http-port N] [--device cuda|cpu]
 [--quantization int8|int4|...] [--kv-quantization int8] [--ragged
-[--ragged-max-tokens N] [--ragged-max-seq-rows N]] [--sp N]``.
+[--ragged-max-tokens N] [--ragged-max-seq-rows N]] [--sp N]
+[--prefill-chunk N] [--decode-steps-per-dispatch K
+[--decode-dispatch-pipeline] [--lane-prefill-max-tokens N]]``.
 
 Counterpart of ``dynamo_tpu.launch.run`` for its main path: an OpenAI
 completions server over the canonical pipeline link preprocessor →
@@ -55,6 +57,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-quantization", default="none",
                    choices=list(KV_QUANTIZATIONS),
                    help="int8 KV pool with per-token in-row scales")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="split prompt prefill into fixed-size chunk "
+                        "dispatches (0 = whole-prompt)")
+    p.add_argument("--decode-steps-per-dispatch", type=int, default=1,
+                   help="fuse K decode steps per dispatch (one CUDA graph "
+                        "replay on the card; EOS/cancel react at K-step "
+                        "granularity)")
+    p.add_argument("--lane-prefill-max-tokens", type=int, default=0,
+                   help="admissions with <= this many un-cached prompt "
+                        "tokens ride the decode batch as planned inputs "
+                        "when the engine is busy (continuous batching; "
+                        "0 disables, needs K>1)")
+    p.add_argument("--decode-dispatch-pipeline", action="store_true",
+                   help="overlap each dispatch's token harvest with the "
+                        "next dispatch (requires K>1; finish reaction "
+                        "widens to <=2K-1 steps)")
     p.add_argument("--ragged", action="store_true",
                    help="unified ragged dispatch (engine/ragged.py): ONE "
                         "forward pass serves mixed prefill+decode batches "
@@ -127,6 +145,13 @@ def build_core(args, mesh=None):
                             ragged_dispatch=args.ragged,
                             ragged_max_tokens=args.ragged_max_tokens,
                             ragged_max_seq_rows=args.ragged_max_seq_rows,
+                            prefill_chunk=args.prefill_chunk,
+                            decode_steps_per_dispatch=(
+                                args.decode_steps_per_dispatch),
+                            decode_dispatch_pipeline=(
+                                args.decode_dispatch_pipeline),
+                            lane_prefill_max_tokens=(
+                                args.lane_prefill_max_tokens),
                             sp=mesh.shape["sp"] if mesh is not None else 1)
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))

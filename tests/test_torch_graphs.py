@@ -1,0 +1,129 @@
+"""The decode program's CUDA graphs against the same program run eagerly.
+
+These tests need an NVIDIA GPU (marker ``cuda``): a captured graph has no
+CPU form. Without a card each test skips inside the test, with a reason.
+A small llama (hidden 256, so every layer matmul passes the grouped-int4
+kernel's shape rule) runs one dispatch of K = 1 and K = 4 steps in bf16
+and with int4 weights over an int8 KV pool, through a graph replay and
+eagerly from the same pool: the live slots' tokens, logprobs and logits
+and the pool rows outside the trash block must have the same bits (the
+same kernels on the same inputs). Each replay adds the launches its graph
+holds to the kernels' counts; a replay whose static inputs were left
+stale must differ from the eager run on the new inputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu_torch.engine import kernels
+from dynamo_tpu_torch.engine.attention import quantize_kv_rows
+from dynamo_tpu_torch.engine.config import ModelConfig
+from dynamo_tpu_torch.engine.models import llama
+from dynamo_tpu_torch.engine.programs import DecodeProgram
+from dynamo_tpu_torch.engine.quant import init_params_quantized
+from dynamo_tpu_torch.engine.weights import init_params
+
+pytestmark = pytest.mark.cuda
+
+CFG = ModelConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                  num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                  max_position_embeddings=512)
+BS, M, B = 16, 8, 4
+LIVE = [0, 1, 2]                # slot 3 is inactive (the trash block)
+
+
+def _device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    tables = np.zeros((B, M), np.int32)
+    for i in LIVE:
+        tables[i, :4] = 1 + 4 * i + np.arange(4)
+    return dict(tokens=rng.integers(3, CFG.vocab_size, size=B),
+                positions=np.array([5, 20, 33, 0], np.int32),
+                tables=tables, seeds=np.array([0, 7, 9, 0], np.int64),
+                steps0=np.array([3, 11, -2, 0], np.int64),
+                temperature=np.array([0.0, 0.7, 0.9, 0.0], np.float32),
+                top_k=np.array([0, 0, 20, 0], np.int64),
+                top_p=np.array([1.0, 0.9, 1.0, 1.0], np.float32))
+
+
+def _program(mode: str, dev):
+    torch.manual_seed(0)
+    if mode == "bf16":
+        params = init_params(CFG, 0, dev, torch.bfloat16)
+    else:
+        params = init_params_quantized(CFG, 0, dev, torch.bfloat16, bits=4)
+    kv = llama.init_kv_cache(CFG, 16, BS, dev, torch.bfloat16,
+                             quantization="none" if mode == "bf16"
+                             else "int8")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    C = CFG.num_kv_heads * CFG.head_dim
+    for name in ("k", "v"):       # a prefix in every live block
+        rows = torch.randn((CFG.num_layers * kv[name].shape[1], C),
+                           generator=g, device=dev)
+        if kv[name].dtype == torch.int8:
+            rows = quantize_kv_rows(rows)
+        kv[name].copy_(rows.view(kv[name].shape))
+    return DecodeProgram(params, kv, CFG, BS, B, M, 4, 0, dev), kv
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int4_kv8"])
+@pytest.mark.parametrize("K", [1, 4])
+def test_graph_replay_equals_eager(mode, K):
+    dev = _device()
+    prog, kv = _program(mode, dev)
+    pool0 = {n: t.clone() for n, t in kv.items()}
+    inp = _inputs(K)
+    with torch.inference_mode():
+        before = {k: v.launches for k, v in kernels.KERNELS.items()}
+        d = prog.dispatch(K, "filtered", inp, with_logits=True)
+        toks, lps = d.fetch()
+        logits = d.logits.clone()
+        counted = {k: v.launches - before[k]
+                   for k, v in kernels.KERNELS.items()}
+        pool_g = {n: t.clone() for n, t in kv.items()}
+        for n, t in kv.items():
+            t.copy_(pool0[n])
+        e = prog.run_eager(K, "filtered", inp, with_logits=True)
+        torch.cuda.synchronize()
+    assert prog.captures == 1 and prog.replays == 1
+    g = prog.graphs[(K, "filtered", True)]
+    # the warm-up call launched each kernel once per step and layer, and
+    # the replay added the graph's own launches
+    attn = "paged_attention" if mode == "bf16" else "paged_attention_int8"
+    assert g.launches[attn] == K * CFG.num_layers
+    assert counted[attn] == 2 * K * CFG.num_layers
+    if mode != "bf16":
+        assert g.launches["grouped_int4_matmul"] == 7 * K * CFG.num_layers
+        assert g.launches["lm_head_int8"] == K
+    assert (toks[:, LIVE] == e.toks.cpu().numpy()[:, LIVE]).all()
+    assert (lps[:, LIVE] == e.logprobs.cpu().numpy()[:, LIVE]).all()
+    assert torch.equal(logits[:, LIVE], e.logits[:, LIVE])
+    for n in kv:
+        assert torch.equal(pool_g[n][:, BS:], kv[n][:, BS:])
+
+
+def test_stale_static_inputs_are_caught():
+    dev = _device()
+    prog, kv = _program("bf16", dev)
+    with torch.inference_mode():
+        prog.dispatch(1, "greedy", _inputs(1), with_logits=True).fetch()
+        upload = prog._upload
+        prog._upload = lambda inputs: None      # the planted fault
+        try:
+            stale = prog.dispatch(1, "greedy", _inputs(2),
+                                  with_logits=True).logits.clone()
+        finally:
+            prog._upload = upload
+        right = prog.run_eager(1, "greedy", _inputs(2), with_logits=True)
+        fresh = prog.dispatch(1, "greedy", _inputs(2),
+                              with_logits=True).logits.clone()
+    assert not torch.equal(stale[:, LIVE], right.logits[:, LIVE])
+    assert torch.equal(fresh[:, LIVE], right.logits[:, LIVE])
