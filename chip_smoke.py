@@ -80,21 +80,52 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    the same text twice, and each stream's TTFT/ITL is printed beside
    5b's, with the share of greedy tokens the two agree on.
 
-Every split-path decode dispatch of phases 5-5f replays a captured graph;
+3g. kernels at Gemma-2-9B's shapes (``GEMMA2_9B_CONFIG``, parsed by the
+   port's ``ModelConfig.from_hf_config``: 16/8 heads of 256, soft-cap 50,
+   a 4096-token window): K1 on a 2048-token chunk at 4096 over 6144 keys,
+   sliding and global; K3 and K4, bf16 and int8, through the same checks
+   as in phase 3 (``GEMMA_ATTN``: a mix across the window's edge, window
+   floors on the split boundaries, the full batch of 8 x 8192 keys, and
+   for K4 a decode step at 4600) with the window and as a global layer;
+   each against its plain version in f32 with three planted faults (the
+   window one key wider, the soft-cap dropped, the window dropped), with
+   repeated bits, timed cold beside its bound, the soft-capped
+   yardstick (``torch.compile(flex_attention)``) and SDPA with
+   the window as its mask and no soft-cap; K4 also at the ragged server's
+   136-row capacity with its f32 scratch allocated and passed in; K5 over
+   the tied 3584 x 256000 head and K6 at the five Gemma-2-9B layer shapes
+   as in phase 3;
+4g. model: phase 4's checks (``check_model``) at the Gemma-2-9B geometry
+   (random weights, all 42 layers) in bf16 and in int4 + int8 KV: a
+   4600-token prompt and decode steps at positions 4600-4603 through the
+   kernels and the plain versions (the window dropped from K1, K3 and K4,
+   and in int4 the K5 / K6 faults, planted), the decode program's graphs,
+   and one ragged dispatch over the prompt's pool through K4;
+5g. serve Gemma-2-9B (``--max-model-len 8192``, 2048 blocks of 16): bf16
+   with ``--decode-steps-per-dispatch 8``, int4 + int8 KV with
+   ``--ragged``, and int4 + int8 KV split and bf16 ``--ragged``, each
+   answering a 4600- and a 300-token prompt posted together, an SSE stream
+   and a seeded sampled request twice, with TTFT/ITL, the footprint after
+   bring-up and the launches of each path.
+
+Every split-path decode dispatch of phases 5-5g replays a captured graph;
 its launches count through the program's replay accounting.
 
-The line before the last is the kernels' JSON summary; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The line before the last is the kernels' JSON summary (the entries of 3g
+carry a ``mode``); the last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -106,6 +137,29 @@ L2_FLUSH_BYTES = 256 << 20     # 5x the H100's 50 MB L2
 KV_BLOCK = 16
 MAX_MODEL_LEN = 2048
 SP_TRUE_LEN = 1900             # the sequence-parallel prompt, in a 2048 bucket
+
+# The config.json of google/gemma-2-9b on the Hugging Face hub: 42 layers,
+# hidden 3584, 16 query heads over 8 KV heads of 256, a 4096-token window
+# on the even layers, soft-caps 50 / 30. The phases 3g-5g parse it with the
+# port's ModelConfig.from_hf_config and serve it from a model directory
+# that holds it. Gemma2Config ties the embeddings by default and the hub
+# file leaves the key out; both packages read an absent key as untied, so
+# the tie is written out here.
+GEMMA2_9B_CONFIG = {
+    "architectures": ["Gemma2ForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "attn_logit_softcapping": 50.0,
+    "bos_token_id": 2, "cache_implementation": "hybrid", "eos_token_id": 1,
+    "final_logit_softcapping": 30.0, "head_dim": 256,
+    "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "hidden_size": 3584,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 8192, "model_type": "gemma2",
+    "num_attention_heads": 16, "num_hidden_layers": 42,
+    "num_key_value_heads": 8, "pad_token_id": 0,
+    "query_pre_attn_scalar": 256, "rms_norm_eps": 1e-06,
+    "rope_theta": 10000.0, "sliding_window": 4096,
+    "sliding_window_size": 4096, "torch_dtype": "float32",
+    "use_cache": True, "vocab_size": 256000, "tie_word_embeddings": True}
 
 
 def log(msg: str) -> None:
@@ -154,6 +208,41 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = False) -> float:
         pairs.append(ev)
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+_FLEX = {}
+
+
+def flex_library_ms(q, k, v, live, softcap: float, scale: float,
+                    cold: bool, kernel_options=None) -> tuple:
+    """The library yardstick of a soft-capped attention: one call of
+    ``torch.compile(flex_attention)`` over q [B, H, L, Dh] and k/v [B, KVH,
+    S, Dh] (GQA) with the score_mod cap * tanh(s / cap) and the block mask
+    of ``live`` (a mask_mod of (b, h, q_idx, kv_idx)), built before
+    timing, and ``kernel_options``. Returns (ms, the call's output [B, H,
+    L, Dh])."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    if "fn" not in _FLEX:
+        # a recompile per mask is expected; never fall back to eager
+        dyn = torch._dynamo.config
+        for knob in ("recompile_limit", "cache_size_limit"):
+            if hasattr(dyn, knob):
+                setattr(dyn, knob, 64)
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    B, _, L, _ = q.shape
+    mask = create_block_mask(live, B, None, L, k.shape[2], device=q.device)
+
+    def score_mod(s, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(s / softcap)
+
+    def call():
+        return _FLEX["fn"](q, k, v, score_mod=score_mod, block_mask=mask,
+                           scale=scale, enable_gqa=True,
+                           kernel_options=kernel_options)
+    out = call()
+    return time_ms(call, cold=cold), out
 
 
 def bound(bytes_moved: float, flops: float) -> tuple:
@@ -245,7 +334,8 @@ def check_flash_prefill(cfg, dev) -> dict:
                 "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
                 "bound_by": b_by}
         log(f"flash_prefill {json.dumps(case)}")
-        check_limit(f"flash_prefill T={T} start={start}", rel, fault_rel)
+        check_limit(f"flash_prefill T={T} start={start}", rel,
+                    {"last_tile": fault_rel})
         cases.append(case)
     return {"name": "flash_prefill", "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/flash_prefill.cu",
@@ -354,8 +444,8 @@ def check_flash_prefill_partial(cfg, dev) -> dict:
                 "max_l_rel_err": dl, "fault_base2_m_abs_err": base2_dm,
                 "fault_last_tile_row_rel_err": tile_rel,
                 "fault_last_tile_l_rel_err": tile_dl})
-            check_limit(f"flash_prefill_partial {hop} (last tile)", rel,
-                        tile_rel)
+            check_limit(f"flash_prefill_partial {hop}", rel,
+                        {"last_tile": tile_rel})
             if not (dm <= PARTIAL_M_ATOL and dl <= PARTIAL_L_RTOL):
                 raise RuntimeError(f"flash_prefill_partial {hop}: |dm| {dm} "
                                    f"or |dl|/l {dl} over its limit")
@@ -459,7 +549,7 @@ def check_ring(cfg, dev) -> dict:
                     fault_rel, "ms": time_ms(ring)}
         log(f"ring {json.dumps(case)} [vs K1 over the whole sequence, "
             f"{k1_ms} ms]")
-        check_limit(f"ring sp={sp} (dropped hop)", rel, fault_rel)
+        check_limit(f"ring sp={sp}", rel, {"dropped_hop": fault_rel})
         if launches != sp * sp:
             raise RuntimeError(f"ring sp={sp}: {launches} K2 launches, "
                                f"expected {sp * sp}")
@@ -467,30 +557,103 @@ def check_ring(cfg, dev) -> dict:
     return res
 
 
-def check_limit(what: str, rel: float, fault_rel: float) -> None:
+def check_limit(what: str, rel: float, faults: dict) -> None:
+    """``rel`` within the row limit, and each planted fault of ``faults``
+    (name: its row-relative error) above it."""
     if not rel <= KERNEL_ROW_REL_TOL:
         raise RuntimeError(f"{what}: row-relative error {rel} > "
                            f"{KERNEL_ROW_REL_TOL}")
-    if not fault_rel > KERNEL_ROW_REL_TOL:
-        raise RuntimeError(f"{what}: the planted fault ({fault_rel}) passes "
-                           f"the limit {KERNEL_ROW_REL_TOL}")
+    for name, fault_rel in faults.items():
+        if not fault_rel > KERNEL_ROW_REL_TOL:
+            raise RuntimeError(f"{what}: the planted fault {name} "
+                               f"({fault_rel}) passes the limit "
+                               f"{KERNEL_ROW_REL_TOL}")
 
 
-# K3's inputs: the mixed decode batch it has been read on since its first
-# version; its split boundaries (128-key chunks) at the 8B table width;
-# the full batch, where bytes and not latency decide
-PAGED_MIX = [1, 15, 16, 17, 255, 1000, 2048, 0]
-PAGED_FULL = [2048] * 8
+@dataclasses.dataclass(frozen=True)
+class AttnCases:
+    """K3's and K4's phase-3 inputs at one geometry: the table width M
+    (16-token blocks), K3's mixed batch, split boundaries and full batch
+    (kv lengths per slot), K4's mix, boundaries, full batch and decode step
+    ((rows, kv length) per sequence, the trash sequence last); the
+    attention modes (a sliding window, None on a global layer; the logit
+    soft-cap, 0 for none); the gain on q (the plain version then runs in
+    f32: GEMMA_Q_GAIN says why); the kernels-line mode (None: the 8B
+    entries); the inputs' seed offset."""
+    M: int
+    paged_mix: list
+    paged_boundary: list
+    paged_full: list
+    ragged_mix: list
+    ragged_boundary: list
+    ragged_full: list
+    ragged_decode: list
+    window: Optional[int] = None
+    softcap: float = 0.0
+    q_gain: float = 1.0
+    mode: Optional[str] = None
+    seed: int = 0
 
 
-def paged_inputs(cfg, dev, seed: int, lens, int8: bool = False):
-    """A decode batch at the 8B shapes: slots of ``lens`` keys over a
-    shuffled table of 16-token blocks, a random pool (row-quantized for
+# The 8B inputs. K3: the mixed decode batch it has been read on since its
+# first version; its split boundaries (128-key chunks) at the 8B table
+# width; the full batch, where bytes and not latency decide. K4: a fresh
+# 64-row chunk, a 64-row chunk continuing to 1000, a 4-row tail ending at
+# 1900, decode rows at 1, 17, 255 and 2048 keys, a slot with no rows (136
+# rows = 8 + 2 * 64, the auto capacity of 8 slots at 64 rows per
+# sequence); its split boundaries (128-key chunks, 256 for a tile of 5 or
+# more rows): decode rows that see 127, 128, 129 and 256 keys, a 20-row
+# chunk whose rows straddle the first boundary, a 64-row chunk ending at
+# 1100 (four wide tiles over five 256-key splits), a slot with no rows, a
+# first decode row; the full ragged batch: two 64-row chunks ending at 2048
+# and 6 decode rows at 2048 keys; phase 4's pure-decode ragged step, one
+# layer: 8 decode rows at position 300
+LLAMA_ATTN = AttnCases(
+    M=MAX_MODEL_LEN // KV_BLOCK,
+    paged_mix=[1, 15, 16, 17, 255, 1000, 2048, 0],
+    paged_boundary=[127, 128, 129, 256, 2048, 0],
+    paged_full=[2048] * 8,
+    ragged_mix=[(64, 64), (64, 1000), (4, 1900), (1, 1), (1, 17), (1, 255),
+                (1, 2048), (0, 0), (0, 0)],
+    ragged_boundary=[(1, 127), (1, 128), (1, 129), (1, 256), (20, 140),
+                     (64, 1100), (0, 0), (1, 1), (0, 0)],
+    ragged_full=[(64, 2048), (64, 2048)] + [(1, 2048)] * 6 + [(0, 0)],
+    ragged_decode=[(1, 301)] * 8 + [(0, 0)])
+RAGGED_MAX_ROWS = 64
+# the ragged server's capacity: 8 slots + 2 sequences of 64 rows
+RAGGED_CAPACITY = 8 + 2 * RAGGED_MAX_ROWS
+
+
+def mark_dead_keys(k_cache, q, tables, seqs, floors, g: int) -> None:
+    """For each (sequence, query row, window floor >= 0) of ``seqs`` and
+    ``floors``, write into the pool row at position ``floor`` of that
+    sequence's table, for every KV head, the row's first query head of
+    the head's group (an int8 row is requantized): the key a window one
+    wider would add, scoring at the cap."""
+    import torch
+    from dynamo_tpu_torch.engine.attention import (kv_value_lanes,
+                                                   quantize_kv_rows)
+    C = kv_value_lanes(k_cache)
+    for (b, row), f in zip(seqs, floors):
+        if f < 0:
+            continue
+        slot = int(tables[b, f // KV_BLOCK]) * KV_BLOCK + f % KV_BLOCK
+        H, Dh = q.shape[1:]
+        new = q[row].reshape(H // g, g, Dh)[:, 0].reshape(1, C).to(
+            torch.bfloat16)
+        k_cache[slot] = (quantize_kv_rows(new)[0]
+                         if k_cache.dtype == torch.int8 else new[0])
+
+
+def paged_inputs(cfg, dev, seed: int, lens, int8: bool = False,
+                 M: int = MAX_MODEL_LEN // KV_BLOCK):
+    """A decode batch at the model's shapes: slots of ``lens`` keys over a
+    shuffled table of M 16-token blocks, a random pool (row-quantized for
     the int8 mode). Returns q, pools, tables, seq_lens."""
     import torch
     from dynamo_tpu_torch.engine.attention import quantize_kv_rows
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    bs = KV_BLOCK
     B = len(lens)
     num_blocks = B * M + 1
     gen = torch.Generator(device=dev)
@@ -514,54 +677,112 @@ def paged_inputs(cfg, dev, seed: int, lens, int8: bool = False):
     return q, k_cache, v_cache, tables, seq_lens
 
 
-def paged_bound(cfg, lens, int8: bool) -> tuple:
-    """K3's bound: each key read once for K and once for V (an int8 row's
-    two scale bytes once per token), q and out, tables and lengths."""
+def paged_bound(cfg, lens, int8: bool, M: int = MAX_MODEL_LEN // KV_BLOCK,
+                window=None) -> tuple:
+    """K3's bound: each key a slot can see (with ``window``, the last
+    ``window`` of them) read once for K and once for V (an int8 row's two
+    scale bytes once per token), q and out, tables and lengths."""
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    C, B, M = KVH * Dh, len(lens), MAX_MODEL_LEN // KV_BLOCK
-    total = sum(lens)
+    C, B = KVH * Dh, len(lens)
+    total = sum(min(n, window) if window else n for n in lens)
     row = C + 2 if int8 else 2 * C
     nbytes = 2.0 * total * row + 2 * 2.0 * B * H * Dh + 4.0 * B * M + 4.0 * B
     return bound(nbytes, 4.0 * H * Dh * total)
 
 
-def paged_library_ms(cfg, q, k_cache, v_cache, tables, seq_lens) -> float:
-    """The yardstick: SDPA over pages gathered (and, from an int8 pool,
-    dequantized) before timing, every slot padded to the table's 2048
-    keys under a mask; cold L2."""
+def gathered_pages(cfg, k_cache, v_cache, tables) -> tuple:
+    """Each sequence's pages gathered (an int8 pool's dequantized) as K
+    and V [rows of tables, KVH, M * 16, Dh] bf16, for the yardsticks."""
     import torch
-    import torch.nn.functional as F
     from dynamo_tpu_torch.engine.attention import (dequant_kv_rows,
                                                    flat_token_indices)
     KVH, Dh = cfg.num_kv_heads, cfg.head_dim
-    C, bs, M = KVH * Dh, KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
-    B = q.shape[0]
-    idx = flat_token_indices(tables, bs)
+    B, T = tables.shape[0], tables.shape[1] * KV_BLOCK
+    idx = flat_token_indices(tables, KV_BLOCK)
 
-    def gathered(cache):
+    def gather(cache):
         rows = cache[idx]
         if cache.dtype == torch.int8:
-            rows = dequant_kv_rows(rows, C, torch.bfloat16)
-        return rows.reshape(B, M * bs, KVH, Dh).transpose(1, 2).contiguous()
-    kg, vg = gathered(k_cache), gathered(v_cache)
-    mask = (torch.arange(M * bs, device=q.device)[None, :]
-            < seq_lens[:, None])[:, None, None, :]
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kg, vg, attn_mask=mask, scale=Dh ** -0.5,
-        enable_gqa=True), cold=True)
+            rows = dequant_kv_rows(rows, KVH * Dh, torch.bfloat16)
+        return rows.reshape(B, T, KVH, Dh).transpose(1, 2).contiguous()
+    return gather(k_cache), gather(v_cache)
 
 
-def check_paged_attention(cfg, dev, int8: bool = False) -> dict:
-    """K3 (bf16 pool, or int8 rows with in-row scales) on the slot mix
-    of PAGED_MIX, the row's reading since K3's first version, with its
-    planted faults (the longest
-    slot's last table entry read as the trash block; in int8 that block's
-    scale lanes zeroed); repeated bits; the kernel's own split partials
-    (read from the scratch it was given) merged in plain PyTorch against
-    its output, and that merge with one split's partial left out as the
-    planted merge fault; the lengths on and around the split boundaries;
-    and the full batch (8 slots x 2048 keys), timed with its bound and
-    library yardstick."""
+def paged_library(cfg, q, k_cache, v_cache, tables, seq_lens, win_lo=None,
+                  softcap: float = 0.0) -> dict:
+    """The yardsticks over pages gathered (and, from an int8 pool,
+    dequantized) before timing, every slot padded to the table's width
+    under a mask (with ``win_lo``, the window's too); cold L2: SDPA, which
+    takes no soft-cap, and with a soft-cap flex_attention (flex_library_ms),
+    whose output is returned as ``flex_out`` [B, H, Dh]."""
+    import torch
+    import torch.nn.functional as F
+    kg, vg = gathered_pages(cfg, k_cache, v_cache, tables)
+    kv_pos = torch.arange(kg.shape[2], device=q.device)[None, :]
+    mask = kv_pos < seq_lens[:, None]
+    if win_lo is not None:
+        mask = mask & (kv_pos > win_lo[:, None])
+    scale = (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5
+    res = {"sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kg, vg, attn_mask=mask[:, None, None, :],
+        scale=scale, enable_gqa=True), cold=True)}
+    if softcap:
+        lo = win_lo if win_lo is not None else seq_lens * 0 - 1
+
+        def live(b, h, q_idx, kv_idx):
+            return (kv_idx < seq_lens[b]) & (kv_idx > lo[b])
+        res["flex_ms"], out = flex_library_ms(q[:, :, None, :], kg, vg, live,
+                                              softcap, scale, cold=True)
+        res["flex_out"] = out[:, :, 0]
+    return res
+
+
+# the readings beside max_row_rel_err that a case holds to the row limit,
+# by pool: the global-layer call, and the soft-capped yardstick's output
+# (flex_attention over a bf16 pool; an int8 pool reaches it dequantized to
+# bf16, a rounding of the keys that moves rows at phase 3g's scores by up
+# to ~0.09 of their RMS on the card, so there it is only reported)
+LIMITED = {False: ("global_row_rel_err", "library_row_rel_err"),
+           True: ("global_row_rel_err",)}
+
+
+def yardsticks(case: dict, lib: dict, ref, rows, what: str,
+               no_cap_ms=None) -> None:
+    """Write the library yardsticks into ``case``: SDPA as ``library_ms``;
+    with a soft-cap flex_attention's time there instead (its output held
+    against the plain version), SDPA and the kernel with the soft-cap off
+    beside it labelled 'no softcap'."""
+    sdpa = (f"scaled_dot_product_attention over {what}, no softcap"
+            if "flex_ms" in lib else
+            f"scaled_dot_product_attention over {what}")
+    if "flex_ms" not in lib:
+        case.update(library_ms=lib["sdpa_ms"], library=sdpa)
+        return
+    _, case["library_row_rel_err"] = row_errors(lib["flex_out"], ref, rows)
+    case.update(library_ms=lib["flex_ms"],
+                library="torch.compile(flex_attention) with score_mod "
+                        "cap*tanh(s/cap) and the block mask"
+                        + lib.get("flex_options", "") + f", over {what}",
+                ms_no_softcap=no_cap_ms, library_ms_no_softcap=lib["sdpa_ms"],
+                library_no_softcap=sdpa)
+
+
+def check_paged_attention(cfg, dev, int8: bool = False,
+                          cases: AttnCases = LLAMA_ATTN) -> dict:
+    """K3 (bf16 pool, or int8 rows with in-row scales) in the modes of
+    ``cases``. On the mixed batch and the full batch: repeated bits, the
+    planted faults (on a global layer the longest slot's last table entry
+    read as the trash block, in int8 that block's scale lanes zeroed; on a
+    sliding layer, over keys planted by mark_dead_keys, the window one key
+    wider, the soft-cap dropped and the window dropped), and timed with a
+    cold L2 with the bound and the library yardsticks. On the mixed batch
+    also: the kernel's own split partials of a global-layer call (read
+    from the scratch it was given) merged in plain PyTorch against its
+    output, and that merge with one split's partial left out as the
+    planted merge fault; and of a sliding layer, the same call as a global
+    layer (no floor, and a floor of -1: the same bits) against its plain
+    version. The split boundaries (of a sliding layer, its floors on them)
+    against the plain version."""
     import torch
     from dynamo_tpu_torch.engine import attention, kernels
     name = "paged_attention" + ("_int8" if int8 else "")
@@ -569,173 +790,168 @@ def check_paged_attention(cfg, dev, int8: bool = False) -> dict:
           else kernels.paged_attention_cuda)
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     C, g = KVH * Dh, cfg.num_heads // cfg.num_kv_heads
-    bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    bs, M, W, cap = KV_BLOCK, cases.M, cases.window, cases.softcap
     chunk, S = attention.decode_split_plan(M, bs)
-    kw = dict(block_size=bs, scale=Dh ** -0.5)
-    lens = PAGED_MIX
-    B = len(lens)
-    q, k_cache, v_cache, tables, seq_lens = paged_inputs(
-        cfg, dev, 3 if int8 else 2, lens, int8)
-    scratch = kernels.paged_scratch(q, KVH, M, bs)
-    out = fn(q, k_cache, v_cache, tables, seq_lens, scratch=scratch, **kw)
-    again = fn(q, k_cache, v_cache, tables, seq_lens, **kw)
-    ref = attention.paged_attention_ref(q, k_cache, v_cache, tables,
-                                        seq_lens, **kw)
-    longest = max(range(B), key=lambda b: lens[b])
-    last = (lens[longest] - 1) // bs
-    if int8:
-        # planted fault: the 2048-token slot's last block read with its
-        # scale lanes ignored (every scale 2^0 * (1 + 0/256) = 1)
-        rows = tables[longest, last].long() * bs + torch.arange(bs,
-                                                                device=dev)
-        bad_k, bad_v = k_cache.clone(), v_cache.clone()
-        for t in (bad_k, bad_v):
-            t[rows, C:C + 2] = 0
-        fault = fn(q, bad_k, bad_v, tables, seq_lens, **kw)
-        del bad_k, bad_v
-    else:
-        # planted fault: the longest slot's last table entry read as the
-        # trash block (which holds other random rows here)
-        bad_tables = tables.clone()
-        bad_tables[longest, last] = 0
-        fault = fn(q, k_cache, v_cache, bad_tables, seq_lens, **kw)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        raise RuntimeError(f"{name}: non-finite output")
-    if out[lens.index(0)].abs().max().item() != 0.0:
-        raise RuntimeError(f"{name}: zero-length slot is not zero")
-    if not torch.equal(out, again):
-        raise RuntimeError(f"{name}: two calls gave different bits")
-    live = seq_lens > 0
-    err, rel = row_errors(out, ref, live)
-    _, fault_rel = row_errors(fault, ref, live)
-    slot_rel = [row_errors(out, ref, b)[1] if n else None
-                for b, n in enumerate(lens)]
-    # the merge: the kernel's partials of every slot with two or more live
-    # splits, merged in plain PyTorch, against the kernel's own merge; then
-    # the planted merge fault, each such slot's first split left out
-    multi = [b for b, n in enumerate(lens) if n > chunk]
-    sel = torch.tensor(multi, device=dev)
-    km, kl, kacc = (t[sel].clone() for t in attention.split_scratch_views(
-        scratch, B, KVH, S, g, Dh))
-    for i, b in enumerate(multi):
-        n = -(-lens[b] // chunk)
-        km[i, :, n:], kl[i, :, n:], kacc[i, :, n:] = float("-inf"), 0, 0
-    _, merge_rel = row_errors(attention.merge_split_partials(km, kl, kacc),
-                              out[sel], slice(None))
-    km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
-    _, merge_fault_rel = row_errors(
-        attention.merge_split_partials(km, kl, kacc), ref[sel], slice(None))
-    del km, kl, kacc
-    # timed with a cold L2: in a decode step the KV of a layer was last
-    # touched a whole step earlier
-    ms = time_ms(lambda: fn(q, k_cache, v_cache, tables, seq_lens, **kw),
-                 cold=True)
-    plain_ms = time_ms(lambda: attention.paged_attention_ref(
-        q, k_cache, v_cache, tables, seq_lens, **kw), cold=True)
-    lib_ms = paged_library_ms(cfg, q, k_cache, v_cache, tables, seq_lens)
-    b_ms, b_by = paged_bound(cfg, lens, int8)
-    case = {"B": B, "seq_lens": lens, "chunk_tokens": chunk, "splits": S,
-            "max_abs_err": err, "max_row_rel_err": rel,
-            "slot_row_rel_err": slot_rel, "fault_row_rel_err": fault_rel,
-            "repeat_bits_equal": True,
-            "kernel_partials_merged_row_rel_err": merge_rel,
-            "merge_fault_row_rel_err": merge_fault_rel,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "library": ("scaled_dot_product_attention over pages gathered "
-                        + ("and dequantized " if int8 else "")
-                        + "before timing, each slot padded to 2048 keys"),
-            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
-    del q, k_cache, v_cache, out, again, ref, fault, scratch
+    kw = dict(block_size=bs,
+              scale=(cfg.query_pre_attn_scalar or Dh) ** -0.5)
+    wide = (lambda t: t.float()) if cases.q_gain != 1.0 else (lambda t: t)
+    pool = (lambda t: t) if int8 else wide
 
-    # the split boundaries (and the whole table) against the plain version
-    blens = [chunk - 1, chunk, chunk + 1, 2 * chunk, M * bs, 0]
-    q, k_cache, v_cache, tables, seq_lens = paged_inputs(cfg, dev, 5, blens,
-                                                         int8)
-    out = fn(q, k_cache, v_cache, tables, seq_lens, **kw)
-    ref = attention.paged_attention_ref(q, k_cache, v_cache, tables,
-                                        seq_lens, **kw)
-    torch.cuda.synchronize()
-    if out[blens.index(0)].abs().max().item() != 0.0:
-        raise RuntimeError(f"{name}: zero-length slot is not zero")
-    case["boundary"] = {"seq_lens": blens, "slot_row_rel_err": [
-        row_errors(out, ref, b)[1] if n else None
-        for b, n in enumerate(blens)]}
-    _, case["boundary"]["max_row_rel_err"] = row_errors(out, ref,
-                                                        seq_lens > 0)
-    del q, k_cache, v_cache, out, ref
+    def run(label: str, lens, seed: int, timed: bool,
+            merge: bool = False) -> dict:
+        q, k_cache, v_cache, tables, seq_lens = paged_inputs(
+            cfg, dev, seed + cases.seed, lens, int8, M)
+        q = (q.float() * cases.q_gain).bfloat16()
+        win_lo = None
+        if W:
+            win_lo = seq_lens - 1 - W
+            mark_dead_keys(k_cache, q, tables, [(b, b) for b in
+                                                range(len(lens))],
+                           win_lo.tolist(), g)
 
-    # the full batch: 8 x 2048 keys, every CTA live
-    q, k_cache, v_cache, tables, seq_lens = paged_inputs(cfg, dev, 6,
-                                                         PAGED_FULL, int8)
-    out = fn(q, k_cache, v_cache, tables, seq_lens, **kw)
-    again = fn(q, k_cache, v_cache, tables, seq_lens, **kw)
-    ref = attention.paged_attention_ref(q, k_cache, v_cache, tables,
-                                        seq_lens, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(out, again):
-        raise RuntimeError(f"{name}: two full-batch calls gave different "
-                           f"bits")
-    full = {"seq_lens": PAGED_FULL}
-    full["max_abs_err"], full["max_row_rel_err"] = row_errors(
-        out, ref, slice(None))
-    full["ms"] = time_ms(lambda: fn(q, k_cache, v_cache, tables, seq_lens,
-                                    **kw), cold=True)
-    full["plain_ms"] = time_ms(lambda: attention.paged_attention_ref(
-        q, k_cache, v_cache, tables, seq_lens, **kw), cold=True)
-    full["library_ms"] = paged_library_ms(cfg, q, k_cache, v_cache, tables,
-                                          seq_lens)
-    full["bound_ms"], full["bound_by"] = paged_bound(cfg, PAGED_FULL, int8)
-    full["bound_share"] = full["bound_ms"] / full["ms"]
-    case["full_batch"] = full
-    del q, k_cache, v_cache, out, again, ref
-    torch.cuda.empty_cache()
-    log(f"{name} {json.dumps(case)}")
-    check_limit(name, rel, fault_rel)
-    check_limit(f"{name} merge", merge_rel, merge_fault_rel)
-    for what, r in (("boundary", case["boundary"]["max_row_rel_err"]),
-                    ("full batch", full["max_row_rel_err"])):
-        if not r <= KERNEL_ROW_REL_TOL:
-            raise RuntimeError(f"{name} {what}: row-relative error {r} > "
-                               f"{KERNEL_ROW_REL_TOL}")
-    return {"name": name, "route": "cuda",
-            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "dynamo_tpu/engine/attention.py:743",
-            "row_rel_tolerance": KERNEL_ROW_REL_TOL, **case}
+        def kernel(kc=k_cache, vc=v_cache, tabs=tables, **f):
+            return fn(q, kc, vc, tabs, seq_lens,
+                      **{**kw, "softcap": cap, "win_lo": win_lo, **f})
 
+        def plain(w):
+            return attention.paged_attention_ref(
+                wide(q), pool(k_cache), pool(v_cache), tables, seq_lens,
+                softcap=cap or None, win_lo=w, **kw)
+        scratch = kernels.paged_scratch(q, KVH, M, bs) if merge else None
+        out, again = kernel(), kernel()
+        glob = kernel(win_lo=None, scratch=scratch)
+        ref = plain(win_lo)
+        faults = {}
+        if timed and W:
+            faults = {"window_off_by_one": kernel(win_lo=win_lo - 1),
+                      "softcap_dropped": kernel(softcap=0.0),
+                      "dead_splits_counted": glob}
+        elif timed:
+            longest = max(range(len(lens)), key=lambda b: lens[b])
+            last = (lens[longest] - 1) // bs
+            if int8:
+                # the longest slot's last block read with its scale lanes
+                # ignored (every scale 2^0 * (1 + 0/256) = 1)
+                rows = (tables[longest, last].long() * bs
+                        + torch.arange(bs, device=dev))
+                bad_k, bad_v = k_cache.clone(), v_cache.clone()
+                for t in (bad_k, bad_v):
+                    t[rows, C:C + 2] = 0
+                faults["scale_lanes"] = kernel(bad_k, bad_v)
+                del bad_k, bad_v
+            else:
+                # the longest slot's last table entry read as the trash
+                # block (which holds other random rows here)
+                bad = tables.clone()
+                bad[longest, last] = 0
+                faults["trash_block"] = kernel(tabs=bad)
+        torch.cuda.synchronize()
+        what = f"{name} {cases.mode or ''} {label}"
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"{what}: non-finite output")
+        if 0 in lens and out[lens.index(0)].abs().max().item() != 0.0:
+            raise RuntimeError(f"{what}: zero-length slot is not zero")
+        if not torch.equal(out, again):
+            raise RuntimeError(f"{what}: two calls gave different bits")
+        live = seq_lens > 0
+        case = {"B": len(lens), "seq_lens": lens}
+        case["max_abs_err"], case["max_row_rel_err"] = row_errors(out, ref,
+                                                                  live)
+        case["slot_row_rel_err"] = [row_errors(out, ref, b)[1] if n else None
+                                    for b, n in enumerate(lens)]
+        if faults:
+            case["fault_row_rel_err"] = {
+                n: row_errors(f, ref, live)[1] for n, f in faults.items()}
+            case["repeat_bits_equal"] = True
+        gref = ref
+        if W and merge:
+            # the same call as a global layer: a floor of -1 masks nothing
+            gref = plain(None)
+            if not torch.equal(glob, kernel(win_lo=torch.full_like(win_lo,
+                                                                   -1))):
+                raise RuntimeError(f"{what}: a global layer's -1 floor and "
+                                   f"no floor gave different bits")
+            _, case["global_row_rel_err"] = row_errors(glob, gref, live)
+        if merge:
+            # the kernel's partials of every slot with two or more live
+            # splits, merged in plain PyTorch, against the kernel's own
+            # merge; then the planted merge fault, each such slot's first
+            # split left out
+            multi = [b for b, n in enumerate(lens) if n > chunk]
+            sel = torch.tensor(multi, device=dev)
+            km, kl, kacc = (t[sel].clone() for t in
+                            attention.split_scratch_views(scratch, len(lens),
+                                                          KVH, S, g, Dh))
+            for i, b in enumerate(multi):
+                n = -(-lens[b] // chunk)
+                km[i, :, n:], kl[i, :, n:], kacc[i, :, n:] = (
+                    float("-inf"), 0, 0)
+            _, case["kernel_partials_merged_row_rel_err"] = row_errors(
+                attention.merge_split_partials(km, kl, kacc), glob[sel],
+                slice(None))
+            km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
+            _, case["merge_fault_row_rel_err"] = row_errors(
+                attention.merge_split_partials(km, kl, kacc), gref[sel],
+                slice(None))
+            del km, kl, kacc
+        del faults, again, glob, gref, scratch
+        if timed:
+            case["ms"] = time_ms(kernel, cold=True)
+            case["plain_ms"] = time_ms(
+                lambda: attention.paged_attention_ref(
+                    q, k_cache, v_cache, tables, seq_lens,
+                    softcap=cap or None, win_lo=win_lo, **kw),
+                iters=5, cold=True)
+            lib = paged_library(cfg, q, k_cache, v_cache, tables, seq_lens,
+                                win_lo, cap)
+            yardsticks(case, lib, ref, live,
+                       "pages gathered " + ("and dequantized " if int8
+                                            else "")
+                       + f"before timing, each slot padded to {M * bs} keys"
+                       + (", window in the mask" if W else ""),
+                       time_ms(lambda: kernel(softcap=0.0), cold=True)
+                       if cap else None)
+            case["bound_ms"], case["bound_by"] = paged_bound(cfg, lens, int8,
+                                                             M, W)
+            case["bound_share"] = case["bound_ms"] / case["ms"]
+        del q, k_cache, v_cache, tables, seq_lens, out, ref
+        torch.cuda.empty_cache()
+        log(f"{name} {json.dumps({'mode': cases.mode, 'case': label, **case})}")
+        check_limit(what, case["max_row_rel_err"],
+                    case.get("fault_row_rel_err", {}))
+        for k in LIMITED[int8]:
+            if k in case:
+                check_limit(f"{what} {k}", case[k], {})
+        if merge:
+            check_limit(f"{what} merge",
+                        case["kernel_partials_merged_row_rel_err"],
+                        {"first_split_left_out":
+                         case["merge_fault_row_rel_err"]})
+        return case
 
-# the ragged mix of phase 3 at the 8B shapes, (rows, kv length) per slot:
-# a fresh 64-row chunk, a 64-row chunk continuing to 1000, a 4-row tail
-# ending at 1900, decode rows at 1, 17, 255 and 2048 keys, a slot with no
-# rows; then the trash sequence. 136 rows = 8 + 2 * 64, the auto capacity
-# of 8 slots at 64 rows per sequence
-RAGGED_MIX = [(64, 64), (64, 1000), (4, 1900), (1, 1), (1, 17), (1, 255),
-              (1, 2048), (0, 0), (0, 0)]
-# K4's split boundaries (128-key chunks, 256 for a tile of 5 or more
-# rows): decode rows that see 127, 128, 129 and 256 keys, a 20-row chunk
-# whose rows straddle the first boundary, a 64-row chunk ending at 1100
-# (four wide tiles over five 256-key splits), a slot with no rows, a first
-# decode row; then the trash sequence
-RAGGED_BOUNDARY = [(1, 127), (1, 128), (1, 129), (1, 256), (20, 140),
-                   (64, 1100), (0, 0), (1, 1), (0, 0)]
-# the full ragged batch: two 64-row chunks ending at 2048 and 6 decode rows
-# at 2048 keys (8 slots at full context); then the trash sequence
-RAGGED_FULL = [(64, 2048), (64, 2048)] + [(1, 2048)] * 6 + [(0, 0)]
-# phase 4's pure-decode ragged step, one layer: 8 decode rows at position
-# 300; then the trash sequence
-RAGGED_DECODE = [(1, 301)] * 8 + [(0, 0)]
-RAGGED_MAX_ROWS = 64
+    case = run("mix", cases.paged_mix, 3 if int8 else 2, True, merge=True)
+    case["boundary"] = run("boundary", cases.paged_boundary, 5, False)
+    case["full_batch"] = run("full", cases.paged_full, 6, True)
+    entry = {"name": name, "route": "cuda",
+             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+             "replaces": "dynamo_tpu/engine/attention.py:743",
+             "row_rel_tolerance": KERNEL_ROW_REL_TOL}
+    if cases.mode:
+        entry.update(mode=cases.mode, window=W, softcap=cap,
+                     q_gain=cases.q_gain)
+    return {**entry, "chunk_tokens": chunk, "splits": S, **case}
 
 
-def ragged_inputs(cfg, dev, seed: int, int8: bool, mix=RAGGED_MIX):
-    """``mix`` over a shuffled table of 16-token blocks and a random pool
+def ragged_inputs(cfg, dev, seed: int, int8: bool, mix,
+                  M: int = MAX_MODEL_LEN // KV_BLOCK):
+    """``mix`` over a shuffled table of M 16-token blocks and a random pool
     (row-quantized for the int8 mode); the trash block 0 holds random rows
     too. Returns q, pools, tables, starts, counts, kv lengths (tensors) and
     the mix's starts as a list."""
     import torch
     from dynamo_tpu_torch.engine.attention import quantize_kv_rows
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    bs = KV_BLOCK
     S = len(mix)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -760,211 +976,267 @@ def ragged_inputs(cfg, dev, seed: int, int8: bool, mix=RAGGED_MIX):
             i32([n for n, _ in mix]), i32([c for _, c in mix]), starts)
 
 
-def ragged_library_ms(cfg, q, k_cache, v_cache, tables, starts_l,
-                      mix) -> float:
-    """The yardstick: one SDPA call over the sequences padded to [S, H, 64,
-    Dh] against pre-gathered (and, int8, dequantized) pages with a boolean
-    causal-and-length mask; padded rows see key 0; cold L2."""
+def ragged_library(cfg, q, k_cache, v_cache, tables, starts_l, mix,
+                   window=None, softcap: float = 0.0) -> dict:
+    """The yardsticks over the sequences padded to [S, H, 64, Dh] against
+    pre-gathered (and, int8, dequantized) pages; cold L2: one SDPA call
+    with a boolean causal-and-length mask (with ``window``, the window's
+    too; padded rows see key 0), which takes no soft-cap, and with a
+    soft-cap one flex_attention call (flex_library_ms; padded rows see no
+    key), whose output is returned as ``flex_out`` [TT, H, Dh]."""
     import torch
     import torch.nn.functional as F
-    from dynamo_tpu_torch.engine.attention import (dequant_kv_rows,
-                                                   flat_token_indices)
-    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    C, bs, M = KVH * Dh, KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    H, Dh = cfg.num_heads, cfg.head_dim
+    M = tables.shape[1]
     S, dev, Lp = len(mix), q.device, RAGGED_MAX_ROWS
     qp = torch.zeros((S, H, Lp, Dh), dtype=torch.bfloat16, device=dev)
     r = torch.arange(Lp, device=dev)
-    kv_pos = torch.arange(M * bs, device=dev)
-    mask = torch.zeros((S, 1, Lp, M * bs), dtype=torch.bool, device=dev)
+    kv_pos = torch.arange(M * KV_BLOCK, device=dev)
+    mask = torch.zeros((S, 1, Lp, M * KV_BLOCK), dtype=torch.bool, device=dev)
     for s, (st, (n, c)) in enumerate(zip(starts_l, mix)):
         qp[s, :, :n] = q[st:st + n].transpose(0, 1)
-        mask[s, 0] = (((kv_pos[None, :] <= (c - n + r)[:, None])
-                       & (kv_pos[None, :] < c) & (r < n)[:, None])
-                      | ((kv_pos[None, :] == 0) & (r >= n)[:, None]))
-    idx = flat_token_indices(tables, bs)
-    kg, vg = k_cache[idx], v_cache[idx]
-    if k_cache.dtype == torch.int8:
-        kg = dequant_kv_rows(kg, C, torch.bfloat16)
-        vg = dequant_kv_rows(vg, C, torch.bfloat16)
-    kg = kg.reshape(S, M * bs, KVH, Dh).transpose(1, 2).contiguous()
-    vg = vg.reshape(S, M * bs, KVH, Dh).transpose(1, 2).contiguous()
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        qp, kg, vg, attn_mask=mask, scale=Dh ** -0.5, enable_gqa=True),
-        cold=True)
+        live = ((kv_pos[None, :] <= (c - n + r)[:, None])
+                & (kv_pos[None, :] < c) & (r < n)[:, None])
+        if window:
+            live &= kv_pos[None, :] > (c - n + r - window)[:, None]
+        mask[s, 0] = live | ((kv_pos[None, :] == 0) & (r >= n)[:, None])
+    kg, vg = gathered_pages(cfg, k_cache, v_cache, tables)
+    scale = (cfg.query_pre_attn_scalar or Dh) ** -0.5
+    res = {"sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
+        qp, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True),
+        cold=True)}
+    if softcap:
+        n_t = torch.tensor([n for n, _ in mix], device=dev)
+        pos0 = torch.tensor([c - n for n, c in mix], device=dev)
+        w = window or (M * KV_BLOCK + RAGGED_MAX_ROWS)
+
+        def live_fn(b, h, q_idx, kv_idx):
+            return ((q_idx < n_t[b]) & (kv_idx <= pos0[b] + q_idx)
+                    & (kv_idx > pos0[b] + q_idx - w))
+        # flex's attention kernel for the 64-row tiles: for a query of 64
+        # rows its default picks its decoding kernel, far slower here
+        res["flex_ms"], out = flex_library_ms(
+            qp, kg, vg, live_fn, softcap, scale, cold=True,
+            kernel_options={"FORCE_USE_FLEX_ATTENTION": True})
+        res["flex_options"] = ", kernel_options FORCE_USE_FLEX_ATTENTION"
+        res["flex_out"] = torch.zeros_like(q)
+        for s, (st, (n, _)) in enumerate(zip(starts_l, mix)):
+            res["flex_out"][st:st + n] = out[s, :, :n].transpose(0, 1)
+    return res
 
 
-def ragged_bound(cfg, mix, int8: bool) -> tuple:
-    """K4's bound: each sequence's keys read once for K and once for V (an
-    int8 row's two scale bytes once per key), q and out, the tables and
-    the per-sequence scalars; 4*H*Dh operations per visible (row, key)."""
+def ragged_bound(cfg, mix, int8: bool, M: int = MAX_MODEL_LEN // KV_BLOCK,
+                 window=None) -> tuple:
+    """K4's bound: each sequence's keys that a row can see (with
+    ``window``, from its first row's floor on) read once for K and once
+    for V (an int8 row's two scale bytes once per key), q and out, the
+    tables and the per-sequence scalars; 4*H*Dh operations per visible
+    (row, key)."""
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    C, S, M = KVH * Dh, len(mix), MAX_MODEL_LEN // KV_BLOCK
+    C, S = KVH * Dh, len(mix)
     TT = sum(n for n, _ in mix)
     row_bytes = (C + 2) if int8 else 2.0 * C    # one K or V row, read once
-    nbytes = (2.0 * row_bytes * sum(c for _, c in mix)
-              + 2 * 2.0 * TT * H * Dh + 4.0 * (S * M + 3 * S))
-    pairs = sum(c - n + i + 1 for n, c in mix for i in range(n))
+    keys = sum(min(c, window + n - 1) if window and n else c
+               for n, c in mix)
+    nbytes = (2.0 * row_bytes * keys + 2 * 2.0 * TT * H * Dh
+              + 4.0 * (S * M + 3 * S))
+    pairs = sum(min(c - n + i + 1, window) if window else c - n + i + 1
+                for n, c in mix for i in range(n))
     return bound(nbytes, 4.0 * H * Dh * pairs)
 
 
-def check_ragged_attention(cfg, dev, int8: bool = False) -> dict:
-    """K4 (bf16 pool, or int8 rows with in-row scales) on RAGGED_MIX, with
-    two planted faults: the 2048-token row's last block read as the trash
-    block, and an off-by-one causal mask inside each chunk (its rows one
-    position early, so each misses its own key); repeated bits; the
-    kernel's own split partials (read from the scratch it was given, for
-    the rows whose tile has two or more live splits) merged in plain
+def check_ragged_attention(cfg, dev, int8: bool = False,
+                           cases: AttnCases = LLAMA_ATTN) -> dict:
+    """K4 (bf16 pool, or int8 rows with in-row scales) in the modes of
+    ``cases``. On the mix: repeated bits; the planted faults (on a global
+    layer the longest sequence's last block read as the trash block and an
+    off-by-one causal mask inside each chunk, its rows one position early
+    so each misses its own key; on a sliding layer, over keys planted by
+    mark_dead_keys at the decode rows' floors, the window one key wider,
+    the soft-cap dropped and the window dropped); the kernel's own split
+    partials of a global-layer call (read from the scratch it was given,
+    for the rows whose tile has two or more live splits) merged in plain
     PyTorch against its output, and that merge with each such row's first
-    split left out as the planted merge fault; RAGGED_BOUNDARY against the
-    plain version; and RAGGED_FULL and RAGGED_DECODE, timed with their
-    bounds and library yardsticks."""
+    split left out as the planted merge fault; of a sliding layer, the same
+    call as a global layer (no base, and the sentinel base: the same bits)
+    against its plain version; and at the ragged server's capacity of 136
+    rows (q padded with rows no sequence owns), timed with the f32 scratch
+    allocated by the wrapper and passed in, and its size. The split
+    boundaries against the plain version. The mix, the full batch and the
+    pure-decode step timed with a cold L2 with their bounds and library
+    yardsticks."""
     import torch
     from dynamo_tpu_torch.engine import attention, kernels
-    from dynamo_tpu_torch.engine.attention import ragged_paged_attention_ref
     name = "ragged_paged_attention" + ("_int8" if int8 else "")
     fn = (kernels.ragged_paged_attention_int8_cuda if int8
           else kernels.ragged_paged_attention_cuda)
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = H // KVH
-    bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    bs, M, W, cap = KV_BLOCK, cases.M, cases.window, cases.softcap
     chunk, splits = attention.decode_split_plan(M, bs)
-    q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
-        ragged_inputs(cfg, dev, 6 if int8 else 7, int8)
-    TT, S = q.shape[0], len(RAGGED_MIX)
-    kw = dict(block_size=bs, scale=Dh ** -0.5, max_rows=RAGGED_MAX_ROWS)
-    args = (q, k_cache, v_cache, tables, starts, counts, ctx)
-    scratch = kernels.paged_scratch(q, KVH, M, bs)
-    out = fn(*args, scratch=scratch, **kw)
-    again = fn(*args, **kw)
-    ref = ragged_paged_attention_ref(*args, **kw)
-    longest = max(range(S), key=lambda s: RAGGED_MIX[s][1])
-    bad_tables = tables.clone()
-    bad_tables[longest, (RAGGED_MIX[longest][1] - 1) // bs] = 0
-    fault_trash = fn(q, k_cache, v_cache, bad_tables, starts, counts, ctx,
-                     **kw)
-    fault_mask = fn(q, k_cache, v_cache, tables, starts, counts,
-                    torch.where(counts > 1, ctx - 1, ctx), **kw)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        raise RuntimeError(f"{name}: non-finite output")
-    if not torch.equal(out, again):
-        raise RuntimeError(f"{name}: two calls gave different bits")
-    err, rel = row_errors(out, ref, slice(0, TT))
-    _, trash_rel = row_errors(fault_trash, ref, slice(0, TT))
-    _, mask_rel = row_errors(fault_mask, ref, slice(0, TT))
-    del fault_trash, fault_mask, again
-    seq_rel = [row_errors(out, ref, slice(st, st + n))[1] if n else None
-               for st, (n, _) in zip(starts_l, RAGGED_MIX)]
-    # the merge: the kernel's partials of the rows whose tile has two or
-    # more live splits, merged in plain PyTorch, against the kernel's own
-    # merge; then the planted merge fault, each such row's first split
-    # left out
-    _, live = attention.ragged_row_plan(starts, counts, ctx, TT, g, M, bs)
-    multi = [r for r in range(TT) if live[r] > 1]
-    sel = torch.tensor(multi, device=dev)
-    km, kl, kacc = (t[sel].clone() for t in attention.split_scratch_views(
-        scratch, TT, KVH, splits, g, Dh))
-    for i, r in enumerate(multi):
-        n = int(live[r])
-        km[i, :, n:], kl[i, :, n:], kacc[i, :, n:] = float("-inf"), 0, 0
-    _, merge_rel = row_errors(attention.merge_split_partials(km, kl, kacc),
-                              out[sel], slice(None))
-    km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
-    _, merge_fault_rel = row_errors(
-        attention.merge_split_partials(km, kl, kacc), ref[sel], slice(None))
-    del km, kl, kacc, scratch
-    # timed with a cold L2: in a forward pass a layer's KV was last touched
-    # a whole dispatch earlier
-    ms = time_ms(lambda: fn(*args, **kw), cold=True)
-    plain_ms = time_ms(lambda: ragged_paged_attention_ref(*args, **kw),
-                       iters=5, cold=True)
-    lib_ms = ragged_library_ms(cfg, q, k_cache, v_cache, tables, starts_l,
-                               RAGGED_MIX)
-    b_ms, b_by = ragged_bound(cfg, RAGGED_MIX, int8)
-    case = {"TT": TT, "mix": RAGGED_MIX, "chunk_tokens": chunk,
-            "splits": splits, "max_abs_err": err,
-            "max_row_rel_err": rel, "seq_row_rel_err": seq_rel,
-            "fault_trash_row_rel_err": trash_rel,
-            "fault_mask_row_rel_err": mask_rel, "repeat_bits_equal": True,
-            "multi_split_rows": len(multi),
-            "kernel_partials_merged_row_rel_err": merge_rel,
-            "merge_fault_row_rel_err": merge_fault_rel, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms,
-            "library": "scaled_dot_product_attention over padded sequences "
-                       "and pre-gathered" + (" dequantized" if int8 else "")
-                       + " pages",
-            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
-    del q, k_cache, v_cache, out, ref, args
+    kw = dict(block_size=bs,
+              scale=(cfg.query_pre_attn_scalar or Dh) ** -0.5,
+              max_rows=RAGGED_MAX_ROWS)
+    wide = (lambda t: t.float()) if cases.q_gain != 1.0 else (lambda t: t)
+    pool = (lambda t: t) if int8 else wide
 
-    # the split boundaries against the plain version
-    q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
-        ragged_inputs(cfg, dev, 8, int8, RAGGED_BOUNDARY)
-    bargs = (q, k_cache, v_cache, tables, starts, counts, ctx)
-    out = fn(*bargs, **kw)
-    ref = ragged_paged_attention_ref(*bargs, **kw)
-    torch.cuda.synchronize()
-    case["boundary"] = {"mix": RAGGED_BOUNDARY, "seq_row_rel_err": [
-        row_errors(out, ref, slice(st, st + n))[1] if n else None
-        for st, (n, _) in zip(starts_l, RAGGED_BOUNDARY)]}
-    _, case["boundary"]["max_row_rel_err"] = row_errors(
-        out, ref, slice(0, q.shape[0]))
-    del q, k_cache, v_cache, out, ref, bargs
+    def run(label: str, mix, seed: int, timed: bool,
+            main: bool = False) -> dict:
+        q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
+            ragged_inputs(cfg, dev, seed + cases.seed, int8, mix, M)
+        q = (q.float() * cases.q_gain).bfloat16()
+        TT, rows = q.shape[0], slice(0, q.shape[0])
+        win_base = None
+        if W:
+            win_base = torch.where(counts > 0, ctx - counts - W,
+                                   attention.RAGGED_WIN_SENTINEL).to(
+                                       torch.int32)
+            decode = [s for s, (n, _) in enumerate(mix) if n == 1]
+            mark_dead_keys(k_cache, q, tables,
+                           [(s, starts_l[s]) for s in decode],
+                           [int(win_base[s]) for s in decode], g)
 
-    # the full ragged batch: 8 slots at 2048 keys, every split live
-    q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
-        ragged_inputs(cfg, dev, 9, int8, RAGGED_FULL)
-    fargs = (q, k_cache, v_cache, tables, starts, counts, ctx)
-    out = fn(*fargs, **kw)
-    again = fn(*fargs, **kw)
-    ref = ragged_paged_attention_ref(*fargs, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(out, again):
-        raise RuntimeError(f"{name}: two full-batch calls gave different "
-                           f"bits")
-    full = {"mix": RAGGED_FULL, "TT": q.shape[0]}
-    full["max_abs_err"], full["max_row_rel_err"] = row_errors(
-        out, ref, slice(0, q.shape[0]))
-    del out, again, ref
-    full["ms"] = time_ms(lambda: fn(*fargs, **kw), cold=True)
-    full["plain_ms"] = time_ms(lambda: ragged_paged_attention_ref(
-        *fargs, **kw), iters=3, cold=True)
-    full["library_ms"] = ragged_library_ms(cfg, q, k_cache, v_cache, tables,
-                                           starts_l, RAGGED_FULL)
-    full["bound_ms"], full["bound_by"] = ragged_bound(cfg, RAGGED_FULL, int8)
-    full["bound_share"] = full["bound_ms"] / full["ms"]
-    case["full_batch"] = full
-    del q, k_cache, v_cache, fargs
+        def kernel(qq=q, tabs=tables, lens=ctx, **f):
+            return fn(qq, k_cache, v_cache, tabs, starts, counts, lens,
+                      **{**kw, "softcap": cap, "win_base": win_base, **f})
 
-    # one layer of the pure-decode ragged step: latency, not bytes, decides
-    q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
-        ragged_inputs(cfg, dev, 10, int8, RAGGED_DECODE)
-    dargs = (q, k_cache, v_cache, tables, starts, counts, ctx)
-    out = fn(*dargs, **kw)
-    ref = ragged_paged_attention_ref(*dargs, **kw)
-    torch.cuda.synchronize()
-    dec = {"mix": RAGGED_DECODE}
-    _, dec["max_row_rel_err"] = row_errors(out, ref, slice(0, q.shape[0]))
-    dec["ms"] = time_ms(lambda: fn(*dargs, **kw), cold=True)
-    dec["library_ms"] = ragged_library_ms(cfg, q, k_cache, v_cache, tables,
-                                          starts_l, RAGGED_DECODE)
-    dec["bound_ms"], dec["bound_by"] = ragged_bound(cfg, RAGGED_DECODE, int8)
-    case["decode_step"] = dec
-    del q, k_cache, v_cache, out, ref, dargs
-    torch.cuda.empty_cache()
-    log(f"{name} {json.dumps(case)}")
-    check_limit(f"{name} (last block as trash)", rel, trash_rel)
-    check_limit(f"{name} (off-by-one causal mask)", rel, mask_rel)
-    check_limit(f"{name} merge", merge_rel, merge_fault_rel)
-    for what, r in (("boundary", case["boundary"]["max_row_rel_err"]),
-                    ("full batch", full["max_row_rel_err"]),
-                    ("decode step", dec["max_row_rel_err"])):
-        if not r <= KERNEL_ROW_REL_TOL:
-            raise RuntimeError(f"{name} {what}: row-relative error {r} > "
-                               f"{KERNEL_ROW_REL_TOL}")
-    return {"name": name, "route": "cuda",
-            "source": "dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
-            "replaces": "dynamo_tpu/engine/attention.py:1255",
-            "row_rel_tolerance": KERNEL_ROW_REL_TOL, **case}
+        def plain(w):
+            return attention.ragged_paged_attention_ref(
+                wide(q), pool(k_cache), pool(v_cache), tables, starts,
+                counts, ctx, softcap=cap or None, win_base=w, **kw)
+        scratch = kernels.paged_scratch(q, KVH, M, bs) if main else None
+        out, again = kernel(), kernel()
+        glob = kernel(win_base=None, scratch=scratch)
+        ref = plain(win_base)
+        faults = {}
+        if main and W:
+            faults = {"window_off_by_one": kernel(win_base=win_base - 1),
+                      "softcap_dropped": kernel(softcap=0.0),
+                      "dead_splits_counted": glob}
+        elif main:
+            longest = max(range(len(mix)), key=lambda s: mix[s][1])
+            bad = tables.clone()
+            bad[longest, (mix[longest][1] - 1) // bs] = 0
+            faults = {"trash_block": kernel(tabs=bad),
+                      "causal_mask_off_by_one": kernel(
+                          lens=torch.where(counts > 1, ctx - 1, ctx))}
+        torch.cuda.synchronize()
+        what = f"{name} {cases.mode or ''} {label}"
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"{what}: non-finite output")
+        if not torch.equal(out, again):
+            raise RuntimeError(f"{what}: two calls gave different bits")
+        case = {"TT": TT, "mix": mix}
+        case["max_abs_err"], case["max_row_rel_err"] = row_errors(out, ref,
+                                                                  rows)
+        case["seq_row_rel_err"] = [
+            row_errors(out, ref, slice(st, st + n))[1] if n else None
+            for st, (n, _) in zip(starts_l, mix)]
+        if faults:
+            case["fault_row_rel_err"] = {
+                n: row_errors(f, ref, rows)[1] for n, f in faults.items()}
+            case["repeat_bits_equal"] = True
+        gref = ref
+        if W and main:
+            # the same call as a global layer: the sentinel masks nothing
+            gref = plain(None)
+            if not torch.equal(glob, kernel(win_base=torch.full_like(
+                    win_base, attention.RAGGED_WIN_SENTINEL))):
+                raise RuntimeError(f"{what}: the global sentinel and no "
+                                   f"base gave different bits")
+            _, case["global_row_rel_err"] = row_errors(glob, gref, rows)
+        if main:
+            # the kernel's partials of the rows whose tile has two or more
+            # live splits, merged in plain PyTorch, against the kernel's
+            # own merge; then the planted merge fault, each such row's
+            # first split left out
+            _, live = attention.ragged_row_plan(starts, counts, ctx, TT, g,
+                                                M, bs)
+            multi = [r for r in range(TT) if live[r] > 1]
+            sel = torch.tensor(multi, device=dev)
+            km, kl, kacc = (t[sel].clone() for t in
+                            attention.split_scratch_views(scratch, TT, KVH,
+                                                          splits, g, Dh))
+            for i, r in enumerate(multi):
+                n = int(live[r])
+                km[i, :, n:], kl[i, :, n:], kacc[i, :, n:] = (
+                    float("-inf"), 0, 0)
+            case["multi_split_rows"] = len(multi)
+            _, case["kernel_partials_merged_row_rel_err"] = row_errors(
+                attention.merge_split_partials(km, kl, kacc), glob[sel],
+                slice(None))
+            km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
+            _, case["merge_fault_row_rel_err"] = row_errors(
+                attention.merge_split_partials(km, kl, kacc), gref[sel],
+                slice(None))
+            del km, kl, kacc
+            # the ragged server's capacity: its q always holds 136 rows
+            qc = torch.zeros((RAGGED_CAPACITY, H, Dh), dtype=q.dtype,
+                             device=dev)
+            qc[:TT] = q
+            sc = kernels.paged_scratch(qc, KVH, M, bs)
+            oc = kernel(qq=qc, scratch=sc)
+            torch.cuda.synchronize()
+            if torch.count_nonzero(oc[TT:]).item():
+                raise RuntimeError(f"{what}: rows no sequence owns are not "
+                                   f"zero")
+            case["capacity"] = {
+                "TT": RAGGED_CAPACITY,
+                "scratch_bytes": 4 * (sc.numel() if sc is not None else 0),
+                "max_row_rel_err": row_errors(oc[:TT], ref, rows)[1],
+                "ms_scratch_allocated": time_ms(lambda: kernel(qq=qc),
+                                                cold=True),
+                "ms_scratch_passed_in": time_ms(
+                    lambda: kernel(qq=qc, scratch=sc), cold=True)}
+            del qc, sc, oc
+        del faults, again, glob, gref, scratch
+        if timed:
+            case["ms"] = time_ms(kernel, cold=True)
+            case["plain_ms"] = time_ms(
+                lambda: attention.ragged_paged_attention_ref(
+                    q, k_cache, v_cache, tables, starts, counts, ctx,
+                    softcap=cap or None, win_base=win_base, **kw),
+                iters=3, cold=True)
+            lib = ragged_library(cfg, q, k_cache, v_cache, tables, starts_l,
+                                 mix, W, cap)
+            yardsticks(case, lib, ref, rows,
+                       "padded sequences and pre-gathered"
+                       + (" dequantized" if int8 else "") + " pages"
+                       + (", window in the mask" if W else ""),
+                       time_ms(lambda: kernel(softcap=0.0), cold=True)
+                       if cap else None)
+            case["bound_ms"], case["bound_by"] = ragged_bound(cfg, mix, int8,
+                                                              M, W)
+            case["bound_share"] = case["bound_ms"] / case["ms"]
+        del q, k_cache, v_cache, tables, out, ref
+        torch.cuda.empty_cache()
+        log(f"{name} {json.dumps({'mode': cases.mode, 'case': label, **case})}")
+        check_limit(what, case["max_row_rel_err"],
+                    case.get("fault_row_rel_err", {}))
+        for k in LIMITED[int8]:
+            if k in case:
+                check_limit(f"{what} {k}", case[k], {})
+        if main:
+            check_limit(f"{what} merge",
+                        case["kernel_partials_merged_row_rel_err"],
+                        {"first_split_left_out":
+                         case["merge_fault_row_rel_err"]})
+            check_limit(f"{what} at capacity",
+                        case["capacity"]["max_row_rel_err"], {})
+        return case
+
+    case = run("mix", cases.ragged_mix, 6 if int8 else 7, True, main=True)
+    case["boundary"] = run("boundary", cases.ragged_boundary, 8, False)
+    case["full_batch"] = run("full", cases.ragged_full, 9, True)
+    case["decode_step"] = run("decode", cases.ragged_decode, 10, True)
+    entry = {"name": name, "route": "cuda",
+             "source": "dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
+             "replaces": "dynamo_tpu/engine/attention.py:1255",
+             "row_rel_tolerance": KERNEL_ROW_REL_TOL}
+    if cases.mode:
+        entry.update(mode=cases.mode, window=W, softcap=cap,
+                     q_gain=cases.q_gain)
+    return {**entry, "chunk_tokens": chunk, "splits": splits, **case}
 
 
 def check_lm_head_int8(cfg, dev) -> dict:
@@ -1016,7 +1288,7 @@ def check_lm_head_int8(cfg, dev) -> dict:
                            "head",
                 "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
         log(f"lm_head_int8 {json.dumps(case)}")
-        check_limit(f"lm_head_int8 B={B}", rel, fault_rel)
+        check_limit(f"lm_head_int8 B={B}", rel, {"first_strip": fault_rel})
         cases.append(case)
     primary = next(c for c in cases if c["B"] == 8)
     return {"name": "lm_head_int8", "route": "cuda",
@@ -1064,8 +1336,9 @@ def int4pack_yardstick(x, w, ref):
 INT4_ROWS = (1, 8, 16, 17, 512)
 
 
-def check_grouped_int4(cfg, dev) -> dict:
-    """K6 at the 8B layer shapes for INT4_ROWS: repeated bits, the last
+def check_grouped_int4(cfg, dev, shapes=None) -> dict:
+    """K6 at the model's layer shapes, ``shapes`` as ((d, f), rows) (by
+    default the four 8B shapes for INT4_ROWS): repeated bits, the last
     group's scales read as the first's as a planted fault, and where the
     contraction is split, the kernel's own split partials merged in plain
     PyTorch (within the limit) and merged with one split left out (the
@@ -1081,12 +1354,14 @@ def check_grouped_int4(cfg, dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     cases = []
-    for d, f in ((D, Fi), (Fi, D), (D, KVD), (D, D)):
+    shapes = shapes or [((d, f), INT4_ROWS)
+                        for d, f in ((D, Fi), (Fi, D), (D, KVD), (D, D))]
+    for (d, f), rows in shapes:
         w = quantize_array_grouped(torch.randn((d, f), generator=gen,
                                                device=dev) * d ** -0.5)
         bad = w.scale.clone()
         bad[-1] = bad[0]   # planted fault: last group's scales = first's
-        for n in INT4_ROWS:
+        for n in rows:
             x = torch.randn((n, d), generator=gen, device=dev).bfloat16()
             splits, per = int4_split_plan(n, d, f)
             scratch = grouped_int4_scratch(x, f)
@@ -1110,7 +1385,8 @@ def check_grouped_int4(cfg, dev) -> dict:
                     * (1 if n <= 16 else -(-n // 128)),
                     "max_abs_err": err, "max_row_rel_err": rel,
                     "fault_row_rel_err": fault_rel, "repeat_bits_equal": True}
-            check_limit(f"grouped_int4_matmul {d}x{f} N={n}", rel, fault_rel)
+            check_limit(f"grouped_int4_matmul {d}x{f} N={n}", rel,
+                        {"last_group_scales": fault_rel})
             if scratch is not None:
                 # the kernel's own partials, merged in split order, and
                 # merged with the last split left out
@@ -1122,8 +1398,8 @@ def check_grouped_int4(cfg, dev) -> dict:
                     ref, slice(0, n))
                 case.update({"own_partials_row_rel_err": merge_rel,
                              "fault_dropped_split_row_rel_err": drop_rel})
-                check_limit(f"grouped_int4_matmul {d}x{f} N={n} (dropped "
-                            f"split)", merge_rel, drop_rel)
+                check_limit(f"grouped_int4_matmul {d}x{f} N={n} merge",
+                            merge_rel, {"dropped_split": drop_rel})
                 del scratch
             case["ms"] = time_ms(lambda: grouped_int4_matmul_cuda(
                 x, w.q, w.scale), cold=True)
@@ -1273,17 +1549,12 @@ def ragged_batch(spans, tokens, tables, B: int, dev) -> tuple:
             tables, i32(row_slot), i32(starts), i32(counts), i32(sample))
 
 
-def check_ragged_model(params, cfg, dev, seed: int, mode: str,
-                       plain_swaps) -> dict:
-    """Phase 4 on the ragged path: RAGGED_MODEL_DISPATCHES through
-    ``llama.ragged_forward`` with the kernels and with the plain versions
-    (``plain_swaps``, K4's included), and with a planted K4 fault; then one
-    pure-decode ragged dispatch of 8 rows profiled beside the split decode
-    step over the same rows."""
+def ragged_llama(cfg, dev, seed: int, kv_quant: str, **_) -> tuple:
+    """Phase 4's ragged dispatches (RAGGED_MODEL_DISPATCHES) over slots 0-2
+    of an 8-slot engine, each slot on 24 blocks of its own in a fresh
+    pool: (pool, tables, dispatches, slots read)."""
     import torch
-    from dynamo_tpu_torch.engine import kernels
     from dynamo_tpu_torch.engine.models import llama
-    _, kv_quant = MODEL_MODES[mode]
     bs, M, B = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK, 8
     per_slot = 24                      # blocks per slot: 384 tokens
     gen = torch.Generator(device=dev)
@@ -1295,35 +1566,15 @@ def check_ragged_model(params, cfg, dev, seed: int, mode: str,
         tables[i, :per_slot] = torch.arange(1 + i * per_slot,
                                             1 + (i + 1) * per_slot,
                                             device=dev)
-    batches = [ragged_batch(sp, tokens, tables, B, dev)
-               for sp in RAGGED_MODEL_DISPATCHES]
+    kv = llama.init_kv_cache(cfg, B * per_slot + 1, bs, dev, torch.bfloat16,
+                             quantization=kv_quant)
+    return (kv, tables, [ragged_batch(sp, tokens, tables, B, dev)
+                         for sp in RAGGED_MODEL_DISPATCHES], 3)
 
-    def run():
-        kv = state["kv"] = llama.init_kv_cache(cfg, B * per_slot + 1, bs, dev,
-                                               torch.bfloat16,
-                                               quantization=kv_quant)
-        return torch.cat([llama.ragged_forward(params, kv, *b, cfg, bs,
-                                               RAGGED_MAX_ROWS)[:3]
-                          for b in batches])     # [dispatches * 3, V]
 
-    state = {}
-    k4 = kernels.KERNELS["ragged_paged_attention"
-                         + ("_int8" if kv_quant == "int8" else "")]
-    with torch.inference_mode():
-        with swapped(*plain_swaps):
-            ref = run()
-        with swapped((llama, "ragged_paged_attention",
-                      ragged_without_last_block)):
-            fault = run()
-        kernels.reset_launch_counts()
-        got = run()
-        launches = {k: v.launches for k, v in kernels.KERNELS.items()
-                    if v.launches}
-        profile = profile_ragged_decode(params, state["kv"], cfg, tables, B,
-                                        dev)
-    torch.cuda.synchronize()
-    if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
-        raise RuntimeError(f"ragged model {mode}: non-finite logits")
+def logit_compare(ref) -> tuple:
+    """(max |ref|, a function of logits giving their max |Δ|, that over
+    max |ref| and the share of rows whose argmax agrees with ref's)."""
     spread = ref.abs().max().item()
 
     def compare(logits) -> dict:
@@ -1331,24 +1582,76 @@ def check_ragged_model(params, cfg, dev, seed: int, mode: str,
         agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
         return {"max_abs_err": err, "rel_err": err / spread,
                 "argmax_agreement": agree}
+    return spread, compare
 
-    res = {"mode": mode, "dispatches": RAGGED_MODEL_DISPATCHES,
-           "launches": launches, "max_abs_ref": spread, **compare(got),
-           "planted_fault_k4": compare(fault), "decode_dispatch": profile}
-    log(f"ragged_model {json.dumps(res)}")
-    want = {k4.name: cfg.num_layers * len(batches)}
+
+def check_model_limits(what: str, rel: float, faults: dict) -> None:
+    """The logits within MODEL_REL_TOL of the plain versions', and each
+    planted fault of ``faults`` (name: its relative error) beyond it."""
+    if not rel <= MODEL_REL_TOL:
+        raise RuntimeError(f"{what}: kernel and plain logits differ by "
+                           f"{rel} > {MODEL_REL_TOL}")
+    for name, fault_rel in faults.items():
+        if not fault_rel > MODEL_REL_TOL:
+            raise RuntimeError(f"{what}: the planted fault {name} "
+                               f"({fault_rel}) passes the limit "
+                               f"{MODEL_REL_TOL}")
+
+
+def check_ragged_model(params, cfg, mode: str, kv, tables, batches,
+                       slots: int, plain_swaps, fault, label: str) -> dict:
+    """Phase 4's ragged path: ``batches`` through ``llama.ragged_forward``
+    over ``kv`` (restored before each run and at the end) with the kernels
+    and with the plain versions (``plain_swaps``, K4's included), and with
+    the planted K4 fault ``fault``, the first ``slots`` slots' logits
+    compared; then one pure-decode ragged dispatch of a row per slot of
+    ``tables`` profiled beside the split decode step over the same rows."""
+    import torch
+    from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.engine.models import llama
+    k4 = ("ragged_paged_attention"
+          + ("_int8" if kv["k"].dtype == torch.int8 else ""))
+    snap = {n: t.clone() for n, t in kv.items()}
+
+    def restore():
+        for n, t in kv.items():
+            t.copy_(snap[n])
+
+    def run():
+        restore()
+        return torch.cat([llama.ragged_forward(params, kv, *b, cfg, KV_BLOCK,
+                                               RAGGED_MAX_ROWS)[:slots]
+                          for b in batches])     # [dispatches * slots, V]
+
+    with torch.inference_mode():
+        with swapped(*plain_swaps):
+            ref = run()
+        with swapped((llama, "ragged_paged_attention", fault)):
+            bad = run()
+        kernels.reset_launch_counts()
+        got = run()
+        launches = {k: v.launches for k, v in kernels.KERNELS.items()
+                    if v.launches}
+        profile = profile_ragged_decode(params, kv, cfg, tables,
+                                        tables.shape[0] - 1, kv["k"].device)
+        restore()
+    torch.cuda.synchronize()
+    del snap
+    what = f"ragged model {label} {mode}"
+    if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
+        raise RuntimeError(f"{what}: non-finite logits")
+    spread, compare = logit_compare(ref)
+    res = {"mode": mode, "launches": launches, "max_abs_ref": spread,
+           **compare(got), "planted_faults": {fault.__name__: compare(bad)},
+           "decode_dispatch": profile}
+    log(f"ragged_model {label} {json.dumps(res)}")
+    want = {k4: cfg.num_layers * len(batches)}
     if {k: launches.get(k, 0) for k in want} != want or any(
-            launches.get(k, 0) for k in ("flash_prefill", "paged_attention",
-                                         "paged_attention_int8")):
-        raise RuntimeError(f"ragged model {mode}: launches {launches}, "
-                           f"expected {want} and no split-path attention")
-    if not res["rel_err"] <= MODEL_REL_TOL:
-        raise RuntimeError(f"ragged model {mode}: kernel and plain logits "
-                           f"differ by {res['rel_err']} > {MODEL_REL_TOL}")
-    if not res["planted_fault_k4"]["rel_err"] > MODEL_REL_TOL:
-        raise RuntimeError(f"ragged model {mode}: the planted K4 fault "
-                           f"({res['planted_fault_k4']['rel_err']}) passes "
-                           f"the limit {MODEL_REL_TOL}")
+            launches.get(k, 0) for k in SPLIT_ATTENTION):
+        raise RuntimeError(f"{what}: launches {launches}, expected {want} "
+                           f"and no split-path attention")
+    check_model_limits(what, res["rel_err"], {
+        k: v["rel_err"] for k, v in res["planted_faults"].items()})
     return res
 
 
@@ -1744,7 +2047,10 @@ def profile_program(prog, pos: int, table, B: int, M: int) -> dict:
                                             "not measured"),
                "device_busy_share": (prof["device_ms"] / wall_ms
                                      if prof["device_kernels"]
-                                     != "not measured" else None)}
+                                     != "not measured" else None),
+               "kernel_ms_kernels": {k[:-len("_ms_kernels")]: v
+                                     for k, v in prof.items()
+                                     if k.endswith("_ms_kernels")}}
         if name.startswith("graph"):
             row["event_ms_per_token"] = time_ms(fn, iters=5, warmup=1) / K
         out[name] = row
@@ -1769,7 +2075,44 @@ def check_sampling_noise(cfg, dev) -> dict:
     return res
 
 
-def check_model(cfg, dev, seed: int, mode: str) -> dict:
+@dataclasses.dataclass(frozen=True)
+class ModelRun:
+    """One geometry's phase-4 run: a ``prompt``-token prompt in a
+    ``bucket``-token bucket, then ``steps`` decode steps, over tables of M
+    16-token blocks; K1's and K3's planted faults (functions with the
+    wrappers' signatures); the ragged dispatches (``ragged``: a function of
+    (cfg, dev, seed, kv_quant, kv=, table=, tokens=, n_blocks=) giving a
+    pool, tables, dispatches and the slots to read) and K4's planted fault;
+    whether bf16 also runs the sequence-parallel prefill (K2)."""
+    label: str
+    prompt: int
+    bucket: int
+    steps: int
+    M: int
+    prefill_fault: object
+    decode_fault: object
+    ragged: object
+    ragged_fault: object
+    sp: bool
+
+
+LLAMA_RUN = ModelRun("8B", 300, 512, 4, MAX_MODEL_LEN // KV_BLOCK,
+                     prefill_without_last_tile, decode_without_last_block,
+                     ragged_llama, ragged_without_last_block, True)
+
+
+def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
+    """Phase 4 (4g) in one mode of MODEL_MODES: the model of ``cfg``
+    (random weights, every layer) prefills ``run.prompt`` tokens and
+    decodes ``run.steps`` steps through the kernels, through their plain
+    versions, and with a planted fault in each kernel of the mode (``run``'s
+    K1 and K3 faults; K5's first strip left out; K6's last group's scales
+    read as the first's); each kernel's launches; one prefill and one eager
+    decode step profiled; the decode program (check_decode_program); in the
+    modes of RAGGED_MODES, ``run``'s ragged dispatches (check_ragged_model);
+    in bf16 where ``run.sp``, the sequence-parallel prefill
+    (check_model_sp)."""
+    import gc
     import torch
     from dynamo_tpu_torch.engine import attention, kernels, lm_head, quant
     from dynamo_tpu_torch.engine import quant_matmul
@@ -1784,114 +2127,372 @@ def check_model(cfg, dev, seed: int, mode: str) -> dict:
         params = init_params_quantized(cfg, seed, dev, torch.bfloat16,
                                        bits=4 if weights == "int4" else 8)
     torch.cuda.synchronize()
-    log(f"model {mode}: 8B random weights on the card in "
+    log(f"model {run.label} {mode}: random weights on the card in "
         f"{time.monotonic() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    bs, M, B = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK, 8
-    prompt_len, bucket, steps = 300, 512, 4
+    bs, M, B = KV_BLOCK, run.M, 8
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
-    tokens = torch.randint(3, cfg.vocab_size, (bucket,), generator=gen,
+    tokens = torch.randint(3, cfg.vocab_size, (run.bucket,), generator=gen,
+                           device=dev)
+    forced = torch.randint(3, cfg.vocab_size, (run.steps,), generator=gen,
                            device=dev)
     table = torch.zeros((M,), dtype=torch.int32, device=dev)
-    n_blocks = -(-(prompt_len + steps + 1) // bs)   # + the profiled step
+    # the prompt, the decode steps, the profiled step, the program's
+    # 8-step dispatches; the pool holds a second slot's blocks as many
+    n_blocks = -(-(run.prompt + run.steps + 2 + PROGRAM_K) // bs)
     table[:n_blocks] = torch.arange(1, 1 + n_blocks, device=dev)
+    kv = llama.init_kv_cache(cfg, 2 * n_blocks + 1, bs, dev, torch.bfloat16,
+                             quantization=kv_quant)
 
-    def run():
-        kv = state["kv"] = llama.init_kv_cache(cfg, M + 1, bs, dev,
-                                               torch.bfloat16,
-                                               quantization=kv_quant)
-        out = [llama.prefill_forward(params, kv, tokens, table, 0,
-                                     prompt_len, cfg, bs)[None]]
+    def prefill():
+        return llama.prefill_forward(params, kv, tokens, table, 0,
+                                     run.prompt, cfg, bs)
+
+    def forward():
+        for t in kv.values():
+            t.zero_()
+        out = [prefill()[None]]
         toks = torch.zeros((B,), dtype=torch.long, device=dev)
         pos = torch.zeros((B,), dtype=torch.int32, device=dev)
         tables = torch.zeros((B, M), dtype=torch.int32, device=dev)
         tables[0] = table
-        for i in range(steps):
+        for i in range(run.steps):
             toks[0] = forced[i]
-            pos[0] = prompt_len + i
+            pos[0] = run.prompt + i
             out.append(llama.decode_forward(params, kv, toks, pos, tables,
                                             cfg, bs)[:1])
         return torch.cat(out)                      # [1 + steps, V]
 
-    def compare(logits) -> dict:
-        err = (logits - ref).abs().max().item()
-        agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
-        return {"max_abs_err": err, "rel_err": err / spread,
-                "argmax_agreement": agree}
-
-    # each kernel of the mode: (slot, plain version, planted fault)
-    slots = {"prefill": (llama, "flash_prefill", attention.flash_prefill_ref,
-                         prefill_without_last_tile),
-             "decode": (llama, "paged_attention",
-                        attention.paged_attention_ref,
-                        decode_without_last_block)}
+    # each kernel of the mode: (module, attribute, plain version, fault)
+    slots = [(llama, "flash_prefill", attention.flash_prefill_ref,
+              run.prefill_fault),
+             (llama, "paged_attention", attention.paged_attention_ref,
+              run.decode_fault)]
     if weights != "none":
-        slots["head"] = (llama, "lm_head_int8", lm_head.lm_head_int8_ref,
-                         head_without_first_strip)
+        slots.append((llama, "lm_head_int8", lm_head.lm_head_int8_ref,
+                      head_without_first_strip))
     if weights == "int4":
-        slots["int4"] = (quant, "grouped_int4_matmul",
-                         quant_matmul.grouped_int4_matmul_ref,
-                         int4_last_group_as_first)
-    state = {}
+        slots.append((quant, "grouped_int4_matmul",
+                      quant_matmul.grouped_int4_matmul_ref,
+                      int4_last_group_as_first))
+    ragged = None
     with torch.inference_mode():
-        forced = torch.randint(3, cfg.vocab_size, (steps,), generator=gen,
-                               device=dev)
-        with swapped(*((m, a, plain) for m, a, plain, _ in slots.values())):
-            ref = run()
+        with swapped(*((m, a, plain) for m, a, plain, _ in slots)):
+            ref = forward()
         faults = {}
-        for name, (m, a, _, fault) in slots.items():
+        for m, a, _, fault in slots:
             with swapped((m, a, fault)):
-                faults[name] = run()
-        k6 = kernels.GROUPED_INT4_MATMUL.launches
-        got = run()
-        k6 = kernels.GROUPED_INT4_MATMUL.launches - k6
-        profile = profile_decode_step(params, state["kv"], cfg, table, B, M,
-                                      prompt_len + steps)
-        program = check_decode_program(params, state["kv"], cfg, table, B,
-                                       M, prompt_len + steps + 1, mode)
+                faults[fault.__name__] = forward()
+        kernels.reset_launch_counts()
+        got = forward()
+        launches = {k: v.launches for k, v in kernels.KERNELS.items()
+                    if v.launches}
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        prefill()
+        torch.cuda.synchronize()
+        prefill_profile = {"wall_ms": 1e3 * (time.monotonic() - t1),
+                           **device_profile(prefill)}
+        decode_step = profile_decode_step(params, kv, cfg, table, B, M,
+                                          run.prompt + run.steps)
+        program = check_decode_program(params, kv, cfg, table, B, M,
+                                       run.prompt + run.steps + 1,
+                                       f"{run.label} {mode}")
+        if mode in RAGGED_MODES:
+            # the same weights through the ragged path: K4 in place of K1
+            # and K3, every other kernel as above
+            plain_swaps = [(m, a, plain) for m, a, plain, _ in slots[2:]]
+            plain_swaps.append((llama, "ragged_paged_attention",
+                                attention.ragged_paged_attention_ref))
+            ragged = check_ragged_model(
+                params, cfg, mode, *run.ragged(cfg, dev, seed, kv_quant,
+                                               kv=kv, table=table,
+                                               tokens=tokens,
+                                               n_blocks=n_blocks),
+                plain_swaps, run.ragged_fault, run.label)
     torch.cuda.synchronize()
-    del state
+    what = f"model {run.label} {mode}"
     if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
-        raise RuntimeError(f"model {mode}: non-finite logits")
-    spread = ref.abs().max().item()
-    res = {"mode": mode, "weights": weights, "kv": kv_quant,
-           "grouped_int4_launches_per_forward": k6 / (1 + steps),
-           "max_abs_ref": spread, **compare(got),
+        raise RuntimeError(f"{what}: non-finite logits")
+    spread, compare = logit_compare(ref)
+    res = {"model": run.label, "mode": mode, "weights": weights,
+           "kv": kv_quant, "prompt": run.prompt, "bucket": run.bucket,
+           "decode_positions": [run.prompt, run.prompt + run.steps - 1],
+           "launches": launches, "max_abs_ref": spread, **compare(got),
            "planted_faults": {k: compare(v) for k, v in faults.items()},
-           "decode_step": profile, "program": program}
+           "prefill_profile": prefill_profile, "decode_step": decode_step,
+           "program": program, "ragged": ragged}
     log(f"model {json.dumps(res)}")
-    del got, ref, faults
-    if mode in RAGGED_MODES:
-        # the same weights through the ragged path: K4 in place of K1/K3
-        plain_swaps = [(m, a, plain) for m, a, plain, _ in slots.values()
-                       if a not in ("flash_prefill", "paged_attention")]
-        plain_swaps.append((llama, "ragged_paged_attention",
-                            attention.ragged_paged_attention_ref))
-        res["ragged"] = check_ragged_model(params, cfg, dev, seed, mode,
-                                           plain_swaps)
-    if mode == "bf16":
+    del got, ref, faults, kv
+    if run.sp and mode == "bf16":
         # the same weights through the sequence-parallel prefill (K2)
         res["sp"] = check_model_sp(params, cfg, dev, seed)
     del params
+    gc.collect()          # the decode program's graphs hold their pools
     torch.cuda.empty_cache()
-    # every layer matmul of the 8B geometry passes the grouped kernel's
-    # shape rule: 7 launches per layer and forward under int4
-    want_k6 = 7 * cfg.num_layers if weights == "int4" else 0
-    if res["grouped_int4_launches_per_forward"] != want_k6:
-        raise RuntimeError(f"model {mode}: "
-                           f"{res['grouped_int4_launches_per_forward']} "
-                           f"grouped-int4 launches per forward, expected "
-                           f"{want_k6}")
-    if not res["rel_err"] <= MODEL_REL_TOL:
-        raise RuntimeError(f"model {mode}: kernel and plain logits differ by "
-                           f"{res['rel_err']} x {spread} > {MODEL_REL_TOL}")
-    for k, v in res["planted_faults"].items():
-        if not v["rel_err"] > MODEL_REL_TOL:
-            raise RuntimeError(f"model {mode}: the planted fault {k} "
-                               f"({v['rel_err']}) passes the limit "
-                               f"{MODEL_REL_TOL}")
+    forwards = 1 + run.steps
+    want = {"flash_prefill": cfg.num_layers,
+            ("paged_attention_int8" if kv_quant == "int8"
+             else "paged_attention"): run.steps * cfg.num_layers}
+    if weights != "none":
+        want["lm_head_int8"] = forwards
+    if weights == "int4":
+        # every layer matmul passes the grouped kernel's shape rule
+        want["grouped_int4_matmul"] = 7 * cfg.num_layers * forwards
+    if {k: launches.get(k, 0) for k in want} != want:
+        raise RuntimeError(f"{what}: launches {launches}, expected {want}")
+    check_model_limits(what, res["rel_err"], {
+        k: v["rel_err"] for k, v in res["planted_faults"].items()})
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 3g and 4g: the Gemma-2-9B geometry
+# ---------------------------------------------------------------------------
+
+# Gemma-2-9B's whole context: 512 blocks of 16 tokens a sequence
+GEMMA_MAX_LEN = 8192
+GEMMA_M = GEMMA_MAX_LEN // KV_BLOCK
+# the kernel entries of the new modes (head dim 256, soft-cap, window) and
+# of K5 / K6 at the Gemma-2-9B widths
+GEMMA_MODE = "gemma2_dh256_softcap_window"
+GEMMA_SHAPES_MODE = "gemma2_9b_shapes"
+# Phase 3g scales q so that the scores (std ~6 in natural units) reach the
+# bend of the 50 soft-cap, where dropping it moves a row by more than the
+# limit; the plain version then runs in f32 on the same bf16 inputs, since
+# its bf16 form rounds such scores by up to ~0.1 before the softmax, more
+# than the kernels' own error. Every case plants three faults that the
+# row-relative limit must reject: the window one key wider (">=" for ">"),
+# the soft-cap dropped, and the window dropped (the tiles and splits below
+# it run and are counted). At such scores one extra key of 4096 carries
+# weight only where it happens to score highest, which a prefill's 32768
+# rows show and a decode batch's 128 do not: K3 and K4 therefore plant, at
+# the first position below each decode row's window, a key equal to that
+# row's query (mark_dead_keys), which the off-by-one fault must weigh.
+GEMMA_Q_GAIN = 6.0
+GEMMA_WINDOW = GEMMA2_9B_CONFIG["sliding_window"]
+# phase 4g: a 4600-token prompt (the window binds in prefill: its last rows
+# see 4096 of the 4600 keys) in a 4608-token bucket, then 4 decode steps
+GEMMA_PROMPT, GEMMA_BUCKET, GEMMA_STEPS = 4600, 4608, 4
+# K3 and K4 at Gemma-2-9B's heads over the 8192-key table. K3: a mix across
+# the window's edge (and a short slot, a single key, a zero-length slot);
+# window floors on the split boundaries (first live keys 127, 128, 129 and
+# 256); the full batch of 8 x 8192 keys. K4: a 48-row chunk ending at 6000
+# (its rows' floors 1856-1903), decode rows on both sides of the window's
+# edge and at the table's end, a 16-row chunk ending at 4200 (floors across
+# the edge), a short decode row, a slot with no rows; the split boundaries
+# of 8B's mix moved from keys seen to window floors; two 64-row chunks and
+# 6 decode rows at 8192 keys; 8 decode rows at phase 4g's first decode
+# position
+GEMMA_ATTN = AttnCases(
+    M=GEMMA_M,
+    paged_mix=[4095, 4096, 4097, 6000, 8192, 100, 1, 0],
+    paged_boundary=[GEMMA_WINDOW + n for n in (127, 128, 129, 256)]
+    + [GEMMA_MAX_LEN, 0],
+    paged_full=[GEMMA_MAX_LEN] * 8,
+    ragged_mix=[(48, 6000), (1, 4095), (1, 4096), (1, 4097), (1, 8192),
+                (16, 4200), (1, 100), (0, 0), (0, 0)],
+    ragged_boundary=[(1, GEMMA_WINDOW + 127), (1, GEMMA_WINDOW + 128),
+                     (1, GEMMA_WINDOW + 129), (1, GEMMA_WINDOW + 256),
+                     (20, GEMMA_WINDOW + 140), (64, GEMMA_MAX_LEN), (0, 0),
+                     (1, 1), (0, 0)],
+    ragged_full=[(64, GEMMA_MAX_LEN)] * 2 + [(1, GEMMA_MAX_LEN)] * 6
+    + [(0, 0)],
+    ragged_decode=[(1, GEMMA_PROMPT + 1)] * 8 + [(0, 0)],
+    window=GEMMA_WINDOW, softcap=GEMMA2_9B_CONFIG["attn_logit_softcapping"],
+    q_gain=GEMMA_Q_GAIN, mode=GEMMA_MODE, seed=20)
+
+
+def gemma_config():
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    return ModelConfig.from_hf_config(GEMMA2_9B_CONFIG)
+
+
+def check_gemma_flash_prefill(cfg, dev) -> dict:
+    """K1 at Gemma-2-9B's heads: a 2048-token chunk at positions 4096-6143
+    over 6144 keys, soft-capped, on a sliding layer (4096-token window: its
+    first 1-2047 keys are dead for some rows) and on a global layer; timed
+    with and without the soft-cap beside flex_attention with the soft-cap
+    and SDPA without it, both with the causal (and window) mask."""
+    import torch
+    import torch.nn.functional as F
+    from dynamo_tpu_torch.engine.attention import flash_prefill_ref
+    from dynamo_tpu_torch.engine.kernels import flash_prefill_cuda
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W, cap = cfg.sliding_window, cfg.attn_logit_softcap
+    T, start = 2048, 4096
+    seq_len = S = start + T
+    scale = (cfg.query_pre_attn_scalar or Dh) ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    q = (torch.randn((T, H, Dh), generator=gen, device=dev)
+         * GEMMA_Q_GAIN).bfloat16()
+    k, v = (torch.randn((S, KVH, Dh), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(scale=scale, start_pos=start, seq_len=seq_len)
+    pos = start + torch.arange(T, device=dev)
+    kv_pos = torch.arange(S, device=dev)
+    qs = q.transpose(0, 1)[None].contiguous()
+    ks, vs = (x.transpose(0, 1)[None].contiguous() for x in (k, v))
+    cases = []
+    for sliding in (True, False):
+        window = W if sliding else 0
+
+        def kernel(**f):
+            return flash_prefill_cuda(q, k, v, **{**kw, "window": window,
+                                                  "softcap": cap, **f})
+        out, again = kernel(), kernel()
+        ref = flash_prefill_ref(q.float(), k.float(), v.float(),
+                                sliding=sliding, window=W, softcap=cap, **kw)
+        faults = {"softcap_dropped": kernel(softcap=0.0)}
+        if sliding:
+            faults["window_off_by_one"] = kernel(window=W + 1)
+            faults["dead_tiles_counted"] = kernel(window=0)
+        torch.cuda.synchronize()
+        what = f"flash_prefill {GEMMA_MODE} sliding={sliding}"
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"{what}: non-finite output")
+        if not torch.equal(out, again):
+            raise RuntimeError(f"{what}: two calls gave different bits")
+        err, rel = row_errors(out, ref, slice(0, T))
+        fault_rel = {n: row_errors(f, ref, slice(0, T))[1]
+                     for n, f in faults.items()}
+        del faults, again, out
+        ms = time_ms(kernel)
+        ms_nocap = time_ms(lambda: kernel(softcap=0.0))
+        plain_ms = time_ms(lambda: flash_prefill_ref(
+            q, k, v, sliding=sliding, window=W, softcap=cap, **kw), iters=3)
+        mask = (kv_pos[None, :] <= pos[:, None]) & (kv_pos[None, :] < seq_len)
+        if sliding:
+            mask &= kv_pos[None, :] > (pos - W)[:, None]
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, scale=scale, enable_gqa=True))
+        w = window or S
+
+        def live(b, h, q_idx, kv_idx):
+            return ((kv_idx <= start + q_idx)
+                    & (kv_idx > start + q_idx - w))
+        flex_ms, flex_out = flex_library_ms(qs, ks, vs, live, cap, scale,
+                                            cold=False)
+        _, lib_rel = row_errors(flex_out[0].transpose(0, 1), ref,
+                                slice(0, T))
+        pairs = int(mask.sum().item())
+        lo = max(start - W + 1, 0) if sliding else 0
+        nbytes = 2.0 * (2 * T * H * Dh + 2 * (seq_len - lo) * KVH * Dh)
+        b_ms, b_by = bound(nbytes, 4.0 * H * Dh * pairs)
+        del mask, flex_out, ref
+        case = {"mode": GEMMA_MODE, "T": T, "start_pos": start,
+                "seq_len": seq_len, "sliding": sliding, "window": W,
+                "softcap": cap, "H": H, "KVH": KVH, "Dh": Dh,
+                "q_gain": GEMMA_Q_GAIN, "max_abs_err": err,
+                "max_row_rel_err": rel, "fault_row_rel_err": fault_rel,
+                "repeat_bits_equal": True, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": flex_ms,
+                "library": "torch.compile(flex_attention) with score_mod "
+                           "cap*tanh(s/cap) and the causal"
+                           + (" and window" if sliding else "")
+                           + " block mask",
+                "library_row_rel_err": lib_rel,
+                "ms_no_softcap": ms_nocap, "library_ms_no_softcap": sdpa_ms,
+                "library_no_softcap": "scaled_dot_product_attention with "
+                                      "the causal"
+                                      + (" and window" if sliding else "")
+                                      + " mask, no softcap",
+                "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+        log(f"flash_prefill {json.dumps(case)}")
+        check_limit(what, rel, fault_rel)
+        check_limit(f"{what} library_row_rel_err", lib_rel, {})
+        cases.append(case)
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return {"name": "flash_prefill", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/flash_prefill.cu",
+            "replaces": "dynamo_tpu/engine/attention.py:220",
+            "row_rel_tolerance": KERNEL_ROW_REL_TOL, **cases[0],
+            "cases": cases}
+
+
+def check_gemma_kernels(cfg, dev) -> list:
+    """Phase 3g: K1, K3 and K4 in Gemma-2's modes, then K5 (the tied int8
+    head, 3584 x 256000) and K6 at the Gemma-2-9B widths."""
+    D, Fi = cfg.hidden_size, cfg.intermediate_size
+    QD, KVD = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    entries = [check_gemma_flash_prefill(cfg, dev),
+               check_paged_attention(cfg, dev, cases=GEMMA_ATTN),
+               check_paged_attention(cfg, dev, int8=True, cases=GEMMA_ATTN),
+               check_ragged_attention(cfg, dev, cases=GEMMA_ATTN),
+               check_ragged_attention(cfg, dev, int8=True, cases=GEMMA_ATTN)]
+    head = check_lm_head_int8(cfg, dev)
+    int4 = check_grouped_int4(cfg, dev, shapes=[
+        ((D, QD), (1, 8)), ((D, KVD), (1, 8)), ((D, Fi), (1, 8, 512)),
+        ((QD, D), (1, 8)), ((Fi, D), (1, 8))])
+    for e in (head, int4):
+        e["mode"] = GEMMA_SHAPES_MODE
+    return entries + [head, int4]
+
+
+
+
+def prefill_without_window(q, k, v, *, scale, start_pos, seq_len,
+                           softcap=None, **_):
+    """K1 with a planted fault: every layer global (the tiles below a
+    sliding layer's window run and count)."""
+    from dynamo_tpu_torch.engine.kernels import flash_prefill_cuda
+    return flash_prefill_cuda(q, k, v, scale=scale, start_pos=start_pos,
+                              seq_len=seq_len, softcap=softcap or 0.0)
+
+
+def decode_without_window(q, k_cache, v_cache, block_tables, seq_lens, *,
+                          block_size, scale, softcap=None, **_):
+    """K3 (either pool) with a planted fault: every layer global."""
+    import torch
+    from dynamo_tpu_torch.engine import kernels
+    fn = (kernels.paged_attention_int8_cuda if k_cache.dtype == torch.int8
+          else kernels.paged_attention_cuda)
+    return fn(q, k_cache, v_cache, block_tables, seq_lens,
+              block_size=block_size, scale=scale, softcap=softcap or 0.0)
+
+
+def ragged_without_window(q, k_cache, v_cache, block_tables, seq_starts,
+                          seq_counts, seq_lens, *, block_size, scale,
+                          max_rows, softcap=None, **_):
+    """K4 (either pool) with a planted fault: every layer global."""
+    import torch
+    from dynamo_tpu_torch.engine import kernels
+    fn = (kernels.ragged_paged_attention_int8_cuda
+          if k_cache.dtype == torch.int8 else kernels.ragged_paged_attention_cuda)
+    return fn(q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
+              seq_lens, block_size=block_size, scale=scale,
+              max_rows=max_rows, softcap=softcap or 0.0)
+
+
+def ragged_gemma(cfg, dev, seed: int, kv_quant: str, kv, table, tokens,
+                 n_blocks: int) -> tuple:
+    """One ragged dispatch over the pool phase 4g's prompt wrote: slot 0's
+    decode row at position 4600 and slot 1's 64-row chunk at 4528-4591,
+    continuing the prompt's first 283 blocks (a prefix hit) into blocks of
+    its own: (pool, tables, dispatches, slots read)."""
+    import torch
+    M, B = GEMMA_M, 2
+    shared = 283                         # blocks: 4528 tokens
+    p1 = shared * KV_BLOCK
+    tables = torch.zeros((B + 1, M), dtype=torch.int32, device=dev)
+    tables[0] = table
+    tables[1, :shared] = table[:shared]
+    own = -(-(p1 + RAGGED_MAX_ROWS) // KV_BLOCK) - shared
+    tables[1, shared:shared + own] = torch.arange(
+        1 + n_blocks, 1 + n_blocks + own, device=dev)
+    toks = tokens.tolist()
+    batch = ragged_batch({0: (1, GEMMA_PROMPT), 1: (RAGGED_MAX_ROWS, p1)},
+                         [toks + [7], toks], tables, B, dev)
+    return kv, tables, [batch], B
+
+
+# phase 4g: the window dropped from K1, K3 and K4 as their planted faults
+GEMMA_RUN = ModelRun("gemma2", GEMMA_PROMPT, GEMMA_BUCKET, GEMMA_STEPS,
+                     GEMMA_M, prefill_without_window, decode_without_window,
+                     ragged_gemma, ragged_without_window, False)
 
 
 # ---------------------------------------------------------------------------
@@ -1899,14 +2500,23 @@ def check_model(cfg, dev, seed: int, mode: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def write_model_dir(path: str, cfg) -> None:
-    """config.json of the 8B geometry + a SentencePiece tokenizer covering
-    all of its vocab: control pieces, the 256 byte pieces, some letters and
-    words, then synthetic pieces up to the vocab size."""
+def write_model_dir(path: str, cfg, hf=None) -> None:
+    """config.json (``hf``, else the 8B geometry's) + a SentencePiece
+    tokenizer covering all of the vocab: control pieces (Llama's <unk>,
+    <s>, </s>; with ``hf``, Gemma's <pad>, <eos>, <bos>, <unk> at its ids
+    0-3), the 256 byte pieces, some letters and words, then synthetic
+    pieces up to the vocab size."""
     from dynamo_tpu_torch.llm.sp_model import (BYTE, CONTROL, NORMAL,
                                                UNKNOWN, write_model_proto)
-    pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL),
-              ("</s>", 0.0, CONTROL)]
+    if hf is None:
+        pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL),
+                  ("</s>", 0.0, CONTROL)]
+        ids = dict(unk_id=0, bos_id=1, eos_id=2)
+    else:
+        pieces = [("<pad>", 0.0, CONTROL), ("<eos>", 0.0, CONTROL),
+                  ("<bos>", 0.0, CONTROL), ("<unk>", 0.0, UNKNOWN)]
+        ids = dict(unk_id=3, bos_id=hf["bos_token_id"],
+                   eos_id=hf["eos_token_id"], pad_id=hf["pad_token_id"])
     pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
     words = ("the of and to in is that for it as with was on be by at this "
              "from are or an which one all would there their what so up "
@@ -1925,7 +2535,11 @@ def write_model_dir(path: str, cfg) -> None:
         i += 1
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "tokenizer.model"), "wb") as f:
-        f.write(write_model_proto(pieces, unk_id=0, bos_id=1, eos_id=2))
+        f.write(write_model_proto(pieces, **ids))
+    if hf is not None:
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(hf, f)
+        return
     hf = {"model_type": "llama", "vocab_size": cfg.vocab_size,
           "hidden_size": cfg.hidden_size,
           "intermediate_size": cfg.intermediate_size,
@@ -2023,7 +2637,18 @@ PATH_KERNELS = {
     "sp": ("flash_prefill_partial", "flash_prefill", "paged_attention"),
     "dispatch": ("flash_prefill", "paged_attention_int8", "lm_head_int8",
                  "grouped_int4_matmul"),
+    "gemma2_bf16": ("flash_prefill", "paged_attention"),
+    "gemma2_ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
+                               "grouped_int4_matmul"),
+    "gemma2_int4_kv8": ("flash_prefill", "paged_attention_int8",
+                        "lm_head_int8", "grouped_int4_matmul"),
+    "gemma2_ragged": ("ragged_paged_attention",),
 }
+# the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
+# dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
+# phase 3g serves, int4 + int8 KV on the split path and bf16 with --ragged
+GEMMA_PATHS = ("gemma2_bf16", "gemma2_ragged_int4_kv8", "gemma2_int4_kv8",
+               "gemma2_ragged")
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -2031,7 +2656,11 @@ SERVE_SP = 2
 SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
                "ragged": ("bf16", True),
                "ragged_int4_kv8": ("int4_kv8", True), "sp": ("bf16", False),
-               "dispatch": ("int4_kv8", False)}
+               "dispatch": ("int4_kv8", False),
+               "gemma2_bf16": ("bf16", False),
+               "gemma2_ragged_int4_kv8": ("int4_kv8", True),
+               "gemma2_int4_kv8": ("int4_kv8", False),
+               "gemma2_ragged": ("bf16", True)}
 # the dispatch modes' server (5f): K = 8 steps a dispatch, pipelined, lane
 # prefill of admissions of up to 128 un-cached tokens into a busy batch,
 # prompts prefilled in chunks of 512
@@ -2046,12 +2675,15 @@ SPLIT_ATTENTION = ("flash_prefill", "paged_attention", "paged_attention_int8")
 
 
 def serve_phase(cfg, seed: int, card: str, path: str) -> tuple:
-    """Serve from a temporary model directory (8B config + tokenizer).
-    Returns (launch counts, per-request report)."""
+    """Serve from a temporary model directory (the 8B config, or on a
+    gemma2 path Gemma-2-9B's config.json, + a tokenizer). Returns (launch
+    counts, per-request report)."""
     import tempfile
-    with tempfile.TemporaryDirectory(prefix="dtt-8b-") as tmp:
-        model_dir = os.path.join(tmp, "llama3-8b-random")
-        write_model_dir(model_dir, cfg)
+    gemma = path.startswith("gemma2")
+    with tempfile.TemporaryDirectory(prefix="dtt-serve-") as tmp:
+        model_dir = os.path.join(tmp, "gemma2-9b-random" if gemma
+                                 else "llama3-8b-random")
+        write_model_dir(model_dir, cfg, GEMMA2_9B_CONFIG if gemma else None)
         return _serve(cfg, seed, card, model_dir, path)
 
 
@@ -2068,17 +2700,26 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
     from dynamo_tpu_torch.parallel.sharding import make_mesh
     mode, ragged = SERVE_PATHS[path]
     weights, kv_quant = MODEL_MODES[mode]
+    gemma = path.startswith("gemma2")
+    # the first id past the tokenizer's control and byte pieces
+    lo = 260 if gemma else 259
     args = launcher.build_parser().parse_args(
         ["in=http", "out=torch", "--model-path", model_dir,
-         "--random-weights", "--http-host", "127.0.0.1",
-         "--http-port", "0", "--max-model-len", str(MAX_MODEL_LEN),
+         "--random-weights", "--http-host", "127.0.0.1", "--http-port", "0",
+         "--max-model-len", str(GEMMA_MAX_LEN if gemma else MAX_MODEL_LEN),
          "--kv-block-size", str(KV_BLOCK), "--num-kv-blocks", "2048",
          "--max-num-seqs", "8", "--device", "cuda",
          "--quantization", weights, "--kv-quantization", kv_quant]
         + (["--ragged", "--ragged-max-seq-rows", str(RAGGED_MAX_ROWS)]
            if ragged else [])
-        + (DISPATCH_FLAGS if path == "dispatch" else []))
+        + (DISPATCH_FLAGS if path == "dispatch" else [])
+        + (["--decode-steps-per-dispatch", str(DISPATCH_K)]
+           if path == "gemma2_bf16" else []))
     launcher.parse_io(args.io)
+    # what earlier phases left for the collector (a decode program's
+    # graphs) is freed first, so the footprint below is this server's
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.monotonic()
     mesh = None
     if path == "sp":
@@ -2125,7 +2766,7 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
     # decode program's graphs (greedy and filtered sampling) are captured
     # before the measured requests; the capture time is reported
     warm = np.random.default_rng(seed + 2).integers(
-        259, cfg.vocab_size, size=16).tolist()
+        lo, cfg.vocab_size, size=16).tolist()
     t0 = time.monotonic()
     for extra in ({"temperature": 0}, {"temperature": 0.7, "top_p": 0.9,
                                        "seed": 2}):
@@ -2134,9 +2775,10 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                                "nvext": {"ignore_eos": True}, **extra})
     bring_up = {"warm_requests_s": time.monotonic() - t0,
                 "graph_captures": core.program.captures,
-                "graph_capture_s": core.program.capture_s}
+                "graph_capture_s": core.program.capture_s,
+                "allocated_gib": torch.cuda.memory_allocated() / 2**30}
     rng = np.random.default_rng(seed)
-    mk = lambda n: rng.integers(259, cfg.vocab_size, size=n).tolist()  # noqa: E731
+    mk = lambda n: rng.integers(lo, cfg.vocab_size, size=n).tolist()  # noqa: E731
     max_tokens = 32
     greedy = {"model": name, "max_tokens": max_tokens, "temperature": 0,
               "nvext": {"ignore_eos": True}}
@@ -2144,7 +2786,10 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                "make a good day", "max_tokens": max_tokens,
                "temperature": 0.7, "top_p": 0.9, "seed": 1,
                "nvext": {"ignore_eos": True}}
-    if mode == "bf16":
+    if gemma:
+        # past the 4096-token window, and a short one beside it
+        prompts = {"p4600": mk(GEMMA_PROMPT), "p300": mk(300)}
+    elif mode == "bf16":
         prompts = {"p100": mk(100), "p700": mk(700), "p1500": mk(1500),
                    "p1900": mk(1900)}
     else:
@@ -2189,7 +2834,7 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         # one more SSE stream, usage not requested
         report["sse"] = check_stream("sse", http_completion(port, {
             **greedy, "prompt": mk(200), "stream": True}), max_tokens, False)
-        if mode == "bf16":
+        if mode == "bf16" and not gemma:
             # a repeated prompt: its full blocks hit the prefix cache, so
             # the prefill runs only the tail, at start_pos > 0
             hits0 = pool.match_hits
@@ -2357,6 +3002,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    # torch.compile (the flex_attention yardstick) caches under the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "torchinductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
+
     # 1. card
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -2388,7 +3038,7 @@ def main() -> int:
     # 4. the model through the kernels vs the plain versions, per mode
     seed = 0
     for mode in MODEL_MODES:
-        check_model(cfg, dev, seed, mode)
+        check_model(cfg, dev, seed, mode, LLAMA_RUN)
     check_sampling_noise(cfg, dev)
 
     # 5. serving: bf16, quantized, both again with --ragged, then bf16 with
@@ -2396,12 +3046,23 @@ def main() -> int:
     # phase alone, and each kernel reports those of the first path that
     # must launch it
     by_path = {path: serve_phase(cfg, seed, card, path)
-               for path in PATH_KERNELS}
+               for path in PATH_KERNELS if path not in GEMMA_PATHS}
     compare_servers(card, by_path["bf16"][1], by_path["sp"][1], "sp")
     compare_servers(card, by_path["int4_kv8"][1], by_path["dispatch"][1],
                     "dispatch", "int4_kv8")
+
+    # 3g-5g. the Gemma-2-9B geometry: its kernels' modes, the model through
+    # them, and its servers
+    gcfg = gemma_config()
+    entries += check_gemma_kernels(gcfg, dev)
+    for mode in ("bf16", "int4_kv8"):
+        check_model(gcfg, dev, seed, mode, GEMMA_RUN)
+    by_path.update({path: serve_phase(gcfg, seed, card, path)
+                    for path in GEMMA_PATHS})
     for e in entries:
-        path = next(m for m, ks in PATH_KERNELS.items() if e["name"] in ks)
+        paths = GEMMA_PATHS if "mode" in e else [
+            p for p in PATH_KERNELS if p not in GEMMA_PATHS]
+        path = next(p for p in paths if e["name"] in PATH_KERNELS[p])
         e["launches"] = by_path[path][0][e["name"]]
         e["launches_path"] = path
     print(card)

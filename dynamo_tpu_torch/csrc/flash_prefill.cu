@@ -5,10 +5,14 @@
 // per layer on the K/V it gathered from the paged pool.
 //
 // Contract (same as the Pallas kernel): q [T, H, Dh], k/v [S, KVH, Dh], all
-// contiguous bf16. Query t sits at absolute position start_pos + t and sees
-// key j iff j <= start_pos + t and j < seq_len. Rows past the chunk's true
-// length attend real keys and are discarded by the caller, so every row
-// gets a finite output. Returns out [T, H, Dh] bf16.
+// contiguous bf16, Dh 64, 128 or 256. Query t sits at absolute position
+// start_pos + t and sees key j iff j <= start_pos + t and j < seq_len, and
+// on a sliding layer (window > 0: the caller passes the window only there)
+// also j > start_pos + t - window. With cap > 0 each score s (after the
+// scale) becomes cap * tanh(s / cap) before the mask (gemma2 soft-capping).
+// Rows past the chunk's true length attend real keys and are discarded by
+// the caller, so every row gets a finite output (a pad row that sees no key
+// gets zeros). Returns out [T, H, Dh] bf16.
 //
 // Bound on an H100. The work's floor: at T = S = 2048, H = 32, Dh = 128 the
 // causal half is 4*H*Dh*T*S/2 ~ 34 GFLOP against ~34 MB of q/k/v/out, so
@@ -46,6 +50,21 @@
 // - Only a tile that straddles a warp's causal diagonal or seq_len is
 //   masked element by element; a tile past all of a warp's rows is
 //   skipped by that warp (its scores would all be -inf: alpha 1, p 0).
+// - Sliding window (gemma2's local layers): the key loop starts at the
+//   first tile that is not entirely below every row's window (the CTA's
+//   first row has the lowest floor), as the Pallas kernel starts at its
+//   first live chunk; a warp skips a tile below all of its rows' windows as
+//   it skips one past its diagonal, and only a tile that straddles a row's
+//   floor is masked element by element.
+// - Soft-cap: cap * tanh(s / cap) on each score in the log2 domain (the cap
+//   times log2(e) there), tanh from one exp2 and one fast division: exact to
+//   a few f32 ulps of the cap, where the MUFU tanh.approx (~2^-11 relative)
+//   would move a score by up to 0.04 at a cap of 50.
+// - Head dim 256 (gemma2): the f32 output accumulator of a warp's 16 rows
+//   alone is 128 registers a thread, so the key tile narrows to 32 keys (16
+//   score registers) and the CTAs per SM to two (launch bounds cap the
+//   registers at 255): 82.5 KB of shared memory a CTA (Q 33 KB, two K tiles
+//   and one V tile of 16.5 KB each).
 // Measured on the card against this design (PERF.md, Findings): 8-warp
 // CTAs, a 3-stage ring of K and V with Q's fragments in registers, two V
 // buffers, and two m-tiles per warp (255 registers and a spill) were each
@@ -71,18 +90,31 @@
 //   every row is still written).
 // - Bound: same work as K1 per visible (query, key) pair, plus 4 bytes
 //   per output value instead of 2.
+// - Global attention without a soft-cap only: the ring serves only such
+//   models (window 0 and cap 0 here).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "soft_cap.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16 * kWarps;  // query rows per CTA
-constexpr int kKeys = 64;      // keys per KV tile
 constexpr float kLn2 = 0.6931471805599453f;
+
+// keys per KV tile and CTAs per SM, by head dim: at Dh 256 the output
+// accumulator takes 128 registers a thread, so the tile narrows to 32 keys
+// and the SM holds two CTAs at up to 255 registers each
+template <int Dh>
+struct Tiling {
+  static constexpr int kKeys = Dh == 256 ? 32 : 64;
+  static constexpr int kMinBlocks = Dh == 256 ? 2 : 3;
+};
+
 constexpr float kNegInf = -1e30f;  // JAX's NEG_INF: the m of a row with no key
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
@@ -133,7 +165,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int Dh>
 struct Smem {
   static constexpr int kStride = Dh + 8;
-  static constexpr int kTile = kKeys * kStride;
+  static constexpr int kTile = Tiling<Dh>::kKeys * kStride;
   static constexpr int kK = kRows * kStride;
   static constexpr int kV = kK + 2 * kTile;
   static constexpr int kBytes = (kV + kTile) * (int)sizeof(__nv_bfloat16);
@@ -146,6 +178,7 @@ struct Smem {
 template <int Dh>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
                                           long gstride, int valid) {
+  constexpr int kKeys = Tiling<Dh>::kKeys;
   constexpr int kVec = Dh / 8;
   constexpr int kStep = kThreads / kVec;
   const int r0 = threadIdx.x / kVec, c = (threadIdx.x % kVec) * 8;
@@ -165,8 +198,9 @@ __device__ __forceinline__ void flash_prefill_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, void* __restrict__ out_raw, float* __restrict__ m_out,
     float* __restrict__ l_out, int T, int H, int KVH, int S, int start_pos, int seq_len,
-    float scale_log2) {
+    int window, float scale_log2, float cap_log2) {
   using Sm = Smem<Dh>;
+  constexpr int kKeys = Tiling<Dh>::kKeys;
   constexpr int kStride = Sm::kStride;
   constexpr int kDSteps = Dh / 16;  // k-steps of the QK^T product
   constexpr int kDTiles = Dh / 8;   // n-tiles of the PV product
@@ -205,6 +239,13 @@ __device__ __forceinline__ void flash_prefill_body(
   if (n_keys > seq_len) n_keys = seq_len;
   if (n_keys > S) n_keys = S;
   const int n_tiles = n_keys > 0 ? (n_keys + kKeys - 1) / kKeys : 0;
+  // sliding window: the tiles entirely below the CTA's first row's floor
+  // (the lowest of its rows) are dead for every row
+  int first_tile = 0;
+  if (window > 0) {
+    const int lo = start_pos + row0 / g - window + 1;  // lowest key a row sees
+    if (lo > 0) first_tile = lo / kKeys;
+  }
 
   const long kv_stride = (long)KVH * Dh;
   const __nv_bfloat16* kbase = k + kvh * Dh;
@@ -222,7 +263,7 @@ __device__ __forceinline__ void flash_prefill_body(
       load_tile<Dh>(sV, vbase + tile * kKeys * kv_stride, kv_stride, S - tile * kKeys);
     cp_async_commit();
   };
-  issue_k(0);
+  issue_k(first_tile);
 
   // absolute query positions of this thread's two rows (gid and gid + 8),
   // and the warp's range
@@ -241,7 +282,7 @@ __device__ __forceinline__ void flash_prefill_body(
   const int k_row = (lane >> 4) * 8 + (lane & 7), k_col = ((lane >> 3) & 1) * 8;
   const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = (lane >> 4) * 8;
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = first_tile; tile < n_tiles; ++tile) {
     const int key0 = tile * kKeys;
     // this tile's K (and Q) have landed, for every thread, and the previous
     // tile is consumed; then this tile's V and the next tile's K start
@@ -251,9 +292,12 @@ __device__ __forceinline__ void flash_prefill_body(
     issue_k(tile + 1);
     const __nv_bfloat16* sK = sK0 + (tile & 1) * Sm::kTile;
 
-    // a warp skips a tile whose keys all lie after its rows
-    const bool live = key0 <= qmax;
-    const bool full = key0 + kKeys <= seq_len && key0 + kKeys - 1 <= qmin;
+    // a warp skips a tile whose keys all lie after its rows or, on a
+    // sliding layer, all at or below every row's window floor (qpos -
+    // window; the warp's first row has the lowest)
+    const bool live = key0 <= qmax && (window == 0 || key0 + kKeys - 1 > qmin - window);
+    const bool full = key0 + kKeys <= seq_len && key0 + kKeys - 1 <= qmin &&
+                      (window == 0 || key0 > qmax - window);
     float s[kKTiles][4];
     if (live) {
       // S = Q K^T for this warp's 16 rows x 64 keys; Q's fragments come
@@ -273,18 +317,21 @@ __device__ __forceinline__ void flash_prefill_body(
         }
       }
 
-      // scale into the log2 domain (masking only a tile on the diagonal
-      // or at seq_len), online softmax; element e of s[j] is row h = e / 2
-      // (gid or gid + 8), key j * 8 + tig * 2 + e % 2
+      // scale into the log2 domain and soft-cap, then mask (only a tile
+      // on the diagonal, at seq_len or at a window floor), online softmax;
+      // element e of s[j] is row h = e / 2 (gid or gid + 8), key j * 8 +
+      // tig * 2 + e % 2
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int j = 0; j < kKTiles; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = s[j][e] * scale_log2;
+          if (cap_log2 > 0.f) x = soft_cap(x, cap_log2);
           if (!full) {
             const int key = key0 + j * 8 + tig * 2 + (e & 1);
-            if (key >= seq_len || key > qpos[e >> 1]) x = -INFINITY;
+            const int qp = qpos[e >> 1];
+            if (key >= seq_len || key > qp || (window > 0 && key <= qp - window)) x = -INFINITY;
           }
           s[j][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -371,32 +418,33 @@ __device__ __forceinline__ void flash_prefill_body(
 }
 
 // K1 and K2 under names of their own, so a profile tells them apart;
-// three CTAs per SM
+// three CTAs per SM (two at Dh 256)
 template <int Dh>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, Tiling<Dh>::kMinBlocks)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, void* __restrict__ out, float* m_out,
                      float* l_out, int T, int H, int KVH, int S, int start_pos, int seq_len,
-                     float scale_log2) {
+                     int window, float scale_log2, float cap_log2) {
   flash_prefill_body<Dh, false>(q, k, v, out, m_out, l_out, T, H, KVH, S, start_pos, seq_len,
-                                scale_log2);
+                                window, scale_log2, cap_log2);
 }
 
 template <int Dh>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, Tiling<Dh>::kMinBlocks)
 flash_prefill_partial_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v, void* __restrict__ acc,
                              float* m_out, float* l_out, int T, int H, int KVH, int S,
-                             int start_pos, int seq_len, float scale_log2) {
+                             int start_pos, int seq_len, int window, float scale_log2,
+                             float cap_log2) {
   flash_prefill_body<Dh, true>(q, k, v, acc, m_out, l_out, T, H, KVH, S, start_pos, seq_len,
-                               scale_log2);
+                               window, scale_log2, cap_log2);
 }
 
 template <int Dh, bool Partial>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* m_out,
                    float* l_out, int T, int H, int KVH, int S, int start_pos, int seq_len,
-                   float scale, cudaStream_t stream) {
+                   int window, float scale, float softcap, cudaStream_t stream) {
   constexpr int smem = Smem<Dh>::kBytes;
   auto kernel = Partial ? flash_prefill_partial_kernel<Dh> : flash_prefill_kernel<Dh>;
   cudaError_t err =
@@ -407,24 +455,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), out, m_out, l_out, T, H, KVH, S, start_pos,
-      seq_len, scale * 1.4426950408889634f);
+      seq_len, window, scale * kLog2e, softcap * kLog2e);
   return cudaGetLastError();
 }
 
 template <bool Partial>
 int dispatch(const void* q, const void* k, const void* v, void* out, float* m_out, float* l_out,
-             int T, int H, int KVH, int Dh, int S, int start_pos, int seq_len, float scale,
-             void* stream) {
+             int T, int H, int KVH, int Dh, int S, int start_pos, int seq_len, int window,
+             float scale, float softcap, void* stream) {
   if (T <= 0) return 0;
-  if (H % KVH != 0) return (int)cudaErrorInvalidValue;
+  if (H % KVH != 0 || window < 0 || softcap < 0.f) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 64:
       return (int)launch<64, Partial>(q, k, v, out, m_out, l_out, T, H, KVH, S, start_pos,
-                                           seq_len, scale, st);
+                                      seq_len, window, scale, softcap, st);
     case 128:
-      return (int)launch<128, Partial>(q, k, v, out, m_out, l_out, T, H, KVH, S,
-                                            start_pos, seq_len, scale, st);
+      return (int)launch<128, Partial>(q, k, v, out, m_out, l_out, T, H, KVH, S, start_pos,
+                                       seq_len, window, scale, softcap, st);
+    case 256:
+      return (int)launch<256, Partial>(q, k, v, out, m_out, l_out, T, H, KVH, S, start_pos,
+                                       seq_len, window, scale, softcap, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -432,12 +483,15 @@ int dispatch(const void* q, const void* k, const void* v, void* out, float* m_ou
 
 }  // namespace
 
-// Returns a cudaError_t (0 = launched). Head dims 64 and 128 are compiled.
+// Returns a cudaError_t (0 = launched). Head dims 64, 128 and 256 are
+// compiled. window: the sliding window of this layer, 0 = global; softcap:
+// the attention logit soft-cap, 0 = off.
 extern "C" int dtt_flash_prefill_bf16(const void* q, const void* k, const void* v, void* out,
                                       int T, int H, int KVH, int Dh, int S, int start_pos,
-                                      int seq_len, float scale, void* stream) {
+                                      int seq_len, int window, float scale, float softcap,
+                                      void* stream) {
   return dispatch<false>(q, k, v, out, nullptr, nullptr, T, H, KVH, Dh, S, start_pos, seq_len,
-                         scale, stream);
+                         window, scale, softcap, stream);
 }
 
 // K2: acc [T, H, Dh], m and l [T, H], all f32; start_pos may be negative.
@@ -448,5 +502,5 @@ extern "C" int dtt_flash_prefill_partial_bf16(const void* q, const void* k, cons
                                               int seq_len, float scale, void* stream) {
   seq_len = seq_len < 0 ? 0 : (seq_len > S ? S : seq_len);
   return dispatch<true>(q, k, v, acc, static_cast<float*>(m), static_cast<float*>(l), T, H,
-                        KVH, Dh, S, start_pos, seq_len, scale, stream);
+                        KVH, Dh, S, start_pos, seq_len, 0, scale, 0.f, stream);
 }

@@ -6,15 +6,19 @@
 // `paged_attention_pallas` (dynamo_tpu/engine/attention.py), which the llama
 // decode step calls once per layer.
 //
-// Contract (the global-window case of the Pallas kernel): q [B, H, Dh]
-// bf16; one layer's pool k_cache/v_cache [NTOK, KVH*Dh] bf16 (token row =
-// block id * block_size + offset); block_tables [B, M] int32; seq_lens [B]
-// int32, the number of keys each sequence sees (the current token
-// included; keys past M * block_size are not read). A sequence with
-// seq_len 0 gets zeros; an inactive slot (position 0, zero table) reads the
-// trash block's row 0 and stays finite. Returns [B, H, Dh]. `scratch` is
-// f32 workspace the caller allocates when the plan below has more than one
-// split (B*KVH*splits*G*(Dh + 2) floats, layout in `Scratch`), else null.
+// Contract (the Pallas kernel without its MLA modes, `v_lanes` and
+// `quant_sections`): q [B, H, Dh] bf16, Dh 64, 128 or 256; one layer's pool
+// k_cache/v_cache [NTOK, KVH*Dh] bf16 (token row = block id * block_size +
+// offset); block_tables [B, M] int32; seq_lens [B] int32, the number of keys
+// each sequence sees (the current token included; keys past M * block_size
+// are not read); win_lo [B] int32 or null: on a sliding layer the keys at
+// or below win_lo[b] are masked (null: a global layer). softcap > 0: each
+// score s (after the scale) becomes softcap * tanh(s / softcap). A sequence
+// that sees no key (seq_len 0, or its window above its last key) gets
+// zeros; an inactive slot (position 0, zero table) reads the trash block's
+// row 0 and stays finite. Returns [B, H, Dh]. `scratch` is f32 workspace
+// the caller allocates when the plan below has more than one split
+// (B*KVH*splits*G*(Dh + 2) floats, layout in `Scratch`), else null.
 //
 // int8 mode (the Pallas kernel's `quant_lanes` mode): pool rows are C + 128
 // int8 lanes (C = KVH*Dh): the values, then the row's scale as an exponent
@@ -42,6 +46,15 @@
 //   from the table width, never from seq_lens (they live on the device). A
 //   CTA whose chunk starts at or after seq_len exits at once; split 0 of a
 //   zero-length sequence writes its zeros.
+// - Sliding window: a CTA whose chunk lies entirely at or below win_lo[b]
+//   exits at once too, as the Pallas kernel starts at its first in-window
+//   chunk, and the chunk that straddles the floor loads and scores only its
+//   keys above it, so no score is masked. The live splits of a sequence are
+//   [(win_lo + 1) / chunk, ceil(seq_len / chunk)), computed in the kernel
+//   from win_lo and seq_lens on the device (a CUDA graph replays the call
+//   with new values); the merge reads only those.
+// - Soft-cap in the log2 domain (softcap * log2(e) there), tanh from one
+//   exp2 and one fast division, accurate to a few f32 ulps of the cap.
 // - A CTA of 8 warps turns its chunk's table entries into one pool row per
 //   token (shared memory) while it loads q, then issues every K row of the
 //   chunk and then every V row as 16-byte `cp.async` copies (one KV head's
@@ -68,7 +81,8 @@
 // - Shared memory per CTA: 2 * chunk * (row bytes + 16) + f32 q and
 //   probabilities, 74-78 KB at bf16 Dh 128 (dynamic, above 48 KB after
 //   cudaFuncSetAttribute once per instantiation and device): 3 CTAs per
-//   SM, each with a whole chunk's loads in flight. With the compute left
+//   SM, each with a whole chunk's loads in flight; 137-148 KB at bf16 Dh
+//   256 (one CTA per SM), 75-85 KB at int8 Dh 256. With the compute left
 //   out the loads alone take ~90% of the full-batch time (PERF.md): the
 //   remaining gap to the byte floor is in how the gathered 256-byte row
 //   slices stream, not in the arithmetic.
@@ -77,12 +91,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "soft_cap.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunkTarget = 128;   // attention.DECODE_CHUNK_TOKENS
 constexpr int kMaxDevices = 64;
+
+// The live keys of sequence b: [lo, L), lo the first key above the window
+// floor (0 on a global layer); lo == L when it sees none
+struct Span {
+  int lo, L;
+  __device__ Span(const int* seq_lens, const int* win_lo, int b, int M, int block_size) {
+    L = min(seq_lens[b], M * block_size);
+    if (L < 0) L = 0;
+    lo = win_lo == nullptr ? 0 : min(max(win_lo[b] + 1, 0), L);
+  }
+};
 
 __host__ __device__ inline int chunk_tokens(int block_size) {
   return block_size * ((kChunkTarget + block_size - 1) / block_size);
@@ -198,9 +225,10 @@ __global__ void __launch_bounds__(kThreads)
 paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_cache,
                              const void* __restrict__ v_cache,
                              const int* __restrict__ block_tables,
-                             const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out,
+                             const int* __restrict__ seq_lens,
+                             const int* __restrict__ win_lo, __nv_bfloat16* __restrict__ out,
                              float* __restrict__ scratch, int H, int KVH, int M, int block_size,
-                             float scale_log2) {
+                             float scale_log2, float cap_log2) {
   using R = Row<Dh, kInt8>;
   constexpr int kTpt = Dh / 8;  // threads per row in P.V, 8 values each
   constexpr int kSubs = kThreads / kTpt;
@@ -209,16 +237,19 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __
   const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int chunk = chunk_tokens(block_size);
-  const int L = min(seq_lens[b], M * block_size);
+  const Span sp(seq_lens, win_lo, b, M, block_size);
   const int t0 = split * chunk;
   __nv_bfloat16* o = out + ((long)b * H + kvh * G) * Dh;
-  if (t0 >= L) {
+  if (sp.lo >= sp.L) {  // no key to see: split 0 writes the zeros
     if (split == 0)
       for (int i = tid; i < G * Dh; i += kThreads) o[i] = __float2bfloat16(0.f);
     return;
   }
-  const int n_tok = min(chunk, L - t0);
-  const int n_live = (L + chunk - 1) / chunk;
+  // the live splits [lo / chunk, ceil(L / chunk)); a dead one exits
+  if (t0 >= sp.L || t0 + chunk <= sp.lo) return;
+  const int t_begin = max(t0, sp.lo);  // the chunk's first live key
+  const int n_tok = min(t0 + chunk, sp.L) - t_begin;
+  const int n_live = (sp.L + chunk - 1) / chunk - sp.lo / chunk;
 
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* sK = smem;
@@ -230,9 +261,11 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __
   int* sRow = reinterpret_cast<int*>(sML + 2 * G);  // pool row of each token
   float* sAcc = reinterpret_cast<float*>(sK);  // [kWarps][G][Dh], after the scores
 
-  const int* table = block_tables + (long)b * M + t0 / block_size;
-  for (int t = tid; t < n_tok; t += kThreads)
-    sRow[t] = table[t / block_size] * block_size + t % block_size;
+  const int* table = block_tables + (long)b * M;
+  for (int t = tid; t < n_tok; t += kThreads) {
+    const int key = t_begin + t;
+    sRow[t] = table[key / block_size] * block_size + key % block_size;
+  }
   const __nv_bfloat16* qb = q + ((long)b * H + kvh * G) * Dh;
   for (int i = tid; i < G * Dh; i += kThreads) sQ[i] = __bfloat162float(qb[i]);
   __syncthreads();
@@ -292,7 +325,10 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __
     if (valid && half == 0) {
       const float ks = kInt8 ? row_scale(kr + Dh) * scale_log2 : scale_log2;
 #pragma unroll
-      for (int h = 0; h < G; ++h) sP[h * chunk + t] = dot[h] * ks;
+      for (int h = 0; h < G; ++h) {
+        const float x = dot[h] * ks;
+        sP[h * chunk + t] = cap_log2 > 0.f ? soft_cap(x, cap_log2) : x;
+      }
     }
   }
   __syncthreads();
@@ -401,7 +437,8 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __
 }
 
 // One CTA per (KV head, sequence): the live splits' partials merged in
-// index order; sequences with one live split were written by their split.
+// index order; sequences with one live split were written by their split,
+// and a sliding layer's splits below the window wrote nothing.
 // Every split's (m, l) comes into shared memory in one parallel load, the
 // weights exp2(m_s - max m) and 1 / sum(w l) are formed once per head, and
 // each thread then sums 4 lanes of acc over the splits with independent
@@ -409,22 +446,24 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __
 template <int Dh, int G>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_merge_kernel(const float* __restrict__ scratch, const int* __restrict__ seq_lens,
-                             __nv_bfloat16* __restrict__ out, int H, int KVH, int M,
-                             int block_size, int S) {
+                             const int* __restrict__ win_lo, __nv_bfloat16* __restrict__ out,
+                             int H, int KVH, int M, int block_size, int S) {
   extern __shared__ float sW[];  // [S][G] m, then weights; [S][G] l; [G] 1/den
   float* sL = sW + S * G;
   float* sInv = sL + S * G;
   const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int chunk = chunk_tokens(block_size);
-  const int L = min(seq_lens[b], M * block_size);
-  const int n = (L + chunk - 1) / chunk;
+  const Span sp(seq_lens, win_lo, b, M, block_size);
+  const int s0 = sp.lo / chunk;  // the first live split
+  const int n = sp.lo >= sp.L ? 0 : (sp.L + chunk - 1) / chunk - s0;
   // launched early (programmatic dependent launch): every CTA waits here
   // for the split kernel's grid to finish and its writes to land, so that
   // what follows in the stream is ordered after both kernels
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   if (n <= 1) return;
   Scratch<Dh, G> sc(const_cast<float*>(scratch), gridDim.y, KVH, S);
-  const long slot0 = ((long)b * KVH + kvh) * S * G;
+  // the live splits' partials, from split s0 on
+  const long slot0 = (((long)b * KVH + kvh) * S + s0) * G;
   for (int i = tid; i < n * G; i += kThreads) {
     sW[i] = sc.m[slot0 + i];
     sL[i] = sc.l[slot0 + i];
@@ -485,8 +524,9 @@ cudaError_t ensure_smem(size_t bytes) {
 
 template <int Dh, int G, bool kInt8>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tables,
-                   const int* seq_lens, void* out, void* scratch, int B, int H, int KVH, int M,
-                   int block_size, float scale, cudaStream_t stream) {
+                   const int* seq_lens, const int* win_lo, void* out, void* scratch, int B, int H,
+                   int KVH, int M, int block_size, float scale, float softcap,
+                   cudaStream_t stream) {
   const int chunk = chunk_tokens(block_size);
   const int splits = (M * block_size + chunk - 1) / chunk;
   const size_t merge_smem = sizeof(float) * (2 * (size_t)splits * G + G);
@@ -497,8 +537,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   float* sc = static_cast<float*>(scratch);
   paged_attention_split_kernel<Dh, G, kInt8><<<dim3(KVH, B, splits), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), k, v, tables, seq_lens, o, sc, H, KVH, M, block_size,
-      scale * 1.4426950408889634f);
+      static_cast<const __nv_bfloat16*>(q), k, v, tables, seq_lens, win_lo, o, sc, H, KVH, M,
+      block_size, scale * kLog2e, softcap * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   // programmatic dependent launch: the merge's launch overlaps the split
@@ -514,73 +554,81 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, paged_attention_merge_kernel<Dh, G>,
-                           static_cast<const float*>(sc), seq_lens, o, H, KVH, M, block_size,
-                           splits);
+                           static_cast<const float*>(sc), seq_lens, win_lo, o, H, KVH, M,
+                           block_size, splits);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+#define DTT_PAGED_ARGS                                                                     \
+  q, k, v, tables, seq_lens, win_lo, out, scratch, B, H, KVH, M, block_size, scale, softcap, \
+      stream
+
 template <int Dh, bool kInt8>
 cudaError_t launch_g(int g, const void* q, const void* k, const void* v, const int* tables,
-                     const int* seq_lens, void* out, void* scratch, int B, int H, int KVH, int M,
-                     int block_size, float scale, cudaStream_t stream) {
+                     const int* seq_lens, const int* win_lo, void* out, void* scratch, int B,
+                     int H, int KVH, int M, int block_size, float scale, float softcap,
+                     cudaStream_t stream) {
   switch (g) {
     case 1:
-      return launch<Dh, 1, kInt8>(q, k, v, tables, seq_lens, out, scratch, B, H, KVH, M,
-                                  block_size, scale, stream);
+      return launch<Dh, 1, kInt8>(DTT_PAGED_ARGS);
     case 2:
-      return launch<Dh, 2, kInt8>(q, k, v, tables, seq_lens, out, scratch, B, H, KVH, M,
-                                  block_size, scale, stream);
+      return launch<Dh, 2, kInt8>(DTT_PAGED_ARGS);
     case 4:
-      return launch<Dh, 4, kInt8>(q, k, v, tables, seq_lens, out, scratch, B, H, KVH, M,
-                                  block_size, scale, stream);
+      return launch<Dh, 4, kInt8>(DTT_PAGED_ARGS);
     case 8:
-      return launch<Dh, 8, kInt8>(q, k, v, tables, seq_lens, out, scratch, B, H, KVH, M,
-                                  block_size, scale, stream);
+      return launch<Dh, 8, kInt8>(DTT_PAGED_ARGS);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 template <bool kInt8>
-int dispatch(const void* q, const void* k_cache, const void* v_cache, const void* block_tables,
-             const void* seq_lens, void* out, void* scratch, int B, int H, int KVH, int Dh, int M,
-             int block_size, float scale, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, const void* block_tables,
+             const void* lens, const void* win, void* out, void* scratch, int B, int H, int KVH,
+             int Dh, int M, int block_size, float scale, float softcap, void* stream_ptr) {
   if (B <= 0) return 0;
-  if (H % KVH != 0 || M <= 0 || block_size <= 0) return (int)cudaErrorInvalidValue;
+  if (H % KVH != 0 || M <= 0 || block_size <= 0 || softcap < 0.f)
+    return (int)cudaErrorInvalidValue;
   const int g = H / KVH;
   const int* tables = static_cast<const int*>(block_tables);
-  const int* lens = static_cast<const int*>(seq_lens);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* seq_lens = static_cast<const int*>(lens);
+  const int* win_lo = static_cast<const int*>(win);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (Dh) {
     case 64:
-      return (int)launch_g<64, kInt8>(g, q, k_cache, v_cache, tables, lens, out, scratch, B, H,
-                                      KVH, M, block_size, scale, st);
+      return (int)launch_g<64, kInt8>(g, DTT_PAGED_ARGS);
     case 128:
-      return (int)launch_g<128, kInt8>(g, q, k_cache, v_cache, tables, lens, out, scratch, B, H,
-                                       KVH, M, block_size, scale, st);
+      return (int)launch_g<128, kInt8>(g, DTT_PAGED_ARGS);
+    case 256:
+      return (int)launch_g<256, kInt8>(g, DTT_PAGED_ARGS);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+#undef DTT_PAGED_ARGS
+
 }  // namespace
 
-// Both return a cudaError_t (0 = launched). Head dims 64/128 and GQA group
-// sizes 1/2/4/8 are compiled. The int8 entry takes pools of KVH*Dh + 128
-// int8 lanes per row. `scratch`: see the contract above.
+// Both return a cudaError_t (0 = launched). Head dims 64/128/256 and GQA
+// group sizes 1/2/4/8 are compiled. The int8 entry takes pools of KVH*Dh +
+// 128 int8 lanes per row. `win_lo`: [B] int32 or null (a global layer);
+// `softcap`: 0 = off. `scratch`: see the contract above.
 extern "C" int dtt_paged_attention_bf16(const void* q, const void* k_cache, const void* v_cache,
                                         const void* block_tables, const void* seq_lens,
-                                        void* out, void* scratch, int B, int H, int KVH, int Dh,
-                                        int M, int block_size, float scale, void* stream) {
-  return dispatch<false>(q, k_cache, v_cache, block_tables, seq_lens, out, scratch, B, H, KVH, Dh,
-                         M, block_size, scale, stream);
+                                        const void* win_lo, void* out, void* scratch, int B,
+                                        int H, int KVH, int Dh, int M, int block_size,
+                                        float scale, float softcap, void* stream) {
+  return dispatch<false>(q, k_cache, v_cache, block_tables, seq_lens, win_lo, out, scratch, B,
+                         H, KVH, Dh, M, block_size, scale, softcap, stream);
 }
 
 extern "C" int dtt_paged_attention_int8(const void* q, const void* k_cache, const void* v_cache,
                                         const void* block_tables, const void* seq_lens,
-                                        void* out, void* scratch, int B, int H, int KVH, int Dh,
-                                        int M, int block_size, float scale, void* stream) {
-  return dispatch<true>(q, k_cache, v_cache, block_tables, seq_lens, out, scratch, B, H, KVH, Dh,
-                        M, block_size, scale, stream);
+                                        const void* win_lo, void* out, void* scratch, int B,
+                                        int H, int KVH, int Dh, int M, int block_size,
+                                        float scale, float softcap, void* stream) {
+  return dispatch<true>(q, k_cache, v_cache, block_tables, seq_lens, win_lo, out, scratch, B, H,
+                        KVH, Dh, M, block_size, scale, softcap, stream);
 }

@@ -6,14 +6,18 @@
 // `ragged_paged_attention_pallas` (dynamo_tpu/engine/attention.py:1255),
 // which the llama ragged forward calls once per layer.
 //
-// Contract (the global-window, uncapped case of the Pallas kernel): q
-// [TT, H, Dh] bf16 flat token rows; one layer's pool k_cache/v_cache
-// [NTOK, KVH*Dh] bf16 (token row = block id * block_size + offset);
-// block_tables [S, M] int32; seq_starts, seq_counts, seq_lens [S] int32.
-// Sequence s owns the rows [starts[s], starts[s] + counts[s]) at the
-// consecutive positions pos0 .. seq_lens[s] - 1 (pos0 = seq_lens[s] -
+// Contract (the Pallas kernel without its MLA modes, `v_lanes` and
+// `quant_sections`): q [TT, H, Dh] bf16 flat token rows, Dh 64, 128 or
+// 256; one layer's pool k_cache/v_cache [NTOK, KVH*Dh] bf16 (token row =
+// block id * block_size + offset); block_tables [S, M] int32; seq_starts,
+// seq_counts, seq_lens [S] int32; win_base [S] int32 or null (a global
+// layer). Sequence s owns the rows [starts[s], starts[s] + counts[s]) at
+// the consecutive positions pos0 .. seq_lens[s] - 1 (pos0 = seq_lens[s] -
 // counts[s]); its row r attends the keys kv_pos <= pos0 + r (keys past M *
-// block_size are not read). A count of 0 skips the sequence. At most
+// block_size are not read) and, with win_base, kv_pos > win_base[s] + r (a
+// global layer's sentinel, -2^30, never masks). softcap > 0: each score s
+// (after the scale) becomes softcap * tanh(s / softcap) before the mask. A
+// count of 0 skips the sequence. At most
 // max_rows rows of a sequence are computed. Only owned rows are written:
 // the caller zero-fills `out`, so a row no sequence owns reads as zeros.
 // (The TPU kernel writes a static window of Lmax rows per sequence and
@@ -85,24 +89,43 @@
 //   with m = -inf weighs 0), with 16 loads of partials in flight per
 //   thread. The atomic decides who merges, never the order, so two calls
 //   give the same bits, and the call stays one launch.
+// - Sliding window: the first row of a tile has the lowest floor, so the
+//   keys at or below win_base + r0 are dead for every row of the tile: the
+//   chunks entirely below it exit at once (the Pallas kernel's wave skip,
+//   computed here from win_base on the device), the chunk that straddles it
+//   starts at its first 32-key tile with a live key, and the merge reads
+//   only the live chunks. Each (row, key) is masked at its own floor.
+// - Soft-cap in the log2 domain (softcap * log2(e) there), tanh from one
+//   exp2 and one fast division, accurate to a few f32 ulps of the cap.
 // - Shared memory at Dh 128: 17 KB of Q plus a 52 KB ring in bf16 (the int8
 //   ring is 28 KB plus 17 KB of converted tiles): three CTAs of 4 warps
-//   share an SM, at most 168 registers each (launch bounds).
+//   share an SM, at most 168 registers each (launch bounds). At Dh 256 the
+//   output accumulator alone is 128 registers a thread and Q 33 KB: two
+//   stages of K and V in flight (66 KB in bf16; 34 KB plus 33 KB of
+//   converted tiles in int8), two CTAs per SM at up to 255 registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "soft_cap.cuh"
+
 namespace {
 
 constexpr int kRows = 64;           // (row, head) query vectors per CTA
 constexpr int kKeys = 32;           // keys per KV tile
-constexpr int kStages = 3;          // KV tiles in flight
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMinBlocks = 3;       // CTAs per SM the budget is sized for
 constexpr int kChunkTarget = 128;   // attention.DECODE_CHUNK_TOKENS
 constexpr int kMaxDevices = 64;
+
+// KV tiles in flight and the CTAs per SM the budget is sized for, by head
+// dim (Dh 256: the accumulator takes 128 registers, Q 33 KB)
+template <int Dh>
+struct Tiling {
+  static constexpr int kStages = Dh == 256 ? 2 : 3;
+  static constexpr int kMinBlocks = Dh == 256 ? 2 : 3;
+};
 
 __host__ __device__ inline int chunk_tokens(int block_size) {
   return block_size * ((kChunkTarget + block_size - 1) / block_size);
@@ -124,7 +147,7 @@ struct Smem {
   static constexpr int kConv = kInt8 ? 2 * kKeys * kStride * 2 : 0;
   static constexpr int kScales = kInt8 ? 2 * kKeys * 4 : 0;
   static size_t bytes(int chunk) {
-    return (size_t)kQ + 2 * kStages * kTile + kConv + kScales + 4 * (size_t)chunk;
+    return (size_t)kQ + 2 * Tiling<Dh>::kStages * kTile + kConv + kScales + 4 * (size_t)chunk;
   }
 };
 
@@ -251,15 +274,16 @@ __device__ __forceinline__ void convert_tile(__nv_bfloat16* dst, float* scales,
 }
 
 template <int Dh, bool kInt8>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, Tiling<Dh>::kMinBlocks)
 ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_cache,
                         const void* __restrict__ v_cache, const int* __restrict__ block_tables,
                         const int* __restrict__ seq_starts, const int* __restrict__ seq_counts,
-                        const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out,
-                        float* __restrict__ scratch, int* __restrict__ tickets, int TT, int H,
-                        int KVH, int M, int block_size, int splits, int row_tiles,
-                        float scale_log2) {
+                        const int* __restrict__ seq_lens, const int* __restrict__ win_base,
+                        __nv_bfloat16* __restrict__ out, float* __restrict__ scratch,
+                        int* __restrict__ tickets, int TT, int H, int KVH, int M, int block_size,
+                        int splits, int row_tiles, float scale_log2, float cap_log2) {
   using L = Smem<Dh, kInt8>;
+  constexpr int kStages = Tiling<Dh>::kStages;
   constexpr int kStride = L::kStride;
   constexpr int kDSteps = Dh / 16;  // k-steps of the QK^T product
   constexpr int kDTiles = Dh / 8;   // n-tiles of the PV product
@@ -283,10 +307,20 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
   // each key)
   const int n_vec = min(rows_per_cta, Ls - r0) * g;
   const int chunk = chunk_tokens(bs) * chunk_mult(n_vec);
-  const int key0 = split * chunk;
-  if (key0 >= n_keys) return;
-  const int n_chunk = min(chunk, n_keys - key0);
-  const int n_live = (n_keys + chunk - 1) / chunk;
+  // sliding window: each row r masks the keys at or below win_base + r, so
+  // the keys below k_lo (above the tile's first row's floor) are dead for
+  // the whole tile; a global layer's sentinel leaves k_lo at 0
+  const bool windowed = win_base != nullptr;
+  const int wb = windowed ? win_base[s] : 0;
+  const int k_lo = windowed ? min(max(wb + r0 + 1, 0), n_keys - 1) : 0;
+  // the live chunks [k_lo / chunk, ceil(n_keys / chunk)); a dead one exits
+  const int c_first = k_lo / chunk;
+  if (split < c_first || split * chunk >= n_keys) return;
+  const int n_live = (n_keys + chunk - 1) / chunk - c_first;
+  // the chunk from its first 32-key tile with a live key
+  const int kt0 = max(k_lo - split * chunk, 0) / kKeys;
+  const int key0 = split * chunk + kt0 * kKeys;
+  const int n_chunk = min(split * chunk + chunk, n_keys) - key0;
   const int C = KVH * Dh;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4;
@@ -330,10 +364,12 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
     cp_async_commit();
   }
 
-  // rows and absolute positions of this thread's two vectors
+  // rows, absolute positions and window floors (-1 on a global layer) of
+  // this thread's two vectors
   const int V0 = warp * 16 + gid, V1 = V0 + 8;
   const int row0 = r0 + V0 / g, row1 = r0 + V1 / g;
   const int qpos0 = pos0 + row0, qpos1 = pos0 + row1;
+  const int wlo0 = windowed ? wb + row0 : -1, wlo1 = windowed ? wb + row1 : -1;
 
   float o[kDTiles][4];
 #pragma unroll
@@ -380,7 +416,8 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
       }
     }
 
-    // per-(row, key) mask, scale into the log2 domain, online softmax
+    // scale into the log2 domain, soft-cap, per-(row, key) mask (causal
+    // and window floor), online softmax
     const int kend = key0 + n_chunk;
     float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -391,8 +428,13 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
         const int key = key0 + kl;
         const bool ok = key < kend;
         const float mul = kInt8 ? sScale[kl - it * kKeys] : scale_log2;
-        const float a = (ok && key <= qpos0) ? sc[j][e] * mul : -INFINITY;
-        const float b = (ok && key <= qpos1) ? sc[j][2 + e] * mul : -INFINITY;
+        float a = sc[j][e] * mul, b = sc[j][2 + e] * mul;
+        if (cap_log2 > 0.f) {
+          a = soft_cap(a, cap_log2);
+          b = soft_cap(b, cap_log2);
+        }
+        a = (ok && key <= qpos0 && key > wlo0) ? a : -INFINITY;
+        b = (ok && key <= qpos1 && key > wlo1) ? b : -INFINITY;
         sc[j][e] = a;
         sc[j][2 + e] = b;
         mx0 = fmaxf(mx0, a);
@@ -539,13 +581,14 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
   __syncthreads();
   if (!sLast) return;
 
-  // the last chunk to finish merges the item's chunks in index order: per
+  // the last chunk to finish merges the item's live chunks (from c_first
+  // on) in index order: per
   // live vector the max of the chunks' m and 1 / sum(w l) with w =
   // exp2(m_c - max); then acc summed over the chunks, each thread keeping
   // kMergeItems x kMergeSplits 16-byte loads from L2 in flight
   if (tid < n_vec) {
     const int r = r0 + tid / g;
-    const long base = (((long)(start + r) * KVH + kvh) * splits) * g + tid % g;
+    const long base = (((long)(start + r) * KVH + kvh) * splits + c_first) * g + tid % g;
     // (m, l) of all the chunks in flight at once, eight at a time; the
     // max and the sum are then taken in index order
     float mv[8], lv[8];
@@ -580,7 +623,7 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
 #pragma unroll
     for (int u = 0; u < kMergeItems; ++u) {
       const int v = min(i0 + u * kThreads, n_items - 1) / kQuads;
-      base[u] = (((long)(start + r0 + v / g) * KVH + kvh) * splits) * g + v % g;
+      base[u] = (((long)(start + r0 + v / g) * KVH + kvh) * splits + c_first) * g + v % g;
       acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     for (int c0 = 0; c0 < n_live; c0 += kMergeSplits) {
@@ -628,7 +671,7 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
 
 // Raise the instantiation's dynamic shared-memory limit on the current
 // device once, and ask for the largest shared-memory carveout so that
-// kMinBlocks CTAs fit an SM.
+// Tiling<Dh>::kMinBlocks CTAs fit an SM.
 template <int Dh, bool kInt8>
 cudaError_t ensure_smem(size_t bytes) {
   static size_t granted[kMaxDevices] = {};
@@ -649,9 +692,10 @@ cudaError_t ensure_smem(size_t bytes) {
 
 template <int Dh, bool kInt8>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tables,
-                   const int* starts, const int* counts, const int* lens, void* out,
-                   void* scratch, void* tickets, int TT, int S, int H, int KVH, int M,
-                   int max_rows, int block_size, float scale, cudaStream_t stream) {
+                   const int* starts, const int* counts, const int* lens, const int* win_base,
+                   void* out, void* scratch, void* tickets, int TT, int S, int H, int KVH, int M,
+                   int max_rows, int block_size, float scale, float softcap,
+                   cudaStream_t stream) {
   const int chunk = chunk_tokens(block_size);
   const int splits = (M * block_size + chunk - 1) / chunk;
   if (splits > 1 && (scratch == nullptr || tickets == nullptr)) return cudaErrorInvalidValue;
@@ -663,66 +707,76 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
   if (err != cudaSuccess) return err;
   dim3 grid(row_tiles * splits, KVH, S);
   ragged_attention_kernel<Dh, kInt8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), k, v, tables, starts, counts, lens,
+      static_cast<const __nv_bfloat16*>(q), k, v, tables, starts, counts, lens, win_base,
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(scratch), static_cast<int*>(tickets),
-      TT, H, KVH, M, block_size, splits, row_tiles, scale * 1.4426950408889634f);
+      TT, H, KVH, M, block_size, splits, row_tiles, scale * kLog2e, softcap * kLog2e);
   return cudaGetLastError();
 }
 
+#define DTT_RAGGED_ARGS                                                                   \
+  q, k_cache, v_cache, tables, starts, counts, lens, win, out, scratch, tickets, TT, S, H, \
+      KVH, M, max_rows, block_size, scale, softcap, st
+
 template <bool kInt8>
 int dispatch(const void* q, const void* k_cache, const void* v_cache, const void* block_tables,
-             const void* seq_starts, const void* seq_counts, const void* seq_lens, void* out,
-             void* scratch, void* tickets, int TT, int S, int H, int KVH, int Dh, int M,
-             int max_rows, int block_size, float scale, void* stream) {
+             const void* seq_starts, const void* seq_counts, const void* seq_lens,
+             const void* win_base, void* out, void* scratch, void* tickets, int TT, int S, int H,
+             int KVH, int Dh, int M, int max_rows, int block_size, float scale, float softcap,
+             void* stream) {
   if (TT <= 0 || S <= 0 || max_rows <= 0) return 0;
-  if (KVH <= 0 || H % KVH != 0 || M <= 0 || block_size <= 0) return (int)cudaErrorInvalidValue;
+  if (KVH <= 0 || H % KVH != 0 || M <= 0 || block_size <= 0 || softcap < 0.f)
+    return (int)cudaErrorInvalidValue;
   const int g = H / KVH;
   if (g != 1 && g != 2 && g != 4 && g != 8) return (int)cudaErrorInvalidValue;
   const int* tables = static_cast<const int*>(block_tables);
   const int* starts = static_cast<const int*>(seq_starts);
   const int* counts = static_cast<const int*>(seq_counts);
   const int* lens = static_cast<const int*>(seq_lens);
+  const int* win = static_cast<const int*>(win_base);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 64:
-      return (int)launch<64, kInt8>(q, k_cache, v_cache, tables, starts, counts, lens, out,
-                                    scratch, tickets, TT, S, H, KVH, M, max_rows, block_size,
-                                    scale, st);
+      return (int)launch<64, kInt8>(DTT_RAGGED_ARGS);
     case 128:
-      return (int)launch<128, kInt8>(q, k_cache, v_cache, tables, starts, counts, lens, out,
-                                     scratch, tickets, TT, S, H, KVH, M, max_rows, block_size,
-                                     scale, st);
+      return (int)launch<128, kInt8>(DTT_RAGGED_ARGS);
+    case 256:
+      return (int)launch<256, kInt8>(DTT_RAGGED_ARGS);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+#undef DTT_RAGGED_ARGS
+
 }  // namespace
 
-// Both return a cudaError_t (0 = launched). Head dims 64/128 and GQA group
-// sizes 1/2/4/8 are compiled. `out` must be zero-filled by the caller (only
-// owned rows are written). The int8 entry takes pools of KVH*Dh + 128 int8
-// lanes per row. `scratch`, `tickets`: see the contract above.
+// Both return a cudaError_t (0 = launched). Head dims 64/128/256 and GQA
+// group sizes 1/2/4/8 are compiled. `out` must be zero-filled by the caller
+// (only owned rows are written). The int8 entry takes pools of KVH*Dh + 128
+// int8 lanes per row. `win_base`: [S] int32 or null (a global layer);
+// `softcap`: 0 = off. `scratch`, `tickets`: see the contract above.
 extern "C" int dtt_ragged_paged_attention_bf16(const void* q, const void* k_cache,
                                                const void* v_cache, const void* block_tables,
                                                const void* seq_starts, const void* seq_counts,
-                                               const void* seq_lens, void* out, void* scratch,
-                                               void* tickets, int TT, int S, int H, int KVH,
-                                               int Dh, int M, int max_rows, int block_size,
-                                               float scale, void* stream) {
+                                               const void* seq_lens, const void* win_base,
+                                               void* out, void* scratch, void* tickets, int TT,
+                                               int S, int H, int KVH, int Dh, int M,
+                                               int max_rows, int block_size, float scale,
+                                               float softcap, void* stream) {
   return dispatch<false>(q, k_cache, v_cache, block_tables, seq_starts, seq_counts, seq_lens,
-                         out, scratch, tickets, TT, S, H, KVH, Dh, M, max_rows, block_size,
-                         scale, stream);
+                         win_base, out, scratch, tickets, TT, S, H, KVH, Dh, M, max_rows,
+                         block_size, scale, softcap, stream);
 }
 
 extern "C" int dtt_ragged_paged_attention_int8(const void* q, const void* k_cache,
                                                const void* v_cache, const void* block_tables,
                                                const void* seq_starts, const void* seq_counts,
-                                               const void* seq_lens, void* out, void* scratch,
-                                               void* tickets, int TT, int S, int H, int KVH,
-                                               int Dh, int M, int max_rows, int block_size,
-                                               float scale, void* stream) {
+                                               const void* seq_lens, const void* win_base,
+                                               void* out, void* scratch, void* tickets, int TT,
+                                               int S, int H, int KVH, int Dh, int M,
+                                               int max_rows, int block_size, float scale,
+                                               float softcap, void* stream) {
   return dispatch<true>(q, k_cache, v_cache, block_tables, seq_starts, seq_counts, seq_lens,
-                        out, scratch, tickets, TT, S, H, KVH, Dh, M, max_rows, block_size,
-                        scale, stream);
+                        win_base, out, scratch, tickets, TT, S, H, KVH, Dh, M, max_rows,
+                        block_size, scale, softcap, stream);
 }

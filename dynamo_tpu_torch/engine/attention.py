@@ -17,7 +17,10 @@ plain form for the tests. The public
 functions dispatch on the tensor's device alone: a CPU tensor takes the
 plain version, a CUDA tensor launches the hand-written kernel
 (``engine/kernels.py``, sources under ``csrc/``) or raises. There is no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version. Both take every mode a
+gemma2 model needs (logit soft-capping, sliding windows, head dim 256);
+neither takes the MLA modes of the JAX kernels (``v_lanes``,
+``quant_sections``).
 """
 
 from __future__ import annotations
@@ -127,20 +130,18 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   sliding: bool = False, window: Optional[int] = None,
                   softcap: Optional[float] = None) -> torch.Tensor:
     """Causal attention for one prefill chunk (contract of
-    ``dynamo_tpu.engine.attention.flash_prefill``). CPU tensors take the
-    plain version; CUDA tensors run ``csrc/flash_prefill.cu``, which
-    implements the global-window, uncapped case and refuses the rest."""
+    ``dynamo_tpu.engine.attention.flash_prefill``; ``window`` applies where
+    ``sliding`` is set, ``softcap`` None or 0 is off). CPU tensors take the
+    plain version; CUDA tensors run ``csrc/flash_prefill.cu``."""
     if not q.is_cuda:
         return flash_prefill_ref(q, k, v, scale=scale, start_pos=start_pos,
                                  seq_len=seq_len, sliding=sliding,
                                  window=window, softcap=softcap)
-    if softcap or (window is not None and sliding):
-        raise NotImplementedError(
-            "the CUDA flash_prefill kernel implements neither logit "
-            "soft-capping nor sliding windows")
     from .kernels import flash_prefill_cuda
-    return flash_prefill_cuda(q, k, v, scale=scale, start_pos=start_pos,
-                              seq_len=seq_len)
+    return flash_prefill_cuda(
+        q, k, v, scale=scale, start_pos=start_pos, seq_len=seq_len,
+        window=window if window is not None and sliding else 0,
+        softcap=softcap or 0.0)
 
 
 def flash_prefill_partial_ref(q: torch.Tensor, k: torch.Tensor,
@@ -358,24 +359,21 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     softcap: Optional[float] = None,
                     win_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Decode attention over the paged pool (contract of
-    ``dynamo_tpu.engine.attention.paged_attention``). CPU tensors take the
-    plain version; CUDA tensors run ``csrc/paged_attention.cu``, which
-    implements the global-window, uncapped case over a bf16 pool or an
-    int8 pool with in-row scales, and refuses the rest."""
+    ``dynamo_tpu.engine.attention.paged_attention``; ``win_lo`` None is a
+    global layer). CPU tensors take the plain version; CUDA tensors run
+    ``csrc/paged_attention.cu`` over a bf16 pool or an int8 pool with
+    in-row scales."""
     if not q.is_cuda:
         return paged_attention_ref(q, k_cache, v_cache, block_tables,
                                    seq_lens, block_size=block_size,
                                    scale=scale, softcap=softcap,
                                    win_lo=win_lo)
-    if softcap or win_lo is not None:
-        raise NotImplementedError(
-            "the CUDA paged_attention kernel implements neither logit "
-            "soft-capping nor sliding windows")
     from .kernels import paged_attention_cuda, paged_attention_int8_cuda
     fn = (paged_attention_int8_cuda if k_cache.dtype == torch.int8
           else paged_attention_cuda)
     return fn(q, k_cache, v_cache, block_tables, seq_lens,
-              block_size=block_size, scale=scale)
+              block_size=block_size, scale=scale, softcap=softcap or 0.0,
+              win_lo=win_lo)
 
 
 # ---------------------------------------------------------------------------
@@ -538,24 +536,19 @@ def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Returns [TT, H, Dh] in q's dtype; rows no sequence owns are zeros.
 
     CPU tensors take the plain version; CUDA tensors run
-    ``csrc/ragged_paged_attention.cu`` (K4), which implements the
-    global-window, uncapped case and refuses the rest. The kernel's
-    shape rule (not the TPU kernel's VMEM budget, ``ragged_supported``):
-    Dh 64 or 128, H/KVH in {1, 2, 4, 8}, the pool's rows a whole number
-    of blocks; any row budget."""
+    ``csrc/ragged_paged_attention.cu`` (K4). The kernel's shape rule (not
+    the TPU kernel's VMEM budget, ``ragged_supported``): Dh 64, 128 or
+    256, H/KVH in {1, 2, 4, 8}, the pool's rows a whole number of blocks;
+    any row budget."""
     if not q.is_cuda:
         return ragged_paged_attention_ref(
             q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
             seq_lens, block_size=block_size, scale=scale, max_rows=max_rows,
             softcap=softcap, win_base=win_base)
-    if softcap or win_base is not None:
-        raise NotImplementedError(
-            "the CUDA ragged_paged_attention kernel implements neither "
-            "logit soft-capping nor sliding windows")
     from .kernels import (ragged_paged_attention_cuda,
                           ragged_paged_attention_int8_cuda)
     fn = (ragged_paged_attention_int8_cuda if k_cache.dtype == torch.int8
           else ragged_paged_attention_cuda)
     return fn(q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
               seq_lens, block_size=block_size, scale=scale,
-              max_rows=max_rows)
+              max_rows=max_rows, softcap=softcap or 0.0, win_base=win_base)

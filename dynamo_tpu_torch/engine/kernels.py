@@ -4,8 +4,8 @@ The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface under ``build/dynamo_tpu_torch/``
 (one ``nvcc -c`` per source, all started together, then one link), and
 loaded with ``ctypes``. The library's file name carries a hash of the
-sources and flags, so an edited source rebuilds and a stale library is
-never loaded.
+sources, the headers they include and the flags, so an edited source
+rebuilds and a stale library is never loaded.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output (``torch.empty``, or ``torch.zeros`` where the kernel writes only
@@ -42,6 +42,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "dynamo_tpu_torch")
 SOURCES = ("flash_prefill.cu", "paged_attention.cu", "lm_head_int8.cu",
            "grouped_int4_matmul.cu", "ragged_paged_attention.cu")
+# the headers the sources include: hashed with them, never compiled alone
+HEADERS = ("soft_cap.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -62,7 +64,7 @@ class _Library:
 
     def _digest(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for name in SOURCES:
+        for name in SOURCES + HEADERS:
             with open(os.path.join(CSRC_DIR, name), "rb") as f:
                 h.update(name.encode() + f.read())
         return h.hexdigest()[:16]
@@ -109,7 +111,8 @@ class _Library:
                 lib = ctypes.CDLL(self.build())
                 vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
                 lib.dtt_flash_prefill_bf16.argtypes = [
-                    vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, vp]
+                    vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, cf,
+                    vp]
                 lib.dtt_flash_prefill_bf16.restype = ci
                 lib.dtt_flash_prefill_partial_bf16.argtypes = [
                     vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf,
@@ -118,14 +121,15 @@ class _Library:
                 for name in ("dtt_paged_attention_bf16",
                              "dtt_paged_attention_int8"):
                     fn = getattr(lib, name)
-                    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                   ci, ci, ci, cf, vp]
+                    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                   ci, ci, ci, ci, cf, cf, vp]
                     fn.restype = ci
                 for name in ("dtt_ragged_paged_attention_bf16",
                              "dtt_ragged_paged_attention_int8"):
                     fn = getattr(lib, name)
                     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                   ci, ci, ci, ci, ci, ci, ci, ci, cf, vp]
+                                   vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, cf,
+                                   vp]
                     fn.restype = ci
                 lib.dtt_lm_head_int8.argtypes = [vp, vp, vp, vp, ci, ci, ci,
                                                  vp]
@@ -200,6 +204,10 @@ def add_launches(counts: Dict[str, int]) -> None:
         KERNELS[name].launches += n
 
 
+# the head dims the attention kernels (K1-K4) are compiled for
+HEAD_DIMS = (64, 128, 256)
+
+
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor (got {t.device})")
@@ -213,22 +221,32 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _check_softcap(kernel: Kernel, softcap: float) -> float:
+    if not softcap >= 0:
+        raise ValueError(f"{kernel.name}: softcap {softcap} (0 = off)")
+    return float(softcap)
+
+
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       scale: float, start_pos: int,
-                       seq_len: int) -> torch.Tensor:
-    """q [T, H, Dh], k/v [S, KVH, Dh] bf16 → [T, H, Dh] (csrc/flash_prefill.cu)."""
+                       scale: float, start_pos: int, seq_len: int,
+                       window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """q [T, H, Dh], k/v [S, KVH, Dh] bf16 → [T, H, Dh] (csrc/flash_prefill.cu).
+    ``window``: this layer's sliding window (0: a global layer);
+    ``softcap``: the attention logit soft-cap (0: off)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t, name, torch.bfloat16, 3)
     T, H, Dh = q.shape
     S, KVH, Dh_k = k.shape
-    if v.shape != k.shape or Dh_k != Dh or H % KVH or Dh not in (64, 128):
+    if (v.shape != k.shape or Dh_k != Dh or H % KVH or Dh not in HEAD_DIMS
+            or window < 0):
         raise ValueError(f"flash_prefill: unsupported shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)} v={tuple(v.shape)} (Dh 64|128, "
-                         f"H % KVH == 0)")
+                         f"k={tuple(k.shape)} v={tuple(v.shape)} or window "
+                         f"{window} (Dh in {HEAD_DIMS}, H % KVH == 0)")
+    softcap = _check_softcap(FLASH_PREFILL, softcap)
     out = torch.empty_like(q)
     FLASH_PREFILL.launch(q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), T, H, KVH, Dh, S, int(start_pos),
-                         int(seq_len), float(scale))
+                         int(seq_len), int(window), float(scale), softcap)
     return out
 
 
@@ -243,10 +261,11 @@ def flash_prefill_partial_cuda(q: torch.Tensor, k: torch.Tensor,
         _check(t, name, torch.bfloat16, 3)
     T, H, Dh = q.shape
     S, KVH, Dh_k = k.shape
-    if v.shape != k.shape or Dh_k != Dh or H % KVH or Dh not in (64, 128):
+    if v.shape != k.shape or Dh_k != Dh or H % KVH or Dh not in HEAD_DIMS:
         raise ValueError(f"flash_prefill_partial: unsupported shapes "
                          f"q={tuple(q.shape)} k={tuple(k.shape)} "
-                         f"v={tuple(v.shape)} (Dh 64|128, H % KVH == 0)")
+                         f"v={tuple(v.shape)} (Dh in {HEAD_DIMS}, "
+                         f"H % KVH == 0)")
     acc = torch.empty((T, H, Dh), dtype=torch.float32, device=q.device)
     m = torch.empty((T, H), dtype=torch.float32, device=q.device)
     l = torch.empty((T, H), dtype=torch.float32, device=q.device)
@@ -273,7 +292,7 @@ def _check_paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
     C = lanes - scale_lanes
     KVH = C // Dh
     if (v_cache.shape != k_cache.shape or C % Dh or KVH == 0 or H % KVH
-            or Dh not in (64, 128) or H // KVH not in (1, 2, 4, 8)
+            or Dh not in HEAD_DIMS or H // KVH not in (1, 2, 4, 8)
             or seq_lens.shape[0] != block_tables.shape[0]
             or NTOK % block_size):
         raise ValueError(
@@ -281,6 +300,20 @@ def _check_paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
             f"pool={tuple(k_cache.shape)} tables={tuple(block_tables.shape)} "
             f"seq_lens={tuple(seq_lens.shape)} block_size={block_size}")
     return H, KVH, Dh
+
+
+def _window(kernel: Kernel, win: Optional[torch.Tensor], n: int,
+            name: str) -> Optional[torch.Tensor]:
+    """A sliding layer's per-sequence window floors as a contiguous int32
+    [n] on the card (a device-side cast: no host read, so a CUDA graph may
+    capture it), or None on a global layer."""
+    if win is None:
+        return None
+    if not win.is_cuda or win.shape != (n,):
+        raise ValueError(f"{kernel.name}: {name} must be a CUDA tensor of "
+                         f"shape ({n},) (got {tuple(win.shape)} on "
+                         f"{win.device})")
+    return win.to(torch.int32).contiguous()
 
 
 def paged_scratch(q: torch.Tensor, KVH: int, M: int,
@@ -313,20 +346,25 @@ def _split_scratch(kernel: Kernel, q: torch.Tensor, KVH: int, M: int,
 
 def _paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
            q, k_cache, v_cache, block_tables, seq_lens, block_size: int,
-           scale: float, scratch: Optional[torch.Tensor]) -> torch.Tensor:
+           scale: float, scratch: Optional[torch.Tensor], softcap: float,
+           win_lo: Optional[torch.Tensor]) -> torch.Tensor:
     H, KVH, Dh = _check_paged(kernel, pool_dtype, scale_lanes, q, k_cache,
                               v_cache, block_tables, seq_lens, block_size)
     B = q.shape[0]
     if block_tables.shape[0] != B:
         raise ValueError(f"{kernel.name}: {block_tables.shape[0]} tables for "
                          f"{B} query rows")
+    softcap = _check_softcap(kernel, softcap)
+    win_lo = _window(kernel, win_lo, B, "win_lo")
     out = torch.empty_like(q)
     M = block_tables.shape[1]
     scratch = _split_scratch(kernel, q, KVH, M, block_size, scratch)
     kernel.launch(q, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                  block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+                  block_tables.data_ptr(), seq_lens.data_ptr(),
+                  None if win_lo is None else win_lo.data_ptr(),
+                  out.data_ptr(),
                   None if scratch is None else scratch.data_ptr(),
-                  B, H, KVH, Dh, M, int(block_size), float(scale))
+                  B, H, KVH, Dh, M, int(block_size), float(scale), softcap)
     return out
 
 
@@ -334,15 +372,21 @@ def paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, block_tables: torch.Tensor,
                          seq_lens: torch.Tensor, *, block_size: int,
                          scale: float,
-                         scratch: Optional[torch.Tensor] = None
+                         scratch: Optional[torch.Tensor] = None,
+                         softcap: float = 0.0,
+                         win_lo: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """q [B, H, Dh] bf16; one layer's pool [NTOK, KVH*Dh] bf16; tables [B, M]
     and seq_lens [B] int32 → [B, H, Dh] (csrc/paged_attention.cu).
     ``scratch``: the split partials' workspace (``paged_scratch``); left
     None the wrapper allocates it. A caller that passes it can read the
-    partials of every sequence with more than one live split afterwards."""
+    partials of every sequence with more than one live split afterwards
+    (of a sliding layer: the splits above the window). ``softcap``: the
+    attention logit soft-cap (0: off); ``win_lo``: [B] the keys at or below
+    it are masked (None: a global layer)."""
     return _paged(PAGED_ATTENTION, torch.bfloat16, 0, q, k_cache, v_cache,
-                  block_tables, seq_lens, block_size, scale, scratch)
+                  block_tables, seq_lens, block_size, scale, scratch, softcap,
+                  win_lo)
 
 
 def paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -350,14 +394,16 @@ def paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                               block_tables: torch.Tensor,
                               seq_lens: torch.Tensor, *, block_size: int,
                               scale: float,
-                              scratch: Optional[torch.Tensor] = None
+                              scratch: Optional[torch.Tensor] = None,
+                              softcap: float = 0.0,
+                              win_lo: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
     """As ``paged_attention_cuda`` over an int8 pool [NTOK, KVH*Dh + 128]
     with in-row scales (attention.quantize_kv_rows; the int8 entry point of
     csrc/paged_attention.cu)."""
     return _paged(PAGED_ATTENTION_INT8, torch.int8, KV_SCALE_LANES, q,
                   k_cache, v_cache, block_tables, seq_lens, block_size, scale,
-                  scratch)
+                  scratch, softcap, win_lo)
 
 
 # The merge tickets of K4 (one int32 per sequence, KV head and row tile)
@@ -392,7 +438,8 @@ def _tickets(q: torch.Tensor, n: int) -> torch.Tensor:
 def _ragged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
             q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
             seq_lens, block_size: int, scale: float, max_rows: int,
-            scratch: Optional[torch.Tensor]) -> torch.Tensor:
+            scratch: Optional[torch.Tensor], softcap: float,
+            win_base: Optional[torch.Tensor]) -> torch.Tensor:
     H, KVH, Dh = _check_paged(kernel, pool_dtype, scale_lanes, q, k_cache,
                               v_cache, block_tables, seq_lens, block_size)
     _check(seq_starts, "seq_starts", torch.int32, 1)
@@ -404,6 +451,8 @@ def _ragged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
                          f"and counts {tuple(seq_counts.shape)} for {S} "
                          f"sequences")
     max_rows = min(int(max_rows), TT)
+    softcap = _check_softcap(kernel, softcap)
+    win_base = _window(kernel, win_base, S, "win_base")
     scratch = _split_scratch(kernel, q, KVH, M, block_size, scratch)
     tickets = None
     if scratch is not None:
@@ -413,11 +462,13 @@ def _ragged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
     out = torch.zeros_like(q)
     kernel.launch(q, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   block_tables.data_ptr(), seq_starts.data_ptr(),
-                  seq_counts.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+                  seq_counts.data_ptr(), seq_lens.data_ptr(),
+                  None if win_base is None else win_base.data_ptr(),
+                  out.data_ptr(),
                   None if scratch is None else scratch.data_ptr(),
                   None if tickets is None else tickets.data_ptr(),
                   TT, S, H, KVH, Dh, M, max_rows, int(block_size),
-                  float(scale))
+                  float(scale), softcap)
     return out
 
 
@@ -428,17 +479,22 @@ def ragged_paged_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                                 seq_counts: torch.Tensor,
                                 seq_lens: torch.Tensor, *, block_size: int,
                                 scale: float, max_rows: int,
-                                scratch: Optional[torch.Tensor] = None
+                                scratch: Optional[torch.Tensor] = None,
+                                softcap: float = 0.0,
+                                win_base: Optional[torch.Tensor] = None
                                 ) -> torch.Tensor:
     """q [TT, H, Dh] bf16 flat rows; one layer's pool [NTOK, KVH*Dh] bf16;
     tables [S, M], starts/counts/seq_lens [S] int32 → [TT, H, Dh], rows no
     sequence owns zero (csrc/ragged_paged_attention.cu). ``scratch``: the
     split partials' workspace (``paged_scratch``); left None the wrapper
     allocates it. A caller that passes it can read the partials of every
-    row tile with more than one live split afterwards."""
+    row tile with more than one live split afterwards (of a sliding layer:
+    the splits above the tile's first row's window). ``softcap``: the
+    attention logit soft-cap (0: off); ``win_base``: [S] sequence s's row r
+    masks the keys at or below win_base[s] + r (None: a global layer)."""
     return _ragged(RAGGED_PAGED_ATTENTION, torch.bfloat16, 0, q, k_cache,
                    v_cache, block_tables, seq_starts, seq_counts, seq_lens,
-                   block_size, scale, max_rows, scratch)
+                   block_size, scale, max_rows, scratch, softcap, win_base)
 
 
 def ragged_paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -449,14 +505,17 @@ def ragged_paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                                      seq_lens: torch.Tensor, *,
                                      block_size: int, scale: float,
                                      max_rows: int,
-                                     scratch: Optional[torch.Tensor] = None
+                                     scratch: Optional[torch.Tensor] = None,
+                                     softcap: float = 0.0,
+                                     win_base: Optional[torch.Tensor] = None
                                      ) -> torch.Tensor:
     """As ``ragged_paged_attention_cuda`` over an int8 pool [NTOK, KVH*Dh +
     128] with in-row scales (the int8 entry point of
     csrc/ragged_paged_attention.cu)."""
     return _ragged(RAGGED_PAGED_ATTENTION_INT8, torch.int8, KV_SCALE_LANES, q,
                    k_cache, v_cache, block_tables, seq_starts, seq_counts,
-                   seq_lens, block_size, scale, max_rows, scratch)
+                   seq_lens, block_size, scale, max_rows, scratch, softcap,
+                   win_base)
 
 
 def lm_head_int8_cuda(x: torch.Tensor, q: torch.Tensor,

@@ -179,8 +179,10 @@ def quantize_named(name: str, w: torch.Tensor, include_embed: bool,
         out = {name: quantize_array(w, keep_axes=(0,))}
         if tied:
             # a pre-transposed int8 head [D, V], so the head reads its
-            # bytes in natural orientation (per-column scales)
-            out["lm_head"] = quantize_array(w.t(), keep_axes=(-1,))
+            # bytes in natural orientation (per-column scales); laid out
+            # row-major, as the head kernel reads it
+            out["lm_head"] = quantize_array(w.t().contiguous(),
+                                            keep_axes=(-1,))
         return out
     return {name: w}
 

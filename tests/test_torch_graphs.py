@@ -9,7 +9,8 @@ eagerly from the same pool: the live slots' tokens, logprobs and logits
 and the pool rows outside the trash block must have the same bits (the
 same kernels on the same inputs). Each replay adds the launches its graph
 holds to the kernels' counts; a replay whose static inputs were left
-stale must differ from the eager run on the new inputs.
+stale must differ from the eager run on the new inputs. A Gemma-2 program
+(head dim 256, soft-caps, a window that binds) replays equal to eager too.
 """
 
 import numpy as np
@@ -53,25 +54,25 @@ def _inputs(seed: int) -> dict:
                 top_p=np.array([1.0, 0.9, 1.0, 1.0], np.float32))
 
 
-def _program(mode: str, dev):
+def _program(mode: str, dev, cfg=CFG):
     torch.manual_seed(0)
     if mode == "bf16":
-        params = init_params(CFG, 0, dev, torch.bfloat16)
+        params = init_params(cfg, 0, dev, torch.bfloat16)
     else:
-        params = init_params_quantized(CFG, 0, dev, torch.bfloat16, bits=4)
-    kv = llama.init_kv_cache(CFG, 16, BS, dev, torch.bfloat16,
+        params = init_params_quantized(cfg, 0, dev, torch.bfloat16, bits=4)
+    kv = llama.init_kv_cache(cfg, 16, BS, dev, torch.bfloat16,
                              quantization="none" if mode == "bf16"
                              else "int8")
     g = torch.Generator(device=dev)
     g.manual_seed(1)
-    C = CFG.num_kv_heads * CFG.head_dim
+    C = cfg.num_kv_heads * cfg.head_dim
     for name in ("k", "v"):       # a prefix in every live block
-        rows = torch.randn((CFG.num_layers * kv[name].shape[1], C),
+        rows = torch.randn((cfg.num_layers * kv[name].shape[1], C),
                            generator=g, device=dev)
         if kv[name].dtype == torch.int8:
             rows = quantize_kv_rows(rows)
         kv[name].copy_(rows.view(kv[name].shape))
-    return DecodeProgram(params, kv, CFG, BS, B, M, 4, 0, dev), kv
+    return DecodeProgram(params, kv, cfg, BS, B, M, 4, 0, dev), kv
 
 
 @pytest.mark.parametrize("mode", ["bf16", "int4_kv8"])
@@ -127,3 +128,43 @@ def test_stale_static_inputs_are_caught():
                               with_logits=True).logits.clone()
     assert not torch.equal(stale[:, LIVE], right.logits[:, LIVE])
     assert torch.equal(fresh[:, LIVE], right.logits[:, LIVE])
+
+
+# Gemma-2's decode program: head dim 256, soft-caps, a 16-token window on
+# the even layer that binds at every live slot's position (the floors come
+# from the positions on the device, so the graph replays them)
+GEMMA_CFG = ModelConfig(
+    model_type="gemma2", vocab_size=512, hidden_size=256,
+    intermediate_size=512, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=256, max_position_embeddings=512, rms_norm_eps=1e-6,
+    rope_theta=10000.0, tie_word_embeddings=True,
+    hidden_act="gelu_pytorch_tanh", embed_scale=True, norm_plus_one=True,
+    post_norms=True, attn_logit_softcap=50.0, final_logit_softcap=30.0,
+    query_pre_attn_scalar=256.0, sliding_window=16)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int4_kv8"])
+@pytest.mark.parametrize("K", [1, 4])
+def test_gemma2_graph_replay_equals_eager(mode, K):
+    dev = _device()
+    prog, kv = _program(mode, dev, GEMMA_CFG)
+    pool0 = {n: t.clone() for n, t in kv.items()}
+    inp = _inputs(K)
+    with torch.inference_mode():
+        d = prog.dispatch(K, "filtered", inp, with_logits=True)
+        toks, lps = d.fetch()
+        logits = d.logits.clone()
+        pool_g = {n: t.clone() for n, t in kv.items()}
+        for n, t in kv.items():
+            t.copy_(pool0[n])
+        e = prog.run_eager(K, "filtered", inp, with_logits=True)
+        torch.cuda.synchronize()
+    g = prog.graphs[(K, "filtered", True)]
+    attn = "paged_attention" if mode == "bf16" else "paged_attention_int8"
+    assert g.launches[attn] == K * GEMMA_CFG.num_layers
+    assert (toks[:, LIVE] == e.toks.cpu().numpy()[:, LIVE]).all()
+    assert (lps[:, LIVE] == e.logprobs.cpu().numpy()[:, LIVE]).all()
+    assert torch.equal(logits[:, LIVE], e.logits[:, LIVE])
+    assert torch.isfinite(logits[:, LIVE]).all()
+    for n in kv:
+        assert torch.equal(pool_g[n][:, BS:], kv[n][:, BS:])

@@ -13,7 +13,9 @@ scale, or (ragged) shifts its causal mask by one, a split merge (K3, K4)
 leaves out one split, the int8 head leaves out one strip of columns, the
 grouped-int4 matmul reads the last group's scales as the first group's
 (and, where it splits the contraction, its partials are merged with one
-split left out).
+split left out). Gemma-2's modes (soft-cap, sliding window, head dim 256)
+plant a window one key wider, a dropped soft-cap and a dropped window (the
+dead tiles and splits run and counted).
 """
 
 import pytest
@@ -286,15 +288,28 @@ def test_paged_attention_kernel_full_batch(int8):
 
 
 def test_kernels_refuse_unsupported_options():
+    """What the kernels still lack raises on the card, never falls back:
+    a head dim they are not compiled for, f32 inputs, the MLA pool modes."""
     dev = _device()
-    q = torch.zeros((4, 8, 64), dtype=torch.bfloat16, device=dev)
-    k = torch.zeros((16, 2, 64), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError):
+    q = torch.zeros((4, 8, 96), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((16, 2, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
         attention.flash_prefill(q, k, k, scale=0.1, start_pos=0, seq_len=4,
                                 softcap=5.0)
+    q, k = q[..., :64].contiguous(), k[..., :64].contiguous()
     with pytest.raises(ValueError):
         attention.flash_prefill(q.float(), k.float(), k.float(), scale=0.1,
                                 start_pos=0, seq_len=4)
+    pool = torch.zeros((16, 128), dtype=torch.bfloat16, device=dev)
+    tables = torch.ones((4, 1), dtype=torch.int32, device=dev)
+    lens = torch.ones((4,), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):          # not a mode of the port
+        attention.paged_attention(q, pool, pool, tables, lens, block_size=16,
+                                  scale=0.1, v_lanes=64)
+    with pytest.raises(ValueError):
+        attention.paged_attention(torch.zeros((4, 8, 32), dtype=torch.bfloat16,
+                                              device=dev), pool, pool, tables,
+                                  lens, block_size=16, scale=0.1)
 
 
 def _int8_pool(n_rows, C, gen, dev):
@@ -505,10 +520,10 @@ def test_ragged_kernel_refuses_unsupported_options():
     g = torch.Generator(device=dev).manual_seed(3)
     q, k, v, tables, starts, counts, ctx, bs, Dh = _ragged_inputs(g, dev,
                                                                   False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):          # not a mode of the port
         attention.ragged_paged_attention(q, k, v, tables, starts, counts, ctx,
                                          block_size=bs, scale=0.1,
-                                         max_rows=64, softcap=5.0)
+                                         max_rows=64, quant_sections=(64, 64))
     with pytest.raises(ValueError):
         attention.ragged_paged_attention(q, k, v, tables, starts,
                                          counts[:-1], ctx, block_size=bs,
@@ -607,3 +622,173 @@ def test_ragged_split_kernel_matches_plain(int8, geom):
     km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
     dropped = attention.merge_split_partials(km, kl, kacc)
     assert _row_rel_err(dropped, ref[multi], slice(None)) > ROW_REL_TOL
+
+
+# ---------------------------------------------------------------------------
+# Gemma-2's modes: logit soft-capping, sliding windows, head dim 256
+# ---------------------------------------------------------------------------
+
+# q is scaled so that the scores (std ~6 in natural units) reach the bend
+# of the 50 soft-cap, and the plain version runs in f32 on the same bf16
+# inputs: its bf16 form rounds such scores by up to ~0.1 before the
+# softmax, more than the kernels' own error. Each case plants three
+# faults: the window one key wider (">=" for ">"), the soft-cap dropped,
+# and the window dropped (the dead tiles and splits run and counted).
+Q_GAIN = 6.0
+CAP = 50.0
+
+
+def _gained(q):
+    return (q.float() * Q_GAIN).bfloat16()
+
+
+def _f32(t):
+    return t if t.dtype == torch.int8 else t.float()
+
+
+# (T, S, start_pos, true_len, window): a prefix hit whose rows' floors
+# cross many key tiles; a fresh prompt whose window is one 64-key tile
+# (Dh 128) or two 32-key tiles (Dh 256); a window of one 32-key tile
+GEMMA_PREFILL = [(200, 704, 500, 190, 96), (130, 130, 0, 130, 64),
+                 (64, 160, 96, 64, 32)]
+
+
+@pytest.mark.parametrize("case", GEMMA_PREFILL, ids=str)
+@pytest.mark.parametrize("Dh,H,KVH", [(256, 16, 8), (128, 8, 2)],
+                         ids=["dh256", "dh128"])
+def test_flash_prefill_gemma_modes_match_plain(Dh, H, KVH, case):
+    dev = _device()
+    T, S, start, true_len, window = case
+    g = torch.Generator(device=dev).manual_seed(T + Dh)
+    q = _gained(torch.randn((T, H, Dh), generator=g, device=dev))
+    k, v = (torch.randn((S, KVH, Dh), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    kw = dict(scale=Dh ** -0.5, start_pos=start, seq_len=start + true_len)
+    n0 = kernels.FLASH_PREFILL.launches
+    out = attention.flash_prefill(q, k, v, sliding=True, window=window,
+                                  softcap=CAP, **kw)
+    again = kernels.flash_prefill_cuda(q, k, v, window=window, softcap=CAP,
+                                       **kw)
+    glob = attention.flash_prefill(q, k, v, sliding=False, window=window,
+                                   softcap=CAP, **kw)
+    ref, gref = (attention.flash_prefill_ref(
+        q.float(), k.float(), v.float(), sliding=sl, window=window,
+        softcap=CAP, **kw) for sl in (True, False))
+    faults = [kernels.flash_prefill_cuda(q, k, v, **kw, **f) for f in (
+        dict(window=window + 1, softcap=CAP), dict(window=window),
+        dict(softcap=CAP))]
+    torch.cuda.synchronize()
+    assert kernels.FLASH_PREFILL.launches == n0 + 6
+    assert torch.equal(out, again)
+    rows = slice(0, true_len)
+    assert _row_rel_err(out, ref, rows) <= ROW_REL_TOL
+    assert _row_rel_err(glob, gref, rows) <= ROW_REL_TOL
+    for f in faults:
+        assert _row_rel_err(f, ref, rows) > ROW_REL_TOL
+
+
+# K3 over a 640-key table (five 128-key splits) with a 200-key window:
+# sequences whose first live key is 0, 1, 128 (a split boundary), 129, 257
+# and 440, one that sees a single key, a zero-length slot
+GEMMA_LENS = [1, 200, 201, 328, 329, 457, 640, 0]
+GEMMA_WINDOW = 200
+
+
+@pytest.mark.parametrize("Dh,g", [(256, 2), (256, 8), (128, 4)],
+                         ids=lambda p: str(p))
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_attention_gemma_modes_match_plain(int8, Dh, g):
+    dev = _device()
+    KVH, M, bs = 4, 40, 16
+    q, k, v, tables, seq_lens = _split_case(dev, int8, GEMMA_LENS, KVH * g,
+                                            KVH, Dh, M, bs, seed=6)
+    q = _gained(q)
+    win_lo = seq_lens - 1 - GEMMA_WINDOW
+    kernel = kernels.PAGED_ATTENTION_INT8 if int8 else kernels.PAGED_ATTENTION
+    fn = (kernels.paged_attention_int8_cuda if int8
+          else kernels.paged_attention_cuda)
+    kw = dict(block_size=bs, scale=Dh ** -0.5, softcap=CAP)
+    n0 = kernel.launches
+    out = attention.paged_attention(q, k, v, tables, seq_lens, win_lo=win_lo,
+                                    **kw)
+    again = fn(q, k, v, tables, seq_lens, win_lo=win_lo, **kw)
+    glob = attention.paged_attention(q, k, v, tables, seq_lens, **kw)
+    ref, gref = (attention.paged_attention_ref(
+        q.float(), _f32(k), _f32(v), tables, seq_lens, win_lo=w, **kw)
+        for w in (win_lo, None))
+    faults = [fn(q, k, v, tables, seq_lens, **{**kw, **f}) for f in (
+        dict(win_lo=win_lo - 1), dict(win_lo=win_lo, softcap=0.0), dict())]
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 6
+    assert torch.equal(out, again)
+    assert torch.isfinite(out).all()
+    assert out[-1].abs().max().item() == 0.0
+    live = seq_lens > 0
+    assert _row_rel_err(out, ref, live) <= ROW_REL_TOL
+    assert _row_rel_err(glob, gref, live) <= ROW_REL_TOL
+    for f in faults:
+        assert _row_rel_err(f, ref, live) > ROW_REL_TOL
+
+
+# K4 over the same table and window, (rows, kv length) per sequence:
+# decode rows at 200, 201 and 329 keys, a 20-row chunk whose floors cross
+# the 128-key split boundary, a 40-row chunk ending at the table's last key
+# (wide tiles over 256-key splits), a zero-count slot, a 12-row chunk; then
+# the trash sequence
+GEMMA_SPANS = [(1, 200), (1, 201), (1, 329), (20, 340), (40, 640), (0, 0),
+               (12, 457), (0, 0)]
+
+
+@pytest.mark.parametrize("geom", [(16, 8, 256), (32, 8, 128)],
+                         ids=lambda p: "h{}-kvh{}-dh{}".format(*p))
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_attention_gemma_modes_match_plain(int8, geom):
+    dev = _device()
+    H, KVH, Dh = geom
+    bs, M = 16, 40
+    gen = torch.Generator(device=dev).manual_seed(7)
+    S = len(GEMMA_SPANS)
+    counts = torch.tensor([n for n, _ in GEMMA_SPANS], dtype=torch.int32,
+                          device=dev)
+    ctx = torch.tensor([c for _, c in GEMMA_SPANS], dtype=torch.int32,
+                       device=dev)
+    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    k, v = _paged_pool(gen, dev, int8, (S * M + 1) * bs, KVH * Dh)
+    tables = (torch.randperm(S * M, generator=gen, device=dev) + 1).reshape(
+        S, M).to(torch.int32)
+    tables[-1] = 0                                  # the trash sequence
+    TT = int(counts.sum()) + 3
+    q = _gained(torch.randn((TT, H, Dh), generator=gen, device=dev))
+    win_base = torch.where(counts > 0, ctx - counts - GEMMA_WINDOW,
+                           attention.RAGGED_WIN_SENTINEL).to(torch.int32)
+    kernel = (kernels.RAGGED_PAGED_ATTENTION_INT8 if int8
+              else kernels.RAGGED_PAGED_ATTENTION)
+    fn = (kernels.ragged_paged_attention_int8_cuda if int8
+          else kernels.ragged_paged_attention_cuda)
+    args = (tables, starts, counts, ctx)
+    kw = dict(block_size=bs, scale=Dh ** -0.5, max_rows=64, softcap=CAP)
+    n0 = kernel.launches
+    out = attention.ragged_paged_attention(q, k, v, *args,
+                                           win_base=win_base, **kw)
+    again = fn(q, k, v, *args, win_base=win_base, **kw)
+    glob = attention.ragged_paged_attention(q, k, v, *args, **kw)
+    sentinel = fn(q, k, v, *args, win_base=torch.full_like(
+        win_base, attention.RAGGED_WIN_SENTINEL), **kw)
+    ref, gref = (attention.ragged_paged_attention_ref(
+        q.float(), _f32(k), _f32(v), *args, win_base=w, **kw)
+        for w in (win_base, None))
+    faults = [fn(q, k, v, *args, **{**kw, **f}) for f in (
+        dict(win_base=win_base - 1), dict(win_base=win_base, softcap=0.0),
+        dict())]
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 7
+    assert torch.equal(out, again)
+    assert torch.equal(glob, sentinel)     # the global sentinel never masks
+    owned = torch.zeros(TT, dtype=torch.bool, device=dev)
+    for st, n in zip(starts.tolist(), counts.tolist()):
+        owned[st:st + n] = True
+    assert out[~owned].abs().max().item() == 0.0
+    assert _row_rel_err(out, ref, owned) <= ROW_REL_TOL
+    assert _row_rel_err(glob, gref, owned) <= ROW_REL_TOL
+    for f in faults:
+        assert _row_rel_err(f, ref, owned) > ROW_REL_TOL
