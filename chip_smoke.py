@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each failing the run (non-zero exit, no result line) on error:
 
 1. card: name and power limit (nvidia-smi), torch's device name;
-2. build: compile the CUDA kernels from ``dynamo_tpu_torch/csrc`` (five
+2. build: compile the CUDA kernels from ``dynamo_tpu_torch/csrc`` (six
    sources, one nvcc each, all started together) and print nvcc's
    register / shared-memory / spill lines;
 3. kernels: hold each kernel against its plain PyTorch version on the card
@@ -108,11 +108,44 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    and a seeded sampled request twice, with TTFT/ITL, the footprint after
    bring-up and the launches of each path.
 
-Every split-path decode dispatch of phases 5-5g replays a captured graph;
+3m. kernels at DeepSeek-V2-Lite's shapes (``DEEPSEEK_V2_LITE_CONFIG``: 16
+   heads over one latent row of [c_kv 512 | k_pe 64], 640 bf16 lanes or
+   768 int8 in the sectioned encoding): K3-MLA (``v_lanes`` 512, and
+   ``quant_sections`` (512, 64)) and K4-MLA through the same checks as
+   phase 3 (``MLA_ATTN``: an 8-slot mix and 8 x 4096 keys for K3, a
+   ragged mix, also at the ragged server's 136-row capacity, and two
+   64-row chunks beside 6 decode rows for K4), each against its plain
+   version in f32 with planted faults (the last block read as the trash
+   block, V read 64 lanes late over bf16 rows, the two sections' scales
+   swapped over int8 rows, for K4 the off-by-one causal mask), repeated
+   bits, the kernel's own split partials merged in plain PyTorch (and
+   with a split left out), timed cold beside its bound, the plain
+   version and one ``scaled_dot_product_attention`` call over the
+   gathered rows (the first backend that takes the shapes, named);
+4m. model: phase 4's checks (``check_model``, ``MLA_RUN``) at V2-Lite's
+   full width and depth (27 layers, 64 routed experts of which 6 active,
+   2 shared; random bf16 weights) over a bf16 and an int8 latent pool: a
+   3000-token prompt (prefill is a plain einsum, as in the JAX package)
+   and 4 decode steps through K3-MLA, through its plain version in f32
+   and with a planted fault, the footprint, a prefill and a decode step
+   profiled, the decode program's graphs at K = 1 and K = 8 against
+   eager, and (bf16 pool) one ragged dispatch through K4-MLA against its
+   plain version and a fault;
+5m. serve V2-Lite (``--max-model-len 4096``, 2048 blocks of the engine's
+   auto size, 8 slots): bf16 with ``--decode-steps-per-dispatch 8``, bf16
+   over ``--kv-quantization int8``, each again with ``--ragged``, each
+   answering a 3000- and a 300-token prompt posted together, an SSE stream
+   and a seeded sampled request twice, with TTFT/ITL, the footprint after
+   bring-up, the graph capture seconds and the launches of each path.
+   K4-MLA over int8 rows serves no path (the JAX package gathers there
+   too): its entry carries ``"on_main_path": false`` and 0 launches.
+
+Every split-path decode dispatch of phases 5-5m replays a captured graph;
 its launches count through the program's replay accounting.
 
 The line before the last is the kernels' JSON summary (the entries of 3g
-carry a ``mode``); the last line is ``{"ok": true, "device": {...}}``.
+and 3m carry a ``mode``); the last line is ``{"ok": true, "device":
+{...}}``.
 Imports nothing of JAX.
 """
 
@@ -120,12 +153,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -160,6 +194,37 @@ GEMMA2_9B_CONFIG = {
     "rope_theta": 10000.0, "sliding_window": 4096,
     "sliding_window_size": 4096, "torch_dtype": "float32",
     "use_cache": True, "vocab_size": 256000, "tie_word_embeddings": True}
+
+# The config.json of deepseek-ai/DeepSeek-V2-Lite on the Hugging Face hub
+# (its auto_map left out): 27 layers, hidden 2048, 16 heads of MLA (latent
+# rank 512, rope 64, nope 128, v 128, no q_lora), the first layer a dense
+# MLP of 10944, the rest 64 routed experts of 1408 with 6 active and 2
+# shared, yarn rope (factor 40), vocab 102400, untied. The phases 3m-5m
+# parse it with the port's ModelConfig.from_hf_config and serve it from a
+# model directory that holds it.
+DEEPSEEK_V2_LITE_CONFIG = {
+    "architectures": ["DeepseekV2ForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "aux_loss_alpha": 0.001,
+    "bos_token_id": 100000, "eos_token_id": 100001,
+    "first_k_dense_replace": 1, "hidden_act": "silu", "hidden_size": 2048,
+    "initializer_range": 0.02, "intermediate_size": 10944,
+    "kv_lora_rank": 512, "max_position_embeddings": 163840,
+    "model_type": "deepseek_v2", "moe_intermediate_size": 1408,
+    "moe_layer_freq": 1, "n_group": 1, "n_routed_experts": 64,
+    "n_shared_experts": 2, "norm_topk_prob": False,
+    "num_attention_heads": 16, "num_experts_per_tok": 6,
+    "num_hidden_layers": 27, "num_key_value_heads": 16,
+    "pretraining_tp": 1, "q_lora_rank": None, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "rms_norm_eps": 1e-06,
+    "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40,
+                     "mscale": 0.707, "mscale_all_dim": 0.707,
+                     "original_max_position_embeddings": 4096,
+                     "type": "yarn"},
+    "rope_theta": 10000, "routed_scaling_factor": 1.0,
+    "scoring_func": "softmax", "seq_aux": True,
+    "tie_word_embeddings": False, "topk_group": 1, "topk_method": "greedy",
+    "torch_dtype": "bfloat16", "transformers_version": "4.33.1",
+    "use_cache": True, "v_head_dim": 128, "vocab_size": 102400}
 
 
 def log(msg: str) -> None:
@@ -279,6 +344,31 @@ def row_errors(out, ref, rows) -> tuple:
     r = ref.float()[rows]
     rel = d.abs().amax(-1) / r.pow(2).mean(-1).sqrt()
     return d.abs().max().item(), rel.max().item()
+
+
+def merged_partials_errors(scratch, shape: tuple, live: dict, out,
+                           ref) -> tuple:
+    """The kernel's own split partials of the rows in ``live`` ({row: its
+    live splits}), read from ``scratch`` (``split_scratch_views`` over
+    ``shape`` = (rows, KVH, splits, g, Dv)) and merged in plain PyTorch:
+    (the row error against the kernel's own output ``out``, and the row
+    error against ``ref`` of the same merge with each row's first split
+    left out, the planted merge fault)."""
+    import torch
+    from dynamo_tpu_torch.engine import attention
+    rows = sorted(live)
+    sel = torch.tensor(rows, device=out.device)
+    m, l, acc = (t[sel].clone() for t in
+                 attention.split_scratch_views(scratch, *shape))
+    for i, r in enumerate(rows):
+        n = live[r]
+        m[i, :, n:], l[i, :, n:], acc[i, :, n:] = float("-inf"), 0, 0
+    _, merged = row_errors(attention.merge_split_partials(m, l, acc),
+                           out[sel], slice(None))
+    m[:, :, 0], l[:, :, 0], acc[:, :, 0] = float("-inf"), 0, 0
+    _, fault = row_errors(attention.merge_split_partials(m, l, acc),
+                          ref[sel], slice(None))
+    return merged, fault
 
 
 def check_flash_prefill(cfg, dev) -> dict:
@@ -570,29 +660,96 @@ def check_limit(what: str, rel: float, faults: dict) -> None:
                                f"{KERNEL_ROW_REL_TOL}")
 
 
+def shuffled_tables(gen, lens, M: int, bs: int, dev):
+    """Tables [len(lens), M] over a random permutation of the pool's blocks
+    1.. (block 0 is the trash block), each sequence on the blocks its
+    ``lens`` keys need."""
+    import torch
+    perm = (torch.randperm(len(lens) * M, generator=gen, device=dev)
+            + 1).to(torch.int32)
+    tables = torch.zeros((len(lens), M), dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(lens):
+        nb = -(-n // bs)
+        tables[b, :nb] = perm[used:used + nb]
+        used += nb
+    return tables
+
+
+def pool_inputs(cfg, dev, seed: int, lens, int8: bool, bs: int, M: int,
+                n_rows=None) -> tuple:
+    """Random K and V pools at the model's shapes (row-quantized for the
+    int8 mode; the trash block 0 holds random rows too), sequences of
+    ``lens`` keys over a shuffled table of M blocks of ``bs``, and q
+    [n_rows or len(lens), H, Dh] bf16. Returns q, k_cache, v_cache,
+    tables, lens (int32)."""
+    import torch
+    from dynamo_tpu_torch.engine.attention import quantize_kv_rows
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rows = (len(lens) * M + 1) * bs
+    k_cache, v_cache = (torch.randn((rows, KVH * Dh), generator=gen,
+                                    device=dev).bfloat16() for _ in range(2))
+    if int8:
+        k_cache, v_cache = quantize_kv_rows(k_cache), quantize_kv_rows(v_cache)
+    tables = shuffled_tables(gen, lens, M, bs, dev)
+    q = torch.randn((n_rows or len(lens), H, Dh), generator=gen,
+                    device=dev).bfloat16()
+    return (q, k_cache, v_cache, tables,
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def pool_faults(cases, kernel, q, k_cache, v_cache, rows, int8: bool) -> dict:
+    """The pool's planted fault beside the trash block: over int8 rows the
+    scale lanes of ``rows`` (the longest sequence's last block) zeroed, so
+    that every scale reads 2^0 * (1 + 0/256) = 1."""
+    from dynamo_tpu_torch.engine.attention import kv_value_lanes
+    if not int8:
+        return {}
+    C = kv_value_lanes(k_cache)
+    bad_k, bad_v = k_cache.clone(), v_cache.clone()
+    for t in (bad_k, bad_v):
+        t[rows, C:C + 2] = 0
+    return {"scale_lanes": kernel(kc=bad_k, vc=bad_v)}
+
+
 @dataclasses.dataclass(frozen=True)
 class AttnCases:
-    """K3's and K4's phase-3 inputs at one geometry: the table width M
-    (16-token blocks), K3's mixed batch, split boundaries and full batch
-    (kv lengths per slot), K4's mix, boundaries, full batch and decode step
-    ((rows, kv length) per sequence, the trash sequence last); the
-    attention modes (a sliding window, None on a global layer; the logit
-    soft-cap, 0 for none); the gain on q (the plain version then runs in
-    f32: GEMMA_Q_GAIN says why); the kernels-line mode (None: the 8B
+    """K3's and K4's phase-3 inputs at one geometry: the table's reach in
+    keys; K3's mixed batch, split boundaries and full batch (kv lengths per
+    slot); K4's mix, boundaries, full batch and decode step ((rows, kv
+    length) per sequence, the trash sequence last); a None case is not run.
+    The attention modes: a sliding window (None on a global layer), the
+    logit soft-cap (0 for none), MLA's ``v_lanes`` (the latent kernels, one
+    row as K and V) and, over an int8 pool, its ``sections``. The gain on q
+    (GEMMA_Q_GAIN says why); the plain version runs in f32 on the kernel's
+    own bf16 inputs with a gain or in the MLA modes. The pool's block size
+    (bf16, int8); the inputs (pool_inputs' signature); the pool's planted
+    faults (pool_faults' signature); the kernels-line mode (None: the 8B
     entries); the inputs' seed offset."""
-    M: int
+    max_len: int
     paged_mix: list
-    paged_boundary: list
+    paged_boundary: Optional[list]
     paged_full: list
     ragged_mix: list
-    ragged_boundary: list
+    ragged_boundary: Optional[list]
     ragged_full: list
-    ragged_decode: list
+    ragged_decode: Optional[list]
     window: Optional[int] = None
     softcap: float = 0.0
+    v_lanes: Optional[int] = None
+    sections: Optional[tuple] = None
     q_gain: float = 1.0
+    block: tuple = (KV_BLOCK, KV_BLOCK)
+    inputs: Callable = pool_inputs
+    faults: Callable = pool_faults
     mode: Optional[str] = None
     seed: int = 0
+
+    @property
+    def plain_f32(self) -> bool:
+        return self.q_gain != 1.0 or self.v_lanes is not None
 
 
 # The 8B inputs. K3: the mixed decode batch it has been read on since its
@@ -609,7 +766,7 @@ class AttnCases:
 # and 6 decode rows at 2048 keys; phase 4's pure-decode ragged step, one
 # layer: 8 decode rows at position 300
 LLAMA_ATTN = AttnCases(
-    M=MAX_MODEL_LEN // KV_BLOCK,
+    max_len=MAX_MODEL_LEN,
     paged_mix=[1, 15, 16, 17, 255, 1000, 2048, 0],
     paged_boundary=[127, 128, 129, 256, 2048, 0],
     paged_full=[2048] * 8,
@@ -624,7 +781,40 @@ RAGGED_MAX_ROWS = 64
 RAGGED_CAPACITY = 8 + 2 * RAGGED_MAX_ROWS
 
 
-def mark_dead_keys(k_cache, q, tables, seqs, floors, g: int) -> None:
+def attn_shape(cfg, cases) -> tuple:
+    """(query heads, KV heads, query lanes, output lanes) of the kernels:
+    a latent row is one KV head as wide as the query
+    (``mla.latent_row_lanes`` of a bf16 pool), its output ``v_lanes``."""
+    if cases.v_lanes is None:
+        return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.head_dim
+    from dynamo_tpu_torch.engine.models import mla
+    return (cfg.num_heads, 1, mla.latent_row_lanes(cfg, "none"),
+            cases.v_lanes)
+
+
+def attn_scale(cfg, cases) -> float:
+    if cases.v_lanes is not None:
+        from dynamo_tpu_torch.engine.models import mla
+        return mla.softmax_scale(cfg)
+    return (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5
+
+
+def attn_kernel(cases, ragged: bool, int8: bool) -> tuple:
+    """(kernels-line name, wrapper, source) of K3 or K4 in ``cases``'
+    modes over a bf16 or an int8 pool."""
+    from dynamo_tpu_torch.engine import kernels
+    pool = "_int8" if int8 else ""
+    if cases.v_lanes is not None:
+        name = "latent_" + ("ragged" if ragged else "paged") + "_attention"
+        return (name + pool, getattr(kernels, name + "_cuda"),
+                "dynamo_tpu_torch/csrc/latent_attention.cu")
+    name = "ragged_paged_attention" if ragged else "paged_attention"
+    return (name + pool, getattr(kernels, name + pool + "_cuda"),
+            f"dynamo_tpu_torch/csrc/{name}.cu")
+
+
+def mark_dead_keys(k_cache, q, tables, seqs, floors, g: int,
+                   bs: int = KV_BLOCK) -> None:
     """For each (sequence, query row, window floor >= 0) of ``seqs`` and
     ``floors``, write into the pool row at position ``floor`` of that
     sequence's table, for every KV head, the row's first query head of
@@ -637,7 +827,7 @@ def mark_dead_keys(k_cache, q, tables, seqs, floors, g: int) -> None:
     for (b, row), f in zip(seqs, floors):
         if f < 0:
             continue
-        slot = int(tables[b, f // KV_BLOCK]) * KV_BLOCK + f % KV_BLOCK
+        slot = int(tables[b, f // bs]) * bs + f % bs
         H, Dh = q.shape[1:]
         new = q[row].reshape(H // g, g, Dh)[:, 0].reshape(1, C).to(
             torch.bfloat16)
@@ -645,118 +835,206 @@ def mark_dead_keys(k_cache, q, tables, seqs, floors, g: int) -> None:
                          if k_cache.dtype == torch.int8 else new[0])
 
 
-def paged_inputs(cfg, dev, seed: int, lens, int8: bool = False,
-                 M: int = MAX_MODEL_LEN // KV_BLOCK):
-    """A decode batch at the model's shapes: slots of ``lens`` keys over a
-    shuffled table of M 16-token blocks, a random pool (row-quantized for
-    the int8 mode). Returns q, pools, tables, seq_lens."""
-    import torch
-    from dynamo_tpu_torch.engine.attention import quantize_kv_rows
-    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    bs = KV_BLOCK
-    B = len(lens)
-    num_blocks = B * M + 1
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    k_cache = torch.randn((num_blocks * bs, KVH * Dh), generator=gen,
-                          device=dev).bfloat16()
-    v_cache = torch.randn((num_blocks * bs, KVH * Dh), generator=gen,
-                          device=dev).bfloat16()
-    if int8:
-        k_cache, v_cache = quantize_kv_rows(k_cache), quantize_kv_rows(v_cache)
-    perm = (torch.randperm(num_blocks - 1, generator=gen, device=dev)
-            + 1).to(torch.int32)
-    tables = torch.zeros((B, M), dtype=torch.int32, device=dev)
-    used = 0
-    for b, n in enumerate(lens):
-        nb = -(-n // bs)
-        tables[b, :nb] = perm[used:used + nb]
-        used += nb
-    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-    q = torch.randn((B, H, Dh), generator=gen, device=dev).bfloat16()
-    return q, k_cache, v_cache, tables, seq_lens
+def attn_bound(cfg, cases, int8: bool, M: int, rows: int, seqs: int,
+               keys: int, pairs: int, scalars: int) -> tuple:
+    """K3's / K4's bound: each key a sequence's rows can see read once, for
+    K and for V (an int8 row's two scale bytes once per row), or once for
+    both from a latent row (an int8 one's sections and their scale
+    pairs); q and out; the tables and ``scalars`` int32 per sequence;
+    2*H*(dot lanes + output lanes) operations per visible (row, key)."""
+    H, KVH, Dq, Dv = attn_shape(cfg, cases)
+    if cases.v_lanes is not None:
+        dot = sum(cases.sections) if int8 else Dq
+        per_key = (dot + 2 * len(cases.sections)) if int8 else 2 * Dq
+    else:
+        dot = Dq
+        per_key = 2 * ((KVH * Dq + 2) if int8 else 2 * KVH * Dq)
+    nbytes = (per_key * keys + 2.0 * rows * H * (Dq + Dv)
+              + 4.0 * seqs * (M + scalars))
+    return bound(nbytes, 2.0 * H * (dot + Dv) * pairs)
 
 
-def paged_bound(cfg, lens, int8: bool, M: int = MAX_MODEL_LEN // KV_BLOCK,
-                window=None) -> tuple:
-    """K3's bound: each key a slot can see (with ``window``, the last
-    ``window`` of them) read once for K and once for V (an int8 row's two
-    scale bytes once per token), q and out, tables and lengths."""
-    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    C, B = KVH * Dh, len(lens)
-    total = sum(min(n, window) if window else n for n in lens)
-    row = C + 2 if int8 else 2 * C
-    nbytes = 2.0 * total * row + 2 * 2.0 * B * H * Dh + 4.0 * B * M + 4.0 * B
-    return bound(nbytes, 4.0 * H * Dh * total)
-
-
-def gathered_pages(cfg, k_cache, v_cache, tables) -> tuple:
+def gathered_pages(cfg, cases, k_cache, v_cache, tables, bs: int) -> tuple:
     """Each sequence's pages gathered (an int8 pool's dequantized) as K
-    and V [rows of tables, KVH, M * 16, Dh] bf16, for the yardsticks."""
+    [rows of tables, KVH, M * bs, Dq] and V [..., Dv] bf16, for the
+    yardsticks; of a latent pool, K the rows (zero past the sections) and
+    V a view of their first ``v_lanes`` lanes."""
     import torch
     from dynamo_tpu_torch.engine.attention import (dequant_kv_rows,
+                                                   dequant_kv_rows_sections,
                                                    flat_token_indices)
-    KVH, Dh = cfg.num_kv_heads, cfg.head_dim
-    B, T = tables.shape[0], tables.shape[1] * KV_BLOCK
-    idx = flat_token_indices(tables, KV_BLOCK)
+    _, KVH, Dq, _ = attn_shape(cfg, cases)
+    B, T = tables.shape[0], tables.shape[1] * bs
+    idx = flat_token_indices(tables, bs)
+    if cases.v_lanes is not None:
+        rows = k_cache[idx]
+        if rows.dtype == torch.int8:
+            rows = dequant_kv_rows_sections(rows, cases.sections,
+                                            torch.bfloat16)
+            rows = torch.nn.functional.pad(rows, (0, Dq - rows.shape[-1]))
+        k = rows[:, None]
+        return k, k[..., :cases.v_lanes]
 
     def gather(cache):
         rows = cache[idx]
         if cache.dtype == torch.int8:
-            rows = dequant_kv_rows(rows, KVH * Dh, torch.bfloat16)
-        return rows.reshape(B, T, KVH, Dh).transpose(1, 2).contiguous()
+            rows = dequant_kv_rows(rows, KVH * Dq, torch.bfloat16)
+        return rows.reshape(B, T, KVH, Dq).transpose(1, 2).contiguous()
     return gather(k_cache), gather(v_cache)
 
 
-def paged_library(cfg, q, k_cache, v_cache, tables, seq_lens, win_lo=None,
-                  softcap: float = 0.0) -> dict:
-    """The yardsticks over pages gathered (and, from an int8 pool,
-    dequantized) before timing, every slot padded to the table's width
-    under a mask (with ``win_lo``, the window's too); cold L2: SDPA, which
-    takes no soft-cap, and with a soft-cap flex_attention (flex_library_ms),
-    whose output is returned as ``flex_out`` [B, H, Dh]."""
+def sdpa_yardstick(q, k, v, mask, scale: float) -> dict:
+    """One ``scaled_dot_product_attention`` call over q [S, H, L, Dq],
+    gathered K [S, KVH, T, Dq] and V [S, KVH, T, Dv] under ``mask`` [S, 1,
+    L, T] (one KV head expanded to the H heads as a view, more by
+    enable_gqa), on each backend (flash, memory-efficient, cuDNN, math)
+    in turn, cold L2: the fastest one that takes these shapes, its time
+    and output (``sdpa_ms``, ``sdpa_backend``, ``sdpa_out``), every
+    accepting backend's time (``sdpa_backends_ms``) and each refusal's
+    text; ``sdpa_ms`` None when every backend refuses. Nothing of the port
+    runs here."""
     import torch
     import torch.nn.functional as F
-    kg, vg = gathered_pages(cfg, k_cache, v_cache, tables)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    gqa = k.shape[1] > 1
+    if not gqa:
+        k = k.expand(-1, q.shape[1], -1, -1)
+        v = v.expand(-1, q.shape[1], -1, -1)
+    res = {"sdpa_ms": None, "sdpa_backends_ms": {}, "sdpa_refused": []}
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(b=backend):
+            with sdpa_kernel([b]):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale, enable_gqa=gqa)
+        try:
+            out = call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:        # this backend refuses the shapes
+            res["sdpa_refused"].append(
+                f"{backend.name}: {str(e).splitlines()[0][:200]}")
+            continue
+        ms = time_ms(call, cold=True)
+        res["sdpa_backends_ms"][backend.name] = ms
+        if res["sdpa_ms"] is None or ms < res["sdpa_ms"]:
+            res.update(sdpa_ms=ms, sdpa_backend=backend.name, sdpa_out=out)
+        del out
+    return res
+
+
+def paged_library(cfg, cases, q, k_cache, v_cache, tables, seq_lens, bs: int,
+                  win_lo=None) -> dict:
+    """The yardsticks over pages gathered (and, from an int8 pool,
+    dequantized) before timing, every slot padded to the table's width
+    under a mask (with ``win_lo``, the window's too); cold L2: SDPA
+    (sdpa_yardstick; its output as ``sdpa_out`` [B, H, Dv]), which takes
+    no soft-cap, and with a soft-cap flex_attention (flex_library_ms),
+    whose output is returned as ``flex_out`` [B, H, Dh]."""
+    import torch
+    kg, vg = gathered_pages(cfg, cases, k_cache, v_cache, tables, bs)
     kv_pos = torch.arange(kg.shape[2], device=q.device)[None, :]
     mask = kv_pos < seq_lens[:, None]
     if win_lo is not None:
         mask = mask & (kv_pos > win_lo[:, None])
-    scale = (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5
-    res = {"sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kg, vg, attn_mask=mask[:, None, None, :],
-        scale=scale, enable_gqa=True), cold=True)}
-    if softcap:
+    scale = attn_scale(cfg, cases)
+    res = sdpa_yardstick(q[:, :, None, :], kg, vg, mask[:, None, None, :],
+                         scale)
+    if "sdpa_out" in res:
+        res["sdpa_out"] = res["sdpa_out"][:, :, 0]
+    if cases.softcap:
         lo = win_lo if win_lo is not None else seq_lens * 0 - 1
 
         def live(b, h, q_idx, kv_idx):
             return (kv_idx < seq_lens[b]) & (kv_idx > lo[b])
         res["flex_ms"], out = flex_library_ms(q[:, :, None, :], kg, vg, live,
-                                              softcap, scale, cold=True)
+                                              cases.softcap, scale, cold=True)
         res["flex_out"] = out[:, :, 0]
     return res
 
 
+def ragged_library(cfg, cases, q, k_cache, v_cache, tables, starts_l, mix,
+                   bs: int) -> dict:
+    """The yardsticks over the sequences padded to [S, H, 64, Dq] against
+    pre-gathered (and, int8, dequantized) pages; cold L2: one SDPA call
+    (sdpa_yardstick) with a boolean causal-and-length mask (with a window,
+    the window's too; padded rows see key 0), which takes no soft-cap, and
+    with a soft-cap one flex_attention call (flex_library_ms; padded rows
+    see no key); their outputs as flat rows (``sdpa_out``, ``flex_out``)."""
+    import torch
+    H = q.shape[1]
+    M = tables.shape[1]
+    S, dev, Lp, W = len(mix), q.device, RAGGED_MAX_ROWS, cases.window
+    qp = torch.zeros((S, H, Lp, q.shape[-1]), dtype=torch.bfloat16,
+                     device=dev)
+    r = torch.arange(Lp, device=dev)
+    kv_pos = torch.arange(M * bs, device=dev)
+    mask = torch.zeros((S, 1, Lp, M * bs), dtype=torch.bool, device=dev)
+    for s, (st, (n, c)) in enumerate(zip(starts_l, mix)):
+        qp[s, :, :n] = q[st:st + n].transpose(0, 1)
+        live = ((kv_pos[None, :] <= (c - n + r)[:, None])
+                & (kv_pos[None, :] < c) & (r < n)[:, None])
+        if W:
+            live &= kv_pos[None, :] > (c - n + r - W)[:, None]
+        mask[s, 0] = live | ((kv_pos[None, :] == 0) & (r >= n)[:, None])
+    kg, vg = gathered_pages(cfg, cases, k_cache, v_cache, tables, bs)
+    scale = attn_scale(cfg, cases)
+
+    def flat(out):
+        rows = torch.zeros(q.shape[:2] + out.shape[-1:], dtype=out.dtype,
+                           device=dev)
+        for s, (st, (n, _)) in enumerate(zip(starts_l, mix)):
+            rows[st:st + n] = out[s, :, :n].transpose(0, 1)
+        return rows
+    res = sdpa_yardstick(qp, kg, vg, mask, scale)
+    if "sdpa_out" in res:
+        res["sdpa_out"] = flat(res["sdpa_out"])
+    if cases.softcap:
+        n_t = torch.tensor([n for n, _ in mix], device=dev)
+        pos0 = torch.tensor([c - n for n, c in mix], device=dev)
+        w = W or (M * bs + RAGGED_MAX_ROWS)
+
+        def live_fn(b, h, q_idx, kv_idx):
+            return ((q_idx < n_t[b]) & (kv_idx <= pos0[b] + q_idx)
+                    & (kv_idx > pos0[b] + q_idx - w))
+        # flex's attention kernel for the 64-row tiles: for a query of 64
+        # rows its default picks its decoding kernel, far slower here
+        res["flex_ms"], out = flex_library_ms(
+            qp, kg, vg, live_fn, cases.softcap, scale, cold=True,
+            kernel_options={"FORCE_USE_FLEX_ATTENTION": True})
+        res["flex_options"] = ", kernel_options FORCE_USE_FLEX_ATTENTION"
+        res["flex_out"] = flat(out)
+    return res
+
+
 # the readings beside max_row_rel_err that a case holds to the row limit,
-# by pool: the global-layer call, and the soft-capped yardstick's output
-# (flex_attention over a bf16 pool; an int8 pool reaches it dequantized to
-# bf16, a rounding of the keys that moves rows at phase 3g's scores by up
-# to ~0.09 of their RMS on the card, so there it is only reported)
+# by pool: the global-layer call, and the library call's output (SDPA, or
+# with a soft-cap flex_attention, over a bf16 pool; an int8 pool reaches it
+# dequantized to bf16, a rounding of the keys that moves rows at phase
+# 3g's scores by up to ~0.09 of their RMS on the card, so there it is only
+# reported)
 LIMITED = {False: ("global_row_rel_err", "library_row_rel_err"),
            True: ("global_row_rel_err",)}
 
 
 def yardsticks(case: dict, lib: dict, ref, rows, what: str,
                no_cap_ms=None) -> None:
-    """Write the library yardsticks into ``case``: SDPA as ``library_ms``;
-    with a soft-cap flex_attention's time there instead (its output held
-    against the plain version), SDPA and the kernel with the soft-cap off
-    beside it labelled 'no softcap'."""
-    sdpa = (f"scaled_dot_product_attention over {what}, no softcap"
-            if "flex_ms" in lib else
-            f"scaled_dot_product_attention over {what}")
+    """Write the library yardsticks into ``case``, each output held against
+    the plain version: SDPA as ``library_ms`` (the fastest backend, named,
+    or None with each backend's refusal); with a soft-cap flex_attention's time
+    there instead, SDPA and the kernel with the soft-cap off beside it
+    labelled 'no softcap'."""
+    sdpa = (f"scaled_dot_product_attention ({lib['sdpa_backend']} backend, "
+            f"the fastest of {sorted(lib['sdpa_backends_ms'])}) over {what}"
+            if lib["sdpa_ms"] is not None else
+            "no single PyTorch call takes these shapes: "
+            + "; ".join(lib["sdpa_refused"]))
+    case["sdpa_backends_ms"] = lib["sdpa_backends_ms"]
     if "flex_ms" not in lib:
         case.update(library_ms=lib["sdpa_ms"], library=sdpa)
+        if "sdpa_out" in lib:
+            _, case["library_row_rel_err"] = row_errors(lib["sdpa_out"], ref,
+                                                        rows)
         return
     _, case["library_row_rel_err"] = row_errors(lib["flex_out"], ref, rows)
     case.update(library_ms=lib["flex_ms"],
@@ -764,87 +1042,100 @@ def yardsticks(case: dict, lib: dict, ref, rows, what: str,
                         "cap*tanh(s/cap) and the block mask"
                         + lib.get("flex_options", "") + f", over {what}",
                 ms_no_softcap=no_cap_ms, library_ms_no_softcap=lib["sdpa_ms"],
-                library_no_softcap=sdpa)
+                library_no_softcap=sdpa + ", no softcap")
+
+
+def attn_entry(name: str, source: str, ragged: bool, cases, chunk: int,
+               splits: int, case: dict) -> dict:
+    """The kernels-line entry of a K3 / K4 check."""
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": "dynamo_tpu/engine/attention.py:"
+                         + ("1255" if ragged else "743"),
+             "row_rel_tolerance": KERNEL_ROW_REL_TOL}
+    if cases.mode:
+        entry.update(mode=cases.mode, window=cases.window,
+                     softcap=cases.softcap, q_gain=cases.q_gain)
+    if cases.v_lanes is not None:
+        entry.update(v_lanes=cases.v_lanes, quant_sections=(
+            list(cases.sections) if name.endswith("_int8") else None))
+    return {**entry, "chunk_tokens": chunk, "splits": splits, **case}
 
 
 def check_paged_attention(cfg, dev, int8: bool = False,
                           cases: AttnCases = LLAMA_ATTN) -> dict:
-    """K3 (bf16 pool, or int8 rows with in-row scales) in the modes of
-    ``cases``. On the mixed batch and the full batch: repeated bits, the
-    planted faults (on a global layer the longest slot's last table entry
-    read as the trash block, in int8 that block's scale lanes zeroed; on a
-    sliding layer, over keys planted by mark_dead_keys, the window one key
-    wider, the soft-cap dropped and the window dropped), and timed with a
-    cold L2 with the bound and the library yardsticks. On the mixed batch
-    also: the kernel's own split partials of a global-layer call (read
-    from the scratch it was given) merged in plain PyTorch against its
-    output, and that merge with one split's partial left out as the
-    planted merge fault; and of a sliding layer, the same call as a global
-    layer (no floor, and a floor of -1: the same bits) against its plain
-    version. The split boundaries (of a sliding layer, its floors on them)
-    against the plain version."""
+    """K3 (bf16 pool, or int8 rows with in-row scales; in the MLA modes
+    K3-MLA over latent rows) in the modes of ``cases``. On the mixed batch
+    and the full batch: repeated bits, the planted faults (on a global
+    layer the longest slot's last table entry read as the trash block and
+    ``cases.faults``; on a sliding layer, over keys planted by
+    mark_dead_keys, the window one key wider, the soft-cap dropped and the
+    window dropped), and timed with a cold L2 with the bound and the
+    library yardsticks. On the mixed batch also: the kernel's own split
+    partials of a global-layer call (read from the scratch it was given)
+    merged in plain PyTorch against its output, and that merge with one
+    split's partial left out as the planted merge fault; and of a sliding
+    layer, the same call as a global layer (no floor, and a floor of -1:
+    the same bits) against its plain version. The split boundaries (of a
+    sliding layer, its floors on them) against the plain version."""
     import torch
     from dynamo_tpu_torch.engine import attention, kernels
-    name = "paged_attention" + ("_int8" if int8 else "")
-    fn = (kernels.paged_attention_int8_cuda if int8
-          else kernels.paged_attention_cuda)
-    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    C, g = KVH * Dh, cfg.num_heads // cfg.num_kv_heads
-    bs, M, W, cap = KV_BLOCK, cases.M, cases.window, cases.softcap
+    name, fn, source = attn_kernel(cases, False, int8)
+    H, KVH, Dq, Dv = attn_shape(cfg, cases)
+    g, W, cap = H // KVH, cases.window, cases.softcap
+    bs = cases.block[int8]
+    M = cases.max_len // bs
     chunk, S = attention.decode_split_plan(M, bs)
-    kw = dict(block_size=bs,
-              scale=(cfg.query_pre_attn_scalar or Dh) ** -0.5)
-    wide = (lambda t: t.float()) if cases.q_gain != 1.0 else (lambda t: t)
+    kw = dict(block_size=bs, scale=attn_scale(cfg, cases))
+    latent = dict(v_lanes=cases.v_lanes,
+                  quant_sections=cases.sections if int8 else None)
+    wide = (lambda t: t.float()) if cases.plain_f32 else (lambda t: t)
     pool = (lambda t: t) if int8 else wide
 
     def run(label: str, lens, seed: int, timed: bool,
             merge: bool = False) -> dict:
-        q, k_cache, v_cache, tables, seq_lens = paged_inputs(
-            cfg, dev, seed + cases.seed, lens, int8, M)
-        q = (q.float() * cases.q_gain).bfloat16()
+        q, k_cache, v_cache, tables, seq_lens = cases.inputs(
+            cfg, dev, seed + cases.seed, lens, int8, bs, M)
+        if cases.q_gain != 1.0:
+            q = (q.float() * cases.q_gain).bfloat16()
         win_lo = None
         if W:
             win_lo = seq_lens - 1 - W
             mark_dead_keys(k_cache, q, tables, [(b, b) for b in
                                                 range(len(lens))],
-                           win_lo.tolist(), g)
+                           win_lo.tolist(), g, bs)
+        mode_kw = ({"softcap": cap, "win_lo": win_lo}
+                   if cases.v_lanes is None else latent)
 
-        def kernel(kc=k_cache, vc=v_cache, tabs=tables, **f):
-            return fn(q, kc, vc, tabs, seq_lens,
-                      **{**kw, "softcap": cap, "win_lo": win_lo, **f})
+        def kernel(qq=q, kc=k_cache, vc=v_cache, tabs=tables, **f):
+            pools = (kc,) if vc is None else (kc, vc)
+            return fn(qq, *pools, tabs, seq_lens, **{**kw, **mode_kw, **f})
 
-        def plain(w):
+        def plain(w, qq=q, kc=k_cache, vc=v_cache):
             return attention.paged_attention_ref(
-                wide(q), pool(k_cache), pool(v_cache), tables, seq_lens,
-                softcap=cap or None, win_lo=w, **kw)
-        scratch = kernels.paged_scratch(q, KVH, M, bs) if merge else None
+                qq, kc, vc, tables, seq_lens, softcap=cap or None, win_lo=w,
+                **kw, **latent)
+        scratch = (kernels.paged_scratch(q, KVH, M, bs, cases.v_lanes)
+                   if merge else None)
         out, again = kernel(), kernel()
-        glob = kernel(win_lo=None, scratch=scratch)
-        ref = plain(win_lo)
+        glob = kernel(scratch=scratch, **({"win_lo": None} if W else {}))
+        ref = plain(win_lo, wide(q), pool(k_cache),
+                    None if v_cache is None else pool(v_cache))
         faults = {}
         if timed and W:
             faults = {"window_off_by_one": kernel(win_lo=win_lo - 1),
                       "softcap_dropped": kernel(softcap=0.0),
                       "dead_splits_counted": glob}
         elif timed:
+            # the longest slot's last table entry read as the trash block
+            # (which holds other random rows here), and the pool's own
             longest = max(range(len(lens)), key=lambda b: lens[b])
             last = (lens[longest] - 1) // bs
-            if int8:
-                # the longest slot's last block read with its scale lanes
-                # ignored (every scale 2^0 * (1 + 0/256) = 1)
-                rows = (tables[longest, last].long() * bs
-                        + torch.arange(bs, device=dev))
-                bad_k, bad_v = k_cache.clone(), v_cache.clone()
-                for t in (bad_k, bad_v):
-                    t[rows, C:C + 2] = 0
-                faults["scale_lanes"] = kernel(bad_k, bad_v)
-                del bad_k, bad_v
-            else:
-                # the longest slot's last table entry read as the trash
-                # block (which holds other random rows here)
-                bad = tables.clone()
-                bad[longest, last] = 0
-                faults["trash_block"] = kernel(tabs=bad)
+            bad = tables.clone()
+            bad[longest, last] = 0
+            faults = {"trash_block": kernel(tabs=bad), **cases.faults(
+                cases, kernel, q, k_cache, v_cache,
+                tables[longest, last].long() * bs
+                + torch.arange(bs, device=dev), int8)}
         torch.cuda.synchronize()
         what = f"{name} {cases.mode or ''} {label}"
         if not torch.isfinite(out).all():
@@ -866,7 +1157,7 @@ def check_paged_attention(cfg, dev, int8: bool = False,
         gref = ref
         if W and merge:
             # the same call as a global layer: a floor of -1 masks nothing
-            gref = plain(None)
+            gref = plain(None, wide(q), pool(k_cache), pool(v_cache))
             if not torch.equal(glob, kernel(win_lo=torch.full_like(win_lo,
                                                                    -1))):
                 raise RuntimeError(f"{what}: a global layer's -1 floor and "
@@ -877,33 +1168,18 @@ def check_paged_attention(cfg, dev, int8: bool = False,
             # splits, merged in plain PyTorch, against the kernel's own
             # merge; then the planted merge fault, each such slot's first
             # split left out
-            multi = [b for b, n in enumerate(lens) if n > chunk]
-            sel = torch.tensor(multi, device=dev)
-            km, kl, kacc = (t[sel].clone() for t in
-                            attention.split_scratch_views(scratch, len(lens),
-                                                          KVH, S, g, Dh))
-            for i, b in enumerate(multi):
-                n = -(-lens[b] // chunk)
-                km[i, :, n:], kl[i, :, n:], kacc[i, :, n:] = (
-                    float("-inf"), 0, 0)
-            _, case["kernel_partials_merged_row_rel_err"] = row_errors(
-                attention.merge_split_partials(km, kl, kacc), glob[sel],
-                slice(None))
-            km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
-            _, case["merge_fault_row_rel_err"] = row_errors(
-                attention.merge_split_partials(km, kl, kacc), gref[sel],
-                slice(None))
-            del km, kl, kacc
+            (case["kernel_partials_merged_row_rel_err"],
+             case["merge_fault_row_rel_err"]) = merged_partials_errors(
+                scratch, (len(lens), KVH, S, g, Dv),
+                {b: -(-n // chunk) for b, n in enumerate(lens) if n > chunk},
+                glob, gref)
         del faults, again, glob, gref, scratch
         if timed:
             case["ms"] = time_ms(kernel, cold=True)
-            case["plain_ms"] = time_ms(
-                lambda: attention.paged_attention_ref(
-                    q, k_cache, v_cache, tables, seq_lens,
-                    softcap=cap or None, win_lo=win_lo, **kw),
-                iters=5, cold=True)
-            lib = paged_library(cfg, q, k_cache, v_cache, tables, seq_lens,
-                                win_lo, cap)
+            case["plain_ms"] = time_ms(lambda: plain(win_lo), iters=5,
+                                       cold=True)
+            lib = paged_library(cfg, cases, q, k_cache, v_cache, tables,
+                                seq_lens, bs, win_lo)
             yardsticks(case, lib, ref, live,
                        "pages gathered " + ("and dequantized " if int8
                                             else "")
@@ -911,8 +1187,10 @@ def check_paged_attention(cfg, dev, int8: bool = False,
                        + (", window in the mask" if W else ""),
                        time_ms(lambda: kernel(softcap=0.0), cold=True)
                        if cap else None)
-            case["bound_ms"], case["bound_by"] = paged_bound(cfg, lens, int8,
-                                                             M, W)
+            del lib
+            keys = sum(min(n, W) if W else n for n in lens)
+            case["bound_ms"], case["bound_by"] = attn_bound(
+                cfg, cases, int8, M, len(lens), len(lens), keys, keys, 1)
             case["bound_share"] = case["bound_ms"] / case["ms"]
         del q, k_cache, v_cache, tables, seq_lens, out, ref
         torch.cuda.empty_cache()
@@ -930,162 +1208,62 @@ def check_paged_attention(cfg, dev, int8: bool = False,
         return case
 
     case = run("mix", cases.paged_mix, 3 if int8 else 2, True, merge=True)
-    case["boundary"] = run("boundary", cases.paged_boundary, 5, False)
+    if cases.paged_boundary:
+        case["boundary"] = run("boundary", cases.paged_boundary, 5, False)
     case["full_batch"] = run("full", cases.paged_full, 6, True)
-    entry = {"name": name, "route": "cuda",
-             "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
-             "replaces": "dynamo_tpu/engine/attention.py:743",
-             "row_rel_tolerance": KERNEL_ROW_REL_TOL}
-    if cases.mode:
-        entry.update(mode=cases.mode, window=W, softcap=cap,
-                     q_gain=cases.q_gain)
-    return {**entry, "chunk_tokens": chunk, "splits": S, **case}
-
-
-def ragged_inputs(cfg, dev, seed: int, int8: bool, mix,
-                  M: int = MAX_MODEL_LEN // KV_BLOCK):
-    """``mix`` over a shuffled table of M 16-token blocks and a random pool
-    (row-quantized for the int8 mode); the trash block 0 holds random rows
-    too. Returns q, pools, tables, starts, counts, kv lengths (tensors) and
-    the mix's starts as a list."""
-    import torch
-    from dynamo_tpu_torch.engine.attention import quantize_kv_rows
-    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    bs = KV_BLOCK
-    S = len(mix)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    num_blocks = S * M + 1
-    k_cache, v_cache = (torch.randn((num_blocks * bs, KVH * Dh), generator=gen,
-                                    device=dev).bfloat16() for _ in range(2))
-    if int8:
-        k_cache, v_cache = quantize_kv_rows(k_cache), quantize_kv_rows(v_cache)
-    perm = (torch.randperm(num_blocks - 1, generator=gen, device=dev)
-            + 1).to(torch.int32)
-    tables = torch.zeros((S, M), dtype=torch.int32, device=dev)
-    starts, used, cursor = [], 0, 0
-    for s, (n, ctx) in enumerate(mix):
-        nb = -(-ctx // bs)
-        tables[s, :nb] = perm[used:used + nb]
-        used += nb
-        starts.append(cursor)
-        cursor += n
-    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
-    q = torch.randn((cursor, H, Dh), generator=gen, device=dev).bfloat16()
-    return (q, k_cache, v_cache, tables, i32(starts),
-            i32([n for n, _ in mix]), i32([c for _, c in mix]), starts)
-
-
-def ragged_library(cfg, q, k_cache, v_cache, tables, starts_l, mix,
-                   window=None, softcap: float = 0.0) -> dict:
-    """The yardsticks over the sequences padded to [S, H, 64, Dh] against
-    pre-gathered (and, int8, dequantized) pages; cold L2: one SDPA call
-    with a boolean causal-and-length mask (with ``window``, the window's
-    too; padded rows see key 0), which takes no soft-cap, and with a
-    soft-cap one flex_attention call (flex_library_ms; padded rows see no
-    key), whose output is returned as ``flex_out`` [TT, H, Dh]."""
-    import torch
-    import torch.nn.functional as F
-    H, Dh = cfg.num_heads, cfg.head_dim
-    M = tables.shape[1]
-    S, dev, Lp = len(mix), q.device, RAGGED_MAX_ROWS
-    qp = torch.zeros((S, H, Lp, Dh), dtype=torch.bfloat16, device=dev)
-    r = torch.arange(Lp, device=dev)
-    kv_pos = torch.arange(M * KV_BLOCK, device=dev)
-    mask = torch.zeros((S, 1, Lp, M * KV_BLOCK), dtype=torch.bool, device=dev)
-    for s, (st, (n, c)) in enumerate(zip(starts_l, mix)):
-        qp[s, :, :n] = q[st:st + n].transpose(0, 1)
-        live = ((kv_pos[None, :] <= (c - n + r)[:, None])
-                & (kv_pos[None, :] < c) & (r < n)[:, None])
-        if window:
-            live &= kv_pos[None, :] > (c - n + r - window)[:, None]
-        mask[s, 0] = live | ((kv_pos[None, :] == 0) & (r >= n)[:, None])
-    kg, vg = gathered_pages(cfg, k_cache, v_cache, tables)
-    scale = (cfg.query_pre_attn_scalar or Dh) ** -0.5
-    res = {"sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
-        qp, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True),
-        cold=True)}
-    if softcap:
-        n_t = torch.tensor([n for n, _ in mix], device=dev)
-        pos0 = torch.tensor([c - n for n, c in mix], device=dev)
-        w = window or (M * KV_BLOCK + RAGGED_MAX_ROWS)
-
-        def live_fn(b, h, q_idx, kv_idx):
-            return ((q_idx < n_t[b]) & (kv_idx <= pos0[b] + q_idx)
-                    & (kv_idx > pos0[b] + q_idx - w))
-        # flex's attention kernel for the 64-row tiles: for a query of 64
-        # rows its default picks its decoding kernel, far slower here
-        res["flex_ms"], out = flex_library_ms(
-            qp, kg, vg, live_fn, softcap, scale, cold=True,
-            kernel_options={"FORCE_USE_FLEX_ATTENTION": True})
-        res["flex_options"] = ", kernel_options FORCE_USE_FLEX_ATTENTION"
-        res["flex_out"] = torch.zeros_like(q)
-        for s, (st, (n, _)) in enumerate(zip(starts_l, mix)):
-            res["flex_out"][st:st + n] = out[s, :, :n].transpose(0, 1)
-    return res
-
-
-def ragged_bound(cfg, mix, int8: bool, M: int = MAX_MODEL_LEN // KV_BLOCK,
-                 window=None) -> tuple:
-    """K4's bound: each sequence's keys that a row can see (with
-    ``window``, from its first row's floor on) read once for K and once
-    for V (an int8 row's two scale bytes once per key), q and out, the
-    tables and the per-sequence scalars; 4*H*Dh operations per visible
-    (row, key)."""
-    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    C, S = KVH * Dh, len(mix)
-    TT = sum(n for n, _ in mix)
-    row_bytes = (C + 2) if int8 else 2.0 * C    # one K or V row, read once
-    keys = sum(min(c, window + n - 1) if window and n else c
-               for n, c in mix)
-    nbytes = (2.0 * row_bytes * keys + 2 * 2.0 * TT * H * Dh
-              + 4.0 * (S * M + 3 * S))
-    pairs = sum(min(c - n + i + 1, window) if window else c - n + i + 1
-                for n, c in mix for i in range(n))
-    return bound(nbytes, 4.0 * H * Dh * pairs)
+    return attn_entry(name, source, False, cases, chunk, S, case)
 
 
 def check_ragged_attention(cfg, dev, int8: bool = False,
                            cases: AttnCases = LLAMA_ATTN) -> dict:
-    """K4 (bf16 pool, or int8 rows with in-row scales) in the modes of
-    ``cases``. On the mix: repeated bits; the planted faults (on a global
-    layer the longest sequence's last block read as the trash block and an
-    off-by-one causal mask inside each chunk, its rows one position early
-    so each misses its own key; on a sliding layer, over keys planted by
-    mark_dead_keys at the decode rows' floors, the window one key wider,
-    the soft-cap dropped and the window dropped); the kernel's own split
-    partials of a global-layer call (read from the scratch it was given,
-    for the rows whose tile has two or more live splits) merged in plain
-    PyTorch against its output, and that merge with each such row's first
-    split left out as the planted merge fault; of a sliding layer, the same
-    call as a global layer (no base, and the sentinel base: the same bits)
-    against its plain version; and at the ragged server's capacity of 136
-    rows (q padded with rows no sequence owns), timed with the f32 scratch
-    allocated by the wrapper and passed in, and its size. The split
-    boundaries against the plain version. The mix, the full batch and the
-    pure-decode step timed with a cold L2 with their bounds and library
-    yardsticks."""
+    """K4 (bf16 pool, or int8 rows with in-row scales; in the MLA modes
+    K4-MLA over latent rows) in the modes of ``cases``. On the mix:
+    repeated bits; the planted faults (on a global layer the longest
+    sequence's last block read as the trash block, ``cases.faults`` and
+    an off-by-one causal mask inside each chunk, its rows one position
+    early so each misses its own key; on a sliding layer, over keys
+    planted by mark_dead_keys at the decode rows' floors, the window one
+    key wider, the soft-cap dropped and the window dropped); the kernel's
+    own split partials of a global-layer call (read from the scratch it
+    was given, for the rows whose tile has two or more live splits)
+    merged in plain PyTorch against its output, and that merge with each
+    such row's first split left out as the planted merge fault; of a
+    sliding layer, the same call as a global layer (no base, and the
+    sentinel base: the same bits) against its plain version; and at the
+    ragged server's capacity of 136 rows (q padded with rows no sequence
+    owns, which must read zero), timed with the f32 scratch allocated by
+    the wrapper and passed in, and its size. The split boundaries against
+    the plain version. The mix, the full batch and the pure-decode step
+    timed with a cold L2 with their bounds and library yardsticks."""
     import torch
     from dynamo_tpu_torch.engine import attention, kernels
-    name = "ragged_paged_attention" + ("_int8" if int8 else "")
-    fn = (kernels.ragged_paged_attention_int8_cuda if int8
-          else kernels.ragged_paged_attention_cuda)
-    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = H // KVH
-    bs, M, W, cap = KV_BLOCK, cases.M, cases.window, cases.softcap
+    name, fn, source = attn_kernel(cases, True, int8)
+    H, KVH, Dq, Dv = attn_shape(cfg, cases)
+    g, W, cap = H // KVH, cases.window, cases.softcap
+    bs = cases.block[int8]
+    M = cases.max_len // bs
     chunk, splits = attention.decode_split_plan(M, bs)
-    kw = dict(block_size=bs,
-              scale=(cfg.query_pre_attn_scalar or Dh) ** -0.5,
+    tile_rows = (attention.LATENT_TILE_ROWS if cases.v_lanes is not None
+                 else None)
+    kw = dict(block_size=bs, scale=attn_scale(cfg, cases),
               max_rows=RAGGED_MAX_ROWS)
-    wide = (lambda t: t.float()) if cases.q_gain != 1.0 else (lambda t: t)
+    latent = dict(v_lanes=cases.v_lanes,
+                  quant_sections=cases.sections if int8 else None)
+    wide = (lambda t: t.float()) if cases.plain_f32 else (lambda t: t)
     pool = (lambda t: t) if int8 else wide
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
 
     def run(label: str, mix, seed: int, timed: bool,
             main: bool = False) -> dict:
-        q, k_cache, v_cache, tables, starts, counts, ctx, starts_l = \
-            ragged_inputs(cfg, dev, seed + cases.seed, int8, mix, M)
-        q = (q.float() * cases.q_gain).bfloat16()
-        TT, rows = q.shape[0], slice(0, q.shape[0])
+        TT = sum(n for n, _ in mix)
+        q, k_cache, v_cache, tables, ctx = cases.inputs(
+            cfg, dev, seed + cases.seed, [c for _, c in mix], int8, bs, M,
+            n_rows=TT)
+        if cases.q_gain != 1.0:
+            q = (q.float() * cases.q_gain).bfloat16()
+        starts_l = [sum(n for n, _ in mix[:s]) for s in range(len(mix))]
+        starts, counts = i32(starts_l), i32([n for n, _ in mix])
+        rows = slice(0, TT)
         win_base = None
         if W:
             win_base = torch.where(counts > 0, ctx - counts - W,
@@ -1094,20 +1272,27 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
             decode = [s for s, (n, _) in enumerate(mix) if n == 1]
             mark_dead_keys(k_cache, q, tables,
                            [(s, starts_l[s]) for s in decode],
-                           [int(win_base[s]) for s in decode], g)
+                           [int(win_base[s]) for s in decode], g, bs)
+        mode_kw = ({"softcap": cap, "win_base": win_base}
+                   if cases.v_lanes is None else latent)
 
-        def kernel(qq=q, tabs=tables, lens=ctx, **f):
-            return fn(qq, k_cache, v_cache, tabs, starts, counts, lens,
-                      **{**kw, "softcap": cap, "win_base": win_base, **f})
+        def kernel(qq=q, kc=k_cache, vc=v_cache, tabs=tables, lens=ctx,
+                   **f):
+            pools = (kc,) if vc is None else (kc, vc)
+            return fn(qq, *pools, tabs, starts, counts, lens,
+                      **{**kw, **mode_kw, **f})
 
-        def plain(w):
+        def plain(w, qq=q, kc=k_cache, vc=v_cache):
             return attention.ragged_paged_attention_ref(
-                wide(q), pool(k_cache), pool(v_cache), tables, starts,
-                counts, ctx, softcap=cap or None, win_base=w, **kw)
-        scratch = kernels.paged_scratch(q, KVH, M, bs) if main else None
+                qq, kc, vc, tables, starts, counts, ctx,
+                softcap=cap or None, win_base=w, **kw, **latent)
+        wide_in = (wide(q), pool(k_cache),
+                   None if v_cache is None else pool(v_cache))
+        scratch = (kernels.paged_scratch(q, KVH, M, bs, cases.v_lanes)
+                   if main else None)
         out, again = kernel(), kernel()
-        glob = kernel(win_base=None, scratch=scratch)
-        ref = plain(win_base)
+        glob = kernel(scratch=scratch, **({"win_base": None} if W else {}))
+        ref = plain(win_base, *wide_in)
         faults = {}
         if main and W:
             faults = {"window_off_by_one": kernel(win_base=win_base - 1),
@@ -1115,11 +1300,15 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
                       "dead_splits_counted": glob}
         elif main:
             longest = max(range(len(mix)), key=lambda s: mix[s][1])
+            last = (mix[longest][1] - 1) // bs
             bad = tables.clone()
-            bad[longest, (mix[longest][1] - 1) // bs] = 0
+            bad[longest, last] = 0
             faults = {"trash_block": kernel(tabs=bad),
                       "causal_mask_off_by_one": kernel(
-                          lens=torch.where(counts > 1, ctx - 1, ctx))}
+                          lens=torch.where(counts > 1, ctx - 1, ctx)),
+                      **cases.faults(cases, kernel, q, k_cache, v_cache,
+                                     tables[longest, last].long() * bs
+                                     + torch.arange(bs, device=dev), int8)}
         torch.cuda.synchronize()
         what = f"{name} {cases.mode or ''} {label}"
         if not torch.isfinite(out).all():
@@ -1139,7 +1328,7 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
         gref = ref
         if W and main:
             # the same call as a global layer: the sentinel masks nothing
-            gref = plain(None)
+            gref = plain(None, *wide_in)
             if not torch.equal(glob, kernel(win_base=torch.full_like(
                     win_base, attention.RAGGED_WIN_SENTINEL))):
                 raise RuntimeError(f"{what}: the global sentinel and no "
@@ -1151,30 +1340,17 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
             # own merge; then the planted merge fault, each such row's
             # first split left out
             _, live = attention.ragged_row_plan(starts, counts, ctx, TT, g,
-                                                M, bs)
-            multi = [r for r in range(TT) if live[r] > 1]
-            sel = torch.tensor(multi, device=dev)
-            km, kl, kacc = (t[sel].clone() for t in
-                            attention.split_scratch_views(scratch, TT, KVH,
-                                                          splits, g, Dh))
-            for i, r in enumerate(multi):
-                n = int(live[r])
-                km[i, :, n:], kl[i, :, n:], kacc[i, :, n:] = (
-                    float("-inf"), 0, 0)
+                                                M, bs, tile_rows)
+            multi = {r: int(live[r]) for r in range(TT) if live[r] > 1}
             case["multi_split_rows"] = len(multi)
-            _, case["kernel_partials_merged_row_rel_err"] = row_errors(
-                attention.merge_split_partials(km, kl, kacc), glob[sel],
-                slice(None))
-            km[:, :, 0], kl[:, :, 0], kacc[:, :, 0] = float("-inf"), 0, 0
-            _, case["merge_fault_row_rel_err"] = row_errors(
-                attention.merge_split_partials(km, kl, kacc), gref[sel],
-                slice(None))
-            del km, kl, kacc
+            (case["kernel_partials_merged_row_rel_err"],
+             case["merge_fault_row_rel_err"]) = merged_partials_errors(
+                scratch, (TT, KVH, splits, g, Dv), multi, glob, gref)
             # the ragged server's capacity: its q always holds 136 rows
-            qc = torch.zeros((RAGGED_CAPACITY, H, Dh), dtype=q.dtype,
+            qc = torch.zeros((RAGGED_CAPACITY,) + q.shape[1:], dtype=q.dtype,
                              device=dev)
             qc[:TT] = q
-            sc = kernels.paged_scratch(qc, KVH, M, bs)
+            sc = kernels.paged_scratch(qc, KVH, M, bs, cases.v_lanes)
             oc = kernel(qq=qc, scratch=sc)
             torch.cuda.synchronize()
             if torch.count_nonzero(oc[TT:]).item():
@@ -1189,24 +1365,25 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
                 "ms_scratch_passed_in": time_ms(
                     lambda: kernel(qq=qc, scratch=sc), cold=True)}
             del qc, sc, oc
-        del faults, again, glob, gref, scratch
+        del faults, again, glob, gref, scratch, wide_in
         if timed:
             case["ms"] = time_ms(kernel, cold=True)
-            case["plain_ms"] = time_ms(
-                lambda: attention.ragged_paged_attention_ref(
-                    q, k_cache, v_cache, tables, starts, counts, ctx,
-                    softcap=cap or None, win_base=win_base, **kw),
-                iters=3, cold=True)
-            lib = ragged_library(cfg, q, k_cache, v_cache, tables, starts_l,
-                                 mix, W, cap)
+            case["plain_ms"] = time_ms(lambda: plain(win_base), iters=3,
+                                       cold=True)
+            lib = ragged_library(cfg, cases, q, k_cache, v_cache, tables,
+                                 starts_l, mix, bs)
             yardsticks(case, lib, ref, rows,
                        "padded sequences and pre-gathered"
                        + (" dequantized" if int8 else "") + " pages"
                        + (", window in the mask" if W else ""),
                        time_ms(lambda: kernel(softcap=0.0), cold=True)
                        if cap else None)
-            case["bound_ms"], case["bound_by"] = ragged_bound(cfg, mix, int8,
-                                                              M, W)
+            del lib
+            keys = sum(min(c, W + n - 1) if W and n else c for n, c in mix)
+            pairs = sum(min(c - n + i + 1, W) if W else c - n + i + 1
+                        for n, c in mix for i in range(n))
+            case["bound_ms"], case["bound_by"] = attn_bound(
+                cfg, cases, int8, M, TT, len(mix), keys, pairs, 3)
             case["bound_share"] = case["bound_ms"] / case["ms"]
         del q, k_cache, v_cache, tables, out, ref
         torch.cuda.empty_cache()
@@ -1226,17 +1403,12 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
         return case
 
     case = run("mix", cases.ragged_mix, 6 if int8 else 7, True, main=True)
-    case["boundary"] = run("boundary", cases.ragged_boundary, 8, False)
+    if cases.ragged_boundary:
+        case["boundary"] = run("boundary", cases.ragged_boundary, 8, False)
     case["full_batch"] = run("full", cases.ragged_full, 9, True)
-    case["decode_step"] = run("decode", cases.ragged_decode, 10, True)
-    entry = {"name": name, "route": "cuda",
-             "source": "dynamo_tpu_torch/csrc/ragged_paged_attention.cu",
-             "replaces": "dynamo_tpu/engine/attention.py:1255",
-             "row_rel_tolerance": KERNEL_ROW_REL_TOL}
-    if cases.mode:
-        entry.update(mode=cases.mode, window=W, softcap=cap,
-                     q_gain=cases.q_gain)
-    return {**entry, "chunk_tokens": chunk, "splits": splits, **case}
+    if cases.ragged_decode:
+        case["decode_step"] = run("decode", cases.ragged_decode, 10, True)
+    return attn_entry(name, source, True, cases, chunk, splits, case)
 
 
 def check_lm_head_int8(cfg, dev) -> dict:
@@ -1599,52 +1771,55 @@ def check_model_limits(what: str, rel: float, faults: dict) -> None:
 
 
 def check_ragged_model(params, cfg, mode: str, kv, tables, batches,
-                       slots: int, plain_swaps, fault, label: str) -> dict:
-    """Phase 4's ragged path: ``batches`` through ``llama.ragged_forward``
-    over ``kv`` (restored before each run and at the end) with the kernels
-    and with the plain versions (``plain_swaps``, K4's included), and with
-    the planted K4 fault ``fault``, the first ``slots`` slots' logits
-    compared; then one pure-decode ragged dispatch of a row per slot of
-    ``tables`` profiled beside the split decode step over the same rows."""
+                       slots: int, plain_swaps, run, bs: int) -> dict:
+    """Phase 4's ragged path: ``batches`` through the model family's
+    ``ragged_forward`` over ``kv`` (restored before each run and at the
+    end) with the kernels and with the plain versions (``plain_swaps``,
+    K4's included), and with ``run``'s planted K4 fault, the first
+    ``slots`` slots' logits compared; then one pure-decode ragged dispatch
+    of a row per slot of ``tables`` profiled beside the split decode step
+    over the same rows."""
     import torch
     from dynamo_tpu_torch.engine import kernels
-    from dynamo_tpu_torch.engine.models import llama
-    k4 = ("ragged_paged_attention"
-          + ("_int8" if kv["k"].dtype == torch.int8 else ""))
+    from dynamo_tpu_torch.engine.models import family
+    model = family(cfg)
+    pool = next(iter(kv.values()))
+    k4 = run.attn_kernels[1] + ("_int8" if pool.dtype == torch.int8 else "")
     snap = {n: t.clone() for n, t in kv.items()}
 
     def restore():
         for n, t in kv.items():
             t.copy_(snap[n])
 
-    def run():
+    def run_batches():
         restore()
-        return torch.cat([llama.ragged_forward(params, kv, *b, cfg, KV_BLOCK,
+        return torch.cat([model.ragged_forward(params, kv, *b, cfg, bs,
                                                RAGGED_MAX_ROWS)[:slots]
                           for b in batches])     # [dispatches * slots, V]
 
+    fault = run.ragged_fault
     with torch.inference_mode():
         with swapped(*plain_swaps):
-            ref = run()
-        with swapped((llama, "ragged_paged_attention", fault)):
-            bad = run()
+            ref = run_batches()
+        with swapped((model, "ragged_paged_attention", fault)):
+            bad = run_batches()
         kernels.reset_launch_counts()
-        got = run()
+        got = run_batches()
         launches = {k: v.launches for k, v in kernels.KERNELS.items()
                     if v.launches}
         profile = profile_ragged_decode(params, kv, cfg, tables,
-                                        tables.shape[0] - 1, kv["k"].device)
+                                        tables.shape[0] - 1, pool.device, bs)
         restore()
     torch.cuda.synchronize()
     del snap
-    what = f"ragged model {label} {mode}"
+    what = f"ragged model {run.label} {mode}"
     if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
         raise RuntimeError(f"{what}: non-finite logits")
     spread, compare = logit_compare(ref)
     res = {"mode": mode, "launches": launches, "max_abs_ref": spread,
            **compare(got), "planted_faults": {fault.__name__: compare(bad)},
            "decode_dispatch": profile}
-    log(f"ragged_model {label} {json.dumps(res)}")
+    log(f"ragged_model {run.label} {json.dumps(res)}")
     want = {k4: cfg.num_layers * len(batches)}
     if {k: launches.get(k, 0) for k in want} != want or any(
             launches.get(k, 0) for k in SPLIT_ATTENTION):
@@ -1777,12 +1952,14 @@ def check_model_sp(params, cfg, dev, seed: int) -> dict:
     return out
 
 
-def profile_ragged_decode(params, kv, cfg, tables, B: int, dev) -> dict:
+def profile_ragged_decode(params, kv, cfg, tables, B: int, dev,
+                          bs: int = KV_BLOCK) -> dict:
     """One pure-decode ragged dispatch of B rows (one per slot, each at
     position 300 of its own blocks) beside the split decode step over the
     same rows: wall time (mean of 5), device time, busy share, kernels."""
     import torch
-    from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.engine.models import family
+    model = family(cfg)
     pos = 300
     toks = torch.arange(3, 3 + B, dtype=torch.long, device=dev)
     positions = torch.full((B,), pos, dtype=torch.int32, device=dev)
@@ -1793,13 +1970,13 @@ def profile_ragged_decode(params, kv, cfg, tables, B: int, dev) -> dict:
     sample = i32(list(range(B)) + [0])
 
     def ragged():
-        return llama.ragged_forward(params, kv, toks, positions, tables,
+        return model.ragged_forward(params, kv, toks, positions, tables,
                                     row_slot, starts, counts, sample, cfg,
-                                    KV_BLOCK, RAGGED_MAX_ROWS)
+                                    bs, RAGGED_MAX_ROWS)
 
     def split():
-        return llama.decode_forward(params, kv, toks, positions,
-                                    tables[:B].contiguous(), cfg, KV_BLOCK)
+        return model.decode_forward(params, kv, toks, positions,
+                                    tables[:B].contiguous(), cfg, bs)
 
     out = {}
     for name, step in (("ragged", ragged), ("split", split)):
@@ -1819,13 +1996,14 @@ def profile_ragged_decode(params, kv, cfg, tables, B: int, dev) -> dict:
 
 
 def profile_decode_step(params, kv, cfg, table, B: int, M: int,
-                        pos: int) -> dict:
-    """Where one decode step's time goes (8B, one live slot of B): host
-    wall time of ``decode_forward`` against the device time the profiler
-    attributes to kernels, and the top kernels by device time."""
+                        pos: int, block_size: int = KV_BLOCK) -> dict:
+    """Where one decode step's time goes (one live slot of B): host wall
+    time of the model family's ``decode_forward`` against the device time
+    the profiler attributes to kernels, and the top kernels by device
+    time."""
     import torch
-    from dynamo_tpu_torch.engine.models import llama
-    dev = kv["k"].device
+    from dynamo_tpu_torch.engine.models import family
+    dev = next(iter(kv.values())).device
     toks = torch.zeros((B,), dtype=torch.long, device=dev)
     pos_t = torch.zeros((B,), dtype=torch.int32, device=dev)
     pos_t[0] = pos
@@ -1833,8 +2011,8 @@ def profile_decode_step(params, kv, cfg, table, B: int, M: int,
     tables[0] = table
 
     def step():
-        return llama.decode_forward(params, kv, toks, pos_t, tables, cfg,
-                                    KV_BLOCK)
+        return family(cfg).decode_forward(params, kv, toks, pos_t, tables,
+                                          cfg, block_size)
 
     for _ in range(2):
         step()
@@ -1866,14 +2044,18 @@ def device_profile(fn) -> dict:
     # [ms, kernels] of each hand-written kernel of a call, either pool: K1,
     # K2, K3's two kernels (the merge is launched early, by programmatic
     # dependent launch, so its time includes its wait for the split kernel
-    # and the two overlap), K4, K5 and K6 (both tilings)
+    # and the two overlap), K4, K5 and K6 (both tilings), and the latent
+    # kernels' split and merge kernels (K3-MLA on a decode step, K4-MLA on
+    # a ragged dispatch)
     names = {"k1": ("flash_prefill_kernel",),
              "k2": ("flash_prefill_partial_kernel",),
              "k3_split": ("paged_attention_split_kernel",),
              "k3_merge": ("paged_attention_merge_kernel",),
              "k4": ("ragged_attention_kernel",),
              "k5": ("lm_head_int8_kernel",),
-             "k6": ("int4_decode_kernel", "int4_prefill_kernel")}
+             "k6": ("int4_decode_kernel", "int4_prefill_kernel"),
+             "mla_split": ("latent_split_kernel",),
+             "mla_merge": ("latent_merge_kernel",)}
     mine = {part: [0.0, 0] for part in names}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
@@ -1924,7 +2106,8 @@ def program_inputs(pos: int, table, B: int, M: int,
 
 
 def check_decode_program(params, kv, cfg, table, B: int, M: int,
-                         pos: int, mode: str) -> dict:
+                         pos: int, mode: str,
+                         block_size: int = KV_BLOCK) -> dict:
     """The decode program over the 8B weights and the pool phase 4 filled:
     a graph replay against the same program run eagerly from the same
     pool (tokens, logprobs, logits of the live slots and the pool rows
@@ -1937,11 +2120,12 @@ def check_decode_program(params, kv, cfg, table, B: int, M: int,
     import numpy as np
     import torch
     from dynamo_tpu_torch.engine.programs import DecodeProgram
-    dev = kv["k"].device
+    dev = next(iter(kv.values())).device
     n_used = int((table > 0).sum().item())
     second = torch.zeros_like(table)
     second[:n_used] = torch.arange(1 + n_used, 1 + 2 * n_used, device=dev)
-    prog = DecodeProgram(params, kv, cfg, KV_BLOCK, B, M, PROGRAM_K, 0, dev)
+    prog = DecodeProgram(params, kv, cfg, block_size, B, M, PROGRAM_K, 0,
+                         dev)
     inp = program_inputs(pos, table, B, M, second)
     live = [0, 1]
     snap = {n: t.clone() for n, t in kv.items()}
@@ -1956,7 +2140,7 @@ def check_decode_program(params, kv, cfg, table, B: int, M: int,
         d = prog.dispatch(K, "filtered", inp, with_logits=True)
         toks, lps = d.fetch()
         logits = d.logits.clone()
-        pool = {n: t[:, KV_BLOCK:].clone() for n, t in kv.items()}
+        pool = {n: t[:, block_size:].clone() for n, t in kv.items()}
         restore()
         e = prog.run_eager(K, "filtered", inp, with_logits=True)
         same = {"tokens": bool((toks[:, live] == e.toks.cpu().numpy()
@@ -1964,7 +2148,7 @@ def check_decode_program(params, kv, cfg, table, B: int, M: int,
                 "logprobs": bool((lps[:, live] == e.logprobs.cpu().numpy()
                                   [:, live]).all()),
                 "logits": torch.equal(logits[:, live], e.logits[:, live]),
-                "pool": all(torch.equal(pool[n], kv[n][:, KV_BLOCK:])
+                "pool": all(torch.equal(pool[n], kv[n][:, block_size:])
                             for n in kv)}
         res[f"k{K}_replay_equals_eager"] = same
         del pool, logits, e
@@ -2078,48 +2262,56 @@ def check_sampling_noise(cfg, dev) -> dict:
 @dataclasses.dataclass(frozen=True)
 class ModelRun:
     """One geometry's phase-4 run: a ``prompt``-token prompt in a
-    ``bucket``-token bucket, then ``steps`` decode steps, over tables of M
-    16-token blocks; K1's and K3's planted faults (functions with the
-    wrappers' signatures); the ragged dispatches (``ragged``: a function of
-    (cfg, dev, seed, kv_quant, kv=, table=, tokens=, n_blocks=) giving a
-    pool, tables, dispatches and the slots to read) and K4's planted fault;
-    whether bf16 also runs the sequence-parallel prefill (K2)."""
+    ``bucket``-token bucket, then ``steps`` decode steps, over tables
+    reaching ``max_len`` keys in blocks of ``block`` (bf16, int8 pool); K1's
+    planted fault (None: the family's prefill runs no kernel) and K3's
+    (functions with the wrappers' signatures); the ragged dispatches
+    (``ragged``: a function of (cfg, dev, seed, kv_quant, kv=, table=,
+    tokens=, n_blocks=) giving a pool, tables, dispatches and the slots to
+    read) and K4's planted fault; whether bf16 also runs the
+    sequence-parallel prefill (K2); how the plain attention versions run
+    (``plain`` wraps each); the kernels-line names of K3 and K4 (``_int8``
+    added over an int8 pool)."""
     label: str
     prompt: int
     bucket: int
     steps: int
-    M: int
-    prefill_fault: object
-    decode_fault: object
-    ragged: object
-    ragged_fault: object
+    max_len: int
+    prefill_fault: Optional[Callable]
+    decode_fault: Callable
+    ragged: Callable
+    ragged_fault: Callable
     sp: bool
+    block: tuple = (KV_BLOCK, KV_BLOCK)
+    plain: Callable = lambda ref: ref
+    attn_kernels: tuple = ("paged_attention", "ragged_paged_attention")
 
 
-LLAMA_RUN = ModelRun("8B", 300, 512, 4, MAX_MODEL_LEN // KV_BLOCK,
+LLAMA_RUN = ModelRun("8B", 300, 512, 4, MAX_MODEL_LEN,
                      prefill_without_last_tile, decode_without_last_block,
                      ragged_llama, ragged_without_last_block, True)
 
 
 def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
-    """Phase 4 (4g) in one mode of MODEL_MODES: the model of ``cfg``
+    """Phase 4 (4g, 4m) in one mode of SERVE_MODES: the model of ``cfg``
     (random weights, every layer) prefills ``run.prompt`` tokens and
     decodes ``run.steps`` steps through the kernels, through their plain
     versions, and with a planted fault in each kernel of the mode (``run``'s
     K1 and K3 faults; K5's first strip left out; K6's last group's scales
-    read as the first's); each kernel's launches; one prefill and one eager
-    decode step profiled; the decode program (check_decode_program); in the
-    modes of RAGGED_MODES, ``run``'s ragged dispatches (check_ragged_model);
-    in bf16 where ``run.sp``, the sequence-parallel prefill
-    (check_model_sp)."""
-    import gc
+    read as the first's); each kernel's launches; the footprint; one
+    prefill and one eager decode step profiled; the decode program
+    (check_decode_program); in the modes of RAGGED_MODES, ``run``'s ragged
+    dispatches (check_ragged_model); in bf16 where ``run.sp``, the
+    sequence-parallel prefill (check_model_sp)."""
     import torch
     from dynamo_tpu_torch.engine import attention, kernels, lm_head, quant
     from dynamo_tpu_torch.engine import quant_matmul
-    from dynamo_tpu_torch.engine.models import llama
+    from dynamo_tpu_torch.engine.models import family
     from dynamo_tpu_torch.engine.quant import init_params_quantized
     from dynamo_tpu_torch.engine.weights import init_params
-    weights, kv_quant = MODEL_MODES[mode]
+    model = family(cfg)
+    weights, kv_quant = SERVE_MODES[mode]
+    int8_kv = kv_quant == "int8"
     t0 = time.monotonic()
     if weights == "none":
         params = init_params(cfg, seed, dev, torch.bfloat16)
@@ -2130,7 +2322,8 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
     log(f"model {run.label} {mode}: random weights on the card in "
         f"{time.monotonic() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    bs, M, B = KV_BLOCK, run.M, 8
+    bs, B = run.block[int8_kv], 8
+    M = run.max_len // bs
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     tokens = torch.randint(3, cfg.vocab_size, (run.bucket,), generator=gen,
@@ -2142,11 +2335,12 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
     # 8-step dispatches; the pool holds a second slot's blocks as many
     n_blocks = -(-(run.prompt + run.steps + 2 + PROGRAM_K) // bs)
     table[:n_blocks] = torch.arange(1, 1 + n_blocks, device=dev)
-    kv = llama.init_kv_cache(cfg, 2 * n_blocks + 1, bs, dev, torch.bfloat16,
+    kv = model.init_kv_cache(cfg, 2 * n_blocks + 1, bs, dev, torch.bfloat16,
                              quantization=kv_quant)
+    footprint = torch.cuda.memory_allocated() / 2**30
 
     def prefill():
-        return llama.prefill_forward(params, kv, tokens, table, 0,
+        return model.prefill_forward(params, kv, tokens, table, 0,
                                      run.prompt, cfg, bs)
 
     def forward():
@@ -2160,17 +2354,18 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
         for i in range(run.steps):
             toks[0] = forced[i]
             pos[0] = run.prompt + i
-            out.append(llama.decode_forward(params, kv, toks, pos, tables,
+            out.append(model.decode_forward(params, kv, toks, pos, tables,
                                             cfg, bs)[:1])
         return torch.cat(out)                      # [1 + steps, V]
 
     # each kernel of the mode: (module, attribute, plain version, fault)
-    slots = [(llama, "flash_prefill", attention.flash_prefill_ref,
-              run.prefill_fault),
-             (llama, "paged_attention", attention.paged_attention_ref,
-              run.decode_fault)]
+    slots = [(model, "paged_attention",
+              run.plain(attention.paged_attention_ref), run.decode_fault)]
+    if run.prefill_fault is not None:
+        slots.insert(0, (model, "flash_prefill", attention.flash_prefill_ref,
+                         run.prefill_fault))
     if weights != "none":
-        slots.append((llama, "lm_head_int8", lm_head.lm_head_int8_ref,
+        slots.append((model, "lm_head_int8", lm_head.lm_head_int8_ref,
                       head_without_first_strip))
     if weights == "int4":
         slots.append((quant, "grouped_int4_matmul",
@@ -2185,41 +2380,47 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
             with swapped((m, a, fault)):
                 faults[fault.__name__] = forward()
         kernels.reset_launch_counts()
+        t1 = time.monotonic()
         got = forward()
+        torch.cuda.synchronize()
+        forward_s = time.monotonic() - t1
         launches = {k: v.launches for k, v in kernels.KERNELS.items()
                     if v.launches}
-        torch.cuda.synchronize()
         t1 = time.monotonic()
         prefill()
         torch.cuda.synchronize()
         prefill_profile = {"wall_ms": 1e3 * (time.monotonic() - t1),
                            **device_profile(prefill)}
         decode_step = profile_decode_step(params, kv, cfg, table, B, M,
-                                          run.prompt + run.steps)
+                                          run.prompt + run.steps, bs)
         program = check_decode_program(params, kv, cfg, table, B, M,
                                        run.prompt + run.steps + 1,
-                                       f"{run.label} {mode}")
+                                       f"{run.label} {mode}", bs)
         if mode in RAGGED_MODES:
             # the same weights through the ragged path: K4 in place of K1
             # and K3, every other kernel as above
-            plain_swaps = [(m, a, plain) for m, a, plain, _ in slots[2:]]
-            plain_swaps.append((llama, "ragged_paged_attention",
-                                attention.ragged_paged_attention_ref))
+            plain_swaps = [(m, a, plain) for m, a, plain, _ in slots
+                           if a not in ("flash_prefill", "paged_attention")]
+            plain_swaps.append((model, "ragged_paged_attention",
+                                run.plain(
+                                    attention.ragged_paged_attention_ref)))
             ragged = check_ragged_model(
                 params, cfg, mode, *run.ragged(cfg, dev, seed, kv_quant,
                                                kv=kv, table=table,
                                                tokens=tokens,
                                                n_blocks=n_blocks),
-                plain_swaps, run.ragged_fault, run.label)
+                plain_swaps, run, bs)
     torch.cuda.synchronize()
     what = f"model {run.label} {mode}"
     if not torch.isfinite(got).all() or not torch.isfinite(ref).all():
         raise RuntimeError(f"{what}: non-finite logits")
     spread, compare = logit_compare(ref)
     res = {"model": run.label, "mode": mode, "weights": weights,
-           "kv": kv_quant, "prompt": run.prompt, "bucket": run.bucket,
+           "kv": kv_quant, "block_size": bs, "prompt": run.prompt,
+           "bucket": run.bucket,
            "decode_positions": [run.prompt, run.prompt + run.steps - 1],
-           "launches": launches, "max_abs_ref": spread, **compare(got),
+           "footprint_gib": footprint, "launches": launches,
+           "forward_s": forward_s, "max_abs_ref": spread, **compare(got),
            "planted_faults": {k: compare(v) for k, v in faults.items()},
            "prefill_profile": prefill_profile, "decode_step": decode_step,
            "program": program, "ragged": ragged}
@@ -2232,9 +2433,10 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
     gc.collect()          # the decode program's graphs hold their pools
     torch.cuda.empty_cache()
     forwards = 1 + run.steps
-    want = {"flash_prefill": cfg.num_layers,
-            ("paged_attention_int8" if kv_quant == "int8"
-             else "paged_attention"): run.steps * cfg.num_layers}
+    want = {run.attn_kernels[0] + ("_int8" if int8_kv else ""):
+            run.steps * cfg.num_layers}
+    if run.prefill_fault is not None:
+        want["flash_prefill"] = cfg.num_layers
     if weights != "none":
         want["lm_head_int8"] = forwards
     if weights == "int4":
@@ -2286,7 +2488,7 @@ GEMMA_PROMPT, GEMMA_BUCKET, GEMMA_STEPS = 4600, 4608, 4
 # 6 decode rows at 8192 keys; 8 decode rows at phase 4g's first decode
 # position
 GEMMA_ATTN = AttnCases(
-    M=GEMMA_M,
+    max_len=GEMMA_MAX_LEN,
     paged_mix=[4095, 4096, 4097, 6000, 8192, 100, 1, 0],
     paged_boundary=[GEMMA_WINDOW + n for n in (127, 128, 129, 256)]
     + [GEMMA_MAX_LEN, 0],
@@ -2491,8 +2693,190 @@ def ragged_gemma(cfg, dev, seed: int, kv_quant: str, kv, table, tokens,
 
 # phase 4g: the window dropped from K1, K3 and K4 as their planted faults
 GEMMA_RUN = ModelRun("gemma2", GEMMA_PROMPT, GEMMA_BUCKET, GEMMA_STEPS,
-                     GEMMA_M, prefill_without_window, decode_without_window,
+                     GEMMA_MAX_LEN, prefill_without_window, decode_without_window,
                      ragged_gemma, ragged_without_window, False)
+
+
+# ---------------------------------------------------------------------------
+# phases 3m-5m: DeepSeek-V2-Lite (MLA)
+# ---------------------------------------------------------------------------
+
+# the MLA servers' max length, and the engine's auto block size by KV pool
+# (EngineConfig.auto_kv_block_size: 16 for bf16 rows, 32 for int8)
+MLA_MAX_LEN = 4096
+MLA_BLOCK = (16, 32)
+# q_lat and q_pe at 0.1 of the rows' scale, k_pe 8x c (post-rope k_pe is
+# unnormalized, c_kv RMS-normed): the scores of a 4096-key row then spread
+# over a few units, and swapping the two sections' scales moves every row
+MLA_Q_STD, MLA_PE_GAIN = 0.1, 8.0
+# the lanes by which the V-lanes fault rolls query and rows
+MLA_V_LATE = 64
+# phase 4m: a 3000-token prompt (bucket 4096), 4 decode steps
+MLA_PROMPT, MLA_BUCKET, MLA_STEPS = 3000, 4096, 4
+
+
+def mla_config():
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    return ModelConfig.from_hf_config(DEEPSEEK_V2_LITE_CONFIG)
+
+
+def latent_inputs(cfg, dev, seed: int, lens, int8: bool, bs: int, M: int,
+                  n_rows=None) -> tuple:
+    """pool_inputs for the MLA modes: one latent pool of random rows (c ~
+    N(0, 1), k_pe ~ N(0, MLA_PE_GAIN^2); bf16 rows zero-padded to
+    ``mla.latent_row_lanes``, or their sectioned int8 encoding) and
+    queries [n_rows or len(lens), H, query lanes] = [q_lat | q_pe | 0]
+    bf16. Returns q, pool, None (the pool is K and V), tables, lens."""
+    import torch
+    from dynamo_tpu_torch.engine.attention import quantize_kv_rows_sections
+    from dynamo_tpu_torch.engine.models import mla
+    rank, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rows = (len(lens) * M + 1) * bs
+    vals = torch.randn((rows, rank + dr), generator=gen, device=dev)
+    vals[:, rank:] *= MLA_PE_GAIN
+    W = mla.latent_row_lanes(cfg, "int8" if int8 else "none")
+    pool = torch.zeros((rows, W), device=dev,
+                       dtype=torch.int8 if int8 else torch.bfloat16)
+    if int8:
+        enc = quantize_kv_rows_sections(vals, (rank, dr))
+        pool[:, :enc.shape[1]] = enc
+    else:
+        pool[:, :rank + dr] = vals.bfloat16()
+    del vals
+    tables = shuffled_tables(gen, lens, M, bs, dev)
+    q = torch.randn((n_rows or len(lens), cfg.num_heads,
+                     mla.latent_row_lanes(cfg, "none")), generator=gen,
+                    device=dev) * MLA_Q_STD
+    q[..., rank + dr:] = 0
+    return (q.bfloat16(), pool, None, tables,
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def v_lanes_late(q, pool) -> tuple:
+    """The latent kernels' fault over bf16 rows: q and the rows rolled by
+    MLA_V_LATE lanes, so that the scores stay and V becomes the lanes
+    MLA_V_LATE on."""
+    import torch
+    return (torch.roll(q, -MLA_V_LATE, -1).contiguous(),
+            torch.roll(pool, -MLA_V_LATE, -1).contiguous())
+
+
+def sections_swapped(pool, sections: tuple):
+    """The latent kernels' fault over int8 rows: the two sections' scale
+    pairs (the lanes after the sections' values) swapped."""
+    s = sum(sections)
+    bad = pool.clone()
+    bad[:, s:s + 2], bad[:, s + 2:s + 4] = pool[:, s + 2:s + 4], pool[:, s:s + 2]
+    return bad
+
+
+def latent_faults(cases, kernel, q, pool, _, rows, int8: bool) -> dict:
+    """pool_faults for the MLA modes: over bf16 rows V taken MLA_V_LATE
+    lanes late (v_lanes_late), over int8 rows the two sections' scales
+    swapped (sections_swapped)."""
+    if int8:
+        return {"section_scales_swapped": kernel(
+            kc=sections_swapped(pool, cases.sections))}
+    qq, pp = v_lanes_late(q, pool)
+    return {f"v_lanes_off_by_{MLA_V_LATE}": kernel(qq=qq, kc=pp)}
+
+
+# K3-MLA and K4-MLA at V2-Lite's shapes (16 heads over one latent row of
+# [c_kv | k_pe], the output the c_kv lanes). K3: a mix of 8 slots across
+# the chunk boundaries, 3000 and 4096 keys and an empty slot; the full
+# batch of 8 x 4096 keys. K4: a mix of two 64-row chunks, a 4-row tail
+# ending at 3000 and decode rows (135 rows, padded to the server's 136
+# for the capacity case); two 64-row chunks and 6 decode rows at up to
+# 4096 keys
+MLA_ATTN = AttnCases(
+    max_len=MLA_MAX_LEN,
+    paged_mix=[1, 127, 128, 129, 1000, 3000, 4096, 0],
+    paged_boundary=None,
+    paged_full=[MLA_MAX_LEN] * 8,
+    ragged_mix=[(64, 64), (64, 1000), (4, 3000), (1, 1), (1, 129),
+                (1, 4096), (0, 0), (0, 0)],
+    ragged_boundary=None,
+    ragged_full=[(64, 4096), (64, 2048)] + [(1, 4096)] * 6 + [(0, 0)],
+    ragged_decode=None,
+    v_lanes=DEEPSEEK_V2_LITE_CONFIG["kv_lora_rank"],
+    sections=(DEEPSEEK_V2_LITE_CONFIG["kv_lora_rank"],
+              DEEPSEEK_V2_LITE_CONFIG["qk_rope_head_dim"]),
+    block=MLA_BLOCK, inputs=latent_inputs, faults=latent_faults, mode="mla",
+    seed=40)
+
+
+def latent_plain_f32(ref):
+    """The plain version ``ref`` (``paged_attention_ref`` or
+    ``ragged_paged_attention_ref``) with the dispatcher's signature, run
+    in f32 on the kernel's own bf16 query and rows and cast back: 4m's
+    reference, so that only the kernel's roundings (bf16 probabilities
+    into P.V, a bf16 output) separate the two model runs."""
+    import torch
+
+    def plain(q, k_cache, v_cache, *args, **kw):
+        pool = k_cache if k_cache.dtype == torch.int8 else k_cache.float()
+        return ref(q.float(), pool, None, *args, **kw).to(q.dtype)
+    return plain
+
+
+def decode_latent_fault(q, k_cache, v_cache, block_tables, seq_lens, *,
+                        block_size, scale, v_lanes=None, quant_sections=None,
+                        **_):
+    """K3-MLA with a planted fault: V MLA_V_LATE lanes late over bf16
+    rows (v_lanes_late), the sections' scales swapped over int8 rows
+    (sections_swapped)."""
+    from dynamo_tpu_torch.engine import kernels
+    if quant_sections is not None:
+        pool = sections_swapped(k_cache, quant_sections)
+    else:
+        q, pool = v_lanes_late(q, k_cache)
+    return kernels.latent_paged_attention_cuda(
+        q, pool, block_tables, seq_lens, block_size=block_size, scale=scale,
+        v_lanes=v_lanes, quant_sections=quant_sections)
+
+
+def ragged_latent_v_late(q, k_cache, v_cache, block_tables, seq_starts,
+                         seq_counts, seq_lens, *, block_size, scale,
+                         max_rows, v_lanes=None, **_):
+    """K4-MLA with a planted fault: V MLA_V_LATE lanes late
+    (v_lanes_late)."""
+    from dynamo_tpu_torch.engine import kernels
+    return kernels.latent_ragged_attention_cuda(
+        *v_lanes_late(q, k_cache), block_tables, seq_starts, seq_counts,
+        seq_lens, block_size=block_size, scale=scale, max_rows=max_rows,
+        v_lanes=v_lanes)
+
+
+def ragged_mla(cfg, dev, seed: int, kv_quant: str, kv, table, tokens,
+               n_blocks: int) -> tuple:
+    """One ragged dispatch over the pool phase 4m's prompt and decode steps
+    wrote: slot 0's next row and a fresh 64-row chunk on slot 1's blocks:
+    (pool, tables, dispatches, slots read)."""
+    import torch
+    B = 2
+    tables = torch.zeros((B + 1, table.shape[0]), dtype=torch.int32,
+                         device=dev)
+    tables[0] = table
+    tables[1, :n_blocks] = torch.arange(1 + n_blocks, 1 + 2 * n_blocks,
+                                        device=dev)
+    toks = tokens.tolist()
+    batch = ragged_batch({0: (1, MLA_PROMPT + MLA_STEPS),
+                          1: (RAGGED_MAX_ROWS, 0)}, [toks, toks], tables, B,
+                         dev)
+    return kv, tables, [batch], B
+
+
+# phase 4m: prefill is a plain einsum (no K1); K3-MLA's fault by pool;
+# the ragged dispatch over the prompt's pool through K4-MLA (bf16 pool: an
+# int8 pool's ragged rows gather, as in the JAX package)
+MLA_RUN = ModelRun("V2-Lite", MLA_PROMPT, MLA_BUCKET, MLA_STEPS, MLA_MAX_LEN,
+                   None, decode_latent_fault, ragged_mla,
+                   ragged_latent_v_late, False, block=MLA_BLOCK,
+                   plain=latent_plain_f32,
+                   attn_kernels=("latent_paged_attention",
+                                 "latent_ragged_attention"))
 
 
 # ---------------------------------------------------------------------------
@@ -2516,7 +2900,8 @@ def write_model_dir(path: str, cfg, hf=None) -> None:
         pieces = [("<pad>", 0.0, CONTROL), ("<eos>", 0.0, CONTROL),
                   ("<bos>", 0.0, CONTROL), ("<unk>", 0.0, UNKNOWN)]
         ids = dict(unk_id=3, bos_id=hf["bos_token_id"],
-                   eos_id=hf["eos_token_id"], pad_id=hf["pad_token_id"])
+                   eos_id=hf["eos_token_id"],
+                   pad_id=hf.get("pad_token_id", 0))
     pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
     words = ("the of and to in is that for it as with was on be by at this "
              "from are or an which one all would there their what so up "
@@ -2533,6 +2918,9 @@ def write_model_dir(path: str, cfg, hf=None) -> None:
     while len(pieces) < cfg.vocab_size:
         pieces.append((f"▁t{i}", -12.0, NORMAL))
         i += 1
+    for name in ("bos_id", "eos_id"):      # DeepSeek's sit past the bytes
+        if ids[name] >= 4:
+            pieces[ids[name]] = (f"<{name[:3]}>", 0.0, CONTROL)
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "tokenizer.model"), "wb") as f:
         f.write(write_model_proto(pieces, **ids))
@@ -2643,12 +3031,21 @@ PATH_KERNELS = {
     "gemma2_int4_kv8": ("flash_prefill", "paged_attention_int8",
                         "lm_head_int8", "grouped_int4_matmul"),
     "gemma2_ragged": ("ragged_paged_attention",),
+    "mla_bf16_k8": ("latent_paged_attention",),
+    "mla_kv8": ("latent_paged_attention_int8",),
+    "mla_ragged": ("latent_ragged_attention",),
+    # an int8 latent pool's ragged rows gather (as in the JAX package): no
+    # kernel of this list serves them
+    "mla_ragged_kv8": (),
 }
 # the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
 # dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
 # phase 3g serves, int4 + int8 KV on the split path and bf16 with --ragged
 GEMMA_PATHS = ("gemma2_bf16", "gemma2_ragged_int4_kv8", "gemma2_int4_kv8",
                "gemma2_ragged")
+# the DeepSeek-V2-Lite servers (5m): bf16 weights over a bf16 pool with 8
+# decode steps a dispatch and over an int8 pool, each again with --ragged
+MLA_PATHS = ("mla_bf16_k8", "mla_kv8", "mla_ragged", "mla_ragged_kv8")
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -2660,7 +3057,14 @@ SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
                "gemma2_bf16": ("bf16", False),
                "gemma2_ragged_int4_kv8": ("int4_kv8", True),
                "gemma2_int4_kv8": ("int4_kv8", False),
-               "gemma2_ragged": ("bf16", True)}
+               "gemma2_ragged": ("bf16", True),
+               "mla_bf16_k8": ("bf16", False),
+               "mla_kv8": ("bf16_kv8", False),
+               "mla_ragged": ("bf16", True),
+               "mla_ragged_kv8": ("bf16_kv8", True)}
+# the served paths' (weights, KV pool): phase 4's modes, and bf16 weights
+# over an int8 pool (5m)
+SERVE_MODES = {**MODEL_MODES, "bf16_kv8": ("none", "int8")}
 # the dispatch modes' server (5f): K = 8 steps a dispatch, pipelined, lane
 # prefill of admissions of up to 128 un-cached tokens into a busy batch,
 # prompts prefilled in chunks of 512
@@ -2670,20 +3074,24 @@ DISPATCH_FLAGS = ["--decode-steps-per-dispatch", str(DISPATCH_K),
                   "--lane-prefill-max-tokens", str(DISPATCH_LANE),
                   "--prefill-chunk", str(DISPATCH_CHUNK)]
 # the split path's attention kernels: on a ragged path every admission and
-# decode step goes through K4, so these launch 0 times there
-SPLIT_ATTENTION = ("flash_prefill", "paged_attention", "paged_attention_int8")
+# decode step goes through K4 (or K4-MLA), so these launch 0 times there
+SPLIT_ATTENTION = ("flash_prefill", "paged_attention", "paged_attention_int8",
+                   "latent_paged_attention", "latent_paged_attention_int8")
 
 
 def serve_phase(cfg, seed: int, card: str, path: str) -> tuple:
     """Serve from a temporary model directory (the 8B config, or on a
-    gemma2 path Gemma-2-9B's config.json, + a tokenizer). Returns (launch
-    counts, per-request report)."""
+    gemma2 path Gemma-2-9B's config.json, on an mla path DeepSeek-V2-Lite's,
+    + a tokenizer). Returns (launch counts, per-request report)."""
     import tempfile
-    gemma = path.startswith("gemma2")
+    family = path.split("_")[0]
+    hf = {"gemma2": GEMMA2_9B_CONFIG,
+          "mla": DEEPSEEK_V2_LITE_CONFIG}.get(family)
     with tempfile.TemporaryDirectory(prefix="dtt-serve-") as tmp:
-        model_dir = os.path.join(tmp, "gemma2-9b-random" if gemma
-                                 else "llama3-8b-random")
-        write_model_dir(model_dir, cfg, GEMMA2_9B_CONFIG if gemma else None)
+        model_dir = os.path.join(tmp, {
+            "gemma2": "gemma2-9b-random",
+            "mla": "deepseek-v2-lite-random"}.get(family, "llama3-8b-random"))
+        write_model_dir(model_dir, cfg, hf)
         return _serve(cfg, seed, card, model_dir, path)
 
 
@@ -2699,22 +3107,27 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
     from dynamo_tpu_torch.launch import run as launcher
     from dynamo_tpu_torch.parallel.sharding import make_mesh
     mode, ragged = SERVE_PATHS[path]
-    weights, kv_quant = MODEL_MODES[mode]
+    weights, kv_quant = SERVE_MODES[mode]
     gemma = path.startswith("gemma2")
+    mla = path.startswith("mla")
     # the first id past the tokenizer's control and byte pieces
-    lo = 260 if gemma else 259
+    lo = 260 if gemma or mla else 259
+    max_len = (GEMMA_MAX_LEN if gemma else MLA_MAX_LEN if mla
+               else MAX_MODEL_LEN)
     args = launcher.build_parser().parse_args(
         ["in=http", "out=torch", "--model-path", model_dir,
          "--random-weights", "--http-host", "127.0.0.1", "--http-port", "0",
-         "--max-model-len", str(GEMMA_MAX_LEN if gemma else MAX_MODEL_LEN),
-         "--kv-block-size", str(KV_BLOCK), "--num-kv-blocks", "2048",
+         "--max-model-len", str(max_len),
+         # an MLA engine picks its block size (16 bf16, 32 int8)
+         "--kv-block-size", "0" if mla else str(KV_BLOCK),
+         "--num-kv-blocks", "2048",
          "--max-num-seqs", "8", "--device", "cuda",
          "--quantization", weights, "--kv-quantization", kv_quant]
         + (["--ragged", "--ragged-max-seq-rows", str(RAGGED_MAX_ROWS)]
            if ragged else [])
         + (DISPATCH_FLAGS if path == "dispatch" else [])
         + (["--decode-steps-per-dispatch", str(DISPATCH_K)]
-           if path == "gemma2_bf16" else []))
+           if path in ("gemma2_bf16", "mla_bf16_k8") else []))
     launcher.parse_io(args.io)
     # what earlier phases left for the collector (a decode program's
     # graphs) is freed first, so the footprint below is this server's
@@ -2789,6 +3202,8 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
     if gemma:
         # past the 4096-token window, and a short one beside it
         prompts = {"p4600": mk(GEMMA_PROMPT), "p300": mk(300)}
+    elif mla:
+        prompts = {"p3000": mk(MLA_PROMPT), "p300": mk(300)}
     elif mode == "bf16":
         prompts = {"p100": mk(100), "p700": mk(700), "p1500": mk(1500),
                    "p1900": mk(1900)}
@@ -2834,7 +3249,7 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         # one more SSE stream, usage not requested
         report["sse"] = check_stream("sse", http_completion(port, {
             **greedy, "prompt": mk(200), "stream": True}), max_tokens, False)
-        if mode == "bf16" and not gemma:
+        if mode == "bf16" and not gemma and not mla:
             # a repeated prompt: its full blocks hit the prefix cache, so
             # the prefill runs only the tail, at start_pos > 0
             hits0 = pool.match_hits
@@ -3046,7 +3461,8 @@ def main() -> int:
     # phase alone, and each kernel reports those of the first path that
     # must launch it
     by_path = {path: serve_phase(cfg, seed, card, path)
-               for path in PATH_KERNELS if path not in GEMMA_PATHS}
+               for path in PATH_KERNELS
+               if path not in GEMMA_PATHS + MLA_PATHS}
     compare_servers(card, by_path["bf16"][1], by_path["sp"][1], "sp")
     compare_servers(card, by_path["int4_kv8"][1], by_path["dispatch"][1],
                     "dispatch", "int4_kv8")
@@ -3059,11 +3475,31 @@ def main() -> int:
         check_model(gcfg, dev, seed, mode, GEMMA_RUN)
     by_path.update({path: serve_phase(gcfg, seed, card, path)
                     for path in GEMMA_PATHS})
+
+    # 3m-5m. the DeepSeek-V2-Lite geometry: the latent kernels, the model
+    # through them over a bf16 and an int8 pool, and its servers
+    mcfg = mla_config()
+    k4_int8 = check_ragged_attention(mcfg, dev, int8=True, cases=MLA_ATTN)
+    # the JAX MLA model gathers over int8 pools on its ragged path
+    # (mla.py ragged_forward), and so does the port: this mode runs in
+    # phase 3m alone
+    k4_int8["on_main_path"] = False
+    entries += [check_paged_attention(mcfg, dev, cases=MLA_ATTN),
+                check_paged_attention(mcfg, dev, int8=True, cases=MLA_ATTN),
+                check_ragged_attention(mcfg, dev, cases=MLA_ATTN), k4_int8]
+    for mode in ("bf16", "bf16_kv8"):
+        check_model(mcfg, dev, seed, mode, MLA_RUN)
+    by_path.update({path: serve_phase(mcfg, seed, card, path)
+                    for path in MLA_PATHS})
+    rest = [p for p in PATH_KERNELS if p not in GEMMA_PATHS + MLA_PATHS]
     for e in entries:
-        paths = GEMMA_PATHS if "mode" in e else [
-            p for p in PATH_KERNELS if p not in GEMMA_PATHS]
-        path = next(p for p in paths if e["name"] in PATH_KERNELS[p])
-        e["launches"] = by_path[path][0][e["name"]]
+        paths = (MLA_PATHS if e.get("mode", "").startswith("mla")
+                 else GEMMA_PATHS if "mode" in e else rest)
+        path = next((p for p in paths if e["name"] in PATH_KERNELS[p]), None)
+        if path is None and e.get("on_main_path") is not False:
+            raise RuntimeError(f"kernel {e['name']} ({e.get('mode')}): no "
+                               f"served path lists it")
+        e["launches"] = by_path[path][0][e["name"]] if path else 0
         e["launches_path"] = path
     print(card)
     print(json.dumps({"kernels": entries}))

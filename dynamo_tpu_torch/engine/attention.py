@@ -18,9 +18,12 @@ functions dispatch on the tensor's device alone: a CPU tensor takes the
 plain version, a CUDA tensor launches the hand-written kernel
 (``engine/kernels.py``, sources under ``csrc/``) or raises. There is no
 fallback from the kernel to the plain version. Both take every mode a
-gemma2 model needs (logit soft-capping, sliding windows, head dim 256);
-neither takes the MLA modes of the JAX kernels (``v_lanes``,
-``quant_sections``).
+gemma2 model needs (logit soft-capping, sliding windows, head dim 256),
+and K3 and K4 the MLA modes of the JAX kernels: ``v_lanes`` (one KV head
+whose row is both K and V, V its first ``v_lanes`` lanes) and
+``quant_sections`` (int8 latent rows with one in-row scale pair per
+section, ``quantize_kv_rows_sections``), which run the latent kernels of
+``csrc/latent_attention.cu`` on the card.
 """
 
 from __future__ import annotations
@@ -88,6 +91,84 @@ def dequant_kv_rows(rows: torch.Tensor, C: int,
                          f"scale group")
     scale = _decode_scale(rows[..., C], rows[..., C + 1])
     return (rows[..., :C].float() * scale[..., None]).to(out_dtype)
+
+
+def quantize_kv_rows_sections(x: torch.Tensor,
+                              sections: tuple) -> torch.Tensor:
+    """Per-row int8 with one (e, m) scale pair per section, all in the one
+    KV_SCALE_LANES group: x ``[N, C]`` → int8 ``[N, C + KV_SCALE_LANES]``,
+    section i's scale at lanes C + 2i, C + 2i + 1 (the JAX package's
+    encoding of MLA latent rows, byte for byte: the RMS-normed c_kv and the
+    unnormalized k_pe do not share an absmax)."""
+    N, C = x.shape
+    if sum(sections) != C or 2 * len(sections) > KV_SCALE_LANES:
+        raise ValueError(f"sections {sections} do not cover {C} lanes")
+    xf = x.float()
+    rows = torch.zeros((N, C + KV_SCALE_LANES), dtype=torch.int8,
+                       device=x.device)
+    off = 0
+    for i, w in enumerate(sections):
+        seg = xf[:, off:off + w]
+        e, m, scale = _encode_scale(seg.abs().amax(dim=1))
+        rows[:, off:off + w] = torch.clamp(
+            torch.round(seg / scale[:, None]), -127, 127).to(torch.int8)
+        rows[:, C + 2 * i] = torch.clamp(e, -127, 127).to(torch.int8)
+        rows[:, C + 2 * i + 1] = m.to(torch.uint8).view(torch.int8)
+        off += w
+    return rows
+
+
+def dequant_kv_rows_sections(rows: torch.Tensor, sections: tuple,
+                             out_dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of ``quantize_kv_rows_sections`` for gathered rows
+    ``[..., sum(sections) + KV_SCALE_LANES]`` (lanes past that are
+    ignored)."""
+    C = sum(sections)
+    outs, off = [], 0
+    for i, w in enumerate(sections):
+        scale = _decode_scale(rows[..., C + 2 * i], rows[..., C + 2 * i + 1])
+        outs.append(rows[..., off:off + w].float() * scale[..., None])
+        off += w
+    return torch.cat(outs, dim=-1).to(out_dtype)
+
+
+def check_latent_modes(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_lanes: Optional[int],
+                       quant_sections: Optional[tuple]) -> None:
+    """The JAX kernels' rule for the MLA modes (``paged_attention_pallas``
+    and ``ragged_paged_attention_pallas``): ``v_lanes`` only over one KV
+    head (the query as wide as the row's value lanes) at a 128-aligned
+    width within it; ``quant_sections`` only over an int8 pool with
+    ``v_lanes``, its row pad128(sum + KV_SCALE_LANES) and the query
+    pad128(sum) wide; ``v_lanes`` over a single-scale int8 pool is
+    refused. Raises ValueError."""
+    Dh = q.shape[-1]
+    quantized = k_cache.dtype == torch.int8
+    if quant_sections is not None:
+        if not quantized or v_lanes is None:
+            raise ValueError("quant_sections needs an int8 pool and "
+                             "v_lanes (the MLA sectioned layout)")
+        C = Dh          # dequant gives query-width rows (KVH == 1)
+    else:
+        C = kv_value_lanes(k_cache)
+    KVH = C // Dh
+    if v_lanes is not None and (KVH != 1 or v_lanes % 128 != 0
+                                or v_lanes > C):
+        raise ValueError(
+            f"v_lanes={v_lanes} needs an MQA-shaped pool (KVH == 1, got "
+            f"{KVH}) and a 128-aligned width <= {C}")
+    if quant_sections is not None:
+        Cs = sum(quant_sections)
+        if (-(-(Cs + KV_SCALE_LANES) // 128) * 128 != k_cache.shape[-1]
+                or -(-Cs // 128) * 128 != Dh):
+            raise ValueError(
+                f"quant_sections {quant_sections} (sum {Cs}) does not "
+                f"match row width {k_cache.shape[-1]} = pad128(sum + "
+                f"{KV_SCALE_LANES}) / query width {Dh} = pad128(sum)")
+    if v_lanes is not None and quantized and quant_sections is None:
+        raise ValueError("v_lanes on a single-scale int8 pool is not "
+                         "supported (sectioned MLA pools pass "
+                         "quant_sections)")
 
 
 def softcap_scores(scores: torch.Tensor, cap: float) -> torch.Tensor:
@@ -205,31 +286,52 @@ def flat_token_indices(block_tables: torch.Tensor,
             + offs[None, None, :]).reshape(B, M * block_size)
 
 
+def _latent_keys(k_cache: torch.Tensor, idx: torch.Tensor, width: int,
+                 quant_sections: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """The rows ``idx`` of a sectioned int8 pool dequantized to ``dtype``,
+    zero lanes after the sections up to ``width`` (the query's)."""
+    k = dequant_kv_rows_sections(k_cache[idx], quant_sections, dtype)
+    return torch.nn.functional.pad(k, (0, width - k.shape[-1]))
+
+
 def paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, block_tables: torch.Tensor,
                         seq_lens: torch.Tensor, *, block_size: int,
                         scale: float, softcap: Optional[float] = None,
-                        win_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        win_lo: Optional[torch.Tensor] = None,
+                        v_lanes: Optional[int] = None,
+                        quant_sections: Optional[tuple] = None
+                        ) -> torch.Tensor:
     """Plain version of ``paged_attention``: the gather form of
     ``dynamo_tpu.engine.attention.paged_attention_xla``. q: [B, H, Dh];
     k_cache/v_cache: [NTOK, KVH*Dh]; block_tables: [B, M]; seq_lens: [B]
     (kv length incl. the current token; 0 gives zeros); win_lo: [B] or
     None (keys at or below it are masked). An int8 pool
     ([NTOK, KVH*Dh + KV_SCALE_LANES]) is dequantized to q's dtype after
-    the gather. Returns [B, H, Dh]."""
+    the gather. ``v_lanes``: V is the first v_lanes lanes of each K row
+    (v_cache is not read); ``quant_sections``: the int8 rows are sectioned
+    (``dequant_kv_rows_sections``, zero lanes up to Dh). Returns [B, H,
+    Dh], or [B, H, v_lanes]."""
     B, H, Dh = q.shape
-    C = kv_value_lanes(k_cache)
+    C = Dh if quant_sections is not None else kv_value_lanes(k_cache)
     KVH = C // Dh
     g = H // KVH
     idx = flat_token_indices(block_tables, block_size)          # [B, T]
     T = idx.shape[1]
-    k = k_cache[idx]
-    v = v_cache[idx]
-    if k_cache.dtype == torch.int8:
-        k = dequant_kv_rows(k, C, q.dtype)
-        v = dequant_kv_rows(v, C, q.dtype)
+    if quant_sections is not None:
+        k = _latent_keys(k_cache, idx, Dh, quant_sections, q.dtype)
+    else:
+        k = k_cache[idx]
+        if k_cache.dtype == torch.int8:
+            k = dequant_kv_rows(k, C, q.dtype)
+    if v_lanes is not None:
+        v, Dv = k[..., :v_lanes], v_lanes
+    else:
+        v, Dv = v_cache[idx], Dh
+        if v_cache.dtype == torch.int8:
+            v = dequant_kv_rows(v, C, q.dtype)
     k = k.reshape(B, T, KVH, Dh)
-    v = v.reshape(B, T, KVH, Dh)
+    v = v.reshape(B, T, KVH, Dv)
     qg = q.reshape(B, KVH, g, Dh)
     scores = torch.einsum("bkgd,btkd->bkgt", qg, k).float() * scale
     if softcap:
@@ -240,7 +342,7 @@ def paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
         mask = mask & (kv_pos > win_lo.long()[:, None])
     scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgt,btkd->bkgd", probs, v).reshape(B, H, Dh)
+    out = torch.einsum("bkgt,btkd->bkgd", probs, v).reshape(B, H, Dv)
     # a zero-length (padded) slot gets zeros, as from the kernels
     return out * (seq_lens > 0).to(out.dtype)[:, None, None]
 
@@ -276,19 +378,25 @@ def paged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
                                  block_tables: torch.Tensor,
                                  seq_lens: torch.Tensor, *, block_size: int,
                                  scale: float,
-                                 chunk: Optional[int] = None) -> tuple:
+                                 chunk: Optional[int] = None,
+                                 v_lanes: Optional[int] = None,
+                                 quant_sections: Optional[tuple] = None
+                                 ) -> tuple:
     """The split form of ``paged_attention_ref`` with K3's arithmetic, for
-    the tests (``merge_split_partials`` completes it): each (sequence, KV head, split of ``decode_split_plan``)
-    gives f32 (m, l, acc) over its chunk of keys, with scores in the exp2
+    the tests (``merge_split_partials`` completes it): each (sequence, KV
+    head, split of ``decode_split_plan``) gives f32 (m, l, acc) over its
+    chunk of keys, with scores in the exp2
     domain (s = scale·log2(e)·q·k, an int8 key's scale taken out of the
     dot), m their max, p = exp2(s - m), l = Σp and acc = Σ p·v (an int8
     value's scale folded into p). A split that sees no key gives (-inf, 0,
     0). ``chunk``: keys per split (a whole number of blocks) in place of
     the plan's; the split axis keeps the plan's length, the splits past
-    the table empty. Returns (m [B, KVH, S, g], l [B, KVH, S, g], acc [B,
-    KVH, S, g, Dh])."""
+    the table empty. ``v_lanes`` / ``quant_sections``: the MLA modes of
+    ``paged_attention_ref`` (a sectioned row dequantized in f32, exact,
+    before the dot). Returns (m [B, KVH, S, g], l [B, KVH, S, g], acc [B,
+    KVH, S, g, Dv]), Dv = v_lanes or Dh."""
     B, H, Dh = q.shape
-    C = kv_value_lanes(k_cache)
+    C = Dh if quant_sections is not None else kv_value_lanes(k_cache)
     KVH = C // Dh
     g = H // KVH
     M = block_tables.shape[1]
@@ -304,8 +412,16 @@ def paged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
             return r.float().reshape(B, T, KVH, Dh), None
         sc = _decode_scale(r[..., C], r[..., C + 1])             # [B, T]
         return r[..., :C].float().reshape(B, T, KVH, Dh), sc
-    k, ks = rows(k_cache)
-    v, vs = rows(v_cache)
+    if quant_sections is not None:
+        k, ks = _latent_keys(k_cache, idx, Dh, quant_sections,
+                             torch.float32).reshape(B, T, 1, Dh), None
+    else:
+        k, ks = rows(k_cache)
+    if v_lanes is not None:
+        v, vs = k[..., :v_lanes], None
+    else:
+        v, vs = rows(v_cache)
+    Dv = v.shape[-1]
     qg = q.float().reshape(B, KVH, g, Dh)
     s = torch.einsum("bkgd,btkd->bkgt", qg, k)
     if ks is not None:
@@ -324,7 +440,7 @@ def paged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
         p = p * torch.nn.functional.pad(vs, (0, pad)).reshape(
             B, 1, 1, S, chunk)
     vpad = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).reshape(
-        B, S, chunk, KVH, Dh)
+        B, S, chunk, KVH, Dv)
     acc = torch.einsum("bkgsc,bsckd->bksgd", p, vpad)
     m, l = m.permute(0, 1, 3, 2), l.permute(0, 1, 3, 2)
     if S < S_plan:                          # empty splits past the table
@@ -338,10 +454,10 @@ def paged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
 def merge_split_partials(m: torch.Tensor, l: torch.Tensor,
                          acc: torch.Tensor) -> torch.Tensor:
     """K3's merge of the splits' (m, l, acc) (layout of
-    ``paged_attention_partials_ref``) → [B, KVH*g, Dh] f32: weights
+    ``paged_attention_partials_ref``) → [B, KVH*g, Dv] f32: weights
     exp2(m_s - max m), a split with m = -inf weighing 0 (not NaN), and 0
     where no split saw a key."""
-    B, KVH, S, g, Dh = acc.shape
+    B, KVH, S, g, Dv = acc.shape
     mx = m.amax(2, keepdim=True)
     w = torch.where(torch.isneginf(m), torch.zeros_like(m),
                     torch.exp2(m - mx))
@@ -350,27 +466,41 @@ def merge_split_partials(m: torch.Tensor, l: torch.Tensor,
     out = torch.where(den > 0, num / torch.where(den > 0, den,
                                                   torch.ones_like(den)),
                       torch.zeros_like(num))
-    return out.reshape(B, KVH * g, Dh)
+    return out.reshape(B, KVH * g, Dv)
 
 
 def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, block_tables: torch.Tensor,
                     seq_lens: torch.Tensor, *, block_size: int, scale: float,
                     softcap: Optional[float] = None,
-                    win_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    win_lo: Optional[torch.Tensor] = None,
+                    v_lanes: Optional[int] = None,
+                    quant_sections: Optional[tuple] = None) -> torch.Tensor:
     """Decode attention over the paged pool (contract of
-    ``dynamo_tpu.engine.attention.paged_attention``; ``win_lo`` None is a
-    global layer). CPU tensors take the plain version; CUDA tensors run
-    ``csrc/paged_attention.cu`` over a bf16 pool or an int8 pool with
-    in-row scales."""
+    ``dynamo_tpu.engine.attention.paged_attention_pallas``; ``win_lo`` None
+    is a global layer; ``v_lanes`` and ``quant_sections`` as there, checked
+    by ``check_latent_modes`` on either device). CPU tensors take the plain
+    version; CUDA tensors run ``csrc/paged_attention.cu`` over a bf16 pool
+    or an int8 pool with in-row scales, and in the MLA modes
+    ``csrc/latent_attention.cu`` (K3-MLA), which takes neither a soft-cap
+    nor a window."""
+    check_latent_modes(q, k_cache, v_lanes, quant_sections)
     if not q.is_cuda:
         return paged_attention_ref(q, k_cache, v_cache, block_tables,
                                    seq_lens, block_size=block_size,
                                    scale=scale, softcap=softcap,
-                                   win_lo=win_lo)
-    from .kernels import paged_attention_cuda, paged_attention_int8_cuda
-    fn = (paged_attention_int8_cuda if k_cache.dtype == torch.int8
-          else paged_attention_cuda)
+                                   win_lo=win_lo, v_lanes=v_lanes,
+                                   quant_sections=quant_sections)
+    from . import kernels
+    if v_lanes is not None:
+        if softcap or win_lo is not None:
+            raise ValueError("the latent kernels take neither a soft-cap "
+                             "nor a sliding window")
+        return kernels.latent_paged_attention_cuda(
+            q, k_cache, block_tables, seq_lens, block_size=block_size,
+            scale=scale, v_lanes=v_lanes, quant_sections=quant_sections)
+    fn = (kernels.paged_attention_int8_cuda if k_cache.dtype == torch.int8
+          else kernels.paged_attention_cuda)
     return fn(q, k_cache, v_cache, block_tables, seq_lens,
               block_size=block_size, scale=scale, softcap=softcap or 0.0,
               win_lo=win_lo)
@@ -393,16 +523,19 @@ def ragged_paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                                seq_lens: torch.Tensor, *, block_size: int,
                                scale: float, max_rows: int,
                                softcap: Optional[float] = None,
-                               win_base: Optional[torch.Tensor] = None
+                               win_base: Optional[torch.Tensor] = None,
+                               v_lanes: Optional[int] = None,
+                               quant_sections: Optional[tuple] = None
                                ) -> torch.Tensor:
     """Plain version of ``ragged_paged_attention``: the JAX package's row
     path (``llama.ragged_forward`` without the kernel). Each owned row r
     of sequence s is expanded to s's block table and attends as one
     decode query with ``seq_len = pos0 + r + 1`` (pos0 = seq_lens[s] -
     seq_counts[s]) and, with ``win_base``, ``win_lo = win_base[s] + r``,
-    through ``paged_attention_ref``. Rows no sequence owns get zeros, as
-    from the kernel. A count above ``max_rows`` is refused: the kernel
-    computes at most ``max_rows`` rows of a sequence."""
+    through ``paged_attention_ref`` (in its MLA modes with ``v_lanes`` /
+    ``quant_sections``). Rows no sequence owns get zeros, as from the
+    kernel. A count above ``max_rows`` is refused: the kernel computes at
+    most ``max_rows`` rows of a sequence."""
     if int(seq_counts.max()) > max_rows:
         raise ValueError(f"a sequence owns more than max_rows={max_rows} "
                          f"rows")
@@ -422,12 +555,17 @@ def ragged_paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
         win_lo = win_base.long()[owner] + r
     return paged_attention_ref(q, k_cache, v_cache, block_tables[owner],
                                row_lens, block_size=block_size, scale=scale,
-                               softcap=softcap, win_lo=win_lo)
+                               softcap=softcap, win_lo=win_lo,
+                               v_lanes=v_lanes,
+                               quant_sections=quant_sections)
 
 
 # K4 takes 64 (row, head) query vectors per CTA: 64 / g rows of one
 # sequence times the g query heads of one KV head
 RAGGED_CTA_VECTORS = 64
+# the latent kernels (K3-MLA, K4-MLA) take one query row, all its heads,
+# per CTA
+LATENT_TILE_ROWS = 1
 
 
 def ragged_row_tiles(max_rows: int, g: int) -> int:
@@ -438,16 +576,19 @@ def ragged_row_tiles(max_rows: int, g: int) -> int:
 
 def ragged_row_plan(seq_starts: torch.Tensor, seq_counts: torch.Tensor,
                     seq_lens: torch.Tensor, TT: int, g: int, M: int,
-                    block_size: int) -> tuple:
+                    block_size: int,
+                    tile_rows: Optional[int] = None) -> tuple:
     """K4's plan per flat row: (its tile's chunk in keys, its tile's live
     splits: the keys the tile's last row sees, in those chunks), both
     [TT] long, 0 for rows no sequence owns. A tile of at most 16 live
     (row, head) query vectors takes the chunk of ``decode_split_plan``, a
     wider one twice that: where many rows share each key, longer chunks
     leave fewer partials to merge. Where a tile has 2 or more live splits,
-    K4 writes its rows' partials of those splits to its scratch."""
+    K4 writes its rows' partials of those splits to its scratch.
+    ``tile_rows``: rows per tile in place of 64 / g (K4-MLA:
+    LATENT_TILE_ROWS)."""
     base, _ = decode_split_plan(M, block_size)
-    per = RAGGED_CTA_VECTORS // g
+    per = tile_rows or RAGGED_CTA_VECTORS // g
     chunks = torch.zeros(TT, dtype=torch.long)
     live = torch.zeros(TT, dtype=torch.long)
     for st, n, ln in zip(seq_starts.tolist(), seq_counts.tolist(),
@@ -468,7 +609,10 @@ def ragged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
                                   seq_starts: torch.Tensor,
                                   seq_counts: torch.Tensor,
                                   seq_lens: torch.Tensor, *, block_size: int,
-                                  scale: float, max_rows: int) -> tuple:
+                                  scale: float, max_rows: int,
+                                  v_lanes: Optional[int] = None,
+                                  quant_sections: Optional[tuple] = None
+                                  ) -> tuple:
     """The split form of ``ragged_paged_attention_ref`` with K4's
     arithmetic, for the tests (``merge_split_partials`` completes it): each
     owned row r of sequence s is a decode query over s's table that sees
@@ -477,9 +621,11 @@ def ragged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
     (``paged_attention_partials_ref``: exp2-domain scores, an int8 row's
     scale taken out of the dot and folded into p). A split a row cannot
     see, and every split of a row no sequence owns, gives (-inf, 0, 0).
-    Returns (m [TT, KVH, S, g], l [TT, KVH, S, g], acc [TT, KVH, S, g,
-    Dh]) with S from ``decode_split_plan``, the layout
-    ``split_scratch_views`` reads from K4's scratch."""
+    In the MLA modes (``v_lanes``, ``quant_sections``) a tile is one row
+    (LATENT_TILE_ROWS), as in K4-MLA. Returns (m [TT, KVH, S, g], l [TT,
+    KVH, S, g], acc [TT, KVH, S, g, Dv]) with S from ``decode_split_plan``
+    and Dv = v_lanes or Dh, the layout ``split_scratch_views`` reads from
+    K4's scratch."""
     if int(seq_counts.max()) > max_rows:
         raise ValueError(f"a sequence owns more than max_rows={max_rows} "
                          f"rows")
@@ -493,9 +639,11 @@ def ragged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
         owned, seq_lens.long()[owner] - seq_counts.long()[owner] + r + 1,
         torch.zeros_like(r)).to(torch.int32)
     TT, H, Dh = q.shape
-    g = H // (kv_value_lanes(k_cache) // Dh)
+    latent = v_lanes is not None
+    g = H if latent else H // (kv_value_lanes(k_cache) // Dh)
     chunks, _ = ragged_row_plan(seq_starts, seq_counts, seq_lens, TT, g,
-                                block_tables.shape[1], block_size)
+                                block_tables.shape[1], block_size,
+                                LATENT_TILE_ROWS if latent else None)
     chunks = chunks.to(q.device)
     parts = None
     for chunk in sorted(set(chunks.tolist()) - {0}) or [0]:
@@ -503,7 +651,8 @@ def ragged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
         got = paged_attention_partials_ref(
             q[rows], k_cache, v_cache, block_tables[owner[rows]],
             row_lens[rows], block_size=block_size, scale=scale,
-            chunk=chunk or None)
+            chunk=chunk or None, v_lanes=v_lanes,
+            quant_sections=quant_sections)
         if parts is None:
             parts = [torch.empty((TT,) + t.shape[1:], dtype=t.dtype,
                                  device=t.device) for t in got]
@@ -521,7 +670,9 @@ def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            seq_lens: torch.Tensor, *, block_size: int,
                            scale: float, max_rows: int,
                            softcap: Optional[float] = None,
-                           win_base: Optional[torch.Tensor] = None
+                           win_base: Optional[torch.Tensor] = None,
+                           v_lanes: Optional[int] = None,
+                           quant_sections: Optional[tuple] = None
                            ) -> torch.Tensor:
     """Ragged mixed prefill+decode attention in one call (contract of
     ``dynamo_tpu.engine.attention.ragged_paged_attention_pallas``).
@@ -533,22 +684,35 @@ def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     sequence); ``max_rows`` bounds any count. ``win_base``: [S] first-row
     sliding floor (pos0 - window), or RAGGED_WIN_SENTINEL / None for
     global layers. The pool is bf16 or int8 rows with in-row scales.
-    Returns [TT, H, Dh] in q's dtype; rows no sequence owns are zeros.
+    ``v_lanes`` and ``quant_sections``: the MLA modes, as in
+    ``paged_attention`` (``check_latent_modes``). Returns [TT, H, Dh] (or
+    [TT, H, v_lanes]) in q's dtype; rows no sequence owns are zeros.
 
     CPU tensors take the plain version; CUDA tensors run
-    ``csrc/ragged_paged_attention.cu`` (K4). The kernel's shape rule (not
-    the TPU kernel's VMEM budget, ``ragged_supported``): Dh 64, 128 or
-    256, H/KVH in {1, 2, 4, 8}, the pool's rows a whole number of blocks;
-    any row budget."""
+    ``csrc/ragged_paged_attention.cu`` (K4), and in the MLA modes
+    ``csrc/latent_attention.cu`` (K4-MLA, no soft-cap, no window). K4's
+    shape rule (not the TPU kernel's VMEM budget, ``ragged_supported``):
+    Dh 64, 128 or 256, H/KVH in {1, 2, 4, 8}, the pool's rows a whole
+    number of blocks; any row budget."""
+    check_latent_modes(q, k_cache, v_lanes, quant_sections)
     if not q.is_cuda:
         return ragged_paged_attention_ref(
             q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
             seq_lens, block_size=block_size, scale=scale, max_rows=max_rows,
-            softcap=softcap, win_base=win_base)
-    from .kernels import (ragged_paged_attention_cuda,
-                          ragged_paged_attention_int8_cuda)
-    fn = (ragged_paged_attention_int8_cuda if k_cache.dtype == torch.int8
-          else ragged_paged_attention_cuda)
+            softcap=softcap, win_base=win_base, v_lanes=v_lanes,
+            quant_sections=quant_sections)
+    from . import kernels
+    if v_lanes is not None:
+        if softcap or win_base is not None:
+            raise ValueError("the latent kernels take neither a soft-cap "
+                             "nor a sliding window")
+        return kernels.latent_ragged_attention_cuda(
+            q, k_cache, block_tables, seq_starts, seq_counts, seq_lens,
+            block_size=block_size, scale=scale, max_rows=max_rows,
+            v_lanes=v_lanes, quant_sections=quant_sections)
+    fn = (kernels.ragged_paged_attention_int8_cuda
+          if k_cache.dtype == torch.int8
+          else kernels.ragged_paged_attention_cuda)
     return fn(q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
               seq_lens, block_size=block_size, scale=scale,
               max_rows=max_rows, softcap=softcap or 0.0, win_base=win_base)

@@ -92,9 +92,10 @@ class ModelConfig:
     shared_expert_size: int = 0
     # qwen3-style per-head q/k norm
     qk_norm: bool = False
-    # MLA (deepseek_v2): latent-KV attention dims (the JAX package's
-    # models/mla.py; not implemented by this package, whose engine refuses
-    # kv_lora_rank > 0). q_lora_rank 0 = plain q_proj (the -Lite layout).
+    # MLA (deepseek_v2): latent-KV attention dims; kv_lora_rank > 0 selects
+    # models/mla.py (bf16 or f32 weights, bf16 or int8 latent pools; the
+    # engine refuses int8 / int4 weights and sp > 1 with it).
+    # q_lora_rank 0 = plain q_proj (the -Lite layout).
     q_lora_rank: int = 0
     kv_lora_rank: int = 0
     qk_nope_head_dim: int = 0

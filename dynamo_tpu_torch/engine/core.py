@@ -1,7 +1,9 @@
 """Continuous-batching engine core: slots, paged-block allocator, and the
 async scheduling loop driving the model's prefill and decode steps.
 
-Counterpart of ``dynamo_tpu.engine.core`` for the single-device main path:
+Counterpart of ``dynamo_tpu.engine.core`` for the single-device main path,
+for a dense llama-family model or an MLA model (``models/mla.py``,
+DeepSeek-V2 with its MoE block; the family's module is ``self.model_mod``):
 submit, admission with prefix reuse, bucketed whole-prompt or chunked
 prefill (``EngineConfig.prefill_chunk``), decode dispatches of K steps for
 every ready slot (``decode_steps_per_dispatch``; each harvested once,
@@ -9,15 +11,15 @@ optionally one dispatch late so that the next chains off the device's
 tokens: ``decode_dispatch_pipeline``), lane prefill of short admissions
 into a busy decode batch (``lane_prefill_max_tokens``), finish on EOS /
 budget / cancellation, and recompute preemption when the KV pool runs out.
-Over a mesh with an sp axis (``parallel/sharding.py``), long cold prompts
-prefill sequence-parallel (``llama.prefill_forward_sp``, ring attention);
-decode stays on the engine's device. With
+Over a mesh with an sp axis (``parallel/sharding.py``), a llama model's
+long cold prompts prefill sequence-parallel (``llama.prefill_forward_sp``,
+ring attention); decode stays on the engine's device. With
 ``EngineConfig.ragged_dispatch`` every engine step is instead ONE ragged
-dispatch (``engine/ragged.py``, ``llama.ragged_forward``): admissions ride
-it as prefill lanes, chunk by chunk, beside the decode rows of the other
-slots.
+dispatch (``engine/ragged.py``, the family's ``ragged_forward``):
+admissions ride it as prefill lanes, chunk by chunk, beside the decode
+rows of the other slots.
 
-Prefill and ragged dispatch are eager calls into ``models/llama.py`` that
+Prefill and ragged dispatch are eager calls into the family's module that
 update the KV pool in place. A decode dispatch is the decode program
 (``engine/programs.py``): on the card one CUDA graph replay, the port's
 form of the JAX engine's compiled ``decode`` / ``decode_k`` programs; on
@@ -49,7 +51,7 @@ from ..llm.protocols.common import FinishReason
 from ..parallel.sharding import replicate_params
 from .config import EngineConfig, ModelConfig
 from .device import resolve_device
-from .models import llama
+from .models import family
 from .programs import DecodeProgram, sampling_variant
 from .quant import init_params_quantized, quantize_params
 from .ragged import RaggedBatch, build_ragged_batch
@@ -149,10 +151,27 @@ class EngineCore:
             # re-run the config's checks against the mesh's sp (ragged
             # dispatch refuses it)
             engine_cfg = dataclasses.replace(engine_cfg, sp=self._sp)
-        if model_cfg.num_experts > 0 or model_cfg.kv_lora_rank > 0:
+        # model-family dispatch (the JAX engine's model_mod): MLA or llama;
+        # each combination the port does not serve yet refuses here
+        if model_cfg.kv_lora_rank > 0:
+            if engine_cfg.quantization.startswith("int4"):
+                raise NotImplementedError(
+                    "MLA + int4 weight quantization is not integrated "
+                    "(the JAX engine refuses it too)")
+            if engine_cfg.quantization != "none":
+                raise NotImplementedError(
+                    "MLA with int8 weights is not implemented by the "
+                    "PyTorch engine (ROADMAP A8: qeinsum over the expert "
+                    "stacks)")
+            if self._sp > 1:
+                raise NotImplementedError(
+                    "MLA sequence-parallel prefill (ring_attention_mla) is "
+                    "not implemented by the PyTorch engine (ROADMAP A8)")
+        elif model_cfg.num_experts > 0:
             raise NotImplementedError(
-                "MoE and MLA families are not implemented by the PyTorch "
-                "engine (dense llama only)")
+                "the MoE llama families (mixtral, qwen2_moe) are not "
+                "implemented by the PyTorch engine (ROADMAP A8)")
+        self.model_mod = family(model_cfg)
         if (model_cfg.sliding_window is not None
                 and engine_cfg.max_model_len <= model_cfg.sliding_window):
             # the window can never bind at this serving length
@@ -196,10 +215,9 @@ class EngineCore:
         # extra device; none on a mesh that repeats the engine's device)
         self._replicas = (replicate_params(params, mesh.devices)
                           if self._sp > 1 else None)
-        self.kv = llama.init_kv_cache(model_cfg, engine_cfg.num_kv_blocks,
-                                      engine_cfg.kv_block_size, self.device,
-                                      self.dtype,
-                                      quantization=engine_cfg.kv_quantization)
+        self.kv = self.model_mod.init_kv_cache(
+            model_cfg, engine_cfg.num_kv_blocks, engine_cfg.kv_block_size,
+            self.device, self.dtype, quantization=engine_cfg.kv_quantization)
         self.kv_manager = KvBlockManager(
             engine_cfg.num_kv_blocks, engine_cfg.kv_block_size,
             enable_reuse=engine_cfg.enable_prefix_reuse)
@@ -505,7 +523,7 @@ class EngineCore:
             tokens = torch.from_numpy(padded).to(self.device)
             table_t = torch.from_numpy(table).to(self.device)
             if use_sp:
-                logits = llama.prefill_forward_sp(
+                logits = self.model_mod.prefill_forward_sp(
                     self.params, self.kv, tokens, table_t, len(chunk),
                     self.model_cfg, self.cfg.kv_block_size, self.mesh,
                     replicas=self._replicas)
@@ -513,7 +531,7 @@ class EngineCore:
                     and len(chunk) > self.cfg.prefill_chunk):
                 logits = self._chunked_prefill(req, chunk, table_t)
             else:
-                logits = llama.prefill_forward(
+                logits = self.model_mod.prefill_forward(
                     self.params, self.kv, tokens, table_t,
                     req.prefix_hit_tokens, len(chunk), self.model_cfg,
                     self.cfg.kv_block_size)
@@ -553,7 +571,7 @@ class EngineCore:
             piece = chunk[lo:lo + C]
             padded = np.zeros((C,), np.int64)
             padded[:len(piece)] = piece
-            logits = llama.prefill_forward(
+            logits = self.model_mod.prefill_forward(
                 self.params, self.kv, torch.from_numpy(padded).to(self.device),
                 table_t, off, len(piece), self.model_cfg,
                 self.cfg.kv_block_size)
@@ -681,7 +699,7 @@ class EngineCore:
             return torch.from_numpy(a).to(self.device)
 
         with torch.inference_mode():
-            logits = llama.ragged_forward(
+            logits = self.model_mod.ragged_forward(
                 self.params, self.kv, dev(batch.tokens[:n].astype(np.int64)),
                 dev(batch.positions[:n]), dev(tables),
                 dev(batch.row_slot[:n]), dev(batch.seq_starts),

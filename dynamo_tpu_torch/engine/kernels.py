@@ -41,7 +41,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "dynamo_tpu_torch")
 SOURCES = ("flash_prefill.cu", "paged_attention.cu", "lm_head_int8.cu",
-           "grouped_int4_matmul.cu", "ragged_paged_attention.cu")
+           "grouped_int4_matmul.cu", "ragged_paged_attention.cu",
+           "latent_attention.cu")
 # the headers the sources include: hashed with them, never compiled alone
 HEADERS = ("soft_cap.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -138,6 +139,18 @@ class _Library:
                                                         vp, ci, ci, ci, ci,
                                                         vp]
                 lib.dtt_grouped_int4_matmul.restype = ci
+                for name in ("dtt_latent_paged_attention_bf16",
+                             "dtt_latent_paged_attention_int8"):
+                    fn = getattr(lib, name)
+                    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                   ci, ci, ci, ci, cf, vp]
+                    fn.restype = ci
+                for name in ("dtt_latent_ragged_attention_bf16",
+                             "dtt_latent_ragged_attention_int8"):
+                    fn = getattr(lib, name)
+                    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                   ci, ci, ci, ci, ci, ci, ci, ci, cf, vp]
+                    fn.restype = ci
                 self._lib = lib
             return self._lib
 
@@ -181,11 +194,22 @@ RAGGED_PAGED_ATTENTION = Kernel("ragged_paged_attention",
                                 "dtt_ragged_paged_attention_bf16")
 RAGGED_PAGED_ATTENTION_INT8 = Kernel("ragged_paged_attention_int8",
                                      "dtt_ragged_paged_attention_int8")
+# the MLA modes of K3 and K4 (csrc/latent_attention.cu)
+LATENT_PAGED_ATTENTION = Kernel("latent_paged_attention",
+                                "dtt_latent_paged_attention_bf16")
+LATENT_PAGED_ATTENTION_INT8 = Kernel("latent_paged_attention_int8",
+                                     "dtt_latent_paged_attention_int8")
+LATENT_RAGGED_ATTENTION = Kernel("latent_ragged_attention",
+                                 "dtt_latent_ragged_attention_bf16")
+LATENT_RAGGED_ATTENTION_INT8 = Kernel("latent_ragged_attention_int8",
+                                      "dtt_latent_ragged_attention_int8")
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     FLASH_PREFILL, FLASH_PREFILL_PARTIAL, PAGED_ATTENTION,
     PAGED_ATTENTION_INT8, LM_HEAD_INT8,
     GROUPED_INT4_MATMUL, RAGGED_PAGED_ATTENTION,
-    RAGGED_PAGED_ATTENTION_INT8)}
+    RAGGED_PAGED_ATTENTION_INT8, LATENT_PAGED_ATTENTION,
+    LATENT_PAGED_ATTENTION_INT8, LATENT_RAGGED_ATTENTION,
+    LATENT_RAGGED_ATTENTION_INT8)}
 
 
 # launches recorded into the CUDA graph being captured, by kernel name: the
@@ -316,24 +340,25 @@ def _window(kernel: Kernel, win: Optional[torch.Tensor], n: int,
     return win.to(torch.int32).contiguous()
 
 
-def paged_scratch(q: torch.Tensor, KVH: int, M: int,
-                  block_size: int) -> Optional[torch.Tensor]:
+def paged_scratch(q: torch.Tensor, KVH: int, M: int, block_size: int,
+                  v_lanes: Optional[int] = None) -> Optional[torch.Tensor]:
     """The f32 workspace of K3 (q [B, H, Dh]) and K4 (q [TT, H, Dh]) over a
     table of M entries, on q's device (``attention.split_scratch_views``
-    reads it), or None when the plan has one split."""
+    reads it), or None when the plan has one split. ``v_lanes``: the
+    output width of the MLA modes (rows of v_lanes + 2 floats)."""
     B, H, Dh = q.shape
     _, S = decode_split_plan(M, block_size)
     if S == 1:
         return None
-    return torch.empty(B * KVH * S * (H // KVH) * (Dh + 2),
+    return torch.empty(B * KVH * S * (H // KVH) * ((v_lanes or Dh) + 2),
                        dtype=torch.float32, device=q.device)
 
 
 def _split_scratch(kernel: Kernel, q: torch.Tensor, KVH: int, M: int,
-                   block_size: int,
-                   scratch: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+                   block_size: int, scratch: Optional[torch.Tensor],
+                   v_lanes: Optional[int] = None) -> Optional[torch.Tensor]:
     """The caller's scratch, checked against ``paged_scratch``, or that."""
-    want = paged_scratch(q, KVH, M, block_size)
+    want = paged_scratch(q, KVH, M, block_size, v_lanes)
     if scratch is None:
         return want
     if (want is None or scratch.device != q.device
@@ -516,6 +541,114 @@ def ragged_paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                    k_cache, v_cache, block_tables, seq_starts, seq_counts,
                    seq_lens, block_size, scale, max_rows, scratch, softcap,
                    win_base)
+
+
+def _latent(kernel: Kernel, q, pool, block_tables, lens, block_size: int,
+            v_lanes: int, quant_sections: Optional[tuple],
+            scratch: Optional[torch.Tensor]) -> tuple:
+    """The checks shared by K3-MLA and K4-MLA: q [N, 16, 640] bf16, one
+    layer's latent pool [NTOK, 640] bf16 or, with ``quant_sections`` (512,
+    64), [NTOK, 768] int8; tables [S, M] and lens [S] int32; v_lanes 512.
+    Returns (the checked scratch, M)."""
+    int8 = quant_sections is not None
+    _check(q, "q", torch.bfloat16, 3)
+    _check(pool, "pool", torch.int8 if int8 else torch.bfloat16, 2)
+    _check(block_tables, "block_tables", torch.int32, 2)
+    _check(lens, "seq_lens", torch.int32, 1)
+    N, H, Dq = q.shape
+    NTOK, lanes = pool.shape
+    M = block_tables.shape[1]
+    if ((H, Dq, v_lanes) != LATENT_SHAPE or lanes != (LATENT_INT8_LANES
+                                                      if int8 else Dq)
+            or (int8 and tuple(quant_sections) != LATENT_SECTIONS)
+            or lens.shape[0] != block_tables.shape[0] or NTOK % block_size):
+        raise ValueError(
+            f"{kernel.name}: unsupported shapes q={tuple(q.shape)} "
+            f"pool={tuple(pool.shape)} tables={tuple(block_tables.shape)} "
+            f"v_lanes={v_lanes} sections={quant_sections} (compiled for "
+            f"(heads, query lanes, v_lanes) {LATENT_SHAPE}, sections "
+            f"{LATENT_SECTIONS})")
+    scratch = _split_scratch(kernel, q, 1, M, block_size, scratch, v_lanes)
+    return scratch, M
+
+
+# (query heads, query lanes, v_lanes) and int8 sections the latent kernels
+# are compiled for: DeepSeek-V2's 16 heads over [c_kv 512 | k_pe 64 | pad]
+LATENT_SHAPE = (16, 640, 512)
+LATENT_SECTIONS = (512, 64)
+# an int8 latent row (attention.check_latent_modes): the sections' values
+# and KV_SCALE_LANES scale lanes, padded to a multiple of 128
+LATENT_INT8_LANES = -(-(sum(LATENT_SECTIONS) + KV_SCALE_LANES) // 128) * 128
+
+
+def latent_paged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                seq_lens: torch.Tensor, *, block_size: int,
+                                scale: float, v_lanes: int,
+                                quant_sections: Optional[tuple] = None,
+                                scratch: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """K3-MLA: q [B, 16, 640] bf16 over one layer's latent pool (bf16 rows
+    of 640 lanes, or sectioned int8 rows of 768 with ``quant_sections``
+    (512, 64)), tables [B, M], seq_lens [B] int32 → [B, 16, v_lanes]
+    (csrc/latent_attention.cu). ``scratch``: the split partials'
+    workspace (``paged_scratch(q, 1, M, block_size, v_lanes)``); left None
+    the wrapper allocates it."""
+    kernel = (LATENT_PAGED_ATTENTION_INT8 if quant_sections is not None
+              else LATENT_PAGED_ATTENTION)
+    if block_tables.shape[0] != q.shape[0]:
+        raise ValueError(f"{kernel.name}: {block_tables.shape[0]} tables "
+                         f"for {q.shape[0]} query rows")
+    scratch, M = _latent(kernel, q, pool, block_tables, seq_lens, block_size,
+                         v_lanes, quant_sections, scratch)
+    B, H, Dq = q.shape
+    out = torch.empty((B, H, v_lanes), dtype=q.dtype, device=q.device)
+    kernel.launch(q, q.data_ptr(), pool.data_ptr(), block_tables.data_ptr(),
+                  seq_lens.data_ptr(), out.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), B, H, Dq,
+                  pool.shape[1], M, int(block_size), int(v_lanes),
+                  0 if quant_sections is None else int(quant_sections[1]),
+                  float(scale))
+    return out
+
+
+def latent_ragged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 seq_starts: torch.Tensor,
+                                 seq_counts: torch.Tensor,
+                                 seq_lens: torch.Tensor, *, block_size: int,
+                                 scale: float, max_rows: int, v_lanes: int,
+                                 quant_sections: Optional[tuple] = None,
+                                 scratch: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """K4-MLA: q [TT, 16, 640] bf16 flat rows over one layer's latent pool
+    (as ``latent_paged_attention_cuda``), tables [S, M], starts / counts /
+    seq_lens [S] int32 → [TT, 16, v_lanes], rows no sequence owns zero
+    (csrc/latent_attention.cu; one CTA per row and 128-key chunk).
+    ``scratch``: as ``latent_paged_attention_cuda``, over TT rows."""
+    kernel = (LATENT_RAGGED_ATTENTION_INT8 if quant_sections is not None
+              else LATENT_RAGGED_ATTENTION)
+    _check(seq_starts, "seq_starts", torch.int32, 1)
+    _check(seq_counts, "seq_counts", torch.int32, 1)
+    S = block_tables.shape[0]
+    if seq_starts.shape[0] != S or seq_counts.shape[0] != S:
+        raise ValueError(f"{kernel.name}: starts {tuple(seq_starts.shape)} "
+                         f"and counts {tuple(seq_counts.shape)} for {S} "
+                         f"sequences")
+    scratch, M = _latent(kernel, q, pool, block_tables, seq_lens, block_size,
+                         v_lanes, quant_sections, scratch)
+    TT, H, Dq = q.shape
+    # only owned rows are written: the rest read as zeros
+    out = torch.zeros((TT, H, v_lanes), dtype=q.dtype, device=q.device)
+    kernel.launch(q, q.data_ptr(), pool.data_ptr(), block_tables.data_ptr(),
+                  seq_starts.data_ptr(), seq_counts.data_ptr(),
+                  seq_lens.data_ptr(), out.data_ptr(),
+                  None if scratch is None else scratch.data_ptr(), TT, S,
+                  min(int(max_rows), TT), H, Dq, pool.shape[1], M,
+                  int(block_size), int(v_lanes),
+                  0 if quant_sections is None else int(quant_sections[1]),
+                  float(scale))
+    return out
 
 
 def lm_head_int8_cuda(x: torch.Tensor, q: torch.Tensor,

@@ -126,6 +126,28 @@ def swiglu(x: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor,
     return mm(gated * u, down_w)
 
 
+def run_experts_dense(x: torch.Tensor, gate_w: torch.Tensor,
+                      up_w: torch.Tensor, down_w: torch.Tensor,
+                      top_idx: torch.Tensor,
+                      top_w: torch.Tensor) -> torch.Tensor:
+    """Every expert over every token, then the top-k combine (the JAX
+    package's ``run_experts_dense``): x [N, D]; gate/up [E, D, F]; down [E,
+    F, D]; top_idx / top_w [N, k] the chosen experts and their weights.
+    Dense over E, so the shapes are static whatever the routing picks (a
+    decode step stays one CUDA graph); the combine is [N, E] f32 with each
+    token's weights at its experts and zeros elsewhere. The expert products
+    are batched matmuls over E with x broadcast (``torch.einsum`` would
+    copy each [E, D, F] weight into another layout first)."""
+    E = down_w.shape[0]
+    combine = torch.zeros((x.shape[0], E), dtype=torch.float32,
+                          device=x.device).scatter_(1, top_idx.long(),
+                                                    top_w.float())
+    g = torch.matmul(x, gate_w)                                  # [E, N, F]
+    u = torch.matmul(x, up_w)
+    y = torch.matmul(F.silu(g) * u, down_w)                      # [E, N, D]
+    return torch.einsum("ne,end->nd", combine.to(y.dtype), y)
+
+
 # ---------------------------------------------------------------------------
 # Parameters and KV pool
 # ---------------------------------------------------------------------------
@@ -136,7 +158,9 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     package's ``param_shapes`` for ``num_experts == 0``)."""
     if cfg.num_experts > 0 or cfg.kv_lora_rank > 0:
         raise NotImplementedError(
-            "MoE and MLA families are not implemented by the PyTorch engine")
+            "the MoE llama families (mixtral, qwen2_moe) are not "
+            "implemented by the PyTorch engine (ROADMAP A8); MLA models "
+            "take models/mla.py")
     L, D = cfg.num_layers, cfg.hidden_size
     H, KVH, Dh, F_ = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                       cfg.intermediate_size)

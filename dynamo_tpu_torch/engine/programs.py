@@ -4,7 +4,8 @@ static ``[max_num_seqs]`` batch, the work of one decode dispatch.
 Counterpart of the ``decode`` and ``decode_k`` closures of the JAX
 package's ``EngineCore._compile_jits``: step k feeds each slot its planned
 prompt token where ``planned_mask[k]`` is set (a lane prefill) and else the
-token step k-1 sampled, runs ``llama.decode_forward``, keys each row at
+token step k-1 sampled, runs the model family's ``decode_forward``
+(``models.family``: llama, or MLA with its MoE top-k), keys each row at
 ``steps0 + k`` (``sampling.make_slot_keys``) and samples; positions advance
 by one a step. K = 1 with no plan is the single-step program.
 
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .models import llama
+from .models import family
 from .sampling import (greedy_tokens, gumbel_noise_from_keys, make_slot_keys,
                        sample_tokens)
 
@@ -81,12 +82,12 @@ def decode_k_forward(params, kv, tokens: torch.Tensor,
     if variant not in VARIANTS:
         raise ValueError(f"unknown sampling variant {variant!r}")
     toks, pos = tokens, positions
+    decode = family(cfg).decode_forward
     out_t, out_l, out_x = [], [], []
     for k in range(K):
         tok_in = (toks if planned is None
                   else torch.where(planned_mask[k], planned[k], toks))
-        logits = llama.decode_forward(params, kv, tok_in, pos, tables, cfg,
-                                      block_size)
+        logits = decode(params, kv, tok_in, pos, tables, cfg, block_size)
         if variant == "greedy":
             toks, lps = greedy_tokens(logits)
         else:

@@ -3,8 +3,9 @@ metadata contract.
 
 Counterpart of ``dynamo_tpu.engine.ragged`` (a line-for-line copy: the
 module is pure numpy). One ragged dispatch serves a flat ``[sum(T_i)]``
-token batch through ONE forward pass (``models/llama.py``
-``ragged_forward``): every participating slot contributes a contiguous
+token batch through ONE forward pass (the model family's
+``ragged_forward``: ``models/llama.py`` or ``models/mla.py``): every
+participating slot contributes a contiguous
 row span described by ``(start, len, mode)`` —
 
 - ``mode == "decode"``: one row, the slot's last token at its current

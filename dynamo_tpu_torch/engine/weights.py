@@ -1,12 +1,15 @@
-"""Parameters of the PyTorch llama: conversion and random init.
+"""Parameters of the PyTorch models (llama, MLA): conversion and random
+init.
 
 ``params_from_numpy`` takes the JAX package's parameter tree (names from
 ``param_shapes``, ``[in, out]`` matmul layout, layer weights stacked
 ``[L, ...]``, quantized leaves as their fields) as numpy arrays, so a test
 can run both packages on the same weights. ``init_params`` makes random
-weights from a seed directly on the device, one layer slice at a time, so
-the f32 staging buffer stays one slice large (the 8B geometry's bf16 tree
-alone is ~16 GB).
+weights from a seed directly on the device, one matrix slice at a time
+(a layer's, or one expert's of a layer), so the f32 staging buffer stays
+one slice large (the 8B geometry's bf16 tree alone is ~16 GB,
+DeepSeek-V2-Lite's ~31 GB). The names and shapes are the model family's
+``param_shapes`` (``models.family``).
 """
 
 from __future__ import annotations
@@ -18,11 +21,12 @@ import torch
 
 from .config import ModelConfig
 from .device import resolve_device
-from .models.llama import param_shapes
+from .models import family
 from .quant import QuantizedTensor
 
-_NORMS = ("ln1", "ln2", "ln1_post", "ln2_post", "q_norm", "k_norm")
-_BIASES = ("bq", "bk", "bv")
+_NORMS = ("ln1", "ln2", "ln1_post", "ln2_post", "q_norm", "k_norm",
+          "kv_norm", "q_a_norm")
+_BIASES = ("bq", "bk", "bv", "router_bias")
 
 
 def params_from_numpy(np_params: Mapping[str, object], cfg: ModelConfig,
@@ -37,7 +41,7 @@ def params_from_numpy(np_params: Mapping[str, object], cfg: ModelConfig,
     ``quant.QuantizedTensor`` with its int8 payload and f32 scale kept as
     they are."""
     dev = resolve_device(device)
-    shapes = dict(param_shapes(cfg))
+    shapes = dict(family(cfg).param_shapes(cfg))
     if "lm_head" in np_params and "lm_head" not in shapes:
         shapes["lm_head"] = (cfg.hidden_size, cfg.vocab_size)
     out = {}
@@ -63,8 +67,8 @@ def params_from_numpy(np_params: Mapping[str, object], cfg: ModelConfig,
 
 def init_one_param(cfg: ModelConfig, name: str, shape, gen: torch.Generator,
                    dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """One tensor of ``init_params``, drawn from ``gen`` (a stacked weight
-    one layer slice at a time)."""
+    """One tensor of ``init_params``, drawn from ``gen`` one matrix at a
+    time (the last two axes of a stacked weight, in index order)."""
     leaf = name.rsplit(".", 1)[-1]
     if leaf in _NORMS or name == "final_norm":
         fill = 0.0 if cfg.norm_plus_one else 1.0
@@ -73,7 +77,8 @@ def init_one_param(cfg: ModelConfig, name: str, shape, gen: torch.Generator,
         return torch.zeros(shape, dtype=dtype, device=dev)
     fan_in = shape[-2] if len(shape) > 1 else shape[-1]
     t = torch.empty(shape, dtype=dtype, device=dev)
-    slices = t if len(shape) == 3 else t[None]
+    slices = (t.reshape((-1,) + tuple(shape[-2:])) if len(shape) > 1
+              else t[None])
     for s in slices:
         s.copy_(torch.randn(s.shape, generator=gen, device=dev,
                             dtype=torch.float32) * fan_in ** -0.5)
@@ -90,4 +95,4 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda",
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return {name: init_one_param(cfg, name, shape, gen, dev, dtype)
-            for name, shape in param_shapes(cfg).items()}
+            for name, shape in family(cfg).param_shapes(cfg).items()}

@@ -128,13 +128,13 @@ class Side:
                                                   sampling, eos))
 
     async def busy_pair(self, pa, pb, max_new_a=32, samp_b=None,
-                        max_new_b=24):
-        """Submit A, wait for its first token (the engine is decoding),
-        then submit B: B lane-admits."""
+                        max_new_b=24, lead=1):
+        """Submit A, wait for its first ``lead`` tokens (the engine is
+        decoding), then submit B: B lane-admits."""
         ra = await self.submit(pa, "a", max_new=max_new_a)
-        t0 = await self.first_token(ra)
+        head = [await self.first_token(ra) for _ in range(lead)]
         rb = await self.submit(pb, "b", max_new=max_new_b, sampling=samp_b)
-        return await asyncio.gather(self.drain(ra, head=[t0]),
+        return await asyncio.gather(self.drain(ra, head=head),
                                     self.drain(rb))
 
 

@@ -10,7 +10,9 @@ and the pool rows outside the trash block must have the same bits (the
 same kernels on the same inputs). Each replay adds the launches its graph
 holds to the kernels' counts; a replay whose static inputs were left
 stale must differ from the eager run on the new inputs. A Gemma-2 program
-(head dim 256, soft-caps, a window that binds) replays equal to eager too.
+(head dim 256, soft-caps, a window that binds) replays equal to eager too,
+and so does an MLA program (DeepSeek-V2's latent widths over a bf16 and a
+sectioned int8 pool, with the MoE block's top-k routing in the graph).
 """
 
 import numpy as np
@@ -168,3 +170,54 @@ def test_gemma2_graph_replay_equals_eager(mode, K):
     assert torch.isfinite(logits[:, LIVE]).all()
     for n in kv:
         assert torch.equal(pool_g[n][:, BS:], kv[n][:, BS:])
+
+
+# an MLA decode program at DeepSeek-V2's attention widths (16 heads, latent
+# rank 512, rope 64: K3-MLA's compiled shape), 2 layers (the first dense,
+# then 4 experts top-2 with shared experts), over a bf16 and an int8 pool
+MLA_CFG = ModelConfig(
+    model_type="deepseek_v2", vocab_size=512, hidden_size=256,
+    intermediate_size=128, num_layers=2, num_heads=16, num_kv_heads=16,
+    head_dim=192, kv_lora_rank=512, qk_nope_head_dim=128,
+    qk_rope_head_dim=64, v_head_dim=128, num_experts=4,
+    num_experts_per_tok=2, moe_norm_topk=False, first_k_dense=1,
+    dense_intermediate_size=256, shared_expert_size=128,
+    max_position_embeddings=512)
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("K", [1, 4])
+def test_mla_graph_replay_equals_eager(kv_quant, K):
+    from dynamo_tpu_torch.engine.attention import quantize_kv_rows_sections
+    from dynamo_tpu_torch.engine.models import mla
+    dev = _device()
+    params = init_params(MLA_CFG, 0, dev, torch.bfloat16)
+    kv = mla.init_kv_cache(MLA_CFG, 16, BS, dev, torch.bfloat16,
+                           quantization=kv_quant)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    rows = torch.randn((MLA_CFG.num_layers * kv["kv"].shape[1], 576),
+                       generator=g, device=dev)     # a prefix in every block
+    if kv_quant == "int8":
+        rows = quantize_kv_rows_sections(rows, (512, 64))
+    kv["kv"][..., :rows.shape[1]] = rows.view(kv["kv"].shape[:2] + (-1,))
+    prog = DecodeProgram(params, kv, MLA_CFG, BS, B, M, 4, 0, dev)
+    pool0 = kv["kv"].clone()
+    inp = _inputs(K)
+    with torch.inference_mode():
+        d = prog.dispatch(K, "filtered", inp, with_logits=True)
+        toks, lps = d.fetch()
+        logits = d.logits.clone()
+        pool_g = kv["kv"].clone()
+        kv["kv"].copy_(pool0)
+        e = prog.run_eager(K, "filtered", inp, with_logits=True)
+        torch.cuda.synchronize()
+    g = prog.graphs[(K, "filtered", True)]
+    attn = ("latent_paged_attention_int8" if kv_quant == "int8"
+            else "latent_paged_attention")
+    assert g.launches[attn] == K * MLA_CFG.num_layers
+    assert (toks[:, LIVE] == e.toks.cpu().numpy()[:, LIVE]).all()
+    assert (lps[:, LIVE] == e.logprobs.cpu().numpy()[:, LIVE]).all()
+    assert torch.equal(logits[:, LIVE], e.logits[:, LIVE])
+    assert torch.isfinite(logits[:, LIVE]).all()
+    assert torch.equal(pool_g[:, BS:], kv["kv"][:, BS:])

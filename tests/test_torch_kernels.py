@@ -15,7 +15,11 @@ grouped-int4 matmul reads the last group's scales as the first group's
 (and, where it splits the contraction, its partials are merged with one
 split left out). Gemma-2's modes (soft-cap, sliding window, head dim 256)
 plant a window one key wider, a dropped soft-cap and a dropped window (the
-dead tiles and splits run and counted).
+dead tiles and splits run and counted). The latent kernels (K3-MLA, K4-MLA:
+MLA's ``v_lanes`` over bf16 rows and ``quant_sections`` over int8 rows, at
+DeepSeek-V2's widths) are held against their plain versions in f32 and
+plant V read 64 lanes late, the two sections' scales swapped, the last
+block dropped and (ragged) the off-by-one causal mask.
 """
 
 import pytest
@@ -289,7 +293,8 @@ def test_paged_attention_kernel_full_batch(int8):
 
 def test_kernels_refuse_unsupported_options():
     """What the kernels still lack raises on the card, never falls back:
-    a head dim they are not compiled for, f32 inputs, the MLA pool modes."""
+    a head dim they are not compiled for, f32 inputs, an MLA mode on a
+    pool that is not MLA's (JAX's rule, attention.check_latent_modes)."""
     dev = _device()
     q = torch.zeros((4, 8, 96), dtype=torch.bfloat16, device=dev)
     k = torch.zeros((16, 2, 96), dtype=torch.bfloat16, device=dev)
@@ -303,7 +308,7 @@ def test_kernels_refuse_unsupported_options():
     pool = torch.zeros((16, 128), dtype=torch.bfloat16, device=dev)
     tables = torch.ones((4, 1), dtype=torch.int32, device=dev)
     lens = torch.ones((4,), dtype=torch.int32, device=dev)
-    with pytest.raises(TypeError):          # not a mode of the port
+    with pytest.raises(ValueError):         # v_lanes over 2 KV heads
         attention.paged_attention(q, pool, pool, tables, lens, block_size=16,
                                   scale=0.1, v_lanes=64)
     with pytest.raises(ValueError):
@@ -520,7 +525,7 @@ def test_ragged_kernel_refuses_unsupported_options():
     g = torch.Generator(device=dev).manual_seed(3)
     q, k, v, tables, starts, counts, ctx, bs, Dh = _ragged_inputs(g, dev,
                                                                   False)
-    with pytest.raises(TypeError):          # not a mode of the port
+    with pytest.raises(ValueError):         # sections need an int8 pool
         attention.ragged_paged_attention(q, k, v, tables, starts, counts, ctx,
                                          block_size=bs, scale=0.1,
                                          max_rows=64, quant_sections=(64, 64))
@@ -792,3 +797,167 @@ def test_ragged_attention_gemma_modes_match_plain(int8, geom):
     assert _row_rel_err(glob, gref, owned) <= ROW_REL_TOL
     for f in faults:
         assert _row_rel_err(f, ref, owned) > ROW_REL_TOL
+
+
+# --------------------------------------------------------------- MLA modes
+
+# DeepSeek-V2's latent widths (the latent kernels' compiled shape): 16
+# heads, query [q_lat 512 | q_pe 64 | 0 64], rows of 640 bf16 or 768 int8
+LATENT_M = 24
+
+
+def _latent_inputs(gen, dev, int8, lens, n_rows=None):
+    bs = 32 if int8 else 16
+    M = LATENT_M * 16 // bs
+    nb = len(lens) * M + 1
+    vals = torch.randn((nb * bs, 576), generator=gen, device=dev)
+    vals[:, 512:] *= 8.0
+    if int8:
+        pool = torch.zeros((nb * bs, 768), dtype=torch.int8, device=dev)
+        pool[:, :704] = attention.quantize_kv_rows_sections(vals, (512, 64))
+    else:
+        pool = torch.zeros((nb * bs, 640), dtype=torch.bfloat16, device=dev)
+        pool[:, :576] = vals.bfloat16()
+    perm = (torch.randperm(nb - 1, generator=gen, device=dev) + 1).int()
+    tables = torch.zeros((len(lens), M), dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(lens):
+        k = -(-n // bs)
+        tables[b, :k] = perm[used:used + k]
+        used += k
+    q = torch.randn((n_rows or len(lens), 16, 640), generator=gen,
+                    device=dev) * 0.1
+    q[..., 576:] = 0
+    kw = dict(block_size=bs, scale=192 ** -0.5, v_lanes=512,
+              quant_sections=(512, 64) if int8 else None)
+    return (q.bfloat16(), pool, tables,
+            torch.tensor(lens, dtype=torch.int32, device=dev), kw)
+
+
+def _latent_faults(call, q, pool, tables, lens, int8, bs):
+    longest = max(range(len(lens)), key=lambda b: lens[b])
+    bad = tables.clone()
+    bad[longest, (lens[longest] - 1) // bs] = 0
+    out = [call(tt=bad)]
+    if int8:
+        sw = pool.clone()
+        sw[:, 576:578], sw[:, 578:580] = pool[:, 578:580], pool[:, 576:578]
+        out.append(call(pp=sw))
+    else:
+        out.append(call(qq=torch.roll(q, -64, -1).contiguous(),
+                        pp=torch.roll(pool, -64, -1).contiguous()))
+    return out
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["v_lanes", "sections"])
+def test_latent_paged_kernel_matches_plain(int8):
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    lens = [1, 127, 128, 129, 300, 384, 0]
+    q, pool, tables, sl, kw = _latent_inputs(gen, dev, int8, lens)
+    kernel = (kernels.LATENT_PAGED_ATTENTION_INT8 if int8
+              else kernels.LATENT_PAGED_ATTENTION)
+
+    def call(qq=q, pp=pool, tt=tables):
+        return attention.paged_attention(qq, pp, pp, tt, sl, **kw)
+    n0 = kernel.launches
+    out, again = call(), call()
+    ref = attention.paged_attention_ref(q.float(), pool if int8
+                                        else pool.float(), None, tables, sl,
+                                        **kw)
+    faults = _latent_faults(call, q, pool, tables, lens, int8,
+                            kw["block_size"])
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 4
+    assert out.shape == (len(lens), 16, 512) and torch.equal(out, again)
+    live = sl > 0
+    assert out[~live].abs().max().item() == 0.0
+    assert _row_rel_err(out, ref, live) <= ROW_REL_TOL
+    for f in faults:
+        assert _row_rel_err(f, ref, live) > ROW_REL_TOL
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["v_lanes", "sections"])
+def test_latent_ragged_kernel_matches_plain(int8):
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    spans = [(20, 140), (9, 9), (1, 33), (1, 384), (0, 0)]
+    counts_l = [n for n, _ in spans]
+    TT = sum(counts_l)
+    q, pool, tables, ctx, kw = _latent_inputs(gen, dev, int8,
+                                              [c for _, c in spans],
+                                              n_rows=TT + 3)
+    starts = torch.tensor([sum(counts_l[:i]) for i in range(len(spans))],
+                          dtype=torch.int32, device=dev)
+    counts = torch.tensor(counts_l, dtype=torch.int32, device=dev)
+    kw["max_rows"] = 32
+    M = tables.shape[1]
+    scratch = kernels.paged_scratch(q, 1, M, kw["block_size"], 512)
+
+    def call(qq=q, pp=pool, tt=tables, lens=ctx, **f):
+        return kernels.latent_ragged_attention_cuda(qq, pp, tt, starts,
+                                                    counts, lens, **kw, **f)
+    out, again = attention.ragged_paged_attention(
+        q, pool, pool, tables, starts, counts, ctx, **kw), call(
+            scratch=scratch)
+    ref = attention.ragged_paged_attention_ref(
+        q.float(), pool if int8 else pool.float(), None, tables, starts,
+        counts, ctx, **kw)
+    faults = _latent_faults(call, q, pool, tables, [c for _, c in spans],
+                            int8, kw["block_size"])
+    faults.append(call(lens=torch.where(counts > 1, ctx - 1, ctx)))
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.isfinite(out).all()
+    assert out[TT:].abs().max().item() == 0.0
+    rows = slice(0, TT)
+    assert _row_rel_err(out, ref, rows) <= ROW_REL_TOL
+    for f in faults:
+        assert _row_rel_err(f, ref, rows) > ROW_REL_TOL
+    # the kernel's own partials (one row a tile, K3's chunks) merge to it
+    _, live = attention.ragged_row_plan(starts, counts, ctx, TT + 3, 16, M,
+                                        kw["block_size"],
+                                        attention.LATENT_TILE_ROWS)
+    multi = [r for r in range(TT) if live[r] > 1]
+    _, S = attention.decode_split_plan(M, kw["block_size"])
+    m, l, acc = (t[multi].clone() for t in attention.split_scratch_views(
+        scratch, TT + 3, 1, S, 16, 512))
+    for i, r in enumerate(multi):
+        n = int(live[r])
+        m[i, :, n:], l[i, :, n:], acc[i, :, n:] = float("-inf"), 0, 0
+    assert _row_rel_err(attention.merge_split_partials(m, l, acc),
+                        out[multi], slice(None)) <= ROW_REL_TOL
+
+
+def test_latent_kernels_refuse_unsupported_options():
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, pool, tables, sl, kw = _latent_inputs(gen, dev, False, [5, 9])
+    with pytest.raises(ValueError):          # 8 heads: not compiled
+        kernels.latent_paged_attention_cuda(q[:, :8].contiguous(), pool,
+                                            tables, sl, **kw)
+    with pytest.raises(ValueError):          # no soft-cap in the modes
+        attention.paged_attention(q, pool, pool, tables, sl, softcap=30.0,
+                                  **kw)
+
+
+def test_mla_decode_refuses_int8_rank_the_kernels_lack():
+    """A latent rank that is not 128-aligned (tiny_mla's 64) has no
+    sectioned kernel mode: a decode step over an int8 CUDA pool raises
+    rather than gathering in plain PyTorch. (Over a bf16 pool such a rank
+    takes K3 itself, the row as K and V over one KV head.)"""
+    from dynamo_tpu_torch.engine.config import bench_model_config
+    from dynamo_tpu_torch.engine.models import mla
+    from dynamo_tpu_torch.engine.weights import init_params
+    dev = _device()
+    cfg = bench_model_config("tiny_mla")
+    assert cfg.kv_lora_rank % 128
+    bs, M = 16, 4
+    params = init_params(cfg, 0, dev, torch.bfloat16)
+    kv = mla.init_kv_cache(cfg, M + 1, bs, dev, torch.bfloat16,
+                           quantization="int8")
+    tables = torch.arange(1, M + 1, dtype=torch.int32,
+                          device=dev)[None].repeat(2, 1)
+    with pytest.raises(ValueError):
+        mla.decode_forward(params, kv, torch.tensor([3, 4], device=dev),
+                           torch.tensor([5, 9], dtype=torch.int32,
+                                        device=dev), tables, cfg, bs)

@@ -47,7 +47,6 @@ from dynamo_tpu.engine.models import llama as jllama
 from dynamo_tpu.engine.sampling import SlotSampling as JSlotSampling
 from dynamo_tpu.parallel.ring_attention import ring_attention as jring
 from dynamo_tpu.parallel.sharding import make_mesh as jmake_mesh
-from dynamo_tpu_torch.engine import core as tcore_mod
 from dynamo_tpu_torch.engine.attention import (NEG_INF, _decode_scale,
                                                dequant_kv_rows,
                                                flash_prefill_partial_ref,
@@ -251,14 +250,15 @@ def _engine_kwargs(**extra):
 
 
 def _count(monkeypatch, name):
-    """Count the port engine's calls of ``llama.<name>``, by true_len."""
+    """Count the port engine's calls of ``llama.<name>`` (the engine's
+    model module for a llama-family model), by true_len."""
     calls = []
-    orig = getattr(tcore_mod.llama, name)
+    orig = getattr(tllama, name)
 
     def counted(*a, **kw):
         calls.append(a[4] if name == "prefill_forward_sp" else a[5])
         return orig(*a, **kw)
-    monkeypatch.setattr(tcore_mod.llama, name, counted)
+    monkeypatch.setattr(tllama, name, counted)
     return calls
 
 
