@@ -5,6 +5,12 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --ab DIR`` runs only phase 3's attention kernels
+(K1-K4 at the 8B shapes) of the checkout at DIR (another commit, unpacked
+with ``git archive``) and of this checkout in turns on the one card, and
+prints their times and ratios (``ab_compare``): a change's effect on the
+kernels it did not mean to touch, read within one run.
+
 Phases, each failing the run (non-zero exit, no result line) on error:
 
 1. card: name and power limit (nvidia-smi), torch's device name;
@@ -140,11 +146,40 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    K4-MLA over int8 rows serves no path (the JAX package gathers there
    too): its entry carries ``"on_main_path": false`` and 0 launches.
 
+3p. kernels at Phi-3-mini-4k's shapes (``PHI3_MINI_4K_CONFIG``, parsed by
+   the port's ``ModelConfig.from_hf_config``: 32 heads of 96 over 32 KV
+   heads, a 2047-token window on every layer, no soft-cap): K1 on a
+   2048-token chunk after a 958-token prefix hit (its live keys end in
+   row 61 of a 64-key tile) and on phase 4p's 3000-token prompt in its
+   4096 bucket, with the window one key wider and the window dropped
+   planted; K2 on phase 3's ring hops and the ring over 2 and 4 shards at
+   head dim 96 (``"on_main_path": false``: the ring refuses windows); K3
+   and K4, bf16 and int8, through phase 3's checks (``PHI3_ATTN``: a mix
+   across the window's edge, window floors on the split boundaries, 8 x
+   4096 keys, for K4 a decode step at 3001); each timed cold beside its
+   bound and the faster of SDPA (the window in its mask) and
+   ``torch.compile(flex_attention)`` (the window's block mask); K5 over
+   the untied 3072 x 32064 head and K6 at the three Phi-3-mini layer
+   shapes;
+4p. model: phase 4's checks (``check_model``, ``PHI3_RUN``) at Phi-3-mini's
+   full width and depth (32 layers, random weights) in bf16 and in int4 +
+   int8 KV: a 3000-token prompt (the window binds) and decode steps at
+   3000-3003 through the kernels and the plain versions, the window
+   dropped from K1, K3 and K4 as the planted faults, the decode program's
+   graphs at K = 1 and K = 8 against eager, and one ragged dispatch over
+   the prompt's pool through K4;
+5p. serve Phi-3-mini (``--max-model-len 4096``, 2048 blocks of 16): bf16
+   with ``--decode-steps-per-dispatch 8``, int4 + int8 KV split, and each
+   again with ``--ragged``, each answering a 3000- and a 300-token prompt
+   posted together, an SSE stream and a seeded sampled request twice,
+   with TTFT/ITL, the footprint after bring-up, the graph capture seconds
+   and the launches of each path.
+
 Every split-path decode dispatch of phases 5-5m replays a captured graph;
 its launches count through the program's replay accounting.
 
-The line before the last is the kernels' JSON summary (the entries of 3g
-and 3m carry a ``mode``); the last line is ``{"ok": true, "device":
+The line before the last is the kernels' JSON summary (the entries of
+3g, 3m and 3p carry a ``mode``); the last line is ``{"ok": true, "device":
 {...}}``.
 Imports nothing of JAX.
 """
@@ -177,8 +212,9 @@ SP_TRUE_LEN = 1900             # the sequence-parallel prompt, in a 2048 bucket
 # on the even layers, soft-caps 50 / 30. The phases 3g-5g parse it with the
 # port's ModelConfig.from_hf_config and serve it from a model directory
 # that holds it. Gemma2Config ties the embeddings by default and the hub
-# file leaves the key out; both packages read an absent key as untied, so
-# the tie is written out here.
+# file leaves the key out; the port reads an absent key as tied, as HF does,
+# where the JAX package reads it as untied, so the tie is written out here
+# for both to parse the same model.
 GEMMA2_9B_CONFIG = {
     "architectures": ["Gemma2ForCausalLM"], "attention_bias": False,
     "attention_dropout": 0.0, "attn_logit_softcapping": 50.0,
@@ -225,6 +261,26 @@ DEEPSEEK_V2_LITE_CONFIG = {
     "tie_word_embeddings": False, "topk_group": 1, "topk_method": "greedy",
     "torch_dtype": "bfloat16", "transformers_version": "4.33.1",
     "use_cache": True, "v_head_dim": 128, "vocab_size": 102400}
+
+# The config.json of microsoft/Phi-3-mini-4k-instruct on the Hugging Face
+# hub: 32 layers, hidden 3072, 32 query heads over 32 KV heads of 96 (MHA,
+# head dim 96), MLP 8192, a 2047-token window on every layer, default rope
+# (theta 10000, no scaling), vocab 32064, untied. The phases 3p-5p parse it
+# with the port's ModelConfig.from_hf_config and serve it from a model
+# directory that holds it (the 128k variant's longrope factor lists are not
+# in the repository; its rope is held against the JAX package on the CPU).
+PHI3_MINI_4K_CONFIG = {
+    "architectures": ["Phi3ForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 1, "embd_pdrop": 0.0, "eos_token_id": 32000,
+    "hidden_act": "silu", "hidden_size": 3072, "initializer_range": 0.02,
+    "intermediate_size": 8192, "max_position_embeddings": 4096,
+    "model_type": "phi3", "num_attention_heads": 32,
+    "num_hidden_layers": 32, "num_key_value_heads": 32,
+    "original_max_position_embeddings": 4096, "pad_token_id": 32000,
+    "resid_pdrop": 0.0, "rms_norm_eps": 1e-05, "rope_scaling": None,
+    "rope_theta": 10000.0, "sliding_window": 2047,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "vocab_size": 32064}
 
 
 def log(msg: str) -> None:
@@ -280,12 +336,12 @@ _FLEX = {}
 
 def flex_library_ms(q, k, v, live, softcap: float, scale: float,
                     cold: bool, kernel_options=None) -> tuple:
-    """The library yardstick of a soft-capped attention: one call of
-    ``torch.compile(flex_attention)`` over q [B, H, L, Dh] and k/v [B, KVH,
-    S, Dh] (GQA) with the score_mod cap * tanh(s / cap) and the block mask
-    of ``live`` (a mask_mod of (b, h, q_idx, kv_idx)), built before
-    timing, and ``kernel_options``. Returns (ms, the call's output [B, H,
-    L, Dh])."""
+    """The library yardstick of a soft-capped or windowed attention: one
+    call of ``torch.compile(flex_attention)`` over q [B, H, L, Dh] and k/v
+    [B, KVH, S, Dh] (GQA) with the score_mod cap * tanh(s / cap) (none for
+    a ``softcap`` of 0) and the block mask of ``live`` (a mask_mod of (b,
+    h, q_idx, kv_idx)), built before timing, and ``kernel_options``.
+    Returns (ms, the call's output [B, H, L, Dh])."""
     import torch
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -299,8 +355,9 @@ def flex_library_ms(q, k, v, live, softcap: float, scale: float,
     B, _, L, _ = q.shape
     mask = create_block_mask(live, B, None, L, k.shape[2], device=q.device)
 
-    def score_mod(s, b, h, q_idx, kv_idx):
+    def capped(s, b, h, q_idx, kv_idx):
         return softcap * torch.tanh(s / softcap)
+    score_mod = capped if softcap else None
 
     def call():
         return _FLEX["fn"](q, k, v, score_mod=score_mod, block_mask=mask,
@@ -930,7 +987,8 @@ def paged_library(cfg, cases, q, k_cache, v_cache, tables, seq_lens, bs: int,
     under a mask (with ``win_lo``, the window's too); cold L2: SDPA
     (sdpa_yardstick; its output as ``sdpa_out`` [B, H, Dv]), which takes
     no soft-cap, and with a soft-cap flex_attention (flex_library_ms),
-    whose output is returned as ``flex_out`` [B, H, Dh]."""
+    whose output is returned as ``flex_out`` [B, H, Dh]; with a window and
+    no soft-cap flex_attention with the window's block mask alone."""
     import torch
     kg, vg = gathered_pages(cfg, cases, k_cache, v_cache, tables, bs)
     kv_pos = torch.arange(kg.shape[2], device=q.device)[None, :]
@@ -942,7 +1000,8 @@ def paged_library(cfg, cases, q, k_cache, v_cache, tables, seq_lens, bs: int,
                          scale)
     if "sdpa_out" in res:
         res["sdpa_out"] = res["sdpa_out"][:, :, 0]
-    if cases.softcap:
+    res["softcap"] = cases.softcap
+    if cases.softcap or cases.window:
         lo = win_lo if win_lo is not None else seq_lens * 0 - 1
 
         def live(b, h, q_idx, kv_idx):
@@ -960,7 +1019,8 @@ def ragged_library(cfg, cases, q, k_cache, v_cache, tables, starts_l, mix,
     (sdpa_yardstick) with a boolean causal-and-length mask (with a window,
     the window's too; padded rows see key 0), which takes no soft-cap, and
     with a soft-cap one flex_attention call (flex_library_ms; padded rows
-    see no key); their outputs as flat rows (``sdpa_out``, ``flex_out``)."""
+    see no key; with a window and no soft-cap the block mask alone); their
+    outputs as flat rows (``sdpa_out``, ``flex_out``)."""
     import torch
     H = q.shape[1]
     M = tables.shape[1]
@@ -989,7 +1049,8 @@ def ragged_library(cfg, cases, q, k_cache, v_cache, tables, starts_l, mix,
     res = sdpa_yardstick(qp, kg, vg, mask, scale)
     if "sdpa_out" in res:
         res["sdpa_out"] = flat(res["sdpa_out"])
-    if cases.softcap:
+    res["softcap"] = cases.softcap
+    if cases.softcap or W:
         n_t = torch.tensor([n for n, _ in mix], device=dev)
         pos0 = torch.tensor([c - n for n, c in mix], device=dev)
         w = W or (M * bs + RAGGED_MAX_ROWS)
@@ -1023,7 +1084,8 @@ def yardsticks(case: dict, lib: dict, ref, rows, what: str,
     the plain version: SDPA as ``library_ms`` (the fastest backend, named,
     or None with each backend's refusal); with a soft-cap flex_attention's time
     there instead, SDPA and the kernel with the soft-cap off beside it
-    labelled 'no softcap'."""
+    labelled 'no softcap'; with a window and no soft-cap the faster of
+    SDPA and flex_attention as ``library_ms``, both times beside it."""
     sdpa = (f"scaled_dot_product_attention ({lib['sdpa_backend']} backend, "
             f"the fastest of {sorted(lib['sdpa_backends_ms'])}) over {what}"
             if lib["sdpa_ms"] is not None else
@@ -1034,6 +1096,20 @@ def yardsticks(case: dict, lib: dict, ref, rows, what: str,
         case.update(library_ms=lib["sdpa_ms"], library=sdpa)
         if "sdpa_out" in lib:
             _, case["library_row_rel_err"] = row_errors(lib["sdpa_out"], ref,
+                                                        rows)
+        return
+    flex = ("torch.compile(flex_attention) with the block mask"
+            + lib.get("flex_options", "") + f", over {what}")
+    if not lib.get("softcap"):
+        case["library_candidates_ms"] = {"sdpa": lib["sdpa_ms"],
+                                         "flex_attention": lib["flex_ms"]}
+        if lib["sdpa_ms"] is not None and lib["sdpa_ms"] <= lib["flex_ms"]:
+            case.update(library_ms=lib["sdpa_ms"], library=sdpa)
+            _, case["library_row_rel_err"] = row_errors(lib["sdpa_out"], ref,
+                                                        rows)
+        else:
+            case.update(library_ms=lib["flex_ms"], library=flex)
+            _, case["library_row_rel_err"] = row_errors(lib["flex_out"], ref,
                                                         rows)
         return
     _, case["library_row_rel_err"] = row_errors(lib["flex_out"], ref, rows)
@@ -1123,8 +1199,9 @@ def check_paged_attention(cfg, dev, int8: bool = False,
         faults = {}
         if timed and W:
             faults = {"window_off_by_one": kernel(win_lo=win_lo - 1),
-                      "softcap_dropped": kernel(softcap=0.0),
                       "dead_splits_counted": glob}
+            if cap:
+                faults["softcap_dropped"] = kernel(softcap=0.0)
         elif timed:
             # the longest slot's last table entry read as the trash block
             # (which holds other random rows here), and the pool's own
@@ -1296,8 +1373,9 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
         faults = {}
         if main and W:
             faults = {"window_off_by_one": kernel(win_base=win_base - 1),
-                      "softcap_dropped": kernel(softcap=0.0),
                       "dead_splits_counted": glob}
+            if cap:
+                faults["softcap_dropped"] = kernel(softcap=0.0)
         elif main:
             longest = max(range(len(mix)), key=lambda s: mix[s][1])
             last = (mix[longest][1] - 1) // bs
@@ -2511,60 +2589,69 @@ def gemma_config():
     return ModelConfig.from_hf_config(GEMMA2_9B_CONFIG)
 
 
-def check_gemma_flash_prefill(cfg, dev) -> dict:
-    """K1 at Gemma-2-9B's heads: a 2048-token chunk at positions 4096-6143
-    over 6144 keys, soft-capped, on a sliding layer (4096-token window: its
-    first 1-2047 keys are dead for some rows) and on a global layer; timed
-    with and without the soft-cap beside flex_attention with the soft-cap
-    and SDPA without it, both with the causal (and window) mask."""
+def check_window_flash_prefill(cfg, dev, mode: str, chunks, q_gain: float,
+                               seed: int) -> dict:
+    """K1 in a windowed model's modes (``cfg``'s heads, window and
+    soft-cap) on ``chunks``, each (T, start_pos, true_len, sliding): the
+    rows at positions start_pos .. start_pos + T - 1 over start_pos + T
+    keys of which start_pos + true_len are live, on a sliding layer (the
+    window) or a global one; q scaled by ``q_gain``, the plain version in
+    f32. Planted faults: the soft-cap dropped, and on a sliding layer the
+    window one key wider and the window dropped. Timed (with and without
+    the soft-cap) beside flex_attention with the soft-cap (without one: the
+    faster of flex_attention and SDPA) and SDPA without it, both with the
+    causal (and window) mask."""
     import torch
     import torch.nn.functional as F
     from dynamo_tpu_torch.engine.attention import flash_prefill_ref
     from dynamo_tpu_torch.engine.kernels import flash_prefill_cuda
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    W, cap = cfg.sliding_window, cfg.attn_logit_softcap
-    T, start = 2048, 4096
-    seq_len = S = start + T
+    W, cap = cfg.sliding_window, cfg.attn_logit_softcap or 0.0
     scale = (cfg.query_pre_attn_scalar or Dh) ** -0.5
     gen = torch.Generator(device=dev)
-    gen.manual_seed(21)
-    q = (torch.randn((T, H, Dh), generator=gen, device=dev)
-         * GEMMA_Q_GAIN).bfloat16()
-    k, v = (torch.randn((S, KVH, Dh), generator=gen, device=dev).bfloat16()
-            for _ in range(2))
-    kw = dict(scale=scale, start_pos=start, seq_len=seq_len)
-    pos = start + torch.arange(T, device=dev)
-    kv_pos = torch.arange(S, device=dev)
-    qs = q.transpose(0, 1)[None].contiguous()
-    ks, vs = (x.transpose(0, 1)[None].contiguous() for x in (k, v))
+    gen.manual_seed(seed)
     cases = []
-    for sliding in (True, False):
+    for T, start, true_len, sliding in chunks:
+        S, seq_len = start + T, start + true_len
         window = W if sliding else 0
+        q = (torch.randn((T, H, Dh), generator=gen, device=dev)
+             * q_gain).bfloat16()
+        k, v = (torch.randn((S, KVH, Dh), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        kw = dict(scale=scale, start_pos=start, seq_len=seq_len)
+        pos = start + torch.arange(T, device=dev)
+        kv_pos = torch.arange(S, device=dev)
+        qs = q.transpose(0, 1)[None].contiguous()
+        ks, vs = (x.transpose(0, 1)[None].contiguous() for x in (k, v))
 
         def kernel(**f):
             return flash_prefill_cuda(q, k, v, **{**kw, "window": window,
                                                   "softcap": cap, **f})
         out, again = kernel(), kernel()
         ref = flash_prefill_ref(q.float(), k.float(), v.float(),
-                                sliding=sliding, window=W, softcap=cap, **kw)
-        faults = {"softcap_dropped": kernel(softcap=0.0)}
+                                sliding=sliding, window=W,
+                                softcap=cap or None, **kw)
+        faults = {"softcap_dropped": kernel(softcap=0.0)} if cap else {}
         if sliding:
             faults["window_off_by_one"] = kernel(window=W + 1)
             faults["dead_tiles_counted"] = kernel(window=0)
         torch.cuda.synchronize()
-        what = f"flash_prefill {GEMMA_MODE} sliding={sliding}"
-        if not torch.isfinite(out).all():
+        rows = slice(0, true_len)
+        what = (f"flash_prefill {mode} T={T} start={start} "
+                f"sliding={sliding}")
+        if not torch.isfinite(out[rows]).all():
             raise RuntimeError(f"{what}: non-finite output")
         if not torch.equal(out, again):
             raise RuntimeError(f"{what}: two calls gave different bits")
-        err, rel = row_errors(out, ref, slice(0, T))
-        fault_rel = {n: row_errors(f, ref, slice(0, T))[1]
+        err, rel = row_errors(out, ref, rows)
+        fault_rel = {n: row_errors(f, ref, rows)[1]
                      for n, f in faults.items()}
         del faults, again, out
         ms = time_ms(kernel)
-        ms_nocap = time_ms(lambda: kernel(softcap=0.0))
+        ms_nocap = time_ms(lambda: kernel(softcap=0.0)) if cap else None
         plain_ms = time_ms(lambda: flash_prefill_ref(
-            q, k, v, sliding=sliding, window=W, softcap=cap, **kw), iters=3)
+            q, k, v, sliding=sliding, window=W, softcap=cap or None, **kw),
+            iters=3)
         mask = (kv_pos[None, :] <= pos[:, None]) & (kv_pos[None, :] < seq_len)
         if sliding:
             mask &= kv_pos[None, :] > (pos - W)[:, None]
@@ -2573,40 +2660,43 @@ def check_gemma_flash_prefill(cfg, dev) -> dict:
         w = window or S
 
         def live(b, h, q_idx, kv_idx):
-            return ((kv_idx <= start + q_idx)
+            return ((kv_idx <= start + q_idx) & (kv_idx < seq_len)
                     & (kv_idx > start + q_idx - w))
         flex_ms, flex_out = flex_library_ms(qs, ks, vs, live, cap, scale,
                                             cold=False)
-        _, lib_rel = row_errors(flex_out[0].transpose(0, 1), ref,
-                                slice(0, T))
-        pairs = int(mask.sum().item())
+        _, flex_rel = row_errors(flex_out[0].transpose(0, 1), ref, rows)
+        pairs = int(mask[rows].sum().item())
         lo = max(start - W + 1, 0) if sliding else 0
-        nbytes = 2.0 * (2 * T * H * Dh + 2 * (seq_len - lo) * KVH * Dh)
+        nbytes = 2.0 * (2 * true_len * H * Dh + 2 * (seq_len - lo) * KVH * Dh)
         b_ms, b_by = bound(nbytes, 4.0 * H * Dh * pairs)
-        del mask, flex_out, ref
-        case = {"mode": GEMMA_MODE, "T": T, "start_pos": start,
-                "seq_len": seq_len, "sliding": sliding, "window": W,
-                "softcap": cap, "H": H, "KVH": KVH, "Dh": Dh,
-                "q_gain": GEMMA_Q_GAIN, "max_abs_err": err,
-                "max_row_rel_err": rel, "fault_row_rel_err": fault_rel,
-                "repeat_bits_equal": True, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": flex_ms,
-                "library": "torch.compile(flex_attention) with score_mod "
-                           "cap*tanh(s/cap) and the causal"
-                           + (" and window" if sliding else "")
-                           + " block mask",
-                "library_row_rel_err": lib_rel,
-                "ms_no_softcap": ms_nocap, "library_ms_no_softcap": sdpa_ms,
-                "library_no_softcap": "scaled_dot_product_attention with "
-                                      "the causal"
-                                      + (" and window" if sliding else "")
-                                      + " mask, no softcap",
+        masked = "the causal" + (" and window" if sliding else "")
+        flex = f"torch.compile(flex_attention) with {masked} block mask"
+        sdpa = f"scaled_dot_product_attention with {masked} mask"
+        case = {"mode": mode, "T": T, "start_pos": start,
+                "true_len": true_len, "seq_len": seq_len, "sliding": sliding,
+                "window": W, "softcap": cap, "H": H, "KVH": KVH, "Dh": Dh,
+                "q_gain": q_gain, "max_abs_err": err, "max_row_rel_err": rel,
+                "fault_row_rel_err": fault_rel, "repeat_bits_equal": True,
+                "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+        if cap:
+            case.update(library_ms=flex_ms, library="torch.compile("
+                        f"flex_attention) with score_mod cap*tanh(s/cap) and "
+                        f"{masked} block mask", library_row_rel_err=flex_rel,
+                        ms_no_softcap=ms_nocap, library_ms_no_softcap=sdpa_ms,
+                        library_no_softcap=sdpa + ", no softcap")
+        else:
+            # SDPA's output is not kept; flex's is held to the limit
+            case.update(library_candidates_ms={"sdpa": sdpa_ms,
+                                               "flex_attention": flex_ms},
+                        library_ms=min(sdpa_ms, flex_ms),
+                        library=sdpa if sdpa_ms <= flex_ms else flex,
+                        library_row_rel_err=flex_rel)
+        del mask, flex_out, ref, q, k, v, qs, ks, vs
         log(f"flash_prefill {json.dumps(case)}")
         check_limit(what, rel, fault_rel)
-        check_limit(f"{what} library_row_rel_err", lib_rel, {})
+        check_limit(f"{what} library_row_rel_err", flex_rel, {})
         cases.append(case)
-    del q, k, v, qs, ks, vs
     torch.cuda.empty_cache()
     return {"name": "flash_prefill", "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/flash_prefill.cu",
@@ -2620,7 +2710,12 @@ def check_gemma_kernels(cfg, dev) -> list:
     head, 3584 x 256000) and K6 at the Gemma-2-9B widths."""
     D, Fi = cfg.hidden_size, cfg.intermediate_size
     QD, KVD = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-    entries = [check_gemma_flash_prefill(cfg, dev),
+    # a 2048-token chunk at positions 4096-6143 over 6144 keys, soft-capped,
+    # on a sliding layer (its first 1-2047 keys are dead for some rows) and
+    # on a global layer
+    chunks = [(2048, 4096, 2048, True), (2048, 4096, 2048, False)]
+    entries = [check_window_flash_prefill(cfg, dev, GEMMA_MODE, chunks,
+                                          GEMMA_Q_GAIN, 21),
                check_paged_attention(cfg, dev, cases=GEMMA_ATTN),
                check_paged_attention(cfg, dev, int8=True, cases=GEMMA_ATTN),
                check_ragged_attention(cfg, dev, cases=GEMMA_ATTN),
@@ -2669,32 +2764,39 @@ def ragged_without_window(q, k_cache, v_cache, block_tables, seq_starts,
               max_rows=max_rows, softcap=softcap or 0.0)
 
 
-def ragged_gemma(cfg, dev, seed: int, kv_quant: str, kv, table, tokens,
-                 n_blocks: int) -> tuple:
-    """One ragged dispatch over the pool phase 4g's prompt wrote: slot 0's
-    decode row at position 4600 and slot 1's 64-row chunk at 4528-4591,
-    continuing the prompt's first 283 blocks (a prefix hit) into blocks of
-    its own: (pool, tables, dispatches, slots read)."""
-    import torch
-    M, B = GEMMA_M, 2
-    shared = 283                         # blocks: 4528 tokens
-    p1 = shared * KV_BLOCK
-    tables = torch.zeros((B + 1, M), dtype=torch.int32, device=dev)
-    tables[0] = table
-    tables[1, :shared] = table[:shared]
-    own = -(-(p1 + RAGGED_MAX_ROWS) // KV_BLOCK) - shared
-    tables[1, shared:shared + own] = torch.arange(
-        1 + n_blocks, 1 + n_blocks + own, device=dev)
-    toks = tokens.tolist()
-    batch = ragged_batch({0: (1, GEMMA_PROMPT), 1: (RAGGED_MAX_ROWS, p1)},
-                         [toks + [7], toks], tables, B, dev)
-    return kv, tables, [batch], B
+def ragged_over_prompt(prompt: int, M: int) -> Callable:
+    """The ragged dispatch of a long-prompt run (4g, 4p) over the pool its
+    ``prompt``-token prompt wrote: slot 0's decode row at position
+    ``prompt`` and slot 1's 64-row chunk ending at ``prompt`` rounded down
+    to a block, continuing the prompt's blocks before it (a prefix hit)
+    into blocks of its own: a ModelRun ``ragged`` function giving (pool,
+    tables, dispatches, slots read)."""
+    def ragged(cfg, dev, seed: int, kv_quant: str, kv, table, tokens,
+               n_blocks: int) -> tuple:
+        import torch
+        B = 2
+        shared = (prompt - RAGGED_MAX_ROWS) // KV_BLOCK
+        p1 = shared * KV_BLOCK
+        tables = torch.zeros((B + 1, M), dtype=torch.int32, device=dev)
+        tables[0] = table
+        tables[1, :shared] = table[:shared]
+        own = -(-(p1 + RAGGED_MAX_ROWS) // KV_BLOCK) - shared
+        tables[1, shared:shared + own] = torch.arange(
+            1 + n_blocks, 1 + n_blocks + own, device=dev)
+        toks = tokens.tolist()
+        batch = ragged_batch({0: (1, prompt), 1: (RAGGED_MAX_ROWS, p1)},
+                             [toks + [7], toks], tables, B, dev)
+        return kv, tables, [batch], B
+    return ragged
 
 
 # phase 4g: the window dropped from K1, K3 and K4 as their planted faults
+# (the ragged dispatch: slot 0's decode row at 4600, slot 1's 64-row chunk
+# at 4528-4591 continuing the prompt's first 283 blocks)
 GEMMA_RUN = ModelRun("gemma2", GEMMA_PROMPT, GEMMA_BUCKET, GEMMA_STEPS,
                      GEMMA_MAX_LEN, prefill_without_window, decode_without_window,
-                     ragged_gemma, ragged_without_window, False)
+                     ragged_over_prompt(GEMMA_PROMPT, GEMMA_M),
+                     ragged_without_window, False)
 
 
 # ---------------------------------------------------------------------------
@@ -2880,6 +2982,98 @@ MLA_RUN = ModelRun("V2-Lite", MLA_PROMPT, MLA_BUCKET, MLA_STEPS, MLA_MAX_LEN,
 
 
 # ---------------------------------------------------------------------------
+# phases 3p-5p: Phi-3-mini (head dim 96, a window on every layer)
+# ---------------------------------------------------------------------------
+
+# Phi-3-mini-4k's whole context: 256 blocks of 16 tokens a sequence (at a
+# max length of 2047 or less the engine would drop the window)
+PHI3_MAX_LEN = 4096
+PHI3_M = PHI3_MAX_LEN // KV_BLOCK
+PHI3_WINDOW = PHI3_MINI_4K_CONFIG["sliding_window"]
+# the kernel entries of head dim 96 with the window, and of K5 / K6 at the
+# Phi-3-mini widths
+PHI3_MODE = "phi3_dh96_window"
+PHI3_SHAPES_MODE = "phi3_mini_shapes"
+# q scaled as in phase 3g (GEMMA_Q_GAIN says why): with no soft-cap the
+# scores then reach a std of ~6, at which the window one key wider moves a
+# row whose planted key (mark_dead_keys) scores highest
+PHI3_Q_GAIN = 6.0
+# phase 4p: a 3000-token prompt in a 4096-token bucket (the window binds in
+# prefill: its last rows see 2047 of the 3000 keys), then 4 decode steps
+PHI3_PROMPT, PHI3_BUCKET, PHI3_STEPS = 3000, 4096, 4
+# K1 at head dim 96: a 2048-token chunk after a 958-token prefix hit, whose
+# live keys end in row 61 of the last 64-key tile (rows 60-63 of a tile are
+# the ones a row mapping that assumes Dh / 8 divides the 128 threads would
+# leave stale), and phase 4p's prompt in its bucket
+PHI3_PREFILL = [(2048, 958, 2048, True), (PHI3_BUCKET, 0, PHI3_PROMPT, True)]
+# K3 and K4 at Phi-3-mini's heads (32 of 96 over 32 KV heads, g = 1) over
+# the 4096-key table, as GEMMA_ATTN's cases are built: K3's mix across the
+# window's edge, window floors on the split boundaries, the full batch of
+# 8 x 4096 keys; K4's mix of a 48-row chunk ending at 3000, decode rows on
+# both sides of the window's edge and at the table's end, a 16-row chunk
+# ending at 2200, its split boundaries, two 64-row chunks and 6 decode rows
+# at 4096 keys, and 8 decode rows at phase 4p's first decode position
+PHI3_ATTN = AttnCases(
+    max_len=PHI3_MAX_LEN,
+    paged_mix=[2047, 2048, 2049, 3000, 4096, 100, 1, 0],
+    paged_boundary=[PHI3_WINDOW + n for n in (127, 128, 129, 256)]
+    + [PHI3_MAX_LEN, 0],
+    paged_full=[PHI3_MAX_LEN] * 8,
+    ragged_mix=[(48, 3000), (1, 2047), (1, 2048), (1, 2049), (1, 4096),
+                (16, 2200), (1, 100), (0, 0), (0, 0)],
+    ragged_boundary=[(1, PHI3_WINDOW + 127), (1, PHI3_WINDOW + 128),
+                     (1, PHI3_WINDOW + 129), (1, PHI3_WINDOW + 256),
+                     (20, PHI3_WINDOW + 140), (64, PHI3_MAX_LEN), (0, 0),
+                     (1, 1), (0, 0)],
+    ragged_full=[(64, PHI3_MAX_LEN)] * 2 + [(1, PHI3_MAX_LEN)] * 6
+    + [(0, 0)],
+    ragged_decode=[(1, PHI3_PROMPT + 1)] * 8 + [(0, 0)],
+    window=PHI3_WINDOW, q_gain=PHI3_Q_GAIN, mode=PHI3_MODE, seed=30)
+
+
+def phi3_config():
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    return ModelConfig.from_hf_config(PHI3_MINI_4K_CONFIG)
+
+
+def check_phi3_kernels(cfg, dev) -> list:
+    """Phase 3p: K1 with the window at head dim 96 (PHI3_PREFILL); K2 on
+    phase 3's ring hops and the ring over 2 and 4 shards at head dim 96
+    (no served path: the ring refuses windows, and only the 128k variant,
+    whose longrope factors are not in the repository, drops its window);
+    K3 and K4, bf16 and int8, through phase 3's checks (PHI3_ATTN); then K5
+    (the untied int8 head, 3072 x 32064, a vocab that is not a multiple of
+    128) and K6 at the Phi-3-mini layer shapes."""
+    D, Fi = cfg.hidden_size, cfg.intermediate_size
+    k2 = check_flash_prefill_partial(cfg, dev)
+    k2["ring"] = check_ring(cfg, dev)
+    k2.update(mode=PHI3_MODE, on_main_path=False)
+    entries = [check_window_flash_prefill(cfg, dev, PHI3_MODE, PHI3_PREFILL,
+                                          PHI3_Q_GAIN, 31), k2,
+               check_paged_attention(cfg, dev, cases=PHI3_ATTN),
+               check_paged_attention(cfg, dev, int8=True, cases=PHI3_ATTN),
+               check_ragged_attention(cfg, dev, cases=PHI3_ATTN),
+               check_ragged_attention(cfg, dev, int8=True, cases=PHI3_ATTN)]
+    head = check_lm_head_int8(cfg, dev)
+    # q, k, v and o are D -> D (MHA), gate and up D -> Fi, down Fi -> D
+    int4 = check_grouped_int4(cfg, dev, shapes=[
+        ((D, D), (1, 8)), ((D, Fi), (1, 8, 512)), ((Fi, D), (1, 8))])
+    for e in (head, int4):
+        e["mode"] = PHI3_SHAPES_MODE
+    return entries + [head, int4]
+
+
+# phase 4p: the window dropped from K1, K3 and K4 as their planted faults;
+# the ragged dispatch: slot 0's decode row at 3000, slot 1's 64-row chunk
+# at 2928-2991 continuing the prompt's first 183 blocks
+PHI3_RUN = ModelRun("phi3", PHI3_PROMPT, PHI3_BUCKET, PHI3_STEPS,
+                    PHI3_MAX_LEN, prefill_without_window,
+                    decode_without_window,
+                    ragged_over_prompt(PHI3_PROMPT, PHI3_M),
+                    ragged_without_window, False)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the HTTP server at the 8B width
 # ---------------------------------------------------------------------------
 
@@ -2887,15 +3081,17 @@ MLA_RUN = ModelRun("V2-Lite", MLA_PROMPT, MLA_BUCKET, MLA_STEPS, MLA_MAX_LEN,
 def write_model_dir(path: str, cfg, hf=None) -> None:
     """config.json (``hf``, else the 8B geometry's) + a SentencePiece
     tokenizer covering all of the vocab: control pieces (Llama's <unk>,
-    <s>, </s>; with ``hf``, Gemma's <pad>, <eos>, <bos>, <unk> at its ids
-    0-3), the 256 byte pieces, some letters and words, then synthetic
-    pieces up to the vocab size."""
+    <s>, </s>, also for a phi3 ``hf``, whose end of text is a control piece
+    at its eos id; with another ``hf``, Gemma's <pad>, <eos>, <bos>, <unk>
+    at its ids 0-3), the 256 byte pieces, some letters and words, then
+    synthetic pieces up to the vocab size."""
     from dynamo_tpu_torch.llm.sp_model import (BYTE, CONTROL, NORMAL,
                                                UNKNOWN, write_model_proto)
-    if hf is None:
+    if hf is None or hf.get("model_type") == "phi3":
         pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL),
                   ("</s>", 0.0, CONTROL)]
-        ids = dict(unk_id=0, bos_id=1, eos_id=2)
+        ids = dict(unk_id=0, bos_id=1,
+                   eos_id=2 if hf is None else hf["eos_token_id"])
     else:
         pieces = [("<pad>", 0.0, CONTROL), ("<eos>", 0.0, CONTROL),
                   ("<bos>", 0.0, CONTROL), ("<unk>", 0.0, UNKNOWN)]
@@ -2918,7 +3114,7 @@ def write_model_dir(path: str, cfg, hf=None) -> None:
     while len(pieces) < cfg.vocab_size:
         pieces.append((f"▁t{i}", -12.0, NORMAL))
         i += 1
-    for name in ("bos_id", "eos_id"):      # DeepSeek's sit past the bytes
+    for name in ("bos_id", "eos_id"):   # DeepSeek's, Phi-3's eos past the bytes
         if ids[name] >= 4:
             pieces[ids[name]] = (f"<{name[:3]}>", 0.0, CONTROL)
     os.makedirs(path, exist_ok=True)
@@ -3037,6 +3233,12 @@ PATH_KERNELS = {
     # an int8 latent pool's ragged rows gather (as in the JAX package): no
     # kernel of this list serves them
     "mla_ragged_kv8": (),
+    "phi3_bf16_k8": ("flash_prefill", "paged_attention"),
+    "phi3_int4_kv8": ("flash_prefill", "paged_attention_int8",
+                      "lm_head_int8", "grouped_int4_matmul"),
+    "phi3_ragged": ("ragged_paged_attention",),
+    "phi3_ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
+                             "grouped_int4_matmul"),
 }
 # the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
 # dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
@@ -3046,6 +3248,10 @@ GEMMA_PATHS = ("gemma2_bf16", "gemma2_ragged_int4_kv8", "gemma2_int4_kv8",
 # the DeepSeek-V2-Lite servers (5m): bf16 weights over a bf16 pool with 8
 # decode steps a dispatch and over an int8 pool, each again with --ragged
 MLA_PATHS = ("mla_bf16_k8", "mla_kv8", "mla_ragged", "mla_ragged_kv8")
+# the Phi-3-mini servers (5p): bf16 with 8 decode steps a dispatch and int4
+# + int8 KV on the split path, each again with --ragged
+PHI3_PATHS = ("phi3_bf16_k8", "phi3_int4_kv8", "phi3_ragged",
+              "phi3_ragged_int4_kv8")
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -3061,7 +3267,11 @@ SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
                "mla_bf16_k8": ("bf16", False),
                "mla_kv8": ("bf16_kv8", False),
                "mla_ragged": ("bf16", True),
-               "mla_ragged_kv8": ("bf16_kv8", True)}
+               "mla_ragged_kv8": ("bf16_kv8", True),
+               "phi3_bf16_k8": ("bf16", False),
+               "phi3_int4_kv8": ("int4_kv8", False),
+               "phi3_ragged": ("bf16", True),
+               "phi3_ragged_int4_kv8": ("int4_kv8", True)}
 # the served paths' (weights, KV pool): phase 4's modes, and bf16 weights
 # over an int8 pool (5m)
 SERVE_MODES = {**MODEL_MODES, "bf16_kv8": ("none", "int8")}
@@ -3082,15 +3292,17 @@ SPLIT_ATTENTION = ("flash_prefill", "paged_attention", "paged_attention_int8",
 def serve_phase(cfg, seed: int, card: str, path: str) -> tuple:
     """Serve from a temporary model directory (the 8B config, or on a
     gemma2 path Gemma-2-9B's config.json, on an mla path DeepSeek-V2-Lite's,
-    + a tokenizer). Returns (launch counts, per-request report)."""
+    on a phi3 path Phi-3-mini-4k's, + a tokenizer). Returns (launch counts,
+    per-request report)."""
     import tempfile
     family = path.split("_")[0]
-    hf = {"gemma2": GEMMA2_9B_CONFIG,
-          "mla": DEEPSEEK_V2_LITE_CONFIG}.get(family)
+    hf = {"gemma2": GEMMA2_9B_CONFIG, "mla": DEEPSEEK_V2_LITE_CONFIG,
+          "phi3": PHI3_MINI_4K_CONFIG}.get(family)
     with tempfile.TemporaryDirectory(prefix="dtt-serve-") as tmp:
         model_dir = os.path.join(tmp, {
             "gemma2": "gemma2-9b-random",
-            "mla": "deepseek-v2-lite-random"}.get(family, "llama3-8b-random"))
+            "mla": "deepseek-v2-lite-random",
+            "phi3": "phi3-mini-4k-random"}.get(family, "llama3-8b-random"))
         write_model_dir(model_dir, cfg, hf)
         return _serve(cfg, seed, card, model_dir, path)
 
@@ -3110,10 +3322,11 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
     weights, kv_quant = SERVE_MODES[mode]
     gemma = path.startswith("gemma2")
     mla = path.startswith("mla")
+    phi3 = path.startswith("phi3")
     # the first id past the tokenizer's control and byte pieces
     lo = 260 if gemma or mla else 259
     max_len = (GEMMA_MAX_LEN if gemma else MLA_MAX_LEN if mla
-               else MAX_MODEL_LEN)
+               else PHI3_MAX_LEN if phi3 else MAX_MODEL_LEN)
     args = launcher.build_parser().parse_args(
         ["in=http", "out=torch", "--model-path", model_dir,
          "--random-weights", "--http-host", "127.0.0.1", "--http-port", "0",
@@ -3127,7 +3340,8 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
            if ragged else [])
         + (DISPATCH_FLAGS if path == "dispatch" else [])
         + (["--decode-steps-per-dispatch", str(DISPATCH_K)]
-           if path in ("gemma2_bf16", "mla_bf16_k8") else []))
+           if path in ("gemma2_bf16", "mla_bf16_k8", "phi3_bf16_k8")
+           else []))
     launcher.parse_io(args.io)
     # what earlier phases left for the collector (a decode program's
     # graphs) is freed first, so the footprint below is this server's
@@ -3204,6 +3418,9 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         prompts = {"p4600": mk(GEMMA_PROMPT), "p300": mk(300)}
     elif mla:
         prompts = {"p3000": mk(MLA_PROMPT), "p300": mk(300)}
+    elif phi3:
+        # past the 2047-token window, and a short one beside it
+        prompts = {"p3000": mk(PHI3_PROMPT), "p300": mk(300)}
     elif mode == "bf16":
         prompts = {"p100": mk(100), "p700": mk(700), "p1500": mk(1500),
                    "p1900": mk(1900)}
@@ -3217,6 +3434,18 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         prompts["p1500"] = extra.integers(259, cfg.vocab_size,
                                           size=1500).tolist()
         lane_prompt = extra.integers(259, cfg.vocab_size, size=64).tolist()
+        # a lane needs a slot whose admission is complete (its first token
+        # fetched, as in the JAX engine): the engine's completion sets this,
+        # and the three long prompts decode 64 tokens, so that the lane
+        # request lands while they still decode
+        decoding = threading.Event()
+        complete = core._complete_admissions
+
+        def completed():
+            complete()
+            if any(x is not None and x.ready for x in core.slots):
+                decoding.set()
+        core._complete_admissions = completed
     report = {"bring_up": bring_up}
     stack = contextlib.ExitStack()
     try:
@@ -3227,29 +3456,31 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         pool = core.kv_manager.pool
         # concurrent greedy streams of mixed prompt lengths
         with ThreadPoolExecutor(len(prompts) + 1) as ex:
+            n_tokens = {k: 2 * max_tokens if path == "dispatch" else
+                        max_tokens for k in prompts}
             futs = {k: ex.submit(http_completion, port, {
                 **greedy, "prompt": p, "stream": True,
+                "max_tokens": n_tokens[k],
                 "stream_options": {"include_usage": True}})
                 for k, p in prompts.items()}
             if path == "dispatch":
                 def lane_request():
-                    # posted once a slot decodes (a racy read of the
-                    # engine's slot list from this thread is enough)
-                    t_end = time.monotonic() + 300
-                    while not any(x is not None for x in core.slots):
-                        if time.monotonic() > t_end:
-                            raise RuntimeError("lane64: no slot decoded")
-                        time.sleep(0.002)
+                    # posted once a slot decodes (no polling: a thread
+                    # that spins on the slot list takes the GIL from the
+                    # engine's loop)
+                    if not decoding.wait(300):
+                        raise RuntimeError("lane64: no slot decoded")
                     return http_completion(port, {
                         **greedy, "prompt": lane_prompt, "stream": True,
                         "stream_options": {"include_usage": True}})
                 futs["lane64"] = ex.submit(lane_request)
             for k, f in futs.items():
-                report[k] = check_stream(k, f.result(), max_tokens, True)
+                report[k] = check_stream(k, f.result(),
+                                         n_tokens.get(k, max_tokens), True)
         # one more SSE stream, usage not requested
         report["sse"] = check_stream("sse", http_completion(port, {
             **greedy, "prompt": mk(200), "stream": True}), max_tokens, False)
-        if mode == "bf16" and not gemma and not mla:
+        if mode == "bf16" and not gemma and not mla and not phi3:
             # a repeated prompt: its full blocks hit the prefix cache, so
             # the prefill runs only the tail, at start_pos > 0
             hits0 = pool.match_hits
@@ -3399,7 +3630,63 @@ def compare_servers(card: str, base: dict, other: dict, path: str,
             f"[{card}]")
 
 
+# ``--ab DIR``: phase 3's attention kernels (K1-K4 at the 8B shapes) of
+# another checkout of the repository at DIR (its build directory apart)
+# and of this one, timed in turns in one run on one card (DIR, this, this,
+# DIR), each turn in a process of its own; AB_TURN is the code of a turn,
+# written against the checks both checkouts have
+AB_TURN = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from dynamo_tpu_torch.engine import kernels
+from dynamo_tpu_torch.engine.config import bench_model_config
+kernels.LIBRARY.get()
+cfg, dev, out = bench_model_config("8b"), torch.device("cuda:0"), {}
+out["flash_prefill"] = [c["ms"] for c in cs.check_flash_prefill(cfg, dev)["cases"]]
+out["flash_prefill_partial"] = [
+    c["ms"] for c in cs.check_flash_prefill_partial(cfg, dev)["cases"]]
+for int8 in (False, True):
+    e = cs.check_paged_attention(cfg, dev, int8=int8)
+    out["paged_attention" + "_int8" * int8] = [e["ms"], e["full_batch"]["ms"]]
+    e = cs.check_ragged_attention(cfg, dev, int8=int8)
+    out["ragged_paged_attention" + "_int8" * int8] = [
+        e["ms"], e["full_batch"]["ms"], e["decode_step"]["ms"]]
+print("AB " + json.dumps(out), flush=True)
+"""
+
+
+def ab_compare(other: str) -> int:
+    """Time phase 3's attention kernels of the checkout at ``other`` and
+    of this one in turns (other, this, this, other) and print each turn's
+    times (ms: K1's four cases, K2's five hops, K3's mix and full batch,
+    K4's mix, full batch and decode step) and their ratios, this over
+    other, of the turns' means."""
+    card = card_line()
+    turns = []
+    for side in ("other", "this", "this", "other"):
+        root = os.path.abspath(other) if side == "other" else ROOT
+        res = subprocess.run([sys.executable, "-c", AB_TURN], cwd=root,
+                             capture_output=True, text=True, timeout=1200)
+        line = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
+        if res.returncode != 0 or not line:
+            print(res.stdout[-3000:] + res.stderr[-3000:], file=sys.stderr)
+            return 1
+        turns.append((side, json.loads(line[0][3:])))
+        log(f"ab {side} {root} {json.dumps(turns[-1][1])} [{card}]")
+    mean = {side: {k: [sum(t[k][i] for s, t in turns if s == side) / 2
+                       for i in range(len(v))] for k, v in turns[0][1].items()}
+            for side in ("other", "this")}
+    ratio = {k: [a / b for a, b in zip(v, mean["other"][k])]
+             for k, v in mean["this"].items()}
+    log(f"ab this/other {json.dumps(ratio)} [{card}]")
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        return ab_compare(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -3462,7 +3749,7 @@ def main() -> int:
     # must launch it
     by_path = {path: serve_phase(cfg, seed, card, path)
                for path in PATH_KERNELS
-               if path not in GEMMA_PATHS + MLA_PATHS}
+               if path not in GEMMA_PATHS + MLA_PATHS + PHI3_PATHS}
     compare_servers(card, by_path["bf16"][1], by_path["sp"][1], "sp")
     compare_servers(card, by_path["int4_kv8"][1], by_path["dispatch"][1],
                     "dispatch", "int4_kv8")
@@ -3491,10 +3778,23 @@ def main() -> int:
         check_model(mcfg, dev, seed, mode, MLA_RUN)
     by_path.update({path: serve_phase(mcfg, seed, card, path)
                     for path in MLA_PATHS})
-    rest = [p for p in PATH_KERNELS if p not in GEMMA_PATHS + MLA_PATHS]
+
+    # 3p-5p. the Phi-3-mini geometry: head dim 96 and its every-layer
+    # window in K1-K4, K5 and K6 at its widths, the model through them, and
+    # its servers
+    pcfg = phi3_config()
+    entries += check_phi3_kernels(pcfg, dev)
+    for mode in ("bf16", "int4_kv8"):
+        check_model(pcfg, dev, seed, mode, PHI3_RUN)
+    by_path.update({path: serve_phase(pcfg, seed, card, path)
+                    for path in PHI3_PATHS})
+    rest = [p for p in PATH_KERNELS
+            if p not in GEMMA_PATHS + MLA_PATHS + PHI3_PATHS]
     for e in entries:
-        paths = (MLA_PATHS if e.get("mode", "").startswith("mla")
-                 else GEMMA_PATHS if "mode" in e else rest)
+        mode = e.get("mode", "")
+        paths = (MLA_PATHS if mode.startswith("mla")
+                 else PHI3_PATHS if mode.startswith("phi3")
+                 else GEMMA_PATHS if mode else rest)
         path = next((p for p in paths if e["name"] in PATH_KERNELS[p]), None)
         if path is None and e.get("on_main_path") is not False:
             raise RuntimeError(f"kernel {e['name']} ({e.get('mode')}): no "

@@ -5,7 +5,7 @@
 // per layer on the K/V it gathered from the paged pool.
 //
 // Contract (same as the Pallas kernel): q [T, H, Dh], k/v [S, KVH, Dh], all
-// contiguous bf16, Dh 64, 128 or 256. Query t sits at absolute position
+// contiguous bf16, Dh 64, 96, 128 or 256. Query t sits at absolute position
 // start_pos + t and sees key j iff j <= start_pos + t and j < seq_len, and
 // on a sliding layer (window > 0: the caller passes the window only there)
 // also j > start_pos + t - window. With cap > 0 each score s (after the
@@ -65,6 +65,12 @@
 //   score registers) and the CTAs per SM to two (launch bounds cap the
 //   registers at 255): 82.5 KB of shared memory a CTA (Q 33 KB, two K tiles
 //   and one V tile of 16.5 KB each).
+// - Head dim 96 (phi3): the 64-key, three-CTA tiling of Dh 128, six
+//   k-steps of QK^T and twelve n-tiles of PV. A row is 12 16-byte pieces,
+//   which do not divide the 128 threads, so the tile and Q loads number
+//   their pieces row-major (load_tile). The padded row stride is 104 bf16
+//   (208 bytes: 13 16-byte units), so the 8 rows of an ldmatrix matrix
+//   start in 8 different 16-byte bank groups, as at 136 bf16 for Dh 128.
 // Measured on the card against this design (PERF.md, Findings): 8-warp
 // CTAs, a 3-stage ring of K and V with Q's fragments in registers, two V
 // buffers, and two m-tiles per warp (255 registers and a spill) were each
@@ -173,21 +179,37 @@ struct Smem {
 
 // Copy kKeys rows of Dh bf16 (global row stride `gstride` elements) into a
 // shared tile with row stride Dh + 8; rows at or past `valid` are
-// zero-filled. Thread t copies 16-byte column t % (Dh / 8) of every
-// (kThreads / (Dh / 8))-th row from row t / (Dh / 8) on.
+// zero-filled. Where Dh / 8 divides the threads (Dh 64, 128, 256), thread t
+// copies 16-byte column t % (Dh / 8) of every (kThreads / (Dh / 8))-th row
+// from row t / (Dh / 8) on. Otherwise (Dh 96: 12 pieces a row) the tile's
+// pieces are numbered row-major and thread t copies pieces t, t +
+// kThreads, ... (6 a thread); that general form costs the other head dims
+// registers (a spill at Dh 128) and time, so they keep theirs.
 template <int Dh>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* gmem,
                                           long gstride, int valid) {
   constexpr int kKeys = Tiling<Dh>::kKeys;
   constexpr int kVec = Dh / 8;
-  constexpr int kStep = kThreads / kVec;
-  const int r0 = threadIdx.x / kVec, c = (threadIdx.x % kVec) * 8;
-  const __nv_bfloat16* src = gmem + r0 * gstride + c;
-  __nv_bfloat16* dst = smem + r0 * (Dh + 8) + c;
+  if constexpr (kThreads % kVec == 0) {
+    constexpr int kStep = kThreads / kVec;
+    const int r0 = threadIdx.x / kVec, c = (threadIdx.x % kVec) * 8;
+    const __nv_bfloat16* src = gmem + r0 * gstride + c;
+    __nv_bfloat16* dst = smem + r0 * (Dh + 8) + c;
 #pragma unroll
-  for (int i = 0; i < kKeys / kStep; ++i) {
-    const bool ok = r0 + i * kStep < valid;
-    cp_async16(dst + i * kStep * (Dh + 8), ok ? src + i * kStep * gstride : gmem, ok ? 16 : 0);
+    for (int i = 0; i < kKeys / kStep; ++i) {
+      const bool ok = r0 + i * kStep < valid;
+      cp_async16(dst + i * kStep * (Dh + 8), ok ? src + i * kStep * gstride : gmem,
+                 ok ? 16 : 0);
+    }
+  } else {
+    static_assert(kKeys * kVec % kThreads == 0, "a tile's pieces must fill whole passes");
+#pragma unroll
+    for (int i = 0; i < kKeys * kVec / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / kVec, c = (idx % kVec) * 8;
+      const bool ok = r < valid;
+      cp_async16(smem + r * (Dh + 8) + c, ok ? gmem + r * gstride + c : gmem, ok ? 16 : 0);
+    }
   }
 }
 
@@ -220,14 +242,29 @@ __device__ __forceinline__ void flash_prefill_body(
   // Q tile: row r -> position (row0 + r) / g, head kvh*g + (row0 + r) % g
   {
     constexpr int kVec = Dh / 8;
-    constexpr int kStep = kThreads / kVec;
-    const int c = (threadIdx.x % kVec) * 8;
+    if constexpr (kThreads % kVec == 0) {
+      // a fixed column of every (kThreads / kVec)-th row
+      constexpr int kStep = kThreads / kVec;
+      const int c = (threadIdx.x % kVec) * 8;
 #pragma unroll
-    for (int r = threadIdx.x / kVec; r < kRows; r += kStep) {
-      const int R = row0 + r;
-      const int t = R / g, h = kvh * g + R % g;
-      const bool ok = t < T;
-      cp_async16(sQ + r * kStride + c, ok ? q + ((long)t * H + h) * Dh + c : q, ok ? 16 : 0);
+      for (int r = threadIdx.x / kVec; r < kRows; r += kStep) {
+        const int R = row0 + r;
+        const int t = R / g, h = kvh * g + R % g;
+        const bool ok = t < T;
+        cp_async16(sQ + r * kStride + c, ok ? q + ((long)t * H + h) * Dh + c : q, ok ? 16 : 0);
+      }
+    } else {
+      // row-major 16-byte pieces, as in load_tile
+      static_assert(kRows * kVec % kThreads == 0, "Q's pieces must fill whole passes");
+#pragma unroll
+      for (int i = 0; i < kRows * kVec / kThreads; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int r = idx / kVec, c = (idx % kVec) * 8;
+        const int R = row0 + r;
+        const int t = R / g, h = kvh * g + R % g;
+        const bool ok = t < T;
+        cp_async16(sQ + r * kStride + c, ok ? q + ((long)t * H + h) * Dh + c : q, ok ? 16 : 0);
+      }
     }
     cp_async_commit();
   }
@@ -470,6 +507,9 @@ int dispatch(const void* q, const void* k, const void* v, void* out, float* m_ou
     case 64:
       return (int)launch<64, Partial>(q, k, v, out, m_out, l_out, T, H, KVH, S, start_pos,
                                       seq_len, window, scale, softcap, st);
+    case 96:
+      return (int)launch<96, Partial>(q, k, v, out, m_out, l_out, T, H, KVH, S, start_pos,
+                                      seq_len, window, scale, softcap, st);
     case 128:
       return (int)launch<128, Partial>(q, k, v, out, m_out, l_out, T, H, KVH, S, start_pos,
                                        seq_len, window, scale, softcap, st);
@@ -483,7 +523,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, float* m_ou
 
 }  // namespace
 
-// Returns a cudaError_t (0 = launched). Head dims 64, 128 and 256 are
+// Returns a cudaError_t (0 = launched). Head dims 64, 96, 128 and 256 are
 // compiled. window: the sliding window of this layer, 0 = global; softcap:
 // the attention logit soft-cap, 0 = off.
 extern "C" int dtt_flash_prefill_bf16(const void* q, const void* k, const void* v, void* out,

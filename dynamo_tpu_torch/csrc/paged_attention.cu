@@ -7,7 +7,7 @@
 // decode step calls once per layer.
 //
 // Contract (the Pallas kernel without its MLA modes, `v_lanes` and
-// `quant_sections`): q [B, H, Dh] bf16, Dh 64, 128 or 256; one layer's pool
+// `quant_sections`): q [B, H, Dh] bf16, Dh 64, 96, 128 or 256; one layer's pool
 // k_cache/v_cache [NTOK, KVH*Dh] bf16 (token row = block id * block_size +
 // offset); block_tables [B, M] int32; seq_lens [B] int32, the number of keys
 // each sequence sees (the current token included; keys past M * block_size
@@ -67,7 +67,8 @@
 //   shared memory; rows are stored with a 16-byte skew (scale chunk or pad)
 //   so that neighbouring rows start in different banks. int8 values become
 //   f32 by a byte permute and a subtraction (no I2F). P.V: Dh/8 threads per
-//   row; the row groups of a warp meet by shuffles, the warps in shared
+//   row of 8 values each (at Dh 96 8 threads of 12 values, so that a row
+//   group still divides a warp); the row groups of a warp meet by shuffles, the warps in shared
 //   memory aliased on the K rows.
 // - A (sequence, KV head) with one live split writes its output directly
 //   and touches no scratch. Otherwise each split writes f32 (m, l,
@@ -230,8 +231,13 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __
                              float* __restrict__ scratch, int H, int KVH, int M, int block_size,
                              float scale_log2, float cap_log2) {
   using R = Row<Dh, kInt8>;
-  constexpr int kTpt = Dh / 8;  // threads per row in P.V, 8 values each
+  // threads per row in P.V and values per thread: Dh / 8 threads of 8
+  // values where that is a power of two (the rows of a warp then meet by
+  // shuffles), else 8 threads of Dh / 8 values (Dh 96: 12)
+  constexpr int kTpt = ((Dh / 8) & (Dh / 8 - 1)) == 0 ? Dh / 8 : 8;
+  constexpr int kVpt = Dh / kTpt;
   constexpr int kSubs = kThreads / kTpt;
+  static_assert(32 % kTpt == 0 && kVpt % 4 == 0, "P.V's row groups must tile a warp");
   // the merge kernel may be scheduled now: it waits for this grid itself
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
@@ -280,10 +286,13 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __
   // scores in the exp2 domain: two threads per token, each over half of
   // Dh, met by one shuffle; at Dh 128 bf16 the second half walks its
   // pieces rotated by a quarter row so that the halves of a row never
-  // share a bank
+  // share a bank. At Dh 96 (rows of 13 16-byte units bf16, 7 int8) no
+  // rotation keeps every step of a quarter-warp's 16-byte loads apart: the
+  // rotations below leave 2 of 6 steps (bf16) and 1 of 3 (int8) with a
+  // two-way conflict, where none leaves all 6 (3) of them
   constexpr int kVals = kInt8 ? 16 : 8;  // values per 16-byte piece
   constexpr int kHalf = Dh / kVals / 2;  // pieces per half row
-  constexpr int kRot = kHalf % 8 == 0 ? kHalf / 2 : 0;
+  constexpr int kRot = kHalf % 8 == 0 ? kHalf / 2 : kHalf == 6 ? 4 : kHalf == 3 ? 1 : 0;
   const int half = tid & 1;
   for (int base = 0; base < n_tok; base += kThreads / 2) {  // warp-uniform trips
     const int t = base + tid / 2;
@@ -370,38 +379,50 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __
     __syncthreads();
   }
 
-  // P.V: Dh/8 threads per row, kSubs rows at a time
+  // P.V: kTpt threads per row, kVpt values each, kSubs rows at a time
   const int piece = tid % kTpt, sub = tid / kTpt;
-  float acc[G][8];
+  float acc[G][kVpt];
 #pragma unroll
   for (int h = 0; h < G; ++h)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[h][i] = 0.f;
+    for (int i = 0; i < kVpt; ++i) acc[h][i] = 0.f;
   for (int t = sub; t < n_tok; t += kSubs) {
     const uint8_t* vr = sV + t * R::kSmem;
-    float vf[8];
-    if constexpr (kInt8) {
+    float vf[kVpt];
+    if constexpr (kVpt == 8 && kInt8) {
       const uint2 raw = *reinterpret_cast<const uint2*>(vr + piece * 8);
       int8x4_to_f32(raw.x, vf);
       int8x4_to_f32(raw.y, vf + 4);
-    } else {
+    } else if constexpr (kVpt == 8) {
       const uint4 raw = *reinterpret_cast<const uint4*>(vr + piece * 16);
       const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
       for (int i = 0; i < 8; ++i) vf[i] = __bfloat162float(e[i]);
+    } else if constexpr (kInt8) {  // kVpt int8 values as 4-byte words
+#pragma unroll
+      for (int w = 0; w < kVpt / 4; ++w)
+        int8x4_to_f32(*reinterpret_cast<const unsigned*>(vr + piece * kVpt + 4 * w), vf + 4 * w);
+    } else {  // kVpt bf16 values as 8-byte words
+#pragma unroll
+      for (int w = 0; w < kVpt / 4; ++w) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(vr + piece * kVpt * 2 + 8 * w);
+        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) vf[4 * w + i] = __bfloat162float(e[i]);
+      }
     }
 #pragma unroll
     for (int h = 0; h < G; ++h) {
       const float w = sP[h * chunk + t];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[h][i] += w * vf[i];
+      for (int i = 0; i < kVpt; ++i) acc[h][i] += w * vf[i];
     }
   }
   // the row groups of a warp, then the warps, in a fixed order
 #pragma unroll
   for (int h = 0; h < G; ++h)
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < kVpt; ++i)
 #pragma unroll
       for (int off = kTpt; off < 32; off <<= 1)
         acc[h][i] += __shfl_xor_sync(0xffffffff, acc[h][i], off);
@@ -409,7 +430,8 @@ paged_attention_split_kernel(const __nv_bfloat16* __restrict__ q, const void* __
 #pragma unroll
     for (int h = 0; h < G; ++h)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sAcc[(warp * G + h) * Dh + piece * 8 + i] = acc[h][i];
+      for (int i = 0; i < kVpt; ++i)
+        sAcc[(warp * G + h) * Dh + piece * kVpt + i] = acc[h][i];
   }
   __syncthreads();
 
@@ -598,6 +620,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* block_tabl
   switch (Dh) {
     case 64:
       return (int)launch_g<64, kInt8>(g, DTT_PAGED_ARGS);
+    case 96:
+      return (int)launch_g<96, kInt8>(g, DTT_PAGED_ARGS);
     case 128:
       return (int)launch_g<128, kInt8>(g, DTT_PAGED_ARGS);
     case 256:
@@ -611,7 +635,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* block_tabl
 
 }  // namespace
 
-// Both return a cudaError_t (0 = launched). Head dims 64/128/256 and GQA
+// Both return a cudaError_t (0 = launched). Head dims 64/96/128/256 and GQA
 // group sizes 1/2/4/8 are compiled. The int8 entry takes pools of KVH*Dh +
 // 128 int8 lanes per row. `win_lo`: [B] int32 or null (a global layer);
 // `softcap`: 0 = off. `scratch`: see the contract above.

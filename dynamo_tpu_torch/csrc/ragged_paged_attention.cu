@@ -7,8 +7,8 @@
 // which the llama ragged forward calls once per layer.
 //
 // Contract (the Pallas kernel without its MLA modes, `v_lanes` and
-// `quant_sections`): q [TT, H, Dh] bf16 flat token rows, Dh 64, 128 or
-// 256; one layer's pool k_cache/v_cache [NTOK, KVH*Dh] bf16 (token row =
+// `quant_sections`): q [TT, H, Dh] bf16 flat token rows, Dh 64, 96, 128
+// or 256; one layer's pool k_cache/v_cache [NTOK, KVH*Dh] bf16 (token row =
 // block id * block_size + offset); block_tables [S, M] int32; seq_starts,
 // seq_counts, seq_lens [S] int32; win_base [S] int32 or null (a global
 // layer). Sequence s owns the rows [starts[s], starts[s] + counts[s]) at
@@ -103,6 +103,11 @@
 //   output accumulator alone is 128 registers a thread and Q 33 KB: two
 //   stages of K and V in flight (66 KB in bf16; 34 KB plus 33 KB of
 //   converted tiles in int8), two CTAs per SM at up to 255 registers.
+// - Head dim 96 (phi3) takes Dh 128's tiling (three stages, three CTAs an
+//   SM): six k-steps, twelve n-tiles, 12 16-byte pieces a bf16 row (6 and a
+//   scale chunk in int8). Every copy loop here walks its pieces with a
+//   stride of the block (no row step that assumes Dh / 8 divides it), and
+//   the 208-byte padded row keeps ldmatrix's 8 rows in 8 bank groups.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -737,6 +742,8 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache, const void
   switch (Dh) {
     case 64:
       return (int)launch<64, kInt8>(DTT_RAGGED_ARGS);
+    case 96:
+      return (int)launch<96, kInt8>(DTT_RAGGED_ARGS);
     case 128:
       return (int)launch<128, kInt8>(DTT_RAGGED_ARGS);
     case 256:
@@ -750,7 +757,7 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache, const void
 
 }  // namespace
 
-// Both return a cudaError_t (0 = launched). Head dims 64/128/256 and GQA
+// Both return a cudaError_t (0 = launched). Head dims 64/96/128/256 and GQA
 // group sizes 1/2/4/8 are compiled. `out` must be zero-filled by the caller
 // (only owned rows are written). The int8 entry takes pools of KVH*Dh + 128
 // int8 lanes per row. `win_base`: [S] int32 or null (a global layer);

@@ -6,10 +6,10 @@ two packages parse the same config.json into the same geometry. The engine
 side (``EngineConfig``) keeps only the fields the serving paths of this
 package read: weight and KV quantization, ragged dispatch,
 sequence-parallel prefill, chunked prefill and the dispatch modes
-(K-step decode, the pipelined harvest, lane prefill) included; a field of
-a path this package does not implement yet (tp/dp/ep/pp, speculation, KV
-tiers, the deferred admission fetch) is not a field, so passing it raises
-``TypeError``.
+(K-step decode, the pipelined harvest, lane prefill, the deferred
+admission fetch) included; a field of a path this package does not
+implement yet (tp/dp/ep/pp, speculation, KV tiers) is not a field, so
+passing it raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -60,6 +60,11 @@ def _rope_type(raw_rs: Dict[str, Any]) -> str:
     "su"→"longrope" aliasing (early Phi-3 configs)."""
     rt = raw_rs.get("rope_type", raw_rs.get("type", "default"))
     return "longrope" if rt == "su" else rt
+
+
+# the model types whose HF config class ties the LM head to the embedding
+# when config.json leaves tie_word_embeddings out
+TIED_BY_DEFAULT = ("gemma", "gemma2")
 
 
 @dataclasses.dataclass
@@ -295,7 +300,11 @@ class ModelConfig:
             rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-5)),
             rope_theta=float(cfg.get("rope_theta", 10000.0)),
             rope_scaling=rs,
-            tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)),
+            # an absent key takes HF's default for the family: its Gemma
+            # and Gemma2 configs tie, the others do not (the google/
+            # gemma-2-9b hub file leaves the key out)
+            tie_word_embeddings=bool(cfg.get(
+                "tie_word_embeddings", mt in TIED_BY_DEFAULT)),
             # HF Qwen2/Qwen2Moe hardcode qkv bias in the modeling code and
             # ship no attention_bias key, so default it on for them
             attention_bias=bool(cfg.get(
@@ -595,6 +604,14 @@ class EngineConfig:
     # of len(prompt) steps). 0 disables; requires
     # decode_steps_per_dispatch > 1.
     lane_prefill_max_tokens: int = 0
+    # defer an admission's first-token fetch: the prefill's sampled token
+    # copies to the host asynchronously (on the card into pinned memory
+    # behind an event) and the admission completes after the next decode
+    # dispatch, so the fetch overlaps decode instead of stalling the
+    # engine loop. The slot is held but not decoded (nor counted as a
+    # decoding slot by lane admission) until then. Emission order per
+    # request is unchanged.
+    overlap_admission_fetch: bool = True
 
     @staticmethod
     def auto_kv_block_size(model_cfg: "ModelConfig",

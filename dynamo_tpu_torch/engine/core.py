@@ -83,6 +83,10 @@ class EngineRequest:
     # so recompute never reuses a consumed key
     key_step: int = 0
     last_token: int = -1
+    # False while the admission prefill's sampled token is still on its
+    # way from the device (EngineConfig.overlap_admission_fetch): the slot
+    # is held but no dispatch decodes it until _complete_admissions
+    ready: bool = True
     prefix_hit_tokens: int = 0
     seq: Optional[TokenBlockSequence] = None   # full token history + hashes
     registered_blocks: int = 0
@@ -132,6 +136,36 @@ class ForwardPassMetrics:
 
 _FINISH = object()  # queue sentinel
 FINISH_SENTINEL = _FINISH
+
+
+class _FirstToken:
+    """An admission's first token and its logprob on their way to the host
+    (``overlap_admission_fetch``). On the card: an asynchronous copy into
+    pinned host memory on the engine's stream with an event recorded behind
+    it, issued by the eager admission, never inside a CUDA graph capture.
+    On the CPU: the values themselves."""
+
+    def __init__(self, tok: torch.Tensor, logprob: torch.Tensor) -> None:
+        self._event = None
+        if not tok.is_cuda:
+            self._tok, self._logprob = tok, logprob
+            return
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("an admission's first-token copy must stay "
+                               "out of a captured decode graph")
+        self._tok = torch.empty(tok.shape, dtype=tok.dtype, pin_memory=True)
+        self._logprob = torch.empty(logprob.shape, dtype=logprob.dtype,
+                                    pin_memory=True)
+        self._tok.copy_(tok, non_blocking=True)
+        self._logprob.copy_(logprob, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(tok.device))
+
+    def wait(self) -> tuple:
+        """(token, logprob) on the host, once the copy has landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return int(self._tok[0]), float(self._logprob[0])
 
 
 class EngineCore:
@@ -250,13 +284,17 @@ class EngineCore:
             self.B, self.M, max(engine_cfg.decode_steps_per_dispatch, 1),
             engine_cfg.seed, self.device)
         self._pending: Optional[dict] = None
+        # admissions whose first token is still on its way to the host:
+        # (request, _FirstToken), completed after the next decode dispatch
+        self._admissions: List[tuple] = []
         # serving stats
         self.total_prefill_tokens = 0
         self.total_decode_tokens = 0
         self.preemptions = 0
         self.lane_admissions = 0
-        # synchronous device→host fetches the engine loop has paid (decode
-        # harvests and admission token fetches) and the seconds it waited
+        # device→host fetches the engine loop has paid (decode harvests,
+        # admission token fetches, one per batch of deferred admissions)
+        # and the seconds it waited, counted as the JAX engine counts them
         self.host_roundtrips = 0
         self.host_stall_s = 0.0
         self.requests_cancelled_total = 0
@@ -295,6 +333,8 @@ class EngineCore:
                 # every pending request (_fail_pending) and was logged
                 pass
             self._loop_task = None
+        if self._admissions:              # finish deferred admissions
+            self._complete_admissions()
         if self._pending is not None:     # drain the pipelined dispatch
             self._harvest(self._pending)
             self._pending = None
@@ -360,6 +400,7 @@ class EngineCore:
     def _fail_pending(self, exc: BaseException) -> None:
         self._dead = exc
         self._pending = None
+        self._admissions = []
         for req in list(self._inflight_reqs.values()):
             req.out_queue.put_nowait((_FINISH, FinishReason.ERROR))
         self._inflight_reqs.clear()
@@ -392,8 +433,8 @@ class EngineCore:
                     break
                 progressed = True
                 await asyncio.sleep(0)   # let the admission's first token out
-            # 2) one decode step (or ragged dispatch) for every active slot
-            if any(s is not None for s in self.slots):
+            # 2) one decode step (or ragged dispatch) for every ready slot
+            if any(s is not None and s.ready for s in self.slots):
                 if self.cfg.ragged_dispatch:
                     self._ragged_step()
                 else:
@@ -405,6 +446,10 @@ class EngineCore:
                 # buffers are not held across an idle period
                 self._harvest(self._pending)
                 self._pending = None
+                progressed = True
+            # 3) deferred admissions: their copies overlapped step 2
+            if self._admissions:
+                self._complete_admissions()
                 progressed = True
             if not progressed:
                 self._work_event.clear()
@@ -418,8 +463,9 @@ class EngineCore:
 
     def _sweep_cancelled(self) -> bool:
         """Cancelled/deadline-exceeded requests leave the waiting queue
-        before taking a slot, and their slots are vacated at once — unless
-        a pipelined dispatch is in flight, whose harvest finishes them."""
+        before taking a slot, and their ready slots are vacated at once —
+        unless a pipelined dispatch is in flight, whose harvest finishes
+        them (a deferred admission finishes when it completes)."""
         progressed = False
         if not self.waiting.empty():
             survivors: List[EngineRequest] = []
@@ -434,7 +480,7 @@ class EngineCore:
                 self.waiting.put_nowait(r)
         if self._pending is None:
             for req in list(self.slots):
-                if req is not None and req.cancelled:
+                if req is not None and req.ready and req.cancelled:
                     self._release_slot(req)
                     self._finish_request(req, FinishReason.CANCELLED)
                     progressed = True
@@ -458,7 +504,15 @@ class EngineCore:
                 steps: Optional[List[int]] = None) -> tuple:
         """Sample one token per row of ``logits`` [B, V] with each row's
         request parameters, keyed at ``steps[i]`` (default: each request's
-        ``key_step``). None rows sample greedily and are ignored."""
+        ``key_step``). None rows sample greedily and are ignored. Returns
+        (tokens, logprobs) on the host."""
+        toks, logprobs = self._sample_device(logits, reqs, steps)
+        return toks.cpu().numpy(), logprobs.cpu().numpy()
+
+    def _sample_device(self, logits: torch.Tensor,
+                       reqs: List[Optional[EngineRequest]],
+                       steps: Optional[List[int]] = None) -> tuple:
+        """``_sample``'s (tokens, logprobs), left on the engine's device."""
         n = logits.shape[0]
         temperature = np.zeros((n,), np.float32)
         top_k = np.zeros((n,), np.int64)
@@ -475,11 +529,10 @@ class EngineCore:
                 top_k[i] = r.sampling.top_k
                 top_p[i] = r.sampling.top_p
         noise = gumbel_noise(logits.shape[1], keys, self.device)
-        toks, logprobs = sample_tokens(
+        return sample_tokens(
             logits, noise, torch.from_numpy(temperature).to(self.device),
             torch.from_numpy(top_k).to(self.device),
             torch.from_numpy(top_p).to(self.device))
-        return toks.cpu().numpy(), logprobs.cpu().numpy()
 
     def _admit_with_plan(self, req: EngineRequest, slot: int, plan) -> None:
         n_prompt = len(req.prompt)
@@ -498,7 +551,7 @@ class EngineCore:
         if (self.cfg.lane_prefill_max_tokens > 0
                 and self.cfg.decode_steps_per_dispatch > 1
                 and 0 < suffix_len <= self.cfg.lane_prefill_max_tokens
-                and any(s is not None for s in self.slots)):
+                and any(s is not None and s.ready for s in self.slots)):
             # lane prefill: the engine is already decoding — ride the
             # decode batch instead of stalling it with a prefill dispatch
             self._admit_lane(req, slot, n_already)
@@ -535,9 +588,17 @@ class EngineCore:
                     self.params, self.kv, tokens, table_t,
                     req.prefix_hit_tokens, len(chunk), self.model_cfg,
                     self.cfg.kv_block_size)
-            toks, logprobs = self._sample(logits[None, :], [req])
-        self.host_roundtrips += 1
-        tok, logprob = int(toks[0]), float(logprobs[0])
+            toks, logprobs = self._sample_device(logits[None, :], [req])
+            # defer the device→host fetch of the first token: it overlaps
+            # the next decode dispatch instead of stalling the loop
+            defer = self.cfg.overlap_admission_fetch
+            if defer:
+                first = _FirstToken(toks, logprobs)
+            else:
+                self.host_roundtrips += 1
+                t_fetch = time.monotonic()
+                tok, logprob = int(toks[0]), float(logprobs[0])
+                self.host_stall_s += time.monotonic() - t_fetch
         self.total_prefill_tokens += len(chunk)
         req.pos = n_prompt
         req.generated = 1
@@ -545,7 +606,12 @@ class EngineCore:
         # the prompt's full blocks now hold valid KV — register for reuse
         req.registered_blocks = self.kv_manager.register_full_blocks(
             req.blocks, plan.seq, already_registered=n_already)
-        req.last_token = tok
+        if defer:
+            req.ready = False
+            req.last_token = -1
+            self._admissions.append((req, first))
+        else:
+            req.last_token = tok
         self.slots[slot] = req
         self._block_tables[slot, :] = 0
         self._block_tables[slot, :len(req.blocks)] = req.blocks
@@ -553,8 +619,28 @@ class EngineCore:
         logger.debug("admitted %s into slot %d (prompt=%d, hit=%d, sp=%s, "
                      "%.1fms)", req.rid, slot, n_prompt, plan.hit_tokens,
                      use_sp, 1e3 * (time.monotonic() - t0))
-        self._emit(req, tok, logprob)
-        self._maybe_finish_after_emit(req)
+        if req.ready:
+            self._emit(req, tok, logprob)
+            self._maybe_finish_after_emit(req)
+
+    def _complete_admissions(self) -> None:
+        """Finish the deferred admissions: their copies have been in flight
+        across a decode dispatch; fetch each first token (one round trip
+        for the batch, as the JAX engine counts it), emit it and make the
+        slot decodable."""
+        pending, self._admissions = self._admissions, []
+        if pending:
+            self.host_roundtrips += 1
+        for req, first in pending:
+            t_fetch = time.monotonic()
+            tok, logprob = first.wait()
+            self.host_stall_s += time.monotonic() - t_fetch
+            req.last_token = tok
+            req.ready = True
+            if self.slots[req.slot] is not req:
+                continue               # raced away (shutdown edge)
+            self._emit(req, tok, logprob)
+            self._maybe_finish_after_emit(req)
 
     def _chunked_prefill(self, req: EngineRequest, chunk: list,
                          table_t: torch.Tensor) -> torch.Tensor:
@@ -610,6 +696,7 @@ class EngineCore:
         # a ragged dispatch keys a span at key_step + len - 1
         req.key_step -= n_prompt - hit - 1
         req.last_token = req.prompt[hit]
+        req.ready = True
         # the hash chain restarts from the hit prefix and grows per row
         req.seq = TokenBlockSequence(self.cfg.kv_block_size,
                                      req.prompt[:hit])
@@ -640,7 +727,7 @@ class EngineCore:
         Lmax = cfg.ragged_max_seq_rows
         capacity = self.M * cfg.kv_block_size
         for i, s in enumerate(self.slots):
-            if s is None:
+            if s is None or not s.ready:
                 continue
             in_prompt = (s.lane_prompt is not None
                          and s.pos < len(s.lane_prompt))
@@ -660,7 +747,7 @@ class EngineCore:
         decode_rows = []
         prefill_lanes = []
         for i, s in enumerate(self.slots):
-            if s is None:
+            if s is None or not s.ready:
                 continue
             if s.lane_prompt is not None and s.pos < len(s.lane_prompt):
                 prefill_lanes.append(
@@ -756,19 +843,31 @@ class EngineCore:
             self._maybe_finish_after_emit(req)
 
     # --------------------------------------------------------------- decode
+    def _tables_for_dispatch(self) -> np.ndarray:
+        """Block tables a dispatch should see: a slot whose admission is
+        not complete keeps its mirror row, but the dispatch aims it at the
+        trash block (copy-on-write, so the mirror survives)."""
+        tables = self._block_tables
+        for i, s in enumerate(self.slots):
+            if s is not None and not s.ready:
+                if tables is self._block_tables:
+                    tables = self._block_tables.copy()
+                tables[i, :] = 0
+        return tables
+
     def _dispatch_inputs(self, steps: np.ndarray, planned=None,
                          pmask=None, mask=None) -> dict:
         """The decode program's inputs from the host mirrors (the program
         copies them: the mirrors may change while a dispatch runs)."""
         return {"tokens": self._tokens, "positions": self._positions,
-                "tables": self._block_tables, "seeds": self._seeds,
+                "tables": self._tables_for_dispatch(), "seeds": self._seeds,
                 "steps0": steps, "temperature": self._samp["temperature"],
                 "top_k": self._samp["top_k"], "top_p": self._samp["top_p"],
                 "planned": planned, "planned_mask": pmask,
                 "chain_mask": mask}
 
     def _variant(self) -> str:
-        live = np.array([s is not None for s in self.slots])
+        live = np.array([s is not None and s.ready for s in self.slots])
         return sampling_variant(self._samp["temperature"],
                                 self._samp["top_k"], self._samp["top_p"],
                                 live)
@@ -787,14 +886,16 @@ class EngineCore:
         if K > 1:
             self._decode_step_multi(K)
             return
-        active_idx = [i for i, s in enumerate(self.slots) if s is not None]
+        active_idx = [i for i, s in enumerate(self.slots)
+                      if s is not None and s.ready]
         steps = np.zeros((self.B,), np.int64)
         for i in range(self.B):
             s = self.slots[i]
-            if s is None:
+            if s is None or not s.ready:
                 self._tokens[i] = 0
                 self._positions[i] = 0
-                self._block_tables[i, :] = 0  # trash block
+                if s is None:
+                    self._block_tables[i, :] = 0  # trash block
             else:
                 self._tokens[i] = s.last_token
                 self._positions[i] = s.pos
@@ -888,7 +989,7 @@ class EngineCore:
         requests)."""
         capacity = self.M * self.cfg.kv_block_size
         for i, s in enumerate(self.slots):
-            if s is None:
+            if s is None or not s.ready:
                 continue
             in_flight = bool(ahead_mask is not None and ahead_mask[i])
             pos_eff = s.pos + (K if in_flight else 0)
@@ -913,7 +1014,7 @@ class EngineCore:
                     continue
                 s.blocks.extend(new)
                 self._block_tables[i, :len(s.blocks)] = s.blocks
-        return any(s is not None for s in self.slots)
+        return any(s is not None and s.ready for s in self.slots)
 
     def _dispatch_pipelined(self, K: int) -> Optional[dict]:
         """Steady-state pipelined dispatch: chain off the in-flight batch's
@@ -925,7 +1026,7 @@ class EngineCore:
         prev = self._pending
         if prev["K"] != K:
             return None
-        now = list(self.slots)
+        now = self._ready_slots()
         if any(now[i] is not prev["reqs"][i] for i in range(self.B)):
             return None
         mask = np.array([s is not None for s in now], dtype=bool)
@@ -947,10 +1048,11 @@ class EngineCore:
         for i in range(self.B):
             s = self.slots[i]
             ahead = K if mask[i] else 0
-            if s is None:
+            if s is None or not s.ready:
                 self._tokens[i] = 0
                 self._positions[i] = 0
-                self._block_tables[i, :] = 0  # trash block
+                if s is None:
+                    self._block_tables[i, :] = 0  # trash block
             else:
                 self._tokens[i] = s.last_token
                 self._positions[i] = s.pos + ahead
@@ -960,7 +1062,7 @@ class EngineCore:
         # host-fed dispatches agree without extra bookkeeping
         planned = pmask = None
         for i, s in enumerate(self.slots):
-            if s is None or s.lane_prompt is None:
+            if s is None or not s.ready or s.lane_prompt is None:
                 continue
             if planned is None:
                 planned = np.zeros((K, self.B), np.int64)
@@ -977,7 +1079,12 @@ class EngineCore:
                 K, self._variant(),
                 self._dispatch_inputs(steps, planned, pmask, mask),
                 chain=chain)
-        return {"dispatch": dispatch, "K": K, "reqs": list(self.slots)}
+        return {"dispatch": dispatch, "K": K, "reqs": self._ready_slots()}
+
+    def _ready_slots(self) -> List[Optional[EngineRequest]]:
+        """The slots a dispatch decodes: each ready request, else None."""
+        return [s if (s is not None and s.ready) else None
+                for s in self.slots]
 
     def _harvest(self, pending: dict) -> None:
         """Apply one dispatch's results: emissions, seq bookkeeping,

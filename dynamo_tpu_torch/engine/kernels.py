@@ -228,8 +228,10 @@ def add_launches(counts: Dict[str, int]) -> None:
         KERNELS[name].launches += n
 
 
-# the head dims the attention kernels (K1-K4) are compiled for
-HEAD_DIMS = (64, 128, 256)
+# the head dims the attention kernels (K1-K4) are compiled for (96: phi3)
+HEAD_DIMS = (64, 96, 128, 256)
+# the GQA group sizes K3 and K4 are compiled for
+GROUPS = (1, 2, 4, 8)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
@@ -316,13 +318,14 @@ def _check_paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
     C = lanes - scale_lanes
     KVH = C // Dh
     if (v_cache.shape != k_cache.shape or C % Dh or KVH == 0 or H % KVH
-            or Dh not in HEAD_DIMS or H // KVH not in (1, 2, 4, 8)
+            or Dh not in HEAD_DIMS or H // KVH not in GROUPS
             or seq_lens.shape[0] != block_tables.shape[0]
             or NTOK % block_size):
         raise ValueError(
             f"{kernel.name}: unsupported shapes q={tuple(q.shape)} "
             f"pool={tuple(k_cache.shape)} tables={tuple(block_tables.shape)} "
-            f"seq_lens={tuple(seq_lens.shape)} block_size={block_size}")
+            f"seq_lens={tuple(seq_lens.shape)} block_size={block_size} "
+            f"(Dh in {HEAD_DIMS}, H / KVH in {GROUPS})")
     return H, KVH, Dh
 
 

@@ -14,7 +14,11 @@ equal across the two engines. The cases are the JAX suite's own
   chunked prefill continuing a prefix hit;
 - lane admission into a busy decode batch, greedy and seeded (temperature
   0.7, top_p 0.9), after a prefix hit, and under recompute preemption
-  with and without the pipeline. Under preemption the streams are held
+  with and without the pipeline;
+- two prompts posted back to back, with the first token's fetch deferred
+  (``overlap_admission_fetch``, the default: the second admission finds no
+  ready slot and prefills) and fetched at once (it lane-admits): lane
+  admissions and host round trips equal JAX's too. Under preemption the streams are held
   equal up to the first recompute point of either engine (a re-admission
   prefill's sums differ from the decode program's, so a greedy argmax at a
   near-tie may flip there; the JAX package's own contract).
@@ -282,6 +286,32 @@ async def test_lane_admission_after_prefix_hit_matches_jax(np_params):
     assert tb == jb and len(tb) == 24
 
 
+@pytest.mark.parametrize("overlap", [True, False],
+                         ids=["deferred_fetch", "fetch_at_once"])
+async def test_back_to_back_admissions_match_jax(np_params, overlap):
+    """Two prompts posted back to back into an idle engine. With the
+    deferred first-token fetch (the default) the first admission is not
+    ready when the second is admitted, so the second takes a prefill of its
+    own, not a lane; fetched at once, the first is ready and the second
+    rides its batch. Lane admissions, host round trips and streams equal
+    the JAX engine's either way."""
+    pa, pb = _prompt(61, 25), _prompt(62, 21)
+
+    async def scenario(side):
+        ra = await side.submit(pa, "a", max_new=20)
+        rb = await side.submit(pb, "b", max_new=16, sampling=SEEDED)
+        return await asyncio.gather(side.drain(ra), side.drain(rb))
+
+    ((ja, _, _), (jb, _, _)), ((ta, _, _), (tb, _, _)), jcore, tcore = \
+        await on_both(np_params, scenario, overlap_admission_fetch=overlap,
+                      **LANES)
+    assert tcore.lane_admissions == jcore.lane_admissions == (0 if overlap
+                                                              else 1)
+    assert tcore.host_roundtrips == jcore.host_roundtrips
+    assert ta == ja and len(ta) == 20
+    assert tb == jb and len(tb) == 16
+
+
 def _first_recompute(*reqs):
     """The first client-stream index that a recompute prefill re-derived
     in either engine (a lane admission's own boundary at 0 is not one:
@@ -443,7 +473,8 @@ def test_make_slot_keys_bit_equal_to_scalar_and_jax():
 def test_dispatch_fields_follow_jax_config():
     j, t = JEngineConfig(), EngineConfig()
     for f in ("prefill_chunk", "decode_steps_per_dispatch",
-              "decode_dispatch_pipeline", "lane_prefill_max_tokens"):
+              "decode_dispatch_pipeline", "lane_prefill_max_tokens",
+              "overlap_admission_fetch"):
         assert getattr(t, f) == getattr(j, f)
     with pytest.raises(ValueError, match="decode_steps_per_dispatch"):
         EngineConfig(decode_dispatch_pipeline=True)

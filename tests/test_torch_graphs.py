@@ -12,7 +12,13 @@ holds to the kernels' counts; a replay whose static inputs were left
 stale must differ from the eager run on the new inputs. A Gemma-2 program
 (head dim 256, soft-caps, a window that binds) replays equal to eager too,
 and so does an MLA program (DeepSeek-V2's latent widths over a bf16 and a
-sectioned int8 pool, with the MoE block's top-k routing in the graph).
+sectioned int8 pool, with the MoE block's top-k routing in the graph). A
+Phi-3 program (head dim 96 over 4 KV heads, g = 1, a window on every layer
+that binds) replays equal to eager too. An admission's deferred
+first-token copy (``overlap_admission_fetch``) refuses to run inside a
+capture, and an engine on the card with it serves the same greedy tokens
+as with the fetch at once, its second back-to-back prompt prefilled rather
+than lane-admitted.
 """
 
 import numpy as np
@@ -221,3 +227,107 @@ def test_mla_graph_replay_equals_eager(kv_quant, K):
     assert torch.equal(logits[:, LIVE], e.logits[:, LIVE])
     assert torch.isfinite(logits[:, LIVE]).all()
     assert torch.equal(pool_g[:, BS:], kv["kv"][:, BS:])
+
+
+# Phi-3's decode program: head dim 96, g = 1, a 16-token window on every
+# layer that binds at the live slots' positions 20 and 33
+PHI3_CFG = ModelConfig(
+    model_type="phi3", vocab_size=512, hidden_size=256,
+    intermediate_size=512, num_layers=2, num_heads=4, num_kv_heads=4,
+    head_dim=96, max_position_embeddings=512, sliding_window=16,
+    layer_types=["sliding_attention"] * 2)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int4_kv8"])
+@pytest.mark.parametrize("K", [1, 4])
+def test_phi3_graph_replay_equals_eager(mode, K):
+    dev = _device()
+    prog, kv = _program(mode, dev, PHI3_CFG)
+    pool0 = {n: t.clone() for n, t in kv.items()}
+    inp = _inputs(K)
+    with torch.inference_mode():
+        d = prog.dispatch(K, "filtered", inp, with_logits=True)
+        toks, lps = d.fetch()
+        logits = d.logits.clone()
+        pool_g = {n: t.clone() for n, t in kv.items()}
+        for n, t in kv.items():
+            t.copy_(pool0[n])
+        e = prog.run_eager(K, "filtered", inp, with_logits=True)
+        torch.cuda.synchronize()
+    g = prog.graphs[(K, "filtered", True)]
+    attn = "paged_attention" if mode == "bf16" else "paged_attention_int8"
+    assert g.launches[attn] == K * PHI3_CFG.num_layers
+    assert (toks[:, LIVE] == e.toks.cpu().numpy()[:, LIVE]).all()
+    assert (lps[:, LIVE] == e.logprobs.cpu().numpy()[:, LIVE]).all()
+    assert torch.equal(logits[:, LIVE], e.logits[:, LIVE])
+    assert torch.isfinite(logits[:, LIVE]).all()
+    for n in kv:
+        assert torch.equal(pool_g[n][:, BS:], kv[n][:, BS:])
+
+
+def test_deferred_first_token_copy_stays_out_of_graphs():
+    """The deferred fetch copies into pinned memory behind an event on the
+    engine's stream; inside a graph capture it refuses to run."""
+    from dynamo_tpu_torch.engine.core import _FirstToken
+    dev = _device()
+    tok = torch.tensor([5], dtype=torch.int64, device=dev)
+    lp = torch.tensor([-1.5], dtype=torch.float32, device=dev)
+    assert _FirstToken(tok, lp).wait() == (5, -1.5)
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
+    with pytest.raises(RuntimeError, match="captured decode graph"):
+        with torch.cuda.graph(graph, stream=stream):
+            _FirstToken(tok, lp)
+
+
+async def _serve_back_to_back(overlap: bool, prompts) -> tuple:
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import (FINISH_SENTINEL, EngineCore,
+                                              EngineRequest)
+    from dynamo_tpu_torch.engine.sampling import SlotSampling
+    core = EngineCore(PHI3_CFG, EngineConfig(
+        max_model_len=256, kv_block_size=16, num_kv_blocks=64,
+        max_num_seqs=4, prefill_buckets=[32, 64], decode_steps_per_dispatch=4,
+        lane_prefill_max_tokens=64, overlap_admission_fetch=overlap),
+        device="cuda")
+    reqs = [EngineRequest(rid=str(i), prompt=p,
+                          sampling=SlotSampling(temperature=0.0),
+                          max_new_tokens=12, eos_ids=frozenset())
+            for i, p in enumerate(prompts)]
+    try:
+        for r in reqs:                       # posted back to back
+            await core.submit(r)
+        out = []
+        for r in reqs:
+            toks = []
+            while True:
+                item, _ = await r.out_queue.get()
+                if item is FINISH_SENTINEL:
+                    break
+                toks.append(item)
+            out.append(toks)
+    finally:
+        await core.stop()
+    return out, core
+
+
+def test_deferred_admission_fetch_on_the_card():
+    # a plain test around asyncio.run: the card's machine may lack the
+    # async test plugins
+    import asyncio
+    _device()
+    rng = np.random.default_rng(4)
+    pa, pb = (rng.integers(3, 512, size=n).tolist() for n in (25, 21))
+
+    def serve(overlap, prompts):
+        return asyncio.run(_serve_back_to_back(overlap, prompts))
+    # one request: the same greedy tokens with the fetch deferred or not
+    (a_def,), c_def = serve(True, [pa])
+    (a_now,), _ = serve(False, [pa])
+    assert a_def == a_now and len(a_def) == 12
+    assert c_def.program.captures > 0 and not c_def._admissions
+    # two back to back: deferred, the second admission finds no ready slot
+    # and prefills; fetched at once, it lane-admits
+    out, c_def = serve(True, [pa, pb])
+    assert c_def.lane_admissions == 0 and all(len(t) == 12 for t in out)
+    out, c_now = serve(False, [pa, pb])
+    assert c_now.lane_admissions == 1 and all(len(t) == 12 for t in out)

@@ -53,6 +53,11 @@ def _device():
     # more CTAs than three per SM hold at once)
     (300, 1000, 600, 300, 16, 2, 64),
     (1100, 1100, 0, 1030, 32, 8, 128),
+    # head dim 96 (phi3, g = 1 and g = 4): 12 16-byte pieces a row, which
+    # do not divide the 128 threads; the live keys end in row 61 of the
+    # last 64-key tile (and fill rows 60-63 of the first ones)
+    (126, 126, 0, 126, 32, 32, 96),
+    (190, 700, 500, 190, 16, 4, 96),
 ])
 def test_flash_prefill_kernel_matches_plain(T, S, start, true_len, H, KVH, Dh):
     dev = _device()
@@ -100,6 +105,8 @@ def _partial_errors(got, ref, seen):
     (96, 96, 0, 50, 8, 2, 128),        # the padded tail
     (300, 1000, 500, 1000, 16, 2, 128),   # S off the tile, many row blocks
     (1100, 1100, -60, 400, 32, 8, 128),   # many CTAs, dead rows first
+    (96, 96, 0, 96, 32, 32, 96),       # head dim 96, the diagonal hop
+    (300, 1000, 500, 1000, 16, 2, 96),
 ])
 def test_flash_prefill_partial_kernel_matches_plain(T, S, start, seq_len, H,
                                                     KVH, Dh):
@@ -221,7 +228,7 @@ def _split_case(dev, int8, lens, H, KVH, Dh, M, bs=16, seed=4):
 # the exp2 domain within 1e-3, l within 1e-3 relative: the same bf16
 # products summed in another order) and merge to its output; leaving out
 # one split's partial in that merge must fail the row-relative limit.
-K3_GEOMS = [(Dh, g) for Dh in (64, 128) for g in (1, 2, 4, 8)]
+K3_GEOMS = [(Dh, g) for Dh in (64, 96, 128) for g in (1, 2, 4, 8)]
 
 
 @pytest.mark.parametrize("Dh,g", K3_GEOMS,
@@ -291,16 +298,56 @@ def test_paged_attention_kernel_full_batch(int8):
     assert _row_rel_err(out, ref, slice(None)) <= ROW_REL_TOL
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_attention_kernel_full_batch_phi3(int8):
+    """Phi-3-mini's decode: 32 KV heads of 96 (g = 1), eight slots of 4096
+    keys under its 2047-key window, whose floors fall inside a 128-key
+    split (the window is not a whole number of splits); two calls give the
+    same bits, and the window left out is a planted fault."""
+    dev = _device()
+    M, window = 256, 2047
+    q, k, v, tables, seq_lens = _split_case(dev, int8, [M * 16] * 8, 32, 32,
+                                            96, M)
+    win_lo = seq_lens - 1 - window
+    kw = dict(block_size=16, scale=96 ** -0.5)
+    out = attention.paged_attention(q, k, v, tables, seq_lens, win_lo=win_lo,
+                                    **kw)
+    again = attention.paged_attention(q, k, v, tables, seq_lens,
+                                      win_lo=win_lo, **kw)
+    ref = attention.paged_attention_ref(q, k, v, tables, seq_lens,
+                                        win_lo=win_lo, **kw)
+    fault = attention.paged_attention(q, k, v, tables, seq_lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert _row_rel_err(out, ref, slice(None)) <= ROW_REL_TOL
+    assert _row_rel_err(fault, ref, slice(None)) > ROW_REL_TOL
+
+
 def test_kernels_refuse_unsupported_options():
     """What the kernels still lack raises on the card, never falls back:
-    a head dim they are not compiled for, f32 inputs, an MLA mode on a
-    pool that is not MLA's (JAX's rule, attention.check_latent_modes)."""
+    a head dim they are not compiled for (80: K1, K2, K3 and K4 in both
+    pools), f32 inputs, an MLA mode on a pool that is not MLA's (JAX's
+    rule, attention.check_latent_modes)."""
     dev = _device()
-    q = torch.zeros((4, 8, 96), dtype=torch.bfloat16, device=dev)
-    k = torch.zeros((16, 2, 96), dtype=torch.bfloat16, device=dev)
+    assert 80 not in kernels.HEAD_DIMS
+    q = torch.zeros((4, 8, 80), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((16, 2, 80), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         attention.flash_prefill(q, k, k, scale=0.1, start_pos=0, seq_len=4,
                                 softcap=5.0)
+    with pytest.raises(ValueError):
+        attention.flash_prefill_partial(q, k, k, scale=0.1, start_pos=0,
+                                        seq_len=4)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    for pool in (torch.zeros((16, 160), dtype=torch.bfloat16, device=dev),
+                 torch.zeros((16, 288), dtype=torch.int8, device=dev)):
+        with pytest.raises(ValueError):
+            attention.paged_attention(q, pool, pool, i32([[1]] * 4),
+                                      i32([1] * 4), block_size=16, scale=0.1)
+        with pytest.raises(ValueError):
+            attention.ragged_paged_attention(
+                q, pool, pool, i32([[1]]), i32([0]), i32([4]), i32([4]),
+                block_size=16, scale=0.1, max_rows=64)
     q, k = q[..., :64].contiguous(), k[..., :64].contiguous()
     with pytest.raises(ValueError):
         attention.flash_prefill(q.float(), k.float(), k.float(), scale=0.1,
@@ -481,8 +528,9 @@ def _ragged_inputs(gen, dev, int8: bool, H=32, KVH=8, Dh=128):
 
 
 # (H, KVH, Dh): the 8B heads (g = 4, 16 rows per CTA), then g = 1 (64 rows
-# per CTA) and g = 8 (8 rows per CTA) at the other compiled head dim
-RAGGED_GEOMS = [(32, 8, 128), (8, 8, 64), (16, 2, 64)]
+# per CTA) and g = 8 (8 rows per CTA) at head dims 64 and 96 (phi3)
+RAGGED_GEOMS = [(32, 8, 128), (8, 8, 64), (16, 2, 64), (8, 8, 96),
+                (16, 2, 96)]
 
 
 @pytest.mark.parametrize("geom", RAGGED_GEOMS,
@@ -659,8 +707,9 @@ GEMMA_PREFILL = [(200, 704, 500, 190, 96), (130, 130, 0, 130, 64),
 
 
 @pytest.mark.parametrize("case", GEMMA_PREFILL, ids=str)
-@pytest.mark.parametrize("Dh,H,KVH", [(256, 16, 8), (128, 8, 2)],
-                         ids=["dh256", "dh128"])
+@pytest.mark.parametrize("Dh,H,KVH", [(256, 16, 8), (128, 8, 2),
+                                      (96, 8, 8)],
+                         ids=["dh256", "dh128", "dh96"])
 def test_flash_prefill_gemma_modes_match_plain(Dh, H, KVH, case):
     dev = _device()
     T, S, start, true_len, window = case
@@ -699,7 +748,8 @@ GEMMA_LENS = [1, 200, 201, 328, 329, 457, 640, 0]
 GEMMA_WINDOW = 200
 
 
-@pytest.mark.parametrize("Dh,g", [(256, 2), (256, 8), (128, 4)],
+@pytest.mark.parametrize("Dh,g", [(256, 2), (256, 8), (128, 4), (96, 2),
+                                  (96, 4)],
                          ids=lambda p: str(p))
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_paged_attention_gemma_modes_match_plain(int8, Dh, g):
@@ -744,7 +794,8 @@ GEMMA_SPANS = [(1, 200), (1, 201), (1, 329), (20, 340), (40, 640), (0, 0),
                (12, 457), (0, 0)]
 
 
-@pytest.mark.parametrize("geom", [(16, 8, 256), (32, 8, 128)],
+@pytest.mark.parametrize("geom", [(16, 8, 256), (32, 8, 128),
+                                  (32, 32, 96)],
                          ids=lambda p: "h{}-kvh{}-dh{}".format(*p))
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_ragged_attention_gemma_modes_match_plain(int8, geom):

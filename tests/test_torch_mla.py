@@ -32,7 +32,9 @@ Every case feeds both packages the same numpy inputs:
 - ``EngineCore`` streams of both packages at the rank-128 geometry, greedy
   and seeded sampled in one run, over f32 and int8 pools: split K = 1, K = 4
   pipelined with a lane admission, chunked prefill with a prefix hit, and
-  ragged dispatch: equal streams.
+  ragged dispatch: equal streams. Two prompts posted back to back at K = 4
+  with the first token's fetch deferred and fetched at once: equal lane
+  admissions, host round trips and streams.
 - MLA with int4 or int8 weights, and with sp > 1, refuses with
   NotImplementedError; so does a MoE llama family.
 - The launcher serves a model directory holding a tiny ``deepseek_v2``
@@ -633,6 +635,43 @@ async def test_mla_engine_streams_match_jax(e_np_params, mode, kv_quant):
         assert tb[2].prefix_hit_tokens == jb[2].prefix_hit_tokens >= 24
     if mode == "ragged":
         assert tcore.ragged_dispatches == jcore.ragged_dispatches > 0
+
+
+@pytest.mark.asyncio
+@pytest.mark.parametrize("overlap", [True, False],
+                         ids=["deferred_fetch", "fetch_at_once"])
+async def test_mla_back_to_back_admissions_match_jax(e_np_params, overlap):
+    """The rank-128 geometry at K = 4 (pipelined, lane prefill), two
+    prompts posted back to back: with the first token's fetch deferred the
+    second prefills (no lane admission), as in the JAX engine; fetched at
+    once it lane-admits. Lane admissions, host round trips and streams
+    equal the JAX engine's."""
+    kw = dict(ENGINE, overlap_admission_fetch=overlap,
+              **DISPATCH["k4_pipelined_lanes"])
+    jcore = JEngineCore(JModelConfig(**GEOM), JEngineConfig(**kw),
+                        params={k: jnp.asarray(v)
+                                for k, v in e_np_params.items()},
+                        attn_impl="xla", param_dtype=jnp.float32)
+    cfg = ModelConfig(**GEOM)
+    tcore = EngineCore(cfg, EngineConfig(dtype="float32", **kw),
+                       params=params_from_numpy(e_np_params, cfg, "cpu",
+                                                torch.float32),
+                       device="cpu")
+    pa, pb = _prompt(41, 25), _prompt(43, 21)
+    out = []
+    for core, jax_side in ((jcore, True), (tcore, False)):
+        side = Side(core, jax_side)
+        try:
+            ra = await side.submit(pa, "a", max_new=16)
+            rb = await side.submit(pb, "b", max_new=16, sampling=SEEDED)
+            out.append(await asyncio.gather(side.drain(ra), side.drain(rb)))
+        finally:
+            await core.stop()
+    (ja, jb), (ta, tb) = out
+    assert tcore.lane_admissions == jcore.lane_admissions == (0 if overlap
+                                                              else 1)
+    assert tcore.host_roundtrips == jcore.host_roundtrips
+    assert ta[0] == ja[0] and tb[0] == jb[0] and len(ta[0]) == 16
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,7 @@ from dynamo_tpu_torch.engine.core import (FINISH_SENTINEL, EngineCore,
 from dynamo_tpu_torch.engine.models import llama as tllama
 from dynamo_tpu_torch.engine.sampling import SlotSampling
 from dynamo_tpu_torch.engine.weights import params_from_numpy
+from tests.test_torch_package import UNPORTED_ENGINE_FIELDS
 from tests.test_torch_engine import (GEOM, GREEDY, QGEOM, QUANT, SAMPLED,
                                      _collect, _engine_kwargs, make_cores,
                                      run_both)
@@ -591,6 +592,14 @@ def test_ragged_engine_config_matches_jax(kw):
                 max_num_seqs=4, ragged_dispatch=True)
     assert (_config_outcome(EngineConfig, **{**base, **kw})
             == _config_outcome(JEngineConfig, **{**base, **kw}))
+
+
+@pytest.mark.parametrize("field", UNPORTED_ENGINE_FIELDS)
+def test_ragged_engine_config_refuses_each_unported_field(field):
+    jfields = {f.name for f in dataclasses.fields(JEngineConfig)}
+    assert field in jfields
+    with pytest.raises(TypeError):
+        EngineConfig(ragged_dispatch=True, **{field: 1})
 
 
 def test_ragged_engine_config_keeps_unported_fields_out():
