@@ -9,7 +9,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 (K1-K4 at the 8B shapes) of the checkout at DIR (another commit, unpacked
 with ``git archive``) and of this checkout in turns on the one card, and
 prints their times and ratios (``ab_compare``): a change's effect on the
-kernels it did not mean to touch, read within one run.
+kernels it did not mean to touch, read within one run; it fails unless K3
+and K4 give the same output bits in every turn at the GQA groups both
+checkouts compile.
 
 Phases, each failing the run (non-zero exit, no result line) on error:
 
@@ -175,11 +177,46 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    with TTFT/ITL, the footprint after bring-up, the graph capture seconds
    and the launches of each path.
 
-Every split-path decode dispatch of phases 5-5m replays a captured graph;
+3q. kernels at Qwen2-7B's shapes (``QWEN2_7B_CONFIG``, parsed by the
+   port's ``ModelConfig.from_hf_config``: 28 heads of 128 over 4 KV heads,
+   a GQA group of 7, no window): K1 on phase 4q's 6000-token prompt in its
+   8192 bucket and on a 2048-row chunk after a 4000-token prefix hit (the
+   last KV tile left out planted); K2 on phase 3's ring hops at g = 7
+   (``"on_main_path": false``); K3 and K4, bf16 and int8, through phase 3's
+   checks (``QWEN2_ATTN``: an 8-slot mix, the split boundaries, 8 x 8192
+   keys, for K4 chunks that cross its 9-row tiles with one live chunk and
+   with several, every crossed row's own key planted, and the output a
+   pad vector would write over it as a planted fault), each also at g = 6,
+   5 and 3 at head dim 128 and g = 7 at head dim 64 on one mix
+   (``QWEN2_GROUPS``); K5 over the untied 3584 x 152064 head and K6 at
+   the four Qwen2-7B layer shapes;
+4q. model: phase 4's checks (``check_model``, ``QWEN2_RUN``) at Qwen2-7B's
+   width (random weights whose qkv biases are seeded draws as large as the
+   projections) in bf16 and in int4 + int8 KV: the 6000-token prompt and
+   decode steps at 6000-6003 through the kernels and the plain versions,
+   phase 4's planted faults and the qkv biases dropped, the decode
+   program's graphs at K = 1 and K = 8 against eager (the step's device
+   time beside the floor of reading every weight once), and phase 4's
+   ragged dispatches through K4;
+5q. serve Qwen2-7B (``--max-model-len 8192``, 2048 blocks of 16, the
+   engine's biases drawn live before any graph capture): bf16 with
+   ``--decode-steps-per-dispatch 8``, int4 + int8 KV split, and each again
+   with ``--ragged``, each answering a 6000- and a 300-token prompt posted
+   together, an SSE stream and a seeded sampled request twice, with
+   TTFT/ITL, the footprint after bring-up, the graph capture seconds and
+   the launches of each path.
+
+Each phase prints its wall seconds (``phase 3q: N s``; each model mode and
+server inside one too) and the run ends with all of them on one line. The
+model and serve phases run each geometry at the depth of ``LAYERS``: the
+published depth, or less for an earlier geometry cut so that the whole
+run stays inside its time limit (width, kernels and planted faults stay).
+
+Every split-path decode dispatch of phases 5-5q replays a captured graph;
 its launches count through the program's replay accounting.
 
 The line before the last is the kernels' JSON summary (the entries of
-3g, 3m and 3p carry a ``mode``); the last line is ``{"ok": true, "device":
+3g, 3m, 3p and 3q carry a ``mode``); the last line is ``{"ok": true, "device":
 {...}}``.
 Imports nothing of JAX.
 """
@@ -205,6 +242,11 @@ L2_FLUSH_BYTES = 256 << 20     # 5x the H100's 50 MB L2
 
 KV_BLOCK = 16
 MAX_MODEL_LEN = 2048
+# the depth (layers) of each geometry's model and serve phases: its
+# published depth, or less where an earlier geometry was cut so that the
+# whole run stays inside its time limit (PERF.md lists each cut; width,
+# kernels and planted faults are untouched)
+LAYERS = {"8b": 32, "gemma2": 21, "mla": 14, "phi3": 32, "qwen2": 28}
 SP_TRUE_LEN = 1900             # the sequence-parallel prompt, in a 2048 bucket
 
 # The config.json of google/gemma-2-9b on the Hugging Face hub: 42 layers,
@@ -282,6 +324,26 @@ PHI3_MINI_4K_CONFIG = {
     "tie_word_embeddings": False, "torch_dtype": "bfloat16",
     "use_cache": True, "vocab_size": 32064}
 
+# The config.json of Qwen/Qwen2-7B-Instruct on the Hugging Face hub: 28
+# layers, hidden 3584, 28 query heads over 4 KV heads of 128 (a GQA group
+# of 7), MLP 18944, rope theta 1e6, vocab 152064, untied. It carries no
+# attention_bias key: both packages default qkv bias on for qwen2, as HF's
+# modeling code does; use_sliding_window is false and both packages set no
+# window for qwen2. The phases 3q-5q parse it with the port's
+# ModelConfig.from_hf_config and serve it from a model directory that holds
+# it.
+QWEN2_7B_CONFIG = {
+    "architectures": ["Qwen2ForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 151643, "eos_token_id": 151645, "hidden_act": "silu",
+    "hidden_size": 3584, "initializer_range": 0.02,
+    "intermediate_size": 18944, "max_position_embeddings": 32768,
+    "max_window_layers": 28, "model_type": "qwen2",
+    "num_attention_heads": 28, "num_hidden_layers": 28,
+    "num_key_value_heads": 4, "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0, "sliding_window": 131072,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "use_sliding_window": False, "vocab_size": 152064}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -295,6 +357,45 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+# wall seconds of each phase (and of each mode and server inside one), in
+# the order run
+PHASE_S: dict = {}
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Time the block as phase ``name`` and print ``phase NAME: N s``."""
+    t0 = time.monotonic()
+    yield
+    PHASE_S[name] = time.monotonic() - t0
+    log(f"phase {name}: {PHASE_S[name]:.1f} s")
+
+
+def at_depth(cfg, layers: int):
+    """``cfg`` cut to its first ``layers`` layers, width untouched: the one
+    cut an earlier geometry takes so that the whole run stays inside its
+    time limit (PERF.md lists each); ``serve_phase`` writes the same depth
+    into the served config.json."""
+    if layers == cfg.num_layers:
+        return cfg
+    return dataclasses.replace(
+        cfg, num_layers=layers,
+        layer_types=cfg.layer_types[:layers] if cfg.layer_types else None)
+
+
+def param_bytes(params) -> int:
+    """Device bytes of a parameter tree (a quantized leaf's payload and
+    scales) but its embedding table, of which a decode step reads a few
+    rows: the least a step reads."""
+    n = 0
+    for name, t in params.items():
+        if name == "embed":
+            continue
+        for x in ((t.q, t.scale) if hasattr(t, "scale") else (t,)):
+            n += x.numel() * x.element_size()
+    return n
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = False) -> float:
@@ -784,14 +885,16 @@ class AttnCases:
     own bf16 inputs with a gain or in the MLA modes. The pool's block size
     (bf16, int8); the inputs (pool_inputs' signature); the pool's planted
     faults (pool_faults' signature); the kernels-line mode (None: the 8B
-    entries); the inputs' seed offset."""
+    entries); the inputs' seed offset; whether a global layer with no
+    soft-cap also times ``torch.compile(flex_attention)`` beside SDPA
+    (the yardstick is then the faster)."""
     max_len: int
     paged_mix: list
     paged_boundary: Optional[list]
-    paged_full: list
+    paged_full: Optional[list]
     ragged_mix: list
     ragged_boundary: Optional[list]
-    ragged_full: list
+    ragged_full: Optional[list]
     ragged_decode: Optional[list]
     window: Optional[int] = None
     softcap: float = 0.0
@@ -803,6 +906,7 @@ class AttnCases:
     faults: Callable = pool_faults
     mode: Optional[str] = None
     seed: int = 0
+    flex: bool = False
 
     @property
     def plain_f32(self) -> bool:
@@ -890,6 +994,53 @@ def mark_dead_keys(k_cache, q, tables, seqs, floors, g: int,
             torch.bfloat16)
         k_cache[slot] = (quantize_kv_rows(new)[0]
                          if k_cache.dtype == torch.int8 else new[0])
+
+
+def plant_own_keys(k_cache, q, tables, starts_l, mix, g: int,
+                   bs: int = KV_BLOCK) -> list:
+    """The crossed rows of ``mix``, as (sequence, row of its span): each
+    row that opens a K4 row tile other than the first where g does not
+    divide the tile's 64 query vectors, the row the tile before's pad
+    vectors map to (a tile is floor(64 / g) rows). At each, write at the
+    row's own position a key equal to its query (mark_dead_keys), so that
+    its own key outweighs the others and a pad vector's output, which
+    lacks it, moves the row by far more than the limit."""
+    from dynamo_tpu_torch.engine.attention import RAGGED_CTA_VECTORS
+    if RAGGED_CTA_VECTORS % g == 0:
+        return []
+    per = RAGGED_CTA_VECTORS // g
+    crossed = [(s, r) for s, (n, _) in enumerate(mix)
+               for r in range(per, n, per)]
+    mark_dead_keys(k_cache, q, tables,
+                   [(s, starts_l[s] + r) for s, r in crossed],
+                   [mix[s][1] - mix[s][0] + r for s, r in crossed], g, bs)
+    return crossed
+
+
+def pad_vectors_written(out, q, k_cache, v_cache, tables, starts_l, mix,
+                        crossed, g: int, **kw):
+    """K4's output as a kernel would leave it whose pad vectors wrote:
+    each crossed row's (plant_own_keys) heads that the tile before's pad
+    vectors map to
+    (V % g for V in [R * g, 64), R = 64 // g) computed over that tile's
+    keys, which end one before the row's own (the plain version, ``kw``
+    its block size and scale)."""
+    import torch
+    from dynamo_tpu_torch.engine import attention
+    per = attention.RAGGED_CTA_VECTORS // g
+    heads = sorted({v % g for v in range(per * g,
+                                         attention.RAGGED_CTA_VECTORS)})
+    bad = out.clone()
+    for s, r in crossed:
+        n, c = mix[s]
+        row = starts_l[s] + r
+        lens = torch.tensor([c - n + r], dtype=torch.int32, device=q.device)
+        o = attention.paged_attention_ref(q[row:row + 1], k_cache, v_cache,
+                                          tables[s:s + 1], lens, **kw)
+        for kvh in range(q.shape[1] // g):
+            for h in heads:
+                bad[row, kvh * g + h] = o[0, kvh * g + h].to(bad.dtype)
+    return bad
 
 
 def attn_bound(cfg, cases, int8: bool, M: int, rows: int, seqs: int,
@@ -1001,7 +1152,7 @@ def paged_library(cfg, cases, q, k_cache, v_cache, tables, seq_lens, bs: int,
     if "sdpa_out" in res:
         res["sdpa_out"] = res["sdpa_out"][:, :, 0]
     res["softcap"] = cases.softcap
-    if cases.softcap or cases.window:
+    if cases.softcap or cases.window or cases.flex:
         lo = win_lo if win_lo is not None else seq_lens * 0 - 1
 
         def live(b, h, q_idx, kv_idx):
@@ -1050,7 +1201,7 @@ def ragged_library(cfg, cases, q, k_cache, v_cache, tables, starts_l, mix,
     if "sdpa_out" in res:
         res["sdpa_out"] = flat(res["sdpa_out"])
     res["softcap"] = cases.softcap
-    if cases.softcap or W:
+    if cases.softcap or W or cases.flex:
         n_t = torch.tensor([n for n, _ in mix], device=dev)
         pos0 = torch.tensor([c - n for n, c in mix], device=dev)
         w = W or (M * bs + RAGGED_MAX_ROWS)
@@ -1287,7 +1438,8 @@ def check_paged_attention(cfg, dev, int8: bool = False,
     case = run("mix", cases.paged_mix, 3 if int8 else 2, True, merge=True)
     if cases.paged_boundary:
         case["boundary"] = run("boundary", cases.paged_boundary, 5, False)
-    case["full_batch"] = run("full", cases.paged_full, 6, True)
+    if cases.paged_full:
+        case["full_batch"] = run("full", cases.paged_full, 6, True)
     return attn_entry(name, source, False, cases, chunk, S, case)
 
 
@@ -1350,6 +1502,10 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
             mark_dead_keys(k_cache, q, tables,
                            [(s, starts_l[s]) for s in decode],
                            [int(win_base[s]) for s in decode], g, bs)
+        # where g leaves pad vectors in K4's row tiles (g = 3, 5, 6, 7),
+        # each row a pad vector maps to gets its own key planted
+        crossed = (plant_own_keys(k_cache, q, tables, starts_l, mix, g, bs)
+                   if cases.v_lanes is None else [])
         mode_kw = ({"softcap": cap, "win_base": win_base}
                    if cases.v_lanes is None else latent)
 
@@ -1387,6 +1543,11 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
                       **cases.faults(cases, kernel, q, k_cache, v_cache,
                                      tables[longest, last].long() * bs
                                      + torch.arange(bs, device=dev), int8)}
+            if crossed:
+                # a pad vector's output written over the row it maps to
+                faults["pad_vector_written"] = pad_vectors_written(
+                    out, q, k_cache, v_cache, tables, starts_l, mix, crossed,
+                    g, block_size=bs, scale=kw["scale"])
         torch.cuda.synchronize()
         what = f"{name} {cases.mode or ''} {label}"
         if not torch.isfinite(out).all():
@@ -1394,6 +1555,8 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
         if not torch.equal(out, again):
             raise RuntimeError(f"{what}: two calls gave different bits")
         case = {"TT": TT, "mix": mix}
+        if crossed:
+            case["tile_crossings"] = len(crossed)
         case["max_abs_err"], case["max_row_rel_err"] = row_errors(out, ref,
                                                                   rows)
         case["seq_row_rel_err"] = [
@@ -1483,7 +1646,8 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
     case = run("mix", cases.ragged_mix, 6 if int8 else 7, True, main=True)
     if cases.ragged_boundary:
         case["boundary"] = run("boundary", cases.ragged_boundary, 8, False)
-    case["full_batch"] = run("full", cases.ragged_full, 9, True)
+    if cases.ragged_full:
+        case["full_batch"] = run("full", cases.ragged_full, 9, True)
     if cases.ragged_decode:
         case["decode_step"] = run("decode", cases.ragged_decode, 10, True)
     return attn_entry(name, source, True, cases, chunk, splits, case)
@@ -2267,6 +2431,7 @@ def check_decode_program(params, kv, cfg, table, B: int, M: int,
     del snap
     res["profile"] = profile_program(prog, pos, table, B, M)
     res["captures"], res["replays"] = prog.captures, prog.replays
+    res["capture_s"] = prog.capture_s
     bad = [k for k, v in res.items() if v is False
            or (isinstance(v, dict) and False in v.values())]
     log(f"program {mode} {json.dumps(res)}")
@@ -2376,7 +2541,8 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
     decodes ``run.steps`` steps through the kernels, through their plain
     versions, and with a planted fault in each kernel of the mode (``run``'s
     K1 and K3 faults; K5's first strip left out; K6's last group's scales
-    read as the first's); each kernel's launches; the footprint; one
+    read as the first's; with qkv bias, the biases, drawn live by
+    live_qkv_biases, dropped); each kernel's launches; the footprint; one
     prefill and one eager decode step profiled; the decode program
     (check_decode_program); in the modes of RAGGED_MODES, ``run``'s ragged
     dispatches (check_ragged_model); in bf16 where ``run.sp``, the
@@ -2396,6 +2562,8 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
     else:
         params = init_params_quantized(cfg, seed, dev, torch.bfloat16,
                                        bits=4 if weights == "int4" else 8)
+    if cfg.attention_bias:
+        live_qkv_biases(params, seed)
     torch.cuda.synchronize()
     log(f"model {run.label} {mode}: random weights on the card in "
         f"{time.monotonic() - t0:.1f} s, "
@@ -2417,14 +2585,14 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
                              quantization=kv_quant)
     footprint = torch.cuda.memory_allocated() / 2**30
 
-    def prefill():
-        return model.prefill_forward(params, kv, tokens, table, 0,
-                                     run.prompt, cfg, bs)
+    def prefill(p=params):
+        return model.prefill_forward(p, kv, tokens, table, 0, run.prompt,
+                                     cfg, bs)
 
-    def forward():
+    def forward(p=params):
         for t in kv.values():
             t.zero_()
-        out = [prefill()[None]]
+        out = [prefill(p)[None]]
         toks = torch.zeros((B,), dtype=torch.long, device=dev)
         pos = torch.zeros((B,), dtype=torch.int32, device=dev)
         tables = torch.zeros((B, M), dtype=torch.int32, device=dev)
@@ -2432,8 +2600,8 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
         for i in range(run.steps):
             toks[0] = forced[i]
             pos[0] = run.prompt + i
-            out.append(model.decode_forward(params, kv, toks, pos, tables,
-                                            cfg, bs)[:1])
+            out.append(model.decode_forward(p, kv, toks, pos, tables, cfg,
+                                            bs)[:1])
         return torch.cat(out)                      # [1 + steps, V]
 
     # each kernel of the mode: (module, attribute, plain version, fault)
@@ -2457,6 +2625,8 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
         for m, a, _, fault in slots:
             with swapped((m, a, fault)):
                 faults[fault.__name__] = forward()
+        if cfg.attention_bias:
+            faults["qkv_bias_dropped"] = forward(without_qkv_bias(params))
         kernels.reset_launch_counts()
         t1 = time.monotonic()
         got = forward()
@@ -2498,6 +2668,7 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
            "bucket": run.bucket,
            "decode_positions": [run.prompt, run.prompt + run.steps - 1],
            "footprint_gib": footprint, "launches": launches,
+           "decode_floor_ms": param_bytes(params) / PEAK_HBM_BYTES * 1e3,
            "forward_s": forward_s, "max_abs_ref": spread, **compare(got),
            "planted_faults": {k: compare(v) for k, v in faults.items()},
            "prefill_profile": prefill_profile, "decode_step": decode_step,
@@ -2597,7 +2768,8 @@ def check_window_flash_prefill(cfg, dev, mode: str, chunks, q_gain: float,
     keys of which start_pos + true_len are live, on a sliding layer (the
     window) or a global one; q scaled by ``q_gain``, the plain version in
     f32. Planted faults: the soft-cap dropped, and on a sliding layer the
-    window one key wider and the window dropped. Timed (with and without
+    window one key wider and the window dropped (a global layer with no
+    soft-cap: the last KV tile left out). Timed (with and without
     the soft-cap) beside flex_attention with the soft-cap (without one: the
     faster of flex_attention and SDPA) and SDPA without it, both with the
     causal (and window) mask."""
@@ -2635,6 +2807,9 @@ def check_window_flash_prefill(cfg, dev, mode: str, chunks, q_gain: float,
         if sliding:
             faults["window_off_by_one"] = kernel(window=W + 1)
             faults["dead_tiles_counted"] = kernel(window=0)
+        if not faults:
+            # a global layer with no soft-cap: the last KV tile left out
+            faults["last_tile"] = kernel(seq_len=seq_len - FAULT_KEYS)
         torch.cuda.synchronize()
         rows = slice(0, true_len)
         what = (f"flash_prefill {mode} T={T} start={start} "
@@ -3074,6 +3249,173 @@ PHI3_RUN = ModelRun("phi3", PHI3_PROMPT, PHI3_BUCKET, PHI3_STEPS,
 
 
 # ---------------------------------------------------------------------------
+# phases 3q-5q: Qwen2-7B (a GQA group of 7, qkv bias)
+# ---------------------------------------------------------------------------
+
+# Qwen2-7B's table: 512 blocks of 16 tokens a sequence (K3's and K4's
+# scratch is sized from the table width, so not its 32768 positions)
+QWEN2_MAX_LEN = 8192
+QWEN2_M = QWEN2_MAX_LEN // KV_BLOCK
+# the kernel entries of the GQA group 7 (K1-K4; K3 and K4 also at the other
+# groups of QWEN2_GROUPS), and of K5 / K6 at the Qwen2-7B widths
+QWEN2_MODE = "qwen2_g7"
+QWEN2_SHAPES_MODE = "qwen2_7b_shapes"
+# phase 4q: a 6000-token prompt in its 8192-token bucket, then 4 decode
+# steps
+QWEN2_PROMPT, QWEN2_BUCKET, QWEN2_STEPS = 6000, 8192, 4
+# K1 at g = 7: phase 4q's prompt in its bucket, and a 2048-row chunk after
+# a 4000-token prefix hit (2000 rows live)
+QWEN2_PREFILL = [(QWEN2_BUCKET, 0, QWEN2_PROMPT, False),
+                 (2048, 4000, 2000, False)]
+# K3 and K4 at Qwen2-7B's heads (28 of 128 over 4 KV heads, g = 7) over the
+# 8192-key table. K3: an 8-slot mix, its split boundaries, the full batch
+# of 8 x 8192 keys. K4 takes 9 rows a tile (63 of its 64 query vectors;
+# the 64th a pad that must write nothing): its mix holds a fresh 64-row
+# prompt and a fresh 20-row one (tiles with one live chunk: the direct
+# write) and 30 rows continuing to 1000 keys (tiles with several: the
+# partials), each crossing tiles, beside decode rows up to the table's end;
+# its split boundaries; two 64-row chunks and 6 decode rows at 8192 keys;
+# 8 decode rows at phase 4q's first decode position
+QWEN2_ATTN = AttnCases(
+    max_len=QWEN2_MAX_LEN,
+    paged_mix=[1, 17, 255, 1000, 4097, 6000, QWEN2_MAX_LEN, 0],
+    paged_boundary=[127, 128, 129, 256, QWEN2_MAX_LEN, 0],
+    paged_full=[QWEN2_MAX_LEN] * 8,
+    ragged_mix=[(64, 64), (30, 1000), (20, 20), (1, 1), (1, 255),
+                (1, 6000), (1, QWEN2_MAX_LEN), (0, 0), (0, 0)],
+    ragged_boundary=[(1, 127), (1, 128), (1, 129), (1, 256), (20, 140),
+                     (64, QWEN2_MAX_LEN), (0, 0), (1, 1), (0, 0)],
+    ragged_full=[(64, QWEN2_MAX_LEN)] * 2 + [(1, QWEN2_MAX_LEN)] * 6
+    + [(0, 0)],
+    ragged_decode=[(1, QWEN2_PROMPT + 1)] * 8 + [(0, 0)],
+    mode=QWEN2_MODE, seed=40, flex=True)
+# the other groups K3 and K4 compile since this slice, as (g, H, KVH, Dh):
+# Qwen2-1.5B's 6 (at Dh 128 here), Qwen2.5-14B's and -32B's 5,
+# Llama-3.2-3B's 3, and 7 at Dh 64 (Qwen2-0.5B); one mix each over a
+# 2048-key table, K4's tiles crossed as above (10, 12, 21 and 9 rows a
+# tile), SDPA alone as the yardstick (a flex_attention compile per shape
+# would cost the run more than these cases)
+QWEN2_GROUPS = [(6, 12, 2, 128), (5, 40, 8, 128), (3, 24, 8, 128),
+                (7, 14, 2, 64)]
+QWEN2_GROUP_ATTN = dataclasses.replace(
+    QWEN2_ATTN, max_len=MAX_MODEL_LEN,
+    paged_mix=[1, 17, 129, 255, 700, 1000, MAX_MODEL_LEN, 0],
+    paged_boundary=None, paged_full=None,
+    ragged_mix=[(64, 64), (30, 1000), (20, 20), (1, 1), (1, 255),
+                (1, MAX_MODEL_LEN), (0, 0), (0, 0)],
+    ragged_boundary=None, ragged_full=None, ragged_decode=None,
+    mode="qwen2_groups", seed=50, flex=False)
+# the readings kept of each other group's case in its g = 7 entry
+GROUP_KEYS = ("max_row_rel_err", "fault_row_rel_err", "tile_crossings",
+              "ms", "plain_ms", "library_ms", "library", "bound_ms",
+              "bound_by")
+# the biases' scale in the random weights (init_params draws them 0, the
+# JAX init rule): as large as the projections (matmuls N(0, 1/fan_in) give
+# q, k and v of ~N(0, 1)), so that dropping them moves the logits past the
+# limit, as real Qwen2 checkpoints' k biases do
+QWEN2_BIAS_STD = 1.0
+
+
+def heads_interleaved(attr: str) -> Callable:
+    """The attention function ``attention.<attr>`` (K1's or K3's, as the
+    model calls it) with a planted GQA fault: query head h reads KV head h
+    % KVH, the interleaved mapping, in place of h // g. The query heads are
+    permuted so that the kernel serves the wrong mapping, and the output
+    permuted back. Over a long prompt every key carries ~1/6000 of a row,
+    so a fault that drops a tile or a block moves the logits less than
+    their own rounding; this one moves every row."""
+    def fault(q, k, *args, **kw):
+        import torch
+        from dynamo_tpu_torch.engine import attention
+        H, Dh = q.shape[1], q.shape[2]
+        KVH = (k.shape[1] if k.dim() == 3
+               else attention.kv_value_lanes(k) // Dh)
+        g = H // KVH
+        src = torch.tensor([(j % g) * KVH + j // g for j in range(H)],
+                           device=q.device)
+        dst = torch.tensor([(h % KVH) * g + h // KVH for h in range(H)],
+                           device=q.device)
+        out = getattr(attention, attr)(q[:, src].contiguous(), k, *args,
+                                       **kw)
+        return out[:, dst].contiguous()
+    fault.__name__ = f"{attr}_heads_interleaved"
+    return fault
+
+
+def qwen2_config():
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    return ModelConfig.from_hf_config(QWEN2_7B_CONFIG)
+
+
+def live_qkv_biases(params, seed: int) -> None:
+    """Overwrite the zero q, k and v biases of random weights with seeded
+    draws of QWEN2_BIAS_STD, in place (a served engine's weights too, before
+    its decode graphs are captured)."""
+    import torch
+    dev = params["layers.bq"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 7)
+    for name in ("layers.bq", "layers.bk", "layers.bv"):
+        t = params[name]
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev)
+                * QWEN2_BIAS_STD)
+
+
+def without_qkv_bias(params) -> dict:
+    """The planted fault of phase 4q: the qkv biases dropped."""
+    import torch
+    return {**params, **{n: torch.zeros_like(params[n]) for n in
+                         ("layers.bq", "layers.bk", "layers.bv")}}
+
+
+def check_qwen2_kernels(cfg, dev) -> list:
+    """Phase 3q: K1 at g = 7 (QWEN2_PREFILL, the last KV tile left out
+    planted); K2 on phase 3's ring hops at g = 7 (no served path: the sp
+    ring is the 8B path's); K3 and K4, bf16 and int8, through phase 3's
+    checks at g = 7 (QWEN2_ATTN; K4 with the pad vectors' planted fault),
+    each also at the groups of QWEN2_GROUPS (QWEN2_GROUP_ATTN); then K5
+    (the untied int8 head, 3584 x 152064) and K6 at the Qwen2-7B layer
+    shapes."""
+    D, Fi = cfg.hidden_size, cfg.intermediate_size
+    KVD = cfg.num_kv_heads * cfg.head_dim
+    k2 = check_flash_prefill_partial(cfg, dev)
+    k2.update(mode=QWEN2_MODE, on_main_path=False)
+    entries = [check_window_flash_prefill(cfg, dev, QWEN2_MODE,
+                                          QWEN2_PREFILL, 1.0, 41), k2]
+    for check in (check_paged_attention, check_ragged_attention):
+        for int8 in (False, True):
+            e = check(cfg, dev, int8=int8, cases=QWEN2_ATTN)
+            e["other_groups"] = {}
+            for g, H, KVH, Dh in QWEN2_GROUPS:
+                other = check(dataclasses.replace(
+                    cfg, num_heads=H, num_kv_heads=KVH, head_dim=Dh), dev,
+                    int8=int8, cases=QWEN2_GROUP_ATTN)
+                e["other_groups"][f"g{g}_h{H}_kvh{KVH}_dh{Dh}"] = {
+                    k: other[k] for k in GROUP_KEYS if k in other}
+            entries.append(e)
+    head = check_lm_head_int8(cfg, dev)
+    # q and o are D -> D, k and v D -> 512 (the narrowest K6 output
+    # served), gate and up D -> Fi, down Fi -> D
+    int4 = check_grouped_int4(cfg, dev, shapes=[
+        ((D, D), (1, 8)), ((D, KVD), (1, 8)), ((D, Fi), (1, 8, 512)),
+        ((Fi, D), (1, 8))])
+    for e in (head, int4):
+        e["mode"] = QWEN2_SHAPES_MODE
+    return entries + [head, int4]
+
+
+# phase 4q: K1 and K3 with the query heads mapped to the KV heads
+# interleaved (heads_interleaved), K4's last block read as the trash block,
+# the qkv biases dropped; the ragged dispatches of phase 4 (two fresh
+# 64-row chunks, then a decode row, a chunk continuing a prefix and a fresh
+# one: each chunk crosses K4's 9-row tiles)
+QWEN2_RUN = ModelRun("qwen2", QWEN2_PROMPT, QWEN2_BUCKET, QWEN2_STEPS,
+                     QWEN2_MAX_LEN, heads_interleaved("flash_prefill"),
+                     heads_interleaved("paged_attention"), ragged_llama,
+                     ragged_without_last_block, False)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the HTTP server at the 8B width
 # ---------------------------------------------------------------------------
 
@@ -3081,13 +3423,13 @@ PHI3_RUN = ModelRun("phi3", PHI3_PROMPT, PHI3_BUCKET, PHI3_STEPS,
 def write_model_dir(path: str, cfg, hf=None) -> None:
     """config.json (``hf``, else the 8B geometry's) + a SentencePiece
     tokenizer covering all of the vocab: control pieces (Llama's <unk>,
-    <s>, </s>, also for a phi3 ``hf``, whose end of text is a control piece
-    at its eos id; with another ``hf``, Gemma's <pad>, <eos>, <bos>, <unk>
+    <s>, </s>, also for a phi3 or qwen2 ``hf``, whose end of text is a
+    control piece at its eos id; with another ``hf``, Gemma's <pad>, <eos>, <bos>, <unk>
     at its ids 0-3), the 256 byte pieces, some letters and words, then
     synthetic pieces up to the vocab size."""
     from dynamo_tpu_torch.llm.sp_model import (BYTE, CONTROL, NORMAL,
                                                UNKNOWN, write_model_proto)
-    if hf is None or hf.get("model_type") == "phi3":
+    if hf is None or hf.get("model_type") in ("phi3", "qwen2"):
         pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL),
                   ("</s>", 0.0, CONTROL)]
         ids = dict(unk_id=0, bos_id=1,
@@ -3239,6 +3581,12 @@ PATH_KERNELS = {
     "phi3_ragged": ("ragged_paged_attention",),
     "phi3_ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
                              "grouped_int4_matmul"),
+    "qwen2_bf16_k8": ("flash_prefill", "paged_attention"),
+    "qwen2_int4_kv8": ("flash_prefill", "paged_attention_int8",
+                       "lm_head_int8", "grouped_int4_matmul"),
+    "qwen2_ragged": ("ragged_paged_attention",),
+    "qwen2_ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
+                              "grouped_int4_matmul"),
 }
 # the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
 # dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
@@ -3252,6 +3600,11 @@ MLA_PATHS = ("mla_bf16_k8", "mla_kv8", "mla_ragged", "mla_ragged_kv8")
 # + int8 KV on the split path, each again with --ragged
 PHI3_PATHS = ("phi3_bf16_k8", "phi3_int4_kv8", "phi3_ragged",
               "phi3_ragged_int4_kv8")
+# the Qwen2-7B servers (5q): as Phi-3-mini's
+QWEN2_PATHS = ("qwen2_bf16_k8", "qwen2_int4_kv8", "qwen2_ragged",
+               "qwen2_ragged_int4_kv8")
+# the paths of the geometries after the 8B one
+LATER_PATHS = GEMMA_PATHS + MLA_PATHS + PHI3_PATHS + QWEN2_PATHS
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -3271,7 +3624,11 @@ SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
                "phi3_bf16_k8": ("bf16", False),
                "phi3_int4_kv8": ("int4_kv8", False),
                "phi3_ragged": ("bf16", True),
-               "phi3_ragged_int4_kv8": ("int4_kv8", True)}
+               "phi3_ragged_int4_kv8": ("int4_kv8", True),
+               "qwen2_bf16_k8": ("bf16", False),
+               "qwen2_int4_kv8": ("int4_kv8", False),
+               "qwen2_ragged": ("bf16", True),
+               "qwen2_ragged_int4_kv8": ("int4_kv8", True)}
 # the served paths' (weights, KV pool): phase 4's modes, and bf16 weights
 # over an int8 pool (5m)
 SERVE_MODES = {**MODEL_MODES, "bf16_kv8": ("none", "int8")}
@@ -3292,17 +3649,22 @@ SPLIT_ATTENTION = ("flash_prefill", "paged_attention", "paged_attention_int8",
 def serve_phase(cfg, seed: int, card: str, path: str) -> tuple:
     """Serve from a temporary model directory (the 8B config, or on a
     gemma2 path Gemma-2-9B's config.json, on an mla path DeepSeek-V2-Lite's,
-    on a phi3 path Phi-3-mini-4k's, + a tokenizer). Returns (launch counts,
-    per-request report)."""
+    on a phi3 path Phi-3-mini-4k's, on a qwen2 path Qwen2-7B's, at
+    ``cfg``'s depth, + a tokenizer) under phase ``path``. Returns (launch
+    counts, per-request report)."""
     import tempfile
     family = path.split("_")[0]
     hf = {"gemma2": GEMMA2_9B_CONFIG, "mla": DEEPSEEK_V2_LITE_CONFIG,
-          "phi3": PHI3_MINI_4K_CONFIG}.get(family)
-    with tempfile.TemporaryDirectory(prefix="dtt-serve-") as tmp:
+          "phi3": PHI3_MINI_4K_CONFIG, "qwen2": QWEN2_7B_CONFIG}.get(family)
+    if hf is not None:
+        hf = {**hf, "num_hidden_layers": cfg.num_layers}
+    with phase(f"serve {path}"), tempfile.TemporaryDirectory(
+            prefix="dtt-serve-") as tmp:
         model_dir = os.path.join(tmp, {
             "gemma2": "gemma2-9b-random",
             "mla": "deepseek-v2-lite-random",
-            "phi3": "phi3-mini-4k-random"}.get(family, "llama3-8b-random"))
+            "phi3": "phi3-mini-4k-random",
+            "qwen2": "qwen2-7b-random"}.get(family, "llama3-8b-random"))
         write_model_dir(model_dir, cfg, hf)
         return _serve(cfg, seed, card, model_dir, path)
 
@@ -3323,10 +3685,12 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
     gemma = path.startswith("gemma2")
     mla = path.startswith("mla")
     phi3 = path.startswith("phi3")
+    qwen2 = path.startswith("qwen2")
     # the first id past the tokenizer's control and byte pieces
     lo = 260 if gemma or mla else 259
     max_len = (GEMMA_MAX_LEN if gemma else MLA_MAX_LEN if mla
-               else PHI3_MAX_LEN if phi3 else MAX_MODEL_LEN)
+               else PHI3_MAX_LEN if phi3 else QWEN2_MAX_LEN if qwen2
+               else MAX_MODEL_LEN)
     args = launcher.build_parser().parse_args(
         ["in=http", "out=torch", "--model-path", model_dir,
          "--random-weights", "--http-host", "127.0.0.1", "--http-port", "0",
@@ -3340,7 +3704,8 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
            if ragged else [])
         + (DISPATCH_FLAGS if path == "dispatch" else [])
         + (["--decode-steps-per-dispatch", str(DISPATCH_K)]
-           if path in ("gemma2_bf16", "mla_bf16_k8", "phi3_bf16_k8")
+           if path in ("gemma2_bf16", "mla_bf16_k8", "phi3_bf16_k8",
+                       "qwen2_bf16_k8")
            else []))
     launcher.parse_io(args.io)
     # what earlier phases left for the collector (a decode program's
@@ -3354,6 +3719,9 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         log(f"serve sp: {SERVE_SP} shards over "
             f"{len(mesh.distinct_devices)} distinct card(s)")
     core = launcher.build_core(args, mesh=mesh)
+    if cfg.attention_bias:
+        # the random weights' biases drawn live, before any graph capture
+        live_qkv_biases(core.params, seed)
     log(f"serve {path}: engine core built in {time.monotonic() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     # which prefill each admission took: (true_len, start_pos) per call
@@ -3421,6 +3789,8 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
     elif phi3:
         # past the 2047-token window, and a short one beside it
         prompts = {"p3000": mk(PHI3_PROMPT), "p300": mk(300)}
+    elif qwen2:
+        prompts = {"p6000": mk(QWEN2_PROMPT), "p300": mk(300)}
     elif mode == "bf16":
         prompts = {"p100": mk(100), "p700": mk(700), "p1500": mk(1500),
                    "p1900": mk(1900)}
@@ -3480,7 +3850,7 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         # one more SSE stream, usage not requested
         report["sse"] = check_stream("sse", http_completion(port, {
             **greedy, "prompt": mk(200), "stream": True}), max_tokens, False)
-        if mode == "bf16" and not gemma and not mla and not phi3:
+        if mode == "bf16" and not (gemma or mla or phi3 or qwen2):
             # a repeated prompt: its full blocks hit the prefix cache, so
             # the prefill runs only the tail, at start_pos > 0
             hits0 = pool.match_hits
@@ -3654,6 +4024,42 @@ for int8 in (False, True):
     out["ragged_paged_attention" + "_int8" * int8] = [
         e["ms"], e["full_batch"]["ms"], e["decode_step"]["ms"]]
 print("AB " + json.dumps(out), flush=True)
+# K3's and K4's output bits at the groups every checkout compiles (1, 2, 4
+# and 8 at each head dim, both pools) on inputs drawn from one seed
+import hashlib
+from dynamo_tpu_torch.engine import attention
+gen, bits = torch.Generator(device=dev), {}
+gen.manual_seed(123)
+i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+spans = [(64, 64), (20, 300), (1, 1), (1, 1024), (40, 1000), (0, 0),
+         (1, 513), (3, 130), (0, 0)]
+counts = [n for n, _ in spans]
+starts = [sum(counts[:i]) for i in range(len(spans))]
+for Dh in (64, 96, 128, 256):
+    for g in (1, 2, 4, 8):
+        for int8 in (False, True):
+            H, KVH, M, bs = 2 * g, 2, 64, 16
+            k, v = (torch.randn(((9 * M + 1) * bs, KVH * Dh), generator=gen,
+                                device=dev).bfloat16() for _ in range(2))
+            if int8:
+                k, v = attention.quantize_kv_rows(k), attention.quantize_kv_rows(v)
+            tables = (torch.randperm(9 * M, generator=gen, device=dev)
+                      + 1).reshape(9, M).to(torch.int32)
+            q3 = torch.randn((9, H, Dh), generator=gen, device=dev).bfloat16()
+            q4 = torch.randn((sum(counts), H, Dh), generator=gen,
+                             device=dev).bfloat16()
+            kw = dict(block_size=bs, scale=Dh ** -0.5)
+            o3 = attention.paged_attention(
+                q3, k, v, tables, i32([1, 127, 128, 129, 300, 700, 1024, 0, 513]),
+                **kw)
+            o4 = attention.ragged_paged_attention(
+                q4, k, v, tables, i32(starts), i32(counts),
+                i32([c for _, c in spans]), max_rows=64, **kw)
+            pool = "int8" if int8 else "bf16"
+            for name, o in (("k3", o3), ("k4", o4)):
+                bits[f"{name}_dh{Dh}_g{g}_{pool}"] = hashlib.sha256(
+                    o.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+print("BITS " + json.dumps(bits), flush=True)
 """
 
 
@@ -3662,18 +4068,22 @@ def ab_compare(other: str) -> int:
     of this one in turns (other, this, this, other) and print each turn's
     times (ms: K1's four cases, K2's five hops, K3's mix and full batch,
     K4's mix, full batch and decode step) and their ratios, this over
-    other, of the turns' means."""
+    other, of the turns' means; then compare K3's and K4's output bits at
+    the groups both compile (1, 2, 4, 8) across the turns, and fail where
+    any differ."""
     card = card_line()
-    turns = []
+    turns, digests = [], []
     for side in ("other", "this", "this", "other"):
         root = os.path.abspath(other) if side == "other" else ROOT
         res = subprocess.run([sys.executable, "-c", AB_TURN], cwd=root,
                              capture_output=True, text=True, timeout=1200)
         line = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
-        if res.returncode != 0 or not line:
+        bits = [x for x in res.stdout.splitlines() if x.startswith("BITS ")]
+        if res.returncode != 0 or not line or not bits:
             print(res.stdout[-3000:] + res.stderr[-3000:], file=sys.stderr)
             return 1
         turns.append((side, json.loads(line[0][3:])))
+        digests.append(json.loads(bits[0][5:]))
         log(f"ab {side} {root} {json.dumps(turns[-1][1])} [{card}]")
     mean = {side: {k: [sum(t[k][i] for s, t in turns if s == side) / 2
                        for i in range(len(v))] for k, v in turns[0][1].items()}
@@ -3681,7 +4091,11 @@ def ab_compare(other: str) -> int:
     ratio = {k: [a / b for a, b in zip(v, mean["other"][k])]
              for k, v in mean["this"].items()}
     log(f"ab this/other {json.dumps(ratio)} [{card}]")
-    return 0
+    differ = sorted(k for k in digests[0]
+                    if len({d.get(k) for d in digests}) != 1)
+    log(f"ab bits: {len(digests[0]) - len(differ)} of {len(digests[0])} "
+        f"K3 / K4 outputs the same in all four turns; differ: {differ}")
+    return 1 if differ else 0
 
 
 def main() -> int:
@@ -3717,39 +4131,45 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     # 2. build
-    t0 = time.monotonic()
-    kernels.LIBRARY.get()
-    log(f"build: {time.monotonic() - t0:.1f} s")
+    with phase("2"):
+        t0 = time.monotonic()
+        kernels.LIBRARY.get()
+        log(f"build: {time.monotonic() - t0:.1f} s")
     for block in kernels.LIBRARY.build_log:
         for line in block.splitlines():
             if (line.startswith("==") or "ptxas info" in line
                     or "spill" in line):
                 log(line)
 
-    # 3. kernels at the 8B shapes
+    # 3. kernels at the 8B shapes (the model phases at LAYERS' depth)
     cfg = bench_model_config("8b")
-    entries = [check_flash_prefill(cfg, dev),
-               check_flash_prefill_partial(cfg, dev),
-               check_paged_attention(cfg, dev),
-               check_paged_attention(cfg, dev, int8=True),
-               check_lm_head_int8(cfg, dev), check_grouped_int4(cfg, dev),
-               check_ragged_attention(cfg, dev),
-               check_ragged_attention(cfg, dev, int8=True)]
-    entries[1]["ring"] = check_ring(cfg, dev)
+    with phase("3"):
+        entries = [check_flash_prefill(cfg, dev),
+                   check_flash_prefill_partial(cfg, dev),
+                   check_paged_attention(cfg, dev),
+                   check_paged_attention(cfg, dev, int8=True),
+                   check_lm_head_int8(cfg, dev),
+                   check_grouped_int4(cfg, dev),
+                   check_ragged_attention(cfg, dev),
+                   check_ragged_attention(cfg, dev, int8=True)]
+        entries[1]["ring"] = check_ring(cfg, dev)
+    cfg = at_depth(cfg, LAYERS["8b"])
 
     # 4. the model through the kernels vs the plain versions, per mode
     seed = 0
-    for mode in MODEL_MODES:
-        check_model(cfg, dev, seed, mode, LLAMA_RUN)
-    check_sampling_noise(cfg, dev)
+    with phase("4"):
+        for mode in MODEL_MODES:
+            with phase(f"4 {mode}"):
+                check_model(cfg, dev, seed, mode, LLAMA_RUN)
+        check_sampling_noise(cfg, dev)
 
     # 5. serving: bf16, quantized, both again with --ragged, then bf16 with
     # sequence-parallel prefill; each path's launch counts cover its own
     # phase alone, and each kernel reports those of the first path that
     # must launch it
-    by_path = {path: serve_phase(cfg, seed, card, path)
-               for path in PATH_KERNELS
-               if path not in GEMMA_PATHS + MLA_PATHS + PHI3_PATHS}
+    with phase("5"):
+        by_path = {path: serve_phase(cfg, seed, card, path)
+                   for path in PATH_KERNELS if path not in LATER_PATHS}
     compare_servers(card, by_path["bf16"][1], by_path["sp"][1], "sp")
     compare_servers(card, by_path["int4_kv8"][1], by_path["dispatch"][1],
                     "dispatch", "int4_kv8")
@@ -3757,43 +4177,72 @@ def main() -> int:
     # 3g-5g. the Gemma-2-9B geometry: its kernels' modes, the model through
     # them, and its servers
     gcfg = gemma_config()
-    entries += check_gemma_kernels(gcfg, dev)
-    for mode in ("bf16", "int4_kv8"):
-        check_model(gcfg, dev, seed, mode, GEMMA_RUN)
-    by_path.update({path: serve_phase(gcfg, seed, card, path)
-                    for path in GEMMA_PATHS})
+    with phase("3g"):
+        entries += check_gemma_kernels(gcfg, dev)
+    gcfg = at_depth(gcfg, LAYERS["gemma2"])
+    with phase("4g"):
+        for mode in ("bf16", "int4_kv8"):
+            check_model(gcfg, dev, seed, mode, GEMMA_RUN)
+    with phase("5g"):
+        by_path.update({path: serve_phase(gcfg, seed, card, path)
+                        for path in GEMMA_PATHS})
 
     # 3m-5m. the DeepSeek-V2-Lite geometry: the latent kernels, the model
     # through them over a bf16 and an int8 pool, and its servers
     mcfg = mla_config()
-    k4_int8 = check_ragged_attention(mcfg, dev, int8=True, cases=MLA_ATTN)
-    # the JAX MLA model gathers over int8 pools on its ragged path
-    # (mla.py ragged_forward), and so does the port: this mode runs in
-    # phase 3m alone
-    k4_int8["on_main_path"] = False
-    entries += [check_paged_attention(mcfg, dev, cases=MLA_ATTN),
-                check_paged_attention(mcfg, dev, int8=True, cases=MLA_ATTN),
-                check_ragged_attention(mcfg, dev, cases=MLA_ATTN), k4_int8]
-    for mode in ("bf16", "bf16_kv8"):
-        check_model(mcfg, dev, seed, mode, MLA_RUN)
-    by_path.update({path: serve_phase(mcfg, seed, card, path)
-                    for path in MLA_PATHS})
+    with phase("3m"):
+        k4_int8 = check_ragged_attention(mcfg, dev, int8=True,
+                                         cases=MLA_ATTN)
+        # the JAX MLA model gathers over int8 pools on its ragged path
+        # (mla.py ragged_forward), and so does the port: this mode runs in
+        # phase 3m alone
+        k4_int8["on_main_path"] = False
+        entries += [check_paged_attention(mcfg, dev, cases=MLA_ATTN),
+                    check_paged_attention(mcfg, dev, int8=True,
+                                          cases=MLA_ATTN),
+                    check_ragged_attention(mcfg, dev, cases=MLA_ATTN),
+                    k4_int8]
+    mcfg = at_depth(mcfg, LAYERS["mla"])
+    with phase("4m"):
+        for mode in ("bf16", "bf16_kv8"):
+            check_model(mcfg, dev, seed, mode, MLA_RUN)
+    with phase("5m"):
+        by_path.update({path: serve_phase(mcfg, seed, card, path)
+                        for path in MLA_PATHS})
 
     # 3p-5p. the Phi-3-mini geometry: head dim 96 and its every-layer
     # window in K1-K4, K5 and K6 at its widths, the model through them, and
     # its servers
     pcfg = phi3_config()
-    entries += check_phi3_kernels(pcfg, dev)
-    for mode in ("bf16", "int4_kv8"):
-        check_model(pcfg, dev, seed, mode, PHI3_RUN)
-    by_path.update({path: serve_phase(pcfg, seed, card, path)
-                    for path in PHI3_PATHS})
-    rest = [p for p in PATH_KERNELS
-            if p not in GEMMA_PATHS + MLA_PATHS + PHI3_PATHS]
+    with phase("3p"):
+        entries += check_phi3_kernels(pcfg, dev)
+    pcfg = at_depth(pcfg, LAYERS["phi3"])
+    with phase("4p"):
+        for mode in ("bf16", "int4_kv8"):
+            check_model(pcfg, dev, seed, mode, PHI3_RUN)
+    with phase("5p"):
+        by_path.update({path: serve_phase(pcfg, seed, card, path)
+                        for path in PHI3_PATHS})
+
+    # 3q-5q. the Qwen2-7B geometry: the GQA group of 7 (and 3, 5, 6) in K3
+    # and K4, K1 and K2 at g = 7, K5 and K6 at its widths, the model with
+    # its live qkv biases through them, and its servers
+    qcfg = qwen2_config()
+    with phase("3q"):
+        entries += check_qwen2_kernels(qcfg, dev)
+    qcfg = at_depth(qcfg, LAYERS["qwen2"])
+    with phase("4q"):
+        for mode in ("bf16", "int4_kv8"):
+            check_model(qcfg, dev, seed, mode, QWEN2_RUN)
+    with phase("5q"):
+        by_path.update({path: serve_phase(qcfg, seed, card, path)
+                        for path in QWEN2_PATHS})
+    rest = [p for p in PATH_KERNELS if p not in LATER_PATHS]
     for e in entries:
         mode = e.get("mode", "")
         paths = (MLA_PATHS if mode.startswith("mla")
                  else PHI3_PATHS if mode.startswith("phi3")
+                 else QWEN2_PATHS if mode.startswith("qwen2")
                  else GEMMA_PATHS if mode else rest)
         path = next((p for p in paths if e["name"] in PATH_KERNELS[p]), None)
         if path is None and e.get("on_main_path") is not False:
@@ -3801,6 +4250,7 @@ def main() -> int:
                                f"served path lists it")
         e["launches"] = by_path[path][0][e["name"]] if path else 0
         e["launches_path"] = path
+    log(f"phases {json.dumps(PHASE_S)} [{card}]")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,13 @@
 // decode step calls once per layer.
 //
 // Contract (the Pallas kernel without its MLA modes, `v_lanes` and
-// `quant_sections`): q [B, H, Dh] bf16, Dh 64, 96, 128 or 256; one layer's pool
+// `quant_sections`): q [B, H, Dh] bf16, Dh 64, 96, 128 or 256, GQA group g =
+// H / KVH of 1-8 at Dh 64 and 128, 1, 2, 4 or 8 at Dh 96 and 256 (a template
+// argument: the score, softmax and P.V loops and the merge take any g; at
+// Dh 128 in bf16 a CTA's shared memory is 72.7 KiB at g = 4, 75.8 at g = 7
+// and 76.8 at g = 8, so three CTAs share an SM up to g = 6 and two at g = 7
+// and 8, where 94 registers a thread at g = 8 allow two as well); one
+// layer's pool
 // k_cache/v_cache [NTOK, KVH*Dh] bf16 (token row = block id * block_size +
 // offset); block_tables [B, M] int32; seq_lens [B] int32, the number of keys
 // each sequence sees (the current token included; keys past M * block_size
@@ -601,8 +607,25 @@ cudaError_t launch_g(int g, const void* q, const void* k, const void* v, const i
     case 8:
       return launch<Dh, 8, kInt8>(DTT_PAGED_ARGS);
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
+  // the other groups of 1-8 at head dims 64 and 128 only (qwen2, Qwen2.5,
+  // Llama-3.2-3B): no model on the queue needs them at 96 or 256
+  if constexpr (Dh == 64 || Dh == 128) {
+    switch (g) {
+      case 3:
+        return launch<Dh, 3, kInt8>(DTT_PAGED_ARGS);
+      case 5:
+        return launch<Dh, 5, kInt8>(DTT_PAGED_ARGS);
+      case 6:
+        return launch<Dh, 6, kInt8>(DTT_PAGED_ARGS);
+      case 7:
+        return launch<Dh, 7, kInt8>(DTT_PAGED_ARGS);
+      default:
+        break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <bool kInt8>
@@ -635,8 +658,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* block_tabl
 
 }  // namespace
 
-// Both return a cudaError_t (0 = launched). Head dims 64/96/128/256 and GQA
-// group sizes 1/2/4/8 are compiled. The int8 entry takes pools of KVH*Dh +
+// Both return a cudaError_t (0 = launched). Head dims 64/96/128/256 are
+// compiled; GQA group sizes 1-8 at Dh 64 and 128, 1/2/4/8 at Dh 96 and 256
+// (kernels.GROUPS). The int8 entry takes pools of KVH*Dh +
 // 128 int8 lanes per row. `win_lo`: [B] int32 or null (a global layer);
 // `softcap`: 0 = off. `scratch`: see the contract above.
 extern "C" int dtt_paged_attention_bf16(const void* q, const void* k_cache, const void* v_cache,

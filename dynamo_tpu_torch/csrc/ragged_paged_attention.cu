@@ -8,7 +8,9 @@
 //
 // Contract (the Pallas kernel without its MLA modes, `v_lanes` and
 // `quant_sections`): q [TT, H, Dh] bf16 flat token rows, Dh 64, 96, 128
-// or 256; one layer's pool k_cache/v_cache [NTOK, KVH*Dh] bf16 (token row =
+// or 256, GQA group g = H / KVH of 1-8 at Dh 64 and 128, 1, 2, 4 or 8 at Dh
+// 96 and 256 (the wrapper's table; the kernel takes g at run time); one
+// layer's pool k_cache/v_cache [NTOK, KVH*Dh] bf16 (token row =
 // block id * block_size + offset); block_tables [S, M] int32; seq_starts,
 // seq_counts, seq_lens [S] int32; win_base [S] int32 or null (a global
 // layer). Sequence s owns the rows [starts[s], starts[s] + counts[s]) at
@@ -50,11 +52,18 @@
 // its bound in bf16 / int8 (PERF.md).
 //
 // Design (split-K flash attention over the pool):
-// - A work item is (row tile, KV head, sequence): R = 64/g rows of one
-//   sequence times the g query heads of one KV head, 64 (row, head) query
-//   vectors ordered row-major, 16 per warp (K1's register layout,
+// - A work item is (row tile, KV head, sequence): R = floor(64 / g) rows of
+//   one sequence times the g query heads of one KV head, R * g (row, head)
+//   query vectors ordered row-major, 16 per warp (K1's register layout,
 //   csrc/flash_prefill.cu). The g heads and R rows share each K/V tile in
 //   shared memory, so a chunk of T rows reads its KV once per item.
+// - Where g does not divide 64 (g = 3, 5, 6, 7) the tile's last 64 - R * g
+//   vectors are pads: vector V maps to row r0 + V / g, which for a pad is
+//   the next tile's first row, and this tile's key range ends at its own
+//   last row. A vector is owned only if V < R * g and its row is one the
+//   sequence has: a pad's Q is zero-filled and it writes no output, no
+//   partial and no (m, l), or it would overwrite the next tile's row with
+//   one that lacks its own key (a race with no error).
 // - Each item's keys are cut into chunks, one CTA per chunk: K3's plan
 //   (128 keys rounded up to whole blocks, attention.decode_split_plan) for
 //   a tile of at most 16 live query vectors, twice that for a wider tile,
@@ -340,14 +349,15 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
   __shared__ int sLast;
   __shared__ float sMx[kRows], sInv[kRows];
 
-  // Q tile: vector v -> row r0 + v / g, head kvh*g + v % g; rows past the
-  // span are zero-filled
+  // Q tile: vector v -> row r0 + v / g, head kvh*g + v % g; pad vectors
+  // and rows past the span are zero-filled
+  const int n_own = rows_per_cta * g;  // the tile's vectors; the rest pads
   {
     constexpr int kVec = Dh / 8;
     for (int i = tid; i < kRows * kVec; i += kThreads) {
       const int v = i / kVec, c = (i % kVec) * 8;
       const int r = r0 + v / g;
-      const bool ok = r < Ls;
+      const bool ok = v < n_own && r < Ls;
       const __nv_bfloat16* src = ok ? q + ((long)(start + r) * H + kvh * g + v % g) * Dh + c : q;
       cp_async16(sQ + v * kStride + c, src, ok ? 16 : 0);
     }
@@ -373,6 +383,8 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
   // this thread's two vectors
   const int V0 = warp * 16 + gid, V1 = V0 + 8;
   const int row0 = r0 + V0 / g, row1 = r0 + V1 / g;
+  // what this thread may write: neither a pad nor a row past the span
+  const bool own0 = V0 < n_own && row0 < Ls, own1 = V1 < n_own && row1 < Ls;
   const int qpos0 = pos0 + row0, qpos1 = pos0 + row1;
   const int wlo0 = windowed ? wb + row0 : -1, wlo1 = windowed ? wb + row1 : -1;
 
@@ -540,9 +552,9 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
 #pragma unroll
     for (int j = 0; j < kDTiles; ++j) {
       const int c = j * 8 + tig * 2;
-      if (row0 < Ls)
+      if (own0)
         *reinterpret_cast<uint32_t*>(out0 + c) = pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
-      if (row1 < Ls)
+      if (own1)
         *reinterpret_cast<uint32_t*>(out1 + c) = pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
     }
     return;
@@ -555,17 +567,17 @@ ragged_attention_kernel(const __nv_bfloat16* __restrict__ q, const void* __restr
 #pragma unroll
   for (int j = 0; j < kDTiles; ++j) {
     const int c = j * 8 + tig * 2;
-    if (row0 < Ls)
+    if (own0)
       *reinterpret_cast<float2*>(part.acc + slot0 * Dh + c) = make_float2(o[j][0], o[j][1]);
-    if (row1 < Ls)
+    if (own1)
       *reinterpret_cast<float2*>(part.acc + slot1 * Dh + c) = make_float2(o[j][2], o[j][3]);
   }
   if (tig == 0) {
-    if (row0 < Ls) {
+    if (own0) {
       part.m[slot0] = m0;
       part.l[slot0] = l0;
     }
-    if (row1 < Ls) {
+    if (own1) {
       part.m[slot1] = m1;
       part.l[slot1] = l1;
     }
@@ -731,8 +743,9 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache, const void
   if (TT <= 0 || S <= 0 || max_rows <= 0) return 0;
   if (KVH <= 0 || H % KVH != 0 || M <= 0 || block_size <= 0 || softcap < 0.f)
     return (int)cudaErrorInvalidValue;
-  const int g = H / KVH;
-  if (g != 1 && g != 2 && g != 4 && g != 8) return (int)cudaErrorInvalidValue;
+  // any group of up to 64 heads runs (g is a runtime value); the wrapper
+  // holds the table of the tested ones (kernels.GROUPS)
+  if (H / KVH > kRows) return (int)cudaErrorInvalidValue;
   const int* tables = static_cast<const int*>(block_tables);
   const int* starts = static_cast<const int*>(seq_starts);
   const int* counts = static_cast<const int*>(seq_counts);
@@ -757,8 +770,9 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache, const void
 
 }  // namespace
 
-// Both return a cudaError_t (0 = launched). Head dims 64/96/128/256 and GQA
-// group sizes 1/2/4/8 are compiled. `out` must be zero-filled by the caller
+// Both return a cudaError_t (0 = launched). Head dims 64/96/128/256 are
+// compiled; the wrapper takes GQA group sizes 1-8 at Dh 64 and 128 and
+// 1/2/4/8 at Dh 96 and 256 (kernels.GROUPS). `out` must be zero-filled by the caller
 // (only owned rows are written). The int8 entry takes pools of KVH*Dh + 128
 // int8 lanes per row. `win_base`: [S] int32 or null (a global layer);
 // `softcap`: 0 = off. `scratch`, `tickets`: see the contract above.

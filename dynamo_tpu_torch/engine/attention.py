@@ -692,8 +692,9 @@ def ragged_paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``csrc/ragged_paged_attention.cu`` (K4), and in the MLA modes
     ``csrc/latent_attention.cu`` (K4-MLA, no soft-cap, no window). K4's
     shape rule (not the TPU kernel's VMEM budget, ``ragged_supported``):
-    Dh 64, 96, 128 or 256, H/KVH in {1, 2, 4, 8}, the pool's rows a whole
-    number of blocks; any row budget."""
+    Dh 64, 96, 128 or 256, H/KVH in ``kernels.GROUPS`` of that head dim
+    (1-8 at 64 and 128; 1, 2, 4 or 8 at 96 and 256), the pool's rows a
+    whole number of blocks; any row budget."""
     check_latent_modes(q, k_cache, v_lanes, quant_sections)
     if not q.is_cuda:
         return ragged_paged_attention_ref(

@@ -228,10 +228,13 @@ def add_launches(counts: Dict[str, int]) -> None:
         KERNELS[name].launches += n
 
 
-# the head dims the attention kernels (K1-K4) are compiled for (96: phi3)
-HEAD_DIMS = (64, 96, 128, 256)
-# the GQA group sizes K3 and K4 are compiled for
-GROUPS = (1, 2, 4, 8)
+# the GQA group sizes K3 and K4 are compiled for, by head dim: every group
+# of 1-8 at 64 and 128 (qwen2's 7 and 6, Qwen2.5-14B's 5, Llama-3.2-3B's
+# 3), the powers of two at 96 (phi3) and 256 (gemma2)
+GROUPS = {64: (1, 2, 3, 4, 5, 6, 7, 8), 96: (1, 2, 4, 8),
+          128: (1, 2, 3, 4, 5, 6, 7, 8), 256: (1, 2, 4, 8)}
+# the head dims the attention kernels (K1-K4) are compiled for
+HEAD_DIMS = tuple(GROUPS)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
@@ -318,14 +321,14 @@ def _check_paged(kernel: Kernel, pool_dtype: torch.dtype, scale_lanes: int,
     C = lanes - scale_lanes
     KVH = C // Dh
     if (v_cache.shape != k_cache.shape or C % Dh or KVH == 0 or H % KVH
-            or Dh not in HEAD_DIMS or H // KVH not in GROUPS
+            or H // KVH not in GROUPS.get(Dh, ())
             or seq_lens.shape[0] != block_tables.shape[0]
             or NTOK % block_size):
         raise ValueError(
             f"{kernel.name}: unsupported shapes q={tuple(q.shape)} "
             f"pool={tuple(k_cache.shape)} tables={tuple(block_tables.shape)} "
             f"seq_lens={tuple(seq_lens.shape)} block_size={block_size} "
-            f"(Dh in {HEAD_DIMS}, H / KVH in {GROUPS})")
+            f"(H / KVH by Dh in kernels.GROUPS: {GROUPS})")
     return H, KVH, Dh
 
 

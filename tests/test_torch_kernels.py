@@ -228,7 +228,10 @@ def _split_case(dev, int8, lens, H, KVH, Dh, M, bs=16, seed=4):
 # the exp2 domain within 1e-3, l within 1e-3 relative: the same bf16
 # products summed in another order) and merge to its output; leaving out
 # one split's partial in that merge must fail the row-relative limit.
-K3_GEOMS = [(Dh, g) for Dh in (64, 96, 128) for g in (1, 2, 4, 8)]
+K3_GEOMS = ([(Dh, g) for Dh in (64, 96, 128) for g in (1, 2, 4, 8)]
+            # the groups qwen2 (7, 6), Qwen2.5-14B (5) and Llama-3.2-3B (3)
+            # bring, at the head dims that compile them
+            + [(Dh, g) for Dh in (64, 128) for g in (3, 5, 6, 7)])
 
 
 @pytest.mark.parametrize("Dh,g", K3_GEOMS,
@@ -528,9 +531,13 @@ def _ragged_inputs(gen, dev, int8: bool, H=32, KVH=8, Dh=128):
 
 
 # (H, KVH, Dh): the 8B heads (g = 4, 16 rows per CTA), then g = 1 (64 rows
-# per CTA) and g = 8 (8 rows per CTA) at head dims 64 and 96 (phi3)
+# per CTA) and g = 8 (8 rows per CTA) at head dims 64 and 96 (phi3), then
+# the groups whose row tiles leave pad vectors: Qwen2-7B's g = 7 (9 rows
+# and one pad a CTA), Qwen2-1.5B's g = 6 at Dh 64, g = 5 and Llama-3.2-3B's
+# g = 3 at Dh 128
 RAGGED_GEOMS = [(32, 8, 128), (8, 8, 64), (16, 2, 64), (8, 8, 96),
-                (16, 2, 96)]
+                (16, 2, 96), (28, 4, 128), (12, 2, 64), (40, 8, 128),
+                (24, 8, 128)]
 
 
 @pytest.mark.parametrize("geom", RAGGED_GEOMS,
@@ -566,6 +573,80 @@ def test_ragged_paged_attention_kernel_matches_plain(int8, geom):
     assert out[~owned].abs().max().item() == 0.0
     assert _row_rel_err(out, ref, owned) <= ROW_REL_TOL
     assert _row_rel_err(fault, ref, owned) > ROW_REL_TOL
+
+
+# K4 at the groups that leave pad vectors in a row tile (g = 3, 5, 6, 7):
+# two sequences that cross row tiles, one whose tiles have one live chunk
+# (a fresh 30-row prompt: the direct write) and one whose tiles have
+# several (40 rows continuing to 1000 keys: the partials and the merge),
+# a decode row, the trash sequence. Every row a pad vector maps to gets its
+# own key planted (chip_smoke.plant_own_keys), so that the output a pad
+# vector would write over it, which lacks that key, reads far above the
+# limit; four more calls give the same bits.
+PAD_MIX = [(30, 30), (40, 1000), (1, 500), (0, 0)]
+PAD_GEOMS = [(28, 4, 128), (14, 2, 64), (12, 2, 64), (12, 2, 128),
+             (40, 8, 128), (24, 8, 128)]
+
+
+@pytest.mark.parametrize("geom", PAD_GEOMS,
+                         ids=lambda p: "h{}-kvh{}-dh{}".format(*p))
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_kernel_writes_no_pad_vector(int8, geom):
+    from chip_smoke import pad_vectors_written, plant_own_keys
+    dev = _device()
+    H, KVH, Dh = geom
+    g, bs, M = H // KVH, 16, 64
+    gen = torch.Generator(device=dev).manual_seed(6)
+    S = len(PAD_MIX)
+    starts_l, cursor = [], 0
+    for n, _ in PAD_MIX:
+        starts_l.append(cursor)
+        cursor += n
+    k, v = _paged_pool(gen, dev, int8, (S * M + 1) * bs, KVH * Dh)
+    tables = (torch.randperm(S * M, generator=gen, device=dev) + 1).reshape(
+        S, M).to(torch.int32)
+    tables[-1] = 0
+    q = torch.randn((cursor, H, Dh), generator=gen, device=dev).bfloat16()
+    crossed = plant_own_keys(k, q, tables, starts_l, PAD_MIX, g, bs)
+    assert {s for s, _ in crossed} == {0, 1}
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    args = (q, k, v, tables, i32(starts_l), i32([n for n, _ in PAD_MIX]),
+            i32([c for _, c in PAD_MIX]))
+    kw = dict(block_size=bs, scale=Dh ** -0.5, max_rows=64)
+    out = attention.ragged_paged_attention(*args, **kw)
+    again = [attention.ragged_paged_attention(*args, **kw) for _ in range(4)]
+    ref = attention.ragged_paged_attention_ref(*args, **kw)
+    fault = pad_vectors_written(out, q, k, v, tables, starts_l, PAD_MIX,
+                                crossed, g, block_size=bs, scale=kw["scale"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(out, a) for a in again)
+    assert torch.isfinite(out).all()
+    assert _row_rel_err(out, ref, slice(None)) <= ROW_REL_TOL
+    assert _row_rel_err(fault, ref, slice(None)) > ROW_REL_TOL
+
+
+def test_attention_kernels_refuse_groups_outside_the_table():
+    """K3 and K4 take the groups of kernels.GROUPS for the head dim and
+    raise on any other, in both pools, never handing the call to the plain
+    version: groups above 8, and 7 at head dims 96 and 256."""
+    dev = _device()
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    for Dh, g in ((128, 9), (64, 16), (96, 7), (256, 7)):
+        assert Dh in kernels.HEAD_DIMS and g not in kernels.GROUPS[Dh]
+        q = torch.zeros((4, g, Dh), dtype=torch.bfloat16, device=dev)
+        for pool in (torch.zeros((16, Dh), dtype=torch.bfloat16, device=dev),
+                     torch.zeros((16, Dh + 128), dtype=torch.int8,
+                                 device=dev)):
+            n0 = {k: x.launches for k, x in kernels.KERNELS.items()}
+            with pytest.raises(ValueError, match="GROUPS"):
+                attention.paged_attention(q, pool, pool, i32([[1]] * 4),
+                                          i32([1] * 4), block_size=16,
+                                          scale=0.1)
+            with pytest.raises(ValueError, match="GROUPS"):
+                attention.ragged_paged_attention(
+                    q, pool, pool, i32([[1]]), i32([0]), i32([4]), i32([4]),
+                    block_size=16, scale=0.1, max_rows=64)
+            assert n0 == {k: x.launches for k, x in kernels.KERNELS.items()}
 
 
 def test_ragged_kernel_refuses_unsupported_options():
