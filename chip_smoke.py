@@ -6,12 +6,15 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --ab DIR`` runs only phase 3's attention kernels
-(K1-K4 at the 8B shapes) of the checkout at DIR (another commit, unpacked
-with ``git archive``) and of this checkout in turns on the one card, and
-prints their times and ratios (``ab_compare``): a change's effect on the
-kernels it did not mean to touch, read within one run; it fails unless K3
-and K4 give the same output bits in every turn at the GQA groups both
-checkouts compile.
+(K1-K4 at the 8B shapes) and phase 3m's latent kernels of the checkout at
+DIR (another commit, unpacked with ``git archive``) and of this checkout
+in turns on the one card, and prints their times and ratios
+(``ab_compare``): a change's effect on the kernels, read within one run;
+it fails unless K3 and K4 give the same output bits in every turn at the
+GQA groups both checkouts compile. ``python3 chip_smoke.py --ab DIR
+latent`` times the latent kernels alone; ``python3 chip_smoke.py --ab DIR
+serve`` runs phases 4m and 5m of both checkouts in the same turns instead
+(``ab_serve``).
 
 Phases, each failing the run (non-zero exit, no result line) on error:
 
@@ -129,7 +132,11 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    bits, the kernel's own split partials merged in plain PyTorch (and
    with a split left out), timed cold beside its bound, the plain
    version and one ``scaled_dot_product_attention`` call over the
-   gathered rows (the first backend that takes the shapes, named);
+   gathered rows (the first backend that takes the shapes, named); K3-MLA
+   also on one 4096-key row, K4-MLA on a pad-row mix (counts not a
+   multiple of its 4-row tiles), each row a pad falls on given its own
+   key, so that a pad's write reads far above the limit; and the clusters
+   of each latent instantiation the card holds at once;
 4m. model: phase 4's checks (``check_model``, ``MLA_RUN``) at V2-Lite's
    full width and depth (27 layers, 64 routed experts of which 6 active,
    2 shared; random bf16 weights) over a bf16 and an int8 latent pool: a
@@ -887,7 +894,8 @@ class AttnCases:
     faults (pool_faults' signature); the kernels-line mode (None: the 8B
     entries); the inputs' seed offset; whether a global layer with no
     soft-cap also times ``torch.compile(flex_attention)`` beside SDPA
-    (the yardstick is then the faster)."""
+    (the yardstick is then the faster); K4-MLA's pad-row mix and K3-MLA's
+    one long row (None: not run)."""
     max_len: int
     paged_mix: list
     paged_boundary: Optional[list]
@@ -907,6 +915,8 @@ class AttnCases:
     mode: Optional[str] = None
     seed: int = 0
     flex: bool = False
+    ragged_pad: Optional[list] = None
+    paged_single: Optional[list] = None
 
     @property
     def plain_f32(self) -> bool:
@@ -1040,6 +1050,61 @@ def pad_vectors_written(out, q, k_cache, v_cache, tables, starts_l, mix,
         for kvh in range(q.shape[1] // g):
             for h in heads:
                 bad[row, kvh * g + h] = o[0, kvh * g + h].to(bad.dtype)
+    return bad
+
+
+def latent_pad_crossings(starts_l, mix, TT: int) -> list:
+    """K4-MLA's pad rows that fall on rows of q: (sequence, pad row r >=
+    its count in its last tile of LATENT_TILE_ROWS rows, the flat row r
+    maps to) for each such r whose flat row is below TT (that of another
+    sequence, or of none)."""
+    from dynamo_tpu_torch.engine.attention import LATENT_TILE_ROWS as R
+    return [(s, r, starts_l[s] + r) for s, (n, _) in enumerate(mix) if n
+            for r in range(n, -(-n // R) * R) if starts_l[s] + r < TT]
+
+
+# the planted key's gain over the sum of its row's 16 queries: its score
+# then stands ~12 above the random keys' spread of ~0.5 (log units)
+MLA_OWN_KEY_GAIN = 30.0
+
+
+def plant_latent_own_keys(pool, q, tables, starts_l, mix, crossed, bs: int,
+                          lanes: int, sections=None) -> None:
+    """At each crossed row's (latent_pad_crossings) own position in its
+    sequence, a latent row of MLA_OWN_KEY_GAIN x the sum of the row's 16
+    queries over the ``lanes`` value lanes (over an int8 pool its
+    ``sections`` encoding), so that the row's own key outweighs the
+    others and a pad's output, which lacks it, moves the row by far more
+    than the limit."""
+    import torch
+    from dynamo_tpu_torch.engine.attention import quantize_kv_rows_sections
+    owner = {starts_l[s] + r: (s, c - n + r)
+             for s, (n, c) in enumerate(mix) for r in range(n)}
+    for _, _, row in crossed:
+        s, pos = owner[row]
+        slot = int(tables[s, pos // bs]) * bs + pos % bs
+        vals = MLA_OWN_KEY_GAIN * q[row].float().sum(0)[:lanes]
+        new = (quantize_kv_rows_sections(vals[None], sections)[0]
+               if sections else vals.to(pool.dtype))
+        pool[slot] = 0
+        pool[slot, :new.shape[0]] = new
+
+
+def latent_pad_rows_written(out, q, pool, tables, mix, crossed, **kw):
+    """K4-MLA's output as a kernel would leave it whose pad rows wrote:
+    each crossed row (latent_pad_crossings) as its pad computes it, its
+    query over the pad's sequence's keys up to the pad's position (the
+    plain version, ``kw`` its block size, scale and modes)."""
+    import torch
+    from dynamo_tpu_torch.engine import attention
+    bad = out.clone()
+    for s, r, row in crossed:
+        n, c = mix[s]
+        lens = torch.tensor([c - n + r + 1], dtype=torch.int32,
+                            device=q.device)
+        bad[row] = attention.paged_attention_ref(
+            q[row:row + 1], pool, None, tables[s:s + 1], lens,
+            **kw)[0].to(bad.dtype)
     return bad
 
 
@@ -1311,7 +1376,11 @@ def check_paged_attention(cfg, dev, int8: bool = False,
     g, W, cap = H // KVH, cases.window, cases.softcap
     bs = cases.block[int8]
     M = cases.max_len // bs
-    chunk, S = attention.decode_split_plan(M, bs)
+    # K3's splits of the table's width; K3-MLA's latent_decode_splits(B)
+    # of the keys each row sees (its chunk on the device: None here)
+    chunk, S = ((None, attention.latent_decode_splits(len(cases.paged_mix)))
+                if cases.v_lanes is not None
+                else attention.decode_split_plan(M, bs))
     kw = dict(block_size=bs, scale=attn_scale(cfg, cases))
     latent = dict(v_lanes=cases.v_lanes,
                   quant_sections=cases.sections if int8 else None)
@@ -1320,6 +1389,14 @@ def check_paged_attention(cfg, dev, int8: bool = False,
 
     def run(label: str, lens, seed: int, timed: bool,
             merge: bool = False) -> dict:
+        splits = (attention.latent_decode_splits(len(lens)) if chunk is None
+                  else S)
+
+        def live_splits(n: int) -> int:
+            if chunk is None:
+                return attention.latent_split_plan(min(n, M * bs), splits)[1]
+            return -(-n // chunk)
+
         q, k_cache, v_cache, tables, seq_lens = cases.inputs(
             cfg, dev, seed + cases.seed, lens, int8, bs, M)
         if cases.q_gain != 1.0:
@@ -1398,9 +1475,9 @@ def check_paged_attention(cfg, dev, int8: bool = False,
             # split left out
             (case["kernel_partials_merged_row_rel_err"],
              case["merge_fault_row_rel_err"]) = merged_partials_errors(
-                scratch, (len(lens), KVH, S, g, Dv),
-                {b: -(-n // chunk) for b, n in enumerate(lens) if n > chunk},
-                glob, gref)
+                scratch, (len(lens), KVH, splits, g, Dv),
+                {b: live_splits(n) for b, n in enumerate(lens)
+                 if live_splits(n) > 1}, glob, gref)
         del faults, again, glob, gref, scratch
         if timed:
             case["ms"] = time_ms(kernel, cold=True)
@@ -1440,6 +1517,11 @@ def check_paged_attention(cfg, dev, int8: bool = False,
         case["boundary"] = run("boundary", cases.paged_boundary, 5, False)
     if cases.paged_full:
         case["full_batch"] = run("full", cases.paged_full, 6, True)
+    if cases.paged_single:
+        case["single_row"] = run("single", cases.paged_single, 7, True)
+    if cases.v_lanes is not None:
+        case["clusters_at_once"] = (
+            kernels.LIBRARY.get().dtt_latent_max_active_clusters(int8, 0))
     return attn_entry(name, source, False, cases, chunk, S, case)
 
 
@@ -1471,9 +1553,12 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
     g, W, cap = H // KVH, cases.window, cases.softcap
     bs = cases.block[int8]
     M = cases.max_len // bs
-    chunk, splits = attention.decode_split_plan(M, bs)
+    # K4's splits of the table's width; K4-MLA's LATENT_SPLITS of the keys
+    # each row tile sees (its chunk on the device: None here)
     tile_rows = (attention.LATENT_TILE_ROWS if cases.v_lanes is not None
                  else None)
+    chunk, splits = ((None, attention.LATENT_SPLITS) if tile_rows
+                     else attention.decode_split_plan(M, bs))
     kw = dict(block_size=bs, scale=attn_scale(cfg, cases),
               max_rows=RAGGED_MAX_ROWS)
     latent = dict(v_lanes=cases.v_lanes,
@@ -1503,9 +1588,16 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
                            [(s, starts_l[s]) for s in decode],
                            [int(win_base[s]) for s in decode], g, bs)
         # where g leaves pad vectors in K4's row tiles (g = 3, 5, 6, 7),
-        # each row a pad vector maps to gets its own key planted
-        crossed = (plant_own_keys(k_cache, q, tables, starts_l, mix, g, bs)
-                   if cases.v_lanes is None else [])
+        # each row a pad vector maps to gets its own key planted; on
+        # K4-MLA's pad-row mix, each row a pad row falls on
+        crossed = []
+        if cases.v_lanes is None:
+            crossed = plant_own_keys(k_cache, q, tables, starts_l, mix, g, bs)
+        elif label == "pad":
+            crossed = latent_pad_crossings(starts_l, mix, TT)
+            plant_latent_own_keys(k_cache, q, tables, starts_l, mix, crossed,
+                                  bs, sum(cases.sections),
+                                  cases.sections if int8 else None)
         mode_kw = ({"softcap": cap, "win_base": win_base}
                    if cases.v_lanes is None else latent)
 
@@ -1521,8 +1613,8 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
                 softcap=cap or None, win_base=w, **kw, **latent)
         wide_in = (wide(q), pool(k_cache),
                    None if v_cache is None else pool(v_cache))
-        scratch = (kernels.paged_scratch(q, KVH, M, bs, cases.v_lanes)
-                   if main else None)
+        scratch = (kernels.paged_scratch(q, KVH, M, bs, cases.v_lanes,
+                                         ragged=True) if main else None)
         out, again = kernel(), kernel()
         glob = kernel(scratch=scratch, **({"win_base": None} if W else {}))
         ref = plain(win_base, *wide_in)
@@ -1548,6 +1640,11 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
                 faults["pad_vector_written"] = pad_vectors_written(
                     out, q, k_cache, v_cache, tables, starts_l, mix, crossed,
                     g, block_size=bs, scale=kw["scale"])
+        if crossed and cases.v_lanes is not None:
+            # a pad row's output written over the row it falls on
+            faults["pad_row_written"] = latent_pad_rows_written(
+                out, wide_in[0], wide_in[1], tables, mix, crossed,
+                block_size=bs, scale=kw["scale"], **latent)
         torch.cuda.synchronize()
         what = f"{name} {cases.mode or ''} {label}"
         if not torch.isfinite(out).all():
@@ -1591,20 +1688,32 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
             qc = torch.zeros((RAGGED_CAPACITY,) + q.shape[1:], dtype=q.dtype,
                              device=dev)
             qc[:TT] = q
-            sc = kernels.paged_scratch(qc, KVH, M, bs, cases.v_lanes)
+            sc = kernels.paged_scratch(qc, KVH, M, bs, cases.v_lanes,
+                                       ragged=True)
             oc = kernel(qq=qc, scratch=sc)
             torch.cuda.synchronize()
             if torch.count_nonzero(oc[TT:]).item():
                 raise RuntimeError(f"{what}: rows no sequence owns are not "
                                    f"zero")
+            nbytes = 4 * (sc.numel() if sc is not None else 0)
             case["capacity"] = {
                 "TT": RAGGED_CAPACITY,
-                "scratch_bytes": 4 * (sc.numel() if sc is not None else 0),
-                "max_row_rel_err": row_errors(oc[:TT], ref, rows)[1],
-                "ms_scratch_allocated": time_ms(lambda: kernel(qq=qc),
-                                                cold=True),
-                "ms_scratch_passed_in": time_ms(
-                    lambda: kernel(qq=qc, scratch=sc), cold=True)}
+                "max_row_rel_err": row_errors(oc[:TT], ref, rows)[1]}
+            if tile_rows:
+                # K4-MLA needs no workspace: its partials reach device
+                # memory only when room for them is passed in
+                case["capacity"].update(
+                    scratch_bytes=0, partials_bytes=nbytes,
+                    ms=time_ms(lambda: kernel(qq=qc), cold=True),
+                    ms_partials_written=time_ms(
+                        lambda: kernel(qq=qc, scratch=sc), cold=True))
+            else:
+                case["capacity"].update(
+                    scratch_bytes=nbytes,
+                    ms_scratch_allocated=time_ms(lambda: kernel(qq=qc),
+                                                 cold=True),
+                    ms_scratch_passed_in=time_ms(
+                        lambda: kernel(qq=qc, scratch=sc), cold=True))
             del qc, sc, oc
         del faults, again, glob, gref, scratch, wide_in
         if timed:
@@ -1650,6 +1759,11 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
         case["full_batch"] = run("full", cases.ragged_full, 9, True)
     if cases.ragged_decode:
         case["decode_step"] = run("decode", cases.ragged_decode, 10, True)
+    if cases.ragged_pad:
+        case["pad_rows"] = run("pad", cases.ragged_pad, 11, False)
+    if cases.v_lanes is not None:
+        case["clusters_at_once"] = (
+            kernels.LIBRARY.get().dtt_latent_max_active_clusters(int8, 1))
     return attn_entry(name, source, True, cases, chunk, splits, case)
 
 
@@ -2287,8 +2401,7 @@ def device_profile(fn) -> dict:
     # K2, K3's two kernels (the merge is launched early, by programmatic
     # dependent launch, so its time includes its wait for the split kernel
     # and the two overlap), K4, K5 and K6 (both tilings), and the latent
-    # kernels' split and merge kernels (K3-MLA on a decode step, K4-MLA on
-    # a ragged dispatch)
+    # kernel (K3-MLA on a decode step, K4-MLA on a ragged dispatch)
     names = {"k1": ("flash_prefill_kernel",),
              "k2": ("flash_prefill_partial_kernel",),
              "k3_split": ("paged_attention_split_kernel",),
@@ -2296,8 +2409,7 @@ def device_profile(fn) -> dict:
              "k4": ("ragged_attention_kernel",),
              "k5": ("lm_head_int8_kernel",),
              "k6": ("int4_decode_kernel", "int4_prefill_kernel"),
-             "mla_split": ("latent_split_kernel",),
-             "mla_merge": ("latent_merge_kernel",)}
+             "mla": ("latent_attention_kernel",)}
     mine = {part: [0.0, 0] for part in names}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
@@ -3066,7 +3178,10 @@ def latent_faults(cases, kernel, q, pool, _, rows, int8: bool) -> dict:
 # batch of 8 x 4096 keys. K4: a mix of two 64-row chunks, a 4-row tail
 # ending at 3000 and decode rows (135 rows, padded to the server's 136
 # for the capacity case); two 64-row chunks and 6 decode rows at up to
-# 4096 keys
+# 4096 keys; the pad-row mix: counts of 6, 3, 1, 7 and 2 rows, whose last
+# tiles' pad rows fall on the first rows of the next sequence (7 rows); K3
+# on one 4096-key row among 8 slots whose other 7 are empty, the graphed
+# decode step's shape with one live slot
 MLA_ATTN = AttnCases(
     max_len=MLA_MAX_LEN,
     paged_mix=[1, 127, 128, 129, 1000, 3000, 4096, 0],
@@ -3081,7 +3196,9 @@ MLA_ATTN = AttnCases(
     sections=(DEEPSEEK_V2_LITE_CONFIG["kv_lora_rank"],
               DEEPSEEK_V2_LITE_CONFIG["qk_rope_head_dim"]),
     block=MLA_BLOCK, inputs=latent_inputs, faults=latent_faults, mode="mla",
-    seed=40)
+    seed=40,
+    ragged_pad=[(6, 500), (3, 1001), (1, 4096), (7, 64), (2, 2000), (0, 0)],
+    paged_single=[MLA_MAX_LEN] + [0] * 7)
 
 
 def latent_plain_f32(ref):
@@ -4000,10 +4117,11 @@ def compare_servers(card: str, base: dict, other: dict, path: str,
             f"[{card}]")
 
 
-# ``--ab DIR``: phase 3's attention kernels (K1-K4 at the 8B shapes) of
-# another checkout of the repository at DIR (its build directory apart)
-# and of this one, timed in turns in one run on one card (DIR, this, this,
-# DIR), each turn in a process of its own; AB_TURN is the code of a turn,
+# ``--ab DIR``: phase 3's attention kernels (K1-K4 at the 8B shapes) and
+# phase 3m's latent kernels (K3-MLA and K4-MLA at V2-Lite's) of another
+# checkout of the repository at DIR (its build directory apart) and of
+# this one, timed in turns in one run on one card (DIR, this, this, DIR),
+# each turn in a process of its own; AB_TURN is the code of a turn,
 # written against the checks both checkouts have
 AB_TURN = """
 import json, sys
@@ -4014,6 +4132,27 @@ from dynamo_tpu_torch.engine import kernels
 from dynamo_tpu_torch.engine.config import bench_model_config
 kernels.LIBRARY.get()
 cfg, dev, out = bench_model_config("8b"), torch.device("cuda:0"), {}
+mcfg = cs.mla_config()
+for int8 in (False, True):
+    # K3-MLA on one 4096-key row alone (B = 1)
+    bs = cs.MLA_BLOCK[int8]
+    q, pool, _, tables, lens = cs.latent_inputs(
+        mcfg, dev, 7, [cs.MLA_MAX_LEN], int8, bs, cs.MLA_MAX_LEN // bs)
+    kw = dict(block_size=bs, scale=0.1, v_lanes=512,
+              quant_sections=(512, 64) if int8 else None)
+    out["latent_paged_b1" + "_int8" * int8] = [cs.time_ms(
+        lambda: kernels.latent_paged_attention_cuda(q, pool, tables, lens,
+                                                    **kw), cold=True)]
+for int8 in (False, True):
+    for kind, check in (("paged", cs.check_paged_attention),
+                        ("ragged", cs.check_ragged_attention)):
+        e = check(mcfg, dev, int8=int8, cases=cs.MLA_ATTN)
+        out[f"latent_{kind}_attention" + "_int8" * int8] = [
+            e["ms"], e["full_batch"]["ms"]]
+if sys.argv[1:] == ["latent"]:
+    print("AB " + json.dumps(out), flush=True)
+    print("BITS {}", flush=True)
+    sys.exit(0)
 out["flash_prefill"] = [c["ms"] for c in cs.check_flash_prefill(cfg, dev)["cases"]]
 out["flash_prefill_partial"] = [
     c["ms"] for c in cs.check_flash_prefill_partial(cfg, dev)["cases"]]
@@ -4063,19 +4202,22 @@ print("BITS " + json.dumps(bits), flush=True)
 """
 
 
-def ab_compare(other: str) -> int:
+def ab_compare(other: str, latent_only: bool = False) -> int:
     """Time phase 3's attention kernels of the checkout at ``other`` and
     of this one in turns (other, this, this, other) and print each turn's
-    times (ms: K1's four cases, K2's five hops, K3's mix and full batch,
-    K4's mix, full batch and decode step) and their ratios, this over
-    other, of the turns' means; then compare K3's and K4's output bits at
-    the groups both compile (1, 2, 4, 8) across the turns, and fail where
-    any differ."""
+    times (ms: K3-MLA on one 4096-key row alone, K3-MLA's and K4-MLA's
+    mix and full batch in both pools, then K1's four cases, K2's five
+    hops, K3's mix and full batch and K4's mix, full batch and decode
+    step) and their ratios, this over other, of the turns' means; then
+    compare K3's and K4's output bits at the groups both compile (1, 2,
+    4, 8) across the turns, and fail where any differ. ``latent_only``:
+    the latent kernels' times alone, no bits."""
     card = card_line()
     turns, digests = [], []
     for side in ("other", "this", "this", "other"):
         root = os.path.abspath(other) if side == "other" else ROOT
-        res = subprocess.run([sys.executable, "-c", AB_TURN], cwd=root,
+        res = subprocess.run([sys.executable, "-c", AB_TURN]
+                             + ["latent"] * latent_only, cwd=root,
                              capture_output=True, text=True, timeout=1200)
         line = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
         bits = [x for x in res.stdout.splitlines() if x.startswith("BITS ")]
@@ -4098,9 +4240,107 @@ def ab_compare(other: str) -> int:
     return 1 if differ else 0
 
 
+# ``--ab DIR serve``: phases 4m and 5m (V2-Lite's model through the latent
+# kernels at LAYERS' depth, and its four servers) of both checkouts in the
+# same turns: each turn's graphed decode step (device ms a token at K = 1
+# and K = 8), pure-decode ragged dispatch (device ms), a mixed ragged
+# dispatch as the --ragged server runs it while a 3000-token prompt is
+# read (wall ms, device ms, the kernels' launch calls' host ms, top
+# kernels by device time and operators by host time), and each served
+# request's [TTFT, mean ITL] (ms)
+AB_SERVE_TURN = """
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from dynamo_tpu_torch.engine import kernels
+from dynamo_tpu_torch.engine.models import family
+kernels.LIBRARY.get()
+dev, card, out = torch.device("cuda:0"), cs.card_line(), {}
+mcfg = cs.at_depth(cs.mla_config(), cs.LAYERS["mla"])
+host = [0.0]
+launch = kernels.Kernel.launch
+def timed_launch(self, *a):
+    t0 = time.perf_counter()
+    launch(self, *a)
+    host[0] += time.perf_counter() - t0
+kernels.Kernel.launch = timed_launch
+decode_profile = cs.profile_ragged_decode
+def with_mixed(params, kv, cfg, tables, B, dev, bs=16):
+    res = decode_profile(params, kv, cfg, tables, B, dev, bs)
+    # slot 0's 64-row chunk ending at key 3000, a decode row per other slot
+    spans = {0: (cs.RAGGED_MAX_ROWS, 3000 - cs.RAGGED_MAX_ROWS)}
+    spans.update({s: (1, 300) for s in range(1, B)})
+    batch = cs.ragged_batch(spans, [[3 + i % 1000 for i in range(3000)]] * B,
+                            tables, B, dev)
+    step = lambda: family(cfg).ragged_forward(params, kv, *batch, cfg, bs,
+                                              cs.RAGGED_MAX_ROWS)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    host[0], t0 = 0.0, time.monotonic()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.monotonic() - t0) / 5
+    launch_ms = 1e3 * host[0] / 5
+    prof = cs.device_profile(step)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as p:
+        step()
+        torch.cuda.synchronize()
+    ops = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
+                  for e in p.key_averages()), reverse=True)[:8]
+    res["mixed"] = {"wall_ms": wall, "launch_host_ms": launch_ms,
+                    "device_ms": prof["device_ms"],
+                    "device_busy_share": prof["device_ms"] / wall,
+                    "device_kernels": prof["device_kernels"],
+                    "top_kernels_ms": prof["top_kernels_ms"],
+                    "top_host_ops_ms": [[k[:50], t, n] for t, k, n in ops]}
+    return res
+cs.profile_ragged_decode = with_mixed
+for mode in ("bf16", "bf16_kv8"):
+    res = cs.check_model(mcfg, dev, 0, mode, cs.MLA_RUN)
+    prof = res["program"]["profile"]
+    out["step_" + mode] = [prof[k]["device_ms_per_token"]
+                           for k in ("graph_k1", "graph_k8")]
+    if res.get("ragged"):
+        out["ragged_dispatch_" + mode] = (
+            res["ragged"]["decode_dispatch"]["ragged"]["device_ms"])
+        out["mixed_dispatch_" + mode] = (
+            res["ragged"]["decode_dispatch"]["mixed"])
+for path in cs.MLA_PATHS:
+    _, rep = cs.serve_phase(mcfg, 0, card, path)
+    out[path] = {k: [v["ttft_ms"], v["itl_ms_mean"]] for k, v in rep.items()
+                 if isinstance(v, dict) and "ttft_ms" in v}
+print("AB " + json.dumps(out), flush=True)
+"""
+
+
+def ab_serve(other: str) -> int:
+    """Phases 4m and 5m of the checkout at ``other`` and of this one in
+    turns (other, this, this, other), each turn a process of its own:
+    print each turn's numbers (AB_SERVE_TURN)."""
+    card = card_line()
+    for side in ("other", "this", "this", "other"):
+        root = os.path.abspath(other) if side == "other" else ROOT
+        res = subprocess.run([sys.executable, "-c", AB_SERVE_TURN], cwd=root,
+                             capture_output=True, text=True, timeout=1500)
+        line = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
+        if res.returncode != 0 or not line:
+            print(res.stdout[-3000:] + res.stderr[-3000:], file=sys.stderr)
+            return 1
+        log(f"ab serve {side} {root} {line[0][3:]} [{card}]")
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         return ab_compare(sys.argv[2])
+    if sys.argv[1:2] == ["--ab"] and sys.argv[3:] == ["serve"]:
+        return ab_serve(sys.argv[2])
+    if sys.argv[1:2] == ["--ab"] and sys.argv[3:] == ["latent"]:
+        return ab_compare(sys.argv[2], latent_only=True)
     try:
         import torch
     except ImportError:

@@ -362,6 +362,46 @@ def decode_split_plan(max_blocks: int, block_size: int) -> tuple:
     return chunk, -(-(max_blocks * block_size) // chunk)
 
 
+# The latent kernels (csrc/latent_attention.cu) split a row tile's keys in
+# whole LATENT_KEY_TILE-key tiles, spread evenly from the keys the tile
+# sees (on the device). K4-MLA: LATENT_TILE_ROWS consecutive rows of one
+# sequence a CTA, all their heads, so that every key tile feeds them all;
+# the LATENT_SPLITS CTAs of one thread-block cluster are a tile's splits
+# and merge in the cluster's shared memory. K3-MLA: one decode row in two
+# key streams a CTA (two splits), LATENT_DECODE_CLUSTER CTAs a cluster and
+# latent_decode_clusters(B) clusters a row, so that a call keeps about
+# LATENT_DECODE_CTAS CTAs busy whatever its batch; the last cluster of a
+# row to finish merges the clusters' partials
+LATENT_TILE_ROWS = 4
+LATENT_SPLITS = 8
+LATENT_DECODE_CLUSTER = 2
+LATENT_DECODE_CTAS = 120
+LATENT_KEY_TILE = 32
+
+
+def latent_decode_clusters(B: int) -> int:
+    """K3-MLA's clusters a row at batch ``B``: about LATENT_DECODE_CTAS
+    CTAs in all, 1 to 16 a row (a function of the batch alone, so that a
+    CUDA graph can capture the launch)."""
+    return max(1, min(16, LATENT_DECODE_CTAS // (LATENT_DECODE_CLUSTER * B)))
+
+
+def latent_decode_splits(B: int) -> int:
+    """K3-MLA's splits a row at batch ``B``: two key streams in each CTA of
+    each of its clusters."""
+    return 2 * LATENT_DECODE_CLUSTER * latent_decode_clusters(B)
+
+
+def latent_split_plan(n_keys: int, splits: int = LATENT_SPLITS) -> tuple:
+    """(chunk in keys, live splits) of a latent row tile that sees
+    ``n_keys`` keys: its LATENT_KEY_TILE-key tiles spread over ``splits``
+    splits, so at K4-MLA's 8 a 129-key row is five one-tile splits and a
+    4096-key row eight of 512 keys; 0 keys: no live split."""
+    tiles = max(-(-n_keys // LATENT_KEY_TILE), 1)
+    chunk = LATENT_KEY_TILE * -(-tiles // splits)
+    return chunk, -(-max(n_keys, 0) // chunk)
+
+
 def split_scratch_views(scratch: torch.Tensor, B: int, KVH: int, S: int,
                         g: int, Dh: int) -> tuple:
     """K3's f32 scratch as (m [B, KVH, S, g], l [B, KVH, S, g], acc [B, KVH,
@@ -380,8 +420,8 @@ def paged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
                                  scale: float,
                                  chunk: Optional[int] = None,
                                  v_lanes: Optional[int] = None,
-                                 quant_sections: Optional[tuple] = None
-                                 ) -> tuple:
+                                 quant_sections: Optional[tuple] = None,
+                                 splits: Optional[int] = None) -> tuple:
     """The split form of ``paged_attention_ref`` with K3's arithmetic, for
     the tests (``merge_split_partials`` completes it): each (sequence, KV
     head, split of ``decode_split_plan``) gives f32 (m, l, acc) over its
@@ -389,19 +429,43 @@ def paged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
     domain (s = scale·log2(e)·q·k, an int8 key's scale taken out of the
     dot), m their max, p = exp2(s - m), l = Σp and acc = Σ p·v (an int8
     value's scale folded into p). A split that sees no key gives (-inf, 0,
-    0). ``chunk``: keys per split (a whole number of blocks) in place of
-    the plan's; the split axis keeps the plan's length, the splits past
-    the table empty. ``v_lanes`` / ``quant_sections``: the MLA modes of
+    0). ``chunk``: keys per split in place of the plan's; the split axis
+    keeps the plan's length, the splits past the table empty.
+    ``v_lanes`` / ``quant_sections``: the MLA modes of
     ``paged_attention_ref`` (a sectioned row dequantized in f32, exact,
-    before the dot). Returns (m [B, KVH, S, g], l [B, KVH, S, g], acc [B,
-    KVH, S, g, Dv]), Dv = v_lanes or Dh."""
+    before the dot), cut as K3-MLA cuts them: ``latent_decode_splits(B)``
+    splits, each row's chunk from the keys it sees (``latent_split_plan``),
+    unless ``chunk`` is given (then LATENT_SPLITS splits, K4-MLA's, or
+    ``splits``). Returns (m [B, KVH, S, g], l [B, KVH, S, g], acc [B, KVH,
+    S, g, Dv]), Dv = v_lanes or Dh."""
     B, H, Dh = q.shape
     C = Dh if quant_sections is not None else kv_value_lanes(k_cache)
     KVH = C // Dh
     g = H // KVH
     M = block_tables.shape[1]
-    plan_chunk, S_plan = decode_split_plan(M, block_size)
-    chunk = chunk or plan_chunk
+    if v_lanes is not None:
+        S_plan = splits or (LATENT_SPLITS if chunk
+                            else latent_decode_splits(B))
+        if chunk is None:         # each row its own chunk: group by it
+            chunks = [latent_split_plan(min(n, M * block_size), S_plan)[0]
+                      for n in seq_lens.tolist()]
+            parts = [None] * 3
+            for c in sorted(set(chunks)):
+                sel = torch.tensor([x == c for x in chunks],
+                                   device=q.device)
+                got = paged_attention_partials_ref(
+                    q[sel], k_cache, v_cache, block_tables[sel],
+                    seq_lens[sel], block_size=block_size, scale=scale,
+                    chunk=c, v_lanes=v_lanes, quant_sections=quant_sections,
+                    splits=S_plan)
+                for i, t in enumerate(got):
+                    if parts[i] is None:
+                        parts[i] = t.new_empty((B,) + t.shape[1:])
+                    parts[i][sel] = t
+            return tuple(parts)
+    else:
+        plan_chunk, S_plan = decode_split_plan(M, block_size)
+        chunk = chunk or plan_chunk
     S = -(-(M * block_size) // chunk)
     idx = flat_token_indices(block_tables, block_size)          # [B, T]
     T = idx.shape[1]
@@ -443,6 +507,8 @@ def paged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
         B, S, chunk, KVH, Dv)
     acc = torch.einsum("bkgsc,bsckd->bksgd", p, vpad)
     m, l = m.permute(0, 1, 3, 2), l.permute(0, 1, 3, 2)
+    if S > S_plan:      # a latent chunk's splits past the keys it covers
+        m, l, acc = m[:, :, :S_plan], l[:, :, :S_plan], acc[:, :, :S_plan]
     if S < S_plan:                          # empty splits past the table
         extra = S_plan - S
         m = torch.nn.functional.pad(m, (0, 0, 0, extra), value=float("-inf"))
@@ -563,9 +629,6 @@ def ragged_paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
 # K4 takes 64 (row, head) query vectors per CTA: 64 / g rows of one
 # sequence times the g query heads of one KV head
 RAGGED_CTA_VECTORS = 64
-# the latent kernels (K3-MLA, K4-MLA) take one query row, all its heads,
-# per CTA
-LATENT_TILE_ROWS = 1
 
 
 def ragged_row_tiles(max_rows: int, g: int) -> int:
@@ -585,8 +648,9 @@ def ragged_row_plan(seq_starts: torch.Tensor, seq_counts: torch.Tensor,
     wider one twice that: where many rows share each key, longer chunks
     leave fewer partials to merge. Where a tile has 2 or more live splits,
     K4 writes its rows' partials of those splits to its scratch.
-    ``tile_rows``: rows per tile in place of 64 / g (K4-MLA:
-    LATENT_TILE_ROWS)."""
+    ``tile_rows``: K4-MLA's plan (LATENT_TILE_ROWS): tiles of that many
+    rows, each cut by ``latent_split_plan`` of the keys its last owned row
+    sees."""
     base, _ = decode_split_plan(M, block_size)
     per = tile_rows or RAGGED_CTA_VECTORS // g
     chunks = torch.zeros(TT, dtype=torch.long)
@@ -596,10 +660,13 @@ def ragged_row_plan(seq_starts: torch.Tensor, seq_counts: torch.Tensor,
         for r in range(n):
             r0 = r - r % per
             rows = min(per, n - r0)
-            chunk = base * (2 if rows * g > 16 else 1)
             keys = min(ln - n + r0 + rows, M * block_size)
-            chunks[st + r] = chunk
-            live[st + r] = -(-keys // chunk)
+            if tile_rows:
+                chunk, n_live = latent_split_plan(keys)
+            else:
+                chunk = base * (2 if rows * g > 16 else 1)
+                n_live = -(-keys // chunk)
+            chunks[st + r], live[st + r] = chunk, n_live
     return chunks, live
 
 
@@ -621,11 +688,13 @@ def ragged_attention_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
     (``paged_attention_partials_ref``: exp2-domain scores, an int8 row's
     scale taken out of the dot and folded into p). A split a row cannot
     see, and every split of a row no sequence owns, gives (-inf, 0, 0).
-    In the MLA modes (``v_lanes``, ``quant_sections``) a tile is one row
-    (LATENT_TILE_ROWS), as in K4-MLA. Returns (m [TT, KVH, S, g], l [TT,
-    KVH, S, g], acc [TT, KVH, S, g, Dv]) with S from ``decode_split_plan``
-    and Dv = v_lanes or Dh, the layout ``split_scratch_views`` reads from
-    K4's scratch."""
+    In the MLA modes (``v_lanes``, ``quant_sections``) a tile is
+    LATENT_TILE_ROWS rows cut into LATENT_SPLITS splits by the keys its
+    last row sees, as in K4-MLA. Returns (m [TT, KVH, S, g], l [TT, KVH,
+    S, g], acc [TT, KVH, S, g, Dv]) with S from ``decode_split_plan`` (the
+    MLA modes: LATENT_SPLITS) and Dv = v_lanes or Dh, the layout
+    ``split_scratch_views`` reads from K4's scratch and K4-MLA's
+    partials."""
     if int(seq_counts.max()) > max_rows:
         raise ValueError(f"a sequence owns more than max_rows={max_rows} "
                          f"rows")

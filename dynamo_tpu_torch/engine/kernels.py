@@ -9,9 +9,9 @@ rebuilds and a stale library is never loaded.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output (``torch.empty``, or ``torch.zeros`` where the kernel writes only
-some rows) and any scratch (``torch.empty``; K4's and K6's merge tickets
-are one zeroed buffer per device and stream that the kernels leave
-zeroed), launches on the current stream of the tensor's device with that
+some rows) and any scratch (``torch.empty``; K4's, K6's and K3-MLA's
+merge tickets are one zeroed buffer per device and stream that the
+kernels leave zeroed), launches on the current stream of the tensor's device with that
 device current, raises when the C entry point returns a CUDA error, and counts
 its launches in ``Kernel.launches``. A call made while a CUDA graph is being
 captured launches nothing and counts nothing; the capturing program
@@ -32,7 +32,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .attention import (KV_SCALE_LANES, decode_split_plan,
+from .attention import (KV_SCALE_LANES, LATENT_SPLITS, decode_split_plan,
+                        latent_decode_clusters, latent_decode_splits,
                         ragged_row_tiles)
 from .quant_matmul import (DECODE_ROWS, GROUP, PREFILL_ROWS, STRIP,
                            int4_split_plan)
@@ -142,8 +143,8 @@ class _Library:
                 for name in ("dtt_latent_paged_attention_bf16",
                              "dtt_latent_paged_attention_int8"):
                     fn = getattr(lib, name)
-                    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                   ci, ci, ci, ci, cf, vp]
+                    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                   ci, ci, ci, ci, ci, ci, ci, cf, vp]
                     fn.restype = ci
                 for name in ("dtt_latent_ragged_attention_bf16",
                              "dtt_latent_ragged_attention_int8"):
@@ -151,6 +152,8 @@ class _Library:
                     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                    ci, ci, ci, ci, ci, ci, ci, ci, cf, vp]
                     fn.restype = ci
+                lib.dtt_latent_max_active_clusters.argtypes = [ci, ci]
+                lib.dtt_latent_max_active_clusters.restype = ci
                 self._lib = lib
             return self._lib
 
@@ -347,13 +350,20 @@ def _window(kernel: Kernel, win: Optional[torch.Tensor], n: int,
 
 
 def paged_scratch(q: torch.Tensor, KVH: int, M: int, block_size: int,
-                  v_lanes: Optional[int] = None) -> Optional[torch.Tensor]:
+                  v_lanes: Optional[int] = None,
+                  ragged: bool = False) -> Optional[torch.Tensor]:
     """The f32 workspace of K3 (q [B, H, Dh]) and K4 (q [TT, H, Dh]) over a
     table of M entries, on q's device (``attention.split_scratch_views``
-    reads it), or None when the plan has one split. ``v_lanes``: the
-    output width of the MLA modes (rows of v_lanes + 2 floats)."""
+    reads it), or None when the plan has one split. ``v_lanes``: the MLA
+    modes, whose kernels merge on the card and write their partials
+    (``latent_decode_splits(B)`` of K3-MLA, with ``ragged`` LATENT_SPLITS
+    of K4-MLA; rows of v_lanes + 2 floats, whatever the table) only into
+    room passed in to them."""
     B, H, Dh = q.shape
-    _, S = decode_split_plan(M, block_size)
+    if v_lanes is not None:
+        S = LATENT_SPLITS if ragged else latent_decode_splits(B)
+    else:
+        S = decode_split_plan(M, block_size)[1]
     if S == 1:
         return None
     return torch.empty(B * KVH * S * (H // KVH) * ((v_lanes or Dh) + 2),
@@ -362,9 +372,12 @@ def paged_scratch(q: torch.Tensor, KVH: int, M: int, block_size: int,
 
 def _split_scratch(kernel: Kernel, q: torch.Tensor, KVH: int, M: int,
                    block_size: int, scratch: Optional[torch.Tensor],
-                   v_lanes: Optional[int] = None) -> Optional[torch.Tensor]:
-    """The caller's scratch, checked against ``paged_scratch``, or that."""
-    want = paged_scratch(q, KVH, M, block_size, v_lanes)
+                   v_lanes: Optional[int] = None,
+                   ragged: bool = False) -> Optional[torch.Tensor]:
+    """The caller's scratch, checked against ``paged_scratch``, or that
+    (in the MLA modes, none: the kernels need no workspace)."""
+    want = (paged_scratch(q, KVH, M, block_size, v_lanes, ragged)
+            if scratch is not None or v_lanes is None else None)
     if scratch is None:
         return want
     if (want is None or scratch.device != q.device
@@ -437,8 +450,9 @@ def paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                   scratch, softcap, win_lo)
 
 
-# The merge tickets of K4 (one int32 per sequence, KV head and row tile)
-# and K6 (one per row tile and column strip), per (device, stream): zero
+# The merge tickets of K4 (one int32 per sequence, KV head and row tile),
+# K6 (one per row tile and column strip) and K3-MLA (one per decode row),
+# per (device, stream): zero
 # when allocated and left zero by every launch (the last CTA of an item
 # resets its ticket), so no call pays a memset. Launches on one stream run
 # in order, so they never share a ticket while it counts. A captured graph
@@ -551,7 +565,7 @@ def ragged_paged_attention_int8_cuda(q: torch.Tensor, k_cache: torch.Tensor,
 
 def _latent(kernel: Kernel, q, pool, block_tables, lens, block_size: int,
             v_lanes: int, quant_sections: Optional[tuple],
-            scratch: Optional[torch.Tensor]) -> tuple:
+            scratch: Optional[torch.Tensor], ragged: bool) -> tuple:
     """The checks shared by K3-MLA and K4-MLA: q [N, 16, 640] bf16, one
     layer's latent pool [NTOK, 640] bf16 or, with ``quant_sections`` (512,
     64), [NTOK, 768] int8; tables [S, M] and lens [S] int32; v_lanes 512.
@@ -574,7 +588,8 @@ def _latent(kernel: Kernel, q, pool, block_tables, lens, block_size: int,
             f"v_lanes={v_lanes} sections={quant_sections} (compiled for "
             f"(heads, query lanes, v_lanes) {LATENT_SHAPE}, sections "
             f"{LATENT_SECTIONS})")
-    scratch = _split_scratch(kernel, q, 1, M, block_size, scratch, v_lanes)
+    scratch = _split_scratch(kernel, q, 1, M, block_size, scratch, v_lanes,
+                             ragged)
     return scratch, M
 
 
@@ -597,22 +612,35 @@ def latent_paged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
     """K3-MLA: q [B, 16, 640] bf16 over one layer's latent pool (bf16 rows
     of 640 lanes, or sectioned int8 rows of 768 with ``quant_sections``
     (512, 64)), tables [B, M], seq_lens [B] int32 → [B, 16, v_lanes]
-    (csrc/latent_attention.cu). ``scratch``: the split partials'
-    workspace (``paged_scratch(q, 1, M, block_size, v_lanes)``); left None
-    the wrapper allocates it."""
+    (csrc/latent_attention.cu: ``attention.latent_decode_clusters(B)``
+    clusters a row of LATENT_DECODE_CLUSTER CTAs, two splits each, merged
+    in each cluster's shared memory and then across the clusters).
+    ``scratch``: None, or room for the splits' partials
+    (``paged_scratch(q, 1, M, block_size, v_lanes)``), which the kernel
+    then also writes there for the caller to read."""
     kernel = (LATENT_PAGED_ATTENTION_INT8 if quant_sections is not None
               else LATENT_PAGED_ATTENTION)
     if block_tables.shape[0] != q.shape[0]:
         raise ValueError(f"{kernel.name}: {block_tables.shape[0]} tables "
                          f"for {q.shape[0]} query rows")
     scratch, M = _latent(kernel, q, pool, block_tables, seq_lens, block_size,
-                         v_lanes, quant_sections, scratch)
+                         v_lanes, quant_sections, scratch, False)
     B, H, Dq = q.shape
     out = torch.empty((B, H, v_lanes), dtype=q.dtype, device=q.device)
+    # a row's clusters past the first merge through `cross`, the last to
+    # finish by a ticket (the zeroed buffer K4 and K6 use)
+    P = latent_decode_clusters(B)
+    cross = tickets = None
+    if P > 1:
+        cross = torch.empty(B * P * H * (v_lanes + 2), dtype=torch.float32,
+                            device=q.device)
+        tickets = _tickets(q, B)
     kernel.launch(q, q.data_ptr(), pool.data_ptr(), block_tables.data_ptr(),
                   seq_lens.data_ptr(), out.data_ptr(),
-                  None if scratch is None else scratch.data_ptr(), B, H, Dq,
-                  pool.shape[1], M, int(block_size), int(v_lanes),
+                  None if scratch is None else scratch.data_ptr(),
+                  None if cross is None else cross.data_ptr(),
+                  None if tickets is None else tickets.data_ptr(), B, P, H,
+                  Dq, pool.shape[1], M, int(block_size), int(v_lanes),
                   0 if quant_sections is None else int(quant_sections[1]),
                   float(scale))
     return out
@@ -630,8 +658,10 @@ def latent_ragged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
     """K4-MLA: q [TT, 16, 640] bf16 flat rows over one layer's latent pool
     (as ``latent_paged_attention_cuda``), tables [S, M], starts / counts /
     seq_lens [S] int32 → [TT, 16, v_lanes], rows no sequence owns zero
-    (csrc/latent_attention.cu; one CTA per row and 128-key chunk).
-    ``scratch``: as ``latent_paged_attention_cuda``, over TT rows."""
+    (csrc/latent_attention.cu: a cluster of LATENT_SPLITS CTAs a tile of
+    LATENT_TILE_ROWS rows of one sequence). ``scratch``: as
+    ``latent_paged_attention_cuda``, over TT rows
+    (``paged_scratch(q, 1, M, block_size, v_lanes, ragged=True)``)."""
     kernel = (LATENT_RAGGED_ATTENTION_INT8 if quant_sections is not None
               else LATENT_RAGGED_ATTENTION)
     _check(seq_starts, "seq_starts", torch.int32, 1)
@@ -642,7 +672,7 @@ def latent_ragged_attention_cuda(q: torch.Tensor, pool: torch.Tensor,
                          f"and counts {tuple(seq_counts.shape)} for {S} "
                          f"sequences")
     scratch, M = _latent(kernel, q, pool, block_tables, seq_lens, block_size,
-                         v_lanes, quant_sections, scratch)
+                         v_lanes, quant_sections, scratch, True)
     TT, H, Dq = q.shape
     # only owned rows are written: the rest read as zeros
     out = torch.zeros((TT, H, v_lanes), dtype=q.dtype, device=q.device)

@@ -19,7 +19,10 @@ dead tiles and splits run and counted). The latent kernels (K3-MLA, K4-MLA:
 MLA's ``v_lanes`` over bf16 rows and ``quant_sections`` over int8 rows, at
 DeepSeek-V2's widths) are held against their plain versions in f32 and
 plant V read 64 lanes late, the two sections' scales swapped, the last
-block dropped and (ragged) the off-by-one causal mask.
+block dropped and (ragged) the off-by-one causal mask; their own split
+partials merge to their output, and K4-MLA's pad rows (past a sequence's
+count in a 4-row tile) must write nothing, each row they fall on given
+its own key so that a pad's write reads far above the limit.
 """
 
 import pytest
@@ -938,10 +941,12 @@ def test_ragged_attention_gemma_modes_match_plain(int8, geom):
 LATENT_M = 24
 
 
-def _latent_inputs(gen, dev, int8, lens, n_rows=None):
+def _latent_inputs(gen, dev, int8, lens, n_rows=None, max_len=LATENT_M * 16,
+                   compact=False):
     bs = 32 if int8 else 16
-    M = LATENT_M * 16 // bs
-    nb = len(lens) * M + 1
+    M = max_len // bs
+    # the pool: M blocks a row, or (compact) the blocks the lengths use
+    nb = (sum(-(-n // bs) for n in lens) if compact else len(lens) * M) + 1
     vals = torch.randn((nb * bs, 576), generator=gen, device=dev)
     vals[:, 512:] *= 8.0
     if int8:
@@ -981,6 +986,21 @@ def _latent_faults(call, q, pool, tables, lens, int8, bs):
     return out
 
 
+def _latent_partials_merged(scratch, rows, live, out, splits):
+    """The latent kernel's own partials of ``rows`` ({row: live splits of
+    ``splits``, attention.latent_split_plan}), read from the room it was
+    given and merged in plain PyTorch: the row error against its
+    output."""
+    sel = sorted(live)
+    m, l, acc = (t[sel].clone() for t in attention.split_scratch_views(
+        scratch, rows, 1, splits, 16, 512))
+    for i, r in enumerate(sel):
+        n = live[r]
+        m[i, :, n:], l[i, :, n:], acc[i, :, n:] = float("-inf"), 0, 0
+    return _row_rel_err(attention.merge_split_partials(m, l, acc), out[sel],
+                        slice(None))
+
+
 @pytest.mark.parametrize("int8", [False, True], ids=["v_lanes", "sections"])
 def test_latent_paged_kernel_matches_plain(int8):
     dev = _device()
@@ -989,24 +1009,142 @@ def test_latent_paged_kernel_matches_plain(int8):
     q, pool, tables, sl, kw = _latent_inputs(gen, dev, int8, lens)
     kernel = (kernels.LATENT_PAGED_ATTENTION_INT8 if int8
               else kernels.LATENT_PAGED_ATTENTION)
+    scratch = kernels.paged_scratch(q, 1, tables.shape[1], kw["block_size"],
+                                    512)
 
     def call(qq=q, pp=pool, tt=tables):
         return attention.paged_attention(qq, pp, pp, tt, sl, **kw)
     n0 = kernel.launches
     out, again = call(), call()
+    written = kernels.latent_paged_attention_cuda(q, pool, tables, sl,
+                                                  scratch=scratch, **kw)
     ref = attention.paged_attention_ref(q.float(), pool if int8
                                         else pool.float(), None, tables, sl,
                                         **kw)
     faults = _latent_faults(call, q, pool, tables, lens, int8,
                             kw["block_size"])
     torch.cuda.synchronize()
-    assert kernel.launches == n0 + 4
+    assert kernel.launches == n0 + 5
     assert out.shape == (len(lens), 16, 512) and torch.equal(out, again)
+    assert torch.equal(out, written)
     live = sl > 0
     assert out[~live].abs().max().item() == 0.0
     assert _row_rel_err(out, ref, live) <= ROW_REL_TOL
     for f in faults:
         assert _row_rel_err(f, ref, live) > ROW_REL_TOL
+    # the kernel's own partials (latent_decode_splits(B) splits of the keys
+    # each row sees, over 8 clusters a row here) merge to its output
+    S = attention.latent_decode_splits(len(lens))
+    assert attention.latent_decode_clusters(len(lens)) == 8
+    multi = {b: attention.latent_split_plan(n, S)[1]
+             for b, n in enumerate(lens)
+             if attention.latent_split_plan(n, S)[1] > 1}
+    assert sorted(multi) == [1, 2, 3, 4, 5]
+    assert _latent_partials_merged(scratch, len(lens), multi, out,
+                                   S) <= ROW_REL_TOL
+
+
+# K3-MLA's plan at the lengths around its 32-key tiles and at V2-Lite's
+# 4096: alone (B = 1) and as a batch of 8
+LATENT_LENS = [0, 1, 127, 128, 129, 4096]
+
+
+@pytest.mark.parametrize("lens", [[n] for n in LATENT_LENS]
+                         + [LATENT_LENS + [4096, 129]],
+                         ids=[f"b1-{n}" for n in LATENT_LENS] + ["b8"])
+@pytest.mark.parametrize("int8", [False, True], ids=["v_lanes", "sections"])
+def test_latent_paged_kernel_lengths(int8, lens):
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(24 + len(lens))
+    q, pool, tables, sl, kw = _latent_inputs(gen, dev, int8, lens,
+                                             max_len=4096)
+    out, again = (kernels.latent_paged_attention_cuda(q, pool, tables, sl,
+                                                      **kw)
+                  for _ in range(2))
+    ref = attention.paged_attention_ref(q.float(), pool if int8
+                                        else pool.float(), None, tables, sl,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.isfinite(out).all()
+    live = sl > 0
+    if not live.all():
+        assert out[~live].abs().max().item() == 0.0
+    if live.any():
+        assert _row_rel_err(out, ref, live) <= ROW_REL_TOL
+
+
+def _latent_ref_by_row(q, pool, tables, lens, int8, kw):
+    """paged_attention_ref row by row over the table entries each row
+    reads (a long context's gathered rows, in f32, at no more than one
+    row's size)."""
+    bs, wide = kw["block_size"], pool if int8 else pool.float()
+    rows = []
+    for b, n in enumerate(lens.tolist()):
+        k = max(-(-n // bs), 1)
+        rows.append(attention.paged_attention_ref(
+            q[b:b + 1].float(), wide, None, tables[b:b + 1, :k].contiguous(),
+            lens[b:b + 1], **kw))
+    return torch.cat(rows)
+
+
+# K3-MLA at V2-Lite's long contexts (32K, its 64K): alone, in a batch of 8
+# and in a batch of 64, where a row is one cluster of 4 splits and a 64K
+# row's CTA spans more table entries than it keeps in shared memory
+LATENT_LONG = {1: lambda L: [L],
+               8: lambda L: [L, L - 1, 32641, 4097, 129, 1, 0, L // 2 + 7],
+               64: lambda L: [L] + [1 + 37 * b for b in range(63)]}
+
+
+@pytest.mark.parametrize("max_len", [32768, 65536])
+@pytest.mark.parametrize("B", sorted(LATENT_LONG))
+@pytest.mark.parametrize("int8", [False, True], ids=["v_lanes", "sections"])
+def test_latent_paged_kernel_long_context(int8, B, max_len):
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(26 + B)
+    lens = LATENT_LONG[B](max_len)
+    q, pool, tables, sl, kw = _latent_inputs(gen, dev, int8, lens,
+                                             max_len=max_len, compact=True)
+    out, again = (kernels.latent_paged_attention_cuda(q, pool, tables, sl,
+                                                      **kw)
+                  for _ in range(2))
+    ref = _latent_ref_by_row(q, pool, tables, sl, int8, kw)
+    # the fault: the longest row's second half of table entries (past a
+    # CTA's shared-memory span at 64K) read as the trash block
+    bad, nblk = tables.clone(), -(-lens[0] // kw["block_size"])
+    bad[0, nblk // 2:nblk] = 0
+    fault = kernels.latent_paged_attention_cuda(q, pool, bad, sl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.isfinite(out).all()
+    live = sl > 0
+    if not live.all():
+        assert out[~live].abs().max().item() == 0.0
+    assert _row_rel_err(out, ref, live) <= ROW_REL_TOL
+    assert _row_rel_err(fault, ref, slice(0, 1)) > ROW_REL_TOL
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["v_lanes", "sections"])
+def test_latent_ragged_kernel_long_context(int8):
+    # a 5-row chunk ending at 139264 keys: a bf16 tile's split spans more
+    # table entries than a CTA keeps in shared memory
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(27)
+    spans = [(5, 139264), (1, 70001), (0, 0), (2, 32768)]
+    counts_l = [n for n, _ in spans]
+    q, pool, tables, ctx, kw = _latent_inputs(gen, dev, int8,
+                                              [c for _, c in spans],
+                                              n_rows=sum(counts_l),
+                                              max_len=139264, compact=True)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    args = (tables, i32([sum(counts_l[:i]) for i in range(len(spans))]),
+            i32(counts_l), ctx)
+    kw["max_rows"] = 64
+    out, again = (kernels.latent_ragged_attention_cuda(q, pool, *args, **kw)
+                  for _ in range(2))
+    ref = attention.ragged_paged_attention_ref(
+        q.float(), pool if int8 else pool.float(), None, *args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.isfinite(out).all()
+    assert _row_rel_err(out, ref, slice(None)) <= ROW_REL_TOL
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["v_lanes", "sections"])
@@ -1024,7 +1162,8 @@ def test_latent_ragged_kernel_matches_plain(int8):
     counts = torch.tensor(counts_l, dtype=torch.int32, device=dev)
     kw["max_rows"] = 32
     M = tables.shape[1]
-    scratch = kernels.paged_scratch(q, 1, M, kw["block_size"], 512)
+    scratch = kernels.paged_scratch(q, 1, M, kw["block_size"], 512,
+                                    ragged=True)
 
     def call(qq=q, pp=pool, tt=tables, lens=ctx, **f):
         return kernels.latent_ragged_attention_cuda(qq, pp, tt, starts,
@@ -1045,19 +1184,55 @@ def test_latent_ragged_kernel_matches_plain(int8):
     assert _row_rel_err(out, ref, rows) <= ROW_REL_TOL
     for f in faults:
         assert _row_rel_err(f, ref, rows) > ROW_REL_TOL
-    # the kernel's own partials (one row a tile, K3's chunks) merge to it
+    # the kernel's own partials (LATENT_TILE_ROWS rows a tile, each tile's
+    # keys in LATENT_SPLITS splits) merge to it
     _, live = attention.ragged_row_plan(starts, counts, ctx, TT + 3, 16, M,
                                         kw["block_size"],
                                         attention.LATENT_TILE_ROWS)
-    multi = [r for r in range(TT) if live[r] > 1]
-    _, S = attention.decode_split_plan(M, kw["block_size"])
-    m, l, acc = (t[multi].clone() for t in attention.split_scratch_views(
-        scratch, TT + 3, 1, S, 16, 512))
-    for i, r in enumerate(multi):
-        n = int(live[r])
-        m[i, :, n:], l[i, :, n:], acc[i, :, n:] = float("-inf"), 0, 0
-    assert _row_rel_err(attention.merge_split_partials(m, l, acc),
-                        out[multi], slice(None)) <= ROW_REL_TOL
+    multi = {r: int(live[r]) for r in range(TT) if live[r] > 1}
+    assert len(multi) == 22
+    assert _latent_partials_merged(scratch, TT + 3, multi, out,
+                                   attention.LATENT_SPLITS) <= ROW_REL_TOL
+
+
+# counts that leave pad rows in K4-MLA's 4-row tiles, each falling on the
+# next sequence's first rows (and the last one's past q)
+LATENT_PAD_MIX = [(6, 200), (3, 301), (1, 384), (7, 64), (2, 100), (0, 0)]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["v_lanes", "sections"])
+def test_latent_ragged_kernel_writes_no_pad_row(int8):
+    from chip_smoke import (latent_pad_crossings, latent_pad_rows_written,
+                            plant_latent_own_keys)
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(25)
+    mix = LATENT_PAD_MIX
+    starts_l = [sum(n for n, _ in mix[:s]) for s in range(len(mix))]
+    TT = sum(n for n, _ in mix)
+    q, pool, tables, ctx, kw = _latent_inputs(gen, dev, int8,
+                                              [c for _, c in mix],
+                                              n_rows=TT)
+    crossed = latent_pad_crossings(starts_l, mix, TT)
+    assert [row for _, _, row in crossed] == [6, 7, 9, 10, 11, 12, 17]
+    plant_latent_own_keys(pool, q, tables, starts_l, mix, crossed,
+                          kw["block_size"], 576,
+                          (512, 64) if int8 else None)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    args = (tables, i32(starts_l), i32([n for n, _ in mix]), ctx)
+    kw["max_rows"] = 64
+    out, *again = (kernels.latent_ragged_attention_cuda(q, pool, *args, **kw)
+                   for _ in range(4))
+    wide = pool if int8 else pool.float()
+    ref = attention.ragged_paged_attention_ref(q.float(), wide, None, *args,
+                                               **kw)
+    fault = latent_pad_rows_written(
+        out, q.float(), wide, tables, mix, crossed,
+        **{k: v for k, v in kw.items() if k != "max_rows"})
+    torch.cuda.synchronize()
+    assert all(torch.equal(out, a) for a in again)
+    assert torch.isfinite(out).all()
+    assert _row_rel_err(out, ref, slice(None)) <= ROW_REL_TOL
+    assert _row_rel_err(fault, ref, slice(None)) > ROW_REL_TOL
 
 
 def test_latent_kernels_refuse_unsupported_options():

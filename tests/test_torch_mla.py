@@ -14,7 +14,12 @@ Every case feeds both packages the same numpy inputs:
   ``tests/test_paged_attention_kernel.py`` (rank 128, rope 64, query width
   256, int8 row 384, block 32): f32 atol=rtol=2e-5, int8 2e-4 (the bars of
   ``tests/test_torch_ragged.py``); the split forms merge to the plain
-  output (atol=rtol=2e-5; the splits sum in another order).
+  output (atol=rtol=2e-5; the splits sum in another order). The latent
+  kernels' plan (``latent_split_plan``, ``latent_decode_clusters``,
+  ``ragged_row_plan`` at 4 rows a tile, the partials room): the split
+  forms at that plan over rows of up to 384 keys (chunks of 32 and 64),
+  with the splits past a row's live ones empty, merge to the plain output
+  and to JAX's kernels at the same bars.
 - The JAX kernels' rule for the modes (``check_latent_modes``) refuses what
   JAX refuses, with ValueError.
 - The deepseek MoE block (v2 greedy, v2 group-limited with n_group 2 and
@@ -271,6 +276,167 @@ def test_ragged_plain_mla_modes_match_jax_kernel(int8):
     np.testing.assert_allclose(
         tattn.merge_split_partials(*parts).numpy()[rows], got[rows],
         rtol=F32_TOL, atol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the latent kernels' plan: LATENT_TILE_ROWS rows a tile, LATENT_SPLITS
+# splits of whole 32-key tiles from the keys the tile sees
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_keys,splits,chunk,live", [
+    (0, 8, 32, 0), (1, 8, 32, 1), (32, 8, 32, 1), (33, 8, 32, 2),
+    (129, 8, 32, 5), (256, 8, 32, 8), (257, 8, 64, 5), (1000, 8, 128, 8),
+    (3000, 8, 384, 8), (4096, 8, 512, 8), (0, 28, 32, 0), (129, 28, 32, 5),
+    (300, 28, 32, 10), (1000, 28, 64, 16), (3000, 28, 128, 24),
+    (4096, 28, 160, 26), (4096, 64, 64, 64)])
+def test_latent_split_plan(n_keys, splits, chunk, live):
+    """K4-MLA's 8 splits (the default) and K3-MLA's at batches 8 (28) and
+    1 (64)."""
+    assert tattn.latent_split_plan(n_keys, splits) == (chunk, live)
+    if splits == tattn.LATENT_SPLITS:
+        assert tattn.latent_split_plan(n_keys) == (chunk, live)
+    assert live <= splits and chunk % tattn.LATENT_KEY_TILE == 0
+
+
+@pytest.mark.parametrize("B,clusters", [(1, 16), (2, 16), (3, 16), (4, 15),
+                                        (8, 7), (16, 3), (60, 1), (136, 1)])
+def test_latent_decode_clusters(B, clusters):
+    """K3-MLA's clusters a row: about 120 CTAs a call, 1 to 16 a row; two
+    CTAs a cluster, two splits a CTA."""
+    assert tattn.latent_decode_clusters(B) == clusters
+    assert tattn.latent_decode_splits(B) == 4 * clusters
+    assert B * clusters * tattn.LATENT_DECODE_CLUSTER <= max(
+        tattn.LATENT_DECODE_CTAS, 2 * B)
+
+
+def test_latent_ragged_row_plan():
+    """g = 16 at LATENT_TILE_ROWS = 4: a 7-row chunk whose first tile sees
+    255 keys (eight one-tile splits) and whose second, 3 rows that cross
+    the sequence's end, sees 258 (five of 64); decode rows at 1, 4096 and
+    past the table (4096 keys: eight of 512); a zero-count sequence; rows
+    no sequence owns."""
+    assert tattn.LATENT_TILE_ROWS == 4
+    spans = [(7, 258), (1, 1), (0, 0), (1, 4096), (1, 5000)]
+    counts = torch.tensor([n for n, _ in spans], dtype=torch.int32)
+    ctx = torch.tensor([c for _, c in spans], dtype=torch.int32)
+    starts = torch.tensor([0, 7, 8, 8, 9], dtype=torch.int32)
+    chunks, live = tattn.ragged_row_plan(starts, counts, ctx, 12, 16, 256,
+                                         16, tattn.LATENT_TILE_ROWS)
+    assert chunks.tolist() == [32] * 4 + [64] * 3 + [32, 512, 512, 0, 0]
+    assert live.tolist() == [8] * 4 + [5] * 3 + [1, 8, 8, 0, 0]
+
+
+# decode rows across the latent plan's chunks (1-, 2- and 12-tile splits),
+# over tables of 12 blocks of 32
+P_LENS_LONG = [0, 1, 31, 33, 129, 257, 300, 384]
+# a 7-row chunk whose tiles see 255 and 258 keys, a 6-row chunk to 300, a
+# decode row at 384, a 3-row chunk to 40, a zero-count slot
+R_SPANS_LONG = [(7, 258), (6, 300), (1, 384), (3, 40), (0, 0)]
+
+
+def _long_case(r, int8, n):
+    pool = _latent_pool(r, int8)
+    tables = r.integers(0, NB, size=(n, 12)).astype(np.int32)
+    return pool, tables
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["v_lanes", "sections"])
+def test_latent_paged_partials_follow_the_plan(int8, monkeypatch):
+    """K3-MLA's split form: ``latent_decode_splits(B)`` splits a row, cut
+    by the keys the row sees; the splits past its live ones empty; merged,
+    the plain output and JAX's Pallas kernel (interpret mode); one live
+    split left out of a multi-split row moves it."""
+    monkeypatch.setenv("DYN_ATTN_SEQS_PER_PROG", "1")
+    r = np.random.default_rng(8)
+    B = len(P_LENS_LONG)
+    pool, tables = _long_case(r, int8, B)
+    lens = np.asarray(P_LENS_LONG, np.int32)
+    q = (r.normal(size=(B, 16, WQ)) * 0.3).astype(np.float32)
+    kw = dict(block_size=PBS, scale=0.05, **_mode_kw(int8))
+    args = (_t(q), _t(pool), _t(pool), _t(tables), _t(lens))
+    m, l, acc = tattn.paged_attention_partials_ref(*args, **kw)
+    S = tattn.latent_decode_splits(B)
+    assert S == 28 and acc.shape == (B, 1, S, 16, RANK)
+    for b, n in enumerate(P_LENS_LONG):
+        live = tattn.latent_split_plan(n, S)[1]
+        assert torch.isfinite(m[b, 0, :live]).all()
+        assert torch.isneginf(m[b, 0, live:]).all()
+        assert not l[b, 0, live:].any() and not acc[b, 0, live:].any()
+    merged = tattn.merge_split_partials(m, l, acc).numpy()
+    plain = tattn.paged_attention_ref(*args, **kw).numpy()
+    want = np.asarray(jattn.paged_attention_pallas(
+        *(jnp.asarray(a) for a in (q, pool, pool, tables, lens)),
+        chunk_blocks=1, interpret=True,
+        **{k: v for k, v in kw.items() if v is not None}))
+    tol = INT8_TOL if int8 else F32_TOL
+    live = lens > 0
+    np.testing.assert_allclose(merged, plain, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(merged[live], want[live], rtol=tol, atol=tol)
+    m[:, :, 0], l[:, :, 0], acc[:, :, 0] = float("-inf"), 0, 0
+    dropped = tattn.merge_split_partials(m, l, acc).numpy()
+    multi = [b for b, n in enumerate(P_LENS_LONG)
+             if tattn.latent_split_plan(n, S)[1] > 1]
+    assert all(np.abs(dropped[b] - plain[b]).max() > 1e-2 for b in multi)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["v_lanes", "sections"])
+def test_latent_ragged_partials_follow_the_plan(int8):
+    """K4-MLA's split form at LATENT_TILE_ROWS: each row cut by its tile's
+    chunk into LATENT_SPLITS splits, a row's splits past its tile's live
+    ones and every split of a row no sequence owns empty; merged, the
+    plain output and JAX's ragged Pallas kernel (interpret mode)."""
+    r = np.random.default_rng(9)
+    S = len(R_SPANS_LONG)
+    pool, tables = _long_case(r, int8, S)
+    counts = np.asarray([n for n, _ in R_SPANS_LONG], np.int32)
+    ctx = np.asarray([c for _, c in R_SPANS_LONG], np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    total = int(counts.sum())
+    TT = total + 3
+    q = (r.normal(size=(TT, 16, WQ)) * 0.3).astype(np.float32)
+    kw = dict(block_size=PBS, scale=0.07, max_rows=32, **_mode_kw(int8))
+    args = tuple(_t(a) for a in (q, pool, pool, tables, starts, counts, ctx))
+    m, l, acc = tattn.ragged_attention_partials_ref(*args, **kw)
+    assert acc.shape == (TT, 1, tattn.LATENT_SPLITS, 16, RANK)
+    _, live = tattn.ragged_row_plan(args[4], args[5], args[6], TT, 16, 12,
+                                    PBS, tattn.LATENT_TILE_ROWS)
+    assert live[:7].tolist() == [8] * 4 + [5] * 3
+    for t in range(TT):
+        n = int(live[t])
+        assert torch.isneginf(m[t, 0, n:]).all() and not acc[t, 0, n:].any()
+    assert torch.isneginf(m[total:]).all()
+    merged = tattn.merge_split_partials(m, l, acc).numpy()
+    plain = tattn.ragged_paged_attention_ref(*args, **kw).numpy()
+    want = np.asarray(jattn.ragged_paged_attention_pallas(
+        *(jnp.asarray(a) for a in (q, pool, pool, tables, starts, counts,
+                                   ctx)),
+        chunk_blocks=1, interpret=True,
+        **{k: v for k, v in kw.items() if v is not None}))
+    rows = np.concatenate([np.arange(s, s + n)
+                           for s, n in zip(starts, counts)])
+    tol = INT8_TOL if int8 else F32_TOL
+    np.testing.assert_allclose(merged, plain, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(merged[rows], want[rows], rtol=tol, atol=tol)
+
+
+def test_latent_scratch_follows_the_plan():
+    """The latent kernels' partials room (``kernels.paged_scratch`` with
+    v_lanes): ``latent_decode_splits(B)`` (K3-MLA: 28 at B = 8, 4 at 136)
+    or, ragged, LATENT_SPLITS (K4-MLA) splits of 16 heads x (512 + 2)
+    floats a row, whatever the table's width (K3's and K4's room grows
+    with it)."""
+    from dynamo_tpu_torch.engine import kernels
+    for rows, ragged, S in ((8, False, 28), (136, False, 4),
+                            (136, True, tattn.LATENT_SPLITS)):
+        q = torch.zeros((rows, 16, 640))
+        want = rows * S * 16 * (512 + 2)
+        for M in (256, 4096 // 32, 8192 // 16, 131072 // 16):
+            assert kernels.paged_scratch(q, 1, M, 16, 512,
+                                         ragged=ragged).numel() == want
+    q8 = torch.zeros((136, 32, 128))
+    assert kernels.paged_scratch(q8, 8, 512, 16).numel() == (
+        136 * 8 * 64 * 4 * 130)
 
 
 def _refusal_case(name):
