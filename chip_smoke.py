@@ -62,7 +62,17 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    K = 8 against eight K = 1 dispatches (the same tokens), a planted
    fault (static inputs left stale) must be caught, and wall / device /
    launches per token are read for the eager step, the graphed K = 1
-   step and the K = 8 dispatch;
+   step and the K = 8 dispatch. In the ragged modes the ragged program
+   (``check_ragged_program``) replays its graph at both row buckets (a
+   pure-decode dispatch of a row a slot, and the mixed dispatch at the
+   capacity) against the same program run eagerly (live slots' tokens,
+   logprobs and logits and the pool, bit for bit), a stale static input
+   must be caught, two chained pure-decode dispatches must give the
+   tokens of two host-fed ones, the graphs' memory in the program's one
+   pool is read beside each graph in a pool of its own, and wall / device
+   / launches of the pure-decode dispatch and of a 64-row chunk ending at
+   key min(3000, the table) beside decode rows (PR 13's mixed shape) are
+   read eager against graphed (in 4-4q alike);
 5. serve: the port's HTTP server answers concurrent, streamed,
    prefix-cached and sampled ``/v1/completions`` at the 8B width in bf16,
    with the kernels' launch counts taken over this phase alone;
@@ -71,9 +81,11 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    sampled completions, with the launch counts taken over this phase
    alone;
 5c. serve ragged: phase 5's requests with ``--ragged``: every admission
-   and decode step goes through K4 (K1 and K3 launch 0 times), some
-   dispatches mix prefill and decode rows, a seeded request gives the
-   same text twice, and the ragged metrics are printed;
+   and decode step goes through K4 (K1 and K3 launch 0 times), every
+   ragged dispatch is a graph replay of the ragged program (0 eager; the
+   replays, captures and capture seconds are printed), some dispatches
+   mix prefill and decode rows, a seeded request gives the same text
+   twice, and the ragged metrics are printed;
 5d. serve ragged quantized: phase 5b's requests with ``--ragged
    --quantization int4 --kv-quantization int8``, checked as 5c;
 5e. serve sp: phase 5's requests on a server whose mesh places sp = 2
@@ -89,7 +101,13 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    prefill in 2, 3 and 4 chunks (32 K1 launches a chunk), the host fetches
    fewer times than a quarter of the decode tokens, a seeded request gives
    the same text twice, and each stream's TTFT/ITL is printed beside
-   5b's, with the share of greedy tokens the two agree on.
+   5b's, with the share of greedy tokens the two agree on;
+5r. serve ragged pipelined: phase 5f's requests on a server with
+   ``--ragged --decode-dispatch-pipeline --quantization int4
+   --kv-quantization int8``: checked as 5c, and some pure-decode dispatch
+   chains off the one before it, the host fetches fewer times than there
+   are decode tokens, and each stream's TTFT/ITL is printed beside 5d's,
+   with the share of greedy tokens the two agree on.
 
 3g. kernels at Gemma-2-9B's shapes (``GEMMA2_9B_CONFIG``, parsed by the
    port's ``ModelConfig.from_hf_config``: 16/8 heads of 256, soft-cap 50,
@@ -219,8 +237,9 @@ model and serve phases run each geometry at the depth of ``LAYERS``: the
 published depth, or less for an earlier geometry cut so that the whole
 run stays inside its time limit (width, kernels and planted faults stay).
 
-Every split-path decode dispatch of phases 5-5q replays a captured graph;
-its launches count through the program's replay accounting.
+Every split-path decode dispatch and every ragged dispatch of phases
+5-5q replays a captured graph; its launches count through the program's
+replay accounting.
 
 The line before the last is the kernels' JSON summary (the entries of
 3g, 3m, 3p and 3q carry a ``mode``); the last line is ``{"ok": true, "device":
@@ -2166,6 +2185,8 @@ def check_ragged_model(params, cfg, mode: str, kv, tables, batches,
         profile = profile_ragged_decode(params, kv, cfg, tables,
                                         tables.shape[0] - 1, pool.device, bs)
         restore()
+        program = check_ragged_program(params, kv, cfg, tables, batches,
+                                       f"{run.label} {mode}", bs)
     torch.cuda.synchronize()
     del snap
     what = f"ragged model {run.label} {mode}"
@@ -2174,7 +2195,7 @@ def check_ragged_model(params, cfg, mode: str, kv, tables, batches,
     spread, compare = logit_compare(ref)
     res = {"mode": mode, "launches": launches, "max_abs_ref": spread,
            **compare(got), "planted_faults": {fault.__name__: compare(bad)},
-           "decode_dispatch": profile}
+           "decode_dispatch": profile, "program": program}
     log(f"ragged_model {run.label} {json.dumps(res)}")
     want = {k4: cfg.num_layers * len(batches)}
     if {k: launches.get(k, 0) for k in want} != want or any(
@@ -2183,6 +2204,242 @@ def check_ragged_model(params, cfg, mode: str, kv, tables, batches,
                            f"and no split-path attention")
     check_model_limits(what, res["rel_err"], {
         k: v["rel_err"] for k, v in res["planted_faults"].items()})
+    return res
+
+
+# the ragged program of phases 4-4q (engine/programs.py): a graph per row
+# bucket and sampling variant; slot 1 samples (seeded, top-p 0.9) so the
+# filtered branch runs, the others are greedy
+RAGGED_PROFILE_END = 3000      # PR 13's mixed shape: a chunk ending here
+
+
+def ragged_program_inputs(batch, tables, B: int) -> dict:
+    """The ragged program's host inputs for ``batch`` (``ragged_batch``'s
+    tensors: tokens, positions, tables, row_slot, starts, counts,
+    sample_rows over the used rows): the rows as packed, dead rows filled
+    by the program, slot 1 seeded and sampled."""
+    import numpy as np
+    tok, pos, _, row_slot, starts, counts, sample = (
+        t.cpu().numpy() for t in batch)
+    S = B + 1
+    temp = np.zeros((S,), np.float32)
+    top_p = np.ones((S,), np.float32)
+    temp[1], top_p[1] = 0.7, 0.9
+    return {"tokens": tok.astype(np.int64), "positions": pos,
+            "row_slot": row_slot, "tables": tables.cpu().numpy(),
+            "seq_starts": starts, "seq_counts": counts,
+            "sample_rows": sample, "seeds": np.arange(S, dtype=np.int64),
+            "steps": (pos[sample] + 1).astype(np.int64), "temperature": temp,
+            "top_k": np.zeros((S,), np.int64), "top_p": top_p}
+
+
+def ragged_program_batches(batches, tables, bs: int, dev) -> dict:
+    """Phase 4's program inputs: ``decode``, one row a slot of ``tables``
+    (B rows: each slot of the last dispatch at its span's last position,
+    any other at 300, where no two rows share a pool row); ``mixed``, the
+    last dispatch as the model check ran it; ``profile_mixed``, a 64-row
+    chunk of slot 0 ending at key min(3000, slot 0's table) beside the
+    decode rows of the other slots (V2-Lite: PR 13's mixed shape)."""
+    B = tables.shape[0] - 1
+    last = batches[-1]
+    counts = last[5].tolist()
+    sample = last[6].tolist()
+    pos = last[1].tolist()
+    at = [pos[sample[s]] if counts[s] else 300 for s in range(B)]
+    tokens = [[3 + (i + s) % 1000 for i in range(8192)] for s in range(B)]
+    decode = {s: (1, at[s]) for s in range(B)}
+    end = min(RAGGED_PROFILE_END, int((tables[0] > 0).sum()) * bs)
+    mixed = {0: (RAGGED_MAX_ROWS, end - RAGGED_MAX_ROWS)}
+    mixed.update({s: (1, at[s]) for s in range(1, B)})
+    return {"decode": ragged_batch(decode, tokens, tables, B, dev),
+            "mixed": last,
+            "profile_mixed": ragged_batch(mixed, tokens, tables, B, dev)}
+
+
+def profile_ragged_program(prog, inputs: dict) -> dict:
+    """One ragged dispatch of ``inputs``, greedy, eager (``run_eager``) and
+    replayed: host wall time (mean of 5 calls ending in the host fetch),
+    device time and device kernels from the profiler, the hand-written
+    kernels' launches of one call, and for the replay its CUDA-event
+    time."""
+    import torch
+    from dynamo_tpu_torch.engine import kernels
+    runs = {"eager": lambda: prog.run_eager("greedy", inputs).fetch(),
+            "graph": lambda: prog.dispatch("greedy", inputs).fetch()}
+    out = {}
+    for name, fn in runs.items():
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(5):
+            fn()
+        wall_ms = 1e3 * (time.monotonic() - t0) / 5
+        before = {k: v.launches for k, v in kernels.KERNELS.items()}
+        fn()
+        launches = {k: v.launches - before[k]
+                    for k, v in kernels.KERNELS.items()
+                    if v.launches > before[k]}
+        prof = device_profile(fn)
+        row = {"rows": prog.bucket(inputs), "wall_ms": wall_ms,
+               "device_ms": prof["device_ms"],
+               "device_kernels": prof["device_kernels"],
+               "device_busy_share": (prof["device_ms"] / wall_ms
+                                     if prof["device_busy_share"]
+                                     is not None else None),
+               "launches": launches,
+               "top_kernels_ms": prof["top_kernels_ms"]}
+        if name == "graph":
+            row["event_ms"] = time_ms(fn, iters=5, warmup=1)
+        out[name] = row
+    return out
+
+
+def reserved_gib() -> float:
+    """Device memory the caching allocator holds once what nothing uses
+    is released (graph pools included)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**30
+
+
+def check_ragged_program(params, kv, cfg, tables, batches, what: str,
+                         bs: int) -> dict:
+    """The ragged program over phase 4's weights and pool: at each row
+    bucket (``decode``: B rows; ``mixed``: the model check's last
+    dispatch at the capacity) a graph replay against the same program run
+    eagerly from the same pool (the live slots' tokens, logprobs and
+    logits and the pool outside the trash block, bit for bit); a planted
+    fault (the static inputs left stale for a second dispatch) that must
+    differ from the eager run; the pure-decode batch at both buckets
+    (within MODEL_REL_TOL, with the share of equal greedy tokens); two
+    chained pure-decode dispatches against two host-fed ones (the same
+    tokens); the graphs' memory in the
+    program's one pool against each bucket's graph in a pool of its own;
+    then wall / device / launches of the decode dispatch and of the
+    profiled mixed shape, eager against graphed."""
+    import numpy as np
+    import torch
+    from dynamo_tpu_torch.engine.programs import RaggedProgram
+    dev = next(iter(kv.values())).device
+    B, M = tables.shape[0] - 1, tables.shape[1]
+    cap = B + 2 * RAGGED_MAX_ROWS
+    snap = {n: t.clone() for n, t in kv.items()}
+
+    def restore():
+        for n, t in kv.items():
+            t.copy_(snap[n])
+
+    def program():
+        return RaggedProgram(params, kv, cfg, bs, B, M, cap,
+                             RAGGED_MAX_ROWS, 0, dev)
+
+    inputs = {k: ragged_program_inputs(b, tables, B)
+              for k, b in ragged_program_batches(batches, tables, bs,
+                                                 dev).items()}
+    res = {"B": B, "capacity": cap}
+    r0 = reserved_gib()
+    prog = program()
+    memory = {}
+    for kind in ("mixed", "decode"):
+        inp = inputs[kind]
+        live = [s for s in range(B) if inp["seq_counts"][s]]
+        restore()
+        d = prog.dispatch("filtered", inp, with_logits=True)
+        toks, lps = d.fetch()
+        memory[f"shared_after_{kind}_gib"] = reserved_gib() - r0
+        logits = d.logits[live].clone()
+        pool = {n: t[:, bs:].clone() for n, t in kv.items()}
+        restore()
+        e = prog.run_eager("filtered", inp, with_logits=True)
+        res[f"{kind}_replay_equals_eager"] = {
+            "rows": prog.bucket(inp),
+            "tokens": bool((toks[live] == e.toks.cpu().numpy()[live]).all()),
+            "logprobs": bool((lps[live]
+                              == e.logprobs.cpu().numpy()[live]).all()),
+            "logits": torch.equal(logits, e.logits[live]),
+            "pool": all(torch.equal(pool[n], kv[n][:, bs:]) for n in kv)}
+        del pool, logits, e, d
+    # the pure-decode batch at the capacity bucket too: another row count
+    # may take other library algorithms, so the two buckets agree within
+    # the model limit and by greedy tokens, not bit for bit
+    dec = inputs["decode"]
+    live = [s for s in range(B) if dec["seq_counts"][s]]
+    restore()
+    small = prog.run_eager("greedy", dec, with_logits=True).logits[live]
+    restore()
+    big = prog._run(cap, "greedy", prog._device_inputs(dec),
+                    with_logits=True)[2][live]
+    _, compare = logit_compare(small)
+    res["buckets_agree"] = compare(big)
+    del small, big
+    # each bucket's graph alone in a pool of its own (a program per graph)
+    for kind in ("mixed", "decode"):
+        r1 = reserved_gib()
+        alone = program()
+        restore()
+        alone.dispatch("filtered", inputs[kind]).fetch()
+        memory[f"own_pool_{kind}_gib"] = reserved_gib() - r1
+        del alone
+    res["graph_memory"] = memory
+    # the planted fault: a second dispatch whose inputs never reach the
+    # graph (its static inputs keep the first dispatch's tokens)
+    other = {k: v.copy() for k, v in dec.items()}
+    other["tokens"] = other["tokens"] + 1000
+    restore()
+    prog.dispatch("filtered", dec).fetch()
+    upload = prog._upload
+    prog._upload = lambda inputs: None
+    try:
+        restore()
+        stale = prog.dispatch("filtered", other,
+                              with_logits=True).logits[live].clone()
+    finally:
+        prog._upload = upload
+    restore()
+    right = prog.run_eager("filtered", other, with_logits=True).logits[live]
+    res["planted_stale_inputs_caught"] = not torch.equal(stale, right)
+    del stale, right
+    # two pure-decode dispatches, the second chained off the first's device
+    # tokens, against the same two fed from the host
+    starts = dec["seq_starts"][:B]
+
+    def second(tokens=None):
+        nxt = {k: v.copy() for k, v in dec.items()}
+        nxt["positions"][starts] += 1
+        nxt["steps"][:B] += 1
+        if tokens is not None:
+            nxt["tokens"][starts] = tokens
+        return nxt
+    mask = np.zeros((cap,), bool)
+    mask[starts] = True
+    srows = np.zeros((cap,), np.int64)
+    srows[starts] = np.arange(B)
+    restore()
+    d1 = prog.dispatch("filtered", dec)
+    d2 = prog.dispatch("filtered", {**second(), "chain_mask": mask,
+                                    "srows": srows}, chain=d1.toks)
+    chained = (d1.fetch()[0][:B], d2.fetch()[0][:B])
+    restore()
+    h1 = prog.dispatch("filtered", dec).fetch()[0][:B]
+    h2 = prog.dispatch("filtered", second(h1)).fetch()[0][:B]
+    res["chained_equals_host_fed"] = bool((chained[0] == h1).all()
+                                          and (chained[1] == h2).all())
+    restore()
+    res["profile"] = {k: profile_ragged_program(prog, inputs[k])
+                      for k in ("decode", "profile_mixed")}
+    restore()
+    res["captures"], res["replays"] = prog.captures, prog.replays
+    res["capture_s"] = prog.capture_s
+    del snap, prog
+    bad = [k for k, v in res.items() if v is False
+           or (isinstance(v, dict) and any(x is False for x in v.values()))]
+    if not res["buckets_agree"]["rel_err"] <= MODEL_REL_TOL:
+        bad.append("buckets_agree")
+    log(f"ragged_program {what} {json.dumps(res)}")
+    if bad:
+        raise RuntimeError(f"ragged program {what}: {bad} failed")
     return res
 
 
@@ -3680,6 +3937,8 @@ PATH_KERNELS = {
     "sp": ("flash_prefill_partial", "flash_prefill", "paged_attention"),
     "dispatch": ("flash_prefill", "paged_attention_int8", "lm_head_int8",
                  "grouped_int4_matmul"),
+    "ragged_pipeline": ("ragged_paged_attention_int8", "lm_head_int8",
+                        "grouped_int4_matmul"),
     "gemma2_bf16": ("flash_prefill", "paged_attention"),
     "gemma2_ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
                                "grouped_int4_matmul"),
@@ -3730,6 +3989,7 @@ SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
                "ragged": ("bf16", True),
                "ragged_int4_kv8": ("int4_kv8", True), "sp": ("bf16", False),
                "dispatch": ("int4_kv8", False),
+               "ragged_pipeline": ("int4_kv8", True),
                "gemma2_bf16": ("bf16", False),
                "gemma2_ragged_int4_kv8": ("int4_kv8", True),
                "gemma2_int4_kv8": ("int4_kv8", False),
@@ -3820,6 +4080,8 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         + (["--ragged", "--ragged-max-seq-rows", str(RAGGED_MAX_ROWS)]
            if ragged else [])
         + (DISPATCH_FLAGS if path == "dispatch" else [])
+        + (["--decode-dispatch-pipeline"] if path == "ragged_pipeline"
+           else [])
         + (["--decode-steps-per-dispatch", str(DISPATCH_K)]
            if path in ("gemma2_bf16", "mla_bf16_k8", "phi3_bf16_k8",
                        "qwen2_bf16_k8")
@@ -3885,10 +4147,15 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         http_completion(port, {"model": name, "prompt": warm,
                                "max_tokens": 4,
                                "nvext": {"ignore_eos": True}, **extra})
+    # the split path's graphs are the decode program's, a ragged path's
+    # the ragged program's (a pure-decode and a mixed bucket, greedy and
+    # filtered sampling)
+    graphs = core.ragged_program if ragged else core.program
     bring_up = {"warm_requests_s": time.monotonic() - t0,
-                "graph_captures": core.program.captures,
-                "graph_capture_s": core.program.capture_s,
-                "allocated_gib": torch.cuda.memory_allocated() / 2**30}
+                "graph_captures": graphs.captures,
+                "graph_capture_s": graphs.capture_s,
+                "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                "reserved_gib": torch.cuda.memory_reserved() / 2**30}
     rng = np.random.default_rng(seed)
     mk = lambda n: rng.integers(lo, cfg.vocab_size, size=n).tolist()  # noqa: E731
     max_tokens = 32
@@ -3913,7 +4180,8 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                    "p1900": mk(1900)}
     else:
         prompts = {"p700": mk(700), "p1900": mk(1900)}
-    if path == "dispatch":
+    five_f = path in ("dispatch", "ragged_pipeline")
+    if five_f:
         # 5b's prompts and a 1500-token one (2, 4 and 3 chunks of 512),
         # and a 64-token stream posted once a slot decodes: it rides the
         # batch as a lane
@@ -3922,17 +4190,20 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                                           size=1500).tolist()
         lane_prompt = extra.integers(259, cfg.vocab_size, size=64).tolist()
         # a lane needs a slot whose admission is complete (its first token
-        # fetched, as in the JAX engine): the engine's completion sets this,
-        # and the three long prompts decode 64 tokens, so that the lane
-        # request lands while they still decode
+        # fetched, as in the JAX engine; on the ragged path, its prompt
+        # consumed): the engine's completion (the ragged harvest) sets
+        # this, and the three long prompts decode 64 tokens, so that the
+        # lane request lands while they still decode
         decoding = threading.Event()
-        complete = core._complete_admissions
+        hook = "_harvest_ragged" if ragged else "_complete_admissions"
+        complete = getattr(core, hook)
 
-        def completed():
-            complete()
-            if any(x is not None and x.ready for x in core.slots):
+        def completed(*a):
+            complete(*a)
+            if any(x is not None and x.ready and x.lane_prompt is None
+                   for x in core.slots):
                 decoding.set()
-        core._complete_admissions = completed
+        setattr(core, hook, completed)
     report = {"bring_up": bring_up}
     stack = contextlib.ExitStack()
     try:
@@ -3943,14 +4214,14 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         pool = core.kv_manager.pool
         # concurrent greedy streams of mixed prompt lengths
         with ThreadPoolExecutor(len(prompts) + 1) as ex:
-            n_tokens = {k: 2 * max_tokens if path == "dispatch" else
-                        max_tokens for k in prompts}
+            n_tokens = {k: 2 * max_tokens if five_f else max_tokens
+                        for k in prompts}
             futs = {k: ex.submit(http_completion, port, {
                 **greedy, "prompt": p, "stream": True,
                 "max_tokens": n_tokens[k],
                 "stream_options": {"include_usage": True}})
                 for k, p in prompts.items()}
-            if path == "dispatch":
+            if five_f:
                 def lane_request():
                     # posted once a slot decodes (no polling: a thread
                     # that spins on the slot list takes the GIL from the
@@ -3994,8 +4265,16 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         launches = {k: v.launches for k, v in kernels.KERNELS.items()}
         if ragged:
             m = core.metrics()
+            prog = core.ragged_program
             report["ragged_metrics"] = {
                 "dispatches": core.ragged_dispatches,
+                "graph_replays": prog.replays,
+                "graph_captures": prog.captures,
+                "graph_capture_s": prog.capture_s,
+                "chained_dispatches": core.ragged_chained_dispatches,
+                "host_roundtrips": core.host_roundtrips,
+                "host_stall_s": core.host_stall_s,
+                "decode_tokens": core.total_decode_tokens,
                 "mixed_dispatches": core.ragged_mixed_dispatches,
                 "prefill_rows": core.ragged_prefill_rows_total,
                 "decode_rows": core.ragged_decode_rows_total,
@@ -4038,13 +4317,23 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         if split:
             raise RuntimeError(f"serve {path}: split-path attention "
                                f"launched on the ragged path: {split}")
-        if report["ragged_metrics"]["mixed_dispatches"] <= 0:
+        rm = report["ragged_metrics"]
+        if rm["mixed_dispatches"] <= 0:
             raise RuntimeError(f"serve {path}: no dispatch mixed prefill "
                                f"and decode rows")
+        # every ragged dispatch on the card is a graph replay
+        if rm["dispatches"] - rm["graph_replays"] != 0:
+            raise RuntimeError(f"serve {path}: {rm['dispatches']} ragged "
+                               f"dispatches, {rm['graph_replays']} replays")
+        log(f"serve {path}: ragged dispatches {rm['dispatches']}, graph "
+            f"replays {rm['graph_replays']}, eager 0, captures "
+            f"{rm['graph_captures']} in {rm['graph_capture_s']:.2f} s")
     if path == "sp":
         check_sp_dispatch(cfg, prefills, launches)
     if path == "dispatch":
         check_dispatch_modes(cfg, report["dispatch_metrics"], launches)
+    if path == "ragged_pipeline":
+        check_ragged_pipeline(report["ragged_metrics"])
     del core
     gc.collect()
     torch.cuda.empty_cache()
@@ -4096,6 +4385,17 @@ def check_dispatch_modes(cfg, m: dict, launches: dict) -> None:
     if not m["host_roundtrips"] < m["decode_tokens"] / 4:
         raise RuntimeError(f"serve dispatch: {m['host_roundtrips']} host "
                            f"fetches for {m['decode_tokens']} decode tokens")
+
+
+def check_ragged_pipeline(m: dict) -> None:
+    """5r: some pure-decode ragged dispatch chained off the one before it,
+    and the host fetched fewer times than there were decode tokens."""
+    if m["chained_dispatches"] <= 0:
+        raise RuntimeError("serve ragged_pipeline: no dispatch chained")
+    if not m["host_roundtrips"] < m["decode_tokens"]:
+        raise RuntimeError(f"serve ragged_pipeline: {m['host_roundtrips']} "
+                           f"host fetches for {m['decode_tokens']} decode "
+                           f"tokens")
 
 
 def compare_servers(card: str, base: dict, other: dict, path: str,
@@ -4413,6 +4713,9 @@ def main() -> int:
     compare_servers(card, by_path["bf16"][1], by_path["sp"][1], "sp")
     compare_servers(card, by_path["int4_kv8"][1], by_path["dispatch"][1],
                     "dispatch", "int4_kv8")
+    compare_servers(card, by_path["ragged_int4_kv8"][1],
+                    by_path["ragged_pipeline"][1], "ragged_pipeline",
+                    "ragged_int4_kv8")
 
     # 3g-5g. the Gemma-2-9B geometry: its kernels' modes, the model through
     # them, and its servers

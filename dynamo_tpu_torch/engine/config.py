@@ -587,7 +587,9 @@ class EngineConfig:
     # defer each K-dispatch's harvest one dispatch: the next batch chains
     # off on-device tokens while the previous results copy to the host —
     # steady-state cost max(fetch, compute) instead of fetch+compute.
-    # Finish/cancel reaction widens to <=2K-1 steps. Requires K > 1.
+    # Finish/cancel reaction widens to <=2K-1 steps. Requires K > 1, but
+    # under ragged_dispatch, where a pure-decode dispatch's harvest is
+    # deferred and the next chains off its device tokens.
     # Note on exactness: under RECOMPUTE PREEMPTION (any dispatch mode,
     # pipelined or not) a stream is bit-exact vs an uncontended run only up
     # to its first preemption point — the re-admission prefill's numerics
@@ -642,14 +644,10 @@ class EngineConfig:
                 and not self.ragged_dispatch):
             raise ValueError(
                 "decode_dispatch_pipeline requires decode_steps_per_dispatch"
-                " > 1 (the pipeline defers multi-step harvests)")
+                " > 1 (the pipeline defers multi-step harvests) — except "
+                "under ragged_dispatch, whose single-step dispatches "
+                "pipeline via the chained-sample merge")
         if self.ragged_dispatch:
-            if self.decode_dispatch_pipeline:
-                raise NotImplementedError(
-                    "the pipelined ragged dispatch (decode_dispatch_"
-                    "pipeline with ragged_dispatch) is not implemented "
-                    "yet (ROADMAP A1): run the ragged dispatch "
-                    "unpipelined, or the split path pipelined")
             if self.ragged_max_seq_rows <= 0:
                 raise ValueError("ragged_max_seq_rows must be > 0")
             if self.ragged_max_tokens == 0:

@@ -17,15 +17,17 @@ ring attention); decode stays on the engine's device. With
 ``EngineConfig.ragged_dispatch`` every engine step is instead ONE ragged
 dispatch (``engine/ragged.py``, the family's ``ragged_forward``):
 admissions ride it as prefill lanes, chunk by chunk, beside the decode
-rows of the other slots.
+rows of the other slots; with ``decode_dispatch_pipeline`` a pure-decode
+ragged dispatch defers its harvest one dispatch, as a decode dispatch does.
 
-Prefill and ragged dispatch are eager calls into the family's module that
-update the KV pool in place. A decode dispatch is the decode program
-(``engine/programs.py``): on the card one CUDA graph replay, the port's
-form of the JAX engine's compiled ``decode`` / ``decode_k`` programs; on
-the CPU the same function run eagerly. Inactive decode slots aim at the
-trash block 0 with position 0, as in the JAX engine, so every decode
-dispatch has the static ``[max_num_seqs]`` batch.
+Prefill is an eager call into the family's module that updates the KV pool
+in place. A decode dispatch is the decode program and a ragged dispatch
+the ragged program (``engine/programs.py``): on the card one CUDA graph
+replay, the port's form of the JAX engine's compiled ``decode`` /
+``decode_k`` and ``ragged`` programs; on the CPU the same function run
+eagerly. Inactive decode slots aim at the trash block 0 with position 0, as
+in the JAX engine, so every decode dispatch has the static
+``[max_num_seqs]`` batch, and a ragged dispatch one of two row buckets.
 Sampling noise is the JAX engine's: each sampled token is keyed by (engine
 seed, request seed, the request's ``key_step``), so a seeded request
 reproduces the JAX engine's stream whatever else is batched with it, also
@@ -52,7 +54,7 @@ from ..parallel.sharding import replicate_params
 from .config import EngineConfig, ModelConfig
 from .device import resolve_device
 from .models import family
-from .programs import DecodeProgram, sampling_variant
+from .programs import DecodeProgram, RaggedProgram, sampling_variant
 from .quant import init_params_quantized, quantize_params
 from .ragged import RaggedBatch, build_ragged_batch
 from .sampling import SlotSampling, gumbel_noise, make_slot_key, sample_tokens
@@ -284,6 +286,15 @@ class EngineCore:
             self.B, self.M, max(engine_cfg.decode_steps_per_dispatch, 1),
             engine_cfg.seed, self.device)
         self._pending: Optional[dict] = None
+        # the ragged program (a CUDA graph per row bucket and sampling
+        # variant on the card) and the pipelined ragged dispatch whose
+        # harvest is deferred one dispatch
+        self.ragged_program = (RaggedProgram(
+            self.params, self.kv, model_cfg, engine_cfg.kv_block_size,
+            self.B, self.M, engine_cfg.ragged_max_tokens,
+            engine_cfg.ragged_max_seq_rows, engine_cfg.seed, self.device)
+            if engine_cfg.ragged_dispatch else None)
+        self._ragged_pending: Optional[dict] = None
         # admissions whose first token is still on its way to the host:
         # (request, _FirstToken), completed after the next decode dispatch
         self._admissions: List[tuple] = []
@@ -305,6 +316,7 @@ class EngineCore:
         self.ragged_decode_rows_total = 0
         self.ragged_mixed_dispatches = 0
         self.ragged_dispatches_saved = 0
+        self.ragged_chained_dispatches = 0
 
     # ------------------------------------------------------------- lifecycle
     def ensure_started(self) -> None:
@@ -338,6 +350,9 @@ class EngineCore:
         if self._pending is not None:     # drain the pipelined dispatch
             self._harvest(self._pending)
             self._pending = None
+        if self._ragged_pending is not None:  # the ragged form of same
+            prev, self._ragged_pending = self._ragged_pending, None
+            self._harvest_ragged(prev)
 
     async def submit(self, req: EngineRequest) -> None:
         self.ensure_started()
@@ -400,6 +415,7 @@ class EngineCore:
     def _fail_pending(self, exc: BaseException) -> None:
         self._dead = exc
         self._pending = None
+        self._ragged_pending = None
         self._admissions = []
         for req in list(self._inflight_reqs.values()):
             req.out_queue.put_nowait((_FINISH, FinishReason.ERROR))
@@ -447,6 +463,11 @@ class EngineCore:
                 self._harvest(self._pending)
                 self._pending = None
                 progressed = True
+            elif self._ragged_pending is not None:
+                # the same drain for a pipelined ragged dispatch
+                prev, self._ragged_pending = self._ragged_pending, None
+                self._harvest_ragged(prev)
+                progressed = True
             # 3) deferred admissions: their copies overlapped step 2
             if self._admissions:
                 self._complete_admissions()
@@ -478,7 +499,7 @@ class EngineCore:
                     survivors.append(r)
             for r in survivors:
                 self.waiting.put_nowait(r)
-        if self._pending is None:
+        if self._pending is None and self._ragged_pending is None:
             for req in list(self.slots):
                 if req is not None and req.ready and req.cancelled:
                     self._release_slot(req)
@@ -499,20 +520,12 @@ class EngineCore:
         self._admit_with_plan(req, slot, plan)
         return True
 
-    def _sample(self, logits: torch.Tensor,
-                reqs: List[Optional[EngineRequest]],
-                steps: Optional[List[int]] = None) -> tuple:
-        """Sample one token per row of ``logits`` [B, V] with each row's
-        request parameters, keyed at ``steps[i]`` (default: each request's
-        ``key_step``). None rows sample greedily and are ignored. Returns
-        (tokens, logprobs) on the host."""
-        toks, logprobs = self._sample_device(logits, reqs, steps)
-        return toks.cpu().numpy(), logprobs.cpu().numpy()
-
     def _sample_device(self, logits: torch.Tensor,
-                       reqs: List[Optional[EngineRequest]],
-                       steps: Optional[List[int]] = None) -> tuple:
-        """``_sample``'s (tokens, logprobs), left on the engine's device."""
+                       reqs: List[Optional[EngineRequest]]) -> tuple:
+        """Sample one token per row of ``logits`` [B, V] with each row's
+        request parameters, keyed on the host at the request's
+        ``key_step``. None rows sample greedily and are ignored. Returns
+        (tokens, logprobs) on the engine's device."""
         n = logits.shape[0]
         temperature = np.zeros((n,), np.float32)
         top_k = np.zeros((n,), np.int64)
@@ -520,10 +533,8 @@ class EngineCore:
         keys = []
         for i, r in enumerate(reqs):
             sampled = r is not None and r.sampling.temperature > 0.0
-            keys.append(make_slot_key(
-                self.cfg.seed, r.sampling.seed,
-                r.key_step if steps is None else steps[i])
-                if sampled else None)
+            keys.append(make_slot_key(self.cfg.seed, r.sampling.seed,
+                                      r.key_step) if sampled else None)
             if r is not None:
                 temperature[i] = r.sampling.temperature
                 top_k[i] = r.sampling.top_k
@@ -712,9 +723,35 @@ class EngineCore:
     def _ragged_step(self) -> None:
         """One ragged dispatch: grow blocks, pack every slot's pending work
         (mid-prompt lanes up to ragged_max_seq_rows prompt rows, decoding
-        slots one row) into one batch, run it, harvest."""
+        slots one row) into one batch, run it, harvest.
+
+        With ``decode_dispatch_pipeline`` a pure-decode dispatch defers its
+        harvest one iteration: the next dispatch chains off the in-flight
+        device tokens (the chained-sample merge), so the device→host fetch
+        overlaps the next dispatch's compute. Any churn (an admission
+        mid-prompt, slot turnover, growth that fails, a slot at capacity)
+        drains the pipeline first and costs one un-overlapped dispatch."""
+        if self._ragged_pending is not None:
+            nxt = self._ragged_dispatch_pipelined()
+            prev, self._ragged_pending = self._ragged_pending, None
+            self._harvest_ragged(prev)
+            if nxt is not None:
+                self._ragged_pending = nxt
+                return
+            if not any(s is not None and s.ready for s in self.slots):
+                return
+            # couldn't chain: a fresh host-fed dispatch against the
+            # harvested state
         pending = self._ragged_dispatch_fresh()
-        if pending is not None:
+        if pending is None:
+            return
+        if (self.cfg.decode_dispatch_pipeline
+                and all(sq.mode == "decode" for sq in pending["batch"].seqs)):
+            # pure decode: defer the harvest so the next iteration can
+            # chain off it (prefill spans harvest at once: their
+            # bookkeeping gates the next packing)
+            self._ragged_pending = pending
+        else:
             self._harvest_ragged(pending)
 
     def _ragged_dispatch_fresh(self) -> Optional[dict]:
@@ -760,40 +797,103 @@ class EngineCore:
             return None
         return self._ragged_dispatch(batch)
 
-    def _ragged_dispatch(self, batch: RaggedBatch) -> dict:
-        """Run one ragged dispatch over ``batch`` and sample one token per
-        slot (the trash sequence is slot B). A span that ends in a sample
-        keys it at ``key_step + len - 1`` — the key the split path uses
+    def _ragged_dispatch_pipelined(self) -> Optional[dict]:
+        """Steady-state pipelined ragged dispatch: chain off the in-flight
+        dispatch's device tokens. Returns the new pending record, or None
+        when the pipeline must drain first: the slot→request mapping must
+        be the in-flight dispatch's, no slot mid-prompt, and growth one
+        token ahead must succeed without finishing or preempting anything
+        (an un-harvested token is in flight)."""
+        prev = self._ragged_pending
+        now = self._ready_slots()
+        if any(now[i] is not prev["reqs"][i] for i in range(self.B)):
+            return None
+        live = [i for i in range(self.B) if now[i] is not None]
+        if not live:
+            return None
+        for i in live:
+            s = now[i]
+            if s.lane_prompt is not None and s.pos < len(s.lane_prompt):
+                return None        # admission churn mid-flight
+        capacity = self.M * self.cfg.kv_block_size
+        for i in live:
+            s = now[i]
+            if s.pos + 1 + 2 > capacity:
+                return None
+            need = self._blocks_needed(s.pos + 1 + 2)
+            if need > len(s.blocks):
+                new = self.kv_manager.pool.alloc_uninit(need - len(s.blocks))
+                if new is None:
+                    return None
+                s.blocks.extend(new)
+                self._block_tables[i, :len(s.blocks)] = s.blocks
+        batch = build_ragged_batch(
+            self.cfg.ragged_max_tokens, self.B,
+            [(i, now[i].last_token, now[i].pos + 1) for i in live],
+            [], self.cfg.ragged_max_seq_rows)
+        if batch is None:
+            return None
+        return self._ragged_dispatch(batch, chain=prev, ahead=1)
+
+    def _ragged_dispatch(self, batch: RaggedBatch,
+                         chain: Optional[dict] = None,
+                         ahead: int = 0) -> dict:
+        """Launch one ragged dispatch over ``batch`` (the ragged program;
+        the trash sequence is slot B). A span that ends in a sample keys it
+        at ``key_step + ahead + len - 1``: the key the split path uses
         there, by the lane admission's offset (== key_step for a decode
-        row). Spans that end mid-prompt, and the trash slot, sample
-        greedily and are discarded. PyTorch runs eagerly, so the dispatch
-        carries only the used rows (the dead rows of the batch's capacity
-        would attend nothing). Returns the un-harvested dispatch."""
-        n = batch.rows_used
-        tables = np.zeros((self.B + 1, self.M), np.int32)
-        tables[:self.B] = self._block_tables
-        reqs: List[Optional[EngineRequest]] = [None] * (self.B + 1)
-        steps = [0] * (self.B + 1)
+        row). Spans that end mid-prompt, the trash slot and the slots the
+        batch leaves out sample at temperature 0, and are discarded.
+        ``chain``: the in-flight pending record whose device tokens feed
+        this dispatch's decode rows (the chained-sample merge); ``ahead``:
+        the un-harvested tokens each chained slot runs ahead of host state
+        (its positions were advanced by the caller's packing). Returns the
+        un-harvested dispatch."""
+        S = self.B + 1
+        tables = np.zeros((S, self.M), np.int32)
+        tables[:self.B] = self._tables_for_dispatch()
+        seeds = np.zeros((S,), np.int64)
+        steps = np.zeros((S,), np.int64)
+        temperature = np.zeros((S,), np.float32)
+        top_k = np.zeros((S,), np.int64)
+        top_p = np.ones((S,), np.float32)
+        live = np.zeros((S,), bool)
         for sq in batch.seqs:
             s = self.slots[sq.slot]
             if (sq.mode == "prefill"
                     and s.pos + sq.length < len(s.lane_prompt)):
                 continue
-            reqs[sq.slot] = s
-            steps[sq.slot] = s.key_step + sq.length - 1
-
-        def dev(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(self.device)
-
+            i = sq.slot
+            live[i] = True
+            seeds[i] = self._seeds[i]
+            steps[i] = s.key_step + ahead + sq.length - 1
+            temperature[i] = self._samp["temperature"][i]
+            top_k[i] = self._samp["top_k"][i]
+            top_p[i] = self._samp["top_p"][i]
+        inputs = {"tokens": batch.tokens.astype(np.int64),
+                  "positions": batch.positions, "row_slot": batch.row_slot,
+                  "tables": tables, "seq_starts": batch.seq_starts,
+                  "seq_counts": batch.seq_counts,
+                  "sample_rows": batch.sample_rows, "seeds": seeds,
+                  "steps": steps, "temperature": temperature,
+                  "top_k": top_k, "top_p": top_p}
+        prev = None
+        if chain is not None:
+            # each chained row takes the previous dispatch's device token
+            # at its slot
+            mask = np.zeros((self.cfg.ragged_max_tokens,), bool)
+            srows = np.zeros((self.cfg.ragged_max_tokens,), np.int64)
+            for sq in batch.seqs:
+                mask[sq.start] = True
+                srows[sq.start] = sq.slot
+            inputs["chain_mask"], inputs["srows"] = mask, srows
+            prev = chain["dispatch"].toks
+            self.ragged_chained_dispatches += 1
+        variant = sampling_variant(temperature, top_k, top_p, live)
         with torch.inference_mode():
-            logits = self.model_mod.ragged_forward(
-                self.params, self.kv, dev(batch.tokens[:n].astype(np.int64)),
-                dev(batch.positions[:n]), dev(tables),
-                dev(batch.row_slot[:n]), dev(batch.seq_starts),
-                dev(batch.seq_counts), dev(batch.sample_rows),
-                self.model_cfg, self.cfg.kv_block_size,
-                self.cfg.ragged_max_seq_rows)
-            toks, logprobs = self._sample(logits, reqs, steps)
+            dispatch = self.ragged_program.dispatch(variant, inputs,
+                                                    chain=prev)
+        n = batch.rows_used
         self.ragged_dispatches += 1
         self.ragged_rows_total += n
         self.ragged_prefill_rows_total += batch.prefill_rows
@@ -801,18 +901,22 @@ class EngineCore:
         if batch.mixed:
             self.ragged_mixed_dispatches += 1
         self.ragged_dispatches_saved += batch.dispatches_replaced - 1
-        return {"batch": batch, "toks": toks, "logprobs": logprobs}
+        return {"batch": batch, "dispatch": dispatch,
+                "reqs": self._ready_slots()}
 
     def _harvest_ragged(self, pending: dict) -> None:
         """Apply one ragged dispatch: per span, the consumed prompt rows'
         bookkeeping (hash chain, registration, pos/key_step) and, when the
         span ends in a sample (a decode row, or the row consuming the LAST
-        prompt token), the emission and finish checks of one decode
-        step."""
-        toks, logprobs = pending["toks"], pending["logprobs"]
+        prompt token), the emission and finish checks of one decode step.
+        A span whose slot holds another request than at dispatch is
+        skipped."""
+        toks, logprobs = self._fetch(pending["dispatch"])     # [B + 1]
         for sq in pending["batch"].seqs:
             i = sq.slot
-            req = self.slots[i]
+            req = pending["reqs"][i]
+            if req is None or self.slots[i] is not req:
+                continue
             if req.cancelled:
                 self._release_slot(req)
                 self._finish_request(req, FinishReason.CANCELLED)

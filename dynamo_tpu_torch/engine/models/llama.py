@@ -275,8 +275,8 @@ class _Shard:
 
 
 # rope_inv_freq per (rope fields, device), copied to the device once: a
-# captured decode program (engine/programs.py) cannot copy from pageable
-# host memory
+# captured program (engine/programs.py) cannot copy from pageable host
+# memory
 _INV_FREQ: Dict[tuple, torch.Tensor] = {}
 
 

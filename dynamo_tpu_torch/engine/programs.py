@@ -1,44 +1,64 @@
-"""The decode program: K decode steps and their sampling over the engine's
-static ``[max_num_seqs]`` batch, the work of one decode dispatch.
+"""The engine's programs: the work of one decode dispatch and of one ragged
+dispatch, each a CUDA graph on the card.
 
-Counterpart of the ``decode`` and ``decode_k`` closures of the JAX
-package's ``EngineCore._compile_jits``: step k feeds each slot its planned
-prompt token where ``planned_mask[k]`` is set (a lane prefill) and else the
-token step k-1 sampled, runs the model family's ``decode_forward``
-(``models.family``: llama, or MLA with its MoE top-k), keys each row at
-``steps0 + k`` (``sampling.make_slot_keys``) and samples; positions advance
-by one a step. K = 1 with no plan is the single-step program.
+``DecodeProgram`` is the counterpart of the ``decode`` and ``decode_k``
+closures of the JAX package's ``EngineCore._compile_jits``: K decode steps
+and their sampling over the engine's static ``[max_num_seqs]`` batch. Step
+k feeds each slot its planned prompt token where ``planned_mask[k]`` is set
+(a lane prefill) and else the token step k-1 sampled, runs the model
+family's ``decode_forward`` (``models.family``: llama, or MLA with its MoE
+top-k), keys each row at ``steps0 + k`` (``sampling.make_slot_keys``) and
+samples; positions advance by one a step. K = 1 with no plan is the
+single-step program.
 
-``decode_k_forward`` is the plain function. On the CPU ``DecodeProgram``
-runs it eagerly. On a CUDA device it replays one captured
-``torch.cuda.CUDAGraph`` per (K, sampling variant, logits kept): the port's
-form of a compiled program, so a dispatch costs the host one copy of its
-inputs, one replay and one copy of its outputs instead of the 2100-3000
-launches of an eager 8B step. The sampling variants are ``greedy`` (no
-noise is drawn), ``temperature`` (Gumbel-argmax) and ``filtered``
-(top-k / top-p); the host picks one from the slots' parameters
-(``sampling_variant``), where JAX decides on the device with ``lax.cond``.
+``RaggedProgram`` is the counterpart of JAX's slot-sampled ``ragged``
+closure: the family's ``ragged_forward`` over a packed batch
+(``engine/ragged.py``), then one sample per slot of ``[B + 1]`` (the last
+is the trash sequence), keyed at the slot's step. It has two row buckets:
+``max_num_seqs`` rows, which hold every pure-decode dispatch (rows are
+packed from row 0, so such a batch is the prefix of its arrays), and
+``ragged_max_tokens`` rows, JAX's one shape. Each row's math is the same
+in either bucket; the small one keeps a decode dispatch at decode widths
+(K6's decode tiling, V2-Lite's experts and an int8 latent pool's gather
+over 8 rows, not 136). Dead rows point at the trash sequence: token 0,
+position 0, the all-zero table row, so their KV lands in block 0.
 
-A graph is captured at its first use, after one eager call of the same
-program on the capture stream over zero inputs (every slot on the trash
-block 0): that call does the one-time work a capture may not do (the CUDA
-entry points' shared-memory attributes, the merge tickets of
-``kernels._tickets``, cuBLAS's workspace, the rope table). The graph reads
-static input tensors, filled before each replay by one copy from a pinned
-staging buffer (two of them, each reused only after its last copy ran) and
-writes static outputs, copied at once into a pinned host buffer (two of
-them, so a pipelined dispatch's outputs survive the next replay) behind an
-event the harvest waits on. A replay runs no Python, so the launches a
-graph holds (``kernels.CAPTURED`` at capture) are added to the kernels'
-counts at every replay. A capture or a replay that fails raises: nothing
-on the card falls back to eager launches.
+``decode_k_forward`` and ``ragged_step_forward`` are the plain functions.
+On the CPU each program runs its function eagerly (the ragged one at the
+bucket's rows, dead rows included). On a CUDA device it replays one
+captured ``torch.cuda.CUDAGraph`` per key (decode: K, sampling variant,
+logits kept; ragged: bucket, variant, logits kept): the port's form of a
+compiled program, so a dispatch costs the host one copy of its inputs, one
+replay and one copy of its outputs instead of thousands of launches. The
+sampling variants are ``greedy`` (no noise is drawn), ``temperature``
+(Gumbel-argmax) and ``filtered`` (top-k / top-p); the host picks one from
+the slots' parameters (``sampling_variant``), where JAX decides on the
+device with ``lax.cond``.
+
+The machinery is shared (``_GraphedProgram``). A graph is captured at its
+first use, after one eager call of the same program on the capture stream
+over zero inputs (every row on the trash block 0): that call does the
+one-time work a capture may not do (the CUDA entry points' shared-memory
+attributes, the merge tickets of ``kernels._tickets``, cuBLAS's workspace,
+the rope table). A program's graphs share one memory pool: they replay one
+at a time, in order, on one stream, and each keeps its static outputs. The
+graph reads static input tensors, filled before each replay by one copy
+from a pinned staging buffer (two of them, each reused only after its last
+copy ran) and writes static outputs, copied at once into a pinned host
+buffer (two of them, so a pipelined dispatch's outputs survive the next
+replay) behind an event the harvest waits on. A pipelined dispatch's
+chained tokens merge into the static inputs on the stream before the
+replay. A replay runs no Python, so the launches a graph holds
+(``kernels.CAPTURED`` at capture) are added to the kernels' counts at
+every replay. A capture or a replay that fails raises: nothing on the card
+falls back to eager launches.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +82,20 @@ def sampling_variant(temperature: np.ndarray, top_k: np.ndarray,
     if ((top_p < 1.0) | (top_k > 0)).any():
         return "filtered"
     return "temperature"
+
+
+def _sample(logits: torch.Tensor, variant: str, base_seed: int,
+            seeds: torch.Tensor, steps: torch.Tensor,
+            temperature: torch.Tensor, top_k: torch.Tensor,
+            top_p: torch.Tensor) -> tuple:
+    """(tokens, logprobs) of ``logits`` [N, V], each row keyed on the
+    device at (base_seed, seeds[i], steps[i])."""
+    if variant == "greedy":
+        return greedy_tokens(logits)
+    keys = make_slot_keys(base_seed, seeds, steps)
+    noise = gumbel_noise_from_keys(logits.shape[1], keys)
+    return sample_tokens(logits, noise, temperature, top_k, top_p,
+                         filtered=variant == "filtered")
 
 
 def decode_k_forward(params, kv, tokens: torch.Tensor,
@@ -88,13 +122,8 @@ def decode_k_forward(params, kv, tokens: torch.Tensor,
         tok_in = (toks if planned is None
                   else torch.where(planned_mask[k], planned[k], toks))
         logits = decode(params, kv, tok_in, pos, tables, cfg, block_size)
-        if variant == "greedy":
-            toks, lps = greedy_tokens(logits)
-        else:
-            keys = make_slot_keys(base_seed, seeds, steps0 + k)
-            noise = gumbel_noise_from_keys(logits.shape[1], keys)
-            toks, lps = sample_tokens(logits, noise, temperature, top_k,
-                                      top_p, filtered=variant == "filtered")
+        toks, lps = _sample(logits, variant, base_seed, seeds, steps0 + k,
+                            temperature, top_k, top_p)
         pos = pos + 1
         out_t.append(toks)
         out_l.append(lps)
@@ -104,28 +133,50 @@ def decode_k_forward(params, kv, tokens: torch.Tensor,
     return out + (torch.stack(out_x),) if with_logits else out
 
 
-# the program's inputs: name → (dtype, shape given B, M and K)
-_FIELDS = (("tokens", torch.int64, lambda B, M, K: (B,)),
-           ("chain_mask", torch.bool, lambda B, M, K: (B,)),
-           ("positions", torch.int32, lambda B, M, K: (B,)),
-           ("tables", torch.int32, lambda B, M, K: (B, M)),
-           ("seeds", torch.int64, lambda B, M, K: (B,)),
-           ("steps0", torch.int64, lambda B, M, K: (B,)),
-           ("temperature", torch.float32, lambda B, M, K: (B,)),
-           ("top_k", torch.int64, lambda B, M, K: (B,)),
-           ("top_p", torch.float32, lambda B, M, K: (B,)),
-           ("planned", torch.int64, lambda B, M, K: (K, B)),
-           ("planned_mask", torch.bool, lambda B, M, K: (K, B)))
+def ragged_step_forward(params, kv, tokens: torch.Tensor,
+                        positions: torch.Tensor, tables: torch.Tensor,
+                        row_slot: torch.Tensor, seq_starts: torch.Tensor,
+                        seq_counts: torch.Tensor, sample_rows: torch.Tensor,
+                        seeds: torch.Tensor, steps: torch.Tensor,
+                        temperature: torch.Tensor, top_k: torch.Tensor,
+                        top_p: torch.Tensor, *, cfg, block_size: int,
+                        max_rows: int, base_seed: int, variant: str,
+                        with_logits: bool = False) -> tuple:
+    """One ragged dispatch (JAX's slot-sampled ``ragged`` program): the
+    family's ``ragged_forward`` over tokens / positions / row_slot [TT]
+    (int64, int32, int32), tables [S, M] and starts / counts / sample_rows
+    [S] int32, then one sample per sequence keyed at (base_seed, seeds[s],
+    steps[s]) with its temperature / top_k / top_p [S]. Writes every row's
+    KV in place. Returns (toks [S] int64, logprobs [S] f32), and with
+    ``with_logits`` also logits [S, V] f32."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown sampling variant {variant!r}")
+    logits = family(cfg).ragged_forward(
+        params, kv, tokens, positions, tables, row_slot, seq_starts,
+        seq_counts, sample_rows, cfg, block_size, max_rows)
+    out = _sample(logits, variant, base_seed, seeds, steps, temperature,
+                  top_k, top_p)
+    return out + (logits,) if with_logits else out
+
+
+def ragged_merge(prev: torch.Tensor, srows: torch.Tensor,
+                 host: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """A pipelined ragged dispatch's chained-sample merge (JAX's
+    ``_ragged_merge_jit``): row r takes the previous dispatch's device
+    token ``prev[srows[r]]`` where ``mask[r]``, else its host token."""
+    return torch.where(mask, prev[srows], host)
+
+
 _NP = {torch.int64: np.int64, torch.int32: np.int32, torch.bool: np.bool_,
        torch.float32: np.float32}
 
 
-def _layout(B: int, M: int, K: int) -> Tuple[Dict[str, tuple], int]:
+def _layout(fields, dims: tuple) -> Tuple[Dict[str, tuple], int]:
     """Byte offset, dtype and shape of each input in one arena (16-byte
     aligned fields), and the arena's size."""
     out, off = {}, 0
-    for name, dtype, shape in _FIELDS:
-        shp = shape(B, M, K)
+    for name, dtype, shape in fields:
+        shp = shape(*dims)
         n = int(np.prod(shp)) * dtype.itemsize
         out[name] = (off, dtype, shp, n)
         off += -(-n // 16) * 16
@@ -140,16 +191,16 @@ def _views(arena: torch.Tensor, layout: dict) -> Dict[str, torch.Tensor]:
 @dataclasses.dataclass
 class _Graph:
     graph: "torch.cuda.CUDAGraph"
-    toks: torch.Tensor                  # [K, B] static outputs
+    toks: torch.Tensor                  # static outputs
     logprobs: torch.Tensor
-    logits: Optional[torch.Tensor]      # [K, B, V] when kept
+    logits: Optional[torch.Tensor]      # when kept
     launches: Dict[str, int]            # kernel launches per replay
 
 
 class Dispatch:
-    """One launched dispatch: its device outputs (``toks`` [K, B]; the
-    last row chains a pipelined dispatch) and its host copy, which
-    ``fetch`` waits for."""
+    """One launched dispatch: its device outputs (``toks``: [K, B] of a
+    decode dispatch, whose last row chains a pipelined one; [S] of a ragged
+    dispatch) and its host copy, which ``fetch`` waits for."""
 
     def __init__(self, toks, logprobs, logits=None, event=None,
                  host=None) -> None:
@@ -166,44 +217,47 @@ class Dispatch:
         return self.toks[-1]
 
     def fetch(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(toks [K, B], logprobs [K, B]) on the host: the one device→host
-        wait of a dispatch."""
+        """(toks, logprobs) on the host: the one device→host wait of a
+        dispatch."""
         if self._fetched is None:
             if self._event is None:          # eager: a plain copy
                 self._fetched = (self.toks.cpu().numpy(),
                                  self.logprobs.cpu().numpy())
             else:
                 self._event.synchronize()
-                K = self.toks.shape[0]
-                self._fetched = (self._host[0][:K].numpy().copy(),
-                                 self._host[1][:K].numpy().copy())
+                self._fetched = (self._host[0].numpy().copy(),
+                                 self._host[1].numpy().copy())
         return self._fetched
 
 
-class DecodeProgram:
-    """The engine's decode program over ``params`` and the pool ``kv``
-    for a ``[B]`` batch of ``[B, M]`` tables and plans of up to
-    ``max_k`` steps."""
+class _GraphedProgram:
+    """What both programs share: the static inputs of ``fields`` at
+    ``dims`` in one device arena, its two pinned staging buffers, two
+    pinned output buffers of ``out_shape``, the graphs by key in one
+    memory pool, and their capture and replay."""
 
-    def __init__(self, params, kv, cfg, block_size: int, B: int, M: int,
-                 max_k: int, base_seed: int, device) -> None:
+    def __init__(self, params, kv, cfg, block_size: int, base_seed: int,
+                 device, fields, dims: tuple, out_shape: tuple,
+                 fills: Optional[Dict[str, float]] = None) -> None:
         self.params, self.kv, self.cfg = params, kv, cfg
-        self.block_size, self.B, self.M = block_size, B, M
-        self.max_k = max_k
+        self.block_size = block_size
         self.base_seed = base_seed
         self.device = torch.device(device)
+        self._fields, self._dims = fields, dims
+        self._fills = fills or {}
         self.graphs: Dict[tuple, _Graph] = {}
         self.captures = 0
         self.capture_s = 0.0          # host seconds in warm-ups + captures
         self.replays = 0
         if self.device.type != "cuda":
             return
-        self._layout, nbytes = _layout(B, M, max_k)
+        self._layout, nbytes = _layout(fields, dims)
         dev = self.device
         self._stream = torch.cuda.Stream(dev)
+        self._pool = torch.cuda.graph_pool_handle()
         self._arena = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
         self.static = _views(self._arena, self._layout)
-        # the warm-up inputs: every slot on the trash block
+        # the warm-up inputs: every row on the trash block
         self._zeros = _views(torch.zeros(nbytes, dtype=torch.uint8,
                                          device=dev), self._layout)
         self._staging = [torch.zeros(nbytes, dtype=torch.uint8,
@@ -214,14 +268,127 @@ class DecodeProgram:
             for s in self._staging]
         self._staged = [None, None]          # event of each buffer's copy
         self._flip = 0
-        self._out = [(torch.zeros((max_k, B), dtype=torch.int64,
+        self._out = [(torch.zeros(out_shape, dtype=torch.int64,
                                   pin_memory=True),
-                      torch.zeros((max_k, B), dtype=torch.float32,
+                      torch.zeros(out_shape, dtype=torch.float32,
                                   pin_memory=True)) for _ in range(2)]
         self._out_owner: list = [None, None]
         self._out_flip = 0
 
-    # ------------------------------------------------------------- plain
+    def _host_inputs(self, inputs: Dict[str, np.ndarray]
+                     ) -> Dict[str, np.ndarray]:
+        """Every input at its full shape: ``inputs``' values, from index 0
+        of each axis, and the field's fill elsewhere (0 but where
+        ``fills`` says)."""
+        out = {}
+        for name, dtype, shape in self._fields:
+            full = np.full(shape(*self._dims), self._fills.get(name, 0),
+                           _NP[dtype])
+            a = inputs.get(name)
+            if a is not None:
+                a = np.asarray(a)
+                full[tuple(slice(0, d) for d in a.shape)] = a
+            out[name] = full
+        return out
+
+    def _device_inputs(self, inputs: Dict[str, np.ndarray]
+                       ) -> Dict[str, torch.Tensor]:
+        """The inputs as tensors of their own on the program's device (the
+        eager run's)."""
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in self._host_inputs(inputs).items()}
+
+    def _upload(self, inputs: Dict[str, np.ndarray]) -> None:
+        """Fill the static inputs: write the next pinned staging buffer
+        (after its previous copy has run) and copy it in one piece."""
+        i = self._flip
+        self._flip ^= 1
+        if self._staged[i] is not None:
+            self._staged[i].synchronize()
+        full = self._host_inputs(inputs)
+        for name, view in self._staging_np[i].items():
+            view[...] = full[name]
+        self._arena.copy_(self._staging[i], non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._staged[i] = ev
+
+    def _graph(self, key: tuple,
+               run: Callable[[Dict[str, torch.Tensor]], tuple]) -> _Graph:
+        """The graph of ``key``, captured at its first use: ``run`` of the
+        static inputs, after a warm-up call of it over zeros on the
+        capture stream."""
+        g = self.graphs.get(key)
+        if g is not None:
+            return g
+        t0 = time.monotonic()
+        s = self._stream
+        cur = torch.cuda.current_stream(self.device)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            run(self._zeros)                                 # warm-up
+        cur.wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        kernels.CAPTURED.clear()
+        with torch.cuda.graph(graph, pool=self._pool, stream=s,
+                              capture_error_mode="thread_local"):
+            out = run(self.static)
+        launches = dict(kernels.CAPTURED)
+        kernels.CAPTURED.clear()
+        self.captures += 1
+        self.capture_s += time.monotonic() - t0
+        g = self.graphs[key] = _Graph(graph, out[0], out[1],
+                                      out[2] if len(out) > 2 else None,
+                                      launches)
+        return g
+
+    def _replay(self, g: _Graph, rows: slice) -> Dispatch:
+        """Replay ``g`` and copy its outputs' ``rows`` into the next pinned
+        output buffer behind an event."""
+        g.graph.replay()
+        self.replays += 1
+        kernels.add_launches(g.launches)
+        j = self._out_flip
+        self._out_flip ^= 1
+        owner = self._out_owner[j]
+        if owner is not None:
+            owner.fetch()        # its host copy is about to be overwritten
+        host = (self._out[j][0][rows], self._out[j][1][rows])
+        host[0].copy_(g.toks, non_blocking=True)
+        host[1].copy_(g.logprobs, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        d = Dispatch(g.toks, g.logprobs, g.logits, ev, host)
+        self._out_owner[j] = d
+        return d
+
+
+# the decode program's inputs: name → (dtype, shape given B, M and K)
+_DECODE_FIELDS = (
+    ("tokens", torch.int64, lambda B, M, K: (B,)),
+    ("chain_mask", torch.bool, lambda B, M, K: (B,)),
+    ("positions", torch.int32, lambda B, M, K: (B,)),
+    ("tables", torch.int32, lambda B, M, K: (B, M)),
+    ("seeds", torch.int64, lambda B, M, K: (B,)),
+    ("steps0", torch.int64, lambda B, M, K: (B,)),
+    ("temperature", torch.float32, lambda B, M, K: (B,)),
+    ("top_k", torch.int64, lambda B, M, K: (B,)),
+    ("top_p", torch.float32, lambda B, M, K: (B,)),
+    ("planned", torch.int64, lambda B, M, K: (K, B)),
+    ("planned_mask", torch.bool, lambda B, M, K: (K, B)))
+
+
+class DecodeProgram(_GraphedProgram):
+    """The engine's decode program over ``params`` and the pool ``kv``
+    for a ``[B]`` batch of ``[B, M]`` tables and plans of up to
+    ``max_k`` steps."""
+
+    def __init__(self, params, kv, cfg, block_size: int, B: int, M: int,
+                 max_k: int, base_seed: int, device) -> None:
+        self.B, self.M, self.max_k = B, M, max_k
+        super().__init__(params, kv, cfg, block_size, base_seed, device,
+                         _DECODE_FIELDS, (B, M, max_k), (max_k, B))
+
     def _run(self, K: int, variant: str, t: Dict[str, torch.Tensor],
              with_logits: bool = False) -> tuple:
         return decode_k_forward(
@@ -239,8 +406,7 @@ class DecodeProgram:
         own tensors (the CPU path; on the card, the plain form a replay is
         held against)."""
         self._check_k(K)
-        t = {k: torch.from_numpy(v).to(self.device)
-             for k, v in self._host_inputs(inputs).items()}
+        t = self._device_inputs(inputs)
         if chain is not None:
             t["tokens"] = torch.where(t["chain_mask"], chain, t["tokens"])
         return Dispatch(*self._run(K, variant, t, with_logits))
@@ -249,94 +415,112 @@ class DecodeProgram:
         if not 1 <= K <= self.max_k:
             raise ValueError(f"K={K} outside 1..{self.max_k}")
 
-    def _host_inputs(self, inputs: Dict[str, np.ndarray]
-                     ) -> Dict[str, np.ndarray]:
-        """Every input at its full shape (plans of ``max_k`` rows), zeros
-        where ``inputs`` has none."""
-        out = {}
-        for name, dtype, shape in _FIELDS:
-            shp = shape(self.B, self.M, self.max_k)
-            a = inputs.get(name)
-            full = np.zeros(shp, _NP[dtype])
-            if a is not None:
-                a = np.asarray(a)
-                full[tuple(slice(0, d) for d in a.shape)] = a
-            out[name] = full
-        return out
-
-    # ------------------------------------------------------------- graphs
     def dispatch(self, K: int, variant: str, inputs: Dict[str, np.ndarray],
                  chain: Optional[torch.Tensor] = None,
                  with_logits: bool = False) -> Dispatch:
         """Launch one dispatch of K steps. ``inputs``: host arrays by name
-        (``_FIELDS``; a missing one is zeros, ``planned`` / ``planned_mask``
-        may have K rows). ``chain``: device tokens [B] that replace
-        ``tokens`` where ``chain_mask`` is set (a pipelined dispatch's
-        merge, on the stream before the replay)."""
+        (``_DECODE_FIELDS``; a missing one is zeros, ``planned`` /
+        ``planned_mask`` may have K rows). ``chain``: device tokens [B]
+        that replace ``tokens`` where ``chain_mask`` is set (a pipelined
+        dispatch's merge, on the stream before the replay)."""
         if self.device.type != "cuda":
             return self.run_eager(K, variant, inputs, chain, with_logits)
         self._check_k(K)
-        g = self._graph(K, variant, with_logits)
+        g = self._graph((K, variant, with_logits),
+                        lambda t: self._run(K, variant, t, with_logits))
         self._upload(inputs)
         if chain is not None:
             st = self.static
             st["tokens"].copy_(torch.where(st["chain_mask"], chain,
                                            st["tokens"]))
-        g.graph.replay()
-        self.replays += 1
-        kernels.add_launches(g.launches)
-        j = self._out_flip
-        self._out_flip ^= 1
-        owner = self._out_owner[j]
-        if owner is not None:
-            owner.fetch()        # its host copy is about to be overwritten
-        host = self._out[j]
-        host[0][:K].copy_(g.toks, non_blocking=True)
-        host[1][:K].copy_(g.logprobs, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        d = Dispatch(g.toks, g.logprobs, g.logits, ev, host)
-        self._out_owner[j] = d
-        return d
+        return self._replay(g, slice(0, K))
 
-    def _upload(self, inputs: Dict[str, np.ndarray]) -> None:
-        """Fill the static inputs: write the next pinned staging buffer
-        (after its previous copy has run) and copy it in one piece."""
-        i = self._flip
-        self._flip ^= 1
-        if self._staged[i] is not None:
-            self._staged[i].synchronize()
-        full = self._host_inputs(inputs)
-        for name, view in self._staging_np[i].items():
-            view[...] = full[name]
-        self._arena.copy_(self._staging[i], non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        self._staged[i] = ev
 
-    def _graph(self, K: int, variant: str, with_logits: bool) -> _Graph:
-        key = (K, variant, with_logits)
-        g = self.graphs.get(key)
-        if g is None:
-            g = self.graphs[key] = self._capture(K, variant, with_logits)
-        return g
+# the ragged program's inputs: name → (dtype, shape given the capacity TT,
+# the sequences S = B + 1 and M)
+_RAGGED_FIELDS = (
+    ("tokens", torch.int64, lambda T, S, M: (T,)),
+    ("positions", torch.int32, lambda T, S, M: (T,)),
+    ("row_slot", torch.int32, lambda T, S, M: (T,)),
+    ("chain_mask", torch.bool, lambda T, S, M: (T,)),
+    ("srows", torch.int64, lambda T, S, M: (T,)),
+    ("tables", torch.int32, lambda T, S, M: (S, M)),
+    ("seq_starts", torch.int32, lambda T, S, M: (S,)),
+    ("seq_counts", torch.int32, lambda T, S, M: (S,)),
+    ("sample_rows", torch.int32, lambda T, S, M: (S,)),
+    ("seeds", torch.int64, lambda T, S, M: (S,)),
+    ("steps", torch.int64, lambda T, S, M: (S,)),
+    ("temperature", torch.float32, lambda T, S, M: (S,)),
+    ("top_k", torch.int64, lambda T, S, M: (S,)),
+    ("top_p", torch.float32, lambda T, S, M: (S,)))
 
-    def _capture(self, K: int, variant: str, with_logits: bool) -> _Graph:
-        t0 = time.monotonic()
-        s = self._stream
-        cur = torch.cuda.current_stream(self.device)
-        s.wait_stream(cur)
-        with torch.cuda.stream(s):
-            self._run(K, variant, self._zeros, with_logits)   # warm-up
-        cur.wait_stream(s)
-        graph = torch.cuda.CUDAGraph()
-        kernels.CAPTURED.clear()
-        with torch.cuda.graph(graph, stream=s,
-                              capture_error_mode="thread_local"):
-            out = self._run(K, variant, self.static, with_logits)
-        launches = dict(kernels.CAPTURED)
-        kernels.CAPTURED.clear()
-        self.captures += 1
-        self.capture_s += time.monotonic() - t0
-        return _Graph(graph, out[0], out[1],
-                      out[2] if with_logits else None, launches)
+
+class RaggedProgram(_GraphedProgram):
+    """The engine's ragged program over ``params`` and the pool ``kv`` for
+    ``B`` slots and the trash sequence (``[B + 1, M]`` tables), row buckets
+    of ``B`` and ``capacity`` rows, spans of up to ``max_rows``."""
+
+    def __init__(self, params, kv, cfg, block_size: int, B: int, M: int,
+                 capacity: int, max_rows: int, base_seed: int,
+                 device) -> None:
+        self.B, self.M, self.capacity = B, M, capacity
+        self.max_rows = max_rows
+        # a row past the packed ones is dead: it belongs to the trash
+        # sequence (the last table row, all zeros)
+        super().__init__(params, kv, cfg, block_size, base_seed, device,
+                         _RAGGED_FIELDS, (capacity, B + 1, M), (B + 1,),
+                         fills={"row_slot": B, "top_p": 1.0})
+
+    def bucket(self, inputs: Dict[str, np.ndarray]) -> int:
+        """The rows a dispatch of ``inputs`` runs: ``B`` when its used rows
+        fit, else the capacity."""
+        used = int(np.asarray(inputs["seq_counts"]).sum())
+        if used > self.capacity:
+            raise ValueError(f"{used} rows over a capacity of "
+                             f"{self.capacity}")
+        return self.B if used <= self.B else self.capacity
+
+    def _run(self, rows: int, variant: str, t: Dict[str, torch.Tensor],
+             with_logits: bool = False) -> tuple:
+        return ragged_step_forward(
+            self.params, self.kv, t["tokens"][:rows], t["positions"][:rows],
+            t["tables"], t["row_slot"][:rows], t["seq_starts"],
+            t["seq_counts"], t["sample_rows"], t["seeds"], t["steps"],
+            t["temperature"], t["top_k"], t["top_p"], cfg=self.cfg,
+            block_size=self.block_size, max_rows=self.max_rows,
+            base_seed=self.base_seed, variant=variant,
+            with_logits=with_logits)
+
+    def run_eager(self, variant: str, inputs: Dict[str, np.ndarray],
+                  chain: Optional[torch.Tensor] = None,
+                  with_logits: bool = False) -> Dispatch:
+        """The same dispatch as ``dispatch``, run eagerly at the same
+        bucket on the inputs' own tensors (the CPU path; on the card, the
+        plain form a replay is held against)."""
+        rows = self.bucket(inputs)
+        t = self._device_inputs(inputs)
+        if chain is not None:
+            t["tokens"] = ragged_merge(chain, t["srows"], t["tokens"],
+                                       t["chain_mask"])
+        return Dispatch(*self._run(rows, variant, t, with_logits))
+
+    def dispatch(self, variant: str, inputs: Dict[str, np.ndarray],
+                 chain: Optional[torch.Tensor] = None,
+                 with_logits: bool = False) -> Dispatch:
+        """Launch one ragged dispatch. ``inputs``: host arrays by name
+        (``_RAGGED_FIELDS``; the row arrays may stop at any row, past which
+        rows are dead; a missing array is zeros). ``chain``: the previous
+        dispatch's device tokens [B + 1], merged into ``tokens`` where
+        ``chain_mask`` is set (``ragged_merge``, on the stream before the
+        replay)."""
+        if self.device.type != "cuda":
+            return self.run_eager(variant, inputs, chain, with_logits)
+        rows = self.bucket(inputs)
+        g = self._graph((rows, variant, with_logits),
+                        lambda t: self._run(rows, variant, t, with_logits))
+        self._upload(inputs)
+        if chain is not None:
+            st = self.static
+            st["tokens"].copy_(ragged_merge(chain, st["srows"],
+                                            st["tokens"], st["chain_mask"]))
+        return self._replay(g, slice(None))

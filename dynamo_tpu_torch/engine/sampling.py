@@ -11,8 +11,8 @@ counter layout of ``jax_threefry_partitionable=True``, the
 uniform-from-mantissa map, then ``-log(-log(u))``). The noise of a row is a
 pure function of those three integers.
 
-Inside a decode program (``engine/programs.py``, a CUDA graph on the card)
-nothing may read a device value on the host: the keys come from
+Inside a decode or ragged program (``engine/programs.py``, a CUDA graph on
+the card) nothing may read a device value on the host: the keys come from
 ``make_slot_keys`` on the device, the noise from ``gumbel_noise_from_keys``,
 and the caller passes ``sample_tokens`` its filtered-or-plain decision,
 which the host knows from the slots' parameters.

@@ -71,8 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "0 disables, needs K>1)")
     p.add_argument("--decode-dispatch-pipeline", action="store_true",
                    help="overlap each dispatch's token harvest with the "
-                        "next dispatch (requires K>1; finish reaction "
-                        "widens to <=2K-1 steps)")
+                        "next dispatch (requires K>1 or --ragged; finish "
+                        "reaction widens to <=2K-1 steps)")
     p.add_argument("--ragged", action="store_true",
                    help="unified ragged dispatch (engine/ragged.py): ONE "
                         "forward pass serves mixed prefill+decode batches "

@@ -480,8 +480,12 @@ def test_dispatch_fields_follow_jax_config():
         EngineConfig(decode_dispatch_pipeline=True)
     with pytest.raises(ValueError, match="decode_steps_per_dispatch"):
         EngineConfig(lane_prefill_max_tokens=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        EngineConfig(ragged_dispatch=True, decode_dispatch_pipeline=True)
+    # the pipelined ragged dispatch at K = 1: the JAX package's outcome
+    kw = dict(ragged_dispatch=True, decode_dispatch_pipeline=True)
+    t, j = EngineConfig(**kw), JEngineConfig(**kw)
+    for f in ("decode_steps_per_dispatch", "decode_dispatch_pipeline",
+              "ragged_dispatch", "ragged_max_tokens"):
+        assert getattr(t, f) == getattr(j, f)
     # under ragged dispatch K is accepted and ignored, as in JAX
     EngineConfig(ragged_dispatch=True, decode_steps_per_dispatch=4)
 

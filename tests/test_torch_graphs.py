@@ -14,12 +14,19 @@ stale must differ from the eager run on the new inputs. A Gemma-2 program
 and so does an MLA program (DeepSeek-V2's latent widths over a bf16 and a
 sectioned int8 pool, with the MoE block's top-k routing in the graph). A
 Phi-3 program (head dim 96 over 4 KV heads, g = 1, a window on every layer
-that binds) replays equal to eager too. An admission's deferred
+that binds) replays equal to eager too. The ragged program replays
+equal to eager at its two row buckets (a pure-decode batch and a mixed one
+with dead rows) in each sampling variant, in llama bf16 and int4 + int8
+KV, Gemma-2 with its window and MLA over a bf16 and an int8 latent pool;
+a stale static input is caught there too, and two chained pure-decode
+dispatches give the tokens of two host-fed ones. An admission's deferred
 first-token copy (``overlap_admission_fetch``) refuses to run inside a
 capture, and an engine on the card with it serves the same greedy tokens
 as with the fetch at once, its second back-to-back prompt prefilled rather
 than lane-admitted.
 """
+
+from typing import Optional
 
 import numpy as np
 import pytest
@@ -331,3 +338,190 @@ def test_deferred_admission_fetch_on_the_card():
     assert c_def.lane_admissions == 0 and all(len(t) == 12 for t in out)
     out, c_now = serve(False, [pa, pb])
     assert c_now.lane_admissions == 1 and all(len(t) == 12 for t in out)
+
+
+# ---------------------------------------------------------------------------
+# the ragged program: a graph per row bucket and sampling variant
+# ---------------------------------------------------------------------------
+
+R_MAX_ROWS = 16
+R_CAPACITY = B + 2 * R_MAX_ROWS
+# the decode bucket: slots 0-2 decode (slot 3 free); the capacity bucket:
+# slot 0 decodes, slot 1 continues a 12-row chunk at 33 (a window of 16
+# binds), slot 2 starts a 10-row prompt
+R_BATCHES = {"decode": ([(0, 5, 20), (1, 6, 33), (2, 7, 5)], []),
+             "mixed": ([(0, 5, 20)], [(1, list(range(40, 52)), 33),
+                                      (2, list(range(60, 70)), 0)])}
+R_BUCKETS = {"decode": B, "mixed": R_CAPACITY}
+R_SAMPLING = {"greedy": ([0.0, 0.0, 0.0], [0, 0, 0], [1.0, 0.9, 1.0]),
+              "temperature": ([0.0, 0.7, 0.9], [0, 0, 0], [1.0, 1.0, 1.0]),
+              "filtered": ([0.0, 0.7, 0.9], [0, 0, 20], [1.0, 0.9, 1.0])}
+
+
+def _ragged_inputs(kind: str, variant: str = "filtered",
+                   tokens_shift: int = 0) -> dict:
+    from dynamo_tpu_torch.engine.ragged import build_ragged_batch
+    decode_rows, lanes = R_BATCHES[kind]
+    batch = build_ragged_batch(R_CAPACITY, B, decode_rows, lanes, R_MAX_ROWS)
+    tables = np.zeros((B + 1, M), np.int32)
+    for i in LIVE:
+        tables[i, :4] = 1 + 4 * i + np.arange(4)
+    temp, top_k, top_p = (np.array(v + [0] * (B + 1 - 3), dt)
+                          for v, dt in zip(R_SAMPLING[variant],
+                                           (np.float32, np.int64,
+                                            np.float32)))
+    top_p[3:] = 1.0
+    return {"tokens": batch.tokens.astype(np.int64) + tokens_shift,
+            "positions": batch.positions, "row_slot": batch.row_slot,
+            "tables": tables, "seq_starts": batch.seq_starts,
+            "seq_counts": batch.seq_counts, "sample_rows": batch.sample_rows,
+            "seeds": np.array([0, 7, 9, 0, 0], np.int64),
+            "steps": np.array([3, 11, 2, 0, 0], np.int64),
+            "temperature": temp, "top_k": top_k, "top_p": top_p}
+
+
+def _ragged_program(cfg, mode: str, dev):
+    """A RaggedProgram over a pool with a prefix in every block: llama
+    families in bf16 or int4 over an int8 pool, MLA over a bf16 or an int8
+    latent pool."""
+    from dynamo_tpu_torch.engine.programs import RaggedProgram
+    if cfg.kv_lora_rank:
+        from dynamo_tpu_torch.engine.attention import (
+            quantize_kv_rows_sections)
+        from dynamo_tpu_torch.engine.models import mla
+        params = init_params(cfg, 0, dev, torch.bfloat16)
+        kv = mla.init_kv_cache(cfg, 16, BS, dev, torch.bfloat16,
+                               quantization="int8" if mode == "kv8"
+                               else "none")
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        rows = torch.randn((cfg.num_layers * kv["kv"].shape[1], 576),
+                           generator=g, device=dev)
+        if mode == "kv8":
+            rows = quantize_kv_rows_sections(rows, (512, 64))
+        kv["kv"][..., :rows.shape[1]] = rows.view(kv["kv"].shape[:2]
+                                                  + (-1,))
+    else:
+        prog, kv = _program(mode, dev, cfg)
+        params = prog.params
+    return RaggedProgram(params, kv, cfg, BS, B, M, R_CAPACITY, R_MAX_ROWS,
+                         0, dev), kv
+
+
+def _ragged_attention_kernel(cfg, mode: str) -> Optional[str]:
+    if cfg.kv_lora_rank:
+        return None if mode == "kv8" else "latent_ragged_attention"
+    return ("ragged_paged_attention" if mode == "bf16"
+            else "ragged_paged_attention_int8")
+
+
+def _replay_equals_eager(cfg, mode: str, kind: str, variant: str) -> None:
+    dev = _device()
+    prog, kv = _ragged_program(cfg, mode, dev)
+    pool0 = {n: t.clone() for n, t in kv.items()}
+    inp = _ragged_inputs(kind, variant)
+    live = [0, 1, 2]
+    with torch.inference_mode():
+        d = prog.dispatch(variant, inp, with_logits=True)
+        toks, lps = d.fetch()
+        logits = d.logits.clone()
+        pool_g = {n: t.clone() for n, t in kv.items()}
+        for n, t in kv.items():
+            t.copy_(pool0[n])
+        e = prog.run_eager(variant, inp, with_logits=True)
+        torch.cuda.synchronize()
+    rows = R_BUCKETS[kind]
+    g = prog.graphs[(rows, variant, True)]
+    assert prog.captures == 1 and prog.replays == 1
+    assert g.toks.shape == (B + 1,) and logits.shape[0] == B + 1
+    attn = _ragged_attention_kernel(cfg, mode)
+    if attn is not None:
+        assert g.launches[attn] == cfg.num_layers
+    if mode == "int4_kv8":
+        assert g.launches["lm_head_int8"] == 1
+    assert (toks[live] == e.toks.cpu().numpy()[live]).all()
+    assert (lps[live] == e.logprobs.cpu().numpy()[live]).all()
+    assert torch.equal(logits[live], e.logits[live])
+    assert torch.isfinite(logits[live]).all()
+    for n in kv:
+        assert torch.equal(pool_g[n][:, BS:], kv[n][:, BS:])
+
+
+@pytest.mark.parametrize("variant", ["greedy", "temperature", "filtered"])
+@pytest.mark.parametrize("kind", ["decode", "mixed"])
+@pytest.mark.parametrize("mode", ["bf16", "int4_kv8"])
+def test_ragged_graph_replay_equals_eager(mode, kind, variant):
+    _replay_equals_eager(CFG, mode, kind, variant)
+
+
+@pytest.mark.parametrize("variant", ["greedy", "temperature", "filtered"])
+@pytest.mark.parametrize("kind", ["decode", "mixed"])
+@pytest.mark.parametrize("mode", ["bf16", "int4_kv8"])
+def test_gemma2_ragged_graph_replay_equals_eager(mode, kind, variant):
+    _replay_equals_eager(GEMMA_CFG, mode, kind, variant)
+
+
+@pytest.mark.parametrize("variant", ["greedy", "temperature", "filtered"])
+@pytest.mark.parametrize("kind", ["decode", "mixed"])
+@pytest.mark.parametrize("mode", ["bf16", "kv8"])
+def test_mla_ragged_graph_replay_equals_eager(mode, kind, variant):
+    _replay_equals_eager(MLA_CFG, mode, kind, variant)
+
+
+def test_ragged_stale_static_inputs_are_caught():
+    dev = _device()
+    prog, _ = _ragged_program(CFG, "bf16", dev)
+    live = [0, 1, 2]
+    with torch.inference_mode():
+        prog.dispatch("greedy", _ragged_inputs("decode", "greedy"),
+                      with_logits=True).fetch()
+        other = _ragged_inputs("decode", "greedy", tokens_shift=100)
+        upload = prog._upload
+        prog._upload = lambda inputs: None      # the planted fault
+        try:
+            stale = prog.dispatch("greedy", other,
+                                  with_logits=True).logits.clone()
+        finally:
+            prog._upload = upload
+        right = prog.run_eager("greedy", other, with_logits=True)
+        fresh = prog.dispatch("greedy", other,
+                              with_logits=True).logits.clone()
+    assert not torch.equal(stale[live], right.logits[live])
+    assert torch.equal(fresh[live], right.logits[live])
+
+
+def test_ragged_chained_dispatches_equal_host_fed():
+    """Two pure-decode dispatches, the second chained off the first's
+    device tokens (the merge on the stream before the replay), give the
+    tokens of the same two dispatches fed from the host."""
+    dev = _device()
+    prog, kv = _ragged_program(CFG, "bf16", dev)
+    pool0 = {n: t.clone() for n, t in kv.items()}
+    first = _ragged_inputs("decode", "filtered")
+    live = [0, 1, 2]
+    starts = first["seq_starts"][live]
+
+    def second(tokens=None):
+        nxt = {k: v.copy() for k, v in first.items()}
+        nxt["positions"][starts] += 1
+        nxt["steps"][live] += 1
+        if tokens is not None:
+            nxt["tokens"][starts] = tokens
+        return nxt
+
+    with torch.inference_mode():
+        d1 = prog.dispatch("filtered", first)
+        mask = np.zeros(R_CAPACITY, bool)
+        mask[starts] = True
+        srows = np.zeros(R_CAPACITY, np.int64)
+        srows[starts] = live
+        chained = prog.dispatch("filtered", {**second(), "chain_mask": mask,
+                                             "srows": srows},
+                                chain=d1.toks)
+        got = (d1.fetch()[0][live], chained.fetch()[0][live])
+        for n, t in kv.items():
+            t.copy_(pool0[n])
+        h1 = prog.dispatch("filtered", first).fetch()[0]
+        h2 = prog.dispatch("filtered", second(h1[live])).fetch()[0]
+    assert (got[0] == h1[live]).all() and (got[1] == h2[live]).all()
+    assert prog.captures == 1 and prog.replays == 4

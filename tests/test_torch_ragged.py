@@ -32,7 +32,8 @@
   under a small pool both engines preempt and the streams agree to the
   first recompute boundary; int4 weights over an int8 pool give equal
   greedy streams; ``EngineConfig``'s ragged validation resolves and
-  refuses as JAX's does.
+  refuses as JAX's does, and accepts the pipelined ragged dispatch as
+  JAX's does.
 """
 
 import asyncio
@@ -606,9 +607,11 @@ def test_ragged_engine_config_keeps_unported_fields_out():
     for kw in ({"spec_k": 2}, {"pp": 2}):
         with pytest.raises(TypeError):
             EngineConfig(ragged_dispatch=True, **kw)
-    # the pipelined split dispatch is ported, its ragged form is not yet
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        EngineConfig(ragged_dispatch=True, decode_dispatch_pipeline=True)
+    # the pipelined ragged dispatch is accepted at K = 1, as in JAX
+    kw = dict(ragged_dispatch=True, decode_dispatch_pipeline=True)
+    got = _config_outcome(EngineConfig, **kw)
+    assert got == _config_outcome(JEngineConfig, **kw)
+    assert EngineConfig(**kw).decode_dispatch_pipeline
     # sp is ported (sequence-parallel prefill); ragged refuses it as the
     # JAX package does
     with pytest.raises(NotImplementedError, match="sequence-parallel"):
