@@ -198,9 +198,10 @@ Phases, each failing the run (non-zero exit, no result line) on error:
 5p. serve Phi-3-mini (``--max-model-len 4096``, 2048 blocks of 16): bf16
    with ``--decode-steps-per-dispatch 8``, int4 + int8 KV split, and each
    again with ``--ragged``, each answering a 3000- and a 300-token prompt
-   posted together, an SSE stream and a seeded sampled request twice,
-   with TTFT/ITL, the footprint after bring-up, the graph capture seconds
-   and the launches of each path.
+   posted together, an SSE stream, a seeded sampled request twice and a
+   200-token greedy request alone (with its token logprobs, which phase 6
+   compares), with TTFT/ITL, the footprint after bring-up, the graph
+   capture seconds and the launches of each path.
 
 3q. kernels at Qwen2-7B's shapes (``QWEN2_7B_CONFIG``, parsed by the
    port's ``ModelConfig.from_hf_config``: 28 heads of 128 over 4 KV heads,
@@ -230,6 +231,21 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    together, an SSE stream and a seeded sampled request twice, with
    TTFT/ITL, the footprint after bring-up, the graph capture seconds and
    the launches of each path.
+
+6. checkpoint: Phi-3-mini-4k at ``LAYERS["phi3"]`` (full depth) as an HF
+   model directory under ``build/``: its seed-0 bf16 weights
+   (``init_params``) written by the port's ``save_hf_style`` as files of
+   at most 2 GiB (four), then loaded back by ``load_params_auto`` in bf16
+   and in int4, each tensor (a quantized leaf's ``q`` and ``scale``) held
+   bit for bit against ``init_params`` and ``init_params_quantized``, with
+   the write and load seconds (the page cache warm from the write), the
+   loader's host staging peak and the device peak during each load, held
+   to the final tree plus two of the largest checkpoint tensor; then two
+   servers load the directory without ``--random-weights`` (bf16 with 8
+   decode steps a dispatch, and int4 + int8 KV ``--ragged``), answer 5p's
+   requests with their kernels' launches counted, and give a lone greedy
+   request (with its token logprobs) and the seeded request exactly as
+   their 5p twins do; the directory is deleted.
 
 Each phase prints its wall seconds (``phase 3q: N s``; each model mode and
 server inside one too) and the run ends with all of them on one line. The
@@ -3923,7 +3939,12 @@ def check_unary(name: str, res: dict, max_tokens: int) -> dict:
             or ch[0].get("finish_reason") != "length"
             or out.get("usage", {}).get("completion_tokens") != max_tokens):
         raise RuntimeError(f"{name}: malformed response {out}")
-    return {"latency_s": res["latency_s"], "text": ch[0]["text"][:60]}
+    return {"latency_s": res["latency_s"], "text": ch[0]["text"][:60],
+            # the whole text and token logprobs, for comparing two servers
+            # (not printed)
+            "_text": ch[0]["text"],
+            "_logprobs": (ch[0].get("logprobs") or {}).get(
+                "token_logprobs")}
 
 
 # the kernels each served path must launch
@@ -3963,6 +3984,9 @@ PATH_KERNELS = {
     "qwen2_ragged": ("ragged_paged_attention",),
     "qwen2_ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
                               "grouped_int4_matmul"),
+    "phi3_ckpt_bf16_k8": ("flash_prefill", "paged_attention"),
+    "phi3_ckpt_ragged_int4_kv8": ("ragged_paged_attention_int8",
+                                  "lm_head_int8", "grouped_int4_matmul"),
 }
 # the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
 # dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
@@ -3979,8 +4003,15 @@ PHI3_PATHS = ("phi3_bf16_k8", "phi3_int4_kv8", "phi3_ragged",
 # the Qwen2-7B servers (5q): as Phi-3-mini's
 QWEN2_PATHS = ("qwen2_bf16_k8", "qwen2_int4_kv8", "qwen2_ragged",
                "qwen2_ragged_int4_kv8")
+# the Phi-3-mini checkpoint servers (6), each loading the directory that
+# phase 6 writes, and the random-weights server of 5p whose lone greedy
+# and seeded requests it must answer with the same tokens
+CKPT_TWINS = {"phi3_ckpt_bf16_k8": "phi3_bf16_k8",
+              "phi3_ckpt_ragged_int4_kv8": "phi3_ragged_int4_kv8"}
+CKPT_PATHS = tuple(CKPT_TWINS)
 # the paths of the geometries after the 8B one
-LATER_PATHS = GEMMA_PATHS + MLA_PATHS + PHI3_PATHS + QWEN2_PATHS
+LATER_PATHS = (GEMMA_PATHS + MLA_PATHS + PHI3_PATHS + QWEN2_PATHS
+               + CKPT_PATHS)
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -4005,7 +4036,9 @@ SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
                "qwen2_bf16_k8": ("bf16", False),
                "qwen2_int4_kv8": ("int4_kv8", False),
                "qwen2_ragged": ("bf16", True),
-               "qwen2_ragged_int4_kv8": ("int4_kv8", True)}
+               "qwen2_ragged_int4_kv8": ("int4_kv8", True),
+               "phi3_ckpt_bf16_k8": ("bf16", False),
+               "phi3_ckpt_ragged_int4_kv8": ("int4_kv8", True)}
 # the served paths' (weights, KV pool): phase 4's modes, and bf16 weights
 # over an int8 pool (5m)
 SERVE_MODES = {**MODEL_MODES, "bf16_kv8": ("none", "int8")}
@@ -4069,8 +4102,10 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                else PHI3_MAX_LEN if phi3 else QWEN2_MAX_LEN if qwen2
                else MAX_MODEL_LEN)
     args = launcher.build_parser().parse_args(
-        ["in=http", "out=torch", "--model-path", model_dir,
-         "--random-weights", "--http-host", "127.0.0.1", "--http-port", "0",
+        ["in=http", "out=torch", "--model-path", model_dir]
+        # a checkpoint server loads the directory's weights
+        + ([] if path in CKPT_PATHS else ["--random-weights"])
+        + ["--http-host", "127.0.0.1", "--http-port", "0",
          "--max-model-len", str(max_len),
          # an MLA engine picks its block size (16 bf16, 32 int8)
          "--kv-block-size", "0" if mla else str(KV_BLOCK),
@@ -4084,7 +4119,7 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
            else [])
         + (["--decode-steps-per-dispatch", str(DISPATCH_K)]
            if path in ("gemma2_bf16", "mla_bf16_k8", "phi3_bf16_k8",
-                       "qwen2_bf16_k8")
+                       "qwen2_bf16_k8", "phi3_ckpt_bf16_k8")
            else []))
     launcher.parse_io(args.io)
     # what earlier phases left for the collector (a decode program's
@@ -4253,6 +4288,14 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         # a seeded sampled text prompt
         report["sampled_text"] = check_unary(
             "sampled_text", http_completion(port, sampled), max_tokens)
+        if phi3:
+            # a greedy request alone, with its token logprobs: a
+            # checkpoint server (phase 6) must repeat it
+            lone = np.random.default_rng(seed + 3).integers(
+                lo, cfg.vocab_size, size=200).tolist()
+            report["lone_greedy"] = check_unary(
+                "lone_greedy", http_completion(port, {
+                    **greedy, "prompt": lone, "logprobs": 1}), max_tokens)
         if path != "bf16":
             # sampling is keyed by (seed, request seed, step) alone: the
             # same seeded request gives the same text again
@@ -4415,6 +4458,148 @@ def compare_servers(card: str, base: dict, other: dict, path: str,
                "greedy_token_agreement": agree}
         log(f"request {base_path}-vs-{path} {k} {json.dumps(row)} "
             f"[{card}]")
+
+
+# phase 6: the Phi-3-mini checkpoint, written as files of at most
+# CKPT_FILE_BYTES of tensors (several, so the multi-file path runs)
+CKPT_FILE_BYTES = 2 << 30
+
+
+def tree_bytes(params) -> int:
+    """Device bytes of a parameter tree (a quantized leaf's payload and
+    scales)."""
+    n = 0
+    for t in params.values():
+        for x in ((t.q, t.scale) if hasattr(t, "q") else (t,)):
+            n += x.numel() * x.element_size()
+    return n
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors of one dtype and shape hold the same bits."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (x.view(as_int[x.element_size()]) for x in (a, b))
+    return torch.equal(a, b)
+
+
+def check_checkpoint_load(model_dir: str, ref: dict, dev, card: str,
+                          quantization: str) -> dict:
+    """Load ``model_dir`` with ``load_params_auto`` under ``quantization``
+    and hold every tensor (a quantized leaf's ``q`` and ``scale``) bit for
+    bit against ``ref``; time the load, read the loader's host staging
+    peak and the device peak above what was allocated before, and hold
+    the device peak to the final tree plus two of the largest checkpoint
+    tensor."""
+    import torch
+    from dynamo_tpu_torch.engine.weights import (load_accounting,
+                                                 load_params_auto)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    with load_accounting() as acct:
+        got, _ = load_params_auto(model_dir, device=dev,
+                                  dtype=torch.bfloat16,
+                                  quantization=quantization)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    if set(got) != set(ref):
+        raise RuntimeError(f"checkpoint {quantization}: keys "
+                           f"{sorted(set(got) ^ set(ref))} differ")
+    for k, want in ref.items():
+        pairs = ([(got[k].q, want.q), (got[k].scale, want.scale)]
+                 if hasattr(want, "q") else [(got[k], want)])
+        if hasattr(want, "q") and (got[k].group, got[k].packed4) != (
+                want.group, want.packed4):
+            raise RuntimeError(f"checkpoint {quantization}: {k} encoding")
+        for a, b in pairs:
+            if not same_bits(a, b):
+                raise RuntimeError(f"checkpoint {quantization}: {k} is not "
+                                   f"bit-equal to the seeded weights")
+    final = tree_bytes(got)
+    limit = final + 2 * acct.largest_tensor
+    row = {"quantization": quantization, "load_s": load_s,
+           "read_gb_per_s": acct.total / load_s / 1e9,
+           "bytes_read": acct.total,
+           "staging_peak_bytes": acct.peak,
+           "largest_tensor_bytes": acct.largest_tensor,
+           "device_peak_bytes": peak, "final_tree_bytes": final,
+           "device_peak_limit_bytes": limit,
+           "page_cache": "warm (read right after the write)"}
+    log(f"checkpoint load {json.dumps(row)} [{card}]")
+    if peak > limit:
+        raise RuntimeError(f"checkpoint {quantization}: device peak {peak} "
+                           f"bytes over the final tree {final} + 2 x the "
+                           f"largest tensor {acct.largest_tensor}")
+    if acct.peak > 2 * acct.largest_tensor:
+        raise RuntimeError(f"checkpoint {quantization}: host staging "
+                           f"{acct.peak} bytes")
+    del got
+    return row
+
+
+def checkpoint_phase(cfg, dev, seed: int, card: str, by_path: dict) -> None:
+    """Phase 6: write Phi-3-mini's seeded bf16 weights (``init_params``)
+    as an HF model directory under ``build/`` with the port's writer, load
+    it back in bf16 and in int4 (held bit for bit against ``init_params``
+    and ``init_params_quantized``), serve it without ``--random-weights``
+    on the split bf16 path and on the ragged int4 + int8 KV path, and hold
+    each server's lone greedy and seeded requests to its 5p twin's; the
+    directory is deleted at the end."""
+    import shutil
+    import tempfile
+    import torch
+    from dynamo_tpu_torch.engine.quant import init_params_quantized
+    from dynamo_tpu_torch.engine.weights import init_params, save_hf_style
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="dtt-ckpt-", dir=os.path.join(ROOT, "build"))
+    try:
+        model_dir = os.path.join(tmp, "phi3-mini-4k-ckpt")
+        with phase("6 write"):
+            write_model_dir(model_dir, cfg, {**PHI3_MINI_4K_CONFIG,
+                                             "num_hidden_layers":
+                                                 cfg.num_layers})
+            ref = init_params(cfg, seed, dev, torch.bfloat16)
+            t0 = time.monotonic()
+            paths = save_hf_style(ref, cfg, model_dir,
+                                  max_file_bytes=CKPT_FILE_BYTES)
+            write_s = time.monotonic() - t0
+            n = sum(os.path.getsize(p) for p in paths)
+            row = {"files": len(paths), "bytes": n, "write_s": write_s,
+                   "gb_per_s": n / write_s / 1e9,
+                   "disk_free_bytes": shutil.disk_usage(tmp).free}
+            log(f"checkpoint write {json.dumps(row)} [{card}]")
+        with phase("6 load bf16"):
+            check_checkpoint_load(model_dir, ref, dev, card, "none")
+        del ref
+        with phase("6 load int4"):
+            ref = init_params_quantized(cfg, seed, dev, torch.bfloat16,
+                                        include_embed=True, bits=4)
+            check_checkpoint_load(model_dir, ref, dev, card, "int4")
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        for path, twin in CKPT_TWINS.items():
+            with phase(f"serve {path}"):
+                by_path[path] = _serve(cfg, seed, card, model_dir, path)
+            got, want = by_path[path][1], by_path[twin][1]
+            for k in ("lone_greedy", "sampled_text"):
+                if (got[k]["_text"], got[k]["_logprobs"]) != (
+                        want[k]["_text"], want[k]["_logprobs"]):
+                    raise RuntimeError(
+                        f"serve {path}: {k} gave {got[k]['_text']!r}, the "
+                        f"random-weights server {twin} "
+                        f"{want[k]['_text']!r}")
+            log(f"serve {path}: lone greedy and seeded requests equal "
+                f"{twin}'s [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ``--ab DIR``: phase 3's attention kernels (K1-K4 at the 8B shapes) and
@@ -4780,6 +4965,11 @@ def main() -> int:
     with phase("5q"):
         by_path.update({path: serve_phase(qcfg, seed, card, path)
                         for path in QWEN2_PATHS})
+
+    # 6. the Phi-3-mini checkpoint: written from the seed, loaded back bit
+    # for bit in bf16 and int4, and served by two servers that load it
+    with phase("6"):
+        checkpoint_phase(pcfg, dev, seed, card, by_path)
     rest = [p for p in PATH_KERNELS if p not in LATER_PATHS]
     for e in entries:
         mode = e.get("mode", "")

@@ -55,14 +55,15 @@ from .config import EngineConfig, ModelConfig
 from .device import resolve_device
 from .models import family
 from .programs import DecodeProgram, RaggedProgram, sampling_variant
-from .quant import init_params_quantized, quantize_params
+from .quant import (init_params_quantized, quantize_params,
+                    tree_quantization)
 from .ragged import RaggedBatch, build_ragged_batch
 from .sampling import SlotSampling, gumbel_noise, make_slot_key, sample_tokens
 from .weights import init_params
 
 logger = logging.getLogger("dynamo_tpu_torch.engine")
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclasses.dataclass
@@ -229,7 +230,7 @@ class EngineCore:
                     model_cfg, engine_cfg.kv_quantization))
         self.model_cfg = model_cfg
         self.cfg = engine_cfg
-        self.dtype = _DTYPES[engine_cfg.dtype]
+        self.dtype = DTYPES[engine_cfg.dtype]
         quantized = engine_cfg.quantization != "none"
         # int4 = grouped-int4 layer matmuls with an int8 head and embed;
         # "-noembed" keeps the embedding in the load dtype (quant.py)
@@ -244,8 +245,16 @@ class EngineCore:
             params = init_params(model_cfg, engine_cfg.seed, self.device,
                                  self.dtype)
         elif quantized:
-            params = quantize_params(params, include_embed=qembed,
-                                     bits=qbits)
+            # a tree quantized as it loaded (weights.load_params_auto) is
+            # never quantized twice, and must be what the config asks
+            held = tree_quantization(params)
+            if held == "none":
+                params = quantize_params(params, include_embed=qembed,
+                                         bits=qbits)
+            elif held != engine_cfg.quantization:
+                raise ValueError(f"the weights are quantized as {held}, "
+                                 f"the engine config asks for "
+                                 f"{engine_cfg.quantization}")
         self.params = params
         # the weights on each distinct device of the sp mesh (one copy per
         # extra device; none on a mesh that repeats the engine's device)

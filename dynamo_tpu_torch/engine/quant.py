@@ -187,6 +187,18 @@ def quantize_named(name: str, w: torch.Tensor, include_embed: bool,
     return {name: w}
 
 
+def tree_quantization(params: Dict[str, object]) -> str:
+    """The weight quantization a tree already holds, as the
+    ``EngineConfig.quantization`` name that makes it ("none" for a tree in
+    its load dtype)."""
+    wo = params.get("layers.wo")
+    if not isinstance(wo, QuantizedTensor):
+        return "none"
+    bits = "int4" if wo.group else "int8"
+    return bits if isinstance(params.get("embed"), QuantizedTensor) \
+        else f"{bits}-noembed"
+
+
 def quantize_params(params: Dict[str, torch.Tensor],
                     include_embed: bool = True,
                     bits: int = 8) -> Dict[str, object]:

@@ -10,9 +10,11 @@ completions server over the canonical pipeline link preprocessor →
 backend (detokenizer) → engine, with the engine's KV flags. The model
 directory holds ``config.json`` and a tokenizer (``tokenizer.model`` for
 the native SentencePiece engine, or ``tokenizer.json`` where the
-``tokenizers`` package is installed). Checkpoint loading is not ported yet,
-so ``--random-weights`` (weights from ``EngineConfig.seed`` on the
-device) is required.
+``tokenizers`` package is installed) and the checkpoint's
+``*.safetensors``, loaded onto the device in the engine's dtype and
+quantization (``engine/weights.py``); ``--random-weights`` serves weights
+from ``EngineConfig.seed`` instead. A directory whose checkpoint does not
+load exits non-zero with the loader's message.
 """
 
 from __future__ import annotations
@@ -91,8 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(ring attention) over the first SP cards, or over "
                         "SP shards on the CPU with --device cpu")
     p.add_argument("--random-weights", action="store_true",
-                   help="random weights from EngineConfig.seed (checkpoint "
-                        "loading is not implemented yet)")
+                   help="random weights from EngineConfig.seed instead "
+                        "of the model directory's checkpoint")
     p.add_argument("--verbose", "-v", action="store_true")
     return p
 
@@ -119,17 +121,16 @@ def model_name(args) -> str:
 
 
 def build_core(args, mesh=None):
-    """EngineCore from CLI flags (random bf16 weights from seed 0,
-    quantized as the flags ask). ``mesh``: a mesh the caller built
+    """EngineCore from CLI flags: the model directory's checkpoint (or
+    with ``--random-weights`` bf16 weights from seed 0), quantized as the
+    flags ask. ``mesh``: a mesh the caller built
     (``parallel.sharding.make_mesh``, which may repeat one card); by
     default ``--sp`` > 1 builds one over the first cards, or over
     ``["cpu"] * sp`` with ``--device cpu``."""
     from ..engine.config import EngineConfig, ModelConfig
-    from ..engine.core import EngineCore
+    from ..engine.core import DTYPES, EngineCore
+    from ..engine.weights import load_params_auto
     from ..parallel.sharding import make_mesh
-    if not args.random_weights:
-        raise SystemExit("checkpoint loading is not implemented yet: pass "
-                         "--random-weights")
     try:
         if mesh is None and args.sp > 1:
             mesh = make_mesh(sp=args.sp, devices=(["cpu"] * args.sp
@@ -156,7 +157,17 @@ def build_core(args, mesh=None):
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))
     model_cfg = ModelConfig.from_model_dir(args.model_path)
-    return EngineCore(model_cfg, ecfg, device=args.device, mesh=mesh)
+    params = None
+    if not args.random_weights:
+        try:
+            params, model_cfg = load_params_auto(
+                args.model_path, model_cfg, device=args.device,
+                dtype=DTYPES[ecfg.dtype], quantization=ecfg.quantization)
+        except (OSError, ValueError, NotImplementedError) as e:
+            raise SystemExit(f"checkpoint loading failed: {e}")
+        logger.info("loaded the checkpoint under %s", args.model_path)
+    return EngineCore(model_cfg, ecfg, params=params, device=args.device,
+                      mesh=mesh)
 
 
 def build_pipeline(args, core):

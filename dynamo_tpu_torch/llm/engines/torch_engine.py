@@ -8,8 +8,9 @@ step-granular cancellation.
 from __future__ import annotations
 
 import asyncio
-from typing import AsyncIterator
+from typing import AsyncIterator, Optional
 
+from ...engine.config import EngineConfig, ModelConfig
 from ...engine.core import FINISH_SENTINEL, EngineCore, EngineRequest
 from ...engine.sampling import SlotSampling
 from ...runtime.engine import AsyncEngine, ManyOut, ResponseStream, SingleIn
@@ -22,6 +23,29 @@ class TorchEngine(AsyncEngine):
 
     def __init__(self, core: EngineCore):
         self.core = core
+
+    @classmethod
+    def from_model_dir(cls, model_dir: str,
+                       engine_cfg: Optional[EngineConfig] = None,
+                       load_weights: bool = True, device="cuda",
+                       **core_kwargs) -> "TorchEngine":
+        """An engine over an HF model directory: its ``config.json`` and,
+        with ``load_weights``, its ``*.safetensors`` loaded onto
+        ``device`` in the engine config's dtype and quantization
+        (``weights.load_params_auto``); else the engine's random
+        weights."""
+        model_cfg = ModelConfig.from_model_dir(model_dir)
+        engine_cfg = engine_cfg or EngineConfig()
+        params = None
+        if load_weights:
+            from ...engine.core import DTYPES
+            from ...engine.weights import load_params_auto
+            params, model_cfg = load_params_auto(
+                model_dir, model_cfg, device=device,
+                dtype=DTYPES[engine_cfg.dtype],
+                quantization=engine_cfg.quantization)
+        return cls(EngineCore(model_cfg, engine_cfg, params=params,
+                              device=device, **core_kwargs))
 
     def build_request(self, request: SingleIn) -> EngineRequest:
         pre: PreprocessedRequest = request.data
