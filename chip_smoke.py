@@ -247,6 +247,22 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    request (with its token logprobs) and the seeded request exactly as
    their 5p twins do; the directory is deleted.
 
+7. chat: the 8B model at ``LAYERS["8b"]`` with phase 5b's flags
+   (``chat_int4_kv8``) served from a directory whose only tokenizer is a
+   Llama-3-form ``tokenizer.json`` (``llama3_tokenizer_json``: its Split
+   pattern, ``ignore_merges``, the 256 special tokens at 128000-128255)
+   with tests/data/chat_templates/llama3.jinja, read by the port's own
+   reader and renderer (``chat_phase``): a streamed greedy chat whose
+   formatted prompt is ``CHAT_PROMPT`` and whose prompt ids begin 128000,
+   128006 and decode back to it; the same request unary and as a
+   completion of those ids, all three with the same completion ids (read
+   at the engine); a seeded n = 2 chat equal to two n = 1 requests with
+   seeds s and s + 1, the prompt counted once in usage; a ~1900-token chat
+   with its render and encode ms on the host and its TTFT; the launcher's
+   ``run_batch`` over 3 JSONL lines on the live pipeline against the unary
+   answers; ``/metrics`` (requests by endpoint, the TTFT count) and
+   ``/live``; with the launches of K1, K3-int8, K5 and K6 over the phase.
+
 Each phase prints its wall seconds (``phase 3q: N s``; each model mode and
 server inside one too) and the run ends with all of them on one line. The
 model and serve phases run each geometry at the depth of ``LAYERS``: the
@@ -254,12 +270,13 @@ published depth, or less for an earlier geometry cut so that the whole
 run stays inside its time limit (width, kernels and planted faults stay).
 
 Every split-path decode dispatch and every ragged dispatch of phases
-5-5q replays a captured graph; its launches count through the program's
-replay accounting.
+5-5q and 7 replays a captured graph; its launches count through the
+program's replay accounting.
 
 The line before the last is the kernels' JSON summary (the entries of
-3g, 3m, 3p and 3q carry a ``mode``); the last line is ``{"ok": true, "device":
-{...}}``.
+3g, 3m, 3p and 3q carry a ``mode``; each lists its geometry's
+``served_paths``, and ``launches`` are those of the first); the last line
+is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 
@@ -3810,6 +3827,16 @@ QWEN2_RUN = ModelRun("qwen2", QWEN2_PROMPT, QWEN2_BUCKET, QWEN2_STEPS,
 # ---------------------------------------------------------------------------
 
 
+# the words the smoke run's tokenizers hold whole
+WORDS = ("the of and to in is that for it as with was on be by at this from "
+         "are or an which one all would there their what so up out if about "
+         "who get go me when make can like time no just him know take "
+         "people into year your good some could them see other than then "
+         "now look only come its over think also back after use two how our "
+         "work first well way even new want because any these give day most "
+         "us").split()
+
+
 def write_model_dir(path: str, cfg, hf=None) -> None:
     """config.json (``hf``, else the 8B geometry's) + a SentencePiece
     tokenizer covering all of the vocab: control pieces (Llama's <unk>,
@@ -3831,14 +3858,7 @@ def write_model_dir(path: str, cfg, hf=None) -> None:
                    eos_id=hf["eos_token_id"],
                    pad_id=hf.get("pad_token_id", 0))
     pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
-    words = ("the of and to in is that for it as with was on be by at this "
-             "from are or an which one all would there their what so up "
-             "out if about who get go me when make can like time no just "
-             "him know take people into year your good some could them see "
-             "other than then now look only come its over think also back "
-             "after use two how our work first well way even new want "
-             "because any these give day most us").split()
-    pieces += [("▁" + w, -2.0, NORMAL) for w in words]
+    pieces += [("▁" + w, -2.0, NORMAL) for w in WORDS]
     pieces += [(c, -6.0, NORMAL) for c in
                "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
                "0123456789.,;:!?'\"-()▁"]
@@ -3871,38 +3891,63 @@ def write_model_dir(path: str, cfg, hf=None) -> None:
         json.dump(hf, f)
 
 
-def http_completion(port: int, body: dict, timeout: float = 600) -> dict:
-    """POST /v1/completions; for ``stream`` bodies, parse the SSE events and
-    time each one. Returns the parsed result plus client-side timings."""
+def http_request(port: int, path: str, body: Optional[dict] = None,
+                 timeout: float = 600) -> dict:
+    """GET ``path`` (no body) or POST ``body`` to it. A JSON answer comes
+    back as ``response``; an SSE answer as its ``events`` (the port's
+    ``SseParser``: data, event, comments), the arrival time of each data
+    event and whether it ended in [DONE]."""
     import http.client
+    from dynamo_tpu_torch.llm.protocols.sse import SseParser
     t0 = time.monotonic()
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
-        conn.request("POST", "/v1/completions", body=json.dumps(body),
-                     headers={"Content-Type": "application/json"})
+        if body is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, body=json.dumps(body),
+                         headers={"Content-Type": "application/json"})
         resp = conn.getresponse()
+        out = {"status": resp.status,
+               "request_id": resp.getheader("X-Request-Id")}
         if resp.status != 200:
-            raise RuntimeError(f"HTTP {resp.status}: {resp.read()[:500]!r}")
-        if not body.get("stream"):
-            out = json.loads(resp.read())
-            return {"response": out, "latency_s": time.monotonic() - t0}
-        chunks, times, done = [], [], False
-        while True:
+            raise RuntimeError(f"{path}: HTTP {resp.status}: "
+                               f"{resp.read()[:500]!r}")
+        if resp.getheader("Content-Type") != "text/event-stream":
+            raw = resp.read()
+            out["response"] = (json.loads(raw) if path.startswith("/v1")
+                               else raw.decode())
+            out["latency_s"] = time.monotonic() - t0
+            return out
+        parser, events, times, done = SseParser(), [], [], False
+        while not done:
             line = resp.readline()
             if not line:
                 break
-            line = line.decode().strip()
-            if not line.startswith("data: "):
-                continue
-            if line == "data: [DONE]":
-                done = True
-                break
-            chunks.append(json.loads(line[6:]))
-            times.append(time.monotonic() - t0)
-        return {"chunks": chunks, "times": times, "done": done,
-                "latency_s": time.monotonic() - t0}
+            for ev in parser.push(line.decode()):
+                if ev.is_done:
+                    done = True
+                    break
+                events.append(ev)
+                times.append(time.monotonic() - t0)
+        out.update(events=events, times=times, done=done,
+                   latency_s=time.monotonic() - t0)
+        return out
     finally:
         conn.close()
+
+
+def http_completion(port: int, body: dict, timeout: float = 600) -> dict:
+    """POST /v1/completions; for ``stream`` bodies, the SSE chunks and the
+    arrival time of each. Returns the parsed result plus client-side
+    timings."""
+    res = http_request(port, "/v1/completions", body, timeout)
+    if "events" not in res:
+        return {"response": res["response"], "latency_s": res["latency_s"]}
+    data = [(e, t) for e, t in zip(res["events"], res["times"]) if e.data]
+    return {"chunks": [json.loads(e.data) for e, _ in data],
+            "times": [t for _, t in data], "done": res["done"],
+            "latency_s": res["latency_s"]}
 
 
 def check_stream(name: str, res: dict, max_tokens: int,
@@ -3987,6 +4032,8 @@ PATH_KERNELS = {
     "phi3_ckpt_bf16_k8": ("flash_prefill", "paged_attention"),
     "phi3_ckpt_ragged_int4_kv8": ("ragged_paged_attention_int8",
                                   "lm_head_int8", "grouped_int4_matmul"),
+    "chat_int4_kv8": ("flash_prefill", "paged_attention_int8",
+                      "lm_head_int8", "grouped_int4_matmul"),
 }
 # the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
 # dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
@@ -4009,9 +4056,12 @@ QWEN2_PATHS = ("qwen2_bf16_k8", "qwen2_int4_kv8", "qwen2_ragged",
 CKPT_TWINS = {"phi3_ckpt_bf16_k8": "phi3_bf16_k8",
               "phi3_ckpt_ragged_int4_kv8": "phi3_ragged_int4_kv8"}
 CKPT_PATHS = tuple(CKPT_TWINS)
-# the paths of the geometries after the 8B one
+# the 8B chat server (7), over a tokenizer.json directory
+CHAT_PATHS = ("chat_int4_kv8",)
+# the paths that phase 5 does not serve: those of the geometries after the
+# 8B one, of the checkpoint and of chat
 LATER_PATHS = (GEMMA_PATHS + MLA_PATHS + PHI3_PATHS + QWEN2_PATHS
-               + CKPT_PATHS)
+               + CKPT_PATHS + CHAT_PATHS)
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -4038,7 +4088,8 @@ SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
                "qwen2_ragged": ("bf16", True),
                "qwen2_ragged_int4_kv8": ("int4_kv8", True),
                "phi3_ckpt_bf16_k8": ("bf16", False),
-               "phi3_ckpt_ragged_int4_kv8": ("int4_kv8", True)}
+               "phi3_ckpt_ragged_int4_kv8": ("int4_kv8", True),
+               "chat_int4_kv8": ("int4_kv8", False)}
 # the served paths' (weights, KV pool): phase 4's modes, and bf16 weights
 # over an int8 pool (5m)
 SERVE_MODES = {**MODEL_MODES, "bf16_kv8": ("none", "int8")}
@@ -4079,8 +4130,46 @@ def serve_phase(cfg, seed: int, card: str, path: str) -> tuple:
         return _serve(cfg, seed, card, model_dir, path)
 
 
-def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
+def start_server(args, core, pipeline=None) -> tuple:
+    """Run the launcher's ``serve`` on an event loop of its own in a
+    thread, until it listens (``args.http_port`` is then its port).
+    Returns (the loop, a function that stops the server and its thread)."""
     import asyncio
+    import threading
+    from dynamo_tpu_torch.launch import run as launcher
+    ready = threading.Event()
+    loop = asyncio.new_event_loop()
+    holder = {}
+
+    def runner():
+        asyncio.set_event_loop(loop)
+        holder["task"] = loop.create_task(
+            launcher.serve(args, core, ready, pipeline=pipeline))
+        try:
+            loop.run_until_complete(holder["task"])
+        except asyncio.CancelledError:
+            pass
+        except BaseException as e:  # noqa: BLE001 — reported below
+            holder["error"] = e
+        finally:
+            ready.set()          # never leave the main thread waiting
+
+    th = threading.Thread(target=runner, name="http-server", daemon=True)
+    th.start()
+    if not ready.wait(300) or "error" in holder:
+        raise RuntimeError(f"serve: server not ready: {holder.get('error')}")
+
+    def stop():
+        if "task" in holder:
+            loop.call_soon_threadsafe(holder["task"].cancel)
+        th.join(120)
+        if th.is_alive():
+            raise RuntimeError("serve: server thread did not stop")
+        loop.close()
+    return loop, stop
+
+
+def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
     import gc
     import threading
     import numpy as np
@@ -4149,26 +4238,7 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
     def plain_prefill(*a, **kw):
         prefills["plain"].append((a[5], a[4]))
         return orig_plain(*a, **kw)
-    ready = threading.Event()
-    loop = asyncio.new_event_loop()
-    holder = {}
-
-    def runner():
-        asyncio.set_event_loop(loop)
-        holder["task"] = loop.create_task(launcher.serve(args, core, ready))
-        try:
-            loop.run_until_complete(holder["task"])
-        except asyncio.CancelledError:
-            pass
-        except BaseException as e:  # noqa: BLE001 — reported below
-            holder["error"] = e
-        finally:
-            ready.set()          # never leave the main thread waiting
-
-    th = threading.Thread(target=runner, name="http-server", daemon=True)
-    th.start()
-    if not ready.wait(300) or "error" in holder:
-        raise RuntimeError(f"serve: server not ready: {holder.get('error')}")
+    _, stop_server = start_server(args, core)
     port = args.http_port
     name = launcher.model_name(args)
     # bring-up: a short greedy and a short sampled request, so that the
@@ -4341,12 +4411,7 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                 "prefill_calls": list(prefills["plain"])}
     finally:
         stack.close()
-        if "task" in holder:
-            loop.call_soon_threadsafe(holder["task"].cancel)
-        th.join(120)
-    if th.is_alive():
-        raise RuntimeError("serve: server thread did not stop")
-    loop.close()
+        stop_server()
     for k, v in report.items():
         shown = {a: b for a, b in v.items() if not a.startswith("_")}
         log(f"request {path} {k} {json.dumps(shown)} [{card}]")
@@ -4600,6 +4665,436 @@ def checkpoint_phase(cfg, dev, seed: int, card: str, by_path: dict) -> None:
                 f"{twin}'s [{card}]")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: chat at the 8B width, through a tokenizer.json directory
+# ---------------------------------------------------------------------------
+
+CHAT_PATH = CHAT_PATHS[0]
+# Llama-3's pre-tokenizer split (its tokenizer.json's Split pattern)
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+                r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+"
+                r"|\s+(?!\S)|\s+")
+LLAMA3_BOS, LLAMA3_EOS = 128000, (128001, 128009)
+# the named special tokens by their offset past the 128000 of the BPE
+# vocabulary (Llama-3's ids); the others of the 256 are
+# reserved_special_token_{k}
+LLAMA3_SPECIALS = {0: "<|begin_of_text|>", 1: "<|end_of_text|>",
+                   6: "<|start_header_id|>", 7: "<|end_header_id|>",
+                   9: "<|eot_id|>"}
+CHAT_MESSAGES = [{"role": "system", "content": "You are a terse assistant."},
+                 {"role": "user",
+                  "content": "Name the capital of France in one word."}]
+# CHAT_MESSAGES through llama3.jinja, spelled out
+CHAT_PROMPT = ("<|begin_of_text|><|start_header_id|>system<|end_header_id|>"
+               "\n\nYou are a terse assistant.<|eot_id|>"
+               "<|start_header_id|>user<|end_header_id|>\n\nName the "
+               "capital of France in one word.<|eot_id|>"
+               "<|start_header_id|>assistant<|end_header_id|>\n\n")
+CHAT_MAX_TOKENS = 32
+CHAT_LONG_TOKENS = 1900        # the long chat prompt, about
+CHAT_TTFT_S = 10.0             # a limit on every chat TTFT (a hang detector)
+CHAT_ENCODE_MS = 2000.0        # the long prompt's cold encode on the host
+
+
+def llama3_tokenizer_json(vocab: int = 128000) -> dict:
+    """A byte-level BPE ``tokenizer.json`` in Llama-3's form: its Split
+    pattern before a regex-less ByteLevel, ``ignore_merges``, string-form
+    merges, ``<|begin_of_text|>`` added by the post-processor, and 256
+    special tokens after the ``vocab`` of the BPE model (at 128000-128255
+    for Llama-3's 128000). The merges build each of ``WORDS`` (alone,
+    after a space and capitalized) left to right; the vocabulary is padded
+    with synthetic tokens to ``vocab``."""
+    from dynamo_tpu_torch.llm.bpe_model import BYTE_CHAR
+    tokens = {BYTE_CHAR[b]: b for b in range(256)}
+    merges, seen = [], set()
+    for w in WORDS:
+        for form in (w, BYTE_CHAR[ord(" ")] + w, w.capitalize()):
+            cur = form[0]
+            for ch in form[1:]:
+                if (cur, ch) not in seen:
+                    seen.add((cur, ch))
+                    merges.append(f"{cur} {ch}")
+                cur += ch
+                tokens.setdefault(cur, len(tokens))
+    i = 0
+    while len(tokens) < vocab:
+        tokens.setdefault(f"ĠW{i}", len(tokens))
+        i += 1
+    k = 0
+    added = []
+    for tid in range(vocab, vocab + 256):
+        content = LLAMA3_SPECIALS.get(tid - vocab)
+        if content is None:
+            content = f"<|reserved_special_token_{k}|>"
+            k += 1
+        added.append({"id": tid, "content": content, "single_word": False,
+                      "lstrip": False, "rstrip": False, "normalized": False,
+                      "special": True})
+    bos = LLAMA3_SPECIALS[0]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": True, "use_regex": True}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False},
+            {**byte_level, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {**byte_level, "trim_offsets": False},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [vocab],
+                                      "tokens": [bos]}}}]},
+        "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": tokens, "merges": merges}}
+
+
+def write_chat_model_dir(path: str, cfg) -> None:
+    """An 8B model directory whose only tokenizer is ``tokenizer.json``
+    (``llama3_tokenizer_json``): config.json with bos 128000,
+    generation_config.json with eos [128001, 128009], and
+    tokenizer_config.json holding tests/data/chat_templates/llama3.jinja."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(ROOT, "tests", "data", "chat_templates",
+                           "llama3.jinja")) as f:
+        template = f.read().rstrip("\n")
+    files = {
+        "config.json": {
+            "model_type": "llama", "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+            "tie_word_embeddings": False, "bos_token_id": LLAMA3_BOS,
+            "eos_token_id": LLAMA3_EOS[0]},
+        "generation_config.json": {"bos_token_id": LLAMA3_BOS,
+                                   "eos_token_id": list(LLAMA3_EOS)},
+        "tokenizer_config.json": {
+            "chat_template": template,
+            "bos_token": LLAMA3_SPECIALS[0],
+            "eos_token": LLAMA3_SPECIALS[9]},
+        "tokenizer.json": llama3_tokenizer_json(cfg.vocab_size - 256),
+    }
+    for name, obj in files.items():
+        with open(os.path.join(path, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+
+
+def chat_stream_stats(name: str, res: dict, ids: list) -> dict:
+    """A streamed chat answer: its text, annotations, TTFT and ITL; fails
+    unless it ended in [DONE] with finish reason "length" after
+    ``CHAT_MAX_TOKENS`` tokens (``ids``, the engine's)."""
+    if not res["done"]:
+        raise RuntimeError(f"{name}: SSE stream did not end in [DONE]")
+    chunks = [json.loads(e.data) for e in res["events"] if e.data]
+    notes = {e.event: json.loads(e.comments[0]) for e in res["events"]
+             if e.data is None and e.event and e.comments}
+    finish = [c["choices"][0]["finish_reason"] for c in chunks
+              if c.get("choices") and c["choices"][0].get("finish_reason")]
+    if finish != ["length"] or len(ids) != CHAT_MAX_TOKENS:
+        raise RuntimeError(f"{name}: finish {finish}, {len(ids)} tokens")
+    t = [tm for e, tm in zip(res["events"], res["times"]) if e.data
+         and (json.loads(e.data).get("choices") or [{}])[0]
+         .get("delta", {}).get("content")]
+    itl = [b - a for a, b in zip(t, t[1:])]
+    if not t or t[0] > CHAT_TTFT_S:
+        raise RuntimeError(f"{name}: TTFT {t[:1]} s")
+    return {"ttft_ms": 1e3 * t[0],
+            "itl_ms_mean": 1e3 * sum(itl) / len(itl) if itl else None,
+            "itl_ms_max": 1e3 * max(itl) if itl else None,
+            "text": "".join(c["choices"][0]["delta"].get("content") or ""
+                            for c in chunks if c.get("choices")),
+            "notes": notes}
+
+
+def metric_samples(text: str) -> dict:
+    """The Prometheus text exposition as {(name, labels): value}."""
+    import re
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r'([^{ ]+)(?:\{(.*)\})? (\S+)$', line)
+        labels = tuple(sorted(re.findall(r'(\w+)="((?:[^"\\]|\\.)*)"',
+                                         m.group(2) or "")))
+        out[(m.group(1), labels)] = float(m.group(3))
+    return out
+
+
+def chat_phase(cfg, seed: int, card: str, base: dict) -> tuple:
+    """Phase 7: the 8B model (``cfg``'s depth, random weights, phase 5b's
+    int4 + int8 KV flags) served from ``write_chat_model_dir``'s directory,
+    whose only tokenizer is ``tokenizer.json``, driven through chat:
+
+    1. a streamed greedy chat with the token_ids and formatted_prompt
+       annotations: the prompt is ``CHAT_PROMPT``, its ids begin 128000,
+       128006, and the port's tokenizer decodes them back to it;
+    2. the same request unary, and as a completion of those ids: the three
+       give the same completion ids (read at the engine);
+    3. a seeded chat with n = 2, whose choices are two n = 1 requests with
+       seeds s and s + 1 and whose usage counts the prompt once;
+    4. a chat prompt of about 1900 tokens: render and encode ms on the host
+       (cold and warm), and its TTFT;
+    5. the launcher's ``run_batch`` over 3 JSONL lines on the live
+       pipeline: each response is the unary greedy answer to its messages;
+    6. ``/metrics``: requests by endpoint as sent, the TTFT histogram's
+       count as the streamed requests; ``/live`` answers 200.
+
+    Returns (launch counts over the phase, report); ``base`` is phase 5b's
+    report, whose p700 TTFT / ITL are printed beside the chat's."""
+    import asyncio
+    import tempfile
+    import torch
+    from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.launch import run as launcher
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.engines.torch_engine import TorchEngine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import (OpenAIPreprocessor,
+                                                   PromptFormatter)
+    from dynamo_tpu_torch.runtime import ResponseStream, link
+
+    class Recorder:
+        """The engine's token ids per request id (the HTTP X-Request-Id;
+        a fan-out's children are ``{id}-c{i}``)."""
+
+        def __init__(self, engine):
+            self.engine = engine
+            self.ids: dict = {}
+
+        async def generate(self, request):
+            stream = await self.engine.generate(request)
+            got = self.ids.setdefault(request.ctx.id, [])
+
+            async def tap():
+                async for item in stream:
+                    data = getattr(item, "data", None)
+                    if data is not None:
+                        got.extend(data.token_ids)
+                    yield item
+            return ResponseStream(tap(), stream.ctx)
+
+    mode, _ = SERVE_PATHS[CHAT_PATH]
+    weights, kv_quant = SERVE_MODES[mode]
+    report: dict = {}
+    with tempfile.TemporaryDirectory(prefix="dtt-chat-") as tmp:
+        model_dir = os.path.join(tmp, "llama3-8b-chat-random")
+        t0 = time.monotonic()
+        write_chat_model_dir(model_dir, cfg)
+        args = launcher.build_parser().parse_args(
+            ["in=http", "out=torch", "--model-path", model_dir,
+             "--random-weights", "--http-host", "127.0.0.1",
+             "--http-port", "0", "--max-model-len", str(MAX_MODEL_LEN),
+             "--kv-block-size", str(KV_BLOCK), "--num-kv-blocks", "2048",
+             "--max-num-seqs", "8", "--device", "cuda",
+             "--quantization", weights, "--kv-quantization", kv_quant])
+        gc.collect()
+        torch.cuda.empty_cache()
+        core = launcher.build_core(args)
+        t1 = time.monotonic()
+        mdc = ModelDeploymentCard.from_local_path(
+            model_dir, display_name=launcher.model_name(args))
+        # the first tokenizer.json of the process: its \p classes built
+        report["card_load_s"] = time.monotonic() - t1
+        recorder = Recorder(TorchEngine(core))
+        pipeline = link(OpenAIPreprocessor(mdc), Backend(mdc), recorder)
+        report["bring_up_s"] = time.monotonic() - t0
+        loop, stop_server = start_server(args, core, pipeline)
+        port, name = args.http_port, launcher.model_name(args)
+        sent = {"chat_completions": 0, "completions": 0}
+        streamed = 0
+
+        def post(endpoint: str, body: dict) -> dict:
+            nonlocal streamed
+            sent[endpoint] += 1
+            streamed += bool(body.get("stream"))
+            path = ("/v1/chat/completions" if endpoint == "chat_completions"
+                    else "/v1/completions")
+            return http_request(port, path, {"model": name, **body})
+        try:
+            # bring-up: a greedy and a sampled chat capture the decode
+            # program's graphs before the measured requests
+            for extra in ({"temperature": 0},
+                          {"temperature": 0.7, "top_p": 0.9, "seed": 2}):
+                post("chat_completions", {
+                    "messages": CHAT_MESSAGES, "max_tokens": 4,
+                    "nvext": {"ignore_eos": True}, **extra})
+            kernels.reset_launch_counts()
+            greedy = {"messages": CHAT_MESSAGES, "temperature": 0,
+                      "max_tokens": CHAT_MAX_TOKENS,
+                      "nvext": {"ignore_eos": True}}
+            # 1. streamed, annotated
+            res = post("chat_completions", {
+                **greedy, "stream": True,
+                "nvext": {"ignore_eos": True, "annotations": [
+                    "token_ids", "formatted_prompt"]}})
+            stream_ids = recorder.ids[res["request_id"]]
+            st = chat_stream_stats("chat stream", res, stream_ids)
+            prompt_ids = st["notes"].get("token_ids") or []
+            if st["notes"].get("formatted_prompt") != CHAT_PROMPT:
+                raise RuntimeError(f"chat: formatted prompt "
+                                   f"{st['notes'].get('formatted_prompt')!r}")
+            if prompt_ids[:2] != [LLAMA3_BOS, 128006]:
+                raise RuntimeError(f"chat: prompt ids begin {prompt_ids[:4]}")
+            back = mdc.tokenizer().decode(prompt_ids,
+                                          skip_special_tokens=False)
+            if back != CHAT_PROMPT:
+                raise RuntimeError(f"chat: the prompt ids decode to {back!r}")
+            report["stream"] = {k: v for k, v in st.items()
+                                if k not in ("notes", "text")}
+            report["stream"]["prompt_tokens"] = len(prompt_ids)
+            # 2. unary, and a completion of the prompt's ids
+            res = post("chat_completions", greedy)
+            unary_ids = recorder.ids[res["request_id"]]
+            msg = res["response"]["choices"][0]["message"]["content"]
+            res = post("completions", {
+                "prompt": prompt_ids, "temperature": 0,
+                "max_tokens": CHAT_MAX_TOKENS,
+                "nvext": {"ignore_eos": True}})
+            cmpl_ids = recorder.ids[res["request_id"]]
+            if not (stream_ids == unary_ids == cmpl_ids) or not (
+                    st["text"] == msg
+                    == res["response"]["choices"][0]["text"]):
+                raise RuntimeError(f"chat: stream / unary / completion ids "
+                                   f"{stream_ids[:6]} / {unary_ids[:6]} / "
+                                   f"{cmpl_ids[:6]}")
+            b = base["p700"]
+            log(f"request {CHAT_PATH}-vs-int4_kv8 "
+                f"{json.dumps({'ttft_ms': [b['ttft_ms'], st['ttft_ms']], 'itl_ms_mean': [b['itl_ms_mean'], st['itl_ms_mean']], 'prompt_tokens': [700, len(prompt_ids)]})} "
+                f"[{card}]")
+            # 3. n = 2, seeded
+            s = 11
+            sampled = {"messages": CHAT_MESSAGES, "temperature": 0.7,
+                       "top_p": 0.9, "max_tokens": CHAT_MAX_TOKENS,
+                       "nvext": {"ignore_eos": True}}
+            res = post("chat_completions", {**sampled, "seed": s, "n": 2})
+            two = res["response"]
+            pair = [recorder.ids[f"{res['request_id']}-c{i}"]
+                    for i in range(2)]
+            ones = []
+            for i in range(2):
+                r = post("chat_completions", {**sampled, "seed": s + i})
+                ones.append(recorder.ids[r["request_id"]])
+            texts = [c["message"]["content"] for c in two["choices"]]
+            usage = two["usage"]
+            if pair != ones or len(texts) != 2 or usage != {
+                    "prompt_tokens": len(prompt_ids),
+                    "completion_tokens": 2 * CHAT_MAX_TOKENS,
+                    "total_tokens": len(prompt_ids) + 2 * CHAT_MAX_TOKENS}:
+                raise RuntimeError(f"chat n=2: choices {[p[:4] for p in pair]}"
+                                   f" against n=1 {[o[:4] for o in ones]}, "
+                                   f"usage {usage}")
+            report["n2"] = {"usage": usage, "distinct": pair[0] != pair[1]}
+            # 4. a long chat prompt: host render / encode, then TTFT
+            words = (WORDS * (CHAT_LONG_TOKENS // len(WORDS) + 1))
+            long_messages = [CHAT_MESSAGES[0], {
+                "role": "user", "content": " ".join(
+                    words[:CHAT_LONG_TOKENS - 40])}]
+            t1 = time.monotonic()
+            fresh = ModelDeploymentCard.from_local_path(model_dir)
+            tk = fresh.tokenizer()
+            load_s = time.monotonic() - t1
+            fmt = PromptFormatter(fresh.prompt_format.chat_template,
+                                  bos_token=tk.id_to_token(LLAMA3_BOS),
+                                  eos_token=tk.id_to_token(LLAMA3_EOS[0]))
+            host = {"card_reload_s": load_s}
+            for when in ("cold", "warm"):
+                t1 = time.perf_counter()
+                text = fmt.render(long_messages)
+                t2 = time.perf_counter()
+                n_long = len(tk.encode(text).ids)
+                t3 = time.perf_counter()
+                host[f"render_ms_{when}"] = 1e3 * (t2 - t1)
+                host[f"encode_ms_{when}"] = 1e3 * (t3 - t2)
+            if host["encode_ms_cold"] > CHAT_ENCODE_MS:
+                raise RuntimeError(f"chat: {n_long}-token encode took "
+                                   f"{host['encode_ms_cold']:.1f} ms")
+            res = post("chat_completions", {
+                "messages": long_messages, "temperature": 0, "stream": True,
+                "max_tokens": CHAT_MAX_TOKENS,
+                "nvext": {"ignore_eos": True}})
+            lt = chat_stream_stats("chat long", res,
+                                   recorder.ids[res["request_id"]])
+            report["long"] = {"prompt_tokens": n_long, **host,
+                              **{k: lt[k] for k in ("ttft_ms",
+                                                    "itl_ms_mean")}}
+            # 5. run_batch on the live pipeline (on the server's loop)
+            lines = [{"messages": [{"role": "user", "content": q}],
+                      "max_tokens": 16, "temperature": 0}
+                     for q in ("What is the time?", "Say one word.",
+                               "Count to three.")]
+            src = os.path.join(tmp, "batch.jsonl")
+            dst = os.path.join(tmp, "batch.out.jsonl")
+            with open(src, "w") as f:
+                f.write("".join(json.dumps(d) + "\n" for d in lines))
+            args.output_path = dst
+            asyncio.run_coroutine_threadsafe(
+                launcher.run_batch(args, pipeline, src), loop).result(600)
+            with open(dst) as f:
+                got = [json.loads(x) for x in f if x.strip()]
+            for d, g in zip(lines, got):
+                want = post("chat_completions", d)["response"]
+                want = want["choices"][0]["message"]["content"]
+                if g.get("response") != want:
+                    raise RuntimeError(f"chat batch: {g} against the unary "
+                                       f"answer {want!r}")
+            if len(got) != len(lines):
+                raise RuntimeError(f"chat batch: {len(got)} lines out")
+            report["batch"] = {"lines": len(got)}
+            launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+            # 6. /metrics and /live
+            samples = metric_samples(http_request(port, "/metrics")
+                                     ["response"])
+            by_endpoint = {}
+            ttft_count = 0.0
+            for (metric, labels), v in samples.items():
+                lab = dict(labels)
+                if metric == "nv_llm_http_service_requests_total":
+                    if lab["status"] != "success":
+                        raise RuntimeError(f"chat metrics: {lab} {v}")
+                    by_endpoint[lab["endpoint"]] = (
+                        by_endpoint.get(lab["endpoint"], 0) + v)
+                if metric == ("nv_llm_http_service_time_to_first_token_"
+                              "seconds_count"):
+                    ttft_count += v
+            if by_endpoint != {k: float(v) for k, v in sent.items() if v} \
+                    or ttft_count != streamed:
+                raise RuntimeError(f"chat metrics: requests {by_endpoint} "
+                                   f"for {sent}, TTFT count {ttft_count} "
+                                   f"for {streamed} streams")
+            if http_request(port, "/live")["status"] != 200:
+                raise RuntimeError("chat: /live did not answer 200")
+            report["metrics"] = {"requests": by_endpoint,
+                                 "ttft_count": ttft_count}
+        finally:
+            stop_server()
+    for k, v in report.items():
+        log(f"request {CHAT_PATH} {k} {json.dumps(v)} [{card}]")
+    log(f"serve {CHAT_PATH}: launches {json.dumps(launches)}")
+    for k in PATH_KERNELS[CHAT_PATH]:
+        if launches[k] <= 0:
+            raise RuntimeError(f"serve {CHAT_PATH}: kernel {k} was never "
+                               f"launched")
+    del core, pipeline, recorder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report
 
 
 # ``--ab DIR``: phase 3's attention kernels (K1-K4 at the 8B shapes) and
@@ -4970,19 +5465,28 @@ def main() -> int:
     # for bit in bf16 and int4, and served by two servers that load it
     with phase("6"):
         checkpoint_phase(pcfg, dev, seed, card, by_path)
-    rest = [p for p in PATH_KERNELS if p not in LATER_PATHS]
+
+    # 7. chat at the 8B width from a directory whose only tokenizer is
+    # tokenizer.json, on phase 5b's int4 + int8 KV path
+    with phase("7"):
+        by_path[CHAT_PATH] = chat_phase(cfg, seed, card,
+                                        by_path["int4_kv8"][1])
+    rest = [p for p in PATH_KERNELS if p not in LATER_PATHS] \
+        + list(CHAT_PATHS)
     for e in entries:
         mode = e.get("mode", "")
         paths = (MLA_PATHS if mode.startswith("mla")
                  else PHI3_PATHS if mode.startswith("phi3")
                  else QWEN2_PATHS if mode.startswith("qwen2")
                  else GEMMA_PATHS if mode else rest)
-        path = next((p for p in paths if e["name"] in PATH_KERNELS[p]), None)
+        served = [p for p in paths if e["name"] in PATH_KERNELS[p]]
+        path = served[0] if served else None
         if path is None and e.get("on_main_path") is not False:
             raise RuntimeError(f"kernel {e['name']} ({e.get('mode')}): no "
                                f"served path lists it")
         e["launches"] = by_path[path][0][e["name"]] if path else 0
         e["launches_path"] = path
+        e["served_paths"] = served
     log(f"phases {json.dumps(PHASE_S)} [{card}]")
     print(card)
     print(json.dumps({"kernels": entries}))

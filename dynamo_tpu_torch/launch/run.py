@@ -1,26 +1,35 @@
-"""The launcher: ``python -m dynamo_tpu_torch.launch.run in=http out=torch
+"""The launcher: ``python -m dynamo_tpu_torch.launch.run in=SRC out=ENGINE
 --model-path DIR [--random-weights] [--http-port N] [--device cuda|cpu]
 [--quantization int8|int4|...] [--kv-quantization int8] [--ragged
 [--ragged-max-tokens N] [--ragged-max-seq-rows N]] [--sp N]
 [--prefill-chunk N] [--decode-steps-per-dispatch K
-[--decode-dispatch-pipeline] [--lane-prefill-max-tokens N]]``.
+[--decode-dispatch-pipeline] [--lane-prefill-max-tokens N]]
+[--max-tokens N] [--output-path F]``.
 
-Counterpart of ``dynamo_tpu.launch.run`` for its main path: an OpenAI
-completions server over the canonical pipeline link preprocessor →
-backend (detokenizer) → engine, with the engine's KV flags. The model
-directory holds ``config.json`` and a tokenizer (``tokenizer.model`` for
-the native SentencePiece engine, or ``tokenizer.json`` where the
-``tokenizers`` package is installed) and the checkpoint's
-``*.safetensors``, loaded onto the device in the engine's dtype and
-quantization (``engine/weights.py``); ``--random-weights`` serves weights
-from ``EngineConfig.seed`` instead. A directory whose checkpoint does not
-load exits non-zero with the loader's message.
+Counterpart of ``dynamo_tpu.launch.run`` for one process:
+
+Inputs:  http (chat and completions) | text (a prompt per line, until an
+         empty line) | stdin (every line of stdin) | batch:FILE.jsonl
+Outputs: torch | echo_core | echo_full | pystr:FILE.py | pytok:FILE.py
+
+Core engines (torch, echo_core, pytok) ride the canonical link
+preprocessor → backend (detokenizer) → engine; full engines (echo_full,
+pystr) speak OpenAI themselves. The model directory holds ``config.json``
+and a tokenizer (``tokenizer.json`` or ``tokenizer.model``, read by the
+port's own readers), with its chat template in ``tokenizer_config.json``,
+and for ``out=torch`` the checkpoint's ``*.safetensors``, loaded onto the
+device in the engine's dtype and quantization (``engine/weights.py``);
+``--random-weights`` serves weights from ``EngineConfig.seed`` instead. A
+directory whose checkpoint does not load exits non-zero with the loader's
+message. ``in=none`` and the distributed ``dyn://`` endpoints wait for the
+port's distributed runtime (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import os
 import sys
@@ -34,10 +43,11 @@ logger = logging.getLogger("dynamo_tpu_torch.launch")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dynamo-tpu-torch-run",
-        description="PyTorch/CUDA LLM serving launcher (in=http out=torch)")
+        description="PyTorch/CUDA LLM serving launcher (in=SRC out=ENGINE)")
     p.add_argument("io", nargs="*", metavar="in=|out=",
-                   help="in=http out=torch")
-    p.add_argument("--model-path", required=True,
+                   help="in=http|text|stdin|batch:F "
+                        "out=torch|echo_core|echo_full|pystr:F|pytok:F")
+    p.add_argument("--model-path",
                    help="HF-style model dir (config.json + tokenizer)")
     p.add_argument("--model-name", help="served model name "
                                         "(default: basename of model path)")
@@ -95,6 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--random-weights", action="store_true",
                    help="random weights from EngineConfig.seed instead "
                         "of the model directory's checkpoint")
+    p.add_argument("--output-path", help="batch: output JSONL path")
+    p.add_argument("--max-tokens", type=int, default=256,
+                   help="text/stdin/batch: generation budget")
     p.add_argument("--verbose", "-v", action="store_true")
     return p
 
@@ -109,15 +122,21 @@ def parse_io(io_args) -> Tuple[str, str]:
         else:
             raise SystemExit(f"unrecognized positional arg {a!r} "
                              "(expected in=... / out=...)")
-    if src != "http" or out != "torch":
-        raise SystemExit(f"only in=http out=torch is implemented (got "
-                         f"in={src} out={out})")
+    if src not in ("http", "text", "stdin") and not src.startswith("batch:"):
+        raise SystemExit(f"unknown in= source {src!r} (in=none and dyn:// "
+                         f"wait for the port's distributed runtime)")
+    if out not in ("torch", "echo_core", "echo_full") and not (
+            out.startswith("pystr:") or out.startswith("pytok:")):
+        raise SystemExit(f"unknown out= engine {out!r}")
     return src, out
 
 
 def model_name(args) -> str:
-    return args.model_name or os.path.basename(
-        os.path.normpath(args.model_path))
+    if args.model_name:
+        return args.model_name
+    if args.model_path:
+        return os.path.basename(os.path.normpath(args.model_path))
+    return "echo"
 
 
 def build_core(args, mesh=None):
@@ -170,24 +189,69 @@ def build_core(args, mesh=None):
                       mesh=mesh)
 
 
-def build_pipeline(args, core):
-    """(pipeline, card): preprocessor → backend → TorchEngine(core)."""
-    from ..llm.backend import Backend
-    from ..llm.engines.torch_engine import TorchEngine
+def model_card(args):
     from ..llm.model_card import ModelDeploymentCard
+    if not args.model_path:
+        raise SystemExit("this out= engine needs --model-path (tokenizer)")
+    return ModelDeploymentCard.from_local_path(args.model_path,
+                                               display_name=model_name(args))
+
+
+def link_pipeline(engine, mdc):
+    """Core engines ride the canonical link preprocessor → backend →
+    engine; a full engine (``mdc`` None) is the pipeline."""
+    if mdc is None:
+        return engine
+    from ..llm.backend import Backend
     from ..llm.preprocessor import OpenAIPreprocessor
     from ..runtime import link
-    mdc = ModelDeploymentCard.from_local_path(args.model_path,
-                                              display_name=model_name(args))
-    return link(OpenAIPreprocessor(mdc), Backend(mdc), TorchEngine(core)), mdc
+    return link(OpenAIPreprocessor(mdc), Backend(mdc), engine)
 
 
-async def serve(args, core, ready=None) -> None:
-    """Serve completions until cancelled; calls ``ready.set()`` (an
-    ``asyncio.Event`` or a ``threading.Event``) once listening."""
+def build_pipeline(args, core):
+    """(pipeline, card): preprocessor → backend → TorchEngine(core)."""
+    from ..llm.engines.torch_engine import TorchEngine
+    mdc = model_card(args)
+    return link_pipeline(TorchEngine(core), mdc), mdc
+
+
+def build_engine(args, out: str):
+    """(pipeline, core or None) for ``out``."""
+    if out == "torch":
+        if not args.model_path:
+            raise SystemExit("out=torch needs --model-path")
+        try:
+            core = build_core(args)
+        except RuntimeError as e:     # no CUDA device and --device cuda
+            raise SystemExit(str(e))
+        return build_pipeline(args, core)[0], core
+    if out == "echo_full":
+        from ..llm.engines.echo import EchoEngineFull
+        return EchoEngineFull(), None
+    if out == "echo_core":
+        from ..llm.engines.echo import EchoEngineCore
+        return link_pipeline(EchoEngineCore(), model_card(args)), None
+    # user python-file engines (reference engines/python.rs:57-354)
+    from ..llm.engines.python_file import (PythonFileEngineCore,
+                                           PythonFileEngineFull)
+    kind, _, path = out.partition(":")
+    engine_args = {"model_path": args.model_path,
+                   "model_name": model_name(args)}
+    if kind == "pystr":
+        return PythonFileEngineFull(path, engine_args), None
+    return link_pipeline(PythonFileEngineCore(path, engine_args),
+                         model_card(args)), None
+
+
+async def serve(args, core, ready=None, pipeline=None) -> None:
+    """Serve chat and completions until cancelled; calls ``ready.set()``
+    (an ``asyncio.Event`` or a ``threading.Event``) once listening. The
+    pipeline is ``core``'s (``build_pipeline``) unless one is given."""
     from ..llm.http import HttpService
-    pipeline, _ = build_pipeline(args, core)
+    if pipeline is None:
+        pipeline, _ = build_pipeline(args, core)
     svc = HttpService(port=args.http_port, host=args.http_host)
+    svc.manager.add_chat_model(model_name(args), pipeline)
     svc.manager.add_completion_model(model_name(args), pipeline)
     await svc.start()
     args.http_port = svc.port
@@ -199,21 +263,126 @@ async def serve(args, core, ready=None) -> None:
     try:
         await svc.run_forever()
     finally:
-        await core.stop()
+        if core is not None:
+            await core.stop()
+
+
+async def collect_chat_text(stream) -> str:
+    """Fold a chat chunk stream to its first choice's text; raises on
+    Annotated error items so failures surface instead of reading as empty
+    output (delegates to the OpenAI aggregator — one fold implementation)."""
+    from ..llm.protocols.openai import aggregate_chat_stream
+    folded = await aggregate_chat_stream(stream)
+    choices = folded.get("choices") or []
+    if not choices:
+        return ""
+    return (choices[0].get("message") or {}).get("content") or ""
+
+
+async def run_text(args, pipeline, interactive: bool) -> None:
+    """in=text / in=stdin: each line of stdin is a one-message chat; its
+    reply is printed. Interactive input ends at an empty line."""
+    from ..runtime import Context
+    name = model_name(args)
+    loop = asyncio.get_running_loop()
+    if interactive and sys.stdin.isatty():
+        print(f"model: {name} — empty line or Ctrl-D to exit")
+    while True:
+        if interactive and sys.stdin.isatty():
+            print("> ", end="", flush=True)
+        line = await loop.run_in_executor(None, sys.stdin.readline)
+        if not line:
+            return                      # EOF
+        if not line.strip():
+            if interactive:
+                return                  # empty line exits the REPL
+            continue                    # piped input: skip blanks, keep going
+        req = {"model": name, "max_tokens": args.max_tokens, "stream": True,
+               "messages": [{"role": "user", "content": line.strip()}]}
+        stream = await pipeline.generate(Context(req))
+        print(await collect_chat_text(stream))
+
+
+async def run_batch(args, pipeline, path: str) -> None:
+    """batch:FILE.jsonl — one JSON per line: {"text": ...} (completion
+    prompt) or {"messages": [...]} (chat). Results go to --output-path
+    (default: <input>.out.jsonl)."""
+    from ..runtime import Context
+    name = model_name(args)
+    out_path = args.output_path or (path.rsplit(".jsonl", 1)[0] + ".out.jsonl")
+    done = 0
+    failed = 0
+
+    def _read_lines() -> list:
+        with open(path) as fin:
+            return fin.readlines()
+
+    # file reads/writes ride to_thread so generation on this loop keeps
+    # stepping during the I/O
+    lines = await asyncio.to_thread(_read_lines)
+    fout = await asyncio.to_thread(open, out_path, "w")
+    try:
+        for line in lines:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                d = json.loads(line)
+                messages = d.get("messages") or [
+                    {"role": "user",
+                     "content": d.get("text", d.get("prompt", ""))}]
+                req = {"model": name, "stream": True,
+                       "max_tokens": d.get("max_tokens", args.max_tokens),
+                       "messages": messages}
+                if "temperature" in d:
+                    req["temperature"] = d["temperature"]
+                stream = await pipeline.generate(Context(req))
+                text = await collect_chat_text(stream)
+                out_line = json.dumps({**d, "response": text}) + "\n"
+            except json.JSONDecodeError as e:
+                failed += 1
+                out_line = json.dumps({"input": line,
+                                       "error": str(e)}) + "\n"
+            except Exception as e:  # noqa: BLE001 — per-row isolation
+                failed += 1
+                out_line = json.dumps({**d, "error": str(e)}) + "\n"
+            await asyncio.to_thread(fout.write, out_line)
+            done += 1
+    finally:
+        await asyncio.to_thread(fout.close)
+    level = logging.WARNING if failed else logging.INFO
+    logger.log(level, "batch complete: %d requests (%d failed) → %s",
+               done, failed, out_path)
+    if failed:
+        raise SystemExit(1)
+
+
+async def amain(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    src, out = parse_io(args.io)
+    pipeline, core = build_engine(args, out)
+    if src == "http":
+        await serve(args, core, pipeline=pipeline)
+        return
+    try:
+        if src == "text":
+            await run_text(args, pipeline, interactive=True)
+        elif src == "stdin":
+            await run_text(args, pipeline, interactive=False)
+        else:
+            await run_batch(args, pipeline, src[len("batch:"):])
+    finally:
+        if core is not None:
+            await core.stop()
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    parse_io(args.io)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     try:
-        core = build_core(args)
-    except RuntimeError as e:     # no CUDA device and --device cuda
-        raise SystemExit(str(e))
-    try:
-        asyncio.run(serve(args, core))
+        asyncio.run(amain(argv))
     except KeyboardInterrupt:
         pass
     return 0

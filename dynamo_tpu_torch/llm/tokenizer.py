@@ -1,7 +1,8 @@
 """Tokenizer wrapper + incremental detokenization (a copy of
-``dynamo_tpu.llm.tokenizer``). The HF kind imports ``tokenizers`` only when
-one is built, since the GPU machine may lack the package; the
-SentencePiece kind runs on the native engine (``sp_model.py``).
+``dynamo_tpu.llm.tokenizer``). The HF kind reads ``tokenizer.json`` with
+the port's own reader (``bpe_model.py``) and the SentencePiece kind
+``tokenizer.model`` with its own engine (``sp_model.py``): the GPU machine
+has neither the ``tokenizers`` nor the ``sentencepiece`` package.
 
 Reference: lib/llm/src/tokenizers.rs (570 LoC) and tokenizers/hf.rs — a thin
 facade over HF `tokenizers` exposing `encode`, `decode`, and a stateful
@@ -18,6 +19,8 @@ import json
 import os
 from typing import List, Optional, Sequence
 
+from .bpe_model import BpeTokenizer
+
 _REPLACEMENT = "�"
 
 
@@ -33,21 +36,15 @@ class Encoding:
 
 
 class HuggingFaceTokenizer:
-    """Wraps a `tokenizer.json` (HF tokenizers). Reference tokenizers/hf.rs."""
+    """A `tokenizer.json` (reference tokenizers/hf.rs), read by
+    ``bpe_model.BpeTokenizer``."""
 
-    def __init__(self, tokenizer):
+    def __init__(self, tokenizer: BpeTokenizer):
         self._tk = tokenizer
 
     @classmethod
     def from_file(cls, path: str) -> "HuggingFaceTokenizer":
-        try:
-            from tokenizers import Tokenizer
-        except ImportError as e:
-            raise RuntimeError(
-                f"{path}: a tokenizer.json needs the 'tokenizers' package, "
-                f"which is not installed; use a SentencePiece "
-                f"tokenizer.model instead") from e
-        return cls(Tokenizer.from_file(path))
+        return cls(BpeTokenizer.from_file(path))
 
     @classmethod
     def from_pretrained_dir(cls, model_dir: str) -> "HuggingFaceTokenizer":
@@ -57,11 +54,11 @@ class HuggingFaceTokenizer:
         raise FileNotFoundError(f"no tokenizer.json under {model_dir}")
 
     def encode(self, text: str, add_special_tokens: bool = False) -> Encoding:
-        enc = self._tk.encode(text, add_special_tokens=add_special_tokens)
-        return Encoding(ids=list(enc.ids), tokens=list(enc.tokens))
+        ids, tokens = self._tk.encode(text, add_special_tokens)
+        return Encoding(ids=ids, tokens=tokens)
 
     def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
-        return self._tk.decode(list(ids), skip_special_tokens=skip_special_tokens)
+        return self._tk.decode(ids, skip_special_tokens)
 
     def id_to_token(self, token_id: int) -> Optional[str]:
         return self._tk.id_to_token(token_id)

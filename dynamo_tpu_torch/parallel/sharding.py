@@ -16,7 +16,7 @@ hops and merges and computes the same function; what one card cannot show
 is the transfer between cards and the O(T/sp) memory per card.
 
 Not ported: tp, dp and ep, with ``param_pspecs``, ``shard_params`` and
-``shard_kv`` (ROADMAP A8). Under sp the JAX engine replicates the
+``shard_kv`` (ROADMAP A9). Under sp the JAX engine replicates the
 parameters and the KV pool over the axis; the port keeps the pool on the
 engine's device and one copy of the weights on each distinct device of
 the mesh (``replicate_params``).
@@ -64,7 +64,7 @@ def make_mesh(dp: int = 1, tp: int = 1, sp: int = 1, ep: int = 1,
         if n > 1:
             raise NotImplementedError(
                 f"{name}={n}: the PyTorch engine implements only the sp "
-                f"axis of the mesh (tp, dp and ep: ROADMAP A8)")
+                f"axis of the mesh (tp, dp and ep: ROADMAP A9)")
     if sp < 1:
         raise ValueError(f"sp must be >= 1, got {sp}")
     if devices is None:

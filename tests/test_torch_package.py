@@ -1,9 +1,10 @@
 """Package-level guarantees of the PyTorch port (``dynamo_tpu_torch``).
 
-- In a fresh interpreter, importing every module of the package and
-  serving one completion on the CPU loads neither JAX nor the JAX package
-  (``dynamo_tpu`` exactly — the port shares its prefix) nor any package the
-  GPU machine lacks.
+- In a fresh interpreter, importing every module of the package, serving
+  one completion on the CPU and one chat completion from a directory whose
+  only tokenizer is ``tokenizer.json`` loads neither JAX nor the JAX
+  package (``dynamo_tpu`` exactly — the port shares its prefix) nor any
+  package the GPU machine lacks.
 - The pure-Python XXH3-64 equals ``xxhash`` for inputs of 0 to 512 bytes,
   so block hashes equal the JAX package's.
 - Entry points default to the card and raise without one.
@@ -23,7 +24,8 @@ from dynamo_tpu_torch.llm.kv import blocks as tblocks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "jinja2",
-             "tokenizers", "xxhash", "prometheus_client", "safetensors")
+             "tokenizers", "xxhash", "prometheus_client", "safetensors",
+             "regex", "transformers")
 
 _SCRIPT = r'''
 import asyncio, importlib, json, os, pkgutil, shutil, sys, tempfile
@@ -32,27 +34,35 @@ mods = sorted(m.name for m in pkgutil.walk_packages(
     dynamo_tpu_torch.__path__, "dynamo_tpu_torch."))
 for m in mods:
     importlib.import_module(m)
+from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.launch import run as launcher
+import chip_smoke
 d = tempfile.mkdtemp()
 shutil.copy(sys.argv[1], os.path.join(d, "tokenizer.model"))
 json.dump({"vocab_size": 307, "hidden_size": 32, "intermediate_size": 64,
            "num_hidden_layers": 1, "num_attention_heads": 2,
            "num_key_value_heads": 1, "max_position_embeddings": 128,
            "eos_token_id": 2}, open(os.path.join(d, "config.json"), "w"))
-args = launcher.build_parser().parse_args(
-    ["in=http", "out=torch", "--model-path", d, "--random-weights",
-     "--device", "cpu", "--http-host", "127.0.0.1", "--http-port", "0",
-     "--max-model-len", "128", "--num-kv-blocks", "32"])
+# a directory whose only tokenizer is tokenizer.json, with a chat template
+c = os.path.join(d, "chat")
+chip_smoke.write_chat_model_dir(c, ModelConfig(
+    vocab_size=1280, hidden_size=32, intermediate_size=64, num_layers=1,
+    num_heads=2, num_kv_heads=1, head_dim=16, max_position_embeddings=128))
 
-async def main():
+
+async def serve_once(model_dir, path, body):
+    args = launcher.build_parser().parse_args(
+        ["in=http", "out=torch", "--model-path", model_dir,
+         "--random-weights", "--device", "cpu", "--http-host", "127.0.0.1",
+         "--http-port", "0", "--max-model-len", "128",
+         "--num-kv-blocks", "32"])
     core = launcher.build_core(args)
     ready = asyncio.Event()
     task = asyncio.create_task(launcher.serve(args, core, ready))
     await ready.wait()
     r, w = await asyncio.open_connection("127.0.0.1", args.http_port)
-    body = json.dumps({"model": os.path.basename(d), "prompt": "hello",
-                       "max_tokens": 3, "nvext": {"ignore_eos": True}})
-    w.write(("POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+    body = json.dumps({"model": os.path.basename(model_dir), **body})
+    w.write((f"POST {path} HTTP/1.1\r\nHost: x\r\n"
              f"Content-Length: {len(body)}\r\n\r\n{body}").encode())
     raw = await r.read()
     w.close()
@@ -63,10 +73,14 @@ async def main():
         pass
     return json.loads(raw.split(b"\r\n\r\n", 1)[1])
 
-resp = asyncio.run(main())
+resp = asyncio.run(serve_once(d, "/v1/completions", {
+    "prompt": "hello", "max_tokens": 3, "nvext": {"ignore_eos": True}}))
+chat = asyncio.run(serve_once(c, "/v1/chat/completions", {
+    "messages": [{"role": "user", "content": "hello there"}],
+    "max_tokens": 3, "nvext": {"ignore_eos": True}}))
 shutil.rmtree(d)
 print(json.dumps({"modules": mods, "loaded": sorted(sys.modules),
-                  "usage": resp["usage"]}))
+                  "usage": resp["usage"], "chat": chat}))
 '''
 
 
@@ -81,6 +95,12 @@ def test_package_imports_no_jax_nor_missing_packages():
     assert "dynamo_tpu_torch.engine.kernels" in res["modules"]
     assert "dynamo_tpu_torch.engine.ragged" in res["modules"]
     assert res["usage"]["completion_tokens"] == 3
+    assert "dynamo_tpu_torch.llm.bpe_model" in res["modules"]
+    assert "dynamo_tpu_torch.llm.chat_template" in res["modules"]
+    chat = res["chat"]
+    assert chat["object"] == "chat.completion"
+    assert chat["usage"]["completion_tokens"] == 3
+    assert chat["usage"]["prompt_tokens"] > 3
     bad = [m for m in res["loaded"]
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []

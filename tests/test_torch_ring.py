@@ -355,7 +355,7 @@ def test_ragged_with_sp_refused_as_in_jax():
 
 def test_make_mesh_refusals():
     for kw in ({"tp": 2}, {"dp": 2}, {"ep": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             make_mesh(sp=2, devices=["cpu"] * 2, **kw)
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     with pytest.raises(ValueError, match="CUDA devices"):
