@@ -156,8 +156,9 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    key, so that a pad's write reads far above the limit; and the clusters
    of each latent instantiation the card holds at once;
 4m. model: phase 4's checks (``check_model``, ``MLA_RUN``) at V2-Lite's
-   full width and depth (27 layers, 64 routed experts of which 6 active,
-   2 shared; random bf16 weights) over a bf16 and an int8 latent pool: a
+   full width at ``LAYERS``' depth (14 of 27 layers, 64 routed experts of
+   which 6 active, 2 shared; random bf16 weights) over a bf16 and an int8
+   latent pool: a
    3000-token prompt (prefill is a plain einsum, as in the JAX package)
    and 4 decode steps through K3-MLA, through its plain version in f32
    and with a planted fault, the footprint, a prefill and a decode step
@@ -189,8 +190,8 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    the untied 3072 x 32064 head and K6 at the three Phi-3-mini layer
    shapes;
 4p. model: phase 4's checks (``check_model``, ``PHI3_RUN``) at Phi-3-mini's
-   full width and depth (32 layers, random weights) in bf16 and in int4 +
-   int8 KV: a 3000-token prompt (the window binds) and decode steps at
+   full width at ``LAYERS``' depth (16 of 32 layers, random weights) in
+   bf16 and in int4 + int8 KV: a 3000-token prompt (the window binds) and decode steps at
    3000-3003 through the kernels and the plain versions, the window
    dropped from K1, K3 and K4 as the planted faults, the decode program's
    graphs at K = 1 and K = 8 against eager, and one ragged dispatch over
@@ -232,10 +233,10 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    TTFT/ITL, the footprint after bring-up, the graph capture seconds and
    the launches of each path.
 
-6. checkpoint: Phi-3-mini-4k at ``LAYERS["phi3"]`` (full depth) as an HF
+6. checkpoint: Phi-3-mini-4k at ``LAYERS["phi3"]`` (16 of 32 layers) as an HF
    model directory under ``build/``: its seed-0 bf16 weights
    (``init_params``) written by the port's ``save_hf_style`` as files of
-   at most 2 GiB (four), then loaded back by ``load_params_auto`` in bf16
+   at most 2 GiB (several), then loaded back by ``load_params_auto`` in bf16
    and in int4, each tensor (a quantized leaf's ``q`` and ``scale``) held
    bit for bit against ``init_params`` and ``init_params_quantized``, with
    the write and load seconds (the page cache warm from the write), the
@@ -263,18 +264,57 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    answers; ``/metrics`` (requests by endpoint, the TTFT count) and
    ``/live``; with the launches of K1, K3-int8, K5 and K6 over the phase.
 
+8. speculation at the 8B width and depth (``spec_phase``; ``SPEC_K`` 4,
+   8 slots): K3 bf16 and int8 at the verify program's 40 rows (8 slots of
+   ``SPEC_LENS`` keys, 5 rows each over its slot's table), K5 at 40 rows
+   and at the row-sampled ragged capacity (136), K6 at N = 40 at the four
+   8B shapes, each against its plain version with its planted fault,
+   timed beside its bound and library call (entries with ``mode``
+   ``spec_verify_rows40``, their launches those of the spec server that
+   runs each, K3 bf16's those of the bf16 drafting engines below); then in
+   int4 + int8 KV and in bf16: (a) the verify program
+   (``check_verify_program``) over 8 prefilled slots: its graph replay
+   against eager bit for bit, a stale static input caught, its row (b, t)
+   logits against the decode program's step t within phase 4's limit (and
+   within ``SPEC_VS_DECODE_MAX``), its kernel path against the plain
+   versions with the first row's seq_len one short planted; (a') the
+   row-sampled ragged program (``check_row_sampled_program``) at both row
+   buckets, a spec span in a seeded top-p slot: the same replay, stale
+   input and plain-version checks, with the span's key count one short
+   planted in K4; (b) an in-process EngineCore whose drafter proposes a
+   reference stream (``OracleDrafter``), first the engine's own plain
+   greedy stream, 4 prompts together (``oracle_rounds``): each stream
+   must equal its reference to its first difference, which must lie at a
+   near tie (a top-2 gap under ``SPEC_NEAR_TIE``), and a stream that left
+   it becomes its reference for the next round, until every stream equals
+   its reference to the end, every verify dispatch accepting 4 drafts;
+   then a drafter wrong at draft 2, from those references, accepting 2;
+   (c) the same under ``--ragged`` (the row-sampled program; one request
+   alone keeps its spec spans at the 8-row bucket, four fill the capacity
+   bucket); (d) a recorded ``--ragged --decode-dispatch-pipeline`` run (an
+   oracle request beside a longer one with speculation 0, which chains
+   once alone) replayed on the card: ``compare_replay`` empty,
+   ``check_log`` and ``check_inputs`` clean; (e) two servers, int4 + int8
+   KV with ``--spec-k 4``, split and ``--ragged``, answer 5b's prompts and
+   one that repeats a 12-token pattern: some dispatch verified drafts,
+   every split verify dispatch a graph replay, a seeded request gives the
+   same text twice, ``GET /debug`` lists verifying rows; TTFT/ITL beside
+   5b's and 5d's, the share of greedy tokens that agree, drafted /
+   accepted / emitted counts. Phase 4m runs (a) at V2-Lite's geometry
+   (K3-MLA at 40 rows) in both of its modes.
+
 Each phase prints its wall seconds (``phase 3q: N s``; each model mode and
 server inside one too) and the run ends with all of them on one line. The
 model and serve phases run each geometry at the depth of ``LAYERS``: the
 published depth, or less for an earlier geometry cut so that the whole
 run stays inside its time limit (width, kernels and planted faults stay).
 
-Every split-path decode dispatch and every ragged dispatch of phases
-5-5q and 7 replays a captured graph; its launches count through the
-program's replay accounting.
+Every split-path decode dispatch, verify dispatch and ragged dispatch of
+phases 5-5q, 7 and 8 replays a captured graph; its launches count through
+the program's replay accounting.
 
 The line before the last is the kernels' JSON summary (the entries of
-3g, 3m, 3p and 3q carry a ``mode``; each lists its geometry's
+3g, 3m, 3p, 3q and 8 carry a ``mode``; each lists its geometry's
 ``served_paths``, and ``launches`` are those of the first); the last line
 is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
@@ -305,7 +345,7 @@ MAX_MODEL_LEN = 2048
 # published depth, or less where an earlier geometry was cut so that the
 # whole run stays inside its time limit (PERF.md lists each cut; width,
 # kernels and planted faults are untouched)
-LAYERS = {"8b": 32, "gemma2": 21, "mla": 14, "phi3": 32, "qwen2": 28}
+LAYERS = {"8b": 32, "gemma2": 21, "mla": 14, "phi3": 16, "qwen2": 14}
 SP_TRUE_LEN = 1900             # the sequence-parallel prompt, in a 2048 bucket
 
 # The config.json of google/gemma-2-9b on the Hugging Face hub: 42 layers,
@@ -1819,10 +1859,13 @@ def check_ragged_attention(cfg, dev, int8: bool = False,
     return attn_entry(name, source, True, cases, chunk, splits, case)
 
 
-def check_lm_head_int8(cfg, dev) -> dict:
-    """K5 at the 8B head, [4096, 128256] int8, for one prefill row and
-    decode batches of 2, 4 and 8 rows: repeated bits, and the first
-    128-column strip left out as the planted fault."""
+def check_lm_head_int8(cfg, dev, rows=(1, 2, 4, 8), primary: int = 8,
+                       mode: Optional[str] = None) -> dict:
+    """K5 at the 8B head, [4096, 128256] int8, for ``rows`` (one prefill
+    row and decode batches of 2, 4 and 8 rows; phase 8: the verify
+    program's 40 and the row-sampled ragged program's capacity): repeated
+    bits, and the first 128-column strip left out as the planted fault.
+    ``mode``: the kernels-line mode of the entry (None: phase 3's)."""
     import torch
     from dynamo_tpu_torch.engine.kernels import lm_head_int8_cuda
     from dynamo_tpu_torch.engine.lm_head import lm_head_int8_ref
@@ -1836,7 +1879,7 @@ def check_lm_head_int8(cfg, dev) -> dict:
     # the library yardstick reads a bf16 copy of the dequantized head
     w16 = head.dequantize(torch.bfloat16)
     cases = []
-    for B in (1, 2, 4, 8):
+    for B in rows:
         x = torch.randn((B, D), generator=gen, device=dev).bfloat16()
         out = lm_head_int8_cuda(x, q, scale)
         again = lm_head_int8_cuda(x, q, scale)
@@ -1870,12 +1913,12 @@ def check_lm_head_int8(cfg, dev) -> dict:
         log(f"lm_head_int8 {json.dumps(case)}")
         check_limit(f"lm_head_int8 B={B}", rel, {"first_strip": fault_rel})
         cases.append(case)
-    primary = next(c for c in cases if c["B"] == 8)
+    primary = next(c for c in cases if c["B"] == primary)
     return {"name": "lm_head_int8", "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/lm_head_int8.cu",
             "replaces": "dynamo_tpu/engine/lm_head.py:66",
-            "row_rel_tolerance": KERNEL_ROW_REL_TOL, **primary,
-            "cases": cases}
+            "row_rel_tolerance": KERNEL_ROW_REL_TOL,
+            **({"mode": mode} if mode else {}), **primary, "cases": cases}
 
 
 def int4pack_yardstick(x, w, ref):
@@ -1916,13 +1959,15 @@ def int4pack_yardstick(x, w, ref):
 INT4_ROWS = (1, 8, 16, 17, 512)
 
 
-def check_grouped_int4(cfg, dev, shapes=None) -> dict:
+def check_grouped_int4(cfg, dev, shapes=None, primary_rows: int = 8,
+                       mode: Optional[str] = None) -> dict:
     """K6 at the model's layer shapes, ``shapes`` as ((d, f), rows) (by
     default the four 8B shapes for INT4_ROWS): repeated bits, the last
     group's scales read as the first's as a planted fault, and where the
     contraction is split, the kernel's own split partials merged in plain
     PyTorch (within the limit) and merged with one split left out (the
-    second planted fault)."""
+    second planted fault). The entry's numbers are those of the first
+    shape at ``primary_rows``; ``mode``: its kernels-line mode."""
     import torch
     from dynamo_tpu_torch.engine.kernels import (grouped_int4_matmul_cuda,
                                                  grouped_int4_scratch)
@@ -1995,12 +2040,12 @@ def check_grouped_int4(cfg, dev, shapes=None) -> dict:
             cases.append(case)
         del w, bad
     primary = next(c for c in cases
-                   if (c["D"], c["F"], c["N"]) == (D, Fi, 8))
+                   if (c["D"], c["F"], c["N"]) == (D, Fi, primary_rows))
     return {"name": "grouped_int4_matmul", "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/grouped_int4_matmul.cu",
             "replaces": "dynamo_tpu/engine/quant_matmul.py:46",
-            "row_rel_tolerance": KERNEL_ROW_REL_TOL, **primary,
-            "cases": cases}
+            "row_rel_tolerance": KERNEL_ROW_REL_TOL,
+            **({"mode": mode} if mode else {}), **primary, "cases": cases}
 
 
 # ---------------------------------------------------------------------------
@@ -2916,7 +2961,8 @@ class ModelRun:
     read) and K4's planted fault; whether bf16 also runs the
     sequence-parallel prefill (K2); how the plain attention versions run
     (``plain`` wraps each); the kernels-line names of K3 and K4 (``_int8``
-    added over an int8 pool)."""
+    added over an int8 pool); whether each mode also runs phase 8a's
+    verify program (``check_verify_program``)."""
     label: str
     prompt: int
     bucket: int
@@ -2930,6 +2976,7 @@ class ModelRun:
     block: tuple = (KV_BLOCK, KV_BLOCK)
     plain: Callable = lambda ref: ref
     attn_kernels: tuple = ("paged_attention", "ragged_paged_attention")
+    verify: bool = False
 
 
 LLAMA_RUN = ModelRun("8B", 300, 512, 4, MAX_MODEL_LEN,
@@ -3046,6 +3093,13 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
         program = check_decode_program(params, kv, cfg, table, B, M,
                                        run.prompt + run.steps + 1,
                                        f"{run.label} {mode}", bs)
+        verify = None
+        if run.verify:
+            # phase 8a at this geometry: K3 (K3-MLA) at B·(k + 1) rows
+            verify = check_verify_program(
+                params, cfg, dev, seed, mode, run.label, bs, run.max_len,
+                [(m, a, plain) for m, a, plain, _ in slots
+                 if a != "flash_prefill"])
         if mode in RAGGED_MODES:
             # the same weights through the ragged path: K4 in place of K1
             # and K3, every other kernel as above
@@ -3074,7 +3128,7 @@ def check_model(cfg, dev, seed: int, mode: str, run: ModelRun) -> dict:
            "forward_s": forward_s, "max_abs_ref": spread, **compare(got),
            "planted_faults": {k: compare(v) for k, v in faults.items()},
            "prefill_profile": prefill_profile, "decode_step": decode_step,
-           "program": program, "ragged": ragged}
+           "program": program, "verify": verify, "ragged": ragged}
     log(f"model {json.dumps(res)}")
     del got, ref, faults, kv
     if run.sp and mode == "bf16":
@@ -3560,7 +3614,7 @@ MLA_RUN = ModelRun("V2-Lite", MLA_PROMPT, MLA_BUCKET, MLA_STEPS, MLA_MAX_LEN,
                    ragged_latent_v_late, False, block=MLA_BLOCK,
                    plain=latent_plain_f32,
                    attn_kernels=("latent_paged_attention",
-                                 "latent_ragged_attention"))
+                                 "latent_ragged_attention"), verify=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4034,6 +4088,10 @@ PATH_KERNELS = {
                                   "lm_head_int8", "grouped_int4_matmul"),
     "chat_int4_kv8": ("flash_prefill", "paged_attention_int8",
                       "lm_head_int8", "grouped_int4_matmul"),
+    "spec_int4_kv8": ("flash_prefill", "paged_attention_int8",
+                      "lm_head_int8", "grouped_int4_matmul"),
+    "spec_ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
+                             "grouped_int4_matmul"),
 }
 # the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
 # dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
@@ -4058,10 +4116,12 @@ CKPT_TWINS = {"phi3_ckpt_bf16_k8": "phi3_bf16_k8",
 CKPT_PATHS = tuple(CKPT_TWINS)
 # the 8B chat server (7), over a tokenizer.json directory
 CHAT_PATHS = ("chat_int4_kv8",)
+# the 8B speculation servers (8e): --spec-k 4 on 5b's and 5d's flags
+SPEC_PATHS = ("spec_int4_kv8", "spec_ragged_int4_kv8")
 # the paths that phase 5 does not serve: those of the geometries after the
-# 8B one, of the checkpoint and of chat
+# 8B one, of the checkpoint, of chat and of speculation
 LATER_PATHS = (GEMMA_PATHS + MLA_PATHS + PHI3_PATHS + QWEN2_PATHS
-               + CKPT_PATHS + CHAT_PATHS)
+               + CKPT_PATHS + CHAT_PATHS + SPEC_PATHS)
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -4089,7 +4149,9 @@ SERVE_PATHS = {"bf16": ("bf16", False), "int4_kv8": ("int4_kv8", False),
                "qwen2_ragged_int4_kv8": ("int4_kv8", True),
                "phi3_ckpt_bf16_k8": ("bf16", False),
                "phi3_ckpt_ragged_int4_kv8": ("int4_kv8", True),
-               "chat_int4_kv8": ("int4_kv8", False)}
+               "chat_int4_kv8": ("int4_kv8", False),
+               "spec_int4_kv8": ("int4_kv8", False),
+               "spec_ragged_int4_kv8": ("int4_kv8", True)}
 # the served paths' (weights, KV pool): phase 4's modes, and bf16 weights
 # over an int8 pool (5m)
 SERVE_MODES = {**MODEL_MODES, "bf16_kv8": ("none", "int8")}
@@ -4206,6 +4268,7 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         + (DISPATCH_FLAGS if path == "dispatch" else [])
         + (["--decode-dispatch-pipeline"] if path == "ragged_pipeline"
            else [])
+        + (["--spec-k", str(SPEC_K)] if path in SPEC_PATHS else [])
         + (["--decode-steps-per-dispatch", str(DISPATCH_K)]
            if path in ("gemma2_bf16", "mla_bf16_k8", "phi3_bf16_k8",
                        "qwen2_bf16_k8", "phi3_ckpt_bf16_k8")
@@ -4285,6 +4348,13 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                    "p1900": mk(1900)}
     else:
         prompts = {"p700": mk(700), "p1900": mk(1900)}
+    if path in SPEC_PATHS:
+        # 5b's prompts, and one that repeats a 12-token pattern (from a
+        # generator of its own, so that the later prompts stay 5b's):
+        # random weights repeat tokens too, which the prompt-lookup
+        # drafter finds
+        prompts["rep300"] = np.random.default_rng(seed + 4).integers(
+            lo, cfg.vocab_size, size=12).tolist() * 25
     five_f = path in ("dispatch", "ragged_pipeline")
     if five_f:
         # 5b's prompts and a 1500-token one (2, 4 and 3 chunks of 512),
@@ -4398,6 +4468,8 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
                     m.ragged_dispatches_saved_total}
         if path == "sp":
             report["prefills"] = {k: sorted(v) for k, v in prefills.items()}
+        if path in SPEC_PATHS:
+            report["spec_metrics"] = spec_server_metrics(core, port, ragged)
         if path == "dispatch":
             report["dispatch_metrics"] = {
                 "lane_admissions": core.lane_admissions,
@@ -4442,10 +4514,62 @@ def _serve(cfg, seed: int, card: str, model_dir: str, path: str) -> tuple:
         check_dispatch_modes(cfg, report["dispatch_metrics"], launches)
     if path == "ragged_pipeline":
         check_ragged_pipeline(report["ragged_metrics"])
+    if path in SPEC_PATHS:
+        check_spec_server(path, report["spec_metrics"])
     del core
     gc.collect()
     torch.cuda.empty_cache()
     return launches, report
+
+
+def spec_server_metrics(core, port: int, ragged: bool) -> dict:
+    """8e: a spec server's speculation counters, its verify program's
+    graph replays (split path), and what ``GET /debug`` shows: the
+    records by kind and the verifying ones (``verify`` rows, or ``ragged``
+    rows with n_spec > 0)."""
+    raw = http_request(port, "/debug?last=512")["response"]
+    # this server's engine among the process's recorders (phase 8's
+    # in-process engines may not be collected yet)
+    last = json.loads(json.dumps(core.flight.dump(last=1)))
+    mine = [fr for fr in json.loads(raw)["flight_recorders"].values()
+            if fr["stats"]["records_total"] == core.flight.records_total
+            and fr["records"][-1:] == last]
+    if len(mine) != 1:
+        raise RuntimeError(f"/debug: {len(mine)} recorders match the "
+                           f"server's engine")
+    recs = mine[0]["records"]
+    kinds: dict = {}
+    for r in recs:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    verifying = [r for r in recs if r["kind"] == "verify"
+                 or (r["kind"] == "ragged" and r.get("n_spec", 0) > 0)]
+    m = core.metrics()
+    return {"spec_dispatches": core.spec_dispatches,
+            "drafted": core.spec_drafted_tokens,
+            "accepted": core.spec_accepted_tokens,
+            "emitted": core.spec_emitted_tokens,
+            "acceptance_rate": m.spec_acceptance_rate,
+            "accepted_per_step": m.spec_accepted_per_step,
+            "verify_replays": (None if ragged
+                               else core.verify_program.replays),
+            "verify_captures": (None if ragged
+                                else core.verify_program.captures),
+            "debug_kinds": kinds, "debug_verifying_rows": len(verifying),
+            "debug_example": verifying[-1] if verifying else None}
+
+
+def check_spec_server(path: str, m: dict) -> None:
+    """8e: some dispatch verified drafts, each verify dispatch of the
+    split path was a graph replay, and ``/debug`` lists verifying rows."""
+    if m["spec_dispatches"] <= 0 or m["drafted"] <= 0:
+        raise RuntimeError(f"serve {path}: no dispatch verified a draft")
+    if (m["verify_replays"] is not None
+            and m["verify_replays"] != m["spec_dispatches"]):
+        raise RuntimeError(f"serve {path}: {m['spec_dispatches']} verify "
+                           f"dispatches, {m['verify_replays']} replays")
+    if m["debug_verifying_rows"] <= 0:
+        raise RuntimeError(f"serve {path}: /debug shows no verifying row "
+                           f"({m['debug_kinds']})")
 
 
 def check_sp_dispatch(cfg, prefills: dict, launches: dict) -> None:
@@ -5097,6 +5221,812 @@ def chat_phase(cfg, seed: int, card: str, base: dict) -> tuple:
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 8: speculative decoding at the 8B width and depth
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_B = 8
+SPEC_ROWS = SPEC_B * (SPEC_K + 1)       # the verify program's rows: 40
+# the KV each slot holds before a verify dispatch: phase 3's K3 mix with its
+# empty slot given 300 keys; slot 0's 4 keys let a row's seq_len one short
+# (the planted fault) drop one key of five
+SPEC_LENS = [4, 15, 16, 17, 255, 1000, 2040, 300]
+SPEC_MODES = ("int4_kv8", "bf16")
+SPEC_TOKENS = 64          # tokens of each oracle-drafter request
+SPEC_PROMPT = 300         # its prompt
+SPEC_REQUESTS = 4         # oracle-drafter requests served together
+SPEC_WRONG_AT = 2         # the wrong drafter's bad draft
+# the most a verify row's logits may differ from the decode program's at
+# the same position (8a fails above it; on the H100 at 700 W it read
+# 0.0903 in int4 + int8 KV and 0.0804 in bf16, PERF.md), and a near tie:
+# a top-2 logit gap under twice that, which such a difference may flip
+SPEC_VS_DECODE_MAX = 0.1
+SPEC_NEAR_TIE = 2 * SPEC_VS_DECODE_MAX
+# the oracle-drafter runs a drafter takes to reach references that every
+# stream repeats to its end (oracle_rounds)
+SPEC_ROUNDS = 12
+SPEC_MODE_TAG = "spec_verify_rows40"
+
+
+def check_verify_attention(cfg, dev, int8: bool) -> dict:
+    """K3 (bf16 pool, or int8 rows) at the verify program's shape: SPEC_B
+    slots of SPEC_LENS keys, each slot's SPEC_K + 1 rows over its own
+    table at seq_lens len + 1 .. len + SPEC_K + 1 (40 rows), against its
+    plain version within the row limit, the longest slot's last table
+    entry read as the trash block as the planted fault, repeated bits,
+    timed cold beside the bound (each slot's keys read once), the plain
+    version and SDPA over the gathered pages."""
+    import torch
+    from dynamo_tpu_torch.engine import attention, kernels
+    Tv = SPEC_K + 1
+    bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+    lens = [n + Tv for n in SPEC_LENS]          # keys of each slot's last row
+    q, k_cache, v_cache, tables, _ = pool_inputs(cfg, dev, 8, lens, int8, bs,
+                                                 M, n_rows=SPEC_ROWS)
+    rows_t = tables.repeat_interleave(Tv, 0)
+    seq_lens = torch.tensor([n + t + 1 for n in SPEC_LENS for t in range(Tv)],
+                            dtype=torch.int32, device=dev)
+    kw = dict(block_size=bs, scale=attn_scale(cfg, LLAMA_ATTN))
+    fn = (kernels.paged_attention_int8_cuda if int8
+          else kernels.paged_attention_cuda)
+    name = "paged_attention_int8" if int8 else "paged_attention"
+
+    def kernel(tabs=rows_t):
+        return fn(q, k_cache, v_cache, tabs, seq_lens, **kw)
+
+    def plain():
+        return attention.paged_attention_ref(q, k_cache, v_cache, rows_t,
+                                             seq_lens, **kw)
+    out, again, ref = kernel(), kernel(), plain()
+    b = SPEC_LENS.index(max(SPEC_LENS))
+    bad = rows_t.clone()
+    bad[b * Tv:(b + 1) * Tv, (lens[b] - 1) // bs] = 0
+    fault = kernel(bad)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all() or not torch.equal(out, again):
+        raise RuntimeError(f"{name} at {SPEC_ROWS} verify rows: non-finite "
+                           f"output or two calls gave different bits")
+    err, rel = row_errors(out, ref, slice(None))
+    _, fault_rel = row_errors(fault, ref, slice(b * Tv, (b + 1) * Tv))
+    check_limit(f"{name} verify rows", rel, {"last_block_trash": fault_rel})
+    lib = paged_library(cfg, LLAMA_ATTN, q, k_cache, v_cache, rows_t,
+                        seq_lens, bs)
+    b_ms, b_by = attn_bound(cfg, LLAMA_ATTN, int8, M, SPEC_ROWS, SPEC_ROWS,
+                            sum(lens), int(seq_lens.sum()), 1)
+    ms = time_ms(kernel, cold=True)
+    case = {"rows": SPEC_ROWS, "slots": SPEC_B, "slot_keys": lens,
+            "max_abs_err": err, "max_row_rel_err": rel,
+            "fault_row_rel_err": fault_rel, "repeat_bits_equal": True,
+            "ms": ms, "plain_ms": time_ms(plain, iters=5, cold=True),
+            "library_ms": lib["sdpa_ms"], "library": (
+                f"scaled_dot_product_attention ({lib.get('sdpa_backend')}) "
+                f"over gathered pages"),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+    log(f"{name} verify {json.dumps(case)}")
+    return {"name": name, "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "dynamo_tpu/engine/attention.py:743",
+            "mode": SPEC_MODE_TAG, "row_rel_tolerance": KERNEL_ROW_REL_TOL,
+            **case}
+
+
+def check_verify_kernels(cfg, dev) -> list:
+    """Phase 8's kernels at the shapes speculation gives them (8B): K3 bf16
+    and int8 at the verify program's 40 rows, K5 at 40 rows and at the
+    row-sampled ragged program's capacity, K6 at N = 40 at the four 8B
+    layer shapes."""
+    D, Fi = cfg.hidden_size, cfg.intermediate_size
+    KVD = cfg.num_kv_heads * cfg.head_dim
+    return [check_verify_attention(cfg, dev, False),
+            check_verify_attention(cfg, dev, True),
+            check_lm_head_int8(cfg, dev, rows=(SPEC_ROWS, RAGGED_CAPACITY),
+                               primary=SPEC_ROWS, mode=SPEC_MODE_TAG),
+            check_grouped_int4(cfg, dev, shapes=[
+                ((d, f), (SPEC_ROWS,))
+                for d, f in ((D, Fi), (Fi, D), (D, KVD), (D, D))],
+                primary_rows=SPEC_ROWS, mode=SPEC_MODE_TAG)]
+
+
+def spec_weights(cfg, dev, seed: int, mode: str):
+    """The mode's random weights (SERVE_MODES) from ``seed``."""
+    import torch
+    from dynamo_tpu_torch.engine.quant import init_params_quantized
+    from dynamo_tpu_torch.engine.weights import init_params
+    weights, _ = SERVE_MODES[mode]
+    if weights == "none":
+        return init_params(cfg, seed, dev, torch.bfloat16)
+    return init_params_quantized(cfg, seed, dev, torch.bfloat16,
+                                 bits=4 if weights == "int4" else 8)
+
+
+def spec_pool(params, cfg, dev, seed: int, kv_quant: str, bs: int,
+              max_len: int) -> tuple:
+    """A pool of SPEC_B slots, slot b holding the KV of SPEC_LENS[b] random
+    prompt tokens (prefilled, each padded to a multiple of 128), its blocks
+    reaching past the verify rows. Returns (kv, tables [B, M])."""
+    import torch
+    from dynamo_tpu_torch.engine.models import family
+    model = family(cfg)
+    Tv, M = SPEC_K + 1, max_len // bs
+    need = [-(-(n + Tv + 1) // bs) for n in SPEC_LENS]
+    kv = model.init_kv_cache(cfg, sum(need) + 1, bs, dev, torch.bfloat16,
+                             quantization=kv_quant)
+    tables = torch.zeros((SPEC_B, M), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    used = 1
+    with torch.inference_mode():
+        for b, n in enumerate(SPEC_LENS):
+            tables[b, :need[b]] = torch.arange(used, used + need[b],
+                                               device=dev)
+            used += need[b]
+            toks = torch.randint(3, cfg.vocab_size, (-(-n // 128) * 128,),
+                                 generator=gen, device=dev)
+            model.prefill_forward(params, kv, toks, tables[b], 0, n, cfg, bs)
+    return kv, tables
+
+
+def one_key_short(attn: Callable) -> Callable:
+    """The decode attention with a planted fault: the first row's seq_len
+    one short (it misses the key its own row wrote)."""
+    def fault(q, k_cache, v_cache, block_tables, seq_lens, **kw):
+        short = seq_lens.clone()
+        short[0] -= 1
+        return attn(q, k_cache, v_cache, block_tables, short, **kw)
+    return fault
+
+
+def check_verify_program(params, cfg, dev, seed: int, mode: str, label: str,
+                         bs: int, max_len: int, plain_swaps) -> dict:
+    """8a: the verify program (engine/programs.py VerifyProgram, SPEC_B
+    slots of SPEC_K + 1 rows) over ``params`` and a spec_pool: its graph
+    replay against the same program run eagerly (tokens, logprobs, logits
+    and the pool, bit for bit); a stale static input caught; its row (b,
+    t) logits against the decode program's K = SPEC_K + 1 dispatch fed the
+    same tokens (step t at the same position) within MODEL_REL_TOL; its
+    kernel path against ``plain_swaps`` (the plain versions) within the
+    limit, and the first row's seq_len one short (one_key_short) beyond
+    it. Returns the readings, with the largest |verify - decode| logit
+    difference (which SPEC_VS_DECODE_MAX bounds at the 8B)."""
+    import numpy as np
+    import torch
+    from dynamo_tpu_torch.engine.models import family
+    from dynamo_tpu_torch.engine.programs import DecodeProgram, VerifyProgram
+    model = family(cfg)
+    _, kv_quant = SERVE_MODES[mode]
+    kv, tables = spec_pool(params, cfg, dev, seed, kv_quant, bs, max_len)
+    B, Tv, M = SPEC_B, SPEC_K + 1, tables.shape[1]
+    rng = np.random.default_rng(seed + 12)
+    tokens = rng.integers(3, cfg.vocab_size, size=(B, Tv)).astype(np.int64)
+    lens = np.array(SPEC_LENS, np.int32)
+    inp = dict(tokens=tokens, positions=lens, tables=tables.cpu().numpy(),
+               seeds=np.arange(B, dtype=np.int64),
+               steps0=lens.astype(np.int64),
+               temperature=np.zeros((B,), np.float32),
+               top_k=np.zeros((B,), np.int64),
+               top_p=np.ones((B,), np.float32))
+    # slot 1 samples with top-p: the filtered branch runs
+    inp["temperature"][1], inp["top_p"][1] = 0.7, 0.9
+    snap = {n: t.clone() for n, t in kv.items()}
+
+    def restore():
+        for n, t in kv.items():
+            t.copy_(snap[n])
+    prog = VerifyProgram(params, kv, cfg, bs, B, M, Tv, 0, dev)
+    res = {"model": label, "mode": mode, "rows": B * Tv}
+    with torch.inference_mode():
+        d = prog.dispatch("filtered", inp, with_logits=True)
+        toks, lps = d.fetch()
+        logits = d.logits.clone()
+        pool = {n: t[:, bs:].clone() for n, t in kv.items()}
+        restore()
+        e = prog.run_eager("filtered", inp, with_logits=True)
+        res["replay_equals_eager"] = {
+            "tokens": bool((toks == e.toks.cpu().numpy()).all()),
+            "logprobs": bool((lps == e.logprobs.cpu().numpy()).all()),
+            "logits": torch.equal(logits, e.logits),
+            "pool": all(torch.equal(pool[n], kv[n][:, bs:]) for n in kv)}
+        del pool, e
+        # the planted fault: a second dispatch whose inputs never reach the
+        # graph
+        other = dict(inp, tokens=(tokens + 1000) % cfg.vocab_size)
+        restore()
+        upload = prog._upload
+        prog._upload = lambda inputs: None
+        try:
+            stale = prog.dispatch("filtered", other,
+                                  with_logits=True).logits.clone()
+        finally:
+            prog._upload = upload
+        restore()
+        right = prog.run_eager("filtered", other, with_logits=True).logits
+        res["planted_stale_inputs_caught"] = not torch.equal(stale, right)
+        del stale, right
+        # row (b, t) against the decode program's step t (planned tokens)
+        restore()
+        dec = DecodeProgram(params, kv, cfg, bs, B, M, Tv, 0, dev)
+        dinp = {k: v for k, v in inp.items() if k != "tokens"}
+        dinp.update(tokens=tokens[:, 0].copy(), planned=tokens.T.copy(),
+                    planned_mask=np.ones((Tv, B), bool))
+        dlog = dec.dispatch(Tv, "filtered", dinp,
+                            with_logits=True).logits.transpose(0, 1).clone()
+        _, compare = logit_compare(dlog)
+        res["vs_decode"] = compare(logits)
+        res["vs_decode_max_abs_err"] = res["vs_decode"]["max_abs_err"]
+        del dec, dlog
+        # the kernel path against the plain versions, and the planted fault
+        restore()
+        with swapped(*plain_swaps):
+            ref = prog.run_eager("filtered", inp, with_logits=True).logits
+        restore()
+        with swapped((model, "paged_attention",
+                      one_key_short(model.paged_attention))):
+            bad = prog.run_eager("filtered", inp, with_logits=True).logits
+        _, compare = logit_compare(ref)
+        res["vs_plain"] = compare(logits)
+        res["planted_fault"] = compare(bad)
+        del ref, bad
+    restore()
+    res["captures"], res["capture_s"] = prog.captures, prog.capture_s
+    log(f"verify_program {json.dumps(res)}")
+    what = f"verify program {label} {mode}"
+    bad_checks = [k for k, v in res["replay_equals_eager"].items() if not v]
+    if bad_checks or not res["planted_stale_inputs_caught"]:
+        raise RuntimeError(f"{what}: replay != eager {bad_checks} or the "
+                           f"stale input went unseen")
+    if not res["vs_decode"]["rel_err"] <= MODEL_REL_TOL:
+        raise RuntimeError(f"{what}: rows differ from the decode program's "
+                           f"by {res['vs_decode']['rel_err']}")
+    check_model_limits(what, res["vs_plain"]["rel_err"],
+                       {"seq_len_one_short":
+                        res["planted_fault"]["rel_err"]})
+    del kv, snap, prog
+    return res
+
+
+class OracleDrafter:
+    """Proposes a reference stream's next tokens while the request's
+    history is a prefix of one of ``streams`` (prompt + reference tokens),
+    else nothing; with ``wrong_at``, that draft is another token."""
+
+    def __init__(self, streams: list, vocab: int,
+                 wrong_at: Optional[int] = None) -> None:
+        self.streams, self.vocab, self.wrong_at = streams, vocab, wrong_at
+
+    def draft(self, history, k: int) -> list:
+        h = list(history)
+        for s in self.streams:
+            if s[:len(h)] == h:
+                d = list(s[len(h):len(h) + k])
+                if self.wrong_at is not None and self.wrong_at < len(d):
+                    d[self.wrong_at] = (d[self.wrong_at] + 1) % self.vocab
+                return d
+        return []
+
+
+def spec_engine(params, cfg, dev, mode: str, ragged: bool,
+                pipeline: bool = False):
+    """An in-process EngineCore over ``params`` with spec_k = SPEC_K, 8
+    slots, no prefix reuse (every admission prefills its whole prompt)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import EngineCore
+    weights, kv_quant = SERVE_MODES[mode]
+    ecfg = EngineConfig(max_model_len=MAX_MODEL_LEN, kv_block_size=KV_BLOCK,
+                        num_kv_blocks=512, max_num_seqs=SPEC_B,
+                        enable_prefix_reuse=False, quantization=weights,
+                        kv_quantization=kv_quant, spec_k=SPEC_K,
+                        ragged_dispatch=ragged,
+                        ragged_max_seq_rows=RAGGED_MAX_ROWS,
+                        decode_dispatch_pipeline=pipeline)
+    return EngineCore(cfg, ecfg, params=params, device=dev)
+
+
+def engine_streams(core, prompts: list, spec: list, max_new: list,
+                   launches: Optional[dict] = None) -> list:
+    """Serve ``prompts`` together on ``core`` (request i with speculation
+    ``spec[i]``, -1 = the engine's, and ``max_new[i]`` tokens) to the end;
+    their token lists. The kernels' launches over the run are added to
+    ``launches`` where it is given."""
+    import asyncio
+    from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.engine.core import FINISH_SENTINEL, EngineRequest
+    from dynamo_tpu_torch.engine.sampling import SlotSampling
+
+    async def run():
+        reqs = [EngineRequest(rid=f"s{i}", prompt=list(p),
+                              sampling=SlotSampling(temperature=0.0),
+                              max_new_tokens=max_new[i], eos_ids=frozenset(),
+                              spec_k=spec[i])
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            await core.submit(r)
+        out = []
+        for r in reqs:
+            toks = []
+            while True:
+                item, _ = await asyncio.wait_for(r.out_queue.get(), 300)
+                if item is FINISH_SENTINEL:
+                    break
+                toks.append(item)
+            out.append(toks)
+        await core.stop()
+        return out
+    kernels.reset_launch_counts()
+    out = asyncio.run(run())
+    if launches is not None:
+        for k, v in kernels.KERNELS.items():
+            launches[k] = launches.get(k, 0) + v.launches
+    return out
+
+
+class GapReader:
+    """The top-2 logit gap of each token of greedy continuations of
+    prompts, on the split path and teacher-forced: the prefill's logits
+    for a stream's first token, then the decode program (K = 8 dispatches
+    fed the streams) for the rest. Up to SPEC_B streams a call, a slot
+    each, over one pool and one decode program kept across calls (its
+    graphs captured once)."""
+
+    def __init__(self, params, cfg, dev, kv_quant: str,
+                 max_len: int) -> None:
+        import numpy as np
+        import torch
+        from dynamo_tpu_torch.engine.models import family
+        from dynamo_tpu_torch.engine.programs import DecodeProgram
+        self.params, self.cfg, self.dev = params, cfg, dev
+        self.model = family(cfg)
+        bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+        per = -(-(max_len + PROGRAM_K) // bs)       # blocks a slot
+        self.kv = self.model.init_kv_cache(cfg, SPEC_B * per + 1, bs, dev,
+                                           torch.bfloat16,
+                                           quantization=kv_quant)
+        self.tables = np.zeros((SPEC_B, M), np.int32)
+        for j in range(SPEC_B):
+            self.tables[j, :per] = np.arange(1 + j * per, 1 + (j + 1) * per)
+        self.prog = DecodeProgram(params, self.kv, cfg, bs, SPEC_B, M,
+                                  PROGRAM_K, 0, dev)
+
+    def __call__(self, prompts: list, streams: list) -> list:
+        import numpy as np
+        import torch
+        n, K = len(streams), PROGRAM_K
+        L = len(streams[0])
+        if n > SPEC_B or any(len(s) != L for s in streams):
+            raise ValueError("up to SPEC_B streams of one length")
+
+        def gap(lg):
+            top = torch.topk(lg.float(), 2).values
+            return float(top[0] - top[1])
+        gaps = []
+        with torch.inference_mode():
+            for j, p in enumerate(prompts):
+                padded = torch.zeros((-(-len(p) // 128) * 128,),
+                                     dtype=torch.long, device=self.dev)
+                padded[:len(p)] = torch.tensor(p, device=self.dev)
+                table = torch.from_numpy(self.tables[j]).to(self.dev)
+                gaps.append([gap(self.model.prefill_forward(
+                    self.params, self.kv, padded, table, 0, len(p),
+                    self.cfg, KV_BLOCK))])
+            for lo in range(0, L - 1, K):
+                k = min(K, L - 1 - lo)
+                planned = np.zeros((k, SPEC_B), np.int64)
+                pmask = np.zeros((k, SPEC_B), bool)
+                positions = np.zeros((SPEC_B,), np.int32)
+                for j, s in enumerate(streams):
+                    planned[:, j] = s[lo:lo + k]
+                    pmask[:, j] = True
+                    positions[j] = len(prompts[j]) + lo
+                inp = {"tokens": planned[0].copy(), "tables": self.tables,
+                       "positions": positions, "planned": planned,
+                       "planned_mask": pmask}
+                lg = self.prog.dispatch(k, "greedy", inp,
+                                        with_logits=True).logits
+                for j in range(n):
+                    gaps[j] += [gap(lg[i, j]) for i in range(k)]
+        return gaps
+
+
+def check_oracle_streams(name: str, harvests: list, got: list, ref: list,
+                         gaps: list, accept: int, emitted: int) -> dict:
+    """8b / 8c for one request: its stream equals its reference ``ref``
+    up to the first difference, and any difference lies at a near tie (a
+    gap of ``ref``'s under SPEC_NEAR_TIE); every verifying dispatch whose
+    tokens all precede it (and the budget's end) accepted ``accept``
+    drafts. ``harvests``: the request's (request_harvests), after the
+    ``emitted`` tokens its admission gave."""
+    first = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+                 None)
+    if len(got) != len(ref):
+        raise RuntimeError(f"{name}: {len(got)} tokens, reference "
+                           f"{len(ref)}")
+    if first is not None and not gaps[first] < SPEC_NEAR_TIE:
+        raise RuntimeError(f"{name}: the stream leaves its reference at "
+                           f"token {first}, whose gap {gaps[first]} is no "
+                           f"near tie (limit {SPEC_NEAR_TIE})")
+    end = first if first is not None else len(ref)
+    checked = 0
+    for n, acc in harvests:
+        if acc is not None and emitted + SPEC_K + 1 <= end:
+            checked += 1
+            if acc != accept:
+                raise RuntimeError(f"{name}: a dispatch accepted {acc} "
+                                   f"drafts, expected {accept}")
+        emitted += n
+    return {"first_difference": first,
+            "gap_there": gaps[first] if first is not None else None,
+            "near_ties": sum(g < SPEC_NEAR_TIE for g in gaps[:end]),
+            "dispatches_checked": checked}
+
+
+def oracle_rounds(core, name: str, prompts: list, refs: list, gaps: list,
+                  wrong: Optional[int], emitted: int, regap: Callable,
+                  launches: Optional[dict]) -> tuple:
+    """8b / 8c: serve ``prompts`` together on ``core`` (speculating at its
+    spec_k) with an OracleDrafter over ``refs`` (wrong at draft ``wrong``
+    where given), each stream held to its reference by
+    check_oracle_streams; a stream that left its reference (at a near
+    tie) becomes it, with its gaps from ``regap(prompts, streams)``, and
+    the round runs again, until every stream equals its reference to the end:
+    then every verifying dispatch of the last round but those at the
+    budget's end accepted SPEC_K drafts (``wrong`` of them). Fails after
+    SPEC_ROUNDS rounds. Returns (the references, their gaps, the readings,
+    the last round's recorded events)."""
+    from dynamo_tpu_torch.engine import replay as treplay
+    refs, gaps, n = list(refs), list(gaps), len(prompts)
+    accept = SPEC_K if wrong is None else wrong
+    left = []                  # each round's (request, token) differences
+    t0 = time.monotonic()
+    for rnd in range(SPEC_ROUNDS):
+        core.drafter = OracleDrafter([p + r for p, r in zip(prompts, refs)],
+                                     core.model_cfg.vocab_size, wrong)
+        core.recorder = treplay.Recorder()
+        got = engine_streams(core, prompts, [-1] * n, [SPEC_TOKENS] * n,
+                             launches)
+        events = core.recorder.events
+        rows = [check_oracle_streams(
+            f"{name} {j} round {rnd}", request_harvests(events, f"s{j}"),
+            got[j], refs[j], gaps[j], accept, emitted) for j in range(n)]
+        diff = [(j, r["first_difference"], r["gap_there"])
+                for j, r in enumerate(rows)
+                if r["first_difference"] is not None]
+        left.append(diff)
+        if not diff:
+            res = {"rounds": rnd + 1, "s": time.monotonic() - t0,
+                   "left_reference_at": left,
+                   "accepted_each": accept,
+                   "dispatches_checked": [r["dispatches_checked"]
+                                          for r in rows],
+                   "near_ties": [r["near_ties"] for r in rows]}
+            log(f"spec_streams {name} {json.dumps(res)}")
+            if not all(r["dispatches_checked"] for r in rows):
+                raise RuntimeError(f"{name}: a stream had no verifying "
+                                   f"dispatch: {res}")
+            return refs, gaps, res, events
+        js = [j for j, _, _ in diff]
+        for j, g in zip(js, regap([prompts[j] for j in js],
+                                  [got[j] for j in js])):
+            refs[j], gaps[j] = got[j], g
+    raise RuntimeError(f"{name}: the streams still left their references "
+                       f"after {SPEC_ROUNDS} rounds: {left}")
+
+
+def request_harvests(events: list, rid: str) -> list:
+    """(tokens applied, drafts accepted or None) of each harvest of
+    ``rid`` in a recorded run: a verify row's or a spec span's accepted
+    drafts, None for a plain decode step or a prompt span."""
+    out = []
+    spans = {}
+    for e in events:
+        if e["ev"] == "ragged":
+            spans[e["id"]] = {s: m for s, _st, _n, m in e["seqs"]}
+        for row in e.get("applied", ()):
+            if row[1] != rid:
+                continue
+            if e["ev"] == "spec_harvest":
+                out.append((row[2], row[3]))
+            elif e["ev"] == "ragged_harvest":
+                spec = spans[e["id"]].get(row[0]) == "spec"
+                if row[3]:          # a span that emitted
+                    out.append((row[3] if spec else 1,
+                                row[2] - 1 if spec else None))
+            elif e["ev"] == "harvest":
+                out += [(1, None)] * row[2]
+    return out
+
+
+def check_spec_engines(params, cfg, dev, seed: int, mode: str,
+                       launches: Optional[dict]) -> dict:
+    """8b-8d in one mode. 8b: an in-process EngineCore (split path) whose
+    drafter proposes reference streams, first the engine's own streams at
+    speculation 0 (oracle_rounds), SPEC_REQUESTS requests together, until
+    each stream repeats its reference to the end with SPEC_K drafts
+    accepted a dispatch; then a drafter wrong at draft SPEC_WRONG_AT from
+    those references, accepting that many; 8c: the same on the
+    row-sampled ragged program, with the oracle also on one request alone
+    (spec spans at the max_num_seqs bucket; together they fill the
+    capacity bucket); 8d: a recorded --ragged --decode-dispatch-pipeline
+    run, an oracle request beside a longer one with speculation 0 (which
+    chains once alone), replayed on the card (compare_replay empty) and
+    clean under check_log and check_inputs. The drafting runs' launches
+    (8b and 8c) are added to ``launches`` where it is given."""
+    import numpy as np
+    from dynamo_tpu_torch.engine import replay as treplay
+    _, kv_quant = SERVE_MODES[mode]
+    rng = np.random.default_rng(seed + 13)
+    prompts = [rng.integers(3, cfg.vocab_size, size=SPEC_PROMPT).tolist()
+               for _ in range(SPEC_REQUESTS)]
+    n = len(prompts)
+
+    regap = GapReader(params, cfg, dev, kv_quant, SPEC_PROMPT + SPEC_TOKENS)
+    res = {}
+    for ragged in (False, True):
+        path = "ragged" if ragged else "split"
+        name = f"{mode} {path}"
+        core = spec_engine(params, cfg, dev, mode, ragged)
+        plain = engine_streams(core, prompts, [0] * n, [SPEC_TOKENS] * n)
+        emitted = 0 if ragged else 1
+        runs = [("oracle", None, n), ("wrong", SPEC_WRONG_AT, n)]
+        if ragged:
+            runs.append(("oracle alone", None, 1))
+        refs = plain
+        gaps = regap(prompts, plain)
+        for label, wrong, m in runs:
+            # the wrong drafter and the lone request start from the
+            # oracle's references
+            got, got_gaps, res[f"{path} {label}"], events = oracle_rounds(
+                core, f"{name} {label}", prompts[:m], refs[:m], gaps[:m],
+                wrong, emitted, regap, launches)
+            if label == "oracle":
+                res[f"{path} plain kept"] = [r == p
+                                             for r, p in zip(got, plain)]
+                refs, gaps = got, got_gaps
+            if ragged:
+                # whether each dispatch with a spec span ran at the
+                # max_num_seqs bucket: all of them alone, not all together
+                small = [sum(e["counts"]) <= SPEC_B for e in events
+                         if e["ev"] == "ragged"
+                         and any(md == "spec" for *_, md in e["seqs"])]
+                if not small or all(small) != (m == 1):
+                    raise RuntimeError(f"{name} {label}: spec spans at the "
+                                       f"small bucket: {small}")
+        res[f"{path} graphs"] = sorted(
+            str(k) for k in (core.ragged_program if ragged
+                             else core.verify_program).graphs)
+        del core
+    # 8d: the recorded pipelined ragged + spec run, replayed on the card
+    core = spec_engine(params, cfg, dev, mode, True, pipeline=True)
+    core.drafter = OracleDrafter([prompts[0] + refs[0]], cfg.vocab_size)
+    core.recorder = treplay.Recorder()
+    engine_streams(core, prompts[:2], [-1, 0], [SPEC_TOKENS, 2 * SPEC_TOKENS])
+    events = core.recorder.events
+    spans = sum(1 for e in events if e["ev"] == "ragged"
+                and any(m == "spec" for *_, m in e["seqs"]))
+    chained = sum(1 for e in events if e["ev"] == "ragged"
+                  and e["chained_from"] is not None)
+    t0 = time.monotonic()
+    replayed = treplay.replay(core, events)
+    d = {"events": len(events), "spec_dispatches": spans,
+         "chained_dispatches": chained,
+         "replay_s": time.monotonic() - t0,
+         "compare_replay": treplay.compare_replay(events, replayed)[:3],
+         "check_log": [str(x) for x in
+                       treplay.check_log(events, KV_BLOCK)[:3]],
+         "check_inputs": treplay.check_inputs(events)[:3]}
+    log(f"spec_replay {mode} {json.dumps(d)}")
+    if (d["compare_replay"] or d["check_log"] or d["check_inputs"]
+            or not spans or not chained):
+        raise RuntimeError(f"{mode} replay: {d}")
+    res["replay"] = d
+    del core, replayed, regap
+    return res
+
+
+def row_sampled_inputs(spans: dict, tables, B: int, vocab: int,
+                       rng) -> dict:
+    """One row-sampled ragged dispatch's host inputs: ``spans`` (slot: (rows,
+    first position)) packed in slot order over ``tables`` [B, M] and the
+    trash sequence, random tokens, each row keyed at its position + 1,
+    slot 0 seeded and sampled at temperature 0.7, top-p 0.9 (the filtered
+    variant), the others greedy."""
+    import numpy as np
+    S = B + 1
+    starts = np.zeros((S,), np.int32)
+    counts = np.zeros((S,), np.int32)
+    sample = np.zeros((S,), np.int32)
+    pos, row_slot = [], []
+    for slot in sorted(spans):
+        n, p0 = spans[slot]
+        starts[slot], counts[slot] = len(pos), n
+        sample[slot] = len(pos) + n - 1
+        pos += range(p0, p0 + n)
+        row_slot += [slot] * n
+    starts[B] = len(pos)
+    pos = np.array(pos, np.int32)
+    temp = np.zeros((S,), np.float32)
+    top_p = np.ones((S,), np.float32)
+    temp[0], top_p[0] = 0.7, 0.9
+    return {"tokens": rng.integers(3, vocab, size=len(pos)).astype(np.int64),
+            "positions": pos, "row_slot": np.array(row_slot, np.int32),
+            "tables": np.concatenate([tables, np.zeros_like(tables[:1])]),
+            "seq_starts": starts, "seq_counts": counts,
+            "sample_rows": sample, "seeds": np.arange(S, dtype=np.int64),
+            "steps": (pos + 1).astype(np.int64), "temperature": temp,
+            "top_k": np.zeros((S,), np.int64), "top_p": top_p}
+
+
+def span_one_key_short(attn: Callable, slot: int) -> Callable:
+    """The ragged attention with a planted fault: ``slot``'s key count one
+    short, so each row of its span misses the key its own row wrote."""
+    def fault(q, k_cache, v_cache, block_tables, seq_starts, seq_counts,
+              seq_lens, **kw):
+        short = seq_lens.clone()
+        short[slot] -= 1
+        return attn(q, k_cache, v_cache, block_tables, seq_starts,
+                    seq_counts, short, **kw)
+    return fault
+
+
+def check_row_sampled_program(params, cfg, dev, seed: int, mode: str,
+                              plain_swaps) -> dict:
+    """8a': the row-sampled ragged program (engine/programs.py
+    RaggedProgram with row_sampled, the --spec-k --ragged program) over
+    ``params`` and a spec_pool, at each row bucket: ``small``, slot 0's
+    spec span of SPEC_K + 1 rows beside a decode row each of slots 1 and
+    6 (7 rows, the max_num_seqs bucket); ``capacity``, a spec span of
+    SPEC_K + 1 rows in every slot (40 rows, the capacity bucket); slot 0
+    seeded with top-p (row_sampled_inputs). At each: its graph replay
+    against the same program run eagerly (every used row's tokens,
+    logprobs and logits, and the pool, bit for bit); a stale static input
+    caught; its kernel path against ``plain_swaps`` and K4's plain
+    version within MODEL_REL_TOL, and slot 0's key count one short in K4
+    (span_one_key_short) beyond it."""
+    import numpy as np
+    import torch
+    from dynamo_tpu_torch.engine import attention
+    from dynamo_tpu_torch.engine.models import family
+    from dynamo_tpu_torch.engine.programs import RaggedProgram
+    model = family(cfg)
+    _, kv_quant = SERVE_MODES[mode]
+    bs = KV_BLOCK
+    kv, tables = spec_pool(params, cfg, dev, seed, kv_quant, bs,
+                           MAX_MODEL_LEN)
+    B, M, Tv = SPEC_B, tables.shape[1], SPEC_K + 1
+    rng = np.random.default_rng(seed + 14)
+    host_tables = tables.cpu().numpy()
+    batches = {
+        "small": {0: (Tv, SPEC_LENS[0]), 1: (1, SPEC_LENS[1]),
+                  6: (1, SPEC_LENS[6])},
+        "capacity": {b: (Tv, SPEC_LENS[b]) for b in range(B)}}
+    snap = {n: t.clone() for n, t in kv.items()}
+
+    def restore():
+        for n, t in kv.items():
+            t.copy_(snap[n])
+    prog = RaggedProgram(params, kv, cfg, bs, B, M, RAGGED_CAPACITY,
+                         RAGGED_MAX_ROWS, 0, dev, row_sampled=True)
+    plain = tuple(plain_swaps) + (
+        (model, "ragged_paged_attention",
+         attention.ragged_paged_attention_ref),)
+    fault = (model, "ragged_paged_attention",
+             span_one_key_short(model.ragged_paged_attention, 0))
+    res = {"mode": mode}
+    with torch.inference_mode():
+        for kind, spans in batches.items():
+            inp = row_sampled_inputs(spans, host_tables, B, cfg.vocab_size,
+                                     rng)
+            used = int(inp["seq_counts"].sum())
+            r = res[kind] = {"rows": used, "bucket": prog.bucket(inp)}
+            restore()
+            d = prog.dispatch("filtered", inp, with_logits=True)
+            toks, lps = d.fetch()
+            logits = d.logits[:used].clone()
+            pool = {n: t[:, bs:].clone() for n, t in kv.items()}
+            restore()
+            e = prog.run_eager("filtered", inp, with_logits=True)
+            r["replay_equals_eager"] = {
+                "tokens": bool((toks[:used]
+                                == e.toks.cpu().numpy()[:used]).all()),
+                "logprobs": bool((lps[:used]
+                                  == e.logprobs.cpu().numpy()[:used]).all()),
+                "logits": torch.equal(logits, e.logits[:used]),
+                "pool": all(torch.equal(pool[n], kv[n][:, bs:])
+                            for n in kv)}
+            del pool, e, d
+            # the planted fault: a second dispatch whose inputs never
+            # reach the graph (its static inputs keep this dispatch's)
+            other = dict(inp, tokens=(inp["tokens"] + 1000) % cfg.vocab_size)
+            restore()
+            upload = prog._upload
+            prog._upload = lambda inputs: None
+            try:
+                stale = prog.dispatch("filtered", other,
+                                      with_logits=True).logits[:used].clone()
+            finally:
+                prog._upload = upload
+            restore()
+            right = prog.run_eager("filtered", other,
+                                   with_logits=True).logits[:used]
+            r["planted_stale_inputs_caught"] = not torch.equal(stale, right)
+            del stale, right
+            # the kernel path against the plain versions, and K4's fault
+            restore()
+            with swapped(*plain):
+                ref = prog.run_eager("filtered", inp,
+                                     with_logits=True).logits[:used]
+            restore()
+            with swapped(fault):
+                bad = prog.run_eager("filtered", inp,
+                                     with_logits=True).logits[:used]
+            _, compare = logit_compare(ref)
+            r["vs_plain"] = compare(logits)
+            r["planted_fault"] = compare(bad)
+            del ref, bad, logits
+    restore()
+    res["captures"], res["capture_s"] = prog.captures, prog.capture_s
+    log(f"row_sampled_program {json.dumps(res)}")
+    del kv, snap, prog
+    for kind in batches:
+        r, what = res[kind], f"row-sampled program {mode} {kind}"
+        want = B if kind == "small" else RAGGED_CAPACITY
+        bad_checks = [k for k, v in r["replay_equals_eager"].items()
+                      if not v]
+        if (r["bucket"] != want or bad_checks
+                or not r["planted_stale_inputs_caught"]):
+            raise RuntimeError(f"{what}: bucket {r['bucket']} (want "
+                               f"{want}), replay != eager {bad_checks} or "
+                               f"the stale input went unseen")
+        check_model_limits(what, r["vs_plain"]["rel_err"],
+                           {"span_one_key_short":
+                            r["planted_fault"]["rel_err"]})
+    return res
+
+
+def spec_phase(cfg, dev, seed: int) -> dict:
+    """Phase 8 but its servers, in each of SPEC_MODES: the verify program
+    (8a), the row-sampled ragged program (8a') and the engines (8b-8d)
+    over the mode's random weights at the 8B width and depth. Returns the
+    kernels' launches over the bf16 drafting runs of 8b and 8c (K3 bf16
+    at the verify shape, which no spec server runs; the comparisons of
+    8a, the speculation-0 runs and 8d are not counted)."""
+    import torch
+    from dynamo_tpu_torch.engine import attention, lm_head, quant
+    from dynamo_tpu_torch.engine import quant_matmul
+    from dynamo_tpu_torch.engine.models import llama
+    launches: dict = {}
+    for mode in SPEC_MODES:
+        with phase(f"8 {mode}"):
+            weights, _ = SERVE_MODES[mode]
+            params = spec_weights(cfg, dev, seed, mode)
+            swaps = [(llama, "paged_attention", attention.paged_attention_ref)]
+            if weights != "none":
+                swaps.append((llama, "lm_head_int8",
+                              lm_head.lm_head_int8_ref))
+            if weights == "int4":
+                swaps.append((quant, "grouped_int4_matmul",
+                              quant_matmul.grouped_int4_matmul_ref))
+            a = check_verify_program(params, cfg, dev, seed, mode, "8B",
+                                     KV_BLOCK, MAX_MODEL_LEN, swaps)
+            if not a["vs_decode_max_abs_err"] <= SPEC_VS_DECODE_MAX:
+                raise RuntimeError(
+                    f"verify program {mode}: rows differ from the decode "
+                    f"program's by {a['vs_decode_max_abs_err']} logits, "
+                    f"over SPEC_VS_DECODE_MAX {SPEC_VS_DECODE_MAX}: "
+                    f"SPEC_NEAR_TIE no longer bounds the ties they flip")
+            check_row_sampled_program(params, cfg, dev, seed, mode, swaps)
+            check_spec_engines(params, cfg, dev, seed, mode,
+                               launches if weights == "none" else None)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+    log(f"spec launches (bf16 drafting runs) {json.dumps(launches)}")
+    for k in ("paged_attention", "ragged_paged_attention"):
+        if launches.get(k, 0) <= 0:
+            raise RuntimeError(f"phase 8: kernel {k} was never launched "
+                               f"by the bf16 drafting runs")
+    return launches
+
+
 # ``--ab DIR``: phase 3's attention kernels (K1-K4 at the 8B shapes) and
 # phase 3m's latent kernels (K3-MLA and K4-MLA at V2-Lite's) of another
 # checkout of the repository at DIR (its build directory apart) and of
@@ -5471,10 +6401,44 @@ def main() -> int:
     with phase("7"):
         by_path[CHAT_PATH] = chat_phase(cfg, seed, card,
                                         by_path["int4_kv8"][1])
+
+    # 8. speculation at the 8B width and depth: K3, K5 and K6 at the
+    # shapes it gives them; in int4 + int8 KV and in bf16 the verify
+    # program against eager, decode and plain, the oracle-drafter engines
+    # on both paths and a recorded pipelined ragged run replayed; the two
+    # spec servers
+    with phase("8"):
+        entries += check_verify_kernels(cfg, dev)
+        spec_launches = spec_phase(cfg, dev, seed)
+        by_path.update({path: serve_phase(cfg, seed, card, path)
+                        for path in SPEC_PATHS})
+    compare_servers(card, by_path["int4_kv8"][1],
+                    by_path["spec_int4_kv8"][1], "spec_int4_kv8", "int4_kv8")
+    compare_servers(card, by_path["ragged_int4_kv8"][1],
+                    by_path["spec_ragged_int4_kv8"][1],
+                    "spec_ragged_int4_kv8", "ragged_int4_kv8")
     rest = [p for p in PATH_KERNELS if p not in LATER_PATHS] \
-        + list(CHAT_PATHS)
+        + list(CHAT_PATHS) + list(SPEC_PATHS)
     for e in entries:
         mode = e.get("mode", "")
+        if mode == SPEC_MODE_TAG:
+            # the verify shapes: the launches of the spec server that runs
+            # the kernel (of each, under launches_by_path); K3 bf16, which
+            # no spec server runs, those of phase 8's bf16 drafting runs
+            served = [p for p in SPEC_PATHS if e["name"] in PATH_KERNELS[p]]
+            if served:
+                e["launches_by_path"] = {p: by_path[p][0][e["name"]]
+                                         for p in served}
+                e["launches"] = e["launches_by_path"][served[0]]
+                e["launches_path"] = served[0]
+            else:
+                e["launches"] = spec_launches[e["name"]]
+                e["launches_path"] = "8b-8c bf16 drafting runs"
+            e["served_paths"] = served
+            if e["launches"] <= 0:
+                raise RuntimeError(f"kernel {e['name']} ({mode}): no launch "
+                                   f"on {e['launches_path']}")
+            continue
         paths = (MLA_PATHS if mode.startswith("mla")
                  else PHI3_PATHS if mode.startswith("phi3")
                  else QWEN2_PATHS if mode.startswith("qwen2")

@@ -5,11 +5,11 @@ every rope-scaling field, ``from_hf_config``, ``bench_model_config``) so the
 two packages parse the same config.json into the same geometry. The engine
 side (``EngineConfig``) keeps only the fields the serving paths of this
 package read: weight and KV quantization, ragged dispatch,
-sequence-parallel prefill, chunked prefill and the dispatch modes
+sequence-parallel prefill, chunked prefill, the dispatch modes
 (K-step decode, the pipelined harvest, lane prefill, the deferred
-admission fetch) included; a field of a path this package does not
-implement yet (tp/dp/ep/pp, speculation, KV tiers) is not a field, so
-passing it raises ``TypeError``.
+admission fetch) and speculative decoding included; a field of a path
+this package does not implement yet (tp/dp/ep/pp, KV tiers) is not a
+field, so passing it raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -614,6 +614,23 @@ class EngineConfig:
     # decoding slot by lane admission) until then. Emission order per
     # request is unchanged.
     overlap_admission_fetch: bool = True
+    # speculative decoding (engine/spec/): the most draft tokens verified a
+    # dispatch; 0 = off. When > 0 the engine builds the verify program
+    # (engine/programs.py VerifyProgram: [max_num_seqs, spec_k + 1] query
+    # rows flattened through the decode forward, one CUDA graph a sampling
+    # variant on the card) and, under ragged_dispatch, the ragged
+    # program's row-sampled form, whose spec spans verify beside prefill
+    # chunks and decode rows. Acceptance is lockstep token equality
+    # against per-position sampling keys, so greedy and seeded streams
+    # equal plain decode's. A request picks its own k <= spec_k
+    # (nvext.speculation); EngineCore.spec_k_live is the default within
+    # [0, spec_k].
+    spec_k: int = 0
+    # the prompt-lookup drafter: trailing n-gram lengths tried (longest
+    # first) and how much history is searched
+    spec_ngram_max: int = 4
+    spec_ngram_min: int = 1
+    spec_window: int = 1024
 
     @staticmethod
     def auto_kv_block_size(model_cfg: "ModelConfig",
@@ -647,6 +664,8 @@ class EngineConfig:
                 " > 1 (the pipeline defers multi-step harvests) — except "
                 "under ragged_dispatch, whose single-step dispatches "
                 "pipeline via the chained-sample merge")
+        if self.spec_k < 0:
+            raise ValueError("spec_k must be >= 0 (0 disables speculation)")
         if self.ragged_dispatch:
             if self.ragged_max_seq_rows <= 0:
                 raise ValueError("ragged_max_seq_rows must be > 0")

@@ -34,6 +34,22 @@ reproduces the JAX engine's stream whatever else is batched with it, also
 across a recompute preemption. Weights may be int8/int4-quantized
 (``EngineConfig.quantization``) and the KV pool int8
 (``EngineConfig.kv_quantization``).
+
+Speculative decoding (``EngineConfig.spec_k`` > 0, ``engine/spec/``): the
+prompt-lookup drafter proposes up to k tokens a slot from the request's
+own harvested history, and one verify dispatch (the verify program, a CUDA
+graph on the card) scores every slot's drafts and the bonus position, each
+row keyed where plain decode would key it; the harvest accepts drafts by
+lockstep token equality and a rejected draft rolls back by rewind. When no
+slot drafted, the step is plain decode. Under ``ragged_dispatch`` the
+drafts ride the ragged batch as spec spans of the row-sampled ragged
+program. A pipelined dispatch drains before drafting.
+
+The engine keeps a flight recorder (``engine/flight_recorder.py``, one
+record a dispatch, read through ``GET /debug``) and, when
+``self.recorder`` is set (``engine/replay.py`` ``Recorder``), records
+every dispatch's host inputs and every harvest in device order, with the
+JAX engine's event fields, for ``replay`` and the log checkers.
 """
 
 from __future__ import annotations
@@ -53,12 +69,15 @@ from ..llm.protocols.common import FinishReason
 from ..parallel.sharding import replicate_params
 from .config import EngineConfig, ModelConfig
 from .device import resolve_device
+from .flight_recorder import FlightRecorder, register_recorder
 from .models import family
-from .programs import DecodeProgram, RaggedProgram, sampling_variant
+from .programs import (DecodeProgram, RaggedProgram, VerifyProgram,
+                       sampling_variant)
 from .quant import (init_params_quantized, quantize_params,
                     tree_quantization)
 from .ragged import RaggedBatch, build_ragged_batch
 from .sampling import SlotSampling, gumbel_noise, make_slot_key, sample_tokens
+from .spec import PromptLookupDrafter
 from .weights import init_params
 
 logger = logging.getLogger("dynamo_tpu_torch.engine")
@@ -102,6 +121,11 @@ class EngineRequest:
     # prefix-hit tokens); while pos < len(lane_prompt) the slot is a
     # prefill lane of the ragged batch, after that a decode row
     lane_prompt: Optional[List[int]] = None
+    # speculation budget (engine/spec/): -1 = the engine's live default
+    # (EngineCore.spec_k_live), 0 = off, n > 0 clamped to
+    # EngineConfig.spec_k
+    spec_k: int = -1
+    enqueue_time: float = dataclasses.field(default_factory=time.monotonic)
 
     @property
     def cancelled(self) -> bool:
@@ -135,10 +159,35 @@ class ForwardPassMetrics:
     ragged_fill_ratio: float = 0.0
     ragged_mixed_ratio: float = 0.0
     ragged_dispatches_saved_total: int = 0
+    ragged_spec_rows_total: int = 0
+    # speculation: drafts scored and accepted, their ratio, and accepted
+    # drafts a verify dispatch
+    spec_drafted_total: int = 0
+    spec_accepted_total: int = 0
+    spec_acceptance_rate: float = 0.0
+    spec_accepted_per_step: float = 0.0
 
 
 _FINISH = object()  # queue sentinel
 FINISH_SENTINEL = _FINISH
+
+
+def sample_keyed(logits: torch.Tensor, base_seed: int, rows: list,
+                 device) -> tuple:
+    """Sample one token per row of ``logits`` [N, V]: ``rows[i]`` is
+    (temperature, top_k, top_p, request seed, key step), keyed on the host
+    (``make_slot_key``; a greedy row draws no noise). Returns (tokens,
+    logprobs) on ``device``."""
+    temperature = np.array([r[0] for r in rows], np.float32)
+    top_k = np.array([r[1] for r in rows], np.int64)
+    top_p = np.array([r[2] for r in rows], np.float32)
+    keys = [make_slot_key(base_seed, r[3], r[4]) if r[0] > 0.0 else None
+            for r in rows]
+    noise = gumbel_noise(logits.shape[1], keys, device)
+    return sample_tokens(
+        logits, noise, torch.from_numpy(temperature).to(device),
+        torch.from_numpy(top_k).to(device),
+        torch.from_numpy(top_p).to(device))
 
 
 class _FirstToken:
@@ -298,14 +347,36 @@ class EngineCore:
         # the ragged program (a CUDA graph per row bucket and sampling
         # variant on the card) and the pipelined ragged dispatch whose
         # harvest is deferred one dispatch
+        # (with speculation its row-sampled form: spec spans)
         self.ragged_program = (RaggedProgram(
             self.params, self.kv, model_cfg, engine_cfg.kv_block_size,
             self.B, self.M, engine_cfg.ragged_max_tokens,
-            engine_cfg.ragged_max_seq_rows, engine_cfg.seed, self.device)
+            engine_cfg.ragged_max_seq_rows, engine_cfg.seed, self.device,
+            row_sampled=engine_cfg.spec_k > 0)
             if engine_cfg.ragged_dispatch else None)
         self._ragged_pending: Optional[dict] = None
+        # speculative decoding: the drafter, the live draft budget (within
+        # [0, spec_k]: the verify program's rows are built at spec_k + 1 a
+        # slot and never widen) and, on the split path, the verify program
+        self.spec_k_live = engine_cfg.spec_k
+        self.drafter = None
+        self.verify_program = None
+        if engine_cfg.spec_k > 0:
+            self.drafter = PromptLookupDrafter(
+                max_ngram=engine_cfg.spec_ngram_max,
+                min_ngram=engine_cfg.spec_ngram_min,
+                window=engine_cfg.spec_window)
+            if not engine_cfg.ragged_dispatch:
+                self.verify_program = VerifyProgram(
+                    self.params, self.kv, model_cfg,
+                    engine_cfg.kv_block_size, self.B, self.M,
+                    engine_cfg.spec_k + 1, engine_cfg.seed, self.device)
+        # engine/replay.py Recorder: the schedule's decision log (every
+        # dispatch's host inputs in device order), None when off
+        self.recorder = None
         # admissions whose first token is still on its way to the host:
-        # (request, _FirstToken), completed after the next decode dispatch
+        # (request, _FirstToken, its prefill's recorded pf_seq or None),
+        # completed after the next decode dispatch
         self._admissions: List[tuple] = []
         # serving stats
         self.total_prefill_tokens = 0
@@ -326,6 +397,18 @@ class EngineCore:
         self.ragged_mixed_dispatches = 0
         self.ragged_dispatches_saved = 0
         self.ragged_chained_dispatches = 0
+        self.ragged_spec_rows = 0      # draft rows that rode ragged spans
+        # speculation stats
+        self.spec_dispatches = 0       # dispatches that verified drafts
+        self.spec_drafted_tokens = 0   # drafts scored
+        self.spec_accepted_tokens = 0  # drafts equal to their sample
+        self.spec_emitted_tokens = 0   # tokens emitted by verifying rows
+        # the flight recorder (GET /debug): a record a dispatch, and the
+        # host seconds the loop spent outside device waits between them
+        self.flight = FlightRecorder()
+        register_recorder(self.flight)
+        self._flight_prev_stall_s = 0.0
+        self._flight_cycle_end = time.monotonic()
 
     # ------------------------------------------------------------- lifecycle
     def ensure_started(self) -> None:
@@ -338,9 +421,11 @@ class EngineCore:
             self._work_event = asyncio.Event()
             self._loop_task = asyncio.get_running_loop().create_task(
                 self._run_loop(), name="engine-core-loop")
+            self.flight.start_lag_probe()
 
     async def stop(self) -> None:
         self._stopping = True
+        self.flight.stop_lag_probe()
         self._work_event.set()
         if self._loop_task is not None:
             try:
@@ -380,7 +465,9 @@ class EngineCore:
                                       * self.cfg.ragged_max_tokens)),
                 ragged_mixed_ratio=(self.ragged_mixed_dispatches
                                     / self.ragged_dispatches),
-                ragged_dispatches_saved_total=self.ragged_dispatches_saved)
+                ragged_dispatches_saved_total=self.ragged_dispatches_saved,
+                ragged_spec_rows_total=self.ragged_spec_rows)
+        drafted, accepted = self.spec_drafted_tokens, self.spec_accepted_tokens
         return ForwardPassMetrics(
             request_active_slots=sum(1 for s in self.slots if s is not None),
             request_total_slots=self.B,
@@ -395,7 +482,12 @@ class EngineCore:
             kv_block_size=self.cfg.kv_block_size,
             preemptions_total=self.preemptions,
             prefill_tokens_total=self.total_prefill_tokens,
-            decode_tokens_total=self.total_decode_tokens, **ragged)
+            decode_tokens_total=self.total_decode_tokens,
+            spec_drafted_total=drafted, spec_accepted_total=accepted,
+            spec_acceptance_rate=accepted / drafted if drafted else 0.0,
+            spec_accepted_per_step=(accepted / self.spec_dispatches
+                                    if self.spec_dispatches else 0.0),
+            **ragged)
 
     # ------------------------------------------------------------ scheduler
     def _free_slot_index(self) -> int:
@@ -533,26 +625,29 @@ class EngineCore:
                        reqs: List[Optional[EngineRequest]]) -> tuple:
         """Sample one token per row of ``logits`` [B, V] with each row's
         request parameters, keyed on the host at the request's
-        ``key_step``. None rows sample greedily and are ignored. Returns
-        (tokens, logprobs) on the engine's device."""
-        n = logits.shape[0]
-        temperature = np.zeros((n,), np.float32)
-        top_k = np.zeros((n,), np.int64)
-        top_p = np.ones((n,), np.float32)
-        keys = []
-        for i, r in enumerate(reqs):
-            sampled = r is not None and r.sampling.temperature > 0.0
-            keys.append(make_slot_key(self.cfg.seed, r.sampling.seed,
-                                      r.key_step) if sampled else None)
-            if r is not None:
-                temperature[i] = r.sampling.temperature
-                top_k[i] = r.sampling.top_k
-                top_p[i] = r.sampling.top_p
-        noise = gumbel_noise(logits.shape[1], keys, self.device)
-        return sample_tokens(
-            logits, noise, torch.from_numpy(temperature).to(self.device),
-            torch.from_numpy(top_k).to(self.device),
-            torch.from_numpy(top_p).to(self.device))
+        ``key_step`` (``sample_keyed``). None rows sample greedily and are
+        ignored. Returns (tokens, logprobs) on the engine's device."""
+        return sample_keyed(
+            logits, self.cfg.seed,
+            [(0.0, 0, 1.0, 0, 0) if r is None else
+             (r.sampling.temperature, r.sampling.top_k, r.sampling.top_p,
+              r.sampling.seed, r.key_step) for r in reqs], self.device)
+
+    def _rec_prefill(self, kind: str, req: EngineRequest, slot: int,
+                     padded: np.ndarray, table: np.ndarray, true_len: int,
+                     start_pos: Optional[int] = None) -> int:
+        """Record one prefill event (``prefill``, or ``prefill_sp``, which
+        has no start_pos): whole-prompt admissions and each chunk of a
+        chunked one. Returns its pf_seq."""
+        pf = self.recorder.next_dispatch_id()
+        extra = {} if start_pos is None else {"start_pos": start_pos}
+        self.recorder.rec(
+            kind, pf_seq=pf, rid=req.rid, slot=slot, padded=padded.copy(),
+            table=table.copy(), true_len=true_len, **extra,
+            samp_seed=req.sampling.seed, key_step=req.key_step,
+            temp=req.sampling.temperature, top_k=req.sampling.top_k,
+            top_p=req.sampling.top_p)
+        return pf
 
     def _admit_with_plan(self, req: EngineRequest, slot: int, plan) -> None:
         n_prompt = len(req.prompt)
@@ -563,6 +658,12 @@ class EngineCore:
         req.prefix_hit_tokens = plan.hit_tokens
         n_already = len(plan.hit_blocks)
         suffix_len = n_prompt - req.prefix_hit_tokens
+        if self.recorder is not None and req.prefix_hit_tokens > 0:
+            # before the prefill's record: read rights over the shared
+            # prefix (a device hit: the port has no host or disk tier)
+            self.recorder.rec("hit_transfer", rid=req.rid,
+                              hit=req.prefix_hit_tokens, host_hit=0,
+                              disk_hit=0, blocks=list(plan.all_blocks))
         if self.cfg.ragged_dispatch and suffix_len > 0:
             # ragged serving: every admission rides the ragged batch as a
             # prefill lane — no prefill dispatch of its own
@@ -592,6 +693,15 @@ class EngineCore:
                   and bucket % self._sp == 0
                   and not self.model_cfg.attn_logit_softcap
                   and self.model_cfg.sliding_window is None)
+        chunked = (not use_sp and self.cfg.prefill_chunk > 0
+                   and len(chunk) > self.cfg.prefill_chunk)
+        pf_seq = None
+        if self.recorder is not None and not chunked:
+            pf_seq = (self._rec_prefill("prefill_sp", req, slot, padded,
+                                        table, len(chunk)) if use_sp
+                      else self._rec_prefill("prefill", req, slot, padded,
+                                             table, len(chunk),
+                                             req.prefix_hit_tokens))
         with torch.inference_mode():
             tokens = torch.from_numpy(padded).to(self.device)
             table_t = torch.from_numpy(table).to(self.device)
@@ -600,9 +710,9 @@ class EngineCore:
                     self.params, self.kv, tokens, table_t, len(chunk),
                     self.model_cfg, self.cfg.kv_block_size, self.mesh,
                     replicas=self._replicas)
-            elif (self.cfg.prefill_chunk > 0
-                    and len(chunk) > self.cfg.prefill_chunk):
-                logits = self._chunked_prefill(req, chunk, table_t)
+            elif chunked:
+                logits, pf_seq = self._chunked_prefill(req, chunk, table,
+                                                       table_t, slot)
             else:
                 logits = self.model_mod.prefill_forward(
                     self.params, self.kv, tokens, table_t,
@@ -626,12 +736,20 @@ class EngineCore:
         # the prompt's full blocks now hold valid KV — register for reuse
         req.registered_blocks = self.kv_manager.register_full_blocks(
             req.blocks, plan.seq, already_registered=n_already)
+        if self.recorder is not None:
+            self.recorder.rec(
+                "admit", rid=req.rid, slot=slot, pos=req.pos,
+                key_step=req.key_step, blocks=list(req.blocks),
+                hit=req.prefix_hit_tokens, prompt=list(req.prompt))
         if defer:
             req.ready = False
             req.last_token = -1
-            self._admissions.append((req, first))
+            self._admissions.append((req, first, pf_seq))
         else:
             req.last_token = tok
+            if self.recorder is not None:
+                self.recorder.rec("first_token", rid=req.rid,
+                                  pf_seq=pf_seq, tok=tok)
         self.slots[slot] = req
         self._block_tables[slot, :] = 0
         self._block_tables[slot, :len(req.blocks)] = req.blocks
@@ -639,6 +757,15 @@ class EngineCore:
         logger.debug("admitted %s into slot %d (prompt=%d, hit=%d, sp=%s, "
                      "%.1fms)", req.rid, slot, n_prompt, plan.hit_tokens,
                      use_sp, 1e3 * (time.monotonic() - t0))
+        now = time.monotonic()
+        # the JAX record's host / disk / remote hit fields are left out:
+        # the port has no KV tiers (ROADMAP A6)
+        self.flight.record(
+            "prefill", rid=req.rid, prompt=n_prompt,
+            planned_tokens=suffix_len,
+            batch_fill=sum(1 for s in self.slots if s is not None),
+            hit_device=plan.hit_tokens, host_ms=round(1e3 * (now - t0), 3),
+            queue_wait_ms=round(1e3 * (t0 - req.enqueue_time), 3))
         if req.ready:
             self._emit(req, tok, logprob)
             self._maybe_finish_after_emit(req)
@@ -651,38 +778,46 @@ class EngineCore:
         pending, self._admissions = self._admissions, []
         if pending:
             self.host_roundtrips += 1
-        for req, first in pending:
+        for req, first, pf_seq in pending:
             t_fetch = time.monotonic()
             tok, logprob = first.wait()
             self.host_stall_s += time.monotonic() - t_fetch
             req.last_token = tok
             req.ready = True
+            if self.recorder is not None:
+                self.recorder.rec("first_token", rid=req.rid,
+                                  pf_seq=pf_seq, tok=tok)
             if self.slots[req.slot] is not req:
                 continue               # raced away (shutdown edge)
             self._emit(req, tok, logprob)
             self._maybe_finish_after_emit(req)
 
     def _chunked_prefill(self, req: EngineRequest, chunk: list,
-                         table_t: torch.Tensor) -> torch.Tensor:
+                         table: np.ndarray, table_t: torch.Tensor,
+                         slot: int) -> tuple:
         """Prompt prefill as a sequence of fixed-size chunk dispatches
         (EngineConfig.prefill_chunk): each chunk continues at ``start_pos``
         against the KV already written — the mechanism of a prefix-reuse
         continuation — and the tail pads to the chunk size too, so one
-        shape serves any prompt length. Returns the last chunk's logits
-        (only the final chunk's sample matters)."""
+        shape serves any prompt length. Each chunk records as a
+        ``prefill`` event. Returns the last chunk's logits (only the final
+        chunk's sample matters) and its event's pf_seq."""
         C = self.cfg.prefill_chunk
         off = req.prefix_hit_tokens
-        logits = None
+        logits = pf_seq = None
         for lo in range(0, len(chunk), C):
             piece = chunk[lo:lo + C]
             padded = np.zeros((C,), np.int64)
             padded[:len(piece)] = piece
+            if self.recorder is not None:
+                pf_seq = self._rec_prefill("prefill", req, slot, padded,
+                                           table, len(piece), off)
             logits = self.model_mod.prefill_forward(
                 self.params, self.kv, torch.from_numpy(padded).to(self.device),
                 table_t, off, len(piece), self.model_cfg,
                 self.cfg.kv_block_size)
             off += len(piece)
-        return logits
+        return logits, pf_seq
 
     def _set_slot_sampling(self, slot: int, req: EngineRequest) -> None:
         """The slot's rows of the decode program's sampling inputs."""
@@ -725,6 +860,11 @@ class EngineCore:
         self._block_tables[slot, :] = 0
         self._block_tables[slot, :len(req.blocks)] = req.blocks
         self._set_slot_sampling(slot, req)
+        if self.recorder is not None:
+            self.recorder.rec(
+                "admit", rid=req.rid, slot=slot, pos=req.pos,
+                key_step=req.key_step, blocks=list(req.blocks), hit=hit,
+                prompt=list(req.prompt), lane=True)
         logger.debug("lane-admitted %s into slot %d (prompt=%d, hit=%d)",
                      req.rid, slot, n_prompt, hit)
 
@@ -732,14 +872,16 @@ class EngineCore:
     def _ragged_step(self) -> None:
         """One ragged dispatch: grow blocks, pack every slot's pending work
         (mid-prompt lanes up to ragged_max_seq_rows prompt rows, decoding
-        slots one row) into one batch, run it, harvest.
+        slots one row, or with drafts a spec span of 1 + k rows) into one
+        batch, run it, harvest.
 
         With ``decode_dispatch_pipeline`` a pure-decode dispatch defers its
         harvest one iteration: the next dispatch chains off the in-flight
         device tokens (the chained-sample merge), so the device→host fetch
         overlaps the next dispatch's compute. Any churn (an admission
-        mid-prompt, slot turnover, growth that fails, a slot at capacity)
-        drains the pipeline first and costs one un-overlapped dispatch."""
+        mid-prompt, slot turnover, growth that fails, a slot at capacity,
+        drafts due) drains the pipeline first and costs one un-overlapped
+        dispatch."""
         if self._ragged_pending is not None:
             nxt = self._ragged_dispatch_pipelined()
             prev, self._ragged_pending = self._ragged_pending, None
@@ -757,27 +899,54 @@ class EngineCore:
         if (self.cfg.decode_dispatch_pipeline
                 and all(sq.mode == "decode" for sq in pending["batch"].seqs)):
             # pure decode: defer the harvest so the next iteration can
-            # chain off it (prefill spans harvest at once: their
+            # chain off it (prefill and spec spans harvest at once: their
             # bookkeeping gates the next packing)
             self._ragged_pending = pending
         else:
             self._harvest_ragged(pending)
 
+    def _draft_slots(self) -> dict:
+        """Drafts for every decoding slot with a live spec budget, by slot
+        (request, drafts): the verify dispatch's drafts on the split path,
+        the spec spans a ragged dispatch carries. Drafting reads harvested
+        history only, so no pipelined dispatch may be in flight."""
+        drafts: dict = {}
+        if self.drafter is None:
+            return drafts
+        for i, s in enumerate(self.slots):
+            if (s is None or not s.ready or s.seq is None
+                    or s.last_token < 0):
+                continue
+            if s.lane_prompt is not None and s.pos < len(s.lane_prompt):
+                continue               # mid-prompt: decode hasn't begun
+            k = self._req_spec_k(s)
+            if k <= 0:
+                continue
+            d = self.drafter.draft(list(s.seq.tokens) + [s.last_token], k)
+            if d:
+                drafts[i] = (s, [int(t) for t in d[:k]])
+        return drafts
+
     def _ragged_dispatch_fresh(self) -> Optional[dict]:
-        """Grow, pack and run one host-fed ragged dispatch. Block growth
-        runs BEFORE packing at each slot's largest possible span (the
-        packer only ever shrinks a span; over-grown blocks stay owned by
-        their request); a slot that cannot grow preempts or finishes as the
-        split path would. Returns the un-harvested dispatch, or None."""
+        """Draft, grow, pack and run one host-fed ragged dispatch. Block
+        growth runs BEFORE packing at each slot's largest possible span
+        (the packer only ever shrinks a span; over-grown blocks stay owned
+        by their request); a slot that cannot grow preempts or finishes as
+        the split path would. Returns the un-harvested dispatch, or
+        None."""
         cfg = self.cfg
         Lmax = cfg.ragged_max_seq_rows
         capacity = self.M * cfg.kv_block_size
+        drafts = self._draft_slots()
         for i, s in enumerate(self.slots):
             if s is None or not s.ready:
                 continue
             in_prompt = (s.lane_prompt is not None
                          and s.pos < len(s.lane_prompt))
-            want = min(len(s.lane_prompt) - s.pos, Lmax) if in_prompt else 1
+            ent = drafts.get(i)
+            n_draft = len(ent[1]) if ent is not None and ent[0] is s else 0
+            want = (min(len(s.lane_prompt) - s.pos, Lmax) if in_prompt
+                    else 1 + n_draft)
             if s.pos + want + 1 > capacity:
                 self._release_slot(s)
                 self._finish_request(s, FinishReason.LENGTH)
@@ -792,16 +961,24 @@ class EngineCore:
                 self._block_tables[i, :len(s.blocks)] = s.blocks
         decode_rows = []
         prefill_lanes = []
+        spec_lanes = []
         for i, s in enumerate(self.slots):
             if s is None or not s.ready:
                 continue
             if s.lane_prompt is not None and s.pos < len(s.lane_prompt):
                 prefill_lanes.append(
                     (i, s.lane_prompt[s.pos:s.pos + Lmax], s.pos))
+                continue
+            ent = drafts.get(i)
+            # growth may have preempted or finished the drafted request:
+            # keep drafts only for slots that still hold it
+            if ent is not None and ent[0] is s:
+                spec_lanes.append((i, [s.last_token] + ent[1], s.pos))
             else:
                 decode_rows.append((i, s.last_token, s.pos))
         batch = build_ragged_batch(cfg.ragged_max_tokens, self.B,
-                                   decode_rows, prefill_lanes, Lmax)
+                                   decode_rows, prefill_lanes, Lmax,
+                                   spec_lanes=spec_lanes)
         if batch is None:
             return None
         return self._ragged_dispatch(batch)
@@ -810,9 +987,9 @@ class EngineCore:
         """Steady-state pipelined ragged dispatch: chain off the in-flight
         dispatch's device tokens. Returns the new pending record, or None
         when the pipeline must drain first: the slot→request mapping must
-        be the in-flight dispatch's, no slot mid-prompt, and growth one
-        token ahead must succeed without finishing or preempting anything
-        (an un-harvested token is in flight)."""
+        be the in-flight dispatch's, no slot mid-prompt or due to draft,
+        and growth one token ahead must succeed without finishing or
+        preempting anything (an un-harvested token is in flight)."""
         prev = self._ragged_pending
         now = self._ready_slots()
         if any(now[i] is not prev["reqs"][i] for i in range(self.B)):
@@ -824,6 +1001,11 @@ class EngineCore:
             s = now[i]
             if s.lane_prompt is not None and s.pos < len(s.lane_prompt):
                 return None        # admission churn mid-flight
+            if (self.drafter is not None and s.seq is not None
+                    and self._req_spec_k(s) > 0):
+                # drafts come from harvested state: drain, and the next
+                # fresh dispatch carries the spec span
+                return None
         capacity = self.M * self.cfg.kv_block_size
         for i in live:
             s = now[i]
@@ -851,31 +1033,39 @@ class EngineCore:
         the trash sequence is slot B). A span that ends in a sample keys it
         at ``key_step + ahead + len - 1``: the key the split path uses
         there, by the lane admission's offset (== key_step for a decode
-        row). Spans that end mid-prompt, the trash slot and the slots the
-        batch leaves out sample at temperature 0, and are discarded.
-        ``chain``: the in-flight pending record whose device tokens feed
-        this dispatch's decode rows (the chained-sample merge); ``ahead``:
-        the un-harvested tokens each chained slot runs ahead of host state
-        (its positions were advanced by the caller's packing). Returns the
-        un-harvested dispatch."""
+        row); the row-sampled program keys row r of every span at
+        ``key_step + ahead + r``, the same key at a span's last row. Spans
+        that end mid-prompt, the trash slot and the slots the batch leaves
+        out sample at temperature 0, and are discarded. ``chain``: the
+        in-flight pending record whose device tokens feed this dispatch's
+        decode rows (the chained-sample merge); ``ahead``: the un-harvested
+        tokens each chained slot runs ahead of host state (its positions
+        were advanced by the caller's packing). Returns the un-harvested
+        dispatch."""
         S = self.B + 1
+        T = self.cfg.ragged_max_tokens
+        row_sampled = self.ragged_program.row_sampled
         tables = np.zeros((S, self.M), np.int32)
         tables[:self.B] = self._tables_for_dispatch()
         seeds = np.zeros((S,), np.int64)
-        steps = np.zeros((S,), np.int64)
+        steps = np.zeros((T if row_sampled else S,), np.int64)
         temperature = np.zeros((S,), np.float32)
         top_k = np.zeros((S,), np.int64)
         top_p = np.ones((S,), np.float32)
         live = np.zeros((S,), bool)
         for sq in batch.seqs:
             s = self.slots[sq.slot]
+            i = sq.slot
+            seeds[i] = self._seeds[i]
+            if row_sampled:
+                steps[sq.start:sq.start + sq.length] = (
+                    s.key_step + ahead + np.arange(sq.length))
+            else:
+                steps[i] = s.key_step + ahead + sq.length - 1
             if (sq.mode == "prefill"
                     and s.pos + sq.length < len(s.lane_prompt)):
                 continue
-            i = sq.slot
             live[i] = True
-            seeds[i] = self._seeds[i]
-            steps[i] = s.key_step + ahead + sq.length - 1
             temperature[i] = self._samp["temperature"][i]
             top_k[i] = self._samp["top_k"][i]
             top_p[i] = self._samp["top_p"][i]
@@ -886,18 +1076,36 @@ class EngineCore:
                   "sample_rows": batch.sample_rows, "seeds": seeds,
                   "steps": steps, "temperature": temperature,
                   "top_k": top_k, "top_p": top_p}
-        prev = None
+        prev = mask = srows = None
         if chain is not None:
             # each chained row takes the previous dispatch's device token
-            # at its slot
-            mask = np.zeros((self.cfg.ragged_max_tokens,), bool)
-            srows = np.zeros((self.cfg.ragged_max_tokens,), np.int64)
+            # at its slot (the row-sampled program: at the slot's sample
+            # row of the previous batch)
+            mask = np.zeros((T,), bool)
+            srows = np.zeros((T,), np.int64)
             for sq in batch.seqs:
                 mask[sq.start] = True
-                srows[sq.start] = sq.slot
+                srows[sq.start] = (chain["batch"].sample_rows[sq.slot]
+                                   if row_sampled else sq.slot)
             inputs["chain_mask"], inputs["srows"] = mask, srows
             prev = chain["dispatch"].toks
             self.ragged_chained_dispatches += 1
+        did = None
+        if self.recorder is not None:
+            did = self.recorder.next_dispatch_id()
+            self.recorder.rec(
+                "ragged", id=did, tokens=inputs["tokens"].copy(),
+                positions=batch.positions.copy(),
+                row_slot=batch.row_slot.copy(),
+                starts=batch.seq_starts.copy(),
+                counts=batch.seq_counts.copy(),
+                sample_rows=batch.sample_rows.copy(), tables=tables,
+                seeds=seeds, steps=steps, temperature=temperature,
+                top_k=top_k, top_p=top_p, seqs=batch.seqs_meta(),
+                chained_from=chain["id"] if chain is not None else None,
+                mask=mask, srows=srows,
+                reqs=[s.rid if s is not None else None
+                      for s in self._ready_slots()])
         variant = sampling_variant(temperature, top_k, top_p, live)
         with torch.inference_mode():
             dispatch = self.ragged_program.dispatch(variant, inputs,
@@ -910,18 +1118,26 @@ class EngineCore:
         if batch.mixed:
             self.ragged_mixed_dispatches += 1
         self.ragged_dispatches_saved += batch.dispatches_replaced - 1
-        return {"batch": batch, "dispatch": dispatch,
-                "reqs": self._ready_slots()}
+        if batch.n_spec:
+            self.spec_dispatches += 1
+            self.spec_drafted_tokens += batch.spec_rows
+            self.ragged_spec_rows += batch.spec_rows
+        return {"batch": batch, "dispatch": dispatch, "id": did,
+                "chained": chain is not None, "reqs": self._ready_slots()}
 
     def _harvest_ragged(self, pending: dict) -> None:
         """Apply one ragged dispatch: per span, the consumed prompt rows'
         bookkeeping (hash chain, registration, pos/key_step) and, when the
         span ends in a sample (a decode row, or the row consuming the LAST
         prompt token), the emission and finish checks of one decode step.
-        A span whose slot holds another request than at dispatch is
-        skipped."""
-        toks, logprobs = self._fetch(pending["dispatch"])     # [B + 1]
-        for sq in pending["batch"].seqs:
+        A spec span walks its rows with lockstep acceptance, as a verify
+        harvest does: a rejected draft's row rolls back by rewind. A span
+        whose slot holds another request than at dispatch is skipped."""
+        toks, logprobs = self._fetch(pending["dispatch"])
+        batch = pending["batch"]
+        row_sampled = self.ragged_program.row_sampled
+        applied = []
+        for sq in batch.seqs:
             i = sq.slot
             req = pending["reqs"][i]
             if req is None or self.slots[i] is not req:
@@ -929,6 +1145,12 @@ class EngineCore:
             if req.cancelled:
                 self._release_slot(req)
                 self._finish_request(req, FinishReason.CANCELLED)
+                continue
+            if sq.mode == "spec":
+                rows = slice(sq.start, sq.start + sq.length)
+                n = self._apply_verified(i, req, batch.tokens[rows],
+                                         toks[rows], logprobs[rows])
+                applied.append((i, req.rid, n, n))
                 continue
             if sq.mode == "prefill":
                 for _ in range(sq.length):
@@ -940,6 +1162,7 @@ class EngineCore:
                     req.key_step += 1
                 self.total_prefill_tokens += sq.length
                 if req.pos < len(req.lane_prompt):
+                    applied.append((i, req.rid, sq.length, 0))
                     continue               # still mid-prompt: no sample
                 req.lane_prompt = None     # plain decode from here on
             else:
@@ -949,11 +1172,40 @@ class EngineCore:
                 req.pos += 1
                 req.key_step += 1
                 self.total_decode_tokens += 1
-            tok = int(toks[i])
+            sample = sq.start + sq.length - 1 if row_sampled else i
+            tok = int(toks[sample])
             req.generated += 1
             req.last_token = tok
-            self._emit(req, tok, float(logprobs[i]))
+            self._emit(req, tok, float(logprobs[sample]))
             self._maybe_finish_after_emit(req)
+            applied.append((i, req.rid, sq.length, 1))
+        if self.recorder is not None and pending["id"] is not None:
+            self.recorder.rec("ragged_harvest", id=pending["id"],
+                              toks=np.array(toks), applied=applied)
+        device_ms, host_gap_ms = self._flight_times()
+        # the JAX record's prefetch_* fields are left out: the port's K4
+        # has no cross-sequence wave prefetch (ROADMAP B1)
+        self.flight.record(
+            "ragged", rows=batch.rows_used, capacity=batch.capacity,
+            fill=round(batch.fill_ratio, 4),
+            prefill_rows=batch.prefill_rows,
+            decode_rows=batch.rows_used - batch.prefill_rows,
+            n_prefill=batch.n_prefill, n_decode=batch.n_decode,
+            n_spec=batch.n_spec, spec_rows=batch.spec_rows,
+            chained=pending["chained"], mixed=batch.mixed,
+            emitted=sum(e for _i, _r, _n, e in applied),
+            device_ms=device_ms, host_gap_ms=host_gap_ms)
+
+    def _flight_times(self) -> tuple:
+        """(device_ms, host_gap_ms) of the dispatch-harvest cycle ending
+        now: the host's wait on the device's results since the last cycle
+        ended, and the rest of the cycle's host time."""
+        now = time.monotonic()
+        stall = self.host_stall_s - self._flight_prev_stall_s
+        self._flight_prev_stall_s = self.host_stall_s
+        gap = max(1e3 * (now - self._flight_cycle_end - stall), 0.0)
+        self._flight_cycle_end = now
+        return round(1e3 * stall, 3), round(gap, 3)
 
     # --------------------------------------------------------------- decode
     def _tables_for_dispatch(self) -> np.ndarray:
@@ -995,6 +1247,17 @@ class EngineCore:
         return out
 
     def _decode_step(self) -> None:
+        if self.verify_program is not None and self._spec_candidates():
+            # drafts come from harvested state: a pipelined dispatch
+            # drains first (speculation forfeits the fetch overlap)
+            if self._pending is not None:
+                prev, self._pending = self._pending, None
+                self._harvest(prev)
+                if not any(s is not None and s.ready for s in self.slots):
+                    return
+            if self._decode_step_spec():
+                return
+            # no slot drafted: plain decode this step
         K = self.cfg.decode_steps_per_dispatch
         if K > 1:
             self._decode_step_multi(K)
@@ -1013,10 +1276,15 @@ class EngineCore:
                 self._tokens[i] = s.last_token
                 self._positions[i] = s.pos
                 steps[i] = s.key_step
+        inputs = self._dispatch_inputs(steps)
+        did = self._rec_dispatch(1, inputs)
         with torch.inference_mode():
-            dispatch = self.program.dispatch(
-                1, self._variant(), self._dispatch_inputs(steps))
+            dispatch = self.program.dispatch(1, self._variant(), inputs)
         toks, logprobs = self._fetch(dispatch)
+        if self.recorder is not None:
+            self.recorder.rec(
+                "harvest", id=did, toks=np.array(toks),
+                applied=[(i, self.slots[i].rid, 1) for i in active_idx])
         toks, logprobs = toks[0], logprobs[0]
         bs = self.cfg.kv_block_size
         for i in active_idx:
@@ -1062,6 +1330,36 @@ class EngineCore:
                 self._block_tables[i, len(req.blocks) - 1] = new[0]
             self._emit(req, tok, float(logprobs[i]))
             self._maybe_finish_after_emit(req)
+        device_ms, host_gap_ms = self._flight_times()
+        self.flight.record("decode", K=1, batch_fill=len(active_idx),
+                           planned_tokens=len(active_idx),
+                           emitted=len(active_idx), device_ms=device_ms,
+                           host_gap_ms=host_gap_ms)
+
+    def _rec_dispatch(self, K: int, inputs: dict,
+                      chained_from: Optional[int] = None) -> Optional[int]:
+        """Record one decode dispatch (``inputs``: ``_dispatch_inputs``);
+        returns its id, or None with no recorder."""
+        if self.recorder is None:
+            return None
+        did = self.recorder.next_dispatch_id()
+        mask = inputs["chain_mask"]
+        plan = ({} if inputs["planned"] is None else
+                {"planned": inputs["planned"].copy(),
+                 "planned_mask": inputs["planned_mask"].copy()})
+        self.recorder.rec(
+            "dispatch", id=did, K=K, chained_from=chained_from,
+            mask=(np.zeros((self.B,), bool) if mask is None
+                  else mask.copy()),
+            tokens=inputs["tokens"].copy(),
+            positions=inputs["positions"].copy(),
+            tables=inputs["tables"].copy(), seeds=inputs["seeds"].copy(),
+            steps=inputs["steps0"].copy(),
+            temperature=inputs["temperature"].copy(),
+            top_k=inputs["top_k"].copy(), top_p=inputs["top_p"].copy(),
+            **plan, reqs=[s.rid if s is not None else None
+                          for s in self._ready_slots()])
+        return did
 
     def _decode_step_multi(self, K: int) -> None:
         """K decode steps, one dispatch, one host harvest: sampled tokens
@@ -1148,9 +1446,10 @@ class EngineCore:
         if not self._prepare_multi(K, ahead_mask=mask):
             return None
         return self._dispatch_multi(K, chain=prev["dispatch"].chain,
-                                    mask=mask)
+                                    mask=mask, chained_from=prev["id"])
 
-    def _dispatch_multi(self, K: int, chain=None, mask=None) -> dict:
+    def _dispatch_multi(self, K: int, chain=None, mask=None,
+                        chained_from: Optional[int] = None) -> dict:
         """Launch one K-step dispatch. ``mask`` flags slots chained off the
         in-flight dispatch: their input token comes from ``chain`` (device)
         and their positions/keys run K steps ahead of harvested host
@@ -1187,12 +1486,14 @@ class EngineCore:
                 if p < n_pr:
                     planned[k, i] = s.lane_prompt[p]
                     pmask[k, i] = True
+        inputs = self._dispatch_inputs(steps, planned, pmask, mask)
+        did = self._rec_dispatch(K, inputs,
+                                 chained_from if chain is not None else None)
         with torch.inference_mode():
-            dispatch = self.program.dispatch(
-                K, self._variant(),
-                self._dispatch_inputs(steps, planned, pmask, mask),
-                chain=chain)
-        return {"dispatch": dispatch, "K": K, "reqs": self._ready_slots()}
+            dispatch = self.program.dispatch(K, self._variant(), inputs,
+                                             chain=chain)
+        return {"dispatch": dispatch, "K": K, "id": did,
+                "reqs": self._ready_slots()}
 
     def _ready_slots(self) -> List[Optional[EngineRequest]]:
         """The slots a dispatch decodes: each ready request, else None."""
@@ -1205,10 +1506,12 @@ class EngineCore:
         a slot whose request changed since dispatch — is discarded."""
         toks_k, logprobs_k = self._fetch(pending["dispatch"])  # [K, B]
         K = pending["K"]
+        applied = []
         for i, req in enumerate(pending["reqs"]):
             if req is None or self.slots[i] is not req:
                 continue
             input_tok = req.last_token
+            pos0 = req.pos
             for k in range(K):
                 if req.cancelled:
                     self._release_slot(req)
@@ -1242,6 +1545,159 @@ class EngineCore:
                 if self.slots[i] is not req:
                     break                      # finished: drop device overrun
                 input_tok = tok
+            applied.append((i, req.rid, req.pos - pos0))
+        if self.recorder is not None and pending["id"] is not None:
+            self.recorder.rec("harvest", id=pending["id"],
+                              toks=np.array(toks_k), applied=applied)
+        device_ms, host_gap_ms = self._flight_times()
+        self.flight.record("decode", K=K, batch_fill=len(applied),
+                           planned_tokens=K * len(applied),
+                           emitted=sum(n for _i, _r, n in applied),
+                           device_ms=device_ms, host_gap_ms=host_gap_ms)
+
+    # ---------------------------------------------------------- speculation
+    def _req_spec_k(self, req: EngineRequest) -> int:
+        """A request's draft budget: its own (-1 = the live default)
+        clamped to the verify program's spec_k."""
+        k = self.spec_k_live if req.spec_k < 0 else req.spec_k
+        return max(0, min(int(k), self.cfg.spec_k))
+
+    def _spec_candidates(self) -> bool:
+        """True when a verify dispatch could be worth trying. A slot in
+        lane prefill vetoes the batch: the verify program has no planned
+        tokens, and lanes last a few steps."""
+        any_spec = False
+        for s in self.slots:
+            if s is None or not s.ready:
+                continue
+            if s.lane_prompt is not None:
+                return False
+            if s.seq is not None and self._req_spec_k(s) > 0:
+                any_spec = True
+        return any_spec
+
+    def _decode_step_spec(self) -> bool:
+        """One speculative step: draft a slot from its harvested history,
+        score every slot's drafts and bonus position in one verify
+        dispatch (slots without drafts ride as one row), harvest with
+        lockstep acceptance. Returns False when no slot drafted: the
+        caller then runs plain decode."""
+        drafts = self._draft_slots()
+        if not drafts:
+            return False
+        Tv = self.cfg.spec_k + 1
+        if not self._prepare_multi(Tv):
+            return True            # capacity churn consumed the step
+        steps = np.zeros((self.B,), np.int64)
+        tokens = np.zeros((self.B, Tv), np.int64)
+        n_rows = np.zeros((self.B,), np.int32)
+        dmap = {}
+        for i in range(self.B):
+            s = self.slots[i]
+            if s is None or not s.ready:
+                self._tokens[i] = 0
+                self._positions[i] = 0
+                if s is None:
+                    self._block_tables[i, :] = 0  # trash block
+                continue
+            ent = drafts.get(i)
+            # _prepare_multi may have finished or preempted the drafted
+            # request: keep drafts only whose slot still holds it
+            d = ent[1] if (ent is not None and ent[0] is s) else []
+            self._tokens[i] = s.last_token
+            self._positions[i] = s.pos
+            steps[i] = s.key_step
+            tokens[i, 0] = s.last_token
+            tokens[i, 1:1 + len(d)] = d
+            if d:
+                dmap[i] = d
+            n_rows[i] = 1 + len(d)
+        if not dmap:
+            return False           # every drafted slot churned away
+        inputs = {"tokens": tokens, "positions": self._positions,
+                  "tables": self._tables_for_dispatch(),
+                  "seeds": self._seeds, "steps0": steps,
+                  "temperature": self._samp["temperature"],
+                  "top_k": self._samp["top_k"], "top_p": self._samp["top_p"]}
+        did = None
+        if self.recorder is not None:
+            did = self.recorder.next_dispatch_id()
+            self.recorder.rec(
+                "verify", id=did, Tv=Tv, tokens=tokens.copy(),
+                positions=self._positions.copy(),
+                tables=inputs["tables"].copy(), seeds=self._seeds.copy(),
+                steps=steps.copy(),
+                temperature=self._samp["temperature"].copy(),
+                top_k=self._samp["top_k"].copy(),
+                top_p=self._samp["top_p"].copy(), n_rows=n_rows,
+                reqs=[s.rid if s is not None else None
+                      for s in self._ready_slots()])
+        with torch.inference_mode():
+            dispatch = self.verify_program.dispatch(self._variant(), inputs)
+        self.spec_dispatches += 1
+        self.spec_drafted_tokens += sum(len(d) for d in dmap.values())
+        self._harvest_verify({"dispatch": dispatch, "tokens": tokens,
+                              "n_rows": n_rows, "id": did,
+                              "reqs": self._ready_slots()})
+        return True
+
+    def _harvest_verify(self, pending: dict) -> None:
+        """Apply one verify dispatch: each slot's rows with lockstep
+        acceptance (``_apply_verified``)."""
+        toks, logprobs = self._fetch(pending["dispatch"])     # [B, Tv]
+        applied = []
+        for i, req in enumerate(pending["reqs"]):
+            if req is None or self.slots[i] is not req:
+                continue
+            if req.cancelled:
+                self._release_slot(req)
+                self._finish_request(req, FinishReason.CANCELLED)
+                applied.append((i, req.rid, 0, 0))
+                continue
+            rows = int(pending["n_rows"][i])
+            n = self._apply_verified(i, req, pending["tokens"][i, :rows],
+                                     toks[i], logprobs[i])
+            applied.append((i, req.rid, n, max(n - 1, 0)))
+        if self.recorder is not None and pending["id"] is not None:
+            self.recorder.rec("spec_harvest", id=pending["id"],
+                              toks=np.array(toks), applied=applied)
+        self.flight.record(
+            "verify", batch_fill=len(applied), spec_k=self.cfg.spec_k,
+            emitted=sum(n for _i, _r, n, _a in applied),
+            accepted=sum(a for _i, _r, _n, a in applied))
+
+    def _apply_verified(self, i: int, req: EngineRequest, inputs,
+                        toks, logprobs) -> int:
+        """Walk slot ``i``'s verified rows with lockstep acceptance: row t
+        wrote ``inputs[t]``'s KV (one decode step's bookkeeping) and
+        sampled ``toks[t]``, which is emitted; reaching row t > 0 accepted
+        draft t. The walk stops at a finish (the overrun rows are dropped)
+        or at the first sample that differs from the next draft: that
+        draft's row rolls back by rewind (pos never advances over it, and a
+        later dispatch rewrites it before any query reads it). Returns the
+        rows applied."""
+        n = 0
+        for t in range(len(inputs)):
+            tok = int(toks[t])
+            req.seq.append(int(inputs[t]))
+            req.registered_blocks = self.kv_manager.register_full_blocks(
+                req.blocks, req.seq, req.registered_blocks)
+            req.pos += 1
+            req.key_step += 1
+            req.generated += 1
+            req.last_token = tok
+            n += 1
+            self.total_decode_tokens += 1
+            self.spec_emitted_tokens += 1
+            if t > 0:
+                self.spec_accepted_tokens += 1
+            self._emit(req, tok, float(logprobs[t]))
+            self._maybe_finish_after_emit(req)
+            if self.slots[i] is not req:
+                break              # finished: drop the overrun rows
+            if t + 1 < len(inputs) and tok != int(inputs[t + 1]):
+                break              # draft rejected: rewind
+        return n
 
     def _preempt_or_finish(self, req: EngineRequest) -> None:
         """KV exhaustion policy: recompute preemption when the pool is
@@ -1265,6 +1721,10 @@ class EngineCore:
         self.preemptions += 1
         logger.info("preempting %s after %d tokens (KV exhausted; "
                     "recompute on re-admission)", req.rid, req.generated)
+        self.flight.record("preempt", rid=req.rid, generated=req.generated)
+        if self.recorder is not None:
+            self.recorder.rec("preempt", rid=req.rid,
+                              generated=req.generated)
         if in_prompt:
             # a lane preempted mid-prompt emitted nothing: it re-queues with
             # its prompt unchanged (no recompute boundary: no sampled token
@@ -1307,6 +1767,9 @@ class EngineCore:
         if req.slot >= 0 and self.slots[req.slot] is req:
             self.slots[req.slot] = None
             self._block_tables[req.slot, :] = 0
+        if self.recorder is not None and req.blocks:
+            self.recorder.rec("release", rid=req.rid,
+                              blocks=list(req.blocks))
         self.kv_manager.pool.release(req.blocks)
         req.blocks = []
 

@@ -506,7 +506,8 @@ def ragged_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
                    row_slot: torch.Tensor, seq_starts: torch.Tensor,
                    seq_counts: torch.Tensor, sample_rows: torch.Tensor,
                    cfg: ModelConfig, block_size: int,
-                   max_rows: int) -> torch.Tensor:
+                   max_rows: int,
+                   sample_all_rows: bool = False) -> torch.Tensor:
     """Ragged mixed prefill+decode step: one forward pass serves prefill
     chunks and decode rows together (engine/ragged.py packs them).
 
@@ -519,7 +520,8 @@ def ragged_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
     at row 0 and their sample is discarded). Writes every row's KV in
     place at (its sequence's table, its position), then attends with
     ``ragged_paged_attention`` in every layer. Returns logits [S, V]
-    f32."""
+    f32, or with ``sample_all_rows`` (the row-sampled form that verifies
+    speculative spans) logits [TT, V] of every row."""
     TT = tokens.shape[0]
     dev = tokens.device
     scale = _attn_scale(cfg)
@@ -550,4 +552,8 @@ def ragged_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
 
     x = _embed(params, tokens, cfg)
     x = _run_layers(params, kv, x, positions, slots, cfg, attn)
+    if sample_all_rows:
+        # the row-sampled form (speculative spans): logits [TT, V] of every
+        # row, sample_rows unread
+        return _logits(params, x, cfg)
     return _logits(params, x[sample_rows.long()], cfg)

@@ -510,13 +510,14 @@ def ragged_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
                    row_slot: torch.Tensor, seq_starts: torch.Tensor,
                    seq_counts: torch.Tensor, sample_rows: torch.Tensor,
                    cfg: ModelConfig, block_size: int,
-                   max_rows: int) -> torch.Tensor:
+                   max_rows: int,
+                   sample_all_rows: bool = False) -> torch.Tensor:
     """Ragged mixed prefill+decode step, ``llama.ragged_forward``'s
     contract: every row is the decode form over its sequence's table. A
     bf16 pool attends through ``ragged_paged_attention`` with ``v_lanes``
     (K4-MLA on the card); an int8 pool gathers per row (the JAX package
     leaves its sectioned ragged kernel mode unwired). Returns logits [S,
-    V] f32."""
+    V] f32, or [TT, V] of every row with ``sample_all_rows``."""
     TT = tokens.shape[0]
     dev = tokens.device
     H, rank = cfg.num_heads, cfg.kv_lora_rank
@@ -550,4 +551,8 @@ def ragged_forward(params: Params, kv: KVCache, tokens: torch.Tensor,
 
     x = _embed(params, tokens, cfg)
     x = _run_layers(params, kv, x, positions, slots, cfg, attn)
+    if sample_all_rows:
+        # the row-sampled form (speculative spans): logits [TT, V] of every
+        # row, sample_rows unread
+        return _logits(params, x, cfg)
     return _logits(params, x[sample_rows.long()], cfg)

@@ -23,13 +23,25 @@ in either bucket; the small one keeps a decode dispatch at decode widths
 over 8 rows, not 136). Dead rows point at the trash sequence: token 0,
 position 0, the all-zero table row, so their KV lands in block 0.
 
-``decode_k_forward`` and ``ragged_step_forward`` are the plain functions.
-On the CPU each program runs its function eagerly (the ragged one at the
-bucket's rows, dead rows included). On a CUDA device it replays one
-captured ``torch.cuda.CUDAGraph`` per key (decode: K, sampling variant,
-logits kept; ragged: bucket, variant, logits kept): the port's form of a
-compiled program, so a dispatch costs the host one copy of its inputs, one
-replay and one copy of its outputs instead of thousands of launches. The
+With speculative decoding (``EngineConfig.spec_k`` > 0) the ragged program
+is row-sampled instead (JAX's ``sample_all_rows`` variant): logits and a
+sample for every token row, row r of a span keyed at its slot's step + r,
+so a speculative span verifies in the same dispatch as prefill chunks and
+decode rows; at a span's last row the key, and so the token, is the
+slot-sampled program's. ``VerifyProgram`` is the counterpart of JAX's
+``_verify_jit``: ``[B, k + 1]`` query rows flattened through the family's
+``decode_forward``, row (b, t) at position ``pos_b + t`` over slot b's
+table and keyed at ``steps0_b + t``, the key plain decode would use there
+(lockstep acceptance, ``engine/spec/``).
+
+``decode_k_forward``, ``ragged_step_forward`` and ``verify_forward`` are
+the plain functions. On the CPU each program runs its function eagerly (the
+ragged one at the bucket's rows, dead rows included). On a CUDA device it
+replays one captured ``torch.cuda.CUDAGraph`` per key (decode: K, sampling
+variant, logits kept; ragged: bucket, variant, logits kept; verify:
+variant, logits kept): the port's form of a compiled program, so a
+dispatch costs the host one copy of its inputs, one replay and one copy of
+its outputs instead of thousands of launches. The
 sampling variants are ``greedy`` (no noise is drawn), ``temperature``
 (Gumbel-argmax) and ``filtered`` (top-k / top-p); the host picks one from
 the slots' parameters (``sampling_variant``), where JAX decides on the
@@ -141,22 +153,73 @@ def ragged_step_forward(params, kv, tokens: torch.Tensor,
                         temperature: torch.Tensor, top_k: torch.Tensor,
                         top_p: torch.Tensor, *, cfg, block_size: int,
                         max_rows: int, base_seed: int, variant: str,
-                        with_logits: bool = False) -> tuple:
+                        with_logits: bool = False,
+                        row_sampled: bool = False) -> tuple:
     """One ragged dispatch (JAX's slot-sampled ``ragged`` program): the
     family's ``ragged_forward`` over tokens / positions / row_slot [TT]
     (int64, int32, int32), tables [S, M] and starts / counts / sample_rows
     [S] int32, then one sample per sequence keyed at (base_seed, seeds[s],
     steps[s]) with its temperature / top_k / top_p [S]. Writes every row's
     KV in place. Returns (toks [S] int64, logprobs [S] f32), and with
-    ``with_logits`` also logits [S, V] f32."""
+    ``with_logits`` also logits [S, V] f32.
+
+    ``row_sampled`` (JAX's spec-enabled variant): steps are [TT] row
+    steps, the other sampling inputs stay [S] and each row takes its
+    sequence's through ``row_slot``; every row is sampled, so toks,
+    logprobs and logits have TT rows."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown sampling variant {variant!r}")
     logits = family(cfg).ragged_forward(
         params, kv, tokens, positions, tables, row_slot, seq_starts,
-        seq_counts, sample_rows, cfg, block_size, max_rows)
+        seq_counts, sample_rows, cfg, block_size, max_rows,
+        sample_all_rows=row_sampled)
+    if row_sampled:
+        rs = row_slot.long()
+        seeds, temperature, top_k, top_p = (
+            t[rs] for t in (seeds, temperature, top_k, top_p))
     out = _sample(logits, variant, base_seed, seeds, steps, temperature,
                   top_k, top_p)
     return out + (logits,) if with_logits else out
+
+
+def verify_forward(params, kv, tokens: torch.Tensor,
+                   positions: torch.Tensor, tables: torch.Tensor,
+                   seeds: torch.Tensor, steps0: torch.Tensor,
+                   temperature: torch.Tensor, top_k: torch.Tensor,
+                   top_p: torch.Tensor, *, cfg, block_size: int,
+                   base_seed: int, variant: str,
+                   with_logits: bool = False) -> tuple:
+    """One speculative verify dispatch (JAX's ``_verify_jit``): tokens [B,
+    Tv] int64 (each slot's last token and its drafts), positions [B] int32,
+    tables [B, M] int32, seeds / steps0 [B] int64, temperature / top_p [B]
+    f32, top_k [B] int64. The B·Tv rows run through the family's
+    ``decode_forward`` as one batch: row (b, t) writes its token's KV at
+    position ``positions[b] + t`` through slot b's table and attends every
+    position up to it, so one slot's rows score its draft chain causally.
+    Row (b, t) samples at key (base_seed, seeds[b], steps0[b] + t). Returns
+    (toks [B, Tv] int64, logprobs [B, Tv] f32), and with ``with_logits``
+    also logits [B, Tv, V] f32."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown sampling variant {variant!r}")
+    B, Tv = tokens.shape
+    t_off = torch.arange(Tv, device=tokens.device)
+
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        # each slot's value on its Tv rows (expand: no host read, so a
+        # CUDA graph may capture it)
+        return t[:, None].expand(B, Tv, *t.shape[1:]).reshape(
+            B * Tv, *t.shape[1:])
+
+    flat_pos = (positions[:, None] + t_off.to(positions.dtype)[None, :]
+                ).reshape(B * Tv)
+    logits = family(cfg).decode_forward(
+        params, kv, tokens.reshape(B * Tv), flat_pos, rows(tables), cfg,
+        block_size)
+    toks, lps = _sample(logits, variant, base_seed, rows(seeds),
+                        (steps0[:, None] + t_off[None, :]).reshape(B * Tv),
+                        rows(temperature), rows(top_k), rows(top_p))
+    out = (toks.view(B, Tv), lps.view(B, Tv))
+    return out + (logits.view(B, Tv, -1),) if with_logits else out
 
 
 def ragged_merge(prev: torch.Tensor, srows: torch.Tensor,
@@ -437,7 +500,8 @@ class DecodeProgram(_GraphedProgram):
 
 
 # the ragged program's inputs: name → (dtype, shape given the capacity TT,
-# the sequences S = B + 1 and M)
+# the sequences S = B + 1 and M); the row-sampled program keys each row,
+# its steps are [TT]
 _RAGGED_FIELDS = (
     ("tokens", torch.int64, lambda T, S, M: (T,)),
     ("positions", torch.int32, lambda T, S, M: (T,)),
@@ -458,17 +522,25 @@ _RAGGED_FIELDS = (
 class RaggedProgram(_GraphedProgram):
     """The engine's ragged program over ``params`` and the pool ``kv`` for
     ``B`` slots and the trash sequence (``[B + 1, M]`` tables), row buckets
-    of ``B`` and ``capacity`` rows, spans of up to ``max_rows``."""
+    of ``B`` and ``capacity`` rows, spans of up to ``max_rows``;
+    ``row_sampled``: a sample for every row (speculative spans)."""
 
     def __init__(self, params, kv, cfg, block_size: int, B: int, M: int,
                  capacity: int, max_rows: int, base_seed: int,
-                 device) -> None:
+                 device, row_sampled: bool = False) -> None:
         self.B, self.M, self.capacity = B, M, capacity
         self.max_rows = max_rows
+        self.row_sampled = row_sampled
+        fields = _RAGGED_FIELDS
+        if row_sampled:
+            fields = tuple(
+                ("steps", torch.int64, lambda T, S, M: (T,))
+                if f[0] == "steps" else f for f in fields)
         # a row past the packed ones is dead: it belongs to the trash
         # sequence (the last table row, all zeros)
         super().__init__(params, kv, cfg, block_size, base_seed, device,
-                         _RAGGED_FIELDS, (capacity, B + 1, M), (B + 1,),
+                         fields, (capacity, B + 1, M),
+                         (capacity,) if row_sampled else (B + 1,),
                          fills={"row_slot": B, "top_p": 1.0})
 
     def bucket(self, inputs: Dict[str, np.ndarray]) -> int:
@@ -485,11 +557,12 @@ class RaggedProgram(_GraphedProgram):
         return ragged_step_forward(
             self.params, self.kv, t["tokens"][:rows], t["positions"][:rows],
             t["tables"], t["row_slot"][:rows], t["seq_starts"],
-            t["seq_counts"], t["sample_rows"], t["seeds"], t["steps"],
+            t["seq_counts"], t["sample_rows"], t["seeds"],
+            t["steps"][:rows] if self.row_sampled else t["steps"],
             t["temperature"], t["top_k"], t["top_p"], cfg=self.cfg,
             block_size=self.block_size, max_rows=self.max_rows,
             base_seed=self.base_seed, variant=variant,
-            with_logits=with_logits)
+            with_logits=with_logits, row_sampled=self.row_sampled)
 
     def run_eager(self, variant: str, inputs: Dict[str, np.ndarray],
                   chain: Optional[torch.Tensor] = None,
@@ -523,4 +596,60 @@ class RaggedProgram(_GraphedProgram):
             st = self.static
             st["tokens"].copy_(ragged_merge(chain, st["srows"],
                                             st["tokens"], st["chain_mask"]))
+        return self._replay(g, slice(0, rows) if self.row_sampled
+                            else slice(None))
+
+
+# the verify program's inputs: name → (dtype, shape given B, M and the rows
+# a slot Tv = spec_k + 1)
+_VERIFY_FIELDS = (
+    ("tokens", torch.int64, lambda B, M, T: (B, T)),
+    ("positions", torch.int32, lambda B, M, T: (B,)),
+    ("tables", torch.int32, lambda B, M, T: (B, M)),
+    ("seeds", torch.int64, lambda B, M, T: (B,)),
+    ("steps0", torch.int64, lambda B, M, T: (B,)),
+    ("temperature", torch.float32, lambda B, M, T: (B,)),
+    ("top_k", torch.int64, lambda B, M, T: (B,)),
+    ("top_p", torch.float32, lambda B, M, T: (B,)))
+
+
+class VerifyProgram(_GraphedProgram):
+    """The engine's verify program over ``params`` and the pool ``kv`` for
+    a ``[B]`` batch of ``[B, M]`` tables, ``Tv`` = spec_k + 1 rows a slot
+    (a slot with fewer drafts pads its rows; they write KV that no later
+    read sees before a dispatch rewrites it)."""
+
+    def __init__(self, params, kv, cfg, block_size: int, B: int, M: int,
+                 Tv: int, base_seed: int, device) -> None:
+        self.B, self.M, self.Tv = B, M, Tv
+        super().__init__(params, kv, cfg, block_size, base_seed, device,
+                         _VERIFY_FIELDS, (B, M, Tv), (B, Tv),
+                         fills={"top_p": 1.0})
+
+    def _run(self, variant: str, t: Dict[str, torch.Tensor],
+             with_logits: bool = False) -> tuple:
+        return verify_forward(
+            self.params, self.kv, t["tokens"], t["positions"], t["tables"],
+            t["seeds"], t["steps0"], t["temperature"], t["top_k"],
+            t["top_p"], cfg=self.cfg, block_size=self.block_size,
+            base_seed=self.base_seed, variant=variant,
+            with_logits=with_logits)
+
+    def run_eager(self, variant: str, inputs: Dict[str, np.ndarray],
+                  with_logits: bool = False) -> Dispatch:
+        """The same dispatch as ``dispatch``, run eagerly on the inputs'
+        own tensors (the CPU path; on the card, the plain form a replay is
+        held against)."""
+        return Dispatch(*self._run(variant, self._device_inputs(inputs),
+                                   with_logits))
+
+    def dispatch(self, variant: str, inputs: Dict[str, np.ndarray],
+                 with_logits: bool = False) -> Dispatch:
+        """Launch one verify dispatch. ``inputs``: host arrays by name
+        (``_VERIFY_FIELDS``; a missing one is zeros)."""
+        if self.device.type != "cuda":
+            return self.run_eager(variant, inputs, with_logits)
+        g = self._graph((variant, with_logits),
+                        lambda t: self._run(variant, t, with_logits))
+        self._upload(inputs)
         return self._replay(g, slice(None))

@@ -1,7 +1,7 @@
 """The launcher: ``python -m dynamo_tpu_torch.launch.run in=SRC out=ENGINE
 --model-path DIR [--random-weights] [--http-port N] [--device cuda|cpu]
 [--quantization int8|int4|...] [--kv-quantization int8] [--ragged
-[--ragged-max-tokens N] [--ragged-max-seq-rows N]] [--sp N]
+[--ragged-max-tokens N] [--ragged-max-seq-rows N]] [--sp N] [--spec-k K]
 [--prefill-chunk N] [--decode-steps-per-dispatch K
 [--decode-dispatch-pipeline] [--lane-prefill-max-tokens N]]
 [--max-tokens N] [--output-path F]``.
@@ -97,6 +97,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ragged-max-seq-rows", type=int, default=64,
                    help="per-sequence row budget per ragged dispatch "
                         "(longer prompts stream across dispatches)")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="speculative decoding: max prompt-lookup draft "
+                        "tokens verified per step (engine/spec/; 0 "
+                        "disables; per-request override via "
+                        "nvext.speculation)")
     p.add_argument("--sequence-parallel-size", "--sp", type=int, default=1,
                    dest="sp",
                    help="sequence-parallel prefill of long cold prompts "
@@ -172,6 +177,7 @@ def build_core(args, mesh=None):
                                 args.decode_dispatch_pipeline),
                             lane_prefill_max_tokens=(
                                 args.lane_prefill_max_tokens),
+                            spec_k=args.spec_k,
                             sp=mesh.shape["sp"] if mesh is not None else 1)
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(str(e))

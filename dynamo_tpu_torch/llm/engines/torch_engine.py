@@ -50,6 +50,9 @@ class TorchEngine(AsyncEngine):
     def build_request(self, request: SingleIn) -> EngineRequest:
         pre: PreprocessedRequest = request.data
         sc = pre.stop_conditions
+        # the speculation knob: None = the engine's live default (-1); an
+        # explicit value clamps to the verify program's width at dispatch
+        spec = pre.speculation
         return EngineRequest(
             rid=request.id,
             prompt=list(pre.token_ids),
@@ -58,6 +61,7 @@ class TorchEngine(AsyncEngine):
             eos_ids=frozenset(() if sc.ignore_eos else
                               (sc.stop_token_ids_hidden or pre.eos_token_ids)),
             ctx=request.ctx,
+            spec_k=-1 if spec is None else max(0, int(spec)),
         )
 
     async def generate(self, request: SingleIn) -> ManyOut:

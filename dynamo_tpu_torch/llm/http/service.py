@@ -4,15 +4,18 @@ Counterpart of ``dynamo_tpu.llm.http.service``, built on
 ``asyncio.start_server`` because the GPU machine has no aiohttp:
 ``POST /v1/chat/completions`` and ``POST /v1/completions`` as one JSON body
 or as Server-Sent Events ending in ``data: [DONE]``, ``GET /v1/models``,
-``GET /metrics`` (``metrics.py``), ``GET /health`` and ``GET /live``.
+``GET /metrics`` (``metrics.py``), ``GET /health``, ``GET /live`` and
+``GET /debug?last=N`` (every engine's flight recorder in this process:
+its stats and last N per-dispatch records, JAX's ``flight_recorders``
+layout).
 ``n`` > 1 fans out into n single-choice requests merged into one stream;
 ``nvext.deadline_ms`` or the ``X-Request-Deadline-Ms`` header arms the
 request's deadline. Status codes and error bodies
 (``{"error": {"message", "type", "code"}}``) are the JAX service's. Each
 connection serves one request (``Connection: close``). A client that
 disconnects mid-stream kills the request's context, so the engine frees its
-slot at the next step. ``/traces`` and ``/debug`` wait for the port's
-tracing and flight recorder.
+slot at the next step. ``/traces`` and ``/debug``'s ``tracer`` member wait
+for the port's tracing (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import asyncio
 import json
 import logging
 import time
+import urllib.parse
 from typing import Dict, Optional, Tuple
 
 from ...runtime.engine import AsyncEngine, Context, EngineContext
@@ -223,6 +227,21 @@ async def _start_fanout(engine, body: dict, ectx: _FanoutContext, n: int):
     return _merge_choice_streams(list(results), ectx)
 
 
+def _debug(query: str) -> dict:
+    """``GET /debug``: each in-process engine's flight recorder (stats and
+    its last ``last`` records, 64 by default), as the JAX service lays
+    them out."""
+    from ...engine.flight_recorder import all_recorders
+    params = urllib.parse.parse_qs(query)
+    try:
+        last = int(params.get("last", ["64"])[0])
+    except ValueError:
+        last = 64
+    return {"flight_recorders": {
+        name: {"stats": fr.stats(), "records": fr.dump(last=last)}
+        for name, fr in all_recorders().items()}}
+
+
 async def _read_request(reader: asyncio.StreamReader
                         ) -> Tuple[str, str, Dict[str, str], bytes]:
     line = await reader.readline()
@@ -246,7 +265,7 @@ async def _read_request(reader: asyncio.StreamReader
     if n < 0 or n > MAX_BODY:
         raise _HttpError(413, f"body larger than {MAX_BODY} bytes")
     body = await reader.readexactly(n) if n else b""
-    return method, target.split("?", 1)[0], headers, body
+    return method, target, headers, body
 
 
 class HttpService:
@@ -296,8 +315,8 @@ class HttpService:
         self._tasks.add(task)
         try:
             try:
-                method, path, headers, body = await _read_request(reader)
-                await self._route(method, path, headers, body, reader,
+                method, target, headers, body = await _read_request(reader)
+                await self._route(method, target, headers, body, reader,
                                   writer)
             except _HttpError as e:
                 writer.write(_error_response(e.status, e.message, e.err_type))
@@ -313,14 +332,17 @@ class HttpService:
             self._tasks.discard(task)
             writer.close()
 
-    async def _route(self, method: str, path: str, headers: Dict[str, str],
-                     body: bytes, reader: asyncio.StreamReader,
+    async def _route(self, method: str, target: str,
+                     headers: Dict[str, str], body: bytes,
+                     reader: asyncio.StreamReader,
                      writer: asyncio.StreamWriter) -> None:
+        path, _, query = target.partition("?")
         endpoint = {"/v1/chat/completions": "chat_completions",
                     "/v1/completions": "completions"}.get(path)
         want = "POST" if endpoint else "GET"
         if endpoint is None and path not in ("/health", "/live",
-                                             "/v1/models", "/metrics"):
+                                             "/v1/models", "/metrics",
+                                             "/debug"):
             raise _HttpError(404, f"no route for {path}", "not_found")
         if method != want:
             raise _HttpError(405, f"{method} not allowed on {path}")
@@ -338,6 +360,8 @@ class HttpService:
             writer.write(_head(200, {
                 "Content-Type": "text/plain; charset=utf-8",
                 "Content-Length": str(len(text))}) + text)
+        elif path == "/debug":
+            writer.write(_json_response(200, _debug(query)))
         else:
             await self._handle(endpoint, headers, body, reader, writer)
 

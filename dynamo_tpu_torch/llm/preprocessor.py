@@ -156,6 +156,9 @@ class OpenAIPreprocessor(Operator):
             sampling_options=sampling,
             output_options=OutputOptions(logprobs=n_logprobs),
             eos_token_ids=list(info.eos_token_ids),
+            # the request's draft budget (engine/spec/); None: the
+            # serving engine's default
+            speculation=(nvext.speculation if nvext else None),
         )
 
     async def generate(self, request: SingleIn, next_engine: AsyncEngine) -> ManyOut:

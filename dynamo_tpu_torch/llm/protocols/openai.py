@@ -42,6 +42,9 @@ class NvExt:
     greed_sampling: Optional[bool] = None
     top_k: Optional[int] = None
     repetition_penalty: Optional[float] = None
+    # speculative decoding: the most draft tokens verified a step (None =
+    # the engine's default, 0 = off; clamped to the engine's spec_k)
+    speculation: Optional[int] = None
 
     @classmethod
     def from_dict(cls, d: Any) -> "NvExt":
@@ -57,7 +60,8 @@ class NvExt:
                    greed_sampling=_opt(d, "greed_sampling", bool, "a boolean"),
                    top_k=_opt(d, "top_k", int, "an integer"),
                    repetition_penalty=_opt(d, "repetition_penalty",
-                                           (int, float), "a number"))
+                                           (int, float), "a number"),
+                   speculation=_opt(d, "speculation", int, "an integer"))
 
 
 @dataclasses.dataclass

@@ -150,14 +150,13 @@ def test_entry_points_default_to_the_card():
     assert args.device == "cuda" and args.ragged
     # a field of a path the port does not implement is not a field
     with pytest.raises(TypeError):
-        EngineConfig(spec_k=2)
+        EngineConfig(tp=2)
 
 
 # the JAX EngineConfig's fields the port does not implement yet (ROADMAP A):
 # each is not a field of the port's EngineConfig, so passing it raises
 UNPORTED_ENGINE_FIELDS = (
-    "tp", "dp", "ep", "pp", "spec_k", "spec_ngram_min", "spec_ngram_max",
-    "spec_window", "host_kv_blocks", "kv_disk_dir", "kv_disk_blocks",
+    "tp", "dp", "ep", "pp", "host_kv_blocks", "kv_disk_dir", "kv_disk_blocks",
     "kv_remote_dir", "kv_remote_blocks", "kv_remote_admission",
     "offload_simulated_gbps", "kv_defrag_threshold", "kv_defrag_max_blocks",
     "kv_contig_alloc")
@@ -167,7 +166,7 @@ UNPORTED_ENGINE_FIELDS = (
 def test_unported_engine_fields_raise(field):
     import dataclasses
     from dynamo_tpu_torch.engine.config import EngineConfig
-    assert len(UNPORTED_ENGINE_FIELDS) == 18
+    assert len(UNPORTED_ENGINE_FIELDS) == 14
     assert field not in {f.name for f in dataclasses.fields(EngineConfig)}
     with pytest.raises(TypeError):
         EngineConfig(**{field: 1})

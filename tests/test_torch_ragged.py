@@ -604,7 +604,7 @@ def test_ragged_engine_config_refuses_each_unported_field(field):
 
 
 def test_ragged_engine_config_keeps_unported_fields_out():
-    for kw in ({"spec_k": 2}, {"pp": 2}):
+    for kw in ({"tp": 2}, {"pp": 2}):
         with pytest.raises(TypeError):
             EngineConfig(ragged_dispatch=True, **kw)
     # the pipelined ragged dispatch is accepted at K = 1, as in JAX
