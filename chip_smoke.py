@@ -303,6 +303,38 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    accepted / emitted counts. Phase 4m runs (a) at V2-Lite's geometry
    (K3-MLA at 40 rows) in both of its modes.
 
+9. the KV tiers at the 8B width and depth (``tier_phase``): (a) each pool
+   row format (the 8B's bf16 rows in 8 wire heads, its int8 rows of 1152
+   lanes and V2-Lite's latent rows in bf16 and int8-sectioned, each one
+   opaque head) round-trips 31 blocks: a gather on the compute stream, a
+   copy into pinned memory on a side stream, a pinned host arena, pinned
+   staging, the copy back and an in-place scatter into 31 other blocks;
+   each must come back bit for bit, the other blocks untouched and the
+   pool tensors unmoved, and the same check must catch the targets
+   shifted by one; (b) two servers over a 256-block device pool, a
+   512-block host tier and, for the first, a 1536-block disk tier under a
+   temporary directory: int4 + int8 KV at K = 8 pipelined, and bf16
+   ``--ragged --decode-dispatch-pipeline``. Each serves two conversations
+   of three turns (device hits), a 1600-token prompt Y twice (the second
+   from its device-resident prefix: the reference), churn that takes Y off
+   the device but not the host, then Y again, which must onboard all 99
+   prefix blocks from the host and repeat the reference's text, tokens
+   and logprobs bit for bit; the first server does the same with a prompt
+   X taken off the host too by more churn, restored from disk; (c) the
+   first server stops (flushing its host tier to disk), and a new engine
+   on the same directory serves X from disk with the same bits; (d) Y's
+   restore runs while two other requests decode: a decode dispatch must
+   fall inside its onboard window (printed: ITL p50 / max inside and
+   outside it, the write-back and onboard GB/s, the arena's pinning
+   time); (e) with prefix reuse off, a 600-token request admitted into a
+   shattered pool is moved by the defrag pass (the vacated blocks
+   overwritten after the move, so a stale table would read garbage) and
+   must give the stream of the same run at ``kv_defrag_threshold`` 0,
+   on both servers; (f) the ragged server records a cold serving, its
+   write-back, a device wipe and its host restore, and the log replays on
+   the card with ``compare_replay`` empty. The servers' launch counts
+   join the kernels line (``launches_by_path``).
+
 Each phase prints its wall seconds (``phase 3q: N s``; each model mode and
 server inside one too) and the run ends with all of them on one line. The
 model and serve phases run each geometry at the depth of ``LAYERS``: the
@@ -4092,6 +4124,9 @@ PATH_KERNELS = {
                       "lm_head_int8", "grouped_int4_matmul"),
     "spec_ragged_int4_kv8": ("ragged_paged_attention_int8", "lm_head_int8",
                              "grouped_int4_matmul"),
+    "tier_int4_kv8": ("flash_prefill", "paged_attention_int8",
+                      "lm_head_int8", "grouped_int4_matmul"),
+    "tier_ragged_bf16": ("ragged_paged_attention",),
 }
 # the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
 # dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
@@ -4118,10 +4153,28 @@ CKPT_PATHS = tuple(CKPT_TWINS)
 CHAT_PATHS = ("chat_int4_kv8",)
 # the 8B speculation servers (8e): --spec-k 4 on 5b's and 5d's flags
 SPEC_PATHS = ("spec_int4_kv8", "spec_ragged_int4_kv8")
+# the tiered servers (9b): 5b's weights and pool (int4 + int8 KV) on the
+# split path at K = 8 pipelined with a host and a disk tier, and bf16
+# --ragged --decode-dispatch-pipeline with a host tier; each with a device
+# pool smaller than its traffic's working set
+TIER_PATHS = ("tier_int4_kv8", "tier_ragged_bf16")
+TIER_DEVICE_BLOCKS, TIER_HOST_BLOCKS, TIER_DISK_BLOCKS = 256, 512, 1536
+# the traffic: X and Y 1600-token prompts (100 blocks), two conversations
+# of three turns (600, +200, +200 tokens), churn of 1000-token requests 3
+# at a time (62 blocks written back each, 64 held: no preemption), and two
+# decoders of 200 tokens beside Y's restore (9d). After X, 9 churn
+# requests write back 558 blocks: more than the host holds, so X leaves it
+# for the disk; after Y, 5 write back 310, fewer than the 412 older host
+# blocks, while holding 320 device blocks, more than the device pool
+TIER_PROMPT, TIER_TURNS, TIER_CHURN = 1600, (600, 200, 200), 1000
+TIER_CHURN1, TIER_CHURN2 = 9, 5
+TIER_TOKENS, TIER_DECODE_TOKENS = 16, 200
+# the round trips (9a): 31 blocks of a 64-block pool, into 31 others
+TIER_RT_BLOCKS = 64
 # the paths that phase 5 does not serve: those of the geometries after the
-# 8B one, of the checkpoint, of chat and of speculation
+# 8B one, of the checkpoint, of chat, of speculation and of the KV tiers
 LATER_PATHS = (GEMMA_PATHS + MLA_PATHS + PHI3_PATHS + QWEN2_PATHS
-               + CKPT_PATHS + CHAT_PATHS + SPEC_PATHS)
+               + CKPT_PATHS + CHAT_PATHS + SPEC_PATHS + TIER_PATHS)
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -4167,6 +4220,12 @@ DISPATCH_FLAGS = ["--decode-steps-per-dispatch", str(DISPATCH_K),
 # decode step goes through K4 (or K4-MLA), so these launch 0 times there
 SPLIT_ATTENTION = ("flash_prefill", "paged_attention", "paged_attention_int8",
                    "latent_paged_attention", "latent_paged_attention_int8")
+# the tiered servers' dispatch flags (9b)
+TIER_FLAGS = {
+    "tier_int4_kv8": ["--decode-steps-per-dispatch", str(DISPATCH_K),
+                      "--decode-dispatch-pipeline"],
+    "tier_ragged_bf16": ["--ragged", "--ragged-max-seq-rows",
+                         str(RAGGED_MAX_ROWS), "--decode-dispatch-pipeline"]}
 
 
 def serve_phase(cfg, seed: int, card: str, path: str) -> tuple:
@@ -6027,6 +6086,531 @@ def spec_phase(cfg, dev, seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the KV tiers at the 8B width and depth
+# ---------------------------------------------------------------------------
+
+def tier_formats():
+    """(name, model config at full depth, kv quantization, block size) of
+    each pool row format 9a round-trips: the 8B's bf16 rows (8 wire
+    heads), its int8 rows (1152 lanes, one opaque head), V2-Lite's latent
+    rows in bf16 and int8-sectioned."""
+    from dynamo_tpu_torch.engine.config import bench_model_config
+    c8 = bench_model_config("8b")
+    cm = mla_config()
+    return [("8b_bf16", c8, "none", KV_BLOCK), ("8b_int8", c8, "int8", KV_BLOCK),
+            ("v2lite_bf16", cm, "none", MLA_BLOCK[0]),
+            ("v2lite_int8", cm, "int8", MLA_BLOCK[1])]
+
+
+def blocks_mismatched(kv, orig, src, tgt, bs: int) -> int:
+    """Target blocks whose bytes differ from their source's in ``orig``."""
+    bad = 0
+    for k in kv:
+        L, T, C = kv[k].shape
+        got = kv[k].view(L, T // bs, bs, C)
+        want = orig[k].view(L, T // bs, bs, C)
+        for s, t in zip(src, tgt):
+            if not torch_equal_bits(got[:, t], want[:, s]):
+                bad += 1
+    return bad
+
+
+def torch_equal_bits(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def check_tier_round_trips(dev) -> list:
+    """9a: at each row format, gather 32 random blocks on the compute
+    stream, copy them into pinned memory on the tier stream, store them in
+    a pinned host arena, fetch them into pinned staging, copy them back and
+    scatter them in place into 32 other blocks: every target must equal
+    its source bit for bit, the other blocks must be untouched, the pool
+    tensors must keep their addresses, and the same check must catch the
+    targets shifted by one (a planted fault)."""
+    import numpy as np
+    import torch
+    from dynamo_tpu_torch.engine import block_copy as bc
+    from dynamo_tpu_torch.engine.models import family
+    from dynamo_tpu_torch.llm.kv.offload import HostKvPool
+    out = []
+    side = torch.cuda.Stream(dev)
+    for name, cfg, kvq, bs in tier_formats():
+        mod = family(cfg)
+        kv = mod.init_kv_cache(cfg, TIER_RT_BLOCKS, bs, dev, torch.bfloat16,
+                               quantization=kvq)
+        for v in kv.values():
+            v.view(torch.uint8).random_(0, 256)
+        ptrs = {k: v.data_ptr() for k, v in kv.items()}
+        orig = {k: v.clone() for k, v in kv.items()}
+        heads = bc.wire_kv_heads(cfg, kvq)
+        perm = np.random.default_rng(9).permutation(
+            np.arange(1, TIER_RT_BLOCKS)).tolist()
+        n = (TIER_RT_BLOCKS - 1) // 2
+        src, tgt = perm[:n], perm[n:2 * n]
+        torch.cuda.synchronize()
+        d2h = bc.start_d2h(kv, src, bs, heads, stream=side)
+        rows = d2h.wait()
+        one = {k: v[0] for k, v in rows.items()}
+        host = HostKvPool(n, cfg.num_layers, one[next(iter(one))].shape[1],
+                          bs, one[next(iter(one))].shape[-1],
+                          dtype=one[next(iter(one))].dtype,
+                          opaque_rows=heads == 1, pin_memory=True)
+        hashes = list(range(1000, 1000 + n))
+        host.store(hashes, {k: bc.rows_as_wire(v) for k, v in rows.items()})
+        staged = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                  for k, v in rows.items()}
+        host.fetch_rows(host.match_prefix(hashes), out=staged)
+        h2d = bc.start_h2d(staged, dev, stream=side)
+        h2d.wait()
+        bc.scatter_transfer(kv, tgt, h2d, bs)
+        torch.cuda.synchronize()
+        nbytes = sum(v.numel() * v.element_size() for v in rows.values())
+        bad = blocks_mismatched(kv, orig, src, tgt, bs)
+        rest = [b for b in range(TIER_RT_BLOCKS) if b not in tgt]
+        untouched = blocks_mismatched(kv, orig, rest, rest, bs)
+        fault = blocks_mismatched(kv, orig, src, tgt[1:] + tgt[:1], bs)
+        e = {"format": name, "blocks": n, "wire_heads": heads,
+             "row_shape": list(one[next(iter(one))].shape),
+             "block_bytes": nbytes // n, "mismatched": bad,
+             "untouched_changed": untouched, "planted_fault_caught": fault,
+             "d2h_gb_s": nbytes / d2h.copy_s() / 1e9,
+             "h2d_gb_s": nbytes / h2d.copy_s() / 1e9,
+             "arena_pin_s": host.pin_s}
+        log(f"tier round trip {json.dumps(e)}")
+        if bad or untouched or not fault:
+            raise RuntimeError(f"tier round trip {name}: {bad} targets "
+                               f"differ, {untouched} other blocks changed, "
+                               f"planted fault caught in {fault} blocks")
+        if {k: v.data_ptr() for k, v in kv.items()} != ptrs:
+            raise RuntimeError(f"tier round trip {name}: a pool tensor "
+                               f"moved")
+        out.append(e)
+        del kv, orig, rows, staged, h2d, host
+    return out
+
+
+def completion_bits(res: dict) -> tuple:
+    """(text, tokens, token logprobs) of a unary completion asked with
+    logprobs: what two servings of one prompt must share bit for bit."""
+    ch = res["response"]["choices"][0]
+    lp = ch.get("logprobs") or {}
+    return ch["text"], lp.get("tokens"), lp.get("token_logprobs")
+
+
+def scribbling_move(move):
+    """``block_copy.move_blocks`` that, after the move, overwrites the
+    vacated source blocks: a program that still read the old table would
+    read garbage there (9e)."""
+    def moved(kv, src, dst, bs):
+        move(kv, src, dst, bs)
+        gone = [b for b in src if b not in set(dst)]
+        for v in kv.values():
+            L, T, C = v.shape
+            v.view(L, T // bs, bs, C)[:, gone] = 77
+    return moved
+
+
+async def defrag_stream(core, prompt: list, threshold: float) -> tuple:
+    """9e on the server's loop: at ``threshold``, with prefix reuse off,
+    shatter the pool (every free block held, every other one released),
+    admit ``prompt``, release the rest once it is admitted, and serve it
+    to the end. Returns (tokens, logprobs, defrag passes of the run, the
+    request's block runs at admission)."""
+    import asyncio
+    import dataclasses as dc
+    from dynamo_tpu_torch.engine.core import FINISH_SENTINEL, EngineRequest
+    from dynamo_tpu_torch.engine.sampling import SlotSampling
+    while any(s is not None for s in core.slots):
+        await asyncio.sleep(0.01)
+    core.cfg = dc.replace(core.cfg, kv_defrag_threshold=threshold)
+    mgr = core.kv_manager
+    mgr.enable_reuse = False
+    passes0 = core.defrag_passes
+    pool = mgr.pool
+    pool.reset()
+    comb = pool.alloc_uninit(pool.free_uninit_blocks)
+    pool.release(comb[::2])
+    req = EngineRequest(rid=f"defrag-{threshold}", prompt=list(prompt),
+                        sampling=SlotSampling(temperature=0.0),
+                        max_new_tokens=48, eos_ids=frozenset())
+    await core.submit(req)
+    while req.slot < 0:
+        await asyncio.sleep(0)
+    runs = pool.count_runs(req.blocks)
+    pool.release(comb[1::2])
+    toks, lps = [], []
+    while True:
+        item, lp = await asyncio.wait_for(req.out_queue.get(), 300)
+        if item is FINISH_SENTINEL:
+            break
+        toks.append(item)
+        lps.append(lp)
+    mgr.enable_reuse = True
+    core.cfg = dc.replace(core.cfg, kv_defrag_threshold=0.5)
+    return toks, lps, core.defrag_passes - passes0, runs
+
+
+async def recorded_restore(core, prompt: list) -> list:
+    """9f on the server's loop: record a fresh prompt served cold, its
+    write-back, a device wipe and its host-tier restore."""
+    import asyncio
+    from dynamo_tpu_torch.engine.core import FINISH_SENTINEL, EngineRequest
+    from dynamo_tpu_torch.engine.replay import Recorder
+    from dynamo_tpu_torch.engine.sampling import SlotSampling
+    while any(s is not None for s in core.slots):
+        await asyncio.sleep(0.01)
+    await core.offload_engine.drain()
+    core.kv_manager.pool.reset()
+    core.recorder = Recorder()
+    try:
+        for rid in ("rec-cold", "rec-host"):
+            req = EngineRequest(rid=rid, prompt=list(prompt),
+                                sampling=SlotSampling(temperature=0.0),
+                                max_new_tokens=TIER_TOKENS,
+                                eos_ids=frozenset())
+            await core.submit(req)
+            while True:
+                item, _ = await asyncio.wait_for(req.out_queue.get(), 300)
+                if item is FINISH_SENTINEL:
+                    break
+            await core.offload_engine.drain()
+            core.kv_manager.pool.reset()
+        return core.recorder.events
+    finally:
+        core.recorder = None
+
+
+def on_loop(loop, coro, timeout: float = 600):
+    """Run ``coro`` on the server's event loop and wait for its result."""
+    import asyncio
+    return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+
+def itl_split(streams: list, windows: list) -> dict:
+    """Inter-token gaps of ``streams`` (each: wall start, the SSE result)
+    whose later token landed inside one of ``windows`` (wall t0, t1) or
+    outside all: p50 and max of each, in ms."""
+    import numpy as np
+    inside, outside = [], []
+    for start, res in streams:
+        t = [start + tm for c, tm in zip(res["chunks"], res["times"])
+             if c.get("choices") and c["choices"][0].get("text")]
+        for a, b in zip(t, t[1:]):
+            (inside if any(w0 <= b <= w1 for w0, w1 in windows)
+             else outside).append(1e3 * (b - a))
+    stat = lambda x: ({"n": len(x), "p50": float(np.median(x)),  # noqa: E731
+                       "max": float(max(x))} if x else {"n": 0})
+    return {"in_window": stat(inside), "outside": stat(outside)}
+
+
+def onboards_since(core, n0: int) -> list:
+    """The flight recorder's ``onboard`` records written since its
+    ``records_total`` was ``n0``, oldest first."""
+    new = core.flight.records_total - n0
+    ring = core.flight.dump()
+    if new > len(ring):
+        raise RuntimeError(f"the flight ring overran: {new} records since "
+                           f"the mark, {len(ring)} kept")
+    return [r for r in ring[len(ring) - new:] if r["kind"] == "onboard"]
+
+
+class TierRun:
+    """One tiered server's traffic helpers (9b-9f): its core, port and
+    loop, the served model name, and the prompts X and Y."""
+
+    def __init__(self, core, loop, port: int, name: str, cfg, seed: int):
+        import numpy as np
+        self.core, self.loop, self.port, self.name = core, loop, port, name
+        self.pool = core.kv_manager.pool
+        lo = 259
+        rng = np.random.default_rng(seed + 90)
+        self.mk = lambda n: rng.integers(lo, cfg.vocab_size,  # noqa: E731
+                                         size=n).tolist()
+        self.x = np.random.default_rng(seed + 91).integers(
+            lo, cfg.vocab_size, size=TIER_PROMPT).tolist()
+        self.y = np.random.default_rng(seed + 92).integers(
+            lo, cfg.vocab_size, size=TIER_PROMPT).tolist()
+        self.greedy = {"model": name, "temperature": 0,
+                       "nvext": {"ignore_eos": True}}
+        # the device hit of a repeated TIER_PROMPT: all its blocks but the
+        # last, which always recomputes
+        self.n_hit = TIER_PROMPT // KV_BLOCK - 1
+
+    def one(self, prompt, n=TIER_TOKENS) -> dict:
+        return http_completion(self.port, {**self.greedy, "logprobs": 1,
+                                           "prompt": prompt,
+                                           "max_tokens": n})
+
+    def tiered(self, prompt) -> tuple:
+        """Serve ``prompt``: its bits, the device blocks it hit and its
+        onboard's (host, disk) blocks, (0, 0) when it had none."""
+        hits0, n0 = self.pool.match_hits, self.core.flight.records_total
+        bits = completion_bits(self.one(prompt))
+        on = onboards_since(self.core, n0)
+        return (bits, self.pool.match_hits - hits0,
+                (on[0]["host_blocks"], on[0]["disk_blocks"]) if on
+                else (0, 0))
+
+    def churn(self, n: int) -> None:
+        """``n`` fresh 1000-token requests, 3 at a time, 8 tokens each."""
+        from concurrent.futures import ThreadPoolExecutor
+        prompts = [self.mk(TIER_CHURN) for _ in range(n)]
+        with ThreadPoolExecutor(3) as ex:
+            list(ex.map(lambda p: self.one(p, 8), prompts))
+
+    def twin(self, prompt, label: str) -> tuple:
+        """Serve ``prompt`` cold, then again from its device-resident
+        prefix: the second serving's bits, the reference of its restores."""
+        self.one(prompt)
+        bits, dev, _ = self.tiered(prompt)
+        if dev != self.n_hit:
+            raise RuntimeError(f"9b: {label}'s twin hit {dev} device "
+                               f"blocks, want {self.n_hit}")
+        return bits
+
+    def restore(self, prompt, twin, want_on: tuple, label: str) -> None:
+        bits, dev, on = self.tiered(prompt)
+        if bits != twin or on != want_on or dev:
+            raise RuntimeError(f"{label}: restored from {on} host/disk "
+                               f"blocks (want {want_on}) and {dev} device "
+                               f"blocks, bits equal to the device-hit "
+                               f"twin: {bits == twin} ({bits[0]!r} vs "
+                               f"{twin[0]!r})")
+
+
+def tier_traffic(run: TierRun, path: str, report: dict) -> None:
+    """9b, 9d and 9e on a tiered server (see TierRun)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dynamo_tpu_torch.llm.kv.blocks import TokenBlockSequence
+    core, pool = run.core, run.pool
+    disk = core.disk_store is not None
+    hits0 = pool.match_hits
+    # two conversations whose turns extend the last one: device hits
+    convs = [run.mk(TIER_TURNS[0]) for _ in range(2)]
+    for extra in TIER_TURNS[1:] + (0,):
+        for i in range(2):
+            run.one(convs[i], 8)
+            convs[i] = convs[i] + run.mk(extra)
+    report["conversations"] = {"device_hit_blocks": pool.match_hits - hits0}
+    if disk:
+        report["_x_twin"] = run.twin(run.x, "X")
+        run.churn(TIER_CHURN1)           # X leaves the device and the host
+        hashes = TokenBlockSequence(KV_BLOCK, run.x).sequence_hashes[
+            :run.n_hit]
+        t0 = time.monotonic()
+        while not all(core.disk_store.contains(h) for h in hashes):
+            if time.monotonic() - t0 > 120:
+                raise RuntimeError("9b: X's blocks never reached the disk "
+                                   f"(spill drops: "
+                                   f"{core.spill_engine.dropped_jobs_total})")
+            time.sleep(0.05)
+    y_twin = run.twin(run.y, "Y")
+    run.churn(TIER_CHURN2)               # Y leaves the device, not the host
+    # 9d: Y restored from the host while two other requests decode
+    streams = []
+
+    def decoder(p):
+        t = time.time()
+        streams.append((t, http_completion(run.port, {
+            **run.greedy, "prompt": p, "stream": True,
+            "max_tokens": TIER_DECODE_TOKENS})))
+    n0 = core.flight.records_total
+    decoded0 = core.total_decode_tokens
+    with ThreadPoolExecutor(2) as ex:
+        futs = [ex.submit(decoder, run.mk(64)) for _ in range(2)]
+        t0 = time.monotonic()
+        while core.total_decode_tokens - decoded0 < 32:
+            if time.monotonic() - t0 > 120:
+                raise RuntimeError("9d: the decoders never decoded")
+            time.sleep(0.01)
+        run.restore(run.y, y_twin, (run.n_hit, 0), f"9b {path} Y")
+        for f in futs:
+            f.result()
+    on = onboards_since(core, n0)[0]
+    window = (on["t_start"], on["t"])
+    inside = [r for r in core.flight.dump()
+              if r["kind"] in ("decode", "ragged")
+              and window[0] <= r["t"] <= window[1]]
+    report["overlap"] = {
+        "onboard_blocks": on["host_blocks"] + on["disk_blocks"],
+        "window_ms": 1e3 * (window[1] - window[0]),
+        "read_ms": on["read_ms"],
+        "h2d_ms": on["h2d_ms"],
+        "h2d_gb_s": on["h2d_bytes"] / on["h2d_copy_ms"] / 1e6,
+        "dispatches_in_window": len(inside),
+        "itl_ms": itl_split(streams, [window])}
+    if not inside:
+        raise RuntimeError(f"9d {path}: no decode dispatch inside the "
+                           f"onboard window")
+    if disk:
+        n0 = core.flight.records_total
+        run.restore(run.x, report["_x_twin"], (0, run.n_hit), "9b X")
+        last = onboards_since(core, n0)[-1]
+        report["disk_restore"] = {
+            "read_ms": last["read_ms"],
+            "h2d_gb_s": last["h2d_bytes"] / last["h2d_copy_ms"] / 1e6}
+    # 9e: the defrag pass against the same run with it off
+    dprompt = run.mk(600)
+    off = on_loop(run.loop, defrag_stream(core, dprompt, 0.0))
+    dfr = on_loop(run.loop, defrag_stream(core, dprompt, 0.5))
+    report["defrag"] = {"runs_at_admission": dfr[3], "passes": dfr[2],
+                        "passes_off": off[2],
+                        "moves_total": pool.defrag_moves_total}
+    if dfr[2] < 1 or off[2] or dfr[:2] != off[:2] or dfr[3] < 2:
+        raise RuntimeError(f"9e {path}: defrag passes {dfr[2]} (off: "
+                           f"{off[2]}), runs {dfr[3]}, streams equal: "
+                           f"{dfr[:2] == off[:2]}")
+    batches = core.offload_engine.transfers
+    m = core.metrics()
+    report["tiers"] = {
+        "host_onboards": core.host_onboards,
+        "disk_onboards": core.disk_onboards,
+        "device_hit_blocks": pool.match_hits,
+        "host_stored": m.host_stored_total,
+        "host_evicted": m.host_evicted_total,
+        "disk_stored": m.disk_stored_total,
+        "offload_dropped": m.offload_dropped_jobs_total,
+        "spill_dropped": m.disk_spill_dropped_total,
+        "d2h_batches": len(batches),
+        "d2h_gb_s": (sum(b for _n, b, _s, _c in batches)
+                     / sum(c for _n, _b, _s, c in batches) / 1e9),
+        "d2h_commit_ms_mean": 1e3 * sum(s for _n, _b, s, _c in batches)
+        / len(batches),
+        "arena_pin_s": core.kv_manager.host_pool.pin_s}
+    if not (core.host_onboards and pool.match_hits
+            and (core.disk_onboards or not disk)):
+        raise RuntimeError(f"9b {path}: tier hits {report['tiers']}")
+
+
+def tier_replay(run: TierRun, report: dict) -> None:
+    """9f: a recorded restore, replayed on the card. The replay builds
+    programs of its own, so it runs after the server's launch counts are
+    read."""
+    from dynamo_tpu_torch.engine import replay
+    events = on_loop(run.loop, recorded_restore(run.core, run.mk(300)))
+    out = replay.replay(run.core, events)
+    diffs = replay.compare_replay(events, out)
+    kinds = {e["ev"] for e in events}
+    restores = [e for e in events if e["ev"] == "hit_transfer"
+                and e.get("host_hit")]
+    report["replay"] = {"events": len(events),
+                        "kv_store": "kv_store" in kinds,
+                        "host_restores": len(restores),
+                        "diffs": len(diffs)}
+    if diffs or not restores or "kv_store" not in kinds:
+        raise RuntimeError(f"9f: replay {report['replay']}: {diffs[:3]}")
+
+
+def tier_server(cfg, seed: int, card: str, model_dir: str, path: str,
+                disk_dir: str, restart_of: Optional[dict] = None) -> tuple:
+    """One tiered server (9b, 9d-9f), or with ``restart_of`` (the report of
+    the server that wrote ``disk_dir``) its warm restart (9c): a new
+    engine on the same directory must serve X from disk with the bits its
+    twin had. The launch counts cover the traffic after the two requests
+    that capture the graphs and before 9f's replay. Returns (launch
+    counts, report)."""
+    import gc
+    import torch
+    from dynamo_tpu_torch.engine import core as core_mod
+    from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.launch import run as launcher
+    weights, kv_quant = SERVE_MODES["int4_kv8" if "int4" in path
+                                    else "bf16"]
+    disk = path == "tier_int4_kv8"
+    args = launcher.build_parser().parse_args(
+        ["in=http", "out=torch", "--model-path", model_dir,
+         "--random-weights", "--http-host", "127.0.0.1", "--http-port", "0",
+         "--max-model-len", str(MAX_MODEL_LEN), "--kv-block-size",
+         str(KV_BLOCK), "--num-kv-blocks", str(TIER_DEVICE_BLOCKS),
+         "--max-num-seqs", "8", "--device", "cuda", "--quantization",
+         weights, "--kv-quantization", kv_quant, "--host-kv-blocks",
+         str(TIER_HOST_BLOCKS)]
+        + (["--kv-disk-dir", disk_dir, "--kv-disk-blocks",
+            str(TIER_DISK_BLOCKS)] if disk else [])
+        + TIER_FLAGS[path])
+    launcher.parse_io(args.io)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    core = launcher.build_core(args)
+    report = {"bring_up": {"engine_s": time.monotonic() - t0}}
+    if disk:
+        report["bring_up"]["disk_restored_blocks"] = \
+            core.disk_store.restored_blocks
+    loop, stop_server = start_server(args, core)
+    run = TierRun(core, loop, args.http_port, launcher.model_name(args),
+                  cfg, seed)
+    stack = contextlib.ExitStack()
+    try:
+        # the graphs, captured before the counted traffic
+        for extra in ({"temperature": 0}, {"temperature": 0.7, "top_p": 0.9,
+                                           "seed": 2}):
+            http_completion(run.port, {**run.greedy, "prompt": run.mk(16),
+                                       "max_tokens": 4, **extra})
+        kernels.reset_launch_counts()
+        if restart_of is not None:
+            n0 = core.flight.records_total
+            run.restore(run.x, restart_of["_x_twin"], (0, run.n_hit),
+                        "9c warm restart X")
+            report["warm_x"] = {"disk_blocks": run.n_hit,
+                                "read_ms": onboards_since(core, n0)[-1][
+                                    "read_ms"]}
+        else:
+            stack.enter_context(swapped((core_mod, "move_blocks",
+                                         scribbling_move(
+                                             core_mod.move_blocks))))
+            tier_traffic(run, path, report)
+        launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+        if restart_of is None and core.cfg.ragged_dispatch:
+            tier_replay(run, report)
+    finally:
+        stack.close()
+        stop_server()
+    for k, v in report.items():
+        if not k.startswith("_"):
+            log(f"tier {path} {k} {json.dumps(v)} [{card}]")
+    log(f"serve {path}: launches {json.dumps(launches)}")
+    for k in PATH_KERNELS[path]:
+        if launches[k] <= 0:
+            raise RuntimeError(f"serve {path}: kernel {k} was never "
+                               f"launched")
+    if core.cfg.ragged_dispatch:
+        split = {k: launches[k] for k in SPLIT_ATTENTION if launches[k]}
+        if split:
+            raise RuntimeError(f"serve {path}: split-path attention "
+                               f"launched on the ragged path: {split}")
+    del core, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def tier_phase(cfg, dev, seed: int, card: str) -> dict:
+    """Phase 9: the round trips (9a), the two tiered servers (9b, 9d-9f)
+    and the warm restart of the first (9c). Returns their launch counts
+    and reports by path."""
+    import tempfile
+    with phase("9a"):
+        check_tier_round_trips(dev)
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="dtt-tier-") as tmp:
+        model_dir = os.path.join(tmp, "llama3-8b-random")
+        write_model_dir(model_dir, cfg)
+        disk_dir = os.path.join(tmp, "kv-disk")
+        for path in TIER_PATHS:
+            with phase(f"9 {path}"):
+                by_path[path] = tier_server(cfg, seed, card, model_dir, path,
+                                            disk_dir)
+            if path == "tier_int4_kv8":
+                with phase("9c"):
+                    tier_server(cfg, seed, card, model_dir, path, disk_dir,
+                                restart_of=by_path[path][1])
+    return by_path
+
+
 # ``--ab DIR``: phase 3's attention kernels (K1-K4 at the 8B shapes) and
 # phase 3m's latent kernels (K3-MLA and K4-MLA at V2-Lite's) of another
 # checkout of the repository at DIR (its build directory apart) and of
@@ -6417,8 +7001,14 @@ def main() -> int:
     compare_servers(card, by_path["ragged_int4_kv8"][1],
                     by_path["spec_ragged_int4_kv8"][1],
                     "spec_ragged_int4_kv8", "ragged_int4_kv8")
+
+    # 9. the KV tiers at the 8B width and depth: round trips of every pool
+    # row format, two tiered servers, the warm restart, the overlap of an
+    # onboard with decode, the defrag pass and a replayed restore
+    with phase("9"):
+        by_path.update(tier_phase(cfg, dev, seed, card))
     rest = [p for p in PATH_KERNELS if p not in LATER_PATHS] \
-        + list(CHAT_PATHS) + list(SPEC_PATHS)
+        + list(CHAT_PATHS) + list(SPEC_PATHS) + list(TIER_PATHS)
     for e in entries:
         mode = e.get("mode", "")
         if mode == SPEC_MODE_TAG:
@@ -6451,6 +7041,9 @@ def main() -> int:
         e["launches"] = by_path[path][0][e["name"]] if path else 0
         e["launches_path"] = path
         e["served_paths"] = served
+        # each serving path's own count (the first is ``launches``)
+        e["launches_by_path"] = {p: by_path[p][0][e["name"]]
+                                 for p in served}
     log(f"phases {json.dumps(PHASE_S)} [{card}]")
     print(card)
     print(json.dumps({"kernels": entries}))

@@ -535,7 +535,8 @@ class EngineConfig:
     over an sp mesh, sequence-parallel prefill of long cold prompts) and K
     decode steps per dispatch (optionally pipelined, with lane prefill), or
     ragged mixed prefill+decode dispatch; a paged
-    KV pool (bf16, or int8 rows with in-row scales) with prefix reuse;
+    KV pool (bf16, or int8 rows with in-row scales) with prefix reuse, a
+    host and a disk tier behind it and an idle defrag pass;
     weight-only int8/int4 quantization. Field names and defaults follow
     ``dynamo_tpu.engine.config.EngineConfig``; fields of paths this package
     does not implement are absent, so passing one raises ``TypeError``."""
@@ -545,6 +546,21 @@ class EngineConfig:
     num_kv_blocks: int = 512          # device KV pool size (blocks)
     max_num_seqs: int = 8             # decode batch slots
     enable_prefix_reuse: bool = True  # match prompt blocks against the pool
+    # host KV tier (llm/kv/offload.py; pinned host memory on the card):
+    # finished sequences' full blocks are written back there, and device
+    # misses cascade to it; 0 = off
+    host_kv_blocks: int = 0
+    # persistent disk KV tier (llm/kv/diskstore.py): a capacity-bounded
+    # content-addressed block store under kv_disk_dir, fed by host-tier
+    # evictions (write-behind) and flushed on stop; acknowledged blocks
+    # survive kill -9 and warm-start the next engine on the same dir.
+    # Needs both fields and host_kv_blocks > 0
+    kv_disk_dir: str = ""
+    kv_disk_blocks: int = 0           # disk tier capacity; 0 = off
+    # JAX's simulated device→host link for the write-back (GB/s). The
+    # card's copies are real pinned copies: only 0 (the real link) is
+    # accepted
+    offload_simulated_gbps: float = 0.0
     prefill_buckets: List[int] = dataclasses.field(
         default_factory=lambda: [128, 256, 512, 1024, 2048])
     prefill_chunk: int = 0            # 0 = whole-prompt prefill
@@ -631,6 +647,19 @@ class EngineConfig:
     spec_ngram_max: int = 4
     spec_ngram_min: int = 1
     spec_window: int = 1024
+    # JAX's switch for the coalesced attention DMA path. The port's
+    # allocator always packs new blocks into runs and has no such path:
+    # only True is accepted
+    kv_contig_alloc: bool = True
+    # idle defrag: when nothing waits and no dispatch is un-harvested, and
+    # the free-run fragmentation (pool.frag_ratio: 1 - largest_run/free)
+    # or a resident sequence's exceeds this, the worst-fragmented
+    # sequence's own blocks move into a free run on the device
+    # (block_copy.move_blocks, in place) and pool.relocate rebinds their
+    # hashes. 0 disables; skipped while a replay recorder is attached
+    kv_defrag_threshold: float = 0.5
+    # the most blocks one defrag pass moves
+    kv_defrag_max_blocks: int = 64
 
     @staticmethod
     def auto_kv_block_size(model_cfg: "ModelConfig",
@@ -666,6 +695,22 @@ class EngineConfig:
                 "pipeline via the chained-sample merge")
         if self.spec_k < 0:
             raise ValueError("spec_k must be >= 0 (0 disables speculation)")
+        if self.offload_simulated_gbps != 0.0 or not self.kv_contig_alloc:
+            raise ValueError(
+                "offload_simulated_gbps and kv_contig_alloc are not ported: "
+                "only their defaults (0.0, True) are accepted")
+        if not 0.0 <= self.kv_defrag_threshold <= 1.0:
+            raise ValueError(
+                "kv_defrag_threshold must be in [0, 1] (a frag_ratio "
+                "bound; 0 disables the defrag pass)")
+        if (self.kv_disk_blocks > 0) != bool(self.kv_disk_dir):
+            raise ValueError(
+                "the disk KV tier needs BOTH kv_disk_dir and "
+                "kv_disk_blocks > 0 (set together, or neither)")
+        if self.kv_disk_blocks > 0 and self.host_kv_blocks <= 0:
+            raise ValueError(
+                "the disk KV tier sits under the host tier (spill feeds "
+                "on host evictions) — set host_kv_blocks > 0 too")
         if self.ragged_dispatch:
             if self.ragged_max_seq_rows <= 0:
                 raise ValueError("ragged_max_seq_rows must be > 0")

@@ -45,6 +45,20 @@ slot drafted, the step is plain decode. Under ``ragged_dispatch`` the
 drafts ride the ragged batch as spec spans of the row-sampled ragged
 program. A pipelined dispatch drains before drafting.
 
+KV tiers (``EngineConfig.host_kv_blocks``, ``kv_disk_dir`` /
+``kv_disk_blocks``): a finished request's full blocks are written back to a
+host pool (``llm/kv/offload.py``; pinned memory on the card) and host
+evictions spill to a durable disk store (``llm/kv/diskstore.py``) that the
+next engine on the same directory warm-starts from. An admission whose
+prefix misses the device pool but hits a tier reserves its slot and
+onboards off the loop: a thread reads the host and disk rows into pinned
+memory and copies them to the card on the tier stream; the loop then
+scatters them in place (``engine/block_copy.py``) and admits, while the
+other slots keep decoding. An idle defrag pass (``kv_defrag_threshold``)
+moves the worst-fragmented sequence's own blocks into a free run. Every
+tier and defrag write into the pool is in place: the programs' CUDA graphs
+hold the pool tensors' addresses.
+
 The engine keeps a flight recorder (``engine/flight_recorder.py``, one
 record a dispatch, read through ``GET /debug``) and, when
 ``self.recorder`` is set (``engine/replay.py`` ``Recorder``), records
@@ -64,9 +78,13 @@ import numpy as np
 import torch
 
 from ..llm.kv.blocks import TokenBlockSequence
+from ..llm.kv.diskstore import DiskKvStore, DiskSpillEngine, SpillJob
+from ..llm.kv.offload import KvOffloadEngine, OffloadJob, make_host_pool
 from ..llm.kv.pool import KvBlockManager
 from ..llm.protocols.common import FinishReason
 from ..parallel.sharding import replicate_params
+from .block_copy import (move_blocks, scatter_transfer, start_h2d,
+                         wire_kv_heads)
 from .config import EngineConfig, ModelConfig
 from .device import resolve_device
 from .flight_recorder import FlightRecorder, register_recorder
@@ -126,6 +144,9 @@ class EngineRequest:
     # EngineConfig.spec_k
     spec_k: int = -1
     enqueue_time: float = dataclasses.field(default_factory=time.monotonic)
+    # re-admitted after a host / disk tier read failed: skip the tier
+    # cascade and recompute the prefix
+    cold_admission: bool = False
 
     @property
     def cancelled(self) -> bool:
@@ -166,6 +187,26 @@ class ForwardPassMetrics:
     spec_accepted_total: int = 0
     spec_acceptance_rate: float = 0.0
     spec_accepted_per_step: float = 0.0
+    # the device pool's layout: free-run fragmentation, maximal free runs,
+    # adjacency delivered by allocations, blocks moved by defrag
+    kv_frag_ratio: float = 0.0
+    kv_contig_runs: int = 0
+    kv_contiguity_ratio: float = 0.0
+    kv_defrag_moves_total: int = 0
+    # the host tier and its write-back pump
+    host_stored_total: int = 0
+    host_evicted_total: int = 0
+    host_hit_rate: float = 0.0
+    offload_dropped_jobs_total: int = 0
+    # the disk tier and its spill pump
+    disk_used_blocks: int = 0
+    disk_capacity_blocks: int = 0
+    disk_stored_total: int = 0
+    disk_evicted_total: int = 0
+    disk_hit_rate: float = 0.0
+    disk_bytes_used: int = 0
+    disk_spill_dropped_total: int = 0
+    disk_spill_shed_total: int = 0
 
 
 _FINISH = object()  # queue sentinel
@@ -312,9 +353,47 @@ class EngineCore:
         self.kv = self.model_mod.init_kv_cache(
             model_cfg, engine_cfg.num_kv_blocks, engine_cfg.kv_block_size,
             self.device, self.dtype, quantization=engine_cfg.kv_quantization)
+        # the KV tiers: a host pool behind the device pool (pinned on the
+        # card, allocated at its first store) and a disk store under it,
+        # fed by host evictions; on the card their copies run on a stream
+        # of their own
+        self._tier_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        self._wire_heads = wire_kv_heads(model_cfg,
+                                         engine_cfg.kv_quantization)
+        host_pool = None
+        self.offload_engine = None
+        self.disk_store = None
+        self.spill_engine = None
+        self._pending_spills: List[int] = []
+        if engine_cfg.host_kv_blocks > 0:
+            pool_t = next(iter(self.kv.values()))
+            host_pool = make_host_pool(
+                engine_cfg.host_kv_blocks, model_cfg,
+                engine_cfg.kv_block_size, engine_cfg.kv_quantization,
+                int(pool_t.shape[-1]), pool_t.dtype,
+                pin_memory=self.device.type == "cuda")
+        if engine_cfg.kv_disk_blocks > 0:
+            self.disk_store = DiskKvStore(
+                engine_cfg.kv_disk_dir, engine_cfg.kv_disk_blocks,
+                expect_block_size=engine_cfg.kv_block_size)
+            self.spill_engine = DiskSpillEngine(
+                self.disk_store, on_commit=self._emit_kv_disk_store)
+            host_pool.on_evict = self._on_host_evict
         self.kv_manager = KvBlockManager(
             engine_cfg.num_kv_blocks, engine_cfg.kv_block_size,
-            enable_reuse=engine_cfg.enable_prefix_reuse)
+            enable_reuse=engine_cfg.enable_prefix_reuse,
+            host_pool=host_pool, disk_store=self.disk_store)
+        if host_pool is not None:
+            self.offload_engine = KvOffloadEngine(
+                host_pool, engine_cfg.kv_block_size,
+                get_kv=lambda: self.kv, num_heads=self._wire_heads,
+                release_holds=self.kv_manager.pool.release,
+                on_store=self._emit_kv_store, stream=self._tier_stream)
+        # tier onboards: (req, slot, plan, h2d Transfer or None) whose
+        # off-loop read finished, and the tasks still reading
+        self._onboards: List[tuple] = []
+        self._onboard_tasks: set = set()
         self.M = engine_cfg.max_blocks_per_seq
         self.B = engine_cfg.max_num_seqs
         self.slots: List[Optional[EngineRequest]] = [None] * self.B
@@ -398,6 +477,14 @@ class EngineCore:
         self.ragged_dispatches_saved = 0
         self.ragged_chained_dispatches = 0
         self.ragged_spec_rows = 0      # draft rows that rode ragged spans
+        # KV tiers and defrag
+        self.host_onboards = 0         # admissions onboarded from a tier
+        self.disk_onboards = 0         # ... of which read from disk
+        self.disk_onboarded_blocks = 0
+        self.onboard_cold_retries = 0  # re-admitted cold after a failed read
+        self.defrag_passes = 0
+        self._step = 0                 # decode steps dispatched (JAX's count)
+        self._defrag_last_step = -(1 << 30)
         # speculation stats
         self.spec_dispatches = 0       # dispatches that verified drafts
         self.spec_drafted_tokens = 0   # drafts scored
@@ -441,12 +528,59 @@ class EngineCore:
             self._loop_task = None
         if self._admissions:              # finish deferred admissions
             self._complete_admissions()
+        if self._onboard_tasks:           # in-flight tier reads
+            for t in list(self._onboard_tasks):
+                t.cancel()
+            await asyncio.gather(*list(self._onboard_tasks),
+                                 return_exceptions=True)
+        if self._onboards:                # release reserved onboards
+            for req, slot, plan, _h2d in self._onboards:
+                self.slots[slot] = None
+                self.kv_manager.pool.release(plan.all_blocks)
+                self._unpin_plan(plan)
+                self._finish_request(req, FinishReason.CANCELLED)
+            self._onboards = []
         if self._pending is not None:     # drain the pipelined dispatch
             self._harvest(self._pending)
             self._pending = None
         if self._ragged_pending is not None:  # the ragged form of same
             prev, self._ragged_pending = self._ragged_pending, None
             self._harvest_ragged(prev)
+        if self.offload_engine is not None:
+            await self.offload_engine.stop()
+        if self.spill_engine is not None:
+            # graceful persist: everything still host-resident goes to
+            # disk, so the next engine on kv_disk_dir warm-starts with the
+            # whole working set (kill -9 keeps what the pump acknowledged)
+            try:
+                await asyncio.wait_for(self.flush_host_to_disk(),
+                                       timeout=120)
+            except asyncio.TimeoutError:
+                logger.warning("host→disk flush timed out on stop")
+            await self.spill_engine.stop()
+            self.disk_store.close()
+
+    async def flush_host_to_disk(self) -> int:
+        """Persist every host-resident block to the disk tier now and wait
+        for the writes to be acknowledged (also run on ``stop``). Returns
+        the number of blocks newly offered to the spill queue. Where the
+        host holds more than the queue, the flush waits for room rather
+        than drop (the JAX engine's flush drops past the queue)."""
+        if self.spill_engine is None:
+            return 0
+        host = self.kv_manager.host_pool
+        n = 0
+        for h, th, ph, slot in host.resident_entries():
+            if self.disk_store.contains(h):
+                continue
+            if not self.spill_engine.room():
+                await self.spill_engine.drain()
+            if self.spill_engine.offer(SpillJob(
+                    seq_hash=h, tokens_hash=th, parent_hash=ph,
+                    values=host.row_copy(slot))):
+                n += 1
+        await self.spill_engine.drain()
+        return n
 
     async def submit(self, req: EngineRequest) -> None:
         self.ensure_started()
@@ -468,6 +602,30 @@ class EngineCore:
                 ragged_dispatches_saved_total=self.ragged_dispatches_saved,
                 ragged_spec_rows_total=self.ragged_spec_rows)
         drafted, accepted = self.spec_drafted_tokens, self.spec_accepted_tokens
+        pool = self.kv_manager.pool
+        tiers = dict(kv_frag_ratio=pool.frag_ratio(),
+                     kv_contig_runs=pool.contig_runs,
+                     kv_contiguity_ratio=pool.contiguity_ratio(),
+                     kv_defrag_moves_total=pool.defrag_moves_total)
+        host = self.kv_manager.host_pool
+        if host is not None:
+            tiers.update(host_stored_total=host.stored_blocks_total,
+                         host_evicted_total=host.evicted_blocks_total,
+                         host_hit_rate=host.hit_rate(),
+                         offload_dropped_jobs_total=self
+                         .offload_engine.dropped_jobs_total)
+        disk = self.disk_store
+        if disk is not None:
+            tiers.update(disk_used_blocks=disk.used_blocks,
+                         disk_capacity_blocks=disk.capacity,
+                         disk_stored_total=disk.stored_blocks_total,
+                         disk_evicted_total=disk.evicted_blocks_total,
+                         disk_hit_rate=disk.hit_rate(),
+                         disk_bytes_used=disk.bytes_used,
+                         disk_spill_dropped_total=self
+                         .spill_engine.dropped_jobs_total,
+                         disk_spill_shed_total=self
+                         .spill_engine.shed_writes_total)
         return ForwardPassMetrics(
             request_active_slots=sum(1 for s in self.slots if s is not None),
             request_total_slots=self.B,
@@ -487,7 +645,7 @@ class EngineCore:
             spec_acceptance_rate=accepted / drafted if drafted else 0.0,
             spec_accepted_per_step=(accepted / self.spec_dispatches
                                     if self.spec_dispatches else 0.0),
-            **ragged)
+            **ragged, **tiers)
 
     # ------------------------------------------------------------ scheduler
     def _free_slot_index(self) -> int:
@@ -518,6 +676,10 @@ class EngineCore:
         self._pending = None
         self._ragged_pending = None
         self._admissions = []
+        for req, _slot, plan, _h2d in self._onboards:
+            self.kv_manager.pool.release(plan.all_blocks)
+            self._unpin_plan(plan)
+        self._onboards = []
         for req in list(self._inflight_reqs.values()):
             req.out_queue.put_nowait((_FINISH, FinishReason.ERROR))
         self._inflight_reqs.clear()
@@ -534,6 +696,12 @@ class EngineCore:
                     "on %s", self.B, self.cfg.num_kv_blocks,
                     self.cfg.kv_block_size, self.device)
         while not self._stopping:
+            # 0) idle defrag: only when nothing waits and no dispatch is
+            # un-harvested (the pass puts one device copy ahead of the
+            # next dispatch)
+            if (self.waiting.empty() and self._pending is None
+                    and self._ragged_pending is None):
+                self._maybe_defrag()
             progressed = self._sweep_cancelled()
             # 1) admit waiting work into free slots
             while not self.waiting.empty():
@@ -573,6 +741,10 @@ class EngineCore:
             if self._admissions:
                 self._complete_admissions()
                 progressed = True
+            # 4) tier onboards whose off-loop read has finished
+            if self._onboards:
+                self._complete_onboards()
+                progressed = True
             if not progressed:
                 self._work_event.clear()
                 try:
@@ -608,9 +780,73 @@ class EngineCore:
                     progressed = True
         return progressed
 
+    # --------------------------------------------------------------- defrag
+    def _maybe_defrag(self) -> bool:
+        """Idle compaction (the JAX engine's pass): when fragmentation
+        exceeds ``kv_defrag_threshold``, move the worst-fragmented resident
+        sequence's movable block suffix into a free run: a device copy in
+        place (``block_copy.move_blocks``) and ``pool.relocate``, so hash
+        registrations and refcounts follow the blocks. Only blocks owned
+        by ONE sequence move, targets come from the uninit free space only
+        (no cached prefix is evicted), the pass is skipped while a replay
+        recorder is attached, and it runs at most once per 64 decode
+        steps. The block table is uploaded at every dispatch, so rewriting
+        the slot's mirror row is enough for the graphed programs."""
+        cfg = self.cfg
+        if (cfg.kv_defrag_threshold <= 0
+                or self.recorder is not None
+                or self._step - self._defrag_last_step < 64):
+            return False
+        pool = self.kv_manager.pool
+        thr = cfg.kv_defrag_threshold
+        pool_frag = pool.frag_ratio()
+        best = None   # (runs, seq_frag, slot, suffix_start, suffix)
+        for i, req in enumerate(self.slots):
+            if req is None or not req.ready or len(req.blocks) < 2:
+                continue
+            rcs = pool.refcounts(req.blocks)
+            j = len(req.blocks)
+            while j > 0 and rcs[j - 1] == 1:
+                j -= 1
+            suffix = req.blocks[j:][:cfg.kv_defrag_max_blocks]
+            if len(suffix) < 2:
+                continue
+            runs = pool.count_runs(suffix)
+            if runs < 2:
+                continue
+            seq_frag = (runs - 1) / (len(suffix) - 1)
+            if pool_frag <= thr and seq_frag <= thr:
+                continue
+            if best is None or runs > best[0]:
+                best = (runs, seq_frag, i, j, suffix)
+        if best is None or pool.free_uninit_blocks < len(best[4]):
+            return False
+        runs, _seq_frag, slot, j, old = best
+        new = pool.alloc_uninit(len(old))
+        if new is None:
+            return False
+        if pool.count_runs(new) >= runs:
+            pool.release(new)       # no layout win — don't thrash
+            return False
+        with torch.inference_mode():
+            move_blocks(self.kv, old, new, cfg.kv_block_size)
+        pool.relocate(zip(old, new))
+        req = self.slots[slot]
+        req.blocks[j:j + len(old)] = new
+        self._block_tables[slot, :] = 0
+        self._block_tables[slot, :len(req.blocks)] = req.blocks
+        self.defrag_passes += 1
+        self._defrag_last_step = self._step
+        self.flight.record("defrag", moved=len(old), runs_before=runs)
+        logger.debug("defrag: slot %d moved %d blocks (%d runs → %d), "
+                     "pool frag %.2f", slot, len(old), runs,
+                     pool.count_runs(new), pool_frag)
+        return True
+
     # ---------------------------------------------------------------- admit
     def _try_admit(self, req: EngineRequest, slot: int) -> bool:
-        plan = self.kv_manager.prepare_prefill(req.prompt, seq=req.seq)
+        plan = self.kv_manager.prepare_prefill(req.prompt, seq=req.seq,
+                                               cold=req.cold_admission)
         if plan is None:
             return False
         if len(plan.all_blocks) > self.M:
@@ -618,8 +854,165 @@ class EngineCore:
             self.kv_manager.abort_plan(plan)
             self._finish_request(req, FinishReason.LENGTH)
             return True
+        if plan.host_slots or plan.disk_hashes:
+            # host / disk tier hits: the reads run off the loop, and the
+            # admission completes once they have (the batch keeps
+            # decoding meanwhile)
+            self._start_onboard(req, slot, plan)
+            return True
         self._admit_with_plan(req, slot, plan)
         return True
+
+    def _unpin_plan(self, plan) -> None:
+        """Release the tier pins an onboard held: its host slots (pinned
+        at the onboard's start) and its disk hashes (pinned at the
+        match)."""
+        if self.kv_manager.host_pool is not None:
+            self.kv_manager.host_pool.unpin(plan.host_slots)
+        if plan.disk_hashes and self.disk_store is not None:
+            self.disk_store.unpin(plan.disk_hashes)
+
+    def _read_tier_rows(self, plan) -> dict:
+        """The plan's host rows, then its disk rows, ``{key: [n, L, H, bs,
+        D]}`` in one staging buffer per key (pinned on the card). Runs off
+        the loop: the host slots and disk hashes are pinned."""
+        host = self.kv_manager.host_pool
+        nh = len(plan.host_slots)
+        disk_blocks = [self.disk_store.read_block(h)
+                       for h in plan.disk_hashes]
+        template = ({k: a[0] for k, a in host._arena.items()} if nh
+                    else disk_blocks[0])
+        n = nh + len(disk_blocks)
+        pin = self.device.type == "cuda"
+        rows = {k: torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                               pin_memory=pin)
+                for k, v in template.items()}
+        if nh:
+            host.fetch_rows(plan.host_slots,
+                            out={k: v[:nh] for k, v in rows.items()})
+        for i, b in enumerate(disk_blocks):
+            for k, v in b.items():
+                rows[k][nh + i].copy_(v)
+        return rows
+
+    def _start_onboard(self, req: EngineRequest, slot: int, plan) -> None:
+        """Reserve the slot and read the plan's host and disk rows off the
+        loop: a thread fills a pinned staging buffer and copies it to the
+        card on the tier stream (waiting for the copy there, not on the
+        loop); the loop's onboard step then scatters and admits. The host
+        slots are pinned here, the disk hashes were pinned at the match;
+        both unpin in _complete_onboards, after the copy has run.
+
+        The flight recorder's ``onboard`` record, written when the read
+        ends, carries its window: ``t_start`` (the reservation) to ``t``,
+        the read's and the host→device copy's milliseconds (``h2d_copy_ms``
+        the copy's own on the card) and the bytes copied."""
+        req.slot = slot
+        req.ready = False
+        self.slots[slot] = req            # reserve (skipped by dispatch)
+        self.host_onboards += 1
+        if plan.disk_hashes:
+            self.disk_onboards += 1
+            self.disk_onboarded_blocks += len(plan.disk_hashes)
+        self.kv_manager.host_pool.pin(plan.host_slots)
+        t_start = time.time()
+        timing = {}
+
+        def prep():
+            t0 = time.monotonic()
+            rows = self._read_tier_rows(plan)
+            t1 = time.monotonic()
+            h2d = start_h2d(rows, self.device, stream=self._tier_stream)
+            h2d.wait()
+            copy_s = h2d.copy_s()
+            timing.update(
+                read_ms=round(1e3 * (t1 - t0), 3),
+                h2d_ms=round(1e3 * (time.monotonic() - t1), 3),
+                h2d_copy_ms=None if copy_s is None else 1e3 * copy_s,
+                h2d_bytes=h2d.nbytes)
+            return h2d
+
+        async def prepare() -> None:
+            h2d = None
+            t0 = time.monotonic()
+            try:
+                h2d = await asyncio.to_thread(prep)
+            except asyncio.CancelledError:
+                raise      # stop(): the finally records the dead onboard
+            except Exception:  # noqa: BLE001
+                logger.exception("tier onboard read failed for %s", req.rid)
+            finally:
+                self.flight.record(
+                    "onboard", rid=req.rid, host_blocks=len(plan.host_slots),
+                    disk_blocks=len(plan.disk_hashes), t_start=t_start,
+                    total_ms=round(1e3 * (time.monotonic() - t0), 3),
+                    **timing)
+                self._onboards.append((req, slot, plan, h2d))
+                self._work_event.set()
+
+        task = asyncio.get_running_loop().create_task(
+            prepare(), name=f"kv-onboard-{req.rid}")
+        self._onboard_tasks.add(task)
+        task.add_done_callback(self._onboard_tasks.discard)
+
+    def _complete_onboards(self) -> None:
+        pending, self._onboards = self._onboards, []
+        for req, slot, plan, h2d in pending:
+            self.slots[slot] = None       # _admit_with_plan re-reserves
+            try:
+                if req.cancelled or h2d is None:
+                    self.kv_manager.pool.release(plan.all_blocks)
+                    if req.cancelled:
+                        self._finish_request(req, FinishReason.CANCELLED)
+                    elif not req.cold_admission:
+                        # a tier read failed (a dead disk, a torn file):
+                        # re-admit COLD, skipping the tier cascade — a
+                        # broken cache tier degrades to recompute, never to
+                        # a failed request
+                        self.onboard_cold_retries += 1
+                        req.cold_admission = True
+                        req.slot = -1
+                        req.ready = True
+                        logger.warning("onboard read failed for %s — "
+                                       "retrying as a cold admission",
+                                       req.rid)
+                        self.waiting.put_nowait(req)
+                        self._work_event.set()
+                    else:
+                        self._finish_request(req, FinishReason.ERROR)
+                    continue
+                self._admit_with_plan(req, slot, plan, h2d)
+            finally:
+                # the host→device copy has run (the read thread waited for
+                # it): the tier rows may go now
+                self._unpin_plan(plan)
+
+    def _emit_kv_store(self, items: list) -> None:
+        """Offload-pump commit hook → the recorder: a mirror gathers the
+        same device blocks from its own pool and applies these literal
+        placements (``replay.exec_kv_store_event``). ``spills`` lists the
+        evicted hashes this batch handed to the disk spill queue."""
+        spills, self._pending_spills = self._pending_spills, []
+        if self.recorder is not None:
+            self.recorder.rec("kv_store", items=items, spills=spills)
+
+    def _on_host_evict(self, seq_hash: int, tokens_hash, parent_hash,
+                       values: dict) -> None:
+        """Host-pool eviction hook (on the loop, inside the offload pump's
+        store, with a fresh copy of the arena row): offer the block to the
+        disk spill queue — write-behind, never stalling the loop."""
+        accepted = self.spill_engine.offer(SpillJob(
+            seq_hash=seq_hash, tokens_hash=tokens_hash,
+            parent_hash=parent_hash, values=values))
+        if accepted:
+            self._pending_spills.append(seq_hash)
+
+    def _emit_kv_disk_store(self, items: list) -> None:
+        """Spill-pump commit hook: [(hash, tokens_hash, parent, evicted)]
+        a durably acknowledged put, to the recorder (a mirror applies the
+        literal placements, ``replay.exec_kv_disk_store_event``)."""
+        if self.recorder is not None:
+            self.recorder.rec("kv_disk_store", items=items)
 
     def _sample_device(self, logits: torch.Tensor,
                        reqs: List[Optional[EngineRequest]]) -> tuple:
@@ -649,21 +1042,48 @@ class EngineCore:
             top_p=req.sampling.top_p)
         return pf
 
-    def _admit_with_plan(self, req: EngineRequest, slot: int, plan) -> None:
+    def _admit_with_plan(self, req: EngineRequest, slot: int, plan,
+                         onboard=None) -> None:
         n_prompt = len(req.prompt)
         t0 = time.monotonic()
         req.slot = slot
         req.blocks = plan.all_blocks
         req.seq = plan.seq
-        req.prefix_hit_tokens = plan.hit_tokens
-        n_already = len(plan.hit_blocks)
+        n_host = len(plan.host_slots)
+        n_onboard = n_host + len(plan.disk_hashes)
+        if n_onboard:
+            # tier hits: scatter the onboarded rows (on the card already,
+            # ``onboard``) into their device blocks in place, on the
+            # compute stream after the copy, before the prefill
+            targets = plan.new_blocks[:n_onboard]
+            with torch.inference_mode():
+                scatter_transfer(self.kv, targets, onboard,
+                                 self.cfg.kv_block_size)
+            # the onboarded blocks now hold valid registered content
+            n_dev = len(plan.hit_blocks)
+            for i, bid in enumerate(targets):
+                j = n_dev + i
+                parent = plan.seq.sequence_hashes[j - 1] if j > 0 else None
+                self.kv_manager.pool.register(
+                    bid, plan.seq.sequence_hashes[j],
+                    plan.seq.block_hashes[j], parent)
+        req.prefix_hit_tokens = (plan.hit_tokens + plan.host_hit_tokens
+                                 + plan.disk_hit_tokens)
+        n_already = len(plan.hit_blocks) + n_onboard
         suffix_len = n_prompt - req.prefix_hit_tokens
         if self.recorder is not None and req.prefix_hit_tokens > 0:
             # before the prefill's record: read rights over the shared
-            # prefix (a device hit: the port has no host or disk tier)
-            self.recorder.rec("hit_transfer", rid=req.rid,
-                              hit=req.prefix_hit_tokens, host_hit=0,
-                              disk_hit=0, blocks=list(plan.all_blocks))
+            # prefix, and for a tier hit the slots / hashes and targets a
+            # mirror restores from (replay.exec_host_restore_event)
+            n_hd = n_onboard
+            self.recorder.rec(
+                "hit_transfer", rid=req.rid, hit=req.prefix_hit_tokens,
+                host_hit=plan.host_hit_tokens, disk_hit=plan.disk_hit_tokens,
+                blocks=list(plan.all_blocks),
+                host_slots=list(plan.host_slots),
+                host_targets=list(plan.new_blocks[:n_host]),
+                disk_hashes=list(plan.disk_hashes),
+                disk_targets=list(plan.new_blocks[n_host:n_hd]))
         if self.cfg.ragged_dispatch and suffix_len > 0:
             # ragged serving: every admission rides the ragged batch as a
             # prefill lane — no prefill dispatch of its own
@@ -754,17 +1174,21 @@ class EngineCore:
         self._block_tables[slot, :] = 0
         self._block_tables[slot, :len(req.blocks)] = req.blocks
         self._set_slot_sampling(slot, req)
-        logger.debug("admitted %s into slot %d (prompt=%d, hit=%d, sp=%s, "
-                     "%.1fms)", req.rid, slot, n_prompt, plan.hit_tokens,
-                     use_sp, 1e3 * (time.monotonic() - t0))
+        logger.debug("admitted %s into slot %d (prompt=%d, hit=%d+%dhost+"
+                     "%ddisk, sp=%s, %.1fms)", req.rid, slot, n_prompt,
+                     plan.hit_tokens, plan.host_hit_tokens,
+                     plan.disk_hit_tokens, use_sp,
+                     1e3 * (time.monotonic() - t0))
         now = time.monotonic()
-        # the JAX record's host / disk / remote hit fields are left out:
-        # the port has no KV tiers (ROADMAP A6)
+        # the JAX record's remote hit field is left out (the G4 tier is
+        # ROADMAP A7)
         self.flight.record(
             "prefill", rid=req.rid, prompt=n_prompt,
             planned_tokens=suffix_len,
             batch_fill=sum(1 for s in self.slots if s is not None),
-            hit_device=plan.hit_tokens, host_ms=round(1e3 * (now - t0), 3),
+            hit_device=plan.hit_tokens, hit_host=plan.host_hit_tokens,
+            hit_disk=plan.disk_hit_tokens,
+            host_ms=round(1e3 * (now - t0), 3),
             queue_wait_ms=round(1e3 * (t0 - req.enqueue_time), 3))
         if req.ready:
             self._emit(req, tok, logprob)
@@ -1090,6 +1514,7 @@ class EngineCore:
             inputs["chain_mask"], inputs["srows"] = mask, srows
             prev = chain["dispatch"].toks
             self.ragged_chained_dispatches += 1
+        self._step += 1
         did = None
         if self.recorder is not None:
             did = self.recorder.next_dispatch_id()
@@ -1277,6 +1702,7 @@ class EngineCore:
                 self._positions[i] = s.pos
                 steps[i] = s.key_step
         inputs = self._dispatch_inputs(steps)
+        self._step += 1
         did = self._rec_dispatch(1, inputs)
         with torch.inference_mode():
             dispatch = self.program.dispatch(1, self._variant(), inputs)
@@ -1487,6 +1913,7 @@ class EngineCore:
                     planned[k, i] = s.lane_prompt[p]
                     pmask[k, i] = True
         inputs = self._dispatch_inputs(steps, planned, pmask, mask)
+        self._step += K
         did = self._rec_dispatch(K, inputs,
                                  chained_from if chain is not None else None)
         with torch.inference_mode():
@@ -1619,6 +2046,7 @@ class EngineCore:
                   "seeds": self._seeds, "steps0": steps,
                   "temperature": self._samp["temperature"],
                   "top_k": self._samp["top_k"], "top_p": self._samp["top_p"]}
+        self._step += 1
         did = None
         if self.recorder is not None:
             did = self.recorder.next_dispatch_id()
@@ -1767,6 +2195,23 @@ class EngineCore:
         if req.slot >= 0 and self.slots[req.slot] is req:
             self.slots[req.slot] = None
             self._block_tables[req.slot, :] = 0
+        # write the registered prefix blocks back to the host tier before
+        # the device copies can be evicted; the extra hold keeps them
+        # until the pump's batch has committed (the pump releases it)
+        if (self.offload_engine is not None and req.registered_blocks > 0
+                and req.seq is not None):
+            n = req.registered_blocks
+            pinned = req.blocks[:n]
+            self.kv_manager.pool.hold(pinned)
+            try:
+                self.offload_engine.enqueue(OffloadJob(
+                    block_ids=list(pinned),
+                    seq_hashes=list(req.seq.sequence_hashes[:n]),
+                    tokens_hashes=list(req.seq.block_hashes[:n])))
+            except Exception:
+                # a failed enqueue must not strand the extra hold
+                self.kv_manager.pool.release(pinned)
+                raise
         if self.recorder is not None and req.blocks:
             self.recorder.rec("release", rid=req.rid,
                               blocks=list(req.blocks))

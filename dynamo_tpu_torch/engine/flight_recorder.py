@@ -3,8 +3,9 @@ event-loop lag probe, read through the HTTP service's ``GET /debug``.
 
 Counterpart of ``dynamo_tpu.engine.flight_recorder``. The engine core calls
 ``record(kind, **fields)`` from its loop (append-only, scalar fields) for
-every admission prefill, decode dispatch, ragged dispatch, verify dispatch
-and preemption; ``dump()`` returns the ring, newest last. A process-wide
+every admission prefill (with its device, host and disk hit tokens),
+decode dispatch, ragged dispatch, verify dispatch, preemption, KV-tier
+onboard and defrag pass; ``dump()`` returns the ring, newest last. A process-wide
 weak registry lets ``/debug`` list every live engine's recorder.
 
 The ``llmctl trace dump`` plumbing of the JAX module (``trace/`` keys and

@@ -25,10 +25,16 @@ Event kinds and fields are the JAX engine's, so the JAX package's own
 admissions (whole, chunked, lane), ``prefill`` and ``prefill_sp``, the
 split K-step ``dispatch`` and its pipelined chain, ``ragged`` dispatches
 (pipelined ones too), ``verify``, every harvest kind, ``first_token``,
-``preempt``, ``release`` and a device prefix hit's ``hit_transfer``. The
-KV-tier events (``kv_store``, ``kv_disk_store``, ``kv_remote_restore``, a
-host or disk restore, ``handoff_gather``) wait for the port's KV tiers and
-disaggregation (ROADMAP A6, A7), and pipeline-parallel replay for pp (A9).
+``preempt``, ``release``, a prefix hit's ``hit_transfer`` (with a host or
+disk tier restore's slots, hashes and targets) and the tiers' commits,
+``kv_store`` (a host write-back batch's literal placements) and
+``kv_disk_store`` (a spill batch's). The replayer mirrors both tiers: a
+host pool (``offload.make_host_pool``) fed by gathering the same device
+blocks from the replay's pool at each ``kv_store``, and an in-memory disk
+mirror fed from the staged rows of the spilled evictions; a restore
+scatters from the mirrors into the same targets. ``kv_remote_restore``
+and ``handoff_gather`` wait for the remote tier and disaggregation
+(ROADMAP A7), pipeline-parallel replay for pp (A9).
 
 Recording copies small host arrays only; it does not synchronize the
 device.
@@ -43,6 +49,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..llm.kv.offload import make_host_pool
+from .block_copy import gather_blocks_to_host, scatter_blocks_from_host
 from .core import sample_keyed
 from .programs import (DecodeProgram, RaggedProgram, VerifyProgram,
                        sampling_variant)
@@ -238,6 +246,93 @@ def exec_ragged_event(progs: ReplayPrograms, ev: dict, chain=None):
                                      chain=chain if chained else None)
 
 
+def exec_kv_store_event(kv, ev: dict, pool, block_size: int,
+                        spill_stage: Optional[dict] = None) -> None:
+    """Mirror one of the live engine's write-back commits: gather the SAME
+    device blocks from ``kv`` (bit-identical by the replay induction) and
+    apply the literal hash→slot placements to the mirror ``pool``.
+    ``spill_stage``: where the live engine runs a disk tier, the event's
+    ``spills`` names the evicted hashes its spill queue accepted; a copy
+    of each such row, read from the mirror BEFORE the eviction overwrites
+    it, is staged by hash for the later ``kv_disk_store``."""
+    spills = set(ev.get("spills") or ())
+    ids = [int(it[3]) for it in ev["items"]]
+    values = gather_blocks_to_host(kv, ids, block_size, pool.num_kv_heads)
+    for i, (h, hslot, evicted, _bid) in enumerate(ev["items"]):
+        if (spill_stage is not None and evicted is not None
+                and evicted in spills):
+            vslot = pool._by_hash.get(evicted)
+            if vslot is not None and pool._arena is not None:
+                spill_stage[evicted] = pool.row_copy(vslot)
+        pool.apply_store(h, hslot, evicted,
+                         {key: arr[:, :, i] for key, arr in values.items()})
+
+
+def exec_kv_disk_store_event(ev: dict, disk_store, pool,
+                             spill_stage: dict) -> None:
+    """Apply one of the live engine's spill commits to a mirror store: the
+    literal placements (hash and eviction set), the bytes from the staged
+    row copy (an eviction's spill) or from the host mirror (a flush's: the
+    row is still resident there). Never re-runs the LRU policy."""
+    for h, th, ph, evicted in ev["items"]:
+        values = spill_stage.pop(h, None)
+        if values is None:
+            slot = pool._by_hash.get(h) if pool is not None else None
+            if slot is None:
+                raise ValueError(
+                    f"kv_disk_store for hash {h:#x} has no staged row copy "
+                    f"and no host-mirror residence — the kv_store spills "
+                    f"list and this mirror diverged")
+            values = pool.row_copy(slot)
+        disk_store.apply_put(h, list(evicted), values, tokens_hash=th,
+                             parent_hash=ph)
+
+
+def exec_host_restore_event(kv, ev: dict, pool, block_size: int,
+                            disk_store=None) -> None:
+    """Re-execute a host / disk tier restore from the mirror tiers: the
+    same slots and hashes into the same device targets, in place."""
+    parts = []
+    targets: list = []
+    if ev.get("host_slots"):
+        parts.append(pool.fetch(list(ev["host_slots"])))
+        targets += list(ev["host_targets"])
+    if ev.get("disk_hashes"):
+        if disk_store is None:
+            raise ValueError(
+                "hit_transfer references disk-tier hashes but no mirror "
+                "disk store was provided — replay with the recorded "
+                "engine config (kv_disk_dir/kv_disk_blocks)")
+        parts.append(disk_store.fetch(list(ev["disk_hashes"])))
+        targets += list(ev["disk_targets"])
+    vals = (parts[0] if len(parts) == 1 else
+            {k: torch.cat([p[k] for p in parts], dim=2) for k in parts[0]})
+    scatter_blocks_from_host(kv, targets, vals, block_size)
+
+
+class _MemDiskMirror:
+    """In-memory stand-in for ``DiskKvStore`` in a replay (the replayer
+    applies the live engine's literal disk placements; durability is the
+    live store's concern): ``apply_put`` / ``fetch`` / ``contains``."""
+
+    def __init__(self) -> None:
+        self._blocks: Dict[int, dict] = {}
+
+    def apply_put(self, h, evicted, values, tokens_hash=None,
+                  parent_hash=None) -> None:
+        for e in evicted:
+            self._blocks.pop(e, None)
+        self._blocks[h] = values
+
+    def contains(self, h) -> bool:
+        return h in self._blocks
+
+    def fetch(self, hashes) -> dict:
+        blocks = [self._blocks[h] for h in hashes]
+        return {k: torch.stack([b[k] for b in blocks], dim=2)
+                for k in blocks[0]}
+
+
 def _pool_slots(table, positions, bs: int):
     return (int(table[p // bs]) * bs + p % bs for p in positions)
 
@@ -258,6 +353,10 @@ def replay(core, events: List[dict], fingerprint: bool = False) -> dict:
     progs = ReplayPrograms(core, kv)
     out = {"prefill": {}, "dispatch": {}, "verify": {}, "ragged": {},
            "fingerprints": []}
+    mirror = None          # the host-tier mirror, built at the first kv_store
+    mirrored_slots: set = set()
+    disk_mirror = None     # the disk mirror, built at the first kv_disk_store
+    spill_stage: dict = {}
     disp_toks: Dict[int, torch.Tensor] = {}
     # pool slots written by in-log events: a prefix hit whose blocks were
     # registered before recording began has no in-log writer, and the fresh
@@ -285,7 +384,53 @@ def replay(core, events: List[dict], fingerprint: bool = False) -> dict:
         kind = ev["ev"]
         if kind in HOST_EVENTS:
             continue
+        if kind == "kv_store":
+            if mirror is None:
+                if core.cfg.host_kv_blocks <= 0:
+                    raise NotImplementedError(
+                        "the record offloaded to a host tier but the "
+                        "replaying core has host_kv_blocks=0 — replay "
+                        "with the recorded engine config")
+                pool_t = next(iter(core.kv.values()))
+                mirror = make_host_pool(
+                    core.cfg.host_kv_blocks, core.model_cfg, bs,
+                    core.cfg.kv_quantization, int(pool_t.shape[-1]),
+                    pool_t.dtype)
+            for b in (int(it[3]) for it in ev["items"]):
+                if any(b * bs + o not in written for o in range(bs)):
+                    raise NotImplementedError(
+                        f"kv_store gathers block {b} with no in-log writer "
+                        f"— start recording before any blocks are stored")
+            exec_kv_store_event(kv, ev, mirror, bs, spill_stage=spill_stage)
+            mirrored_slots.update(int(it[1]) for it in ev["items"])
+            continue
+        if kind == "kv_disk_store":
+            if disk_mirror is None:
+                disk_mirror = _MemDiskMirror()
+            exec_kv_disk_store_event(ev, disk_mirror, mirror, spill_stage)
+            continue
         if kind == "hit_transfer":
+            if int(ev.get("disk_hit", 0)) > 0 and disk_mirror is None:
+                raise NotImplementedError(
+                    f"disk-restored hit for rid={ev.get('rid')} with no "
+                    f"in-log kv_disk_store — those spills happened before "
+                    f"recording began")
+            missing = [s for s in ev.get("host_slots") or ()
+                       if s not in mirrored_slots]
+            if missing:
+                raise NotImplementedError(
+                    f"host-restored hit for rid={ev.get('rid')} reads host "
+                    f"slots {missing[:4]} with no in-log kv_store — those "
+                    f"write-backs happened before recording began")
+            if ev.get("host_slots") or ev.get("disk_hashes"):
+                exec_host_restore_event(kv, ev, mirror, bs,
+                                        disk_store=disk_mirror)
+                written.update(
+                    int(b) * bs + o
+                    for b in (list(ev.get("host_targets") or [])
+                              + list(ev.get("disk_targets") or []))
+                    for o in range(bs))
+                fp(("tier_restore", ev.get("rid")))
             for p, ps in enumerate(_pool_slots(ev["blocks"],
                                                range(int(ev["hit"])), bs)):
                 if ps not in written:

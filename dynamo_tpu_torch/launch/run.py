@@ -60,6 +60,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tokens per KV block (0 = auto-select)")
     p.add_argument("--num-kv-blocks", type=int, default=2048)
     p.add_argument("--max-num-seqs", type=int, default=8)
+    p.add_argument("--host-kv-blocks", type=int, default=0,
+                   help="host KV offload tier size in blocks (pinned "
+                        "host memory on the GPU; 0 = off)")
+    p.add_argument("--kv-disk-dir", default="",
+                   help="persistent disk KV tier directory "
+                        "(llm/kv/diskstore.py): host-tier evictions "
+                        "spill here and a restarted engine pointed at "
+                        "the same dir warm-starts from the previous "
+                        "run's cache; needs --kv-disk-blocks and "
+                        "--host-kv-blocks")
+    p.add_argument("--kv-disk-blocks", type=int, default=0,
+                   help="disk KV tier capacity in blocks (0 = off)")
     p.add_argument("--no-prefix-reuse", action="store_true")
     p.add_argument("--quantization", default="none",
                    choices=list(WEIGHT_QUANTIZATIONS),
@@ -165,6 +177,9 @@ def build_core(args, mesh=None):
                             num_kv_blocks=args.num_kv_blocks,
                             max_num_seqs=args.max_num_seqs,
                             enable_prefix_reuse=not args.no_prefix_reuse,
+                            host_kv_blocks=args.host_kv_blocks,
+                            kv_disk_dir=args.kv_disk_dir,
+                            kv_disk_blocks=args.kv_disk_blocks,
                             quantization=args.quantization,
                             kv_quantization=args.kv_quantization,
                             ragged_dispatch=args.ragged,

@@ -13,8 +13,11 @@ States per block:
   when uninitialized blocks run out.
 
 Block 0 is the engine's trash block and is never handed out. The
-``on_stored``/``on_removed`` callbacks are kept for a KV event publisher;
-the host/disk/remote tiers of the JAX package are not wired here.
+``on_stored``/``on_removed`` callbacks are kept for a KV event publisher.
+``KvBlockManager`` cascades a device miss to the host tier
+(``offload.HostKvPool``) and then the disk tier (``diskstore.DiskKvStore``);
+the JAX package's remote tier and tenant-preferred eviction are not here.
+``relocate`` and the contiguity statistics serve the engine's defrag pass.
 Single-threaded by design: one pool per engine loop.
 """
 
@@ -50,6 +53,14 @@ class FreeRunIndex:
 
     def __len__(self) -> int:
         return self.count
+
+    @property
+    def num_runs(self) -> int:
+        return len(self._start)
+
+    @property
+    def largest_run(self) -> int:
+        return self._sorted[-1][0] if self._sorted else 0
 
     def _remove_run(self, start: int, length: int) -> None:
         del self._start[start]
@@ -139,6 +150,12 @@ class KvBlockPool:
         # stats
         self.match_queries = 0
         self.match_hits = 0
+        # contiguity accounting: how many maximal runs each alloc was
+        # served as, against the one-run ideal, and the defrag moves
+        self.alloc_blocks_total = 0
+        self.alloc_runs_total = 0
+        self.alloc_requests_total = 0
+        self.defrag_moves_total = 0
 
     # ------------------------------------------------------------- queries
     @property
@@ -149,8 +166,52 @@ class KvBlockPool:
     def used_blocks(self) -> int:
         return (self.num_blocks - 1) - self.free_blocks
 
+    @property
+    def reusable_blocks(self) -> int:
+        return len(self._reusable)
+
+    @property
+    def free_uninit_blocks(self) -> int:
+        """Uninitialized free blocks only (no reusable content at stake):
+        the defrag pass takes its target runs from these alone, so a
+        layout move never evicts a cached prefix."""
+        return len(self._free_uninit)
+
     def hit_rate(self) -> float:
         return self.match_hits / max(self.match_queries, 1)
+
+    @property
+    def contig_runs(self) -> int:
+        """Maximal free runs in the uninit index (1 = fully coalesced)."""
+        return self._free_uninit.num_runs
+
+    def frag_ratio(self) -> float:
+        """Fragmentation of the uninit free space: 1 - largest_run/free.
+        0 = one maximal run (or nothing free); toward 1 as the free space
+        shatters into single blocks."""
+        n = len(self._free_uninit)
+        if n == 0:
+            return 0.0
+        return 1.0 - self._free_uninit.largest_run / n
+
+    def contiguity_ratio(self) -> float:
+        """Adjacency delivered / adjacency possible across all allocs: an
+        n-block alloc served as r runs delivers n - r of its n - 1
+        possible adjacent pairs. 1.0 = every alloc was one run."""
+        possible = self.alloc_blocks_total - self.alloc_requests_total
+        if possible <= 0:
+            return 1.0
+        return (self.alloc_blocks_total
+                - self.alloc_runs_total) / possible
+
+    @staticmethod
+    def count_runs(blocks: Sequence[int]) -> int:
+        """Maximal runs of consecutive ids in an ORDERED block list: the
+        per-sequence fragmentation score the defrag pass ranks by."""
+        if not blocks:
+            return 0
+        return 1 + sum(1 for a, b in zip(blocks, blocks[1:])
+                       if b != a + 1)
 
     # ------------------------------------------------------------ matching
     def match_prefix(self, seq_hashes: Sequence[int]) -> List[int]:
@@ -171,6 +232,16 @@ class KvBlockPool:
             out.append(bid)
         return out
 
+    def peek_prefix(self, seq_hashes: Sequence[int]) -> int:
+        """Length (in blocks) of the longest matchable prefix, without
+        taking holds or touching stats."""
+        n = 0
+        for h in seq_hashes:
+            if h not in self._by_hash:
+                break
+            n += 1
+        return n
+
     # ----------------------------------------------------------- allocate
     def alloc_uninit(self, n: int) -> Optional[List[int]]:
         """n fresh blocks (content garbage) as few maximal runs of
@@ -186,6 +257,10 @@ class KvBlockPool:
         out = self._free_uninit.take(n)
         for bid in out:
             self._meta[bid].refcount = 1
+        if n:
+            self.alloc_requests_total += 1
+            self.alloc_blocks_total += n
+            self.alloc_runs_total += self.count_runs(out)
         return out
 
     def _evict_one(self) -> int:
@@ -242,6 +317,13 @@ class KvBlockPool:
         if self.on_stored is not None:
             self.on_stored(bid, seq_hash, tokens_hash, parent_hash)
 
+    def hold(self, blocks: Sequence[int]) -> None:
+        """Add one reference to already-held blocks (pins them across an
+        asynchronous copy: the host write-back)."""
+        for bid in blocks:
+            if bid != 0:
+                self._meta[bid].refcount += 1
+
     # ------------------------------------------------------------- release
     def release(self, blocks: Sequence[int]) -> None:
         """Drop one reference from each block; refcount-0 blocks become
@@ -264,40 +346,116 @@ class KvBlockPool:
                 else:
                     self._free_uninit.add(bid)
 
+    def reset(self) -> None:
+        """Drop all reusable content (reference reuse.rs ``reset``)."""
+        for bid in list(self._reusable):
+            self._invalidate(bid)
+            self._free_uninit.add(bid)
+
+    # ------------------------------------------------------------ relocate
+    def refcounts(self, blocks: Sequence[int]) -> List[int]:
+        """Live refcounts (0 for the trash block): the defrag pass skips
+        blocks shared across sequences (refcount != 1)."""
+        return [0 if bid == 0 else self._meta[bid].refcount
+                for bid in blocks]
+
+    def relocate(self, moves) -> None:
+        """Rebind resident blocks old→new after the engine copied their
+        device contents (the defrag pass): hash registrations and
+        refcounts follow the move, the old ids return to the free-run
+        index. Each ``new`` must be a freshly alloc_uninit'd block
+        (refcount 1, unregistered) and each ``old`` a resident block; no
+        stored/removed events fire (the hashes are unchanged and block ids
+        are worker-local)."""
+        for old, new in moves:
+            m_old, m_new = self._meta[old], self._meta[new]
+            if m_new.seq_hash is not None or m_new.refcount != 1:
+                raise ValueError(
+                    f"relocate target {new} is not a fresh uninit block")
+            if m_old.refcount < 1:
+                raise ValueError(f"relocate source {old} is not resident")
+            m_new.refcount = m_old.refcount
+            m_new.priority = m_old.priority
+            m_new.return_tick = m_old.return_tick
+            if m_old.seq_hash is not None:
+                m_new.seq_hash = m_old.seq_hash
+                m_new.tokens_hash = m_old.tokens_hash
+                m_new.parent_hash = m_old.parent_hash
+                self._by_hash[m_new.seq_hash] = new
+            m_old.seq_hash = None
+            m_old.tokens_hash = None
+            m_old.parent_hash = None
+            m_old.refcount = 0
+            self._free_uninit.add(old)
+            self.defrag_moves_total += 1
+
+    def registered_entries(self) -> List[Tuple[int, int, int, Optional[int]]]:
+        """Every registered block as (bid, seq_hash, tokens_hash,
+        parent_hash)."""
+        out = []
+        for seq_hash, bid in self._by_hash.items():
+            m = self._meta[bid]
+            out.append((bid, seq_hash, m.tokens_hash, m.parent_hash))
+        return out
+
 
 @dataclasses.dataclass
 class PrefillPlan:
     """Outcome of preparing a sequence for prefill (reference
-    `KvStorageManager::prepare_prefill_sequence`, kv/manager.rs)."""
+    `KvStorageManager::prepare_prefill_sequence` /
+    `prepare_prefill_offload`, kv/manager.rs)."""
 
     hit_blocks: List[int]
     new_blocks: List[int]
     hit_tokens: int
     seq: TokenBlockSequence
+    # host-tier hits: slots of the HostKvPool whose content is copied into
+    # the first len(host_slots) entries of new_blocks before prefill
+    host_slots: List[int] = dataclasses.field(default_factory=list)
+    # disk-tier hits: chained hashes resident in the DiskKvStore, copied
+    # into new_blocks[len(host_slots):len(host_slots) + len(disk_hashes)]
+    # by the same onboard; pinned against spill-pump eviction from the
+    # match until the onboard's read has run
+    disk_hashes: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def all_blocks(self) -> List[int]:
         return self.hit_blocks + self.new_blocks
 
+    @property
+    def host_hit_tokens(self) -> int:
+        return len(self.host_slots) * self.seq.block_size
+
+    @property
+    def disk_hit_tokens(self) -> int:
+        return len(self.disk_hashes) * self.seq.block_size
+
 
 class KvBlockManager:
-    """Pool + hashing glue the engine admit path calls (device tier only)."""
+    """Pool + hashing glue the engine admit path calls, optionally backed
+    by a host tier and a disk tier under it: device misses cascade
+    device → host → disk (reference ``prepare_prefill_offload``)."""
 
     def __init__(self, num_blocks: int, block_size: int,
-                 on_stored=None, on_removed=None, enable_reuse: bool = True):
+                 on_stored=None, on_removed=None, enable_reuse: bool = True,
+                 host_pool=None, disk_store=None):
         self.block_size = block_size
         self.pool = KvBlockPool(num_blocks, on_stored=on_stored,
                                 on_removed=on_removed)
         self.enable_reuse = enable_reuse
+        self.host_pool = host_pool
+        self.disk_store = disk_store
 
     def prepare_prefill(self, prompt: Sequence[int], extra_blocks: int = 1,
-                        seq: Optional[TokenBlockSequence] = None
-                        ) -> Optional[PrefillPlan]:
-        """Match the prompt's full blocks against the pool and allocate the
-        remainder (+ room for ``extra_blocks`` of generation). None = out
-        of memory. At least one prompt token is always left to recompute
-        so prefill produces the first-token logits. ``seq`` may carry the
-        prompt's already-computed hash chain."""
+                        seq: Optional[TokenBlockSequence] = None,
+                        cold: bool = False) -> Optional[PrefillPlan]:
+        """Match the prompt's full blocks against the pool (device tier,
+        then host, then disk), allocate the remainder (+ room for
+        ``extra_blocks`` of generation). None = out of memory. At least
+        one prompt token is always left to recompute so prefill produces
+        the first-token logits. ``seq`` may carry the prompt's
+        already-computed hash chain. ``cold=True`` skips the host and disk
+        cascade (the engine's retry after a tier read failed)."""
         if seq is None:
             seq = TokenBlockSequence(self.block_size, prompt)
         matchable = seq.sequence_hashes
@@ -307,19 +465,59 @@ class KvBlockManager:
             matchable = matchable[:-1]
         hit_blocks = (self.pool.match_prefix(matchable)
                       if self.enable_reuse else [])
-        total_needed = (len(prompt) + extra_blocks * self.block_size
-                        + self.block_size - 1) // self.block_size
-        new_blocks = self.pool.alloc_uninit(total_needed - len(hit_blocks))
-        if new_blocks is None:
+        hit_tokens = len(hit_blocks) * self.block_size
+        host_slots: List[int] = []
+        disk_hashes: List[int] = []
+        if self.enable_reuse and not cold and self.host_pool is not None:
+            host_slots = self.host_pool.match_prefix(
+                matchable[len(hit_blocks):])
+        if self.enable_reuse and not cold and self.disk_store is not None:
+            # the run of hashes past the host hits; pin=True holds them
+            # against the spill pump's capacity evictions (a worker
+            # thread) until the onboard has read them (the engine unpins)
+            disk_hashes = self.disk_store.match_prefix(
+                matchable[len(hit_blocks) + len(host_slots):], pin=True)
+        # from the pin-taking match to the returned plan (which hands the
+        # pins to the caller), an unexpected raise must release the device
+        # holds and the disk pins before it propagates
+        try:
+            total_needed = (len(prompt) + extra_blocks * self.block_size
+                            + self.block_size - 1) // self.block_size
+            new_blocks = self.pool.alloc_uninit(total_needed
+                                                - len(hit_blocks))
+            if new_blocks is None:
+                self.pool.release(hit_blocks)
+                if disk_hashes:
+                    self.disk_store.unpin(disk_hashes)
+                return None
+            if len(new_blocks) < len(host_slots) + len(disk_hashes):
+                # the onboard scatters the tier hits into
+                # new_blocks[:n_onboard]: a plan whose allocation cannot
+                # cover them would drop them or scatter past it. The
+                # cascade's arithmetic rules this out; a tier that
+                # over-returns fails loudly here (the except releases)
+                self.pool.release(new_blocks)
+                raise RuntimeError(
+                    f"prepare_prefill invariant violated: "
+                    f"{len(new_blocks)} new blocks cannot cover "
+                    f"{len(host_slots)} host + {len(disk_hashes)} disk "
+                    f"tier hits (prompt {len(prompt)}, device hits "
+                    f"{len(hit_blocks)})")
+        except Exception:
             self.pool.release(hit_blocks)
-            return None
+            if disk_hashes:
+                self.disk_store.unpin(disk_hashes)
+            raise
         return PrefillPlan(hit_blocks=hit_blocks, new_blocks=new_blocks,
-                           hit_tokens=len(hit_blocks) * self.block_size,
-                           seq=seq)
+                           hit_tokens=hit_tokens, seq=seq,
+                           host_slots=host_slots, disk_hashes=disk_hashes)
 
     def abort_plan(self, plan: "PrefillPlan") -> None:
-        """Release a plan that will never admit."""
+        """Release a plan that will never admit: the device holds drop and
+        the disk pins taken at the match release."""
         self.pool.release(plan.all_blocks)
+        if plan.disk_hashes and self.disk_store is not None:
+            self.disk_store.unpin(plan.disk_hashes)
 
     def register_full_blocks(self, plan_blocks: List[int],
                              seq: TokenBlockSequence,

@@ -156,17 +156,54 @@ def test_entry_points_default_to_the_card():
 # the JAX EngineConfig's fields the port does not implement yet (ROADMAP A):
 # each is not a field of the port's EngineConfig, so passing it raises
 UNPORTED_ENGINE_FIELDS = (
-    "tp", "dp", "ep", "pp", "host_kv_blocks", "kv_disk_dir", "kv_disk_blocks",
-    "kv_remote_dir", "kv_remote_blocks", "kv_remote_admission",
-    "offload_simulated_gbps", "kv_defrag_threshold", "kv_defrag_max_blocks",
-    "kv_contig_alloc")
+    "tp", "dp", "ep", "pp", "kv_remote_dir", "kv_remote_blocks",
+    "kv_remote_admission")
 
 
 @pytest.mark.parametrize("field", UNPORTED_ENGINE_FIELDS)
 def test_unported_engine_fields_raise(field):
     import dataclasses
     from dynamo_tpu_torch.engine.config import EngineConfig
-    assert len(UNPORTED_ENGINE_FIELDS) == 14
+    assert len(UNPORTED_ENGINE_FIELDS) == 7
     assert field not in {f.name for f in dataclasses.fields(EngineConfig)}
     with pytest.raises(TypeError):
         EngineConfig(**{field: 1})
+
+
+# the KV-tier and defrag fields the port took from the JAX EngineConfig,
+# each with invalid settings (beside the field itself, what they need)
+PORTED_TIER_FIELDS = {
+    "host_kv_blocks": [{"kv_disk_dir": "d", "kv_disk_blocks": 4,
+                        "host_kv_blocks": 0}],
+    "kv_disk_dir": [{"kv_disk_dir": "d"}],
+    "kv_disk_blocks": [{"kv_disk_blocks": 4, "host_kv_blocks": 4}],
+    "offload_simulated_gbps": [],
+    "kv_contig_alloc": [],
+    "kv_defrag_threshold": [{"kv_defrag_threshold": -0.1},
+                            {"kv_defrag_threshold": 1.5}],
+    "kv_defrag_max_blocks": [],
+}
+# of those, the fields the port accepts only at JAX's default: a setting
+# the JAX package takes, which the port refuses
+DEFAULT_ONLY_FIELDS = {"offload_simulated_gbps": 1.0,
+                       "kv_contig_alloc": False}
+
+
+@pytest.mark.parametrize("field", list(PORTED_TIER_FIELDS))
+def test_ported_tier_fields_follow_jax(field):
+    """Each has the JAX default, and each invalid setting raises the JAX
+    EngineConfig's error."""
+    import re
+    from dynamo_tpu.engine.config import EngineConfig as JEngineConfig
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    assert len(PORTED_TIER_FIELDS) == 7
+    assert getattr(EngineConfig(), field) == getattr(JEngineConfig(), field)
+    for bad in PORTED_TIER_FIELDS[field]:
+        with pytest.raises(ValueError) as want:
+            JEngineConfig(**bad)
+        with pytest.raises(ValueError, match=re.escape(str(want.value))):
+            EngineConfig(**bad)
+    if field in DEFAULT_ONLY_FIELDS:
+        JEngineConfig(**{field: DEFAULT_ONLY_FIELDS[field]})
+        with pytest.raises(ValueError, match="not ported"):
+            EngineConfig(**{field: DEFAULT_ONLY_FIELDS[field]})
