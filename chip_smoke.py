@@ -335,6 +335,23 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    the card with ``compare_replay`` empty. The servers' launch counts
    join the kernels line (``launches_by_path``).
 
+10. KV-aware routing over two workers on the one card (``routed_phase``):
+   the port's daemon, two 8B workers (int4 + int8 KV, the same seed,
+   phase 7's ``tokenizer.json`` directory at full depth) started through
+   the launcher's ``in=dyn://… --protocol tokens`` and the KV-aware
+   processor, each a process of its own, beside an in-process server of
+   phase 7's shape as the reference. Four prefix groups of 62 blocks: the
+   seeds together, then three follow-ups a group one at a time, each of
+   which must go to its group's worker with the whole prefix as the
+   router's overlap and as that worker's new prefix hits; four streams,
+   the first one's worker gets SIGTERM: its key goes, the processor prunes
+   its blocks, its streams end in an SSE error event, and four more
+   requests finish on the survivor. Every finished stream equals the
+   reference's or parts from it at a near tie; each worker launched K1,
+   K3-int8, K5 and K6, and their sum is the kernels line's
+   ``routed_int4_kv8`` path. Printed: each check's figures, the seeds'
+   TTFT beside the follow-ups', each worker's GiB after bring-up.
+
 Each phase prints its wall seconds (``phase 3q: N s``; each model mode and
 server inside one too) and the run ends with all of them on one line. The
 model and serve phases run each geometry at the depth of ``LAYERS``: the
@@ -3978,11 +3995,13 @@ def write_model_dir(path: str, cfg, hf=None) -> None:
 
 
 def http_request(port: int, path: str, body: Optional[dict] = None,
-                 timeout: float = 600) -> dict:
+                 timeout: float = 600,
+                 on_event: Optional[Callable] = None) -> dict:
     """GET ``path`` (no body) or POST ``body`` to it. A JSON answer comes
     back as ``response``; an SSE answer as its ``events`` (the port's
     ``SseParser``: data, event, comments), the arrival time of each data
-    event and whether it ended in [DONE]."""
+    event and whether it ended in [DONE]; ``on_event`` sees each event as
+    it arrives."""
     import http.client
     from dynamo_tpu_torch.llm.protocols.sse import SseParser
     t0 = time.monotonic()
@@ -4016,6 +4035,8 @@ def http_request(port: int, path: str, body: Optional[dict] = None,
                     break
                 events.append(ev)
                 times.append(time.monotonic() - t0)
+                if on_event is not None:
+                    on_event(ev)
         out.update(events=events, times=times, done=done,
                    latency_s=time.monotonic() - t0)
         return out
@@ -4127,6 +4148,8 @@ PATH_KERNELS = {
     "tier_int4_kv8": ("flash_prefill", "paged_attention_int8",
                       "lm_head_int8", "grouped_int4_matmul"),
     "tier_ragged_bf16": ("ragged_paged_attention",),
+    "routed_int4_kv8": ("flash_prefill", "paged_attention_int8",
+                        "lm_head_int8", "grouped_int4_matmul"),
 }
 # the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
 # dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
@@ -4171,10 +4194,15 @@ TIER_CHURN1, TIER_CHURN2 = 9, 5
 TIER_TOKENS, TIER_DECODE_TOKENS = 16, 200
 # the round trips (9a): 31 blocks of a 64-block pool, into 31 others
 TIER_RT_BLOCKS = 64
+# the routed graph (10): two int4 + int8 KV workers of phase 7's shape
+# behind the KV-aware processor; its launches are the two workers' sum
+ROUTED_PATH = "routed_int4_kv8"
 # the paths that phase 5 does not serve: those of the geometries after the
-# 8B one, of the checkpoint, of chat, of speculation and of the KV tiers
+# 8B one, of the checkpoint, of chat, of speculation, of the KV tiers and
+# of the routed graph
 LATER_PATHS = (GEMMA_PATHS + MLA_PATHS + PHI3_PATHS + QWEN2_PATHS
-               + CKPT_PATHS + CHAT_PATHS + SPEC_PATHS + TIER_PATHS)
+               + CKPT_PATHS + CHAT_PATHS + SPEC_PATHS + TIER_PATHS
+               + (ROUTED_PATH,))
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -6611,6 +6639,601 @@ def tier_phase(cfg, dev, seed: int, card: str) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# 10. KV-aware routing over two workers on the one card
+# ---------------------------------------------------------------------------
+
+ROUTED_ENDPOINT = "dyn://dynamo/worker/generate"
+ROUTED_GROUPS = 4
+ROUTED_PREFIX_BLOCKS = 62        # each group's shared prefix: 992 tokens
+ROUTED_SUFFIX = (16, 64)         # each request's own suffix, tokens
+ROUTED_FOLLOW_UPS = 3            # a group, one at a time
+ROUTED_TOKENS = 32
+ROUTED_CUT_TOKENS = 384          # the streams in flight at the SIGTERM
+ROUTED_READY_S = 300.0           # a process must be ready by then
+ROUTED_ERROR_S = 30.0            # a cut stream must end in an error by then
+ROUTED_GONE_S = 40.0             # the lost worker's key (10 s lease) by then
+# after a worker's published stats show it idle, one processor scrape (its
+# interval is 1 s) has cleared the router's optimistic load by then
+ROUTED_SCRAPE_S = 1.3
+
+
+class RoutedProcs:
+    """The phase's processes (the daemon, two workers and the processor),
+    each logging to a file of its own; ``stop`` ends every one."""
+
+    def __init__(self, tmp: str):
+        self.tmp = tmp
+        self.procs: dict = {}
+
+    def start(self, name: str, module: str, *args) -> None:
+        path = os.path.join(self.tmp, f"{name}.log")
+        f = open(path, "w")
+        try:
+            self.procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", module, *args], cwd=ROOT,
+                stdout=f, stderr=subprocess.STDOUT), path)
+        finally:
+            f.close()
+
+    def text(self, name: str) -> str:
+        with open(self.procs[name][1], errors="replace") as f:
+            return f.read()
+
+    def wait_line(self, name: str, start: str, timeout: float) -> str:
+        """The first line of ``name``'s log that starts with ``start``."""
+        deadline = time.monotonic() + timeout
+        while True:
+            for line in self.text(name).splitlines():
+                if line.startswith(start):
+                    return line
+            proc = self.procs[name][0]
+            if proc.poll() is not None:
+                raise RuntimeError(f"10: {name} exited ({proc.returncode}) "
+                                   f"before {start!r}:\n"
+                                   f"{self.text(name)[-3000:]}")
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"10: no {start!r} from {name} in "
+                                   f"{timeout} s:\n{self.text(name)[-3000:]}")
+            time.sleep(0.05)
+
+    def signal(self, name: str, sig) -> None:
+        proc = self.procs[name][0]
+        if proc.poll() is None:
+            proc.send_signal(sig)
+
+    def stop(self, names, timeout: float = 60.0) -> None:
+        import signal
+        for n in names:
+            self.signal(n, signal.SIGINT)
+        for n in names:
+            proc = self.procs[n][0]
+            try:
+                proc.wait(timeout)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+
+    def tails(self) -> str:
+        return "\n".join(f"== {n}\n{self.text(n)[-2000:]}"
+                         for n in self.procs)
+
+
+def routed_prompts(cfg, seed: int) -> dict:
+    """Each group's prefix and the suffixes of its seed, follow-ups, cut
+    stream and last request (token ids of the chat directory's vocab)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 100)
+
+    def ids(n):
+        return rng.integers(1000, 127000, size=n).tolist()
+
+    def suffix():
+        return ids(int(rng.integers(ROUTED_SUFFIX[0], ROUTED_SUFFIX[1] + 1)))
+    out = {}
+    for g in range(ROUTED_GROUPS):
+        prefix = ids(ROUTED_PREFIX_BLOCKS * KV_BLOCK)
+        out[g] = {"prefix": prefix, "seed": prefix + suffix(),
+                  "follow": [prefix + suffix()
+                             for _ in range(ROUTED_FOLLOW_UPS)],
+                  "cut": prefix + suffix(), "last": prefix + suffix()}
+    return out
+
+
+def routed_body(name: str, prompt: list, n: int) -> dict:
+    return {"model": name, "prompt": prompt, "max_tokens": n,
+            "temperature": 0, "stream": True, "logprobs": 1,
+            "nvext": {"ignore_eos": True}}
+
+
+def routed_stream(res: dict) -> dict:
+    """A streamed completion's tokens, each as its text (asked with
+    ``logprobs``, every token comes in a chunk of its own, which carries
+    its logprob and its text, empty while a character is incomplete), its
+    first token's time, its finish reason and its error event, if any."""
+    toks, finish, ttft = [], None, None
+    for ev, t in zip(res["events"], res["times"]):
+        if ev.event == "error":
+            return {"error": " ".join(ev.comments), "tokens": toks,
+                    "done": res["done"]}
+        if not ev.data:
+            continue
+        c = json.loads(ev.data)
+        for ch in c.get("choices") or []:
+            lp = (ch.get("logprobs") or {}).get("token_logprobs") or []
+            toks += [ch.get("text") or ""] * len(lp)
+            if lp and ttft is None:
+                ttft = 1e3 * t
+            if ch.get("finish_reason"):
+                finish = ch["finish_reason"]
+    return {"tokens": toks, "ttft_ms": ttft, "finish": finish,
+            "done": res["done"], "request_id": res.get("request_id"),
+            "error": None}
+
+
+def routed_phase(cfg, dev, seed: int, card: str) -> tuple:
+    """Phase 10: KV-aware routing over two 8B workers sharing the card.
+
+    The port's daemon (``runtime/server.py``) on a free port, two workers
+    through the launcher's own entry point (``in=dyn://dynamo/worker/
+    generate out=torch --protocol tokens --random-weights --quantization
+    int4 --kv-quantization int8``, the same seed, 2048 blocks of 16 each,
+    phase 7's ``tokenizer.json`` directory at full depth), and the KV-aware
+    processor (``components/processor.py``, ``--kv-block-size 16``). An
+    observer in this process connects to the daemon: the router's
+    ``kv-hit-rate`` events give each decision's worker and overlap, and
+    the workers' published stats their prefix hits and launch counts.
+    Beside them an in-process server of phase 7's shape at the same seed
+    serves the same requests: the reference.
+
+    Traffic (greedy, ``ignore_eos``, streamed, token-id prompts): four
+    prefix groups of 62 full blocks with 16-64-token suffixes; (a) the four
+    seeds together; (b) three follow-ups a group, one group at a time, one
+    at a time once the processor has scraped the idle workers; (c) four
+    long requests stream and the worker of the first gets SIGTERM; once
+    its key is gone, (d) four more requests.
+
+    Checks: (1) both workers serve a group; (2) each follow-up goes to its
+    group's seed worker with an overlap of the prefix's 62 blocks, and that
+    worker's prefix hits grow by 62; (3) each finished stream equals the
+    reference's, or parts from it only at a near tie (``SPEC_NEAR_TIE``,
+    as phase 8 judges one); (4) the lost worker's discovery key goes, the
+    processor prunes its blocks from the router's index, each stream cut
+    there ends in an error event within ``ROUTED_ERROR_S``, and the last
+    four requests finish on the survivor; (5) each worker launched K1,
+    K3-int8, K5 and K6 (their stats; the survivor's final counts from its
+    log at stop). Returns (the two workers' summed launches, report)."""
+    import asyncio
+    import signal
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from dynamo_tpu_torch.launch import run as launcher
+    from dynamo_tpu_torch.llm.engines.torch_engine import TorchEngine
+    from dynamo_tpu_torch.llm.kv.native_pool import load_native_pool_lib
+    from dynamo_tpu_torch.llm.kv_router.protocols import KV_HIT_RATE_SUBJECT
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.runtime import ResponseStream
+    from dynamo_tpu_torch.runtime.distributed import (DistributedRuntime,
+                                                      Endpoint)
+
+    t_phase = time.monotonic()
+    load_native_pool_lib()          # built once, before any worker starts
+    weights, kv_quant = SERVE_MODES[SERVE_PATHS[CHAT_PATH][0]]
+    prompts = routed_prompts(cfg, seed)
+    name = "llama3-8b-routed"
+    report: dict = {}
+    tmp_ctx = tempfile.TemporaryDirectory(prefix="dtt-routed-")
+    tmp = tmp_ctx.name
+    model_dir = os.path.join(tmp, name)
+    write_chat_model_dir(model_dir, cfg)
+    procs = RoutedProcs(tmp)
+    obs_loop = asyncio.new_event_loop()
+    obs_thread = threading.Thread(target=obs_loop.run_forever,
+                                  name="routed-observer", daemon=True)
+    obs_thread.start()
+    stop_ref = None
+    try:
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            dport = s.getsockname()[1]
+        addr = f"127.0.0.1:{dport}"
+        procs.start("daemon", "dynamo_tpu_torch.runtime.server", "--host",
+                    "127.0.0.1", "--port", str(dport))
+        procs.wait_line("daemon", "dynamo-tpu-torch discovery", 60)
+        worker_args = [f"in={ROUTED_ENDPOINT}", "out=torch", "--protocol",
+                       "tokens", "--random-weights", "--quantization",
+                       weights, "--kv-quantization", kv_quant,
+                       "--model-path", model_dir, "--runtime-server", addr,
+                       "--max-model-len", str(MAX_MODEL_LEN),
+                       "--kv-block-size", str(KV_BLOCK), "--num-kv-blocks",
+                       "2048", "--max-num-seqs", "8", "--device", dev.type]
+        t0 = time.monotonic()
+        for w in ("worker0", "worker1"):
+            procs.start(w, "dynamo_tpu_torch.launch.run", *worker_args)
+        procs.start("processor", "dynamo_tpu_torch.components.processor",
+                    "--runtime-server", addr, "--model-path", model_dir,
+                    "--model-name", name, "--endpoint", ROUTED_ENDPOINT,
+                    "--host", "127.0.0.1", "--port", "0",
+                    "--kv-block-size", str(KV_BLOCK))
+
+        # the reference, in this process while the workers come up
+        class Recorder:
+            """The engine's token ids per request id."""
+
+            def __init__(self, engine):
+                self.engine = engine
+                self.ids: dict = {}
+
+            async def generate(self, request):
+                stream = await self.engine.generate(request)
+                got = self.ids.setdefault(request.ctx.id, [])
+
+                async def tap():
+                    async for item in stream:
+                        data = getattr(item, "data", None)
+                        if data is not None:
+                            got.extend(data.token_ids)
+                        yield item
+                return ResponseStream(tap(), stream.ctx)
+
+        rargs = launcher.build_parser().parse_args(
+            ["in=http", "out=torch", "--model-path", model_dir,
+             "--random-weights", "--http-host", "127.0.0.1",
+             "--http-port", "0", "--max-model-len", str(MAX_MODEL_LEN),
+             "--kv-block-size", str(KV_BLOCK), "--num-kv-blocks", "2048",
+             "--max-num-seqs", "8", "--device", dev.type,
+             "--quantization", weights, "--kv-quantization", kv_quant])
+        ref_core = launcher.build_core(rargs)
+        mdc = ModelDeploymentCard.from_local_path(model_dir,
+                                                  display_name=name)
+        recorder = Recorder(TorchEngine(ref_core))
+        _, stop_ref = start_server(rargs, ref_core, launcher.link_pipeline(
+            recorder, mdc))
+        rport = rargs.http_port
+
+        def ref_one(prompt, n=ROUTED_TOKENS):
+            return routed_stream(http_request(
+                rport, "/v1/completions", routed_body(name, prompt, n)))
+        ref = {}
+        with ThreadPoolExecutor(ROUTED_GROUPS) as ex:
+            for g, r in zip(range(ROUTED_GROUPS), ex.map(
+                    lambda g: ref_one(prompts[g]["seed"]),
+                    range(ROUTED_GROUPS))):
+                ref[("seed", g, 0)] = r
+        for g in range(ROUTED_GROUPS):
+            for k, p in enumerate(prompts[g]["follow"]):
+                ref[("follow", g, k)] = ref_one(p)
+        for g in range(ROUTED_GROUPS):
+            ref[("last", g, 0)] = ref_one(prompts[g]["last"])
+
+        # the routed graph comes up
+        wids = {}
+        for w in ("worker0", "worker1"):
+            line = procs.wait_line(w, "READY", ROUTED_READY_S)
+            wids[w] = int(line.rsplit(" ", 1)[-1], 16)
+            gib = [ln for ln in procs.text(w).splitlines()
+                   if "device memory after bring-up" in ln]
+            report.setdefault("bring_up", {})[w] = {
+                "worker": f"{wids[w]:x}",
+                "gib_reserved": float(gib[0].split(": ")[-1].split()[0])
+                if gib else None}
+        line = procs.wait_line("processor", "READY", ROUTED_READY_S)
+        pport = int(line.rsplit(":", 1)[-1].split("/")[0])
+        report["bring_up"]["s"] = time.monotonic() - t0
+        by_id = {v: k for k, v in wids.items()}
+
+        decisions: list = []
+        obs: dict = {}
+
+        async def observe():
+            rt = await DistributedRuntime.connect(addr)
+            ep = Endpoint.parse_path(rt, ROUTED_ENDPOINT)
+            client = await ep.client().start()
+            await client.wait_for_instances(timeout=ROUTED_READY_S)
+            sub = await ep.parent_component().subscribe_event(
+                KV_HIT_RATE_SUBJECT)
+
+            async def pump():
+                async for msg in sub:
+                    decisions.append(json.loads(msg.payload))
+            obs.update(rt=rt, client=client, sub=sub,
+                       task=asyncio.get_running_loop().create_task(pump()))
+        on_loop(obs_loop, observe(), ROUTED_READY_S)
+
+        def stats() -> dict:
+            return on_loop(obs_loop, obs["client"].collect_stats(), 60)
+
+        def wait_idle(want_decode: dict) -> dict:
+            """Poll the workers' published stats until every live worker
+            is idle and has decoded ``want_decode[wid]`` tokens at least;
+            then wait for the processor's next scrape."""
+            deadline = time.monotonic() + 120
+            while True:
+                st = stats()
+                if all(w in st and st[w]["request_active_slots"] == 0
+                       and st[w]["kv_active_blocks"] == 0
+                       and st[w]["decode_tokens_total"] >= n
+                       for w, n in want_decode.items()):
+                    time.sleep(ROUTED_SCRAPE_S)
+                    return st
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"10: workers not idle: {st}")
+                time.sleep(0.05)
+
+        def next_decision(n0: int, timeout: float = 60) -> dict:
+            deadline = time.monotonic() + timeout
+            while len(decisions) <= n0:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"10: no kv_hit_rate event after "
+                                       f"{n0} (the router dispatched at "
+                                       f"random?)")
+                time.sleep(0.01)
+            return decisions[n0]
+
+        def one(prompt, n=ROUTED_TOKENS, on_event=None):
+            return routed_stream(http_request(
+                pport, "/v1/completions", routed_body(name, prompt, n),
+                on_event=on_event))
+
+        def together(kind: str, n_tokens: int,
+                     progress: Optional[dict] = None) -> tuple:
+            """Send each group's ``kind`` request, the next as soon as the
+            router decided the one before (all in flight together, each
+            decision known); (results, worker by group, end times, the
+            threads). ``progress[g]`` counts the events of stream g."""
+            res, ends, on = {}, {}, {}
+
+            def send(g):
+                def seen(ev):
+                    progress[g] = progress.get(g, 0) + 1
+                res[g] = one(prompts[g][kind], n_tokens,
+                             on_event=seen if progress is not None
+                             else None)
+                ends[g] = time.monotonic()
+            threads = []
+            n0 = len(decisions)
+            for g in range(ROUTED_GROUPS):
+                th = threading.Thread(target=send, args=(g,), daemon=True)
+                th.start()
+                threads.append(th)
+                on[g] = next_decision(n0 + g)["worker_id"]
+            return res, on, ends, threads
+
+        got = {}
+        # (a) the seeds, together, once the processor's router has scraped
+        # both workers' stats (before that it has no endpoint to weigh and
+        # dispatches at random, with no decision)
+        with phase("10a"):
+            wait_idle({w: 0 for w in wids.values()})
+            res, holders, _, threads = together("seed", ROUTED_TOKENS)
+            for th in threads:
+                th.join(300)
+            for g in range(ROUTED_GROUPS):
+                got[("seed", g, 0)] = res[g]
+        # check 1: both workers serve a group
+        seeds_on = {g: by_id[w] for g, w in holders.items()}
+        log(f"10 check 1 {json.dumps({'groups_by_worker': seeds_on})} "
+            f"[{card}]")
+        if set(seeds_on.values()) != set(wids):
+            raise RuntimeError(f"10 check 1: the groups by worker "
+                               f"{seeds_on}")
+        # (b) the follow-ups, one at a time
+        decode = {w: (ROUTED_TOKENS - 1) * sum(h == w for h in
+                                               holders.values())
+                  for w in wids.values()}
+        with phase("10b"):
+            st = wait_idle(decode)
+            for g in range(ROUTED_GROUPS):
+                for k, p in enumerate(prompts[g]["follow"]):
+                    hits0 = {w: st[w]["prefix_hit_blocks_total"]
+                             for w in wids.values()}
+                    n0 = len(decisions)
+                    got[("follow", g, k)] = r = one(p)
+                    d = next_decision(n0)
+                    w = d["worker_id"]
+                    decode = {x: st[x]["decode_tokens_total"]
+                              + (ROUTED_TOKENS - 1 if x == w else 0)
+                              for x in wids.values()}
+                    st = wait_idle(decode)
+                    grew = {x: st[x]["prefix_hit_blocks_total"] - hits0[x]
+                            for x in wids.values()}
+                    fig = {"group": g, "follow_up": k,
+                           "worker": by_id[w], "holder": by_id[holders[g]],
+                           "overlap_blocks": d["overlap_blocks"],
+                           "isl_blocks": d["isl_blocks"],
+                           "prefix_hits_grew": {by_id[x]: v
+                                                for x, v in grew.items()},
+                           "ttft_ms": r["ttft_ms"]}
+                    log(f"10 check 2 {json.dumps(fig)} [{card}]")
+                    if (w != holders[g]
+                            or d["overlap_blocks"] != ROUTED_PREFIX_BLOCKS
+                            or grew[w] != ROUTED_PREFIX_BLOCKS
+                            or any(v for x, v in grew.items() if x != w)):
+                        raise RuntimeError(f"10 check 2: {fig}")
+        seed_ttft = [got[("seed", g, 0)]["ttft_ms"]
+                     for g in range(ROUTED_GROUPS)]
+        follow_ttft = [got[("follow", g, k)]["ttft_ms"]
+                       for g in range(ROUTED_GROUPS)
+                       for k in range(ROUTED_FOLLOW_UPS)]
+        report["ttft_ms"] = {"seeds": seed_ttft, "follow_ups": follow_ttft,
+                             "seeds_mean": sum(seed_ttft) / len(seed_ttft),
+                             "follow_ups_mean": sum(follow_ttft)
+                             / len(follow_ttft)}
+        log(f"10 ttft {json.dumps(report['ttft_ms'])} [{card}]")
+
+        # (c) four streams, then SIGTERM to the first one's worker
+        with phase("10c"):
+            progress: dict = {}
+            cut_res, cut_on, cut_end, threads = together(
+                "cut", ROUTED_CUT_TOKENS, progress)
+            # every stream is streaming (a few tokens in), and the
+            # workers' stats (published each second) hold their launches
+            deadline = time.monotonic() + 300
+            while (len(progress) < ROUTED_GROUPS
+                   or min(progress.values()) < 4):
+                if (time.monotonic() > deadline
+                        or any(not t.is_alive() for t in threads)):
+                    raise RuntimeError(f"10c: the streams did not start: "
+                                       f"{progress}")
+                time.sleep(0.01)
+            time.sleep(ROUTED_SCRAPE_S)
+            victim = cut_on[0]
+            survivor = next(w for w in wids.values() if w != victim)
+            st = stats()
+            launches = {by_id[w]: dict(st[w]["kernel_launches"])
+                        for w in wids.values()}
+            procs.signal(by_id[victim], signal.SIGTERM)
+            t_kill = time.monotonic()
+            on_victim = [g for g, w in cut_on.items() if w == victim]
+            # the lost worker's key goes, and the processor prunes its
+            # blocks from the router's index
+            ep = Endpoint.parse_path(obs["rt"], ROUTED_ENDPOINT)
+            while True:
+                keys = on_loop(obs_loop, obs["rt"].store.kv_get_prefix(
+                    ep.discovery_prefix()), 60)
+                if not any(k.key.endswith(f":{victim:x}") for k in keys):
+                    break
+                if time.monotonic() - t_kill > ROUTED_GONE_S:
+                    raise RuntimeError("10 check 4: the lost worker's key "
+                                       "is still there")
+                time.sleep(0.05)
+            gone_s = time.monotonic() - t_kill
+            pruned = []
+            while not pruned:
+                pruned = [ln for ln in procs.text("processor").splitlines()
+                          if f"worker {victim:x} gone" in ln]
+                if time.monotonic() - t_kill > ROUTED_GONE_S:
+                    break
+                time.sleep(0.05)
+            for th in threads:
+                th.join(300)
+            ended = {g: {"worker": by_id[cut_on[g]],
+                         "error": cut_res.get(g, {}).get("error"),
+                         "tokens": len(cut_res.get(g, {}).get("tokens", [])),
+                         "ended_s_after_kill": cut_end[g] - t_kill
+                         if g in cut_end else None}
+                     for g in range(ROUTED_GROUPS)}
+            err_s = max((cut_end.get(g, float("inf")) - t_kill
+                         for g in on_victim), default=float("inf"))
+            fig = {"victim": by_id[victim], "key_gone_s": gone_s,
+                   "streams": ended, "error_within_s": err_s,
+                   "pruned": pruned[0].split(": ", 1)[-1] if pruned
+                   else None}
+            log(f"10 check 4 {json.dumps(fig)} [{card}]")
+            if (not on_victim or any(t.is_alive() for t in threads)
+                    or not pruned or not pruned[0].endswith("(0 left)")
+                    or err_s > ROUTED_ERROR_S):
+                raise RuntimeError(f"10 check 4: {fig}")
+            for g in range(ROUTED_GROUPS):
+                r = cut_res[g]
+                if cut_on[g] == victim and not r["error"]:
+                    raise RuntimeError(f"10 check 4: stream {g} on the "
+                                       f"lost worker ended without an "
+                                       f"error: {r['finish']}")
+                if cut_on[g] != victim and (r["error"]
+                                            or r["finish"] != "length"):
+                    raise RuntimeError(f"10 check 4: stream {g} on the "
+                                       f"survivor: {r}")
+        # (d) four more requests, once the processor scraped without the
+        # lost worker: all on the survivor
+        time.sleep(ROUTED_SCRAPE_S)
+        with phase("10d"):
+            for g in range(ROUTED_GROUPS):
+                n0 = len(decisions)
+                got[("last", g, 0)] = r = one(prompts[g]["last"])
+                w = next_decision(n0)["worker_id"]
+                if w != survivor or r["finish"] != "length":
+                    raise RuntimeError(f"10 check 4: request {g} after the "
+                                       f"loss went to {by_id.get(w, w)}: "
+                                       f"{r['finish']}")
+            log(f"10 check 4 after {json.dumps({'all_on': by_id[survivor], 'n': ROUTED_GROUPS})} [{card}]")
+
+        # (3) every finished stream against the reference
+        with phase("10e"):
+            parted, reader = [], None
+            for key, r in got.items():
+                want = ref[key]
+                if r["error"] or r["finish"] != "length" or \
+                        len(r["tokens"]) != ROUTED_TOKENS:
+                    raise RuntimeError(f"10 check 3: {key} {r}")
+                if r["tokens"] == want["tokens"]:
+                    continue
+                first = next(i for i, (a, b) in enumerate(
+                    zip(r["tokens"], want["tokens"])) if a != b)
+                if reader is None:
+                    reader = GapReader(ref_core.params, cfg, dev, kv_quant,
+                                       ROUTED_PREFIX_BLOCKS * KV_BLOCK
+                                       + ROUTED_SUFFIX[1] + ROUTED_TOKENS)
+                kind, g, k = key
+                prompt = (prompts[g]["seed"] if kind == "seed" else
+                          prompts[g]["follow"][k] if kind == "follow"
+                          else prompts[g]["last"])
+                ids = recorder.ids[want["request_id"]]
+                gap = reader([prompt], [ids])[0][first]
+                parted.append({"request": list(key), "at": first,
+                               "gap": gap})
+                if not gap < SPEC_NEAR_TIE:
+                    raise RuntimeError(f"10 check 3: {key} parts from the "
+                                       f"reference at token {first}, gap "
+                                       f"{gap} (limit {SPEC_NEAR_TIE})")
+            fig = {"streams": len(got), "equal": len(got) - len(parted),
+                   "parted_at_near_ties": parted}
+            log(f"10 check 3 {json.dumps(fig)} [{card}]")
+
+        # (5) each worker's launches: the victim's last published counts,
+        # the survivor's from its log at stop
+        procs.stop(["processor", by_id[survivor]])
+        final = [ln for ln in procs.text(by_id[survivor]).splitlines()
+                 if "kernel launches" in ln]
+        if not final:
+            raise RuntimeError(f"10 check 5: no launch counts in the "
+                               f"survivor's log:\n"
+                               f"{procs.text(by_id[survivor])[-2000:]}")
+        launches[by_id[survivor]] = json.loads(
+            final[-1].split("kernel launches ", 1)[1])
+        total: dict = {}
+        for w, counts in launches.items():
+            log(f"10 check 5 routed launches {w}: {json.dumps(counts)} "
+                f"[{card}]")
+            for k in PATH_KERNELS[ROUTED_PATH]:
+                if counts.get(k, 0) <= 0:
+                    raise RuntimeError(f"10 check 5: {w} never launched "
+                                       f"{k}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        report["s"] = time.monotonic() - t_phase
+        log(f"10 routed {json.dumps({k: v for k, v in report.items()})} "
+            f"[{card}]")
+        return total, report
+    except BaseException:
+        log(procs.tails())
+        raise
+    finally:
+        if "task" in obs:
+            async def close_obs():
+                obs["task"].cancel()
+                obs["sub"].close()
+                await obs["client"].close()
+                await obs["rt"].shutdown()
+            try:
+                on_loop(obs_loop, close_obs(), 60)
+            except Exception as e:  # noqa: BLE001 — shutdown goes on
+                log(f"10: observer shutdown: {e}")
+        obs_loop.call_soon_threadsafe(obs_loop.stop)
+        obs_thread.join(30)
+        procs.stop([n for n in procs.procs if n != "daemon"], 30)
+        procs.stop(["daemon"], 30)
+        if stop_ref is not None:
+            stop_ref()
+        tmp_ctx.cleanup()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
 # ``--ab DIR``: phase 3's attention kernels (K1-K4 at the 8B shapes) and
 # phase 3m's latent kernels (K3-MLA and K4-MLA at V2-Lite's) of another
 # checkout of the repository at DIR (its build directory apart) and of
@@ -7007,8 +7630,14 @@ def main() -> int:
     # onboard with decode, the defrag pass and a replayed restore
     with phase("9"):
         by_path.update(tier_phase(cfg, dev, seed, card))
+
+    # 10. KV-aware routing over two 8B workers sharing the card: the
+    # daemon, two workers and the processor as processes of their own
+    with phase("10"):
+        by_path[ROUTED_PATH] = routed_phase(cfg, dev, seed, card)
     rest = [p for p in PATH_KERNELS if p not in LATER_PATHS] \
-        + list(CHAT_PATHS) + list(SPEC_PATHS) + list(TIER_PATHS)
+        + list(CHAT_PATHS) + list(SPEC_PATHS) + list(TIER_PATHS) \
+        + [ROUTED_PATH]
     for e in entries:
         mode = e.get("mode", "")
         if mode == SPEC_MODE_TAG:

@@ -207,6 +207,14 @@ class ForwardPassMetrics:
     disk_bytes_used: int = 0
     disk_spill_dropped_total: int = 0
     disk_spill_shed_total: int = 0
+    # the device pool's prefix-match hits, in blocks (a KV-aware router's
+    # placements show here)
+    prefix_hit_blocks_total: int = 0
+
+    def to_dict(self) -> dict:
+        """The wire form a worker publishes as its stats (read by
+        ``llm/kv_router/protocols.ForwardPassMetrics.from_dict``)."""
+        return dict(self.__dict__)
 
 
 _FINISH = object()  # queue sentinel
@@ -380,9 +388,15 @@ class EngineCore:
             self.spill_engine = DiskSpillEngine(
                 self.disk_store, on_commit=self._emit_kv_disk_store)
             host_pool.on_evict = self._on_host_evict
+        # the KV event stream for a KV-aware router
+        # (llm/kv_router/publisher.py; the launcher's wire_kv_events sets
+        # it), fed by the tier-aware pool hooks
+        self.kv_event_publisher = None
         self.kv_manager = KvBlockManager(
             engine_cfg.num_kv_blocks, engine_cfg.kv_block_size,
             enable_reuse=engine_cfg.enable_prefix_reuse,
+            on_stored=self._on_block_stored,
+            on_removed=self._on_block_removed,
             host_pool=host_pool, disk_store=self.disk_store)
         if host_pool is not None:
             self.offload_engine = KvOffloadEngine(
@@ -634,6 +648,7 @@ class EngineCore:
             num_requests_waiting=self.waiting.qsize(),
             gpu_cache_usage_perc=used / max(total, 1),
             gpu_prefix_cache_hit_rate=self.kv_manager.pool.hit_rate(),
+            prefix_hit_blocks_total=self.kv_manager.pool.match_hits,
             requests_cancelled_total=self.requests_cancelled_total,
             requests_deadline_exceeded_total=self
             .requests_deadline_exceeded_total,
@@ -1010,9 +1025,85 @@ class EngineCore:
     def _emit_kv_disk_store(self, items: list) -> None:
         """Spill-pump commit hook: [(hash, tokens_hash, parent, evicted)]
         a durably acknowledged put, to the recorder (a mirror applies the
-        literal placements, ``replay.exec_kv_disk_store_event``)."""
+        literal placements, ``replay.exec_kv_disk_store_event``), and to
+        the router's radix index: the spilled prefixes announce with a
+        "disk" tier tag unless the hash is still device-registered (its
+        device announce stands at full weight), and the disk's evictions
+        announce their removal (``_publish_tier_removed``)."""
         if self.recorder is not None:
             self.recorder.rec("kv_disk_store", items=items)
+        pub = self.kv_event_publisher
+        if pub is None:
+            return
+        for h, th, ph, evicted in items:
+            for gone in evicted:
+                self._publish_tier_removed(gone)
+            if not self.kv_manager.pool.peek_prefix([h]):
+                pub.publish_stored(-1, h, th, ph, tier="disk")
+
+    # ------------------------------------------------------ KV event stream
+    def reannounce_kv(self) -> int:
+        """Replay every stored-block announcement into the KV event
+        publisher: the lease-reclaim recovery hook (after a transient
+        lease expiry the router wiped this worker's radix index; the
+        reclaim replays discovery keys but not content events, so the pool
+        re-announces them, parents first), and the bring-up announce of a
+        warm-started disk tier (prefixes the device pool has never seen,
+        tier-tagged, so the router can route matching prompts here)."""
+        if self.kv_event_publisher is None:
+            return 0
+        n = self.kv_manager.pool.reannounce(
+            self.kv_event_publisher.publish_stored)
+        if self.disk_store is not None:
+            for h, th, ph in self.disk_store.registered_entries():
+                if not self.kv_manager.pool.peek_prefix([h]):
+                    self.kv_event_publisher.publish_stored(
+                        -1, h, th, ph, tier="disk")
+                    n += 1
+        return n
+
+    def _publish_tier_removed(self, seq_hash: int) -> None:
+        """Removed-from-disk announce, suppressed while a warmer tier
+        still holds the hash (the router would otherwise lose a prefix
+        this worker can still serve)."""
+        pub = self.kv_event_publisher
+        if pub is None:
+            return
+        host = self.kv_manager.host_pool
+        if self.kv_manager.pool.peek_prefix([seq_hash]):
+            return
+        if host is not None and host.contains(seq_hash):
+            return
+        pub.publish_removed([seq_hash])
+
+    def _on_block_stored(self, bid: int, seq_hash: int, tokens_hash: int,
+                         parent_hash) -> None:
+        """Device-pool stored hook → router event (tier "device")."""
+        if self.kv_event_publisher is not None:
+            self.kv_event_publisher.publish_stored(
+                bid, seq_hash, tokens_hash, parent_hash)
+
+    def _on_block_removed(self, seq_hashes: list) -> None:
+        """Device-pool removed hook. A hash still resident in a colder
+        tier is re-announced with that tier's tag instead of removed: the
+        router's radix index keeps the prefix visible at a discounted
+        depth (kv_router/scoring.py TIER_WEIGHTS) rather than forgetting
+        that this worker can still serve it without recompute."""
+        pub = self.kv_event_publisher
+        if pub is None:
+            return
+        host = self.kv_manager.host_pool
+        gone = []
+        for h in seq_hashes:
+            if host is not None and host.contains(h):
+                th, ph = host.meta_for(h)
+                pub.publish_stored(-1, h, th, ph, tier="host")
+            elif self.disk_store is not None and self.disk_store.contains(h):
+                pub.publish_stored(-1, h, None, None, tier="disk")
+            else:
+                gone.append(h)
+        if gone:
+            pub.publish_removed(gone)
 
     def _sample_device(self, logits: torch.Tensor,
                        reqs: List[Optional[EngineRequest]]) -> tuple:

@@ -4,12 +4,16 @@
 [--ragged-max-tokens N] [--ragged-max-seq-rows N]] [--sp N] [--spec-k K]
 [--prefill-chunk N] [--decode-steps-per-dispatch K
 [--decode-dispatch-pipeline] [--lane-prefill-max-tokens N]]
-[--max-tokens N] [--output-path F]``.
+[--max-tokens N] [--output-path F] [--runtime-server H:P
+[--advertise-host H]] [--protocol tokens]``.
 
-Counterpart of ``dynamo_tpu.launch.run`` for one process:
+Counterpart of ``dynamo_tpu.launch.run``:
 
 Inputs:  http (chat and completions) | text (a prompt per line, until an
-         empty line) | stdin (every line of stdin) | batch:FILE.jsonl
+         empty line) | stdin (every line of stdin) | batch:FILE.jsonl |
+         none (bring the engine up and wait) | dyn://ns/comp/ep (serve as
+         a discoverable worker of the distributed runtime, under the
+         daemon at --runtime-server or an in-process runtime)
 Outputs: torch | echo_core | echo_full | pystr:FILE.py | pytok:FILE.py
 
 Core engines (torch, echo_core, pytok) ride the canonical link
@@ -21,8 +25,17 @@ and for ``out=torch`` the checkpoint's ``*.safetensors``, loaded onto the
 device in the engine's dtype and quantization (``engine/weights.py``);
 ``--random-weights`` serves weights from ``EngineConfig.seed`` instead. A
 directory whose checkpoint does not load exits non-zero with the loader's
-message. ``in=none`` and the distributed ``dyn://`` endpoints wait for the
-port's distributed runtime (ROADMAP A7).
+message.
+
+A ``dyn://`` worker speaks ``--protocol tokens``: the bare token-level
+engine (``out=torch`` or ``out=echo_core``) behind the endpoint, for a
+KV-routing processor (``components/processor.py``) that tokenizes and
+detokenizes; it publishes its ``ForwardPassMetrics`` (plus the daemon
+link's counters) as its stats and its KV events on the component's
+``kv_events`` subject. ``--protocol openai`` on a ``dyn://`` input (the
+full pipeline on the worker, registered for discovery-driven frontends)
+and ``out=dyn://`` wait for ``llm/discovery.py``, ``llm/engines/remote.py``
+and the registry card (ROADMAP A7, A10).
 """
 
 from __future__ import annotations
@@ -45,8 +58,19 @@ def build_parser() -> argparse.ArgumentParser:
         prog="dynamo-tpu-torch-run",
         description="PyTorch/CUDA LLM serving launcher (in=SRC out=ENGINE)")
     p.add_argument("io", nargs="*", metavar="in=|out=",
-                   help="in=http|text|stdin|batch:F "
+                   help="in=http|text|stdin|batch:F|none|dyn://ns/comp/ep "
                         "out=torch|echo_core|echo_full|pystr:F|pytok:F")
+    p.add_argument("--runtime-server",
+                   help="discovery daemon host:port (default: in-process "
+                        "runtime — single-process deployments)")
+    p.add_argument("--advertise-host",
+                   help="address other hosts can dial back")
+    p.add_argument("--protocol", choices=["openai", "tokens"],
+                   default="openai",
+                   help="worker wire protocol for in=dyn://: openai = full "
+                        "pipeline on the worker (not ported yet); tokens = "
+                        "core engine only (preprocessing lives in a "
+                        "KV-routing processor)")
     p.add_argument("--model-path",
                    help="HF-style model dir (config.json + tokenizer)")
     p.add_argument("--model-name", help="served model name "
@@ -139,9 +163,18 @@ def parse_io(io_args) -> Tuple[str, str]:
         else:
             raise SystemExit(f"unrecognized positional arg {a!r} "
                              "(expected in=... / out=...)")
-    if src not in ("http", "text", "stdin") and not src.startswith("batch:"):
-        raise SystemExit(f"unknown in= source {src!r} (in=none and dyn:// "
-                         f"wait for the port's distributed runtime)")
+    if src.startswith("dyn://"):
+        parts = src[len("dyn://"):].split("/")
+        if len(parts) != 3 or not all(parts):
+            raise SystemExit(f"bad in= source {src!r}: expected "
+                             f"dyn://namespace/component/endpoint")
+    elif src not in ("http", "text", "stdin", "none") and not \
+            src.startswith("batch:"):
+        raise SystemExit(f"unknown in= source {src!r}")
+    if out.startswith("dyn://"):
+        raise SystemExit(f"unknown out= engine {out!r}: a remote engine "
+                         f"needs llm/engines/remote.py and "
+                         f"llm/discovery.py (ROADMAP A7, A10)")
     if out not in ("torch", "echo_core", "echo_full") and not (
             out.startswith("pystr:") or out.startswith("pytok:")):
         raise SystemExit(f"unknown out= engine {out!r}")
@@ -236,8 +269,10 @@ def build_pipeline(args, core):
     return link_pipeline(TorchEngine(core), mdc), mdc
 
 
-def build_engine(args, out: str):
-    """(pipeline, core or None) for ``out``."""
+def build_engine_parts(args, out: str):
+    """(engine, card, core): the engine ``out`` names, the model card a
+    core engine is linked with (None for a full engine, which speaks
+    OpenAI itself) and the ``EngineCore`` (None but for ``out=torch``)."""
     if out == "torch":
         if not args.model_path:
             raise SystemExit("out=torch needs --model-path")
@@ -245,13 +280,14 @@ def build_engine(args, out: str):
             core = build_core(args)
         except RuntimeError as e:     # no CUDA device and --device cuda
             raise SystemExit(str(e))
-        return build_pipeline(args, core)[0], core
+        from ..llm.engines.torch_engine import TorchEngine
+        return TorchEngine(core), model_card(args), core
     if out == "echo_full":
         from ..llm.engines.echo import EchoEngineFull
-        return EchoEngineFull(), None
+        return EchoEngineFull(), None, None
     if out == "echo_core":
         from ..llm.engines.echo import EchoEngineCore
-        return link_pipeline(EchoEngineCore(), model_card(args)), None
+        return EchoEngineCore(), model_card(args), None
     # user python-file engines (reference engines/python.rs:57-354)
     from ..llm.engines.python_file import (PythonFileEngineCore,
                                            PythonFileEngineFull)
@@ -259,9 +295,14 @@ def build_engine(args, out: str):
     engine_args = {"model_path": args.model_path,
                    "model_name": model_name(args)}
     if kind == "pystr":
-        return PythonFileEngineFull(path, engine_args), None
-    return link_pipeline(PythonFileEngineCore(path, engine_args),
-                         model_card(args)), None
+        return PythonFileEngineFull(path, engine_args), None, None
+    return PythonFileEngineCore(path, engine_args), model_card(args), None
+
+
+def build_engine(args, out: str):
+    """(pipeline, core or None) for ``out``."""
+    engine, mdc, core = build_engine_parts(args, out)
+    return link_pipeline(engine, mdc), core
 
 
 async def serve(args, core, ready=None, pipeline=None) -> None:
@@ -378,9 +419,136 @@ async def run_batch(args, pipeline, path: str) -> None:
         raise SystemExit(1)
 
 
+async def make_runtime(args):
+    from ..runtime.distributed import DistributedRuntime
+    if args.runtime_server:
+        return await DistributedRuntime.connect(args.runtime_server,
+                                                advertise=args.advertise_host)
+    return DistributedRuntime.in_process()
+
+
+async def run_worker_endpoint(args, engine, core, runtime, path: str,
+                              mdc=None) -> None:
+    """in=dyn://ns/comp/ep — serve as a discoverable worker instance
+    (reference input/endpoint.rs:34-115): the stats handler publishes the
+    core's ForwardPassMetrics; KV events go to the component's kv_events
+    subject for KV-aware routers. ``--protocol tokens`` serves the bare
+    core engine (a KV-routing processor tokenizes and detokenizes: the
+    examples/llm Processor→Router→Worker shape)."""
+    from ..llm.protocols.annotated import encode_annotated_json
+    from ..llm.protocols.common import PreprocessedRequest
+    from ..runtime.distributed import Endpoint
+    if mdc is None:
+        raise SystemExit(
+            "--protocol tokens needs a token-level engine "
+            "(out=torch or out=echo_core), not a full-pipeline one")
+    endpoint = Endpoint.parse_path(runtime, path)
+    stats_handler = None
+    if core is not None:
+        def stats_handler():
+            from ..runtime import netstore
+            d = core.metrics().to_dict()
+            # process-wide daemon-link counters ride the worker's scrape
+            d["netstore_retries_total"] = netstore.retries_total()
+            d["netstore_deadline_exceeded_total"] = \
+                netstore.deadline_exceeded_total()
+            # and so do this process's kernel launch counts (a router
+            # reads ForwardPassMetrics and drops the key)
+            d["kernel_launches"] = kernel_launches()
+            return d
+        await wire_kv_events(core, runtime, endpoint)
+    if core is not None and core.device.type == "cuda":
+        import torch
+        logger.info("device memory after bring-up: %.2f GiB reserved",
+                    torch.cuda.memory_reserved(core.device) / 2**30)
+    await endpoint.serve(
+        engine,
+        decode_req=lambda raw: PreprocessedRequest.from_dict(
+            json.loads(raw)),
+        encode_resp=encode_annotated_json,
+        stats_handler=stats_handler)
+    logger.info("worker serving %s (%s protocol)", endpoint.path,
+                args.protocol)
+    print(f"READY {endpoint.path} worker {runtime.worker_id:x}", flush=True)
+    await asyncio.Event().wait()
+
+
+async def wire_kv_events(core, runtime, endpoint) -> None:
+    """Attach a KvEventPublisher to the engine → bus subject
+    ``evt.{ns}.{comp}.kv_events`` (reference kv_router/publisher.rs). The
+    core's pool hooks are tier-aware: a device eviction whose hash
+    survives in the host or disk tier re-announces with its tier instead
+    of removing it, and disk spills and evictions announce with
+    tier="disk". A warm-started disk tier is announced at once, and the
+    pool re-announces itself after a lease reclaim."""
+    from ..llm.kv_router.publisher import KvEventPublisher
+    component = runtime.namespace(endpoint.namespace).component(
+        endpoint.component)
+    lease = await runtime.primary_lease()
+
+    async def sink(ev) -> None:
+        await component.publish_event("kv_events", ev)
+
+    core.kv_event_publisher = KvEventPublisher(worker_id=lease.id, sink=sink)
+    if core.disk_store is not None and len(core.disk_store) > 0:
+        # warm-started disk tier: announce the recovered prefixes so the
+        # router's radix index routes matching prompts here for a
+        # promote instead of a cold recompute elsewhere (off the loop:
+        # the store's inventory is read under its lock)
+        n = await asyncio.to_thread(core.reannounce_kv)
+        logger.info("announced %d KV blocks at bring-up (%d disk-"
+                    "resident from the previous run)", n,
+                    len(core.disk_store))
+
+    # transient lease expiry → the reclaim replays discovery keys, but the
+    # router's radix index of OUR blocks was wiped by the DELETE events:
+    # re-announce the pool so KV-aware routing recovers
+    prev = getattr(runtime.store, "on_lease_reclaimed", None)
+
+    def reclaimed(lease_id: int) -> None:
+        if prev is not None:
+            prev(lease_id)
+        if lease_id == lease.id:
+            n = core.reannounce_kv()
+            logger.info("re-announced %d stored KV blocks after lease "
+                        "reclaim", n)
+
+    runtime.store.on_lease_reclaimed = reclaimed
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launch count in this process (``Kernel.launches``):
+    a worker's share of the kernels its engine ran."""
+    from ..engine.kernels import KERNELS
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
 async def amain(argv=None) -> None:
     args = build_parser().parse_args(argv)
     src, out = parse_io(args.io)
+    dyn = src.startswith("dyn://")
+    if dyn and args.protocol == "openai":
+        raise SystemExit(
+            "in=dyn:// with --protocol openai (the full pipeline on the "
+            "worker, registered for discovery-driven frontends) needs "
+            "llm/discovery.py and the registry card (ROADMAP A7, A10); "
+            "serve --protocol tokens behind components/processor.py")
+    if dyn or src == "none":
+        engine, mdc, core = build_engine_parts(args, out)
+        runtime = await make_runtime(args)
+        try:
+            if dyn:
+                await run_worker_endpoint(args, engine, core, runtime, src,
+                                          mdc=mdc)
+            else:
+                await asyncio.Event().wait()
+        finally:
+            if core is not None:
+                await core.stop()
+                logger.info("kernel launches %s",
+                            json.dumps(kernel_launches()))
+            await runtime.shutdown()
+        return
     pipeline, core = build_engine(args, out)
     if src == "http":
         await serve(args, core, pipeline=pipeline)

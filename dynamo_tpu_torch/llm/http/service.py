@@ -14,7 +14,9 @@ request's deadline. Status codes and error bodies
 (``{"error": {"message", "type", "code"}}``) are the JAX service's. Each
 connection serves one request (``Connection: close``). A client that
 disconnects mid-stream kills the request's context, so the engine frees its
-slot at the next step. ``/traces`` and ``/debug``'s ``tracer`` member wait
+slot at the next step. A stream whose source fails mid-way (a remote worker
+lost) ends in an SSE ``event: error`` carrying the message and no
+``[DONE]``; the JAX service drops the connection there. ``/traces`` and ``/debug``'s ``tracer`` member wait
 for the port's tracing (ROADMAP A10).
 """
 
@@ -488,6 +490,16 @@ class HttpService:
         except ConnectionError:
             guard.mark_cancelled()
             ectx.kill()
+        except Exception as e:  # noqa: BLE001 — the stream's source failed
+            # mid-stream (a remote worker lost): an SSE error event tells
+            # the client, and no [DONE] follows
+            logger.exception("stream failed")
+            try:
+                writer.write(encode_annotated(Annotated.from_error(
+                    f"stream failed: {e}")).encode())
+                await writer.drain()
+            except ConnectionError:
+                pass
         finally:
             monitor_task.cancel()
             guard.close()

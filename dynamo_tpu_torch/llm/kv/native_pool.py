@@ -1,0 +1,280 @@
+"""ctypes wrapper over the native (C++) KV block reuse pool (a copy of
+``dynamo_tpu.llm.kv.native_pool`` over the port's own copy of the source,
+``csrc/host/kv_reuse_pool.cpp``, built by ``utils/native.py``).
+
+Same interface and semantics as pool.KvBlockPool (the reference's
+`AvailableBlocks`/`ReservedBlocks` actor, lib/llm/src/kv/reuse.rs) with the
+hash maps and the priority+LRU eviction set in C++ — O(log n) eviction vs
+the Python fallback's O(n) min() scan, and no interpreter time on the
+match/alloc/release fast paths. Stored/removed events come back through
+return buffers; this wrapper fires the Python-side ``on_stored`` /
+``on_removed`` callbacks so engine wiring is identical for both pools. The JAX package's
+tenant ledger hooks are not here (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, List, Optional, Sequence
+
+from ...utils import native
+from .pool import KvBlockPool
+
+__all__ = ["NativeKvBlockPool", "load_native_pool_lib"]
+
+_I64 = ctypes.c_int64
+_U64 = ctypes.c_uint64
+_P = ctypes.c_void_p
+
+
+def load_native_pool_lib(build_dir: Optional[str] = None) -> ctypes.CDLL:
+    """Build (once) and load the pool's library (under ``build_dir``, by
+    default the port's build directory); raises if it cannot."""
+    lib = native.load("kv_reuse_pool", ["kv_reuse_pool.cpp"], build_dir)
+    if getattr(lib, "_kvpool_ready", False):
+        return lib
+    lib.kvpool_create.restype = _P
+    lib.kvpool_create.argtypes = [_I64]
+    lib.kvpool_destroy.argtypes = [_P]
+    for fn in ("kvpool_free_blocks", "kvpool_reusable_blocks",
+               "kvpool_match_queries", "kvpool_match_hits"):
+        getattr(lib, fn).restype = _I64
+        getattr(lib, fn).argtypes = [_P]
+    lib.kvpool_match_prefix.restype = _I64
+    lib.kvpool_match_prefix.argtypes = [_P, ctypes.POINTER(_U64), _I64,
+                                        ctypes.POINTER(_I64)]
+    lib.kvpool_peek_prefix.restype = _I64
+    lib.kvpool_peek_prefix.argtypes = [_P, ctypes.POINTER(_U64), _I64]
+    lib.kvpool_alloc_uninit.restype = _I64
+    lib.kvpool_alloc_uninit.argtypes = [_P, _I64, ctypes.POINTER(_I64),
+                                        ctypes.POINTER(_U64),
+                                        ctypes.POINTER(_I64)]
+    lib.kvpool_register.restype = _I64
+    lib.kvpool_register.argtypes = [_P, _I64, _U64, _U64, _U64, _I64, _I64]
+    lib.kvpool_hold.argtypes = [_P, ctypes.POINTER(_I64), _I64]
+    lib.kvpool_release.argtypes = [_P, ctypes.POINTER(_I64), _I64]
+    lib.kvpool_reset.restype = _I64
+    lib.kvpool_reset.argtypes = [_P, ctypes.POINTER(_U64)]
+    lib.kvpool_layout_stats.argtypes = [_P, ctypes.POINTER(_I64)]
+    lib.kvpool_refcounts.argtypes = [_P, ctypes.POINTER(_I64), _I64,
+                                     ctypes.POINTER(_I64)]
+    lib.kvpool_relocate.restype = _I64
+    lib.kvpool_relocate.argtypes = [_P, ctypes.POINTER(_I64),
+                                    ctypes.POINTER(_I64), _I64]
+    lib._kvpool_ready = True
+    return lib
+
+
+def _u64s(values: Sequence[int]):
+    return (_U64 * len(values))(*[v & 0xFFFFFFFFFFFFFFFF for v in values])
+
+
+def _i64s(values: Sequence[int]):
+    return (_I64 * len(values))(*values)
+
+
+class NativeKvBlockPool:
+    """Drop-in for KvBlockPool backed by libkv_reuse_pool.so."""
+
+    def __init__(self, num_blocks: int,
+                 on_stored: Optional[Callable] = None,
+                 on_removed: Optional[Callable] = None,
+                 lib: Optional[ctypes.CDLL] = None):
+        self._lib = lib or load_native_pool_lib()
+        self.num_blocks = num_blocks
+        self._h = self._lib.kvpool_create(num_blocks)
+        self.on_stored = on_stored
+        self.on_removed = on_removed
+        # scratch buffers reused across calls (single-threaded actor)
+        self._bid_buf = (_I64 * num_blocks)()
+        self._hash_buf = (_U64 * num_blocks)()
+        self._n_removed = _I64(0)
+        # Python-side shadow of registrations (seq_hash → (bid, tokens_hash,
+        # parent_hash)) so reannounce() works without a C enumerate ABI;
+        # register/alloc_uninit/reset already round-trip through Python, so
+        # the shadow stays exact at zero native-call cost
+        self._registered: dict = {}
+        self._hash_of_bid: dict = {}       # bid → its shadow key
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h and getattr(self, "_lib", None) is not None:
+            self._lib.kvpool_destroy(h)
+
+    def _forget(self, key: Optional[int]) -> None:
+        entry = self._registered.pop(key, None)
+        if entry is not None and self._hash_of_bid.get(entry[0]) == key:
+            del self._hash_of_bid[entry[0]]
+
+    # ------------------------------------------------------------- queries
+    @property
+    def free_blocks(self) -> int:
+        return self._lib.kvpool_free_blocks(self._h)
+
+    @property
+    def used_blocks(self) -> int:
+        return (self.num_blocks - 1) - self.free_blocks
+
+    @property
+    def reusable_blocks(self) -> int:
+        return self._lib.kvpool_reusable_blocks(self._h)
+
+    @property
+    def match_queries(self) -> int:
+        return self._lib.kvpool_match_queries(self._h)
+
+    @property
+    def match_hits(self) -> int:
+        return self._lib.kvpool_match_hits(self._h)
+
+    def hit_rate(self) -> float:
+        return self.match_hits / max(self.match_queries, 1)
+
+    # ---------------------------------------------------- layout/contiguity
+    def _layout_stats(self):
+        buf = (_I64 * 7)()
+        self._lib.kvpool_layout_stats(self._h, buf)
+        return list(buf)
+
+    @property
+    def contig_runs(self) -> int:
+        return self._layout_stats()[0]
+
+    @property
+    def free_uninit_blocks(self) -> int:
+        return self._layout_stats()[2]
+
+    @property
+    def alloc_blocks_total(self) -> int:
+        return self._layout_stats()[3]
+
+    @property
+    def alloc_runs_total(self) -> int:
+        return self._layout_stats()[4]
+
+    @property
+    def alloc_requests_total(self) -> int:
+        return self._layout_stats()[5]
+
+    @property
+    def defrag_moves_total(self) -> int:
+        return self._layout_stats()[6]
+
+    def frag_ratio(self) -> float:
+        _runs, largest, free, *_ = self._layout_stats()
+        return 0.0 if free == 0 else 1.0 - largest / free
+
+    def contiguity_ratio(self) -> float:
+        s = self._layout_stats()
+        possible = s[3] - s[5]
+        return 1.0 if possible <= 0 else (s[3] - s[4]) / possible
+
+    count_runs = staticmethod(KvBlockPool.count_runs)
+
+    def refcounts(self, blocks: Sequence[int]) -> List[int]:
+        if not blocks:
+            return []
+        out = (_I64 * len(blocks))()
+        self._lib.kvpool_refcounts(self._h, _i64s(blocks),
+                                   len(blocks), out)
+        return list(out)
+
+    def relocate(self, moves) -> None:
+        moves = list(moves)
+        if not moves:
+            return
+        olds = [o for o, _ in moves]
+        news = [n for _, n in moves]
+        rc = self._lib.kvpool_relocate(self._h, _i64s(olds), _i64s(news),
+                                       len(moves))
+        if rc != 0:
+            raise ValueError("relocate target not a fresh uninit block "
+                             "or source not resident")
+        # the reannounce shadow tracks bids — rebind moved registrations
+        for old, new in moves:
+            key = self._hash_of_bid.pop(old, None)
+            if key is not None:
+                _, seq_hash, tokens_hash, parent = self._registered[key]
+                self._registered[key] = (new, seq_hash, tokens_hash, parent)
+                self._hash_of_bid[new] = key
+
+    # ------------------------------------------------------------ matching
+    def match_prefix(self, seq_hashes: Sequence[int]) -> List[int]:
+        if not seq_hashes:
+            return []
+        # repeated hashes can match the same block more than once, so the
+        # out buffer must be input-sized, not pool-sized
+        buf = (self._bid_buf if len(seq_hashes) <= self.num_blocks
+               else (_I64 * len(seq_hashes))())
+        n = self._lib.kvpool_match_prefix(self._h, _u64s(seq_hashes),
+                                          len(seq_hashes), buf)
+        return list(buf[:n])
+
+    def peek_prefix(self, seq_hashes: Sequence[int]) -> int:
+        if not seq_hashes:
+            return 0
+        return self._lib.kvpool_peek_prefix(self._h, _u64s(seq_hashes),
+                                            len(seq_hashes))
+
+    # ----------------------------------------------------------- allocate
+    def alloc_uninit(self, n: int) -> Optional[List[int]]:
+        if n == 0:
+            return []
+        rc = self._lib.kvpool_alloc_uninit(
+            self._h, n, self._bid_buf, self._hash_buf,
+            ctypes.byref(self._n_removed))
+        if rc != 0:
+            return None
+        removed = list(self._hash_buf[:self._n_removed.value])
+        for h in removed:
+            self._forget(h)
+        if removed and self.on_removed is not None:
+            self.on_removed(removed)
+        return list(self._bid_buf[:n])
+
+    # ------------------------------------------------------------ register
+    def register(self, bid: int, seq_hash: int, tokens_hash: int,
+                 parent_hash: Optional[int], priority: int = 0) -> None:
+        stored = self._lib.kvpool_register(
+            self._h, bid, seq_hash & 0xFFFFFFFFFFFFFFFF,
+            tokens_hash & 0xFFFFFFFFFFFFFFFF,
+            (parent_hash or 0) & 0xFFFFFFFFFFFFFFFF,
+            0 if parent_hash is None else 1, priority)
+        if stored:
+            # a block registered anew drops its old hash (the pool keeps
+            # one registration a block, and reports no removal for it);
+            # the JAX package's shadow keeps the stale entry, so its
+            # reannounce replays a hash the pool no longer holds
+            self._forget(self._hash_of_bid.get(bid))
+            # shadow keyed by the masked u64 the C side reports removals in
+            key = seq_hash & 0xFFFFFFFFFFFFFFFF
+            self._registered[key] = (bid, seq_hash, tokens_hash, parent_hash)
+            self._hash_of_bid[bid] = key
+            if self.on_stored is not None:
+                self.on_stored(bid, seq_hash, tokens_hash, parent_hash)
+
+    def hold(self, blocks: Sequence[int]) -> None:
+        if blocks:
+            self._lib.kvpool_hold(self._h, _i64s(blocks), len(blocks))
+
+    def release(self, blocks: Sequence[int]) -> None:
+        if blocks:
+            self._lib.kvpool_release(self._h, _i64s(blocks), len(blocks))
+
+    def reset(self) -> None:
+        n = self._lib.kvpool_reset(self._h, self._hash_buf)
+        removed = list(self._hash_buf[:n])
+        for h in removed:
+            self._forget(h)
+        if n and self.on_removed is not None:
+            self.on_removed(removed)
+
+    # --------------------------------------------------------- reannounce
+    def registered_entries(self):
+        """(bid, seq_hash, tokens_hash, parent_hash) per registered block
+        (from the Python shadow — same shape as KvBlockPool's)."""
+        return [v for v in self._registered.values()]
+
+    # parent-ordered replay of every stored-block announcement (the
+    # lease-reclaim recovery hook): the Python pool's, over the shadow above
+    reannounce = KvBlockPool.reannounce

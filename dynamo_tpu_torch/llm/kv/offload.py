@@ -278,6 +278,11 @@ class HostKvPool:
     def contains(self, seq_hash: int) -> bool:
         return seq_hash in self._by_hash
 
+    def meta_for(self, seq_hash: int) -> tuple:
+        """(tokens_hash, parent_hash) recorded at store time (None, None
+        when the storer carried no chain info)."""
+        return self._meta.get(seq_hash, (None, None))
+
     def hit_rate(self) -> float:
         return self.match_hits / max(self.match_queries, 1)
 

@@ -13,7 +13,9 @@ States per block:
   when uninitialized blocks run out.
 
 Block 0 is the engine's trash block and is never handed out. The
-``on_stored``/``on_removed`` callbacks are kept for a KV event publisher.
+``on_stored``/``on_removed`` callbacks feed the engine's KV event hooks.
+``make_kv_block_pool`` picks the native C++ pool (``native_pool.py``) or
+this one, as the JAX package's factory does.
 ``KvBlockManager`` cascades a device miss to the host tier
 (``offload.HostKvPool``) and then the disk tier (``diskstore.DiskKvStore``);
 the JAX package's remote tier and tenant-preferred eviction are not here.
@@ -26,6 +28,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import heapq
+import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from .blocks import TokenBlockSequence
@@ -398,6 +401,55 @@ class KvBlockPool:
             out.append((bid, seq_hash, m.tokens_hash, m.parent_hash))
         return out
 
+    def reannounce(self, announce: Optional[Callable] = None) -> int:
+        """Re-publish every registered block through ``announce`` (default:
+        the ``on_stored`` sink), parents before children so a radix indexer
+        re-chains without re-rooting. The recovery hook for a transient
+        lease expiry: the router wiped this worker's index on the DELETE
+        watch events, the lease reclaim replayed only discovery KEYS —
+        this replays the KV content announcements."""
+        announce = announce or self.on_stored
+        if announce is None:
+            return 0
+        pending = self.registered_entries()
+        emitted: set = set()
+        n = 0
+        while pending:
+            progress = False
+            deferred = []
+            for bid, seq_hash, tokens_hash, parent in pending:
+                if parent is None or parent in emitted:
+                    announce(bid, seq_hash, tokens_hash, parent)
+                    emitted.add(seq_hash)
+                    n += 1
+                    progress = True
+                else:
+                    deferred.append((bid, seq_hash, tokens_hash, parent))
+            if not progress:
+                # orphans (parent evicted): emit anyway — the indexer
+                # re-roots unknown parents at the top
+                for bid, seq_hash, tokens_hash, parent in deferred:
+                    announce(bid, seq_hash, tokens_hash, parent)
+                    n += 1
+                break
+            pending = deferred
+        return n
+
+
+def make_kv_block_pool(num_blocks: int, on_stored=None, on_removed=None,
+                       prefer_native: bool = True):
+    """Pool factory: the C++ pool (``csrc/host/kv_reuse_pool.cpp``) unless
+    ``prefer_native`` is false or ``DYN_NATIVE_KVPOOL=0``, else the Python
+    implementation above. Both expose the identical interface. Unlike the
+    JAX package's factory, a native pool that was asked for and does not
+    build or load raises instead of quietly becoming the Python pool."""
+    if prefer_native and os.environ.get("DYN_NATIVE_KVPOOL", "1") != "0":
+        from .native_pool import NativeKvBlockPool
+        return NativeKvBlockPool(num_blocks, on_stored=on_stored,
+                                 on_removed=on_removed)
+    return KvBlockPool(num_blocks, on_stored=on_stored,
+                       on_removed=on_removed)
+
 
 @dataclasses.dataclass
 class PrefillPlan:
@@ -438,10 +490,11 @@ class KvBlockManager:
 
     def __init__(self, num_blocks: int, block_size: int,
                  on_stored=None, on_removed=None, enable_reuse: bool = True,
-                 host_pool=None, disk_store=None):
+                 host_pool=None, disk_store=None, prefer_native: bool = True):
         self.block_size = block_size
-        self.pool = KvBlockPool(num_blocks, on_stored=on_stored,
-                                on_removed=on_removed)
+        self.pool = make_kv_block_pool(num_blocks, on_stored=on_stored,
+                                       on_removed=on_removed,
+                                       prefer_native=prefer_native)
         self.enable_reuse = enable_reuse
         self.host_pool = host_pool
         self.disk_store = disk_store

@@ -1,0 +1,260 @@
+"""KV-routing wire protocols (a copy of ``dynamo_tpu.llm.kv_router.protocols``;
+the port's ``ForwardPassMetrics`` adds the port engine's own counters at its
+end, so ``from_dict`` of ``EngineCore.metrics().to_dict()`` drops nothing).
+
+Reference: lib/llm/src/kv_router/protocols.rs:18-97 — ForwardPassMetrics
+scraped from workers, KvCacheEvent stored/removed payloads flowing over the
+`kv_events` subject, and the router-side RouterEvent envelope tagging events
+with the emitting worker.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+KV_EVENTS_SUBJECT = "kv_events"
+KV_HIT_RATE_SUBJECT = "kv-hit-rate"
+LOAD_METRICS_ENDPOINT = "load_metrics"
+
+
+@dataclasses.dataclass
+class ForwardPassMetrics:
+    """Worker load metrics published to the router (reference
+    kv_router/protocols.rs ForwardPassMetrics)."""
+
+    request_active_slots: int = 0
+    request_total_slots: int = 0
+    kv_active_blocks: int = 0
+    kv_total_blocks: int = 0
+    num_requests_waiting: int = 0
+    gpu_cache_usage_perc: float = 0.0
+    gpu_prefix_cache_hit_rate: float = 0.0
+    # speculative decoding (engine/spec/): cumulative draft/accept
+    # counters + derived rates — defaults keep old payloads decoding
+    # (from_dict drops unknown keys, absent keys take these zeros)
+    spec_drafted_total: int = 0
+    spec_accepted_total: int = 0
+    spec_acceptance_rate: float = 0.0
+    spec_accepted_per_step: float = 0.0
+    # KV tier ladder (llm/kv/offload.py host tier + llm/kv/diskstore.py
+    # G3 disk tier) — the nv_llm_kv_host_* / nv_llm_kv_disk_* gauge
+    # feeds (components/metrics.py). Defaults keep old payloads decoding.
+    host_stored_total: int = 0
+    host_evicted_total: int = 0
+    host_hit_rate: float = 0.0
+    disk_used_blocks: int = 0
+    disk_capacity_blocks: int = 0
+    disk_stored_total: int = 0
+    disk_evicted_total: int = 0
+    disk_hit_rate: float = 0.0
+    disk_bytes_used: int = 0
+    disk_spill_dropped_total: int = 0
+    offload_dropped_jobs_total: int = 0
+    # remote (G4) fleet KV fabric (llm/kv/remotestore.py + fabric.py) —
+    # the nv_llm_kv_remote_* gauge feeds, plus the MEASURED link/cost
+    # model the router's NetKV scoring prices candidates with
+    # (kv_router/scoring.py network_adjusted_overlap). remote_link_gbps
+    # and remote_link_rtt_s are the fabric's decay-averaged peer-link
+    # estimates (probe at attach, refined per transfer);
+    # kv_bytes_per_block and prefill_tok_per_s complete the
+    # transfer-vs-recompute model. Zeros on old payloads / no fabric.
+    remote_used_blocks: int = 0
+    remote_capacity_blocks: int = 0
+    remote_peer_blocks: int = 0
+    remote_stored_total: int = 0
+    remote_hit_rate: float = 0.0
+    remote_fetch_failures_total: int = 0
+    remote_admission_rejects_total: int = 0
+    remote_link_gbps: float = 0.0
+    remote_link_rtt_s: float = 0.0
+    kv_bytes_per_block: int = 0
+    prefill_tok_per_s: float = 0.0
+    # tokens per KV block (EngineConfig.kv_block_size) — closes the
+    # transfer-vs-recompute model fleet-side: with it, the planner can
+    # derive each worker's fetch-vs-recompute CROSSOVER DEPTH in tokens
+    # (kv_router/scoring.py crossover_tokens) and floor the disagg
+    # retune there. Zero on old payloads (crossover then unknowable for
+    # that worker — it simply drops out of the fleet median).
+    kv_block_size: int = 0
+    # runtime/netstore.py client retry counter (bounded jittered retry;
+    # a rising rate means the discovery daemon link is flapping)
+    netstore_retries_total: int = 0
+    # contiguity-aware KV layout (llm/kv/pool.py run-tracking allocator
+    # + engine/attention.py run-coalesced DMA; docs/kv_layout.md) — the
+    # nv_llm_kv_frag_ratio / _contig_runs / _defrag_moves_total /
+    # _attn_dma_copies_per_wave gauge feeds (components/metrics.py
+    # "KV layout" Grafana row). Zeros on old payloads.
+    kv_frag_ratio: float = 0.0          # 1 - largest_free_run/free
+    kv_contig_runs: int = 0             # maximal free runs (1 = coalesced)
+    kv_contiguity_ratio: float = 0.0    # adjacency delivered/possible
+    kv_defrag_moves_total: int = 0      # blocks migrated by compaction
+    attn_dma_copies_per_wave: float = 0.0  # decode DMA issues per wave
+    # pipeline parallelism (parallel/pipeline_parallel.py): stage count,
+    # per-stage microbatch slots, and the dispatch-level interleave
+    # model — steady-state utilization K·pp/(K·pp+pp-1) and its bubble
+    # complement — the nv_llm_pp_* gauge feeds (components/metrics.py
+    # "Pipeline" Grafana row). Zeros on non-pp engines / old payloads.
+    pp_stages: int = 0
+    pp_microbatch: int = 0
+    pp_utilization: float = 0.0
+    pp_bubble_fraction: float = 0.0
+    # unified ragged dispatch (engine/ragged.py +
+    # docs/ragged_attention.md) — the nv_llm_ragged_* gauge feeds:
+    # tokens-per-dispatch fill ratio against the compiled capacity,
+    # the fraction of dispatches serving prefill AND decode rows
+    # together, and the cumulative split-path dispatches the packing
+    # replaced. Zeros on old payloads / non-ragged engines.
+    ragged_fill_ratio: float = 0.0
+    ragged_mixed_ratio: float = 0.0
+    ragged_dispatches_saved_total: int = 0
+    # fleet tracing + engine flight recorder (runtime/tracing.py +
+    # engine/flight_recorder.py): trace log lines the sampler skipped
+    # (nv_llm_trace_dropped_log_lines_total — rising means sampling is
+    # active, by design at fleet QPS), and the event-loop lag probe
+    # (nv_llm_engine_loop_lag_ms — rising means something is BLOCKING
+    # the engine loop: sync I/O, long host glue). Zeros on old payloads.
+    trace_dropped_log_lines_total: int = 0
+    loop_lag_ms: float = 0.0
+    loop_lag_max_ms: float = 0.0
+    # ragged takeover round 11 (appended — DL004 append-only evolution):
+    # the cross-sequence wave-prefetch hit ratio (first waves whose DMA
+    # a predecessor's last wave already started — the host mirror of
+    # the kernel's parity chain, attention.ragged_prefetch_counts) and
+    # the cumulative draft rows that rode ragged dispatches as spec
+    # spans (ragged × speculative decoding). Zeros on old payloads /
+    # non-ragged engines.
+    ragged_prefetch_hit_ratio: float = 0.0
+    ragged_spec_rows_total: int = 0
+    # prefill-as-a-service over the native KV dataplane round 12
+    # (appended — DL004 append-only evolution): fetches that rode the
+    # native data plane vs the base64-over-JSON fallback (llm/kv/
+    # fabric.py — a rising fallback rate means peers without the C++
+    # toolchain), and the prefix blocks this worker published to the
+    # durable object tier as a prefill-publish worker
+    # (components/prefill_service.py). Zeros on old payloads.
+    remote_dataplane_fetches_total: int = 0
+    remote_dataplane_fallbacks_total: int = 0
+    prefill_published_blocks_total: int = 0
+    # chaos-hardening round 13 (appended — DL004 append-only evolution;
+    # docs/chaos.md): the graceful-degradation counters the Grafana
+    # "Degradation" row plots. Requests vacated because the client
+    # stopped caring (disconnect → KILL → engine sweep) vs because the
+    # wire-propagated deadline budget ran out engine-side; netstore
+    # calls that burned their whole per-call deadline (a partitioned —
+    # not merely flapping — discovery daemon); the fabric circuit
+    # breaker's currently-tripped peer count + cumulative trips; and
+    # write-behind spill jobs SHED because the disk refused (ENOSPC) —
+    # serving continued without them. Zeros on old payloads.
+    requests_cancelled_total: int = 0
+    requests_deadline_exceeded_total: int = 0
+    netstore_deadline_exceeded_total: int = 0
+    remote_breaker_open_peers: int = 0
+    remote_breaker_trips_total: int = 0
+    disk_spill_shed_total: int = 0
+    # multi-tenant serving plane round 14 (appended — DL004 append-only
+    # evolution; llm/tenancy.py, docs/multi_tenant.md): per-tenant
+    # serving stats — {tenant: {admitted, throttled, kv_blocks,
+    # hit_rate}} — the nv_llm_tenant_* LABELED gauge feed
+    # (components/metrics.py exports one series per tenant). Empty on
+    # old payloads / untenanted engines.
+    tenant_stats: dict = dataclasses.field(default_factory=dict)
+    # streaming layer-wise KV handoff round 15 (appended — DL004
+    # append-only evolution; llm/kv/stream.py, docs/kv_fabric.md): the
+    # nv_llm_disagg_stream_* gauge feed plus the router's overlap-credit
+    # input. Layers this decode worker progressively scattered; stream
+    # admissions that degraded (torn frame → monolithic fill, dead
+    # stream → cold recompute); the fraction of stream-onboard wall time
+    # the engine spent doing hidden work (prep/scatter of arrived
+    # layers) rather than exposed waiting on the wire; and the MEASURED
+    # streaming depth — the model's layer count once a streamed
+    # admission has proven the plane live, 0 before (scoring.
+    # network_adjusted_overlap prices the overlapped transfer with it).
+    # Zeros on old payloads / non-streaming engines.
+    disagg_stream_layers_total: int = 0
+    disagg_stream_fallbacks_total: int = 0
+    disagg_stream_overlap_ratio: float = 0.0
+    disagg_stream_layers: int = 0
+    # the port engine's own counters (dynamo_tpu_torch/engine/core.py
+    # ForwardPassMetrics), appended: preemptions, prompt and generated
+    # tokens, and the device pool's prefix-match hits in blocks. Zeros on
+    # the JAX package's payloads.
+    preemptions_total: int = 0
+    prefill_tokens_total: int = 0
+    decode_tokens_total: int = 0
+    prefix_hit_blocks_total: int = 0
+
+    def to_dict(self) -> dict:
+        # every field is a scalar; dataclasses.asdict would deep-copy
+        # recursively — measurable on the per-second stats publish path
+        # at fleet scale (and per-scrape × workers on the planner side)
+        return dict(self.__dict__)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ForwardPassMetrics":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
+
+
+@dataclasses.dataclass
+class KvStoredEvent:
+    """Blocks entered a worker's reusable pool. `block_hashes` are chained
+    sequence hashes (globally comparable); `tokens_hashes` the local ones."""
+
+    parent_hash: Optional[int]
+    block_hashes: List[int]
+    tokens_hashes: List[int] = dataclasses.field(default_factory=list)
+    lora_id: int = 0
+    # which rung of the ladder holds the blocks: "device" (HBM, the
+    # historical default — absent in old payloads), "host" (the host
+    # pool), "disk" (the persistent G3 store) or "remote" (the G4 fleet
+    # fabric — a fetch over a real link away). The router's radix index
+    # keeps tier per (worker, hash) and the scheduler discounts colder
+    # tiers' overlap depth (kv_router/scoring.py TIER_WEIGHTS) — a
+    # disk-resident prefix is worth routing to, but less than an
+    # HBM-resident one, and a remote-resident one counts only while the
+    # announcing worker's modeled transfer beats its modeled recompute
+    # (NetKV network-aware scoring).
+    tier: str = "device"
+
+
+@dataclasses.dataclass
+class KvRemovedEvent:
+    block_hashes: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class RouterEvent:
+    """Worker-tagged KV cache event (reference RouterEvent)."""
+
+    worker_id: int
+    event_id: int = 0
+    stored: Optional[KvStoredEvent] = None
+    removed: Optional[KvRemovedEvent] = None
+
+    def to_dict(self) -> dict:
+        d: dict = {"worker_id": self.worker_id, "event_id": self.event_id}
+        if self.stored is not None:
+            d["stored"] = dataclasses.asdict(self.stored)
+        if self.removed is not None:
+            d["removed"] = dataclasses.asdict(self.removed)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RouterEvent":
+        ev = cls(worker_id=d["worker_id"], event_id=d.get("event_id", 0))
+        if d.get("stored"):
+            ev.stored = KvStoredEvent(**d["stored"])
+        if d.get("removed"):
+            ev.removed = KvRemovedEvent(**d["removed"])
+        return ev
+
+
+@dataclasses.dataclass
+class KVHitRateEvent:
+    """Emitted by the scheduler per routing decision (reference
+    scheduler.rs:28-33); consumed by the metrics component."""
+
+    worker_id: int
+    isl_blocks: int
+    overlap_blocks: int

@@ -44,3 +44,39 @@ class Annotated(Generic[R]):
         if not self.is_error:
             return None
         return "; ".join(self.comment or ["unknown error"])
+
+    def map_data(self, fn) -> "Annotated":
+        if self.data is None:
+            return Annotated(None, self.id, self.event, self.comment)
+        return Annotated(fn(self.data), self.id, self.event, self.comment)
+
+    def to_json_dict(self, data_encoder=None) -> dict:
+        out: dict = {}
+        if self.data is not None:
+            out["data"] = data_encoder(self.data) if data_encoder else self.data
+        if self.id is not None:
+            out["id"] = self.id
+        if self.event is not None:
+            out["event"] = self.event
+        if self.comment:
+            out["comment"] = self.comment
+        return out
+
+
+# Wire serde for the distributed response plane: workers stream
+# Annotated[dict] items; the frontend client reconstructs them so errors
+# and annotations survive the hop (the reference streams the same
+# Annotated JSON over its TCP response plane).
+
+def encode_annotated_json(item) -> bytes:
+    if not isinstance(item, Annotated):
+        item = Annotated.from_data(item)
+    enc = (dataclasses.asdict
+           if dataclasses.is_dataclass(item.data) else None)
+    return json.dumps(item.to_json_dict(data_encoder=enc)).encode()
+
+
+def decode_annotated_json(raw: bytes) -> "Annotated":
+    d = json.loads(raw)
+    return Annotated(data=d.get("data"), id=d.get("id"),
+                     event=d.get("event"), comment=d.get("comment"))

@@ -116,6 +116,15 @@ class EngineContext:
         if self.deadline_s is None or d < self.deadline_s:
             self.deadline_s = d
 
+    def remaining_ms(self) -> Optional[float]:
+        """Remaining budget in ms (clamped at 0), or None when no
+        deadline is armed — what egress puts on the wire so the serving
+        side re-anchors to its own clock."""
+        if self.deadline_s is None:
+            return None
+        import time
+        return max(self.deadline_s - time.monotonic(), 0.0) * 1e3
+
     @property
     def deadline_exceeded(self) -> bool:
         if self.deadline_s is None:
@@ -178,12 +187,23 @@ class ResponseStream(Generic[U]):
                 break
             yield item
 
+    async def collect(self) -> list:
+        return [item async for item in self]
+
     def map(self, fn: Callable[[U], T]) -> "ResponseStream[T]":
         async def gen() -> AsyncIterator[T]:
             async for item in self._stream:
                 yield fn(item)
 
         return ResponseStream(gen(), self.ctx)
+
+    @staticmethod
+    def from_iterable(items, ctx: EngineContext) -> "ResponseStream":
+        async def gen():
+            for item in items:
+                yield item
+
+        return ResponseStream(gen(), ctx)
 
 
 ManyOut = ResponseStream

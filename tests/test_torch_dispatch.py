@@ -14,7 +14,10 @@ equal across the two engines. The cases are the JAX suite's own
   chunked prefill continuing a prefix hit;
 - lane admission into a busy decode batch, greedy and seeded (temperature
   0.7, top_p 0.9), after a prefix hit, and under recompute preemption
-  with and without the pipeline;
+  with and without the pipeline; the second request is submitted inside
+  the engine's own put of the first's n-th token (``TokenTap``), so both
+  engines admit it at the same point of the first's stream, whatever the
+  host's load;
 - two prompts posted back to back, with the first token's fetch deferred
   (``overlap_admission_fetch``, the default: the second admission finds no
   ready slot and prefills) and fetched at once (it lane-admits): lane
@@ -101,6 +104,40 @@ def _requests(jax_side: bool, prompt, rid, max_new, sampling=None,
                          max_new_tokens=max_new, eos_ids=frozenset(eos))
 
 
+class TokenTap(asyncio.Queue):
+    """A request's ``out_queue`` that calls ``hook()`` inside the engine's
+    own put of the request's ``at``-th token. A scenario's next step then
+    lands at a fixed point of the stream, counted in emitted tokens, and
+    not wherever the host's timing lets a test coroutine run (both cores
+    emit through ``out_queue.put_nowait``)."""
+
+    def __init__(self, at: int, hook):
+        super().__init__()
+        self.at, self.hook, self.tokens = at, hook, 0
+
+    def put_nowait(self, item):
+        super().put_nowait(item)
+        if item[0] is J_FINISH or item[0] is FINISH_SENTINEL:
+            return
+        self.tokens += 1
+        if self.tokens == self.at:
+            self.hook()
+
+
+def submit_now(core, req) -> None:
+    """Run ``core.submit(req)`` to its end without yielding to the loop:
+    for a request without a precomputed payload neither core's submit
+    suspends (it puts on an unbounded queue), so the engine sees the
+    request at its very next admission pass."""
+    coro = core.submit(req)
+    try:
+        coro.send(None)
+    except StopIteration:
+        return
+    coro.close()
+    raise AssertionError("submit suspended")
+
+
 class Side:
     """One engine and the calls the JAX suite's scenarios make on it."""
 
@@ -122,24 +159,21 @@ class Side:
                 return toks, payload, req
             toks.append(item)
 
-    async def first_token(self, req):
-        item, _ = await asyncio.wait_for(req.out_queue.get(), 120)
-        assert item is not self.sentinel
-        return item
-
     async def run(self, prompt, rid, max_new=24, sampling=None, eos=()):
         return await self.drain(await self.submit(prompt, rid, max_new,
                                                   sampling, eos))
 
     async def busy_pair(self, pa, pb, max_new_a=32, samp_b=None,
                         max_new_b=24, lead=1):
-        """Submit A, wait for its first ``lead`` tokens (the engine is
-        decoding), then submit B: B lane-admits."""
-        ra = await self.submit(pa, "a", max_new=max_new_a)
-        head = [await self.first_token(ra) for _ in range(lead)]
-        rb = await self.submit(pb, "b", max_new=max_new_b, sampling=samp_b)
-        return await asyncio.gather(self.drain(ra, head=head),
-                                    self.drain(rb))
+        """Submit A, and submit B as the engine emits A's ``lead``-th
+        token (the engine is decoding A then; with lanes on, B
+        lane-admits). Both engines see B at the same point of A's
+        stream."""
+        rb = _requests(self.jax_side, pb, "b", max_new_b, samp_b)
+        ra = _requests(self.jax_side, pa, "a", max_new_a)
+        ra.out_queue = TokenTap(lead, lambda: submit_now(self.core, rb))
+        await self.core.submit(ra)
+        return await asyncio.gather(self.drain(ra), self.drain(rb))
 
 
 async def on_both(np_params, scenario, **cfg):
@@ -206,12 +240,9 @@ async def test_multistep_eos_mid_dispatch_discards_overrun(np_params):
 async def test_pipelined_staggered_admission_streams_match_jax(np_params):
     p1, p2 = _prompt(41, 12), _prompt(42, 18)
 
-    async def scenario(side):
-        async def delayed():
-            await asyncio.sleep(0.15)
-            return await side.run(p2, "b", max_new=9)
-        return await asyncio.gather(side.run(p1, "a", max_new=17),
-                                    delayed())
+    async def scenario(side):          # b arrives as a's 5th token is out
+        return await side.busy_pair(p1, p2, max_new_a=17, max_new_b=9,
+                                    lead=5)
 
     (ja, jb), (ta, tb), _, _ = await on_both(
         np_params, scenario, decode_steps_per_dispatch=4,
@@ -326,11 +357,8 @@ async def test_lane_under_preemption_matches_jax(np_params, pipeline):
     max_new = 40
 
     async def scenario(side):
-        ra = await side.submit(p1, "a", max_new=max_new)
-        t0 = await side.first_token(ra)
-        rb = await side.submit(p2, "b", max_new=max_new)
-        return await asyncio.gather(side.drain(ra, head=[t0]),
-                                    side.drain(rb))
+        return await side.busy_pair(p1, p2, max_new_a=max_new,
+                                    max_new_b=max_new)
 
     # 11 usable blocks of 8 tokens, 9 per sequence at full length: one
     # must be preempted (recompute) while the other runs

@@ -2,8 +2,8 @@
 package's for the same inputs, on the CPU: ``in=text``, ``in=stdin`` and
 ``in=batch:F`` with ``out=echo_core``, ``out=echo_full``, ``pystr:F`` and
 ``pytok:F`` over one ``tokenizer.json`` model directory. What each prints
-or writes is an exact match. The inputs the port does not serve yet
-(``in=none``, ``dyn://``) are refused.
+or writes is an exact match. Unknown inputs, a malformed ``dyn://`` path
+and the outputs the port does not serve yet (``out=dyn://``) are refused.
 """
 
 import io
@@ -109,8 +109,8 @@ async def test_batch_default_output_path_and_bad_line(tiny_model_dir,
 
 
 @pytest.mark.parametrize("io_args,match", [
-    (["in=none"], "in= source"),
-    (["in=dyn://ns/comp/ep"], "in= source"),
+    (["in=grpc"], "in= source"),
+    (["in=dyn://ns/comp"], "in= source"),
     (["out=dyn://ns/comp/ep"], "out= engine"),
     (["out=jax"], "out= engine"),
     (["bogus"], "unrecognized"),

@@ -36,8 +36,10 @@ Every case feeds both packages the same numpy inputs:
   moves a logit by up to ~7e-3 here (atol=2e-2).
 - ``EngineCore`` streams of both packages at the rank-128 geometry, greedy
   and seeded sampled in one run, over f32 and int8 pools: split K = 1, K = 4
-  pipelined with a lane admission, chunked prefill with a prefix hit, and
-  ragged dispatch: equal streams. Two prompts posted back to back at K = 4
+  pipelined with a lane admission (the port's second request submitted
+  at the first's 1st and 6th emitted token; the JAX reference, the two
+  requests alone at K = 4 unpipelined), chunked prefill with a prefix hit,
+  and ragged dispatch: equal streams. Two prompts posted back to back at K = 4
   with the first token's fetch deferred and fetched at once: equal lane
   admissions, host round trips and streams.
 - MLA with int4 or int8 weights, and with sp > 1, refuses with
@@ -739,13 +741,12 @@ def _prompt(seed, n):
 
 async def _scenario(side, mode, lead=1):
     """Each mode's requests: a greedy and a seeded sampled stream (``lead``:
-    the tokens a streams before b lane-admits)."""
+    b is submitted as the engine emits a's ``lead``-th token, the same
+    point of a's stream in both engines)."""
     pa, pb = _prompt(41, 25), _prompt(43, 21)
     if mode == "k4_pipelined_lanes" and side.jax_side:
-        # the reference: each request alone. A stream does not depend on
-        # the batch it rides, but the JAX engine's int8 latent pool gives
-        # other tokens when b lane-admits after a's 6th or 10th token
-        # (ROADMAP C), and when b is admitted depends on the host's timing
+        # the reference: each request alone (a stream does not depend on
+        # the batch it rides)
         return (await side.run(pa, "a", max_new=32),
                 await side.run(pb, "b", max_new=24, sampling=SEEDED))
     if mode == "k4_pipelined_lanes":    # b lane-admits into a's batch
@@ -766,7 +767,11 @@ async def _scenario(side, mode, lead=1):
 @pytest.mark.parametrize("mode", list(DISPATCH))
 async def test_mla_engine_streams_match_jax(e_np_params, mode, kv_quant):
     kw = dict(ENGINE, kv_quantization=kv_quant, **DISPATCH[mode])
-    jcore = JEngineCore(JModelConfig(**GEOM), JEngineConfig(**kw),
+    # the JAX reference of the pipelined mode harvests in program order:
+    # its pipelined dispatch gives other streams on a loaded host
+    # (ROADMAP C), and pipelining changes no stream
+    jkw = dict(kw, decode_dispatch_pipeline=False)
+    jcore = JEngineCore(JModelConfig(**GEOM), JEngineConfig(**jkw),
                         params={k: jnp.asarray(v)
                                 for k, v in e_np_params.items()},
                         attn_impl="xla", param_dtype=jnp.float32)
@@ -787,7 +792,7 @@ async def test_mla_engine_streams_match_jax(e_np_params, mode, kv_quant):
     assert len(ta[0]) >= 12 and len(tb[0]) >= 12
     if mode == "k4_pipelined_lanes":
         assert tcore.lane_admissions >= 1
-        # b lane-admitted after a's 6th token: the same streams
+        # b lane-admitted at a's 6th token: the same streams
         late = EngineCore(cfg, EngineConfig(dtype="float32", **kw),
                           params=params_from_numpy(e_np_params, cfg, "cpu",
                                                    torch.float32),

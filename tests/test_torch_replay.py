@@ -37,6 +37,7 @@ from dynamo_tpu_torch.engine.core import (FINISH_SENTINEL, EngineCore,
                                           EngineRequest)
 from dynamo_tpu_torch.engine.sampling import SlotSampling
 from dynamo_tpu_torch.engine.weights import params_from_numpy
+from tests.test_torch_dispatch import TokenTap, submit_now
 from tests.test_torch_spec import GEOM, repetitive, run_reqs
 
 BASE = dict(max_model_len=256, kv_block_size=8, max_num_seqs=2,
@@ -87,9 +88,10 @@ def port_core(np_params, blocks, **kw):
 
 
 async def recorded_run(np_params, name, max_new=32):
-    """Two repetitive prompts, the second posted once the first has
-    streamed a token (the engine is decoding it, so the second lane-admits
-    where lanes are on)."""
+    """Two repetitive prompts, the second posted as the engine emits the
+    first's first token (the engine is decoding it, so the second
+    lane-admits where lanes are on; the point is pinned in emitted tokens,
+    not left to the host's timing)."""
     fields, blocks, _ = RUNS[name]
     core = port_core(np_params, blocks, **fields)
     core.recorder = treplay.Recorder()
@@ -106,14 +108,13 @@ async def recorded_run(np_params, name, max_new=32):
             if item is FINISH_SENTINEL:
                 return toks
             toks.append(item)
+    reqs[0].out_queue = TokenTap(1, lambda: submit_now(core, reqs[1]))
     try:
         await core.submit(reqs[0])
-        first, _ = await asyncio.wait_for(reqs[0].out_queue.get(), 120)
-        await core.submit(reqs[1])
         a, b = await asyncio.gather(drain(reqs[0]), drain(reqs[1]))
     finally:
         await core.stop()
-    assert len(a) + 1 == len(b) == max_new
+    assert len(a) == len(b) == max_new
     return core, core.recorder.events
 
 
