@@ -352,6 +352,37 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    ``routed_int4_kv8`` path. Printed: each check's figures, the seeds'
    TTFT beside the follow-ups', each worker's GiB after bring-up.
 
+11. Disaggregated prefill and decode on the one card (``disagg_phase``):
+   the 8B at full width and depth, int4 weights + int8 KV, 2048 blocks of
+   16, phase 7's ``tokenizer.json`` directory, greedy 32-token streams.
+   In one process, over one seeded weight tree: a local engine (the
+   reference), a prefill engine behind ``llm/disagg.PrefillWorker`` and
+   a decode engine behind ``DisaggEngine``. (11a) four prompts of
+   600-3000 tokens over the device plane, the whole payload on the wire
+   and the wire layer by layer: every stream equals the reference's bit
+   for bit, the decode engine prefills nothing (each plane's K1 launches
+   equal the reference's) and the pool keeps its addresses; then each
+   prompt twice, all eight at once, as whole payloads. (11d) the
+   local fallback with no prefill worker, a layer stream cut after 8 of
+   32 layers and re-admitted cold, a short prompt under the threshold and
+   a threshold raised through the KV store. (11b) a bf16-KV prefill
+   engine feeds the int8-KV decode engine over the device plane (the
+   repack); (11c) a ``--ragged`` decode engine over the layer stream:
+   both equal their local twins or part at a near tie (printed: where
+   and at what gap). 11b reads the cause on one prompt: the repacked rows
+   equal the local int8 engine's in layer 0 and part from layer 1 on,
+   where each prefill attended over its own pool. 11c's engine, fed the
+   same prefills again as whole payloads, repeats its layer-streamed
+   streams bit for bit. (11e) the daemon,
+   ``in=none out=torch --is-prefill-worker`` and ``in=http out=torch
+   --remote-prefill --max-local-prefill-length 512`` as processes: four
+   long prompts go remote, four short stay local, every stream equals
+   the reference served over HTTP here, and each worker's K1, K3-int8, K5
+   and K6 launches are those of its side of the split. 11a-11d's counts
+   are the kernels line's ``disagg_int4_kv8`` and
+   ``disagg_ragged_int4_kv8`` paths. Printed: each plane's wall seconds,
+   the wire's GB/s, each remote TTFT beside its local twin's.
+
 Each phase prints its wall seconds (``phase 3q: N s``; each model mode and
 server inside one too) and the run ends with all of them on one line. The
 model and serve phases run each geometry at the depth of ``LAYERS``: the
@@ -4150,6 +4181,11 @@ PATH_KERNELS = {
     "tier_ragged_bf16": ("ragged_paged_attention",),
     "routed_int4_kv8": ("flash_prefill", "paged_attention_int8",
                         "lm_head_int8", "grouped_int4_matmul"),
+    "disagg_int4_kv8": ("flash_prefill", "paged_attention_int8",
+                        "lm_head_int8", "grouped_int4_matmul"),
+    "disagg_ragged_int4_kv8": ("flash_prefill",
+                               "ragged_paged_attention_int8",
+                               "lm_head_int8", "grouped_int4_matmul"),
 }
 # the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
 # dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
@@ -4197,12 +4233,18 @@ TIER_RT_BLOCKS = 64
 # the routed graph (10): two int4 + int8 KV workers of phase 7's shape
 # behind the KV-aware processor; its launches are the two workers' sum
 ROUTED_PATH = "routed_int4_kv8"
+# the disaggregated paths (11a-11d, in one process): a prefill engine (K1,
+# K5, K6) hands each prompt's KV to a decode engine (K3-int8, K5, K6), and
+# in 11c to a --ragged one (K4-int8 instead of K3-int8)
+DISAGG_PATH = "disagg_int4_kv8"
+DISAGG_RAGGED_PATH = "disagg_ragged_int4_kv8"
+DISAGG_PATHS = (DISAGG_PATH, DISAGG_RAGGED_PATH)
 # the paths that phase 5 does not serve: those of the geometries after the
-# 8B one, of the checkpoint, of chat, of speculation, of the KV tiers and
-# of the routed graph
+# 8B one, of the checkpoint, of chat, of speculation, of the KV tiers, of
+# the routed graph and of disaggregation
 LATER_PATHS = (GEMMA_PATHS + MLA_PATHS + PHI3_PATHS + QWEN2_PATHS
                + CKPT_PATHS + CHAT_PATHS + SPEC_PATHS + TIER_PATHS
-               + (ROUTED_PATH,))
+               + (ROUTED_PATH,) + DISAGG_PATHS)
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -5663,8 +5705,9 @@ class GapReader:
         from dynamo_tpu_torch.engine.programs import DecodeProgram
         self.params, self.cfg, self.dev = params, cfg, dev
         self.model = family(cfg)
-        bs, M = KV_BLOCK, MAX_MODEL_LEN // KV_BLOCK
+        bs = KV_BLOCK
         per = -(-(max_len + PROGRAM_K) // bs)       # blocks a slot
+        M = max(MAX_MODEL_LEN // KV_BLOCK, per)
         self.kv = self.model.init_kv_cache(cfg, SPEC_B * per + 1, bs, dev,
                                            torch.bfloat16,
                                            quantization=kv_quant)
@@ -6662,16 +6705,24 @@ class RoutedProcs:
     """The phase's processes (the daemon, two workers and the processor),
     each logging to a file of its own; ``stop`` ends every one."""
 
-    def __init__(self, tmp: str):
+    def __init__(self, tmp: str, tag: str = "10"):
         self.tmp = tmp
+        self.tag = tag
         self.procs: dict = {}
 
     def start(self, name: str, module: str, *args) -> None:
+        """``python -m module args`` with SIGINT's default handler (a child
+        of a process started in a shell's background inherits SIGINT
+        ignored, and ``stop`` stops by SIGINT)."""
         path = os.path.join(self.tmp, f"{name}.log")
+        run = ("import runpy, signal; "
+               "signal.signal(signal.SIGINT, signal.default_int_handler); "
+               f"runpy.run_module({module!r}, run_name='__main__', "
+               "alter_sys=True)")
         f = open(path, "w")
         try:
             self.procs[name] = (subprocess.Popen(
-                [sys.executable, "-m", module, *args], cwd=ROOT,
+                [sys.executable, "-c", run, *args], cwd=ROOT,
                 stdout=f, stderr=subprocess.STDOUT), path)
         finally:
             f.close()
@@ -6689,11 +6740,11 @@ class RoutedProcs:
                     return line
             proc = self.procs[name][0]
             if proc.poll() is not None:
-                raise RuntimeError(f"10: {name} exited ({proc.returncode}) "
-                                   f"before {start!r}:\n"
+                raise RuntimeError(f"{self.tag}: {name} exited "
+                                   f"({proc.returncode}) before {start!r}:\n"
                                    f"{self.text(name)[-3000:]}")
             if time.monotonic() > deadline:
-                raise RuntimeError(f"10: no {start!r} from {name} in "
+                raise RuntimeError(f"{self.tag}: no {start!r} from {name} in "
                                    f"{timeout} s:\n{self.text(name)[-3000:]}")
             time.sleep(0.05)
 
@@ -7234,6 +7285,757 @@ def routed_phase(cfg, dev, seed: int, card: str) -> tuple:
             torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 11. Disaggregated prefill and decode on the one card
+# ---------------------------------------------------------------------------
+
+DISAGG_MAX_LEN = 4096          # above the longest prompt and its tokens
+DISAGG_PROMPTS = (600, 1400, 2200, 3000)    # 11a-11d, tokens each
+DISAGG_LONG = (1500, 2000, 2500, 3000)      # 11e: prefilled remotely
+DISAGG_SHORT = (40, 100, 180, 256)          # 11e: under the threshold
+DISAGG_THRESHOLD = 512         # 11e's --max-local-prefill-length
+DISAGG_TOKENS = 32
+DISAGG_CUT_LAYERS = 8          # 11d: the layer stream dies after these
+DISAGG_FALLBACK_S = 2.0        # 11d: prefill_timeout with no worker
+DISAGG_WAIT_S = 120.0          # a remote prefill's timeout elsewhere
+# the planes of 11a: DisaggEngine's arguments and the counter of each
+DISAGG_PLANES = {
+    "device": (dict(device_plane=True), "device_transfers"),
+    "wire": (dict(device_plane=False, layer_stream=False), None),
+    "wire_layers": (dict(device_plane=False, layer_stream=True),
+                    "stream_transfers")}
+
+
+def disagg_prompts(cfg, seed: int) -> dict:
+    """Token-id prompts of the phase, from one seed (ids of the chat
+    directory's vocab)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 200)
+    hi = min(127000, cfg.vocab_size - 256)
+
+    def ids(n):
+        return rng.integers(min(1000, hi // 2), hi, size=n).tolist()
+    return {"main": [ids(n) for n in DISAGG_PROMPTS],
+            "long": [ids(n) for n in DISAGG_LONG],
+            "short": [ids(n) for n in DISAGG_SHORT]}
+
+
+def disagg_core(cfg, dev, params, **over):
+    """An engine of the launcher's flags ``--quantization int4
+    --kv-quantization int8 --num-kv-blocks 2048 --max-model-len 4096``
+    over ``params``, with prefix reuse off (each plane re-sends the same
+    prompts, which must cross whole)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.core import EngineCore
+    kw = dict(max_model_len=DISAGG_MAX_LEN, kv_block_size=KV_BLOCK,
+              num_kv_blocks=2048, max_num_seqs=8, enable_prefix_reuse=False,
+              quantization="int4", kv_quantization="int8")
+    kw.update(over)
+    return EngineCore(cfg, EngineConfig(**kw), params=params, device=dev)
+
+
+def disagg_request(rid: str, prompt: list):
+    from dynamo_tpu_torch.llm.protocols.common import (PreprocessedRequest,
+                                                       SamplingOptions,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime import Context
+    from dynamo_tpu_torch.runtime.engine import EngineContext
+    pre = PreprocessedRequest(
+        token_ids=list(prompt),
+        stop_conditions=StopConditions(max_tokens=DISAGG_TOKENS,
+                                       ignore_eos=True),
+        sampling_options=SamplingOptions(greedy=True))
+    return Context(pre, ctx=EngineContext(rid))
+
+
+async def disagg_serve(engine, prompts: list, tag: str) -> list:
+    """Each prompt's greedy token ids through ``engine`` (a TorchEngine or
+    a DisaggEngine), all sent together."""
+    import asyncio
+
+    async def one(i, p):
+        stream = await engine.generate(disagg_request(f"{tag}-{i}", p))
+        toks = []
+        async for a in stream:
+            if a.data is not None and a.data.token_ids:
+                toks.extend(a.data.token_ids)
+        return toks
+    return list(await asyncio.gather(*(one(i, p)
+                                       for i, p in enumerate(prompts))))
+
+
+def launch_counts() -> dict:
+    from dynamo_tpu_torch.engine import kernels
+    return {k: v.launches for k, v in kernels.KERNELS.items()}
+
+
+def count_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def check_equal_streams(what: str, got: list, want: list) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g) != DISAGG_TOKENS or g != w:
+            first = next((j for j, (a, b) in enumerate(zip(g, w))
+                          if a != b), min(len(g), len(w)))
+            raise RuntimeError(f"{what}: stream {i} ({len(g)} tokens) "
+                               f"parts from the reference at token {first}")
+
+
+def check_near_tie_streams(what: str, got: list, want: list, prompts: list,
+                           reader: Callable) -> list:
+    """Each stream of ``got`` equals ``want``'s, or parts from it where
+    ``want``'s token was a near tie (its top-2 gap under SPEC_NEAR_TIE,
+    read by ``reader()``, a GapReader built on the first parting). Returns
+    the partings."""
+    parted, gaps = [], None
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g) != DISAGG_TOKENS:
+            raise RuntimeError(f"{what}: stream {i} has {len(g)} tokens")
+        if g == w:
+            continue
+        first = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        gaps = gaps or reader()
+        gap = gaps([prompts[i]], [w])[0][first]
+        parted.append({"stream": i, "at": first, "gap": gap})
+        if not gap < SPEC_NEAR_TIE:
+            raise RuntimeError(f"{what}: stream {i} parts from the "
+                               f"reference at token {first}, gap {gap} "
+                               f"(limit {SPEC_NEAR_TIE})")
+    return parted
+
+
+def disagg_phase(cfg, dev, seed: int, card: str) -> dict:
+    """Phase 11: disaggregated prefill and decode at the 8B width and
+    depth, int4 weights + int8 KV, 2048 blocks of 16, phase 7's
+    ``tokenizer.json`` directory, greedy 32-token streams with
+    ``ignore_eos``.
+
+    In one process (the engines share one seeded weight tree; prefix reuse
+    off, so every prompt crosses whole): a local aggregated engine R (the
+    reference), a prefill engine P behind a ``PrefillWorker`` and a decode
+    engine D behind a ``DisaggEngine``, on one in-process runtime.
+    (11a) four prompts of 600-3000 tokens over the device plane, the wire
+    with the whole payload and the wire layer by layer: every stream equals
+    R's bit for bit, D prefills nothing and launches no K1 (each plane's K1
+    launches equal R's for the same prompts), no fallback, and each
+    plane's counter counts 4; then the four prompts twice, all eight at
+    once over the whole payload, R's streams. (11d) the rungs: with no
+    prefill worker and a
+    2 s timeout a request prefills locally with R's stream; a layer stream
+    cut after 8 of 32 layers re-admits cold with R's stream; a short
+    prompt under a threshold stays local; a threshold raised through the
+    KV store moves a long prompt local. (11b) a bf16-KV prefill engine
+    feeds D over the device plane (the cross-quant repack): R's streams,
+    or parting at a near tie (``SPEC_NEAR_TIE``), and the repacked rows of
+    one prompt equal R's in layer 0 (``cross_quant_rows``). (11c) a
+    ``--ragged`` decode engine over the layer stream: a local ``--ragged``
+    engine's streams or parting at a near tie, with K4 launched and no K1
+    beyond P's; fed the same prefills as whole payloads, the same engine
+    repeats its streams bit for bit. (11e) across
+    processes, through the launcher: the port's daemon, ``in=none
+    out=torch --is-prefill-worker`` and ``in=http out=torch
+    --remote-prefill --max-local-prefill-length 512``; four prompts of
+    1500-3000 tokens go remote and four of at most 256 stay local, one at
+    a time; every stream equals R's (served over HTTP in this process,
+    whose TTFT is each request's local twin), the worker did 4 prefills,
+    the decode worker streamed 4 x 32 layers, and each worker's K1,
+    K3-int8, K5 and K6 launches are those the split predicts. Printed: the
+    wire's GB/s and each remote TTFT beside its twin's (no claim).
+    Returns {path: (launch counts, report)} for DISAGG_PATHS."""
+    import asyncio
+    import tempfile
+    import threading
+    import torch
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.quant import init_params_quantized
+    from dynamo_tpu_torch.llm.kv.native_pool import load_native_pool_lib
+
+    t_phase = time.monotonic()
+    load_native_pool_lib()          # built once, before any worker starts
+    name = "llama3-8b-disagg"
+    tmp_ctx = tempfile.TemporaryDirectory(prefix="dtt-disagg-")
+    model_dir = os.path.join(tmp_ctx.name, name)
+    write_chat_model_dir(model_dir, cfg)
+    mcfg = ModelConfig.from_model_dir(model_dir)
+    prompts = disagg_prompts(mcfg, seed)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="disagg-loop",
+                              daemon=True)
+    thread.start()
+    cores: dict = {}    # the in-process engines, by name
+    aux: dict = {}      # 11a's runtime and prefill worker
+    report: dict = {}
+    out: dict = {}
+    try:
+        params = init_params_quantized(mcfg, seed, dev, torch.bfloat16,
+                                       include_embed=True, bits=4)
+        with phase("11a"):
+            ref = disagg_planes(mcfg, dev, params, prompts, cores, aux,
+                                loop, report, out, card)
+        with phase("11d"):
+            disagg_rungs(mcfg, prompts, ref, cores, aux, loop, report, card)
+        on_loop(loop, aux.pop("worker").stop())
+        on_loop(loop, aux.pop("rt").shutdown())
+        with phase("11b"):
+            disagg_cross_quant(mcfg, dev, params, prompts, ref, cores,
+                               loop, report, card)
+        with phase("11c"):
+            disagg_ragged(mcfg, dev, params, prompts, cores, loop, report,
+                          out, card)
+        with phase("11e"):
+            disagg_processes(mcfg, dev, seed, model_dir, name, prompts,
+                             cores, loop, report, card)
+        report["s"] = time.monotonic() - t_phase
+        log(f"11 disagg {json.dumps(report)} [{card}]")
+        return {p: (out[p], report) for p in DISAGG_PATHS}
+    finally:
+        stops = ([aux["worker"].stop()] if "worker" in aux else []) \
+            + ([aux["rt"].shutdown()] if "rt" in aux else []) \
+            + [c.stop() for c in cores.values()]
+        for coro in stops:
+            try:
+                on_loop(loop, coro, 120)
+            except Exception as e:  # noqa: BLE001 — shutdown goes on
+                log(f"11: shutdown: {e}")
+        cores.clear()
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        tmp_ctx.cleanup()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def drop_core(cores: dict, key: str, loop) -> None:
+    """Stop one of the phase's engines and give its memory back."""
+    import torch
+    core = cores.pop(key)
+    on_loop(loop, core.stop(), 120)
+    del core
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def disagg_planes(cfg, dev, params, prompts, cores, aux, loop, report, out,
+                  card) -> dict:
+    """11a. Returns R's reference streams by prompt group."""
+    from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.llm.disagg import (DisaggEngine,
+                                             DisaggregatedRouter,
+                                             PrefillWorker)
+    from dynamo_tpu_torch.llm.engines.torch_engine import TorchEngine
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    for key in ("R", "P", "D"):
+        cores[key] = disagg_core(cfg, dev, params)
+    R, P, D = cores["R"], cores["P"], cores["D"]
+    ptrs = {k: v.data_ptr() for k, v in D.kv.items()}
+    # the references (and R's K1 launches for the four main prompts)
+    c0 = launch_counts()
+    ref = {"main": on_loop(loop, disagg_serve(TorchEngine(R),
+                                              prompts["main"], "ref"))}
+    ref_k1 = count_delta(launch_counts(), c0)["flash_prefill"]
+    ref["short"] = on_loop(loop, disagg_serve(TorchEngine(R),
+                                              prompts["short"], "ref-short"))
+    if ref_k1 != len(DISAGG_PROMPTS) * cfg.num_layers:
+        raise RuntimeError(f"11a: R's four prefills launched K1 {ref_k1} "
+                           f"times, not {len(DISAGG_PROMPTS)} x "
+                           f"{cfg.num_layers}")
+    rt = aux["rt"] = DistributedRuntime.in_process()
+    worker = aux["worker"] = on_loop(loop, PrefillWorker(P, rt).start())
+    planes = {}
+    kernels.reset_launch_counts()
+    for plane, (kw, counter) in DISAGG_PLANES.items():
+        router = DisaggregatedRouter(rt, "llama3", conditional=False)
+        eng = DisaggEngine(D, rt, router, prefill_timeout=DISAGG_WAIT_S,
+                           **kw)
+        c0, w0 = launch_counts(), dict(worker.stats())
+        t0 = time.monotonic()
+        got = on_loop(loop, disagg_serve(eng, prompts["main"], plane))
+        wall = time.monotonic() - t0
+        d = count_delta(launch_counts(), c0)
+        st = eng.stats()
+        fig = {"plane": plane, "wall_s": wall, "engine": st,
+               "worker": {k: v - w0.get(k, 0)
+                          for k, v in worker.stats().items()
+                          if k != "inflight"},
+               "k1_launches": d["flash_prefill"], "reference_k1": ref_k1,
+               "decode_prefill_tokens": D.total_prefill_tokens}
+        log(f"11a {json.dumps(fig)} [{card}]")
+        check_equal_streams(f"11a {plane}", got, ref["main"])
+        n = len(DISAGG_PROMPTS)
+        if (st["remote_prefills"] != n or st["remote_failures"]
+                or st["local_prefills"]
+                or (counter is not None and st[counter] != n)
+                or D.total_prefill_tokens != 0
+                or d["flash_prefill"] != ref_k1):
+            raise RuntimeError(f"11a {plane}: {fig}")
+        planes[plane] = fig
+    out[DISAGG_PATH] = launch_counts()
+    planes["wire_burst"] = disagg_burst(D, rt, prompts, ref, loop, card)
+    if {k: v.data_ptr() for k, v in D.kv.items()} != ptrs:
+        raise RuntimeError("11a: the decode pool was rebound")
+    report["11a"] = planes
+    for k in PATH_KERNELS[DISAGG_PATH]:
+        if out[DISAGG_PATH].get(k, 0) <= 0:
+            raise RuntimeError(f"11a: {k} never launched on the "
+                               f"disaggregated path")
+    return ref
+
+
+def disagg_burst(D, rt, prompts, ref, loop, card) -> dict:
+    """11a's burst: each main prompt twice, all eight at once over the
+    whole wire payload, so that staging copies on D's tier stream run
+    while D's compute stream still scatters and decodes the others (a
+    staged payload freed before its scatter ran would be overwritten
+    here). Every stream equals R's bit for bit."""
+    from dynamo_tpu_torch.llm.disagg import (DisaggEngine,
+                                             DisaggregatedRouter)
+    kw, _ = DISAGG_PLANES["wire"]
+    eng = DisaggEngine(D, rt, DisaggregatedRouter(rt, "llama3",
+                                                  conditional=False),
+                       prefill_timeout=DISAGG_WAIT_S, **kw)
+    t0 = time.monotonic()
+    got = on_loop(loop, disagg_serve(eng, prompts["main"] * 2, "burst"))
+    fig = {"plane": "wire_burst", "requests": len(got),
+           "wall_s": time.monotonic() - t0, "engine": eng.stats(),
+           "decode_prefill_tokens": D.total_prefill_tokens}
+    log(f"11a {json.dumps(fig)} [{card}]")
+    check_equal_streams("11a wire burst", got, ref["main"] * 2)
+    st = fig["engine"]
+    if (st["remote_prefills"] != len(got) or st["remote_failures"]
+            or st["local_prefills"] or D.total_prefill_tokens != 0):
+        raise RuntimeError(f"11a wire burst: {fig}")
+    return fig
+
+
+def disagg_rungs(cfg, prompts, ref, cores, aux, loop, report,
+                 card) -> None:
+    """11d. The fallback without a prefill worker, the cold rung after a
+    cut layer stream, a short prompt under the threshold, and a threshold
+    raised through the KV store."""
+    import asyncio
+    import json as _json
+    from dynamo_tpu_torch.llm import disagg as tdisagg
+    from dynamo_tpu_torch.llm.disagg import (DisaggEngine,
+                                             DisaggregatedRouter)
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    D, rt = cores["D"], aux["rt"]
+    # the layer stream dies after DISAGG_CUT_LAYERS layers (half the
+    # layers of a shallower model)
+    n_cut = min(DISAGG_CUT_LAYERS, cfg.num_layers // 2)
+    figs = {}
+    # (1) no prefill worker: a runtime whose queue nobody pulls
+    lone = DistributedRuntime.in_process()
+    eng = DisaggEngine(D, lone, DisaggregatedRouter(lone, "llama3",
+                                                    conditional=False),
+                       prefill_timeout=DISAGG_FALLBACK_S)
+    t0 = time.monotonic()
+    got = on_loop(loop, disagg_serve(eng, prompts["main"][:1], "fallback"))
+    figs["no_worker"] = {"wall_s": time.monotonic() - t0, **eng.stats()}
+    on_loop(loop, lone.shutdown())
+    check_equal_streams("11d no worker", got, ref["main"][:1])
+    if eng.remote_failures != 1 or eng.local_prefills != 1:
+        raise RuntimeError(f"11d no worker: {figs['no_worker']}")
+    # (2) the layer stream dies after n_cut layers: the prefill worker's
+    # sender holds the layer frames until the decode engine has admitted
+    # against the manifest, and fails at the next one once those have
+    # been scattered
+    real = tdisagg.open_stream_sender
+    sent = {"layers": 0}
+
+    async def cutting(conn, timeout):
+        sender = await real(conn, timeout=timeout)
+        send = sender.send
+
+        async def cut(data, header=b""):
+            h = _json.loads(header) if header else {}
+            if h.get("stream") == "kv_layer":
+                while D.disagg_stream_admits < admits0 + 1:
+                    await asyncio.sleep(0.001)
+                if sent["layers"] >= n_cut:
+                    # once the decode engine has scattered what was sent
+                    while (D.disagg_stream_layers_scattered
+                           < layers0 + n_cut):
+                        await asyncio.sleep(0.001)
+                    raise ConnectionResetError("layer stream cut")
+                sent["layers"] += 1
+            await send(data, header=header)
+        sender.send = cut
+        return sender
+    admits0, fb0 = D.disagg_stream_admits, D.disagg_stream_fallbacks
+    layers0, pf0 = D.disagg_stream_layers_scattered, D.total_prefill_tokens
+    tdisagg.open_stream_sender = cutting
+    try:
+        eng = DisaggEngine(D, rt, DisaggregatedRouter(rt, "llama3",
+                                                      conditional=False),
+                           prefill_timeout=DISAGG_WAIT_S, device_plane=False,
+                           layer_stream=True)
+        got = on_loop(loop, disagg_serve(eng, prompts["main"][:1], "cut"))
+    finally:
+        tdisagg.open_stream_sender = real
+    figs["cut"] = {"layers_scattered": D.disagg_stream_layers_scattered
+                   - layers0,
+                   "fallbacks": D.disagg_stream_fallbacks - fb0,
+                   "recomputed_tokens": D.total_prefill_tokens - pf0}
+    check_equal_streams("11d cut stream", got, ref["main"][:1])
+    if figs["cut"] != {"layers_scattered": n_cut,
+                       "fallbacks": 1,
+                       "recomputed_tokens": len(prompts["main"][0])}:
+        raise RuntimeError(f"11d cut stream: {figs['cut']}")
+    # (3) a short prompt under the threshold, (4) the threshold raised
+    # through the KV store moves a long prompt local
+    router = DisaggregatedRouter(rt, "llama3",
+                                 max_local_prefill_length=DISAGG_THRESHOLD)
+    on_loop(loop, router.start())
+    try:
+        eng = DisaggEngine(D, rt, router, prefill_timeout=DISAGG_WAIT_S)
+        got = on_loop(loop, disagg_serve(eng, prompts["short"][:1], "short"))
+        check_equal_streams("11d short", got, ref["short"][:1])
+        figs["short"] = dict(eng.stats())
+        if eng.local_prefills != 1 or eng.remote_prefills:
+            raise RuntimeError(f"11d short: {figs['short']}")
+        on_loop(loop, router.publish_threshold(DISAGG_MAX_LEN))
+        deadline = time.monotonic() + 30
+        while router.max_local_prefill_length != DISAGG_MAX_LEN:
+            if time.monotonic() > deadline:
+                raise RuntimeError("11d: the threshold never arrived")
+            time.sleep(0.01)
+        got = on_loop(loop, disagg_serve(eng, prompts["main"][-1:],
+                                         "raised"))
+        check_equal_streams("11d raised", got, ref["main"][-1:])
+        figs["raised"] = dict(eng.stats())
+        if eng.local_prefills != 2 or eng.remote_prefills:
+            raise RuntimeError(f"11d raised threshold: {figs['raised']}")
+    finally:
+        on_loop(loop, router.stop())
+    log(f"11d {json.dumps(figs)} [{card}]")
+    report["11d"] = figs
+
+
+def disagg_cross_quant(cfg, dev, params, prompts, ref, cores, loop, report,
+                       card) -> None:
+    """11b. A bf16-KV prefill engine feeds the int8-KV decode engine over
+    the device plane: R's streams, or parting at a near tie."""
+    from dynamo_tpu_torch.llm.disagg import (DisaggEngine,
+                                             DisaggregatedRouter,
+                                             PrefillWorker)
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    drop_core(cores, "P", loop)
+    cores["P16"] = disagg_core(cfg, dev, params, kv_quantization="none")
+    D = cores["D"]
+    rt = DistributedRuntime.in_process()
+    worker = on_loop(loop, PrefillWorker(cores["P16"], rt).start())
+    try:
+        eng = DisaggEngine(D, rt, DisaggregatedRouter(rt, "llama3",
+                                                      conditional=False),
+                           prefill_timeout=DISAGG_WAIT_S, device_plane=True)
+        pf0 = D.total_prefill_tokens
+        got = on_loop(loop, disagg_serve(eng, prompts["main"], "xq"))
+    finally:
+        on_loop(loop, worker.stop())
+        on_loop(loop, rt.shutdown())
+    st = eng.stats()
+    if (st["device_transfers"] != len(DISAGG_PROMPTS)
+            or st["remote_failures"] or D.total_prefill_tokens != pf0):
+        raise RuntimeError(f"11b: {st}")
+    parted = check_near_tie_streams(
+        "11b", got, ref["main"], prompts["main"],
+        lambda: GapReader(D.params, cfg, dev, "int8",
+                          max(DISAGG_PROMPTS) + DISAGG_TOKENS))
+    fig = {"engine": st, "equal": len(got) - len(parted),
+           "parted_at_near_ties": parted,
+           "rows": cross_quant_rows(cores["R"], cores["P16"], D,
+                                    prompts["main"][0], loop)}
+    log(f"11b {json.dumps(fig)} [{card}]")
+    report["11b"] = fig
+    drop_core(cores, "P16", loop)
+
+
+def device_gather(core, rid: str, prompt: list, loop):
+    """``prompt``'s KV as ``core`` hands it off over the device plane
+    (its prefill, then the gather of the prompt's blocks): a
+    DeviceKvPayload."""
+    import asyncio
+    from dynamo_tpu_torch.engine.core import FINISH_SENTINEL, EngineRequest
+    from dynamo_tpu_torch.engine.sampling import SlotSampling
+    from dynamo_tpu_torch.llm.kv_transport import DeviceKvPayload
+
+    async def run():
+        fut = asyncio.get_running_loop().create_future()
+
+        async def handoff(tok, logprob, dev, hashes):
+            stacked = dev["stacked"]
+            fut.set_result(DeviceKvPayload(
+                request_id=rid, first_token=tok, first_logprob=logprob,
+                seq_hashes=hashes, stacked=dict(stacked),
+                n_blocks=dev["n_blocks"], block_size=core.cfg.kv_block_size,
+                ready=getattr(stacked, "ready", None)))
+        req = EngineRequest(rid=rid, prompt=list(prompt),
+                            sampling=SlotSampling(temperature=0.0),
+                            max_new_tokens=1, eos_ids=frozenset(),
+                            handoff=handoff, handoff_device=True)
+        await core.submit(req)
+        while (await req.out_queue.get())[0] is not FINISH_SENTINEL:
+            pass
+        return await asyncio.wait_for(fut, DISAGG_WAIT_S)
+    return on_loop(loop, run())
+
+
+def cross_quant_rows(local8, src16, dst8, prompt: list, loop) -> dict:
+    """11b's cause, read on one prompt: the int8 rows the local int8-KV
+    engine writes for it against ``dst8``'s repack of the rows the bf16-KV
+    engine writes. Layer 0's K/V are the same bf16 values in both engines
+    and quantize to the same bytes; from layer 1 on they part, since each
+    prefill's attention read its own pool (the int8 engine its rows
+    dequantized, the bf16 engine bf16 rows). Fails unless layer 0 is
+    equal bit for bit. Returns each layer's share of differing bytes over
+    the prompt's rows (K and V together)."""
+    import torch
+    a = device_gather(local8, "xq-rows-int8", prompt, loop)
+    if a.ready is not None:
+        a.ready.synchronize()       # the gather ran on the engine's stream
+    b = dst8._repack_kv_payload(device_gather(src16, "xq-rows-bf16",
+                                              prompt, loop))
+    n = len(prompt)
+    diff = 0
+    for k in a.stacked:
+        x, y = a.stacked[k], b.stacked[k]
+        L, C = x.shape[0], x.shape[-1]
+        x = x.reshape(L, -1, C)[:, :n]
+        y = y.reshape(L, -1, C)[:, :n].to(x.device)
+        diff = diff + (x != y).float().mean(dim=(1, 2)) / len(a.stacked)
+    share = diff.tolist()
+    if share[0] != 0.0:
+        raise RuntimeError(f"11b: layer 0's repacked rows differ from the "
+                           f"local int8 engine's in {share[0]} of bytes")
+    return {"differing_share_by_layer": share,
+            "layers_equal": sum(v == 0.0 for v in share)}
+
+
+def disagg_ragged(cfg, dev, params, prompts, cores, loop, report, out,
+                  card) -> None:
+    """11c. A --ragged decode engine over the wire layer stream."""
+    from dynamo_tpu_torch.engine import kernels
+    from dynamo_tpu_torch.llm.disagg import (DisaggEngine,
+                                             DisaggregatedRouter,
+                                             PrefillWorker)
+    from dynamo_tpu_torch.llm.engines.torch_engine import TorchEngine
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    drop_core(cores, "D", loop)
+    ragged = dict(ragged_dispatch=True, ragged_max_seq_rows=RAGGED_MAX_ROWS)
+    cores["P"] = disagg_core(cfg, dev, params)
+    cores["RR"] = disagg_core(cfg, dev, params, **ragged)
+    cores["DR"] = disagg_core(cfg, dev, params, **ragged)
+    want = on_loop(loop, disagg_serve(TorchEngine(cores["RR"]),
+                                      prompts["main"], "ref-ragged"))
+    drop_core(cores, "RR", loop)
+    # P's K1 launches for these prompts: those of R's prefills in 11a
+    k1 = len(DISAGG_PROMPTS) * cfg.num_layers
+    rt = DistributedRuntime.in_process()
+    worker = on_loop(loop, PrefillWorker(cores["P"], rt).start())
+    DR = cores["DR"]
+    try:
+        eng = DisaggEngine(DR, rt, DisaggregatedRouter(rt, "llama3",
+                                                       conditional=False),
+                           prefill_timeout=DISAGG_WAIT_S, device_plane=False,
+                           layer_stream=True)
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        got = on_loop(loop, disagg_serve(eng, prompts["main"], "ragged"))
+        wall = time.monotonic() - t0
+        out[DISAGG_RAGGED_PATH] = launch_counts()
+    finally:
+        on_loop(loop, worker.stop())
+        on_loop(loop, rt.shutdown())
+    c = out[DISAGG_RAGGED_PATH]
+    fig = {"wall_s": wall, "engine": eng.stats(),
+           "ragged_dispatches": DR.ragged_dispatches,
+           "stream_layers": DR.disagg_stream_layers_scattered,
+           "k1_launches": c["flash_prefill"],
+           "k4_launches": c["ragged_paged_attention_int8"]}
+    # the local --ragged engine prefills through K4 in row chunks, the
+    # prefill engine through K1: their KV may differ in the last bits, so
+    # a stream may part from the local one at a near tie
+    fig["parted_at_near_ties"] = check_near_tie_streams(
+        "11c", got, want, prompts["main"],
+        lambda: GapReader(DR.params, cfg, dev, "int8",
+                          max(DISAGG_PROMPTS) + DISAGG_TOKENS))
+    n = len(DISAGG_PROMPTS)
+    if (fig["engine"]["stream_transfers"] != n
+            or fig["engine"]["remote_failures"]
+            or DR.total_prefill_tokens != 0
+            or c["flash_prefill"] != k1
+            or c["paged_attention_int8"] != 0
+            or DR.disagg_stream_layers_scattered != n * cfg.num_layers):
+        log(f"11c {json.dumps(fig)} [{card}]")
+        raise RuntimeError(f"11c: {fig}")
+    # the same prefills' KV (P's K1, the same bits) into the same engine as
+    # whole payloads: any difference from the layer-streamed streams is
+    # the stream's scatter's
+    rt = DistributedRuntime.in_process()
+    worker = on_loop(loop, PrefillWorker(cores["P"], rt).start())
+    try:
+        whole = DisaggEngine(DR, rt, DisaggregatedRouter(
+            rt, "llama3", conditional=False), prefill_timeout=DISAGG_WAIT_S,
+            device_plane=False, layer_stream=False)
+        got_whole = on_loop(loop, disagg_serve(whole, prompts["main"],
+                                               "ragged-whole"))
+    finally:
+        on_loop(loop, worker.stop())
+        on_loop(loop, rt.shutdown())
+    fig["whole_payload"] = whole.stats()
+    log(f"11c {json.dumps(fig)} [{card}]")
+    check_equal_streams("11c layer stream against whole payloads", got,
+                        got_whole)
+    if (whole.remote_prefills != n or whole.remote_failures
+            or DR.total_prefill_tokens != 0):
+        raise RuntimeError(f"11c whole payloads: {fig['whole_payload']}")
+    for k in PATH_KERNELS[DISAGG_RAGGED_PATH]:
+        if c.get(k, 0) <= 0:
+            raise RuntimeError(f"11c: {k} never launched")
+    report["11c"] = fig
+    drop_core(cores, "DR", loop)
+    drop_core(cores, "P", loop)
+
+
+def disagg_processes(cfg, dev, seed, model_dir, name, prompts, cores, loop,
+                     report, card) -> None:
+    """11e. The daemon, a prefill worker and a --remote-prefill decode
+    worker as processes of their own; R serves the same requests over
+    HTTP in this process."""
+    import signal
+    import socket
+    from dynamo_tpu_torch.launch import run as launcher
+    from dynamo_tpu_torch.llm.engines.torch_engine import TorchEngine
+    from dynamo_tpu_torch.llm.http import HttpService
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    procs = RoutedProcs(model_dir + "-logs", tag="11e")
+    os.makedirs(procs.tmp, exist_ok=True)
+    svc = None
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            dport = s.getsockname()[1]
+        addr = f"127.0.0.1:{dport}"
+        procs.start("daemon", "dynamo_tpu_torch.runtime.server", "--host",
+                    "127.0.0.1", "--port", str(dport))
+        procs.wait_line("daemon", "dynamo-tpu-torch discovery", 60)
+        common = ["out=torch", "--random-weights", "--quantization", "int4",
+                  "--kv-quantization", "int8", "--model-path", model_dir,
+                  "--model-name", name, "--runtime-server", addr,
+                  "--max-model-len", str(DISAGG_MAX_LEN), "--kv-block-size",
+                  str(KV_BLOCK), "--num-kv-blocks", "2048",
+                  "--max-num-seqs", "8", "--device", dev.type]
+        t0 = time.monotonic()
+        procs.start("prefill", "dynamo_tpu_torch.launch.run", "in=none",
+                    *common, "--is-prefill-worker")
+        procs.start("decode", "dynamo_tpu_torch.launch.run", "in=http",
+                    *common, "--remote-prefill",
+                    "--max-local-prefill-length", str(DISAGG_THRESHOLD),
+                    "--http-host", "127.0.0.1", "--http-port", "0")
+        # R over HTTP: the twin of every request
+        mdc = ModelDeploymentCard.from_local_path(model_dir,
+                                                  display_name=name)
+
+        async def start_twin():
+            s = HttpService(port=0, host="127.0.0.1")
+            pipe = launcher.link_pipeline(TorchEngine(cores["R"]), mdc)
+            s.manager.add_completion_model(name, pipe)
+            await s.start()
+            return s
+        svc = on_loop(loop, start_twin())
+        procs.wait_line("prefill", "READY", ROUTED_READY_S)
+        line = procs.wait_line("decode", "READY", ROUTED_READY_S)
+        dport_http = int(line.rsplit(":", 1)[-1].split("/")[0])
+        bring_up = {"s": time.monotonic() - t0}
+        for w in ("prefill", "decode"):
+            gib = [ln for ln in procs.text(w).splitlines()
+                   if "device memory after bring-up" in ln]
+            bring_up[w] = (float(gib[0].split(": ")[-1].split()[0])
+                           if gib else None)
+        rows = []
+        for group in ("long", "short"):
+            for i, p in enumerate(prompts[group]):
+                body = routed_body(name, p, DISAGG_TOKENS)
+                got = routed_stream(http_request(dport_http,
+                                                 "/v1/completions", body))
+                twin = routed_stream(http_request(svc.port,
+                                                  "/v1/completions", body))
+                rows.append({"group": group, "prompt": len(p),
+                             "ttft_ms": got["ttft_ms"],
+                             "twin_ttft_ms": twin["ttft_ms"],
+                             "equal": got["tokens"] == twin["tokens"],
+                             "finish": got["finish"]})
+                if (got["error"] or got["finish"] != "length"
+                        or len(got["tokens"]) != DISAGG_TOKENS
+                        or got["tokens"] != twin["tokens"]):
+                    raise RuntimeError(f"11e: {group} {i}: {rows[-1]}")
+        procs.stop(["decode", "prefill"])
+        stats = {}
+        for w, key in (("prefill", "prefill worker stats"),
+                       ("decode", "disagg stats")):
+            text = procs.text(w)
+            lines = [ln for ln in text.splitlines() if key in ln]
+            launches = [ln for ln in text.splitlines()
+                        if "kernel launches" in ln]
+            if not lines or not launches:
+                raise RuntimeError(f"11e: no {key!r} or launch counts in "
+                                   f"{w}'s log:\n{text[-2000:]}")
+            stats[w] = json.loads(lines[-1].split(key + " ", 1)[1])
+            stats[w]["launches"] = json.loads(
+                launches[-1].split("kernel launches ", 1)[1])
+        pw, dw = stats["prefill"], stats["decode"]
+        n, L = len(DISAGG_LONG), cfg.num_layers
+        pl, dl = pw["launches"], dw["launches"]
+        gbps = (pw["wire_bytes"] / pw["wire_s"] / 1e9
+                if pw["wire_s"] else None)
+        fig = {"bring_up": bring_up, "requests": rows,
+               "wire_gb": pw["wire_bytes"] / 1e9, "wire_s": pw["wire_s"],
+               "wire_gbps": gbps, "prefill_worker": {
+                   k: v for k, v in pw.items() if k != "launches"},
+               "decode_worker": {k: v for k, v in dw.items()
+                                 if k != "launches"},
+               "launches": {"prefill": pl, "decode": dl}}
+        log(f"11e {json.dumps(fig)} [{card}]")
+        want_split = (pw["prefills_done"] == n and pw["stream_handoffs"] == n
+                      and not pw["stream_fallbacks"]
+                      and dw["remote_prefills"] == n
+                      and dw["local_prefills"] == len(DISAGG_SHORT)
+                      and dw["remote_failures"] == 0
+                      and dw["stream_transfers"] == n
+                      and dw["disagg_stream_layers_total"] == n * L
+                      and dw["prefill_tokens_total"] == sum(DISAGG_SHORT)
+                      # the worker: n prefills (K1 a layer, K5 once), no
+                      # decode; the decode worker: the short prompts'
+                      # prefills and every decode step
+                      and pl["flash_prefill"] == n * L
+                      and pl["lm_head_int8"] == n
+                      and pl["paged_attention_int8"] == 0
+                      and pl["grouped_int4_matmul"] > 0
+                      and dl["flash_prefill"] == len(DISAGG_SHORT) * L
+                      and dl["paged_attention_int8"] > 0
+                      and dl["lm_head_int8"] > len(DISAGG_SHORT)
+                      and dl["grouped_int4_matmul"] > 0)
+        if not want_split:
+            raise RuntimeError(f"11e: {fig}")
+        report["11e"] = fig
+    except BaseException:
+        log(procs.tails())
+        raise
+    finally:
+        if svc is not None:
+            on_loop(loop, svc.stop(), 60)
+        procs.stop([n for n in procs.procs if n != "daemon"], 30)
+        procs.stop(["daemon"], 30)
+
+
 # ``--ab DIR``: phase 3's attention kernels (K1-K4 at the 8B shapes) and
 # phase 3m's latent kernels (K3-MLA and K4-MLA at V2-Lite's) of another
 # checkout of the repository at DIR (its build directory apart) and of
@@ -7635,9 +8437,16 @@ def main() -> int:
     # daemon, two workers and the processor as processes of their own
     with phase("10"):
         by_path[ROUTED_PATH] = routed_phase(cfg, dev, seed, card)
+
+    # 11. disaggregated prefill and decode at the 8B width and depth: the
+    # three planes, the rungs, the cross-quant repack and a --ragged decode
+    # engine in one process, then the launcher's prefill worker and
+    # --remote-prefill decode worker as processes of their own
+    with phase("11"):
+        by_path.update(disagg_phase(cfg, dev, seed, card))
     rest = [p for p in PATH_KERNELS if p not in LATER_PATHS] \
         + list(CHAT_PATHS) + list(SPEC_PATHS) + list(TIER_PATHS) \
-        + [ROUTED_PATH]
+        + [ROUTED_PATH] + list(DISAGG_PATHS)
     for e in entries:
         mode = e.get("mode", "")
         if mode == SPEC_MODE_TAG:

@@ -30,6 +30,17 @@ rows to the card on a side stream behind an event, and ``scatter_transfer``
 makes the compute stream wait for it before the in-place scatter. Each
 returned ``Transfer`` keeps its buffers alive until its event has
 completed. On the CPU every leg is a plain synchronous copy.
+
+The disaggregated handoff's legs (``llm/disagg.py``): the prefill engine
+dispatches one gather of the prompt's blocks (``gather_blocks_dispatch``,
+on the compute stream, an event recorded behind it), and a thread fetches
+it to the host in the wire format, whole (``fetch_wire``) or one layer at
+a time (``fetch_wire_layer``): the head-major transpose runs on the card
+on a side stream after the event, then a copy into pinned memory. The
+decode side copies each arriving layer to the card on a side stream
+(``start_h2d``) and scatters it in place on the compute stream after that
+copy's event (``scatter_layer_transfer``); ``scatter_layer_from_host`` is
+the synchronous form (the replayer's).
 """
 
 from __future__ import annotations
@@ -44,7 +55,10 @@ __all__ = ["gather_blocks", "scatter_blocks", "move_blocks", "wire_kv_heads",
            "to_rows", "from_rows",
            "rows_as_wire", "wire_as_rows", "gather_rows", "scatter_rows",
            "gather_blocks_to_host", "scatter_blocks_from_host", "Transfer",
-           "start_d2h", "start_h2d", "scatter_transfer"]
+           "start_d2h", "start_h2d", "scatter_transfer",
+           "gather_blocks_dispatch", "fetch_wire", "fetch_wire_layer",
+           "prep_layer_values", "scatter_layer_prepped", "slice_local_lanes",
+           "scatter_layer_from_host", "scatter_layer_transfer"]
 
 
 def _paged(arr: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -141,8 +155,8 @@ def gather_blocks_to_host(kv: KVCache, block_ids, block_size: int,
                           num_heads: int) -> KVCache:
     """Device -> host, synchronously: wire ``{"k": [L, H, n, bs, D]}`` on
     the CPU (the replayer's and the tests' form)."""
-    return {k: rows_as_wire(v).cpu() for k, v in
-            gather_rows(kv, block_ids, block_size, num_heads).items()}
+    return fetch_wire(gather_blocks_dispatch(kv, block_ids, block_size),
+                      len(block_ids), num_heads)
 
 
 def scatter_blocks_from_host(kv: KVCache, block_ids, host_values: KVCache,
@@ -251,3 +265,135 @@ def scatter_transfer(kv: KVCache, block_ids: Sequence[int], h2d: Transfer,
             # allocator keeps it until the scatter has run
             v.record_stream(compute)
     scatter_rows(kv, block_ids, h2d.values, block_size)
+
+
+class Gather(dict):
+    """A dispatched gather: block-major ``{"k": [L, n, bs, C]}`` on the
+    pool's device, and on the card the event recorded behind it on the
+    stream that ran it (``ready``; None on the CPU)."""
+
+    ready = None
+
+
+def gather_blocks_dispatch(kv: KVCache, block_ids,
+                           block_size: int) -> Gather:
+    """Dispatch (but do not fetch) the gather of ``block_ids``: on the card
+    it is enqueued on the current (compute) stream, so it reads the pool
+    before any later graph replay writes it, and a fetch on another
+    stream waits for its ``ready`` event. Nothing is padded (JAX pads the
+    count to a power of two for XLA's compile cache)."""
+    out = Gather(gather_blocks(kv, block_ids, block_size))
+    sample = next(iter(out.values()))
+    if sample.is_cuda:
+        out.ready = torch.cuda.Event()
+        out.ready.record(torch.cuda.current_stream(sample.device))
+    return out
+
+
+def _wire_heads(v: torch.Tensor, num_heads: int) -> int:
+    """The wire head count of a gathered key: an int8 pool's rows are one
+    opaque head (``wire_kv_heads``)."""
+    return 1 if v.dtype == torch.int8 else num_heads
+
+
+def _fetch(stacked: Gather, make, stream=None) -> KVCache:
+    """``make(key, tensor)`` of each gathered key, on the host: on the card
+    computed on ``stream`` (the current one by default) after the gather's
+    event, copied into pinned memory there and waited for (the caller is
+    a thread off the engine loop); on the CPU computed in place."""
+    sample = next(iter(stacked.values()))
+    if not sample.is_cuda:
+        return {k: make(k, v).contiguous() for k, v in stacked.items()}
+    stream = stream or torch.cuda.current_stream(sample.device)
+    with torch.cuda.device(sample.device), torch.cuda.stream(stream):
+        if stacked.ready is not None:
+            stream.wait_event(stacked.ready)
+        out = {}
+        for k, v in stacked.items():
+            v.record_stream(stream)
+            dev = make(k, v).contiguous()
+            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+            host.copy_(dev, non_blocking=True)
+            out[k] = host
+        done = torch.cuda.Event()
+        done.record(stream)
+    done.synchronize()
+    return out
+
+
+def fetch_wire(stacked: Gather, n: int, num_heads: int,
+               stream=None) -> KVCache:
+    """A dispatched gather's first ``n`` blocks on the host in wire format
+    ``{"k": [L, H, n, bs, D]}`` (an int8 pool's rows as one head)."""
+    def make(_k, v):
+        L, _n, bs, C = v.shape
+        h = _wire_heads(v, num_heads)
+        return v[:, :n].reshape(L, n, bs, h, C // h).permute(0, 3, 1, 2, 4)
+    return _fetch(stacked, make, stream)
+
+
+def fetch_wire_layer(stacked: Gather, n: int, num_heads: int, layer: int,
+                     stream=None) -> KVCache:
+    """ONE layer of a dispatched gather on the host, per-layer wire format
+    ``{"k": [H, n, bs, D]}``: only that layer crosses to the host, so layer
+    ``l+1``'s copy overlaps layer ``l``'s send. Stacked over the layer
+    axis, the layers equal ``fetch_wire``'s bytes."""
+    def make(_k, v):
+        _L, _n, bs, C = v.shape
+        h = _wire_heads(v, num_heads)
+        return v[layer, :n].reshape(n, bs, h, C // h).permute(2, 0, 1, 3)
+    return _fetch(stacked, make, stream)
+
+
+def prep_layer_values(block_ids, layer_values: KVCache) -> tuple:
+    """Per-layer wire ``{"k": [H, n, bs, D]}`` → (ids, block-major
+    ``{"k": [n, bs, H*D]}``) on the values' device (a transpose on the
+    card after the host→device copy, or on the CPU)."""
+    ids = list(block_ids)
+    out = {}
+    for k, v in layer_values.items():
+        H, nb, bs, d = v.shape
+        out[k] = v.permute(1, 2, 0, 3).reshape(nb, bs, H * d)
+    return ids, out
+
+
+def scatter_layer_prepped(kv: KVCache, layer: int, ids, vals: KVCache,
+                          block_size: int) -> None:
+    """Write one layer's block-major values (``[n, bs, C]``, on the pool's
+    device) into blocks ``ids`` of layer ``layer``, in place."""
+    for k, arr in kv.items():
+        _paged(arr, block_size)[layer].index_copy_(
+            0, _ids(ids, arr.device), vals[k].to(arr.dtype))
+
+
+def slice_local_lanes(kv: KVCache, host_values: KVCache) -> KVCache:
+    """This process's lane shard of global-head wire values: the identity
+    (the port has no tensor-parallel pool yet, ROADMAP A9)."""
+    return host_values
+
+
+def scatter_layer_from_host(kv: KVCache, block_ids, layer: int,
+                            layer_values: KVCache, block_size: int) -> None:
+    """Host → device for ONE layer, synchronously: per-layer wire values
+    into blocks ``block_ids`` of layer ``layer``, in place (the replayer's
+    form of the ``kv_layer_stream`` event)."""
+    dev = next(iter(kv.values())).device
+    ids, vals = prep_layer_values(
+        block_ids, {k: v.to(dev) for k, v in
+                    slice_local_lanes(kv, layer_values).items()})
+    scatter_layer_prepped(kv, layer, ids, vals, block_size)
+
+
+def scatter_layer_transfer(kv: KVCache, block_ids, layer: int, h2d: Transfer,
+                           block_size: int) -> None:
+    """Scatter an h2d ``Transfer``'s per-layer wire values into blocks
+    ``block_ids`` of layer ``layer`` on the compute stream, after the
+    copy's event: the transpose to block-major and the in-place write."""
+    sample = next(iter(kv.values()))
+    if sample.is_cuda:
+        compute = torch.cuda.current_stream(sample.device)
+        compute.wait_event(h2d.event)
+        for v in h2d.values.values():
+            v.record_stream(compute)
+    ids, vals = prep_layer_values(block_ids, h2d.values)
+    scatter_layer_prepped(kv, layer, ids, vals, block_size)

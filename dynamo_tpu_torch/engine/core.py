@@ -59,6 +59,18 @@ moves the worst-fragmented sequence's own blocks into a free run. Every
 tier and defrag write into the pool is in place: the programs' CUDA graphs
 hold the pool tensors' addresses.
 
+Disaggregation (``llm/disagg.py``): a prefill worker's request carries a
+``handoff``: after its prefill the engine gathers the prompt's blocks on
+the compute stream and a task ships them (device tensors over the
+in-process device plane, or host copies fetched off the loop on the tier
+stream, whole or a layer at a time), and the request finishes. A decode
+worker's request carries the ``precomputed`` KV instead: admission
+scatters it into the pool in place (a device payload of another KV
+quantization is repacked first, off the loop), or, for a layer stream
+still arriving, reserves the slot undecodable and scatters each layer as
+it lands; a dead stream re-admits cold. Both keep the prefill path (no
+lane or ragged admission), as in the JAX engine.
+
 The engine keeps a flight recorder (``engine/flight_recorder.py``, one
 record a dispatch, read through ``GET /debug``) and, when
 ``self.recorder`` is set (``engine/replay.py`` ``Recorder``), records
@@ -81,9 +93,16 @@ from ..llm.kv.blocks import TokenBlockSequence
 from ..llm.kv.diskstore import DiskKvStore, DiskSpillEngine, SpillJob
 from ..llm.kv.offload import KvOffloadEngine, OffloadJob, make_host_pool
 from ..llm.kv.pool import KvBlockManager
+from ..llm.kv.stream import LayeredHarvest, LayerStreamPayload
+from ..llm.kv_transport import DeviceKvPayload, scatter_blocks_device
 from ..llm.protocols.common import FinishReason
+from ..llm.protocols.disagg import torch_dtype
 from ..parallel.sharding import replicate_params
-from .block_copy import (move_blocks, scatter_transfer, start_h2d,
+from .attention import (dequant_kv_rows, dequant_kv_rows_sections,
+                        quantize_kv_rows, quantize_kv_rows_sections)
+from .block_copy import (fetch_wire, fetch_wire_layer, gather_blocks_dispatch,
+                         move_blocks, scatter_blocks_from_host,
+                         scatter_layer_transfer, scatter_transfer, start_h2d,
                          wire_kv_heads)
 from .config import EngineConfig, ModelConfig
 from .device import resolve_device
@@ -114,6 +133,24 @@ class EngineRequest:
     eos_ids: frozenset
     ctx: object = None            # runtime EngineContext (cancellation)
     out_queue: asyncio.Queue = dataclasses.field(default_factory=asyncio.Queue)
+    # disaggregation (llm/disagg.py):
+    # - prefill worker: async callback(first_token, logprob, values,
+    #   seq_hashes) shipping the prompt's KV blocks to the decode engine;
+    #   the request finishes after its prefill
+    handoff: object = None
+    # - device plane (llm/kv_transport.py): the callback receives the
+    #   device gather ({"stacked", "n_blocks"}) and the first token as a
+    #   device tensor; nothing is copied to the host
+    handoff_device: bool = False
+    # - wire plane with layer streaming (llm/kv/stream.py): the callback
+    #   receives a LayeredHarvest (per-layer device→host fetches) instead
+    #   of whole-stack host values
+    handoff_layered: bool = False
+    # - decode worker: the KV of a remote prefill (a KvPayload of host wire
+    #   values, a DeviceKvPayload of device tensors, or a
+    #   LayerStreamPayload, arrived or arriving); admission scatters it
+    #   instead of running the prefill
+    precomputed: object = None
     slot: int = -1
     blocks: List[int] = dataclasses.field(default_factory=list)
     pos: int = 0                  # tokens currently in KV
@@ -210,6 +247,15 @@ class ForwardPassMetrics:
     # the device pool's prefix-match hits, in blocks (a KV-aware router's
     # placements show here)
     prefix_hit_blocks_total: int = 0
+    # the streaming layer-wise KV handoff: layers scattered, streams that
+    # fell back (monolithic tail or cold recompute), the share of the
+    # onboard's wall time spent scattering rather than waiting on the
+    # wire, and the streaming depth the router prices (0 until the first
+    # streamed admission)
+    disagg_stream_layers_total: int = 0
+    disagg_stream_fallbacks_total: int = 0
+    disagg_stream_overlap_ratio: float = 0.0
+    disagg_stream_layers: int = 0
 
     def to_dict(self) -> dict:
         """The wire form a worker publishes as its stats (read by
@@ -496,6 +542,15 @@ class EngineCore:
         self.disk_onboards = 0         # ... of which read from disk
         self.disk_onboarded_blocks = 0
         self.onboard_cold_retries = 0  # re-admitted cold after a failed read
+        # disaggregation: the layer-stream onboards, with their seconds
+        # scattering (hidden) and waiting on frames (exposed)
+        self.disagg_stream_admits = 0
+        self.disagg_stream_layers_scattered = 0
+        self.disagg_stream_fallbacks = 0
+        self.disagg_stream_hidden_s = 0.0
+        self.disagg_stream_exposed_s = 0.0
+        self._handoff_tasks: set = set()
+        self._stream_tasks: set = set()
         self.defrag_passes = 0
         self._step = 0                 # decode steps dispatched (JAX's count)
         self._defrag_last_step = -(1 << 30)
@@ -547,6 +602,12 @@ class EngineCore:
                 t.cancel()
             await asyncio.gather(*list(self._onboard_tasks),
                                  return_exceptions=True)
+        # layer-stream onboards and handoff sends in flight
+        tasks = list(self._stream_tasks) + list(self._handoff_tasks)
+        for t in tasks:
+            t.cancel()
+        if tasks:
+            await asyncio.gather(*tasks, return_exceptions=True)
         if self._onboards:                # release reserved onboards
             for req, slot, plan, _h2d in self._onboards:
                 self.slots[slot] = None
@@ -597,6 +658,11 @@ class EngineCore:
         return n
 
     async def submit(self, req: EngineRequest) -> None:
+        if req.precomputed is not None:
+            # validate (and repack, or stage on the card) the payload HERE:
+            # the caller gets the error; a raise inside the engine loop's
+            # admission would kill the loop
+            req.precomputed = await self._prepare_payload(req.precomputed)
         self.ensure_started()
         self._inflight_reqs[id(req)] = req
         await self.waiting.put(req)
@@ -640,6 +706,14 @@ class EngineCore:
                          .spill_engine.dropped_jobs_total,
                          disk_spill_shed_total=self
                          .spill_engine.shed_writes_total)
+        wall = self.disagg_stream_hidden_s + self.disagg_stream_exposed_s
+        tiers.update(
+            disagg_stream_layers_total=self.disagg_stream_layers_scattered,
+            disagg_stream_fallbacks_total=self.disagg_stream_fallbacks,
+            disagg_stream_overlap_ratio=(self.disagg_stream_hidden_s / wall
+                                         if wall > 0 else 0.0),
+            disagg_stream_layers=(self.model_cfg.num_layers
+                                  if self.disagg_stream_admits > 0 else 0))
         return ForwardPassMetrics(
             request_active_slots=sum(1 for s in self.slots if s is not None),
             request_total_slots=self.B,
@@ -1175,7 +1249,11 @@ class EngineCore:
                 host_targets=list(plan.new_blocks[:n_host]),
                 disk_hashes=list(plan.disk_hashes),
                 disk_targets=list(plan.new_blocks[n_host:n_hd]))
-        if self.cfg.ragged_dispatch and suffix_len > 0:
+        # disaggregated admissions keep the prefill program (the JAX
+        # engine's rule): a handoff gathers the prompt's blocks after its
+        # prefill, and a precomputed admission scatters them instead
+        disagg = req.handoff is not None or req.precomputed is not None
+        if self.cfg.ragged_dispatch and suffix_len > 0 and not disagg:
             # ragged serving: every admission rides the ragged batch as a
             # prefill lane — no prefill dispatch of its own
             self._admit_lane(req, slot, n_already)
@@ -1183,13 +1261,87 @@ class EngineCore:
         if (self.cfg.lane_prefill_max_tokens > 0
                 and self.cfg.decode_steps_per_dispatch > 1
                 and 0 < suffix_len <= self.cfg.lane_prefill_max_tokens
+                and not disagg
                 and any(s is not None and s.ready for s in self.slots)):
             # lane prefill: the engine is already decoding — ride the
             # decode batch instead of stalling it with a prefill dispatch
             self._admit_lane(req, slot, n_already)
             return
-        # prefill only the un-matched suffix — the prefix KV is already in
-        # the pool's blocks (the TTFT win of prefix reuse)
+        remote = req.precomputed is not None
+        pf_seq, use_sp = None, False
+        if remote:
+            pc = req.precomputed
+            if isinstance(pc, LayerStreamPayload):
+                # a layer stream, arrived or still arriving: reserve the
+                # slot now and scatter each layer as it lands, staged on
+                # the tier stream off the loop (_stream_onboard; the JAX
+                # engine admits a stream that landed whole as one payload)
+                self._admit_stream(req, slot, plan, n_already, t0)
+                return
+            with torch.inference_mode():
+                toks, logprobs = self._admit_precomputed(req, n_already)
+        else:
+            toks, logprobs, pf_seq, use_sp = self._prefill(req, slot)
+            self.total_prefill_tokens += suffix_len
+        # the first token: a handoff ships it as it is (the device plane's
+        # stays on the card); a device tensor's fetch is deferred past the
+        # next decode dispatch (overlap_admission_fetch), or waited for now
+        defer = False
+        if req.handoff is not None:
+            pass
+        elif not isinstance(toks, torch.Tensor):
+            tok, logprob = int(toks), float(logprobs)
+        elif self.cfg.overlap_admission_fetch:
+            defer = True
+            first = _FirstToken(toks, logprobs)
+        else:
+            self.host_roundtrips += 1
+            t_fetch = time.monotonic()
+            tok, logprob = int(toks[0]), float(logprobs[0])
+            self.host_stall_s += time.monotonic() - t_fetch
+        req.pos = n_prompt
+        req.generated = 1
+        req.key_step += 1
+        # the prompt's full blocks now hold valid KV — register for reuse
+        req.registered_blocks = self.kv_manager.register_full_blocks(
+            req.blocks, plan.seq, already_registered=n_already)
+        if self.recorder is not None:
+            self.recorder.rec(
+                "admit", rid=req.rid, slot=slot, pos=req.pos,
+                key_step=req.key_step, blocks=list(req.blocks),
+                hit=req.prefix_hit_tokens, prompt=list(req.prompt))
+        if req.handoff is not None:
+            self._handoff_and_finish(req, toks, logprobs)
+            return
+        if defer:
+            req.ready = False
+            req.last_token = -1
+            self._admissions.append((req, first, pf_seq))
+        else:
+            req.last_token = tok
+            if self.recorder is not None:
+                self.recorder.rec("first_token", rid=req.rid,
+                                  pf_seq=pf_seq, tok=tok)
+        self.slots[slot] = req
+        self._block_tables[slot, :] = 0
+        self._block_tables[slot, :len(req.blocks)] = req.blocks
+        self._set_slot_sampling(slot, req)
+        logger.debug("admitted %s into slot %d (prompt=%d, hit=%d+%dhost+"
+                     "%ddisk, sp=%s, precomputed=%s, %.1fms)", req.rid, slot,
+                     n_prompt, plan.hit_tokens, plan.host_hit_tokens,
+                     plan.disk_hit_tokens, use_sp, remote,
+                     1e3 * (time.monotonic() - t0))
+        self._record_prefill(req, plan, suffix_len, remote, t0)
+        if req.ready:
+            self._emit(req, tok, logprob)
+            self._maybe_finish_after_emit(req)
+
+    def _prefill(self, req: EngineRequest, slot: int) -> tuple:
+        """The admission's prefill of the prompt's un-matched suffix (the
+        prefix KV is already in the pool's blocks: the TTFT win of prefix
+        reuse), whole, chunked or sequence-parallel; its sampled first
+        token. Returns (tokens [1], logprobs [1] on the device, the
+        recorded pf_seq or None, whether it ran sequence-parallel)."""
         chunk = req.prompt[req.prefix_hit_tokens:]
         bucket = self.cfg.bucket_for(len(chunk))
         table = np.zeros((self.M,), np.int32)
@@ -1230,60 +1382,401 @@ class EngineCore:
                     req.prefix_hit_tokens, len(chunk), self.model_cfg,
                     self.cfg.kv_block_size)
             toks, logprobs = self._sample_device(logits[None, :], [req])
-            # defer the device→host fetch of the first token: it overlaps
-            # the next decode dispatch instead of stalling the loop
-            defer = self.cfg.overlap_admission_fetch
-            if defer:
-                first = _FirstToken(toks, logprobs)
+        return toks, logprobs, pf_seq, use_sp
+
+    def _record_prefill(self, req: EngineRequest, plan, planned: int,
+                        precomputed: bool, t0: float) -> None:
+        """The admission's ``prefill`` flight record (``hit_remote`` is 0
+        until the port has the remote tier, ROADMAP A7)."""
+        now = time.monotonic()
+        self.flight.record(
+            "prefill", rid=req.rid, prompt=len(req.prompt),
+            planned_tokens=planned,
+            batch_fill=sum(1 for s in self.slots if s is not None),
+            hit_device=plan.hit_tokens, hit_host=plan.host_hit_tokens,
+            hit_disk=plan.disk_hit_tokens, hit_remote=0,
+            precomputed=precomputed, host_ms=round(1e3 * (now - t0), 3),
+            queue_wait_ms=round(1e3 * (t0 - req.enqueue_time), 3))
+
+    # -------------------------------------------------------- disaggregation
+    @property
+    def wire_kv_heads(self) -> int:
+        """Head count of the KV wire format (``block_copy.wire_kv_heads``:
+        one opaque head for int8 and latent rows)."""
+        return self._wire_heads
+
+    def _check_kv_payload_layout(self, lanes: int, dtype,
+                                 kind: str) -> None:
+        """A disaggregated KV payload must match this pool's row layout
+        exactly: the same lane width and dtype. Device-plane payloads of
+        another ``kv_quantization`` were repacked before this check;
+        anything still mismatched (wire-plane cross-quant) fails loudly."""
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch_dtype(np.dtype(dtype).name)
+        pool = next(iter(self.kv.values()))   # llama {"k","v"}, MLA {"kv"}
+        if lanes != pool.shape[-1] or dtype != pool.dtype:
+            raise ValueError(
+                f"disagg {kind} KV payload layout mismatch: payload rows "
+                f"have {lanes} lanes of {dtype}, this pool has "
+                f"{pool.shape[-1]} lanes of {pool.dtype} — prefill and "
+                f"decode engines must share kv_quantization")
+
+    def _check_layer_stream_layout(self, manifest) -> None:
+        """A layer stream's manifest announces the geometry before any
+        bulk frame: validated like a monolithic payload, plus the layer
+        count and the block size."""
+        h, _n, bs, d = (list(manifest.shape) + [0, 0, 0, 0])[:4]
+        self._check_kv_payload_layout(h * d, torch_dtype(manifest.dtype),
+                                      "wire")
+        pool = next(iter(self.kv.values()))
+        if manifest.num_layers != pool.shape[0]:
+            raise ValueError(
+                f"disagg wire KV payload layout mismatch: layer stream "
+                f"announces {manifest.num_layers} layers, this pool has "
+                f"{pool.shape[0]}")
+        if bs != self.cfg.kv_block_size:
+            raise ValueError(
+                f"disagg wire KV payload layout mismatch: layer stream "
+                f"block size {bs} != pool block size "
+                f"{self.cfg.kv_block_size}")
+
+    def _repack_needed(self, pc: DeviceKvPayload) -> bool:
+        """Whether a device-plane payload needs the cross-quant repack: its
+        rows are int8 and this pool's are not, or the reverse. Two int8
+        layouts of different widths are refused."""
+        pool = next(iter(self.kv.values()))
+        sample = next(iter(pc.stacked.values()))
+        if (sample.shape[-1] == pool.shape[-1]
+                and sample.dtype == pool.dtype):
+            return False
+        src_q, dst_q = sample.dtype == torch.int8, pool.dtype == torch.int8
+        if src_q and dst_q:
+            raise ValueError(
+                f"disagg KV repack across two int8 layouts "
+                f"({sample.shape[-1]} -> {pool.shape[-1]} lanes) is not "
+                f"supported")
+        return src_q or dst_q
+
+    def _repack_kv_payload(self, pc: DeviceKvPayload) -> DeviceKvPayload:
+        """The scale-aware repack of a device-plane payload into this pool's
+        row format (the JAX engine's ``_maybe_repack_kv_payload``): int8
+        rows dequantize to the pool's dtype, full-precision rows quantize
+        through bf16 into int8 rows. Runs in a thread, off the engine
+        loop; on the card it waits for the gather, then for its own
+        kernels, so the result is complete when it returns."""
+        pool = next(iter(self.kv.values()))
+        sample = next(iter(pc.stacked.values()))
+        src_q = sample.dtype == torch.int8
+        if self.model_cfg.kv_lora_rank > 0:
+            sections = (self.model_cfg.kv_lora_rank,
+                        self.model_cfg.qk_rope_head_dim)
+            C = sum(sections)
+        else:
+            sections = None
+            C = self.model_cfg.num_kv_heads * self.model_cfg.head_dim
+
+        def convert(arr):
+            lead = arr.shape[:-1]
+            rows = arr.reshape(-1, arr.shape[-1])
+            if src_q:
+                rows = (dequant_kv_rows_sections(rows, sections, pool.dtype)
+                        if sections is not None
+                        else dequant_kv_rows(rows, C, pool.dtype))
+                if rows.shape[-1] < pool.shape[-1]:   # latent row padding
+                    rows = torch.nn.functional.pad(
+                        rows, (0, pool.shape[-1] - rows.shape[-1]))
             else:
-                self.host_roundtrips += 1
-                t_fetch = time.monotonic()
-                tok, logprob = int(toks[0]), float(logprobs[0])
-                self.host_stall_s += time.monotonic() - t_fetch
-        self.total_prefill_tokens += len(chunk)
+                x = rows[..., :C].to(torch.bfloat16)
+                rows = (quantize_kv_rows_sections(x, sections)
+                        if sections is not None else quantize_kv_rows(x))
+            return rows.reshape(lead + (rows.shape[-1],))
+
+        with torch.inference_mode():
+            if not sample.is_cuda:
+                stacked = {k: convert(v) for k, v in pc.stacked.items()}
+            else:
+                with torch.cuda.device(sample.device):
+                    stream = torch.cuda.current_stream(sample.device)
+                    if pc.ready is not None:
+                        stream.wait_event(pc.ready)
+                    stacked = {k: convert(v) for k, v in pc.stacked.items()}
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                done.synchronize()
+        logger.info("disagg KV payload repacked %s/%d -> %s/%d lanes for %s",
+                    sample.dtype, sample.shape[-1], pool.dtype,
+                    next(iter(stacked.values())).shape[-1], pc.request_id)
+        return dataclasses.replace(pc, stacked=stacked, ready=None)
+
+    async def _prepare_payload(self, pc):
+        """Validate a precomputed payload against this pool, off the loop's
+        admission: a device-plane payload of another kv_quantization is
+        repacked in a thread, and on the card a wire payload's values are
+        copied to the card on the tier stream, also in a thread, so the
+        loop never waits on a host→device copy of a whole prompt's KV."""
+        if isinstance(pc, DeviceKvPayload):
+            if self._repack_needed(pc):
+                pc = await asyncio.to_thread(self._repack_kv_payload, pc)
+            sample = next(iter(pc.stacked.values()))
+            self._check_kv_payload_layout(sample.shape[-1], sample.dtype,
+                                          "device")
+            return pc
+        if isinstance(pc, LayerStreamPayload):
+            # the manifest announced the geometry: validate before any
+            # frame is scattered
+            self._check_layer_stream_layout(pc.manifest)
+            return pc
+        sample = next(iter(pc.values.values()))
+        self._check_kv_payload_layout(sample.shape[1] * sample.shape[4],
+                                      sample.dtype, "wire")
+        if self.device.type == "cuda" and not sample.is_cuda:
+            values = await asyncio.to_thread(
+                lambda: start_h2d(pc.values, self.device,
+                                  stream=self._tier_stream).wait())
+            pc = dataclasses.replace(pc, values=values)
+        return pc
+
+    def _admit_precomputed(self, req: EngineRequest, n_already: int) -> tuple:
+        """Admission from a remote prefill's KV payload: scatter the shipped
+        blocks into this engine's pool, in place, instead of running the
+        prefill (the decode half of PD disaggregation). Blocks this engine
+        already had (device or tier prefix hits) are skipped. Returns the
+        payload's first token and logprob (device tensors for the device
+        plane, host values for the wire)."""
+        pc = req.precomputed
+        n_prompt_blocks = self._blocks_needed(len(req.prompt))
+        targets = req.blocks[n_already:n_prompt_blocks]
+        if isinstance(pc, DeviceKvPayload):
+            if self.recorder is not None:
+                # the payload is device-resident and not logged: an
+                # offline replay refuses this event
+                self.recorder.rec(
+                    "precomputed_device_admit", rid=req.rid,
+                    targets=list(targets), skip=n_already,
+                    n_needed=n_prompt_blocks)
+            if targets:
+                scatter_blocks_device(self.kv, targets, pc, n_already,
+                                      n_prompt_blocks)
+            elif self.device.type == "cuda" and pc.ready is not None:
+                # the first token's copy must still follow the gather
+                torch.cuda.current_stream(self.device).wait_event(pc.ready)
+        elif targets:
+            if self.device.type == "cuda":
+                compute = torch.cuda.current_stream(self.device)
+                for v in pc.values.values():
+                    # staged on the tier stream (_prepare_payload), read
+                    # on this one: the allocator keeps it until the
+                    # scatter has run
+                    v.record_stream(compute)
+            vals = {k: v[:, :, n_already:n_prompt_blocks]
+                    for k, v in pc.values.items()}
+            if self.recorder is not None:
+                # the values are logged, so the replayer applies the same
+                # scatter (recorded before it, as every device program)
+                self.recorder.rec(
+                    "precomputed_admit", rid=req.rid, targets=list(targets),
+                    values={k: v.cpu().clone() for k, v in vals.items()})
+            scatter_blocks_from_host(self.kv, targets, vals,
+                                     self.cfg.kv_block_size)
+        # drop the payload: a DeviceKvPayload would otherwise hold the
+        # prefill engine's gathered blocks for this request's life
+        req.precomputed = None
+        return pc.first_token, pc.first_logprob
+
+    def _admit_stream(self, req: EngineRequest, slot: int, plan,
+                      n_already: int, t0: float) -> None:
+        """Admission against a LayerStreamPayload, whole or arriving: the slot
+        is reserved with a precomputed admission's bookkeeping (pos,
+        key_step, mirrors: the later decode stream equals the monolithic
+        handoff's), but the request stays ``ready=False`` (dispatches aim it
+        at the trash block) while ``_stream_onboard`` scatters the layers
+        as they land. The first token, block registration and the
+        ``first_token`` record wait for the last layer; a dead stream
+        re-admits COLD."""
+        n_prompt = len(req.prompt)
+        n_prompt_blocks = self._blocks_needed(n_prompt)
         req.pos = n_prompt
         req.generated = 1
         req.key_step += 1
-        # the prompt's full blocks now hold valid KV — register for reuse
-        req.registered_blocks = self.kv_manager.register_full_blocks(
-            req.blocks, plan.seq, already_registered=n_already)
+        req.ready = False
+        req.last_token = -1
+        self.disagg_stream_admits += 1
         if self.recorder is not None:
             self.recorder.rec(
                 "admit", rid=req.rid, slot=slot, pos=req.pos,
                 key_step=req.key_step, blocks=list(req.blocks),
                 hit=req.prefix_hit_tokens, prompt=list(req.prompt))
-        if defer:
-            req.ready = False
-            req.last_token = -1
-            self._admissions.append((req, first, pf_seq))
-        else:
-            req.last_token = tok
-            if self.recorder is not None:
-                self.recorder.rec("first_token", rid=req.rid,
-                                  pf_seq=pf_seq, tok=tok)
         self.slots[slot] = req
         self._block_tables[slot, :] = 0
         self._block_tables[slot, :len(req.blocks)] = req.blocks
         self._set_slot_sampling(slot, req)
-        logger.debug("admitted %s into slot %d (prompt=%d, hit=%d+%dhost+"
-                     "%ddisk, sp=%s, %.1fms)", req.rid, slot, n_prompt,
-                     plan.hit_tokens, plan.host_hit_tokens,
-                     plan.disk_hit_tokens, use_sp,
-                     1e3 * (time.monotonic() - t0))
-        now = time.monotonic()
-        # the JAX record's remote hit field is left out (the G4 tier is
-        # ROADMAP A7)
-        self.flight.record(
-            "prefill", rid=req.rid, prompt=n_prompt,
-            planned_tokens=suffix_len,
-            batch_fill=sum(1 for s in self.slots if s is not None),
-            hit_device=plan.hit_tokens, hit_host=plan.host_hit_tokens,
-            hit_disk=plan.disk_hit_tokens,
-            host_ms=round(1e3 * (now - t0), 3),
-            queue_wait_ms=round(1e3 * (t0 - req.enqueue_time), 3))
-        if req.ready:
-            self._emit(req, tok, logprob)
-            self._maybe_finish_after_emit(req)
+        logger.debug(
+            "stream-admitted %s into slot %d (prompt=%d, hit=%d, %d layers "
+            "inbound)", req.rid, slot, n_prompt, req.prefix_hit_tokens,
+            req.precomputed.num_layers)
+        self._record_prefill(req, plan, 0, True, t0)
+        task = asyncio.get_running_loop().create_task(
+            self._stream_onboard(req, plan, n_already, n_prompt_blocks),
+            name=f"kv-stream-onboard-{req.rid}")
+        self._stream_tasks.add(task)
+        task.add_done_callback(self._stream_tasks.discard)
+
+    def _stage_layer(self, values: dict):
+        """A thread's half of a layer's onboard: the layer's wire values to
+        the card on the tier stream, waited for (on the CPU: as they
+        are)."""
+        h2d = start_h2d(values, self.device, stream=self._tier_stream)
+        h2d.wait()
+        return h2d
+
+    def _stream_gone(self, req: EngineRequest) -> bool:
+        """Whether a stream-admitted request left its slot (raced away) or
+        was cancelled; a cancelled one still holding its slot is released
+        and finished here (a slot that is not ready is never swept)."""
+        if req.slot < 0 or self.slots[req.slot] is not req:
+            return True
+        if req.cancelled:
+            self._release_slot(req)
+            self._finish_request(req, FinishReason.CANCELLED)
+            return True
+        return False
+
+    async def _stream_onboard(self, req: EngineRequest, plan,
+                              n_already: int, n_prompt_blocks: int) -> None:
+        """Progressive onboard of a layer stream: per layer, await the
+        frame, copy it to the card off the loop (tier stream), then on the
+        loop record ``kv_layer_stream`` and scatter it in place on the
+        compute stream, with no await between them (recorder order is
+        device order). The targets are re-read each layer."""
+        pc = req.precomputed
+        t_wait = t_busy = 0.0
+        try:
+            for layer in range(pc.num_layers):
+                _t0 = time.monotonic()
+                vals = await pc.wait_layer(layer)
+                _t1 = time.monotonic()
+                t_wait += _t1 - _t0
+                if self._stream_gone(req):
+                    return
+                if n_prompt_blocks > n_already:
+                    sliced = {k: v[:, n_already:n_prompt_blocks]
+                              for k, v in vals.items()}
+                    h2d = await asyncio.to_thread(self._stage_layer, sliced)
+                    if self._stream_gone(req):
+                        return
+                    targets = req.blocks[n_already:n_prompt_blocks]
+                    if self.recorder is not None:
+                        self.recorder.rec(
+                            "kv_layer_stream", rid=req.rid, layer=layer,
+                            num_layers=pc.num_layers, targets=list(targets),
+                            values={k: v.cpu().clone()
+                                    for k, v in sliced.items()})
+                    with torch.inference_mode():
+                        scatter_layer_transfer(self.kv, targets, layer, h2d,
+                                               self.cfg.kv_block_size)
+                self.disagg_stream_layers_scattered += 1
+                t_busy += time.monotonic() - _t1
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001 — dead stream → cold rung
+            self.disagg_stream_fallbacks += 1
+            self.disagg_stream_hidden_s += t_busy
+            self.disagg_stream_exposed_s += t_wait
+            if self._stream_gone(req):
+                return
+            logger.warning("kv layer stream failed for %s (%s) — "
+                           "re-admitting as a cold recompute", req.rid, e)
+            self._release_slot(req)
+            # the pre-admission sampling state, so that the recompute
+            # samples what an uncontended run would (the dead stream
+            # consumed no key: the first token was the producer's)
+            req.key_step -= 1
+            req.pos = 0
+            req.generated = 0
+            req.precomputed = None
+            req.seq = None
+            req.slot = -1
+            req.registered_blocks = 0
+            req.prefix_hit_tokens = 0
+            req.ready = True
+            req.cold_admission = True
+            self.waiting.put_nowait(req)
+            self._work_event.set()
+            return
+        # completion: the pool holds the prompt's KV — register it, emit
+        # the producer's first token, join the decode batch
+        self.disagg_stream_hidden_s += t_busy
+        self.disagg_stream_exposed_s += t_wait
+        if pc.fallback_monolithic:
+            self.disagg_stream_fallbacks += 1
+        req.precomputed = None
+        if self._stream_gone(req):
+            return
+        req.registered_blocks = self.kv_manager.register_full_blocks(
+            req.blocks, plan.seq, already_registered=n_already)
+        tok, logprob = int(pc.first_token), float(pc.first_logprob)
+        req.last_token = tok
+        req.ready = True
+        if self.recorder is not None:
+            self.recorder.rec("first_token", rid=req.rid, pf_seq=None,
+                              tok=tok)
+        self._emit(req, tok, logprob)
+        self._maybe_finish_after_emit(req)
+        self._work_event.set()
+
+    def _handoff_and_finish(self, req: EngineRequest, toks: torch.Tensor,
+                            logprobs: torch.Tensor) -> None:
+        """Prefill-worker epilogue: dispatch the gather of the prompt's
+        blocks on the compute stream (ordered before any later write into
+        them), then ship it from a task, so the engine loop keeps stepping
+        while the copies and the transfer run. The device plane ships the
+        gather and the first token as device tensors; the wire plane
+        fetches them in threads, the layers on the tier stream."""
+        n_blocks = self._blocks_needed(req.pos)
+        ids = req.blocks[:n_blocks]
+        if self.recorder is not None:
+            self.recorder.rec("handoff_gather", rid=req.rid, ids=list(ids),
+                              n_blocks=n_blocks,
+                              park=bool(req.handoff_device))
+        with torch.inference_mode():
+            stacked = gather_blocks_dispatch(self.kv, ids,
+                                             self.cfg.kv_block_size)
+        seq_hashes = list(req.seq.sequence_hashes[:req.registered_blocks])
+        handoff = req.handoff
+        heads, stream = self.wire_kv_heads, self._tier_stream
+
+        if req.handoff_device:
+            async def send() -> None:
+                await handoff(toks, logprobs,
+                              {"stacked": stacked, "n_blocks": n_blocks},
+                              seq_hashes)
+        else:
+            first = _FirstToken(toks, logprobs)
+            if req.handoff_layered:
+                num_layers = next(iter(stacked.values())).shape[0]
+
+                async def send() -> None:
+                    tok, logprob = await asyncio.to_thread(first.wait)
+                    harvest = LayeredHarvest(
+                        num_layers=num_layers,
+                        fetch_layer=lambda l: fetch_wire_layer(
+                            stacked, n_blocks, heads, l, stream),
+                        fetch_all=lambda: fetch_wire(stacked, n_blocks,
+                                                     heads, stream))
+                    await handoff(tok, logprob, harvest, seq_hashes)
+            else:
+                async def send() -> None:
+                    tok, logprob = await asyncio.to_thread(first.wait)
+                    values = await asyncio.to_thread(
+                        fetch_wire, stacked, n_blocks, heads, stream)
+                    await handoff(tok, logprob, values, seq_hashes)
+
+        task = asyncio.get_running_loop().create_task(
+            send(), name=f"kv-handoff-{req.rid}")
+        self._handoff_tasks.add(task)
+        task.add_done_callback(self._handoff_tasks.discard)
+        self._release_slot(req)
+        self._finish_request(req, FinishReason.LENGTH)
 
     def _complete_admissions(self) -> None:
         """Finish the deferred admissions: their copies have been in flight

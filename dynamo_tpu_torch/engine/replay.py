@@ -50,7 +50,8 @@ import numpy as np
 import torch
 
 from ..llm.kv.offload import make_host_pool
-from .block_copy import gather_blocks_to_host, scatter_blocks_from_host
+from .block_copy import (gather_blocks_to_host, scatter_blocks_from_host,
+                         scatter_layer_from_host)
 from .core import sample_keyed
 from .programs import (DecodeProgram, RaggedProgram, VerifyProgram,
                        sampling_variant)
@@ -409,6 +410,35 @@ def replay(core, events: List[dict], fingerprint: bool = False) -> dict:
                 disk_mirror = _MemDiskMirror()
             exec_kv_disk_store_event(ev, disk_mirror, mirror, spill_stage)
             continue
+        if kind == "handoff_gather":
+            # a read-only gather feeding the handoff, not the pool
+            continue
+        if kind == "precomputed_device_admit":
+            raise NotImplementedError(
+                f"device-plane disagg admission for rid={ev.get('rid')} "
+                f"is not offline-replayable: the payload's arrays are "
+                f"device-resident and not in the log — record with the "
+                f"wire plane (precomputed_admit) for replayable disagg "
+                f"runs")
+        if kind == "precomputed_admit":
+            # a wire-plane admission: the record carries the remote
+            # prefill's values, so the replay applies the same scatter
+            scatter_blocks_from_host(kv, list(ev["targets"]), ev["values"],
+                                     bs)
+            written.update(int(b) * bs + o for b in ev["targets"]
+                           for o in range(bs))
+            fp(("precomputed_admit", ev.get("rid")))
+            continue
+        if kind == "kv_layer_stream":
+            # one layer of a streamed admission; its targets gain their
+            # in-log writer at the last layer, when the slot turned ready
+            scatter_layer_from_host(kv, list(ev["targets"]),
+                                    int(ev["layer"]), ev["values"], bs)
+            if int(ev["layer"]) == int(ev["num_layers"]) - 1:
+                written.update(int(b) * bs + o for b in ev["targets"]
+                               for o in range(bs))
+            fp(("kv_layer_stream", ev.get("rid"), int(ev["layer"])))
+            continue
         if kind == "hit_transfer":
             if int(ev.get("disk_hit", 0)) > 0 and disk_mirror is None:
                 raise NotImplementedError(
@@ -568,6 +598,12 @@ def check_log(events: List[dict], block_size: int) -> List[StaleRead]:
             for ps in _pool_slots(ev["blocks"], range(int(ev["hit"])),
                                   block_size):
                 write(ps, ev["rid"])
+        elif kind in ("precomputed_admit", "kv_layer_stream"):
+            # a disaggregated admission's scatter writes whole target
+            # blocks (ownership is layer-agnostic)
+            for b in ev["targets"]:
+                for o in range(block_size):
+                    write(int(b) * block_size + o, ev["rid"])
         elif kind in ("prefill", "prefill_sp"):
             table, rid = ev["table"], ev["rid"]
             start = int(ev.get("start_pos", 0))

@@ -5,7 +5,9 @@
 [--prefill-chunk N] [--decode-steps-per-dispatch K
 [--decode-dispatch-pipeline] [--lane-prefill-max-tokens N]]
 [--max-tokens N] [--output-path F] [--runtime-server H:P
-[--advertise-host H]] [--protocol tokens]``.
+[--advertise-host H]] [--protocol tokens] [--remote-prefill
+[--max-local-prefill-length N] [--unconditional-disagg]]
+[--is-prefill-worker]``.
 
 Counterpart of ``dynamo_tpu.launch.run``:
 
@@ -36,6 +38,17 @@ link's counters) as its stats and its KV events on the component's
 full pipeline on the worker, registered for discovery-driven frontends)
 and ``out=dyn://`` wait for ``llm/discovery.py``, ``llm/engines/remote.py``
 and the registry card (ROADMAP A7, A10).
+
+Disaggregated prefill and decode (``llm/disagg.py``): ``--is-prefill-worker``
+(usually with ``in=none``) pulls the runtime's prefill queue and sends each
+prompt's KV back to the decode worker that asked; ``--remote-prefill``
+makes an ``out=torch`` engine a decode worker that sends every prompt whose
+un-cached part exceeds ``--max-local-prefill-length`` (live in the KV
+store, ``DisaggregatedRouter``) to that queue, or every prompt with
+``--unconditional-disagg``, and prefills locally when no prefill worker
+answers. Both need ``--runtime-server`` across processes.
+``--role prefill-publish`` (prefill-as-a-service over the remote KV tier)
+is not ported (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -71,6 +84,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "pipeline on the worker (not ported yet); tokens = "
                         "core engine only (preprocessing lives in a "
                         "KV-routing processor)")
+    p.add_argument("--remote-prefill", action="store_true",
+                   help="decode worker: offload long prefills to the "
+                        "prefill queue")
+    p.add_argument("--is-prefill-worker", action="store_true",
+                   help="serve the prefill side of disaggregation")
+    p.add_argument("--role", choices=["serve", "prefill-publish"],
+                   default="serve",
+                   help="prefill-publish: the prefill-as-a-service worker "
+                        "(not ported yet)")
+    p.add_argument("--max-local-prefill-length", type=int, default=512,
+                   help="--remote-prefill: prompts with more un-cached "
+                        "tokens than this prefill remotely")
+    p.add_argument("--unconditional-disagg", action="store_true",
+                   help="always prefill remotely (skip the threshold)")
     p.add_argument("--model-path",
                    help="HF-style model dir (config.json + tokenizer)")
     p.add_argument("--model-name", help="served model name "
@@ -457,10 +484,7 @@ async def run_worker_endpoint(args, engine, core, runtime, path: str,
             d["kernel_launches"] = kernel_launches()
             return d
         await wire_kv_events(core, runtime, endpoint)
-    if core is not None and core.device.type == "cuda":
-        import torch
-        logger.info("device memory after bring-up: %.2f GiB reserved",
-                    torch.cuda.memory_reserved(core.device) / 2**30)
+    log_device_memory(core)
     await endpoint.serve(
         engine,
         decode_req=lambda raw: PreprocessedRequest.from_dict(
@@ -523,9 +547,72 @@ def kernel_launches() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+async def disagg_engine(args, core, runtime):
+    """--remote-prefill: a ``DisaggEngine`` over ``core`` whose threshold
+    (``--max-local-prefill-length``) is watched in the runtime's KV
+    store."""
+    from ..llm.disagg import DisaggEngine, DisaggregatedRouter
+    router = DisaggregatedRouter(
+        runtime, model_name(args),
+        max_local_prefill_length=args.max_local_prefill_length,
+        conditional=not args.unconditional_disagg)
+    await router.start()
+    return DisaggEngine(core, runtime, router)
+
+
+async def run_prefill_worker(core, runtime) -> None:
+    """--is-prefill-worker: pull the prefill queue until cancelled; the
+    worker's counters are logged at stop."""
+    from ..llm.disagg import PrefillWorker
+    worker = await PrefillWorker(core, runtime).start()
+    log_device_memory(core)
+    logger.info("prefill worker pulling queue (engine ready)")
+    print("READY prefill worker", flush=True)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await worker.stop()
+        logger.info("prefill worker stats %s", json.dumps(worker.stats()))
+
+
+def log_device_memory(core) -> None:
+    """The card's memory the process holds once its engine is up."""
+    if core is not None and core.device.type == "cuda":
+        import torch
+        logger.info("device memory after bring-up: %.2f GiB reserved",
+                    torch.cuda.memory_reserved(core.device) / 2**30)
+
+
+def log_disagg_stats(engine) -> None:
+    """A decode worker's disaggregation counters at stop: the engine's
+    routing and planes, and its core's prefill tokens and layer-stream
+    counts."""
+    d = dict(engine.stats())
+    m = engine.core.metrics()
+    d.update(prefill_tokens_total=m.prefill_tokens_total,
+             disagg_stream_layers_total=m.disagg_stream_layers_total,
+             disagg_stream_fallbacks_total=m.disagg_stream_fallbacks_total)
+    logger.info("disagg stats %s", json.dumps(d))
+
+
+def check_disagg_flags(args, out: str) -> None:
+    if args.role == "prefill-publish":
+        raise SystemExit(
+            "--role prefill-publish (prefill-as-a-service over the remote "
+            "KV tier: components/prefill_service.py, llm/kv/remotestore.py)"
+            " is not ported yet (ROADMAP A7)")
+    if (args.remote_prefill or args.is_prefill_worker) and out != "torch":
+        raise SystemExit("--remote-prefill and --is-prefill-worker need "
+                         "out=torch")
+    if args.remote_prefill and args.is_prefill_worker:
+        raise SystemExit("--remote-prefill (a decode worker) and "
+                         "--is-prefill-worker exclude each other")
+
+
 async def amain(argv=None) -> None:
     args = build_parser().parse_args(argv)
     src, out = parse_io(args.io)
+    check_disagg_flags(args, out)
     dyn = src.startswith("dyn://")
     if dyn and args.protocol == "openai":
         raise SystemExit(
@@ -533,15 +620,25 @@ async def amain(argv=None) -> None:
             "worker, registered for discovery-driven frontends) needs "
             "llm/discovery.py and the registry card (ROADMAP A7, A10); "
             "serve --protocol tokens behind components/processor.py")
-    if dyn or src == "none":
+    if dyn or src == "none" or args.is_prefill_worker:
         engine, mdc, core = build_engine_parts(args, out)
         runtime = await make_runtime(args)
         try:
-            if dyn:
-                await run_worker_endpoint(args, engine, core, runtime, src,
-                                          mdc=mdc)
-            else:
-                await asyncio.Event().wait()
+            if args.is_prefill_worker:
+                await run_prefill_worker(core, runtime)
+                return
+            if args.remote_prefill:
+                engine = await disagg_engine(args, core, runtime)
+            try:
+                if dyn:
+                    await run_worker_endpoint(args, engine, core, runtime,
+                                              src, mdc=mdc)
+                else:
+                    await asyncio.Event().wait()
+            finally:
+                if args.remote_prefill:
+                    await engine.stop()
+                    log_disagg_stats(engine)
         finally:
             if core is not None:
                 await core.stop()
@@ -549,20 +646,33 @@ async def amain(argv=None) -> None:
                             json.dumps(kernel_launches()))
             await runtime.shutdown()
         return
-    pipeline, core = build_engine(args, out)
-    if src == "http":
-        await serve(args, core, pipeline=pipeline)
-        return
+    runtime = disagg = None
+    if args.remote_prefill:
+        engine, mdc, core = build_engine_parts(args, out)
+        runtime = await make_runtime(args)
+        disagg = await disagg_engine(args, core, runtime)
+        pipeline = link_pipeline(disagg, mdc)
+        log_device_memory(core)
+    else:
+        pipeline, core = build_engine(args, out)
     try:
-        if src == "text":
+        if src == "http":
+            await serve(args, core, pipeline=pipeline)   # stops the core
+        elif src == "text":
             await run_text(args, pipeline, interactive=True)
         elif src == "stdin":
             await run_text(args, pipeline, interactive=False)
         else:
             await run_batch(args, pipeline, src[len("batch:"):])
     finally:
-        if core is not None:
+        if core is not None and src != "http":
             await core.stop()
+        if disagg is not None:
+            await disagg.stop()
+            log_disagg_stats(disagg)
+        if runtime is not None:
+            logger.info("kernel launches %s", json.dumps(kernel_launches()))
+            await runtime.shutdown()
 
 
 def main(argv=None) -> int:

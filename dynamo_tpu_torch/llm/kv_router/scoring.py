@@ -91,28 +91,9 @@ def modeled_overlap_transfer_s(n_blocks: int, bytes_per_block: int,
     modeled_transfer_s exactly."""
     if gbps <= 0:
         return float("inf")
+    from ..kv.stream import exposed_transfer_s
     serial = n_blocks * bytes_per_block / (gbps * 1e9)
     return rtt_s + exposed_transfer_s(serial, n_layers, hidden_s)
-
-
-def exposed_transfer_s(transfer_s: float, n_layers: int,
-                       hidden_s: float = 0.0) -> float:
-    """Critical-path cost of a transfer of serial duration ``transfer_s``
-    streamed as ``n_layers`` frames with ``hidden_s`` seconds of
-    overlappable compute behind it (the port's copy of the JAX package's
-    ``llm/kv/stream.py`` function; that module is not ported yet).
-
-    - The consumer can't act before the FIRST frame lands: at least
-      ``transfer_s / n_layers`` is always exposed.
-    - Compute hides at most ``hidden_s`` of the rest:
-      ``transfer_s - hidden_s`` stays exposed when compute runs short.
-
-    Monolithic transfers are the ``n_layers <= 1, hidden_s = 0`` case:
-    exposed == transfer_s exactly."""
-    if transfer_s <= 0.0:
-        return 0.0
-    n = max(int(n_layers), 1)
-    return max(transfer_s / n, transfer_s - max(hidden_s, 0.0))
 
 
 def modeled_recompute_s(n_blocks: int, block_size: int,

@@ -631,6 +631,14 @@ def _torch_run(np_params, geom, quant):
             "decode": ld.numpy(), "ragged": lr, "kv": kv["kv"].numpy()}
 
 
+# the JAX forwards as the JAX engine runs them, jitted: each compiles once
+# a shape and pool dtype, and gives the bits of its eager calls here
+_jprefill = jax.jit(jmla.prefill_forward, static_argnums=(6,))
+_jdecode = jax.jit(jmla.decode_forward, static_argnums=(5,))
+_jragged = jax.jit(jmla.ragged_forward, static_argnums=(9,),
+                   static_argnames=("max_rows",))
+
+
 def _jax_run(np_params, geom, quant):
     cfg = JModelConfig(**geom)
     params = {k: jnp.asarray(v) for k, v in np_params.items()}
@@ -638,23 +646,23 @@ def _jax_run(np_params, geom, quant):
                              kv_coalesce=False)
     kv = jmla.init_kv_cache(cfg, NUM_BLOCKS, BS, dtype=jnp.float32,
                             quantization=quant)
-    la, kv = jmla.prefill_forward(
+    la, kv = _jprefill(
         params, kv, jnp.asarray(_padded(TOKENS_A, 32)),
         jnp.asarray(_table(TABLE_A)), jnp.int32(0), jnp.int32(len(TOKENS_A)),
         st)
-    lb, kv = jmla.prefill_forward(
+    lb, kv = _jprefill(
         params, kv, jnp.asarray(_padded(TOKENS_B[16:], 8)),
         jnp.asarray(_table(TABLE_B)), jnp.int32(16),
         jnp.int32(len(TOKENS_B) - 16), st)
     tables = np.stack([_table(TABLE_A), _table(TABLE_B), _table([])])
     pos = np.array([len(TOKENS_A), len(TOKENS_B), 0], np.int32)
-    ld, kv = jmla.decode_forward(params, kv, jnp.asarray(DECODE_IN),
-                                 jnp.asarray(pos), jnp.asarray(tables), st)
+    ld, kv = _jdecode(params, kv, jnp.asarray(DECODE_IN), jnp.asarray(pos),
+                      jnp.asarray(tables), st)
     seqs = _ragged_seqs()
     lr = []
     for sp in RAGGED:
         b = [jnp.asarray(a) for a in _ragged_batch(sp, seqs)]
-        logits, kv = jmla.ragged_forward(params, kv, *b, st, max_rows=16)
+        logits, kv = _jragged(params, kv, *b, st, max_rows=16)
         lr.append(np.asarray(logits)[:3])
     return {"prefill_a": np.asarray(la), "prefill_b": np.asarray(lb),
             "decode": np.asarray(ld), "ragged": lr,
@@ -744,11 +752,6 @@ async def _scenario(side, mode, lead=1):
     b is submitted as the engine emits a's ``lead``-th token, the same
     point of a's stream in both engines)."""
     pa, pb = _prompt(41, 25), _prompt(43, 21)
-    if mode == "k4_pipelined_lanes" and side.jax_side:
-        # the reference: each request alone (a stream does not depend on
-        # the batch it rides)
-        return (await side.run(pa, "a", max_new=32),
-                await side.run(pb, "b", max_new=24, sampling=SEEDED))
     if mode == "k4_pipelined_lanes":    # b lane-admits into a's batch
         return await side.busy_pair(pa, pb, samp_b=SEEDED, lead=lead)
     if mode == "chunked_prefix":        # b hits a's 32-token prefix
@@ -757,37 +760,76 @@ async def _scenario(side, mode, lead=1):
         b = await side.run(shared + [9, 11, 13], "b", max_new=12,
                            sampling=SEEDED)
         return a, b
-    ra = await side.submit(pa, "a", max_new=16)
-    rb = await side.submit(pb, "b", max_new=16, sampling=SEEDED)
+    return await _together(side, pa, pb)
+
+
+async def _together(side, pa, pb, max_new_a=16, max_new_b=16):
+    """a (greedy) and b (seeded) submitted together."""
+    ra = await side.submit(pa, "a", max_new=max_new_a)
+    rb = await side.submit(pb, "b", max_new=max_new_b, sampling=SEEDED)
     return await asyncio.gather(side.drain(ra), side.drain(rb))
+
+
+@pytest.fixture(scope="module")
+def jax_k1_streams(e_np_params):
+    """The JAX engine's k1-mode streams over each KV pool, a and b
+    together as long as the pipelined-lanes mode's (32 and 24 tokens), run
+    once and shared by two cases: the k1 mode's reference (its first 16
+    tokens a stream) and the pipelined-lanes mode's (a stream depends
+    neither on the batch it rides, nor on the steps a dispatch, nor on
+    its token budget, so both modes' streams must be prefixes of these)."""
+    cache = {}
+
+    async def get(kv_quant):
+        if kv_quant not in cache:
+            jcore = JEngineCore(
+                JModelConfig(**GEOM),
+                JEngineConfig(**dict(ENGINE, kv_quantization=kv_quant)),
+                params={k: jnp.asarray(v) for k, v in e_np_params.items()},
+                attn_impl="xla", param_dtype=jnp.float32)
+            try:
+                cache[kv_quant] = await _together(
+                    Side(jcore, True), _prompt(41, 25), _prompt(43, 21),
+                    32, 24)
+            finally:
+                await jcore.stop()
+        return cache[kv_quant]
+    return get
 
 
 @pytest.mark.asyncio
 @pytest.mark.parametrize("kv_quant", KV_MODES)
 @pytest.mark.parametrize("mode", list(DISPATCH))
-async def test_mla_engine_streams_match_jax(e_np_params, mode, kv_quant):
+async def test_mla_engine_streams_match_jax(e_np_params, jax_k1_streams,
+                                            mode, kv_quant):
     kw = dict(ENGINE, kv_quantization=kv_quant, **DISPATCH[mode])
-    # the JAX reference of the pipelined mode harvests in program order:
-    # its pipelined dispatch gives other streams on a loaded host
-    # (ROADMAP C), and pipelining changes no stream
-    jkw = dict(kw, decode_dispatch_pipeline=False)
-    jcore = JEngineCore(JModelConfig(**GEOM), JEngineConfig(**jkw),
-                        params={k: jnp.asarray(v)
-                                for k, v in e_np_params.items()},
-                        attn_impl="xla", param_dtype=jnp.float32)
     cfg = ModelConfig(**GEOM)
     tcore = EngineCore(cfg, EngineConfig(dtype="float32", **kw),
                        params=params_from_numpy(e_np_params, cfg, "cpu",
                                                 torch.float32),
                        device="cpu")
     assert tcore.model_mod is tmla and set(tcore.kv) == {"kv"}
-    out = []
-    for core, jax_side in ((jcore, True), (tcore, False)):
+    if mode in ("k1", "k4_pipelined_lanes"):
+        ja, jb = await jax_k1_streams(kv_quant)
         try:
-            out.append(await _scenario(Side(core, jax_side), mode))
+            ta, tb = await _scenario(Side(tcore, False), mode)
         finally:
-            await core.stop()
-    (ja, jb), (ta, tb) = out
+            await tcore.stop()
+        # the shared reference's streams cut to this mode's budgets
+        na, nb = (32, 24) if mode == "k4_pipelined_lanes" else (16, 16)
+        ja, jb = (ja[0][:na],) + ja[1:], (jb[0][:nb],) + jb[1:]
+    else:
+        jcore = JEngineCore(JModelConfig(**GEOM), JEngineConfig(**kw),
+                            params={k: jnp.asarray(v)
+                                    for k, v in e_np_params.items()},
+                            attn_impl="xla", param_dtype=jnp.float32)
+        out = []
+        for core, jax_side in ((jcore, True), (tcore, False)):
+            try:
+                out.append(await _scenario(Side(core, jax_side), mode))
+            finally:
+                await core.stop()
+        (ja, jb), (ta, tb) = out
     assert ta[0] == ja[0] and tb[0] == jb[0]
     assert len(ta[0]) >= 12 and len(tb[0]) >= 12
     if mode == "k4_pipelined_lanes":

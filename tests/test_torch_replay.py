@@ -235,10 +235,8 @@ def test_replay_refuses_another_config(runs, np_params):
 
 # ------------------------------------------------------------------ /debug
 
-# the JAX record fields the port does not have: the remote KV tier and
-# disaggregation (ROADMAP A7) and K4's wave prefetch (B1)
-NOT_PORTED = {"hit_remote", "precomputed", "prefetch_first_waves",
-              "prefetch_hits"}
+# the JAX record fields the port does not have: K4's wave prefetch (B1)
+NOT_PORTED = {"prefetch_first_waves", "prefetch_hits"}
 
 
 async def _http_get(port: int, target: str) -> dict:
