@@ -383,6 +383,28 @@ Phases, each failing the run (non-zero exit, no result line) on error:
    ``disagg_ragged_int4_kv8`` paths. Printed: each plane's wall seconds,
    the wire's GB/s, each remote TTFT beside its local twin's.
 
+12. The fleet KV fabric on the one card (``fabric_phase``): the 8B at
+   full width and depth, int4 weights + int8 KV, host and disk tiers.
+   (12a) the C++ data-plane sender's bytes equal the asyncio sender's on
+   token frames, a whole 8B KV payload and its layer stream (3000
+   tokens), the payloads read back whole through a stream server, STOP
+   and KILL; each sender's GB/s. The daemon, a ``--role prefill-publish``
+   worker and two ``--kv-fabric`` workers come up as processes beside
+   three engines here: D (on the publisher's object root, recorded), its
+   device-hit twin T and its cold twin C. (12b) four prompts of
+   1600-3000 tokens published (a re-publish writes nothing); D admits
+   each plus a 32-token suffix from the object store with T's stream bit
+   for bit and prefills the suffix alone. (12c) worker B fetches the
+   prefixes worker A served from A's host and disk tiers over the data
+   plane (no fallback), with T's streams; T's blocks over the JSON op
+   equal them over the data plane and A's; a peer serving torn payloads
+   and A's SIGTERM each cost B a recompute with T's cold stream. (12d)
+   D's log replays from its carried bytes and from the root. Its launches
+   (the engines here and the three workers) are the kernels line's
+   ``fabric_int4_kv8`` path. Printed: the object store's write and read
+   GB/s, each remote TTFT beside its cold and device-hit twins', B's
+   link and what the ``auto`` gate would have decided for each fetch.
+
 Each phase prints its wall seconds (``phase 3q: N s``; each model mode and
 server inside one too) and the run ends with all of them on one line. The
 model and serve phases run each geometry at the depth of ``LAYERS``: the
@@ -4186,6 +4208,8 @@ PATH_KERNELS = {
     "disagg_ragged_int4_kv8": ("flash_prefill",
                                "ragged_paged_attention_int8",
                                "lm_head_int8", "grouped_int4_matmul"),
+    "fabric_int4_kv8": ("flash_prefill", "paged_attention_int8",
+                        "lm_head_int8", "grouped_int4_matmul"),
 }
 # the Gemma-2-9B servers (5g): bf16 on the split path with 8 decode steps a
 # dispatch, int4 + int8 KV with --ragged, and so that every kernel mode of
@@ -4239,12 +4263,16 @@ ROUTED_PATH = "routed_int4_kv8"
 DISAGG_PATH = "disagg_int4_kv8"
 DISAGG_RAGGED_PATH = "disagg_ragged_int4_kv8"
 DISAGG_PATHS = (DISAGG_PATH, DISAGG_RAGGED_PATH)
+# the fleet KV fabric (12): the in-process engines and the three worker
+# processes of phase 12 (the publisher, A and B), summed
+FABRIC_PATH = "fabric_int4_kv8"
+FABRIC_PATHS = (FABRIC_PATH,)
 # the paths that phase 5 does not serve: those of the geometries after the
 # 8B one, of the checkpoint, of chat, of speculation, of the KV tiers, of
-# the routed graph and of disaggregation
+# the routed graph, of disaggregation and of the fabric
 LATER_PATHS = (GEMMA_PATHS + MLA_PATHS + PHI3_PATHS + QWEN2_PATHS
                + CKPT_PATHS + CHAT_PATHS + SPEC_PATHS + TIER_PATHS
-               + (ROUTED_PATH,) + DISAGG_PATHS)
+               + (ROUTED_PATH,) + DISAGG_PATHS + FABRIC_PATHS)
 # the sequence-parallel server (5e): sp = 2 shards on the one card
 SERVE_SP = 2
 # each served path's weights and KV pool (MODEL_MODES), and whether it
@@ -7997,6 +8025,8 @@ def disagg_processes(cfg, dev, seed, model_dir, name, prompts, cores, loop,
         gbps = (pw["wire_bytes"] / pw["wire_s"] / 1e9
                 if pw["wire_s"] else None)
         fig = {"bring_up": bring_up, "requests": rows,
+               "sender": ("asyncio" if os.environ.get(
+                   "DYN_NATIVE_DATAPLANE", "1") == "0" else "native"),
                "wire_gb": pw["wire_bytes"] / 1e9, "wire_s": pw["wire_s"],
                "wire_gbps": gbps, "prefill_worker": {
                    k: v for k, v in pw.items() if k != "launches"},
@@ -8034,6 +8064,799 @@ def disagg_processes(cfg, dev, seed, model_dir, name, prompts, cores, loop,
             on_loop(loop, svc.stop(), 60)
         procs.stop([n for n in procs.procs if n != "daemon"], 30)
         procs.stop(["daemon"], 30)
+
+
+# 12. The fleet KV fabric on the one card
+FABRIC_PROMPTS = (1600, 2100, 2600, 3000)   # 12b published, 12c fetched
+FABRIC_SUFFIX = 32             # each request's own tokens past its prefix
+FABRIC_TOKENS = 32
+FABRIC_LOST = 1000             # 12c: held by worker A at its SIGTERM
+FABRIC_TORN = 800              # 12c: the torn peer's prompt
+FABRIC_FILLER = 3000           # 12c: pushes A's prompts off its device
+FABRIC_BLOCKS = 1024           # every engine's pool but A's
+FABRIC_A_BLOCKS = 256          # A's: two fillers evict everything else
+FABRIC_HOST, FABRIC_DISK = 1536, 2048
+FABRIC_ENDPOINT = "dyn://dynamo/fabric/generate"
+FABRIC_PUBLISH = "dyn://dynamo/prefill/prefill_publish"
+FABRIC_STREAM_TOKENS = 3000    # 12a: the 8B layer stream's prompt
+
+
+def fabric_prompts(cfg, seed: int) -> dict:
+    """The phase's token-id prompts and suffixes, from one seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 300)
+    hi = min(127000, cfg.vocab_size - 256)
+
+    def ids(n):
+        return rng.integers(min(1000, hi // 2), hi, size=n).tolist()
+    main = [ids(n) for n in FABRIC_PROMPTS]
+    return {"main": main,
+            "suffixed": [p + ids(FABRIC_SUFFIX) for p in main],
+            "lost": ids(FABRIC_LOST), "lost_suffix": ids(FABRIC_SUFFIX),
+            "torn": ids(FABRIC_TORN), "torn_suffix": ids(FABRIC_SUFFIX),
+            "fillers": [ids(FABRIC_FILLER) for _ in range(2)]}
+
+
+async def engine_stream(core, prompt: list, rid: str,
+                        n: int = FABRIC_TOKENS) -> tuple:
+    """(greedy token ids, TTFT ms on the engine's clock, the request) of
+    one request submitted to ``core`` alone."""
+    import asyncio
+    from dynamo_tpu_torch.engine.core import FINISH_SENTINEL, EngineRequest
+    from dynamo_tpu_torch.engine.sampling import SlotSampling
+    req = EngineRequest(rid=rid, prompt=list(prompt),
+                        sampling=SlotSampling(temperature=0.0),
+                        max_new_tokens=n, eos_ids=frozenset())
+    t0 = time.monotonic()
+    await core.submit(req)
+    toks, ttft = [], None
+    while True:
+        item, _ = await asyncio.wait_for(req.out_queue.get(), 600)
+        if item is FINISH_SENTINEL:
+            return toks, ttft, req
+        if ttft is None:
+            ttft = 1e3 * (time.monotonic() - t0)
+        toks.append(item)
+
+
+async def worker_stream(client, wid: int, prompt: list, rid: str,
+                        n: int = FABRIC_TOKENS) -> tuple:
+    """(greedy token ids, TTFT ms on this client's clock) of one
+    token-protocol request sent to worker ``wid``."""
+    from dynamo_tpu_torch.llm.protocols.common import (PreprocessedRequest,
+                                                       SamplingOptions,
+                                                       StopConditions)
+    from dynamo_tpu_torch.runtime.engine import Context, EngineContext
+    pre = PreprocessedRequest(
+        token_ids=list(prompt),
+        stop_conditions=StopConditions(max_tokens=n, ignore_eos=True),
+        sampling_options=SamplingOptions(greedy=True))
+    t0 = time.monotonic()
+    stream = await client.direct(Context(pre, ctx=EngineContext(rid)), wid)
+    toks, ttft = [], None
+    async for item in stream:
+        ids = ((item or {}).get("data") or {}).get("token_ids") or []
+        if ids and ttft is None:
+            ttft = 1e3 * (time.monotonic() - t0)
+        toks += ids
+    return toks, ttft
+
+
+async def raw_socket_bytes(sender_cls, frames: list,
+                           layered=None) -> tuple:
+    """Every byte ``sender_cls`` writes for a prologue, ``frames`` (header,
+    data) and a sentinel, read off the socket by a plain blocking socket in
+    a thread of its own, and the seconds from connect to the last byte;
+    ``layered`` (a callable of the sender) sends a layer stream instead of
+    frames."""
+    import asyncio
+    import socket
+    import threading
+    from dynamo_tpu_torch.runtime.codec import ConnectionInfo
+    lsock = socket.socket()
+    lsock.bind(("127.0.0.1", 0))
+    lsock.listen(1)
+    chunks: list = []
+    done = threading.Event()
+
+    def reader():
+        conn, _ = lsock.accept()
+        with conn:
+            while True:
+                c = conn.recv(1 << 22)
+                if not c:
+                    break
+                chunks.append(c)
+        done.set()
+    threading.Thread(target=reader, daemon=True).start()
+    t0 = time.monotonic()
+    s = await sender_cls.connect(ConnectionInfo(
+        address=f"127.0.0.1:{lsock.getsockname()[1]}", stream_id="f" * 32))
+    try:
+        if layered is not None:
+            await layered(s)
+        else:
+            for header, data in frames:
+                await s.send(data, header=header)
+            await s.finish()
+        if not await asyncio.to_thread(done.wait, 120):
+            raise RuntimeError("12a: the reader saw no end of stream")
+        return b"".join(chunks), time.monotonic() - t0
+    finally:
+        lsock.close()
+
+
+async def fabric_dataplane(cfg, card: str) -> dict:
+    """12a. The data plane's library built, then the C++ sender's bytes
+    against the asyncio sender's on the same payloads (token frames, the
+    whole KV payload of the 8B int8 pool at 3000 tokens, its layer stream),
+    each payload's frames read back whole through a TcpStreamServer, STOP
+    and KILL through the flag poll; each sender's GB/s."""
+    import asyncio
+    import torch
+    from dynamo_tpu_torch.llm.kv.stream import (LayeredHarvest,
+                                                LayerStreamManifest,
+                                                decode_layer_frame,
+                                                send_layer_stream,
+                                                send_monolithic_payload)
+    from dynamo_tpu_torch.llm.protocols.disagg import (KvPayload,
+                                                       decode_kv_payload)
+    from dynamo_tpu_torch.runtime.codec import ControlMessage, FrameKind
+    from dynamo_tpu_torch.runtime.native_tcp import (NativeStreamSender,
+                                                     load_data_plane_lib)
+    from dynamo_tpu_torch.runtime.tcp import StreamSender, TcpStreamServer
+
+    t0 = time.monotonic()
+    await asyncio.to_thread(load_data_plane_lib)
+    fig = {"build_s": time.monotonic() - t0}
+    from dynamo_tpu_torch.engine.models import llama
+    n = FABRIC_STREAM_TOKENS // KV_BLOCK
+    g = torch.Generator().manual_seed(12)
+    # the int8 pool's rows: one opaque wire head of the row's width
+    width = next(iter(llama.init_kv_cache(
+        cfg, 1, KV_BLOCK, "cpu", torch.bfloat16,
+        quantization="int8").values())).shape[-1]
+    shape = (cfg.num_layers, 1, n, KV_BLOCK, width)
+    values = {k: torch.randint(-128, 128, shape, generator=g,
+                               dtype=torch.int8) for k in ("k", "v")}
+    hashes = list(range(n))
+    payload = KvPayload(request_id="12a", first_token=7, first_logprob=-0.5,
+                        seq_hashes=hashes, values=values)
+    harvest = LayeredHarvest(
+        num_layers=cfg.num_layers,
+        fetch_layer=lambda layer: {k: v[layer] for k, v in values.items()},
+        fetch_all=lambda: values)
+    tokens = [(b"", json.dumps({"tok": i}).encode()) for i in range(64)]
+
+    async def whole(s):
+        await send_monolithic_payload(s, payload)
+        await s.finish()
+
+    async def layers(s):
+        await send_layer_stream(s, "12a", 7, -0.5, hashes, harvest)
+    cases = {"tokens": (tokens, None), "payload": ([], whole),
+             "layer_stream": ([], layers)}
+    senders = {"native": NativeStreamSender, "asyncio": StreamSender}
+    for name, (frames, fn) in cases.items():
+        out = {}
+        for sname, cls in senders.items():
+            out[sname] = await raw_socket_bytes(cls, frames, fn)
+        if out["native"][0] != out["asyncio"][0]:
+            raise RuntimeError(f"12a {name}: the C++ sender's bytes differ "
+                               f"from the asyncio sender's")
+        nbytes = len(out["native"][0])
+        fig[name] = {"bytes": nbytes, **{
+            f"{s}_gbps": nbytes / out[s][1] / 1e9 for s in senders}}
+
+    # the same payloads through a stream server: whole and equal
+    srv = TcpStreamServer(host="127.0.0.1")
+    await srv.start()
+    try:
+        for name, fn in (("payload", whole), ("layer_stream", layers)):
+            rx = srv.register()
+            s = await NativeStreamSender.connect(srv.connection_info(rx))
+            task = asyncio.get_running_loop().create_task(fn(s))
+            await rx.wait_connected(10)
+            frames = []
+            while True:
+                f = await rx.next_frame(timeout=60)
+                if f is None or f.kind == FrameKind.ERROR:
+                    raise RuntimeError(f"12a {name}: the stream tore")
+                if f.kind == FrameKind.SENTINEL:
+                    break
+                frames.append(f)
+            await task
+            if name == "payload":
+                got = decode_kv_payload(frames[0].header,
+                                        b"".join(f.data for f in frames))
+                same = all(torch.equal(got.values[k], values[k])
+                           for k in values)
+            else:
+                man = LayerStreamManifest.from_header(
+                    frames[0].header_json())
+                same = len(frames) == 1 + cfg.num_layers and all(
+                    torch.equal(decode_layer_frame(man, f.data)[k],
+                                values[k][i])
+                    for i, f in enumerate(frames[1:]) for k in values)
+            if not same:
+                raise RuntimeError(f"12a {name}: the received values differ")
+            srv.unregister(rx.stream_id)
+        rx = srv.register()
+        s = await NativeStreamSender.connect(srv.connection_info(rx))
+        seen = []
+        s.on_stop = lambda: seen.append("stop")
+        s.on_kill = lambda: seen.append("kill")
+        await rx.wait_connected(10)
+        for ctl, want in ((ControlMessage.stop(), ["stop"]),
+                          (ControlMessage.kill(), ["stop", "kill"])):
+            await rx.send_control(ctl)
+            deadline = time.monotonic() + 5
+            while seen != want and time.monotonic() < deadline:
+                await asyncio.sleep(0.01)
+            if seen != want:
+                raise RuntimeError(f"12a: control flags {seen}, not {want}")
+        await s.finish()
+        srv.unregister(rx.stream_id)
+    finally:
+        await srv.close()
+    log(f"12a dataplane {json.dumps(fig)} [{card}]")
+    return fig
+
+
+class TornPeer:
+    """A kv_fabric peer in this process that serves torn payloads for the
+    hashes it announces (the torn-frame rung)."""
+
+    def __init__(self, hashes: list):
+        from dynamo_tpu_torch.llm.kv.fabric import KvFabricServer
+
+        class Torn(KvFabricServer):
+            def _pin_host(self, hashes):
+                return {}
+
+            def _read_block(self, seq_hash, held):
+                return b"\x93NUMPY-torn" if seq_hash in hashes else None
+
+            def _serveable(self, seq_hash):
+                return seq_hash in hashes
+        self.server = Torn(None)
+        self.hashes = hashes
+
+
+def fabric_phase(cfg, dev, seed: int, card: str) -> dict:
+    """Phase 12: the fleet KV fabric at the 8B width and depth, int4
+    weights + int8 KV, phase 7's ``tokenizer.json`` directory, host and
+    disk tiers, greedy 32-token streams with ``ignore_eos``.
+
+    (12a) the data plane, ``fabric_dataplane``. Then the port's daemon, a
+    ``--role prefill-publish`` worker (``--kv-remote-dir`` under
+    ``build/``) and two ``--kv-fabric`` workers A and B (no object root;
+    A's device pool 256 blocks) come up as processes while this process
+    builds three engines over one seeded weight tree: D (the decode engine:
+    host and disk tiers on an empty directory, the same object root,
+    ``kv_remote_admission="always"``, recorded), T (the device-hit twin,
+    with a host tier) and C (the cold twin, no prefix reuse). (12b) the
+    publisher publishes four prompts of 1600-3000 tokens and re-publishes
+    one (0 objects written); T prefills each prompt, then T, C and D serve
+    each prompt plus a 32-token suffix: D's four admissions onboard from
+    the object store (``remote_onboards`` 4, ``hit_remote`` the published
+    blocks, D's prefill tokens the suffixes alone) and its streams equal
+    T's bit for bit. (12c) A serves the four prompts, a fifth and two
+    fillers that push them off its device (to its host and disk tiers,
+    announced as such); B serves each prompt plus its suffix, fetching the
+    prefix from A over ``fetch_native`` (``dataplane_fallbacks_total`` 0)
+    with T's streams; a peer in this process serving torn payloads for a
+    sixth prompt: B recomputes it with T's cold stream; T's host blocks
+    over the JSON op (``DYN_KV_FABRIC_DATAPLANE=0`` here, the fallback
+    counted) equal them over the data plane and A's; A gets SIGTERM and
+    B recomputes the fifth prompt (its fetch failure counted) with T's
+    cold stream. (12d) D's log replays on the card from the carried bytes
+    and, stripped of them, from the root, with ``compare_replay`` empty.
+    Printed: the object store's write and read GB/s, each remote TTFT
+    beside its cold and device-hit twins', B's probed links and what the
+    ``auto`` gate would have decided for each fetch (modeled seconds,
+    crossover). Returns {FABRIC_PATH: (launches, report)}: the in-process
+    engines' launches before the replay plus the three workers'."""
+    import asyncio
+    import signal
+    import socket
+    import tempfile
+    import threading
+    import torch
+    from dynamo_tpu_torch.engine import replay
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.quant import init_params_quantized
+    from dynamo_tpu_torch.llm.kv.native_pool import load_native_pool_lib
+    from dynamo_tpu_torch.runtime.distributed import (DistributedRuntime,
+                                                      Endpoint)
+
+    t_phase = time.monotonic()
+    load_native_pool_lib()          # built once, before any worker starts
+    name = "llama3-8b-fabric"
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp_ctx = tempfile.TemporaryDirectory(prefix="dtt-fabric-",
+                                          dir=os.path.join(ROOT, "build"))
+    tmp = tmp_ctx.name
+    model_dir = os.path.join(tmp, name)
+    write_chat_model_dir(model_dir, cfg)
+    mcfg = ModelConfig.from_model_dir(model_dir)
+    prompts = fabric_prompts(mcfg, seed)
+    root = os.path.join(tmp, "objects")
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="fabric-loop",
+                              daemon=True)
+    thread.start()
+    procs = RoutedProcs(os.path.join(tmp, "logs"), tag="12")
+    os.makedirs(procs.tmp, exist_ok=True)
+    cores: dict = {}
+    report: dict = {"card": card}
+    aux: dict = {}
+    try:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            dport = s.getsockname()[1]
+        addr = f"127.0.0.1:{dport}"
+        procs.start("daemon", "dynamo_tpu_torch.runtime.server", "--host",
+                    "127.0.0.1", "--port", str(dport))
+        procs.wait_line("daemon", "dynamo-tpu-torch discovery", 60)
+        common = ["out=torch", "--random-weights", "--quantization", "int4",
+                  "--kv-quantization", "int8", "--model-path", model_dir,
+                  "--model-name", name, "--runtime-server", addr,
+                  "--max-model-len", str(DISAGG_MAX_LEN), "--kv-block-size",
+                  str(KV_BLOCK), "--max-num-seqs", "8", "--device",
+                  dev.type, "-v"]
+        t0 = time.monotonic()
+        procs.start("publisher", "dynamo_tpu_torch.launch.run",
+                    f"in={FABRIC_PUBLISH}", *common, "--role",
+                    "prefill-publish", "--num-kv-blocks", str(FABRIC_BLOCKS),
+                    "--host-kv-blocks", str(FABRIC_HOST), "--kv-disk-dir",
+                    os.path.join(tmp, "disk-publisher"), "--kv-disk-blocks",
+                    str(FABRIC_DISK), "--kv-remote-dir", root)
+        for w, blocks in (("A", FABRIC_A_BLOCKS), ("B", FABRIC_BLOCKS)):
+            procs.start(w, "dynamo_tpu_torch.launch.run",
+                        f"in={FABRIC_ENDPOINT}", *common, "--protocol",
+                        "tokens", "--kv-fabric", "--kv-remote-admission",
+                        "always", "--num-kv-blocks", str(blocks),
+                        "--host-kv-blocks", str(FABRIC_HOST), "--kv-disk-dir",
+                        os.path.join(tmp, f"disk-{w}"), "--kv-disk-blocks",
+                        str(FABRIC_DISK))
+
+        # the data plane and the in-process engines, while the workers
+        # come up
+        with phase("12a"):
+            report["12a"] = on_loop(loop, fabric_dataplane(mcfg, card))
+        params = init_params_quantized(mcfg, seed, dev, torch.bfloat16,
+                                       include_embed=True, bits=4)
+        tiers = dict(host_kv_blocks=FABRIC_HOST, kv_disk_blocks=FABRIC_DISK)
+        cores["D"] = disagg_core(
+            mcfg, dev, params, num_kv_blocks=FABRIC_BLOCKS,
+            enable_prefix_reuse=True, kv_disk_dir=os.path.join(tmp, "disk-D"),
+            kv_remote_dir=root, kv_remote_admission="always", **tiers)
+        cores["T"] = disagg_core(mcfg, dev, params,
+                                 num_kv_blocks=FABRIC_BLOCKS,
+                                 enable_prefix_reuse=True,
+                                 host_kv_blocks=FABRIC_HOST)
+        cores["C"] = disagg_core(mcfg, dev, params,
+                                 num_kv_blocks=FABRIC_BLOCKS)
+        D, T, C = cores["D"], cores["T"], cores["C"]
+        D.recorder = replay.Recorder()
+
+        async def connect():
+            rt = await DistributedRuntime.connect(addr)
+            pub = await Endpoint.parse_path(rt, FABRIC_PUBLISH).client() \
+                .start()
+            work = await Endpoint.parse_path(rt, FABRIC_ENDPOINT).client() \
+                .start()
+            return rt, pub, work
+        rt, pub_client, work_client = on_loop(loop, connect())
+        aux["rt"], aux["clients"] = rt, (pub_client, work_client)
+        wids = {}
+        for w in ("publisher", "A", "B"):
+            line = procs.wait_line(w, "READY", ROUTED_READY_S)
+            wids[w] = int(line.rsplit(" ", 1)[-1], 16)
+        bring_up = {"s": time.monotonic() - t0}
+        for w in wids:
+            gib = [ln for ln in procs.text(w).splitlines()
+                   if "device memory after bring-up" in ln]
+            bring_up[w] = (float(gib[0].split(": ")[-1].split()[0])
+                           if gib else None)
+        report["bring_up"] = bring_up
+        launches0 = launch_counts()
+
+        # 12b. publish, then the twins and D
+        with phase("12b"):
+            async def publish(prompt, rid):
+                from dynamo_tpu_torch.runtime.engine import Context
+                await pub_client.wait_for_instances(timeout=60)
+                stream = await pub_client.direct(
+                    Context({"op": "publish", "token_ids": prompt,
+                             "request_id": rid}), wids["publisher"])
+                async for item in stream:
+                    if not item.get("ok"):
+                        raise RuntimeError(f"12b publish {rid}: {item}")
+                    return item
+                raise RuntimeError(f"12b publish {rid}: no reply")
+            published = []
+            for i, p in enumerate(prompts["main"]):
+                r = on_loop(loop, publish(p, f"pub-{i}"))
+                published.append(r["published"])
+            again = on_loop(loop, publish(prompts["main"][0], "pub-again"))
+            want_pub = [len(p) // KV_BLOCK for p in prompts["main"]]
+            if published != want_pub or again["published"] != 0:
+                raise RuntimeError(f"12b: published {published} (want "
+                                   f"{want_pub}), again {again}")
+            rows, ref = [], []
+            for i, (p, ps) in enumerate(zip(prompts["main"],
+                                            prompts["suffixed"])):
+                on_loop(loop, engine_stream(T, p, f"prime-{i}", 1))
+                t_toks, t_ttft, t_req = on_loop(loop, engine_stream(
+                    T, ps, f"twin-{i}"))
+                _c_toks, c_ttft, _ = on_loop(loop, engine_stream(
+                    C, ps, f"cold-{i}"))
+                n_pf0 = D.total_prefill_tokens
+                d_toks, d_ttft, d_req = on_loop(loop, engine_stream(
+                    D, ps, f"remote-{i}"))
+                ref.append(t_toks)
+                rows.append({"prompt": len(ps), "ttft_ms": d_ttft,
+                             "device_hit_twin_ttft_ms": t_ttft,
+                             "cold_twin_ttft_ms": c_ttft,
+                             "hit": d_req.prefix_hit_tokens,
+                             "twin_hit": t_req.prefix_hit_tokens,
+                             "prefill_tokens": D.total_prefill_tokens - n_pf0,
+                             "equal": d_toks == t_toks})
+                if (d_toks != t_toks or len(d_toks) != FABRIC_TOKENS
+                        or d_req.prefix_hit_tokens != want_pub[i] * KV_BLOCK
+                        or t_req.prefix_hit_tokens != want_pub[i] * KV_BLOCK
+                        or rows[-1]["prefill_tokens"]
+                        != len(ps) - want_pub[i] * KV_BLOCK):
+                    raise RuntimeError(f"12b: prompt {i}: {rows[-1]}")
+            recs = [r for r in D.flight.dump() if r["kind"] == "prefill"
+                    and str(r.get("rid", "")).startswith("remote-")]
+            hit_remote = [r["hit_remote"] for r in recs]
+            st = D.remote_store.object.store
+            fig = {"published": published, "republished": again["published"],
+                   "requests": rows, "hit_remote": hit_remote,
+                   "remote_onboards": D.remote_onboards,
+                   "remote_fetch_failures": D.remote_fetch_failures,
+                   "object_read_gb": st.get_bytes_total / 1e9,
+                   "object_read_s": st.get_seconds_total,
+                   "object_read_gbps": (st.get_bytes_total
+                                        / st.get_seconds_total / 1e9
+                                        if st.get_seconds_total else None)}
+            if (D.remote_onboards != len(FABRIC_PROMPTS)
+                    or D.remote_fetch_failures
+                    or hit_remote != [n * KV_BLOCK for n in want_pub]):
+                raise RuntimeError(f"12b: {fig}")
+            report["12b"] = fig
+            # the publisher is done: its stats come from its log at exit
+            procs.signal("publisher", signal.SIGINT)
+
+        # 12c. peer fetch across processes
+        cold_rate = (sum(r["prompt"] for r in rows)
+                     / sum(r["cold_twin_ttft_ms"] / 1e3 for r in rows))
+        with phase("12c"):
+            report["12c"] = fabric_peers(
+                prompts, wids, want_pub, ref, cores, aux, procs, loop,
+                work_client, addr, card, cold_rate)
+        in_process = count_delta(launch_counts(), launches0)
+
+        # 12d. D's log replays from the bytes and from the root, while the
+        # SIGTERM rung's fetch waits out the dead peer
+        with phase("12d"):
+            ev = D.recorder.events
+            D.recorder = None
+            restores = [e for e in ev if e["ev"] == "kv_remote_restore"]
+            out = {}
+            for mode, events in (
+                    ("bytes", ev),
+                    ("root", [dict(e, values=None)
+                              if e["ev"] == "kv_remote_restore" else e
+                              for e in ev])):
+                t1 = time.monotonic()
+                diffs = replay.compare_replay(events,
+                                              replay.replay(D, events))
+                out[mode] = {"s": time.monotonic() - t1,
+                             "diffs": len(diffs)}
+                if diffs:
+                    raise RuntimeError(f"12d {mode}: {diffs[:4]}")
+            out["restores"] = len(restores)
+            if len(restores) != len(FABRIC_PROMPTS):
+                raise RuntimeError(f"12d: {out}")
+            report["12d"] = out
+            report["12c"]["lost"] = aux.pop("lost_task").result(120)
+            fails = {rid: any(f"failed for {rid} " in ln
+                              for ln in procs.text("B").splitlines())
+                     for rid in ("b-torn", "b-lost")}
+            report["12c"]["failed_fetches"] = fails
+            if not all(fails.values()):
+                raise RuntimeError(f"12c: B's failed fetches {fails}")
+
+        # the workers' launches: the publisher's and B's from their logs at
+        # stop, A's from its stats before its SIGTERM
+        procs.stop(["publisher", "B"])
+        worker = {"A": aux["a_launches"]}
+        for w, key in (("publisher", "prefill-publish stats"),
+                       ("B", "kv fabric stats")):
+            text = procs.text(w)
+            lines = [ln for ln in text.splitlines() if key in ln]
+            launches = [ln for ln in text.splitlines()
+                        if "kernel launches" in ln]
+            if not lines or not launches:
+                raise RuntimeError(f"12: no {key!r} or launch counts in "
+                                   f"{w}'s log:\n{text[-2000:]}")
+            report.setdefault("stats", {})[w] = json.loads(
+                lines[-1].split(key + " ", 1)[1])
+            worker[w] = json.loads(launches[-1].split("kernel launches ",
+                                                      1)[1])
+        ps = report["stats"]["publisher"]
+        report["12b"]["object_write_gbps"] = (
+            ps["object_put_bytes"] / ps["object_put_s"] / 1e9
+            if ps.get("object_put_s") else None)
+        bs = report["stats"]["B"]
+        if (bs["remote_dataplane_fallbacks_total"] != 0
+                or bs["remote_dataplane_fetches_total"]
+                < len(FABRIC_PROMPTS)):
+            raise RuntimeError(f"12c: B's fabric {bs}")
+        total = dict(in_process)
+        for w, counts in worker.items():
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        report["launches"] = {"in_process": in_process, **worker}
+        for k in PATH_KERNELS[FABRIC_PATH]:
+            if total.get(k, 0) <= 0:
+                raise RuntimeError(f"12: kernel {k} launched no time")
+        report["s"] = time.monotonic() - t_phase
+        log(f"12 fabric {json.dumps(report)} [{card}]")
+        return {FABRIC_PATH: (total, report)}
+    except BaseException:
+        log(procs.tails())
+        raise
+    finally:
+        task = aux.pop("lost_task", None)
+        if task is not None:
+            try:
+                task.result(60)
+            except Exception as e:  # noqa: BLE001 — shutdown goes on
+                log(f"12: the SIGTERM rung: {e}")
+        stops = [c.stop() for c in cores.values()]
+        if "fab" in aux:
+            stops.insert(0, aux["fab"].close())
+        stops[:0] = [c.close() for c in aux.get("clients", ())]
+        for key in ("torn_rt", "rt"):
+            if key in aux:
+                stops.append(aux[key].shutdown())
+        for coro in stops:
+            try:
+                on_loop(loop, coro, 120)
+            except Exception as e:  # noqa: BLE001 — shutdown goes on
+                log(f"12: shutdown: {e}")
+        cores.clear()
+        procs.stop([n for n in procs.procs if n != "daemon"], 30)
+        procs.stop(["daemon"], 30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        tmp_ctx.cleanup()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def fabric_peers(prompts, wids, want_pub, ref, cores, aux, procs, loop,
+                 work_client, addr, card, cold_rate: float) -> dict:
+    """12c (see ``fabric_phase``). Returns its figures; leaves the SIGTERM
+    rung's request running (``aux["lost_task"]``, a future) and A's launch
+    counts in ``aux["a_launches"]``."""
+    import asyncio
+    import json as _json
+    import signal
+    from dynamo_tpu_torch.llm.kv.blocks import TokenBlockSequence
+    from dynamo_tpu_torch.llm.kv.fabric import (DATAPLANE_ENV, AdmissionGate,
+                                                KvFabric, KvFabricServer,
+                                                LinkStats, PeerLinkTable)
+    from dynamo_tpu_torch.llm.kv.remotestore import (RemoteKvStore,
+                                                     unpack_block_bytes)
+    from dynamo_tpu_torch.llm.kv_router.publisher import KvEventPublisher
+    from dynamo_tpu_torch.runtime.distributed import (DistributedRuntime,
+                                                      Endpoint)
+    T = cores["T"]
+    A, B = wids["A"], wids["B"]
+    fig: dict = {}
+
+    def stats(wid, key=None, at_least=None, timeout=10.0) -> dict:
+        """A worker's published stats (1 s apart), once ``key`` reads at
+        least ``at_least`` when given."""
+        deadline = time.monotonic() + timeout
+        while True:
+            d = on_loop(loop, work_client.collect_stats()).get(wid, {})
+            if key is None or d.get(key, 0) >= at_least:
+                return d
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"12c: {key} of {wid:x} is "
+                                   f"{d.get(key)}, not {at_least}: {d}")
+            time.sleep(0.1)
+
+    # this process's fabric client: its index hears what B's does
+    main_hashes = [TokenBlockSequence(KV_BLOCK, p).sequence_hashes[:n]
+                   for p, n in zip(prompts["main"], want_pub)]
+    lost_hashes = TokenBlockSequence(
+        KV_BLOCK, prompts["lost"]).sequence_hashes[:FABRIC_LOST // KV_BLOCK]
+    torn_hashes = TokenBlockSequence(
+        KV_BLOCK, prompts["torn"]).sequence_hashes[:FABRIC_TORN // KV_BLOCK]
+
+    async def client_setup():
+        rt = await DistributedRuntime.connect(addr)
+        comp = Endpoint.parse_path(rt, FABRIC_ENDPOINT).parent_component()
+        fab = KvFabric(RemoteKvStore(), PeerLinkTable(),
+                       AdmissionGate(1, 1, 1.0), runtime=rt)
+        fab.bind_loop()
+        fab.worker_id = (await rt.primary_lease()).id
+        fab.client = comp.endpoint("kv_fabric").client()
+        await fab.client.start()
+        await fab.client.wait_for_instances(timeout=60)
+        fab._sub = await comp.subscribe_event("kv_events")
+        fab._tasks.append(asyncio.get_running_loop().create_task(
+            fab._event_loop()))
+        return rt, fab, comp
+    rt, fab, comp = on_loop(loop, client_setup())
+    aux["torn_rt"], aux["fab"] = rt, fab
+
+    # A serves the prompts, the one it will hold at its SIGTERM, and two
+    # fillers: everything of the first five leaves its device for its host
+    # and disk tiers, announced as such
+    for i, p in enumerate(prompts["main"] + [prompts["lost"]]):
+        on_loop(loop, worker_stream(work_client, A, p, f"a-{i}"))
+    for i, p in enumerate(prompts["fillers"]):
+        on_loop(loop, worker_stream(work_client, A, p, f"fill-{i}", 1))
+    deadline = time.monotonic() + 60
+    while not all(fab.store.holders_of(h) == [A]
+                  for hs in main_hashes + [lost_hashes] for h in hs):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"12c: A announced "
+                               f"{fab.store.peer_block_count()} blocks")
+        time.sleep(0.1)
+    time.sleep(0.5)                 # B reads the same subject
+
+    # B fetches each prefix from A
+    rows = []
+    for i, ps in enumerate(prompts["suffixed"]):
+        toks, ttft = on_loop(loop, worker_stream(work_client, B, ps,
+                                                 f"b-{i}"))
+        rows.append({"prompt": len(ps), "ttft_ms": ttft,
+                     "equal": toks == ref[i]})
+        if toks != ref[i]:
+            raise RuntimeError(f"12c: B's stream {i} parts from the "
+                               f"device-hit twin's: {rows[-1]}")
+    hits = {}
+    for ln in procs.text("B").splitlines():
+        if "admitted b-" in ln and "remote" in ln:
+            rid = ln.split("admitted ", 1)[1].split()[0]
+            hits[rid] = int(ln.split("disk+", 1)[1].split("remote")[0])
+    want_hits = {f"b-{i}": n * KV_BLOCK for i, n in enumerate(want_pub)}
+    b = stats(B, "remote_dataplane_fetches_total", len(want_pub))
+    fig["fetch"] = {"requests": rows, "remote_hits": hits,
+                    "remote_fetch_failures": b["remote_fetch_failures_total"],
+                    "dataplane_fetches": b["remote_dataplane_fetches_total"],
+                    "dataplane_fallbacks":
+                        b["remote_dataplane_fallbacks_total"]}
+    if (hits != want_hits or b["remote_fetch_failures_total"]
+            or b["remote_dataplane_fallbacks_total"]
+            or b["remote_dataplane_fetches_total"] != len(want_pub)):
+        raise RuntimeError(f"12c fetch: {fig['fetch']}")
+    # what the auto gate would have decided for each fetch: on B's link
+    # table (A its only peer yet) and its measured prefill rate, and on the
+    # same link at the cold twin's rate (12b's prompts over their TTFTs)
+    link = LinkStats(rtt_s=b["remote_link_rtt_s"],
+                     gbps=b["remote_link_gbps"])
+    fig["auto"] = {"link_gbps": link.gbps, "link_rtt_s": link.rtt_s,
+                   "kv_bytes_per_block": b["kv_bytes_per_block"]}
+    for tag, rate in (("measured", b["prefill_tok_per_s"]),
+                      ("cold_twin", cold_rate)):
+        gate = AdmissionGate(b["kv_bytes_per_block"], KV_BLOCK, rate,
+                             mode="auto")
+        fig["auto"][tag] = {
+            "prefill_tok_per_s": rate,
+            "crossover_blocks": gate.crossover_blocks(link),
+            "decisions": [
+                {"blocks": n,
+                 "modeled_fetch_s": gate.modeled_fetch_s(n, link),
+                 "modeled_recompute_s": gate.modeled_recompute_s(n),
+                 "admit": gate.admit(n, link)} for n in want_pub]}
+
+    # (1) T's host blocks of the first prompt over the JSON op (this
+    # process's server declines the data plane meanwhile) and over the
+    # data plane, and A's over the data plane: the same bytes
+    async def json_rung():
+        srv_rt = await DistributedRuntime.connect(addr)
+        try:
+            await T.offload_engine.drain()
+            ep = srv_rt.namespace("dynamo").component("twin") \
+                .endpoint("kv_fabric")
+            await ep.serve(KvFabricServer(T), decode_req=_json.loads)
+            cli = KvFabric(RemoteKvStore(), PeerLinkTable(),
+                           AdmissionGate(1, 1, 1.0), runtime=rt)
+            cli.bind_loop()
+            cli.client = ep.client()
+            await cli.client.start()
+            await cli.client.wait_for_instances(timeout=60)
+            tw = (await srv_rt.primary_lease()).id
+            native = await cli.fetch_blocks_async(tw, main_hashes[0])
+            os.environ[DATAPLANE_ENV] = "0"
+            try:
+                via_json = await cli.fetch_blocks_async(tw, main_hashes[0])
+            finally:
+                os.environ.pop(DATAPLANE_ENV)
+            from_a = [unpack_block_bytes(x)[0] for x in
+                      await fab._fetch_blobs_native(A, main_hashes[0])]
+            same = all(torch_equal_bits(x[k], y[k])
+                       and torch_equal_bits(x[k], z[k])
+                       for x, y, z in zip(native, via_json, from_a)
+                       for k in x)
+            out = {"blocks": len(native), "equal": same,
+                   "fallbacks": cli.dataplane_fallbacks_total,
+                   "dataplane_fetches": cli.dataplane_fetches_total}
+            await cli.close()
+            return out
+        finally:
+            await srv_rt.shutdown()
+    fig["json"] = on_loop(loop, json_rung())
+    if fig["json"] != {"blocks": want_pub[0], "equal": True, "fallbacks": 1,
+                       "dataplane_fetches": 1}:
+        raise RuntimeError(f"12c json: {fig['json']}")
+    fig["probe_from_here"] = on_loop(loop, fab.probe(A)).to_dict()
+
+    # (2) a peer in this process announces the sixth prompt's blocks and
+    # tears every payload it serves
+    n0 = b["remote_peer_blocks"]
+
+    async def torn_peer():
+        await comp.endpoint("kv_fabric").serve(TornPeer(torn_hashes).server,
+                                               decode_req=_json.loads)
+
+        async def sink(ev):
+            await comp.publish_event("kv_events", ev)
+        publ = KvEventPublisher(worker_id=fab.worker_id, sink=sink)
+        for j, h in enumerate(torn_hashes):
+            publ.publish_stored(-1, h, None,
+                                torn_hashes[j - 1] if j else None,
+                                tier="disk")
+        await publ.drain()
+        publ._task.cancel()
+    on_loop(loop, torn_peer())
+    stats(B, "remote_peer_blocks", n0 + len(torn_hashes))
+    torn_prompt = prompts["torn"] + prompts["torn_suffix"]
+    lost_prompt = prompts["lost"] + prompts["lost_suffix"]
+    torn_ref = on_loop(loop, engine_stream(T, torn_prompt, "torn-ref"))[0]
+    lost_ref = on_loop(loop, engine_stream(T, lost_prompt, "lost-ref"))[0]
+    f0 = stats(B)["remote_fetch_failures_total"]
+
+    # (3) A gets SIGTERM (its key stays until its lease ends): B's fetch of
+    # the prompt only A held fails, and B recomputes it with T's cold
+    # stream; the request runs on beside the torn rung and the replay
+    aux["a_launches"] = stats(A)["kernel_launches"]
+    procs.signal("A", signal.SIGTERM)
+
+    async def lost():
+        t0 = time.monotonic()
+        toks, ttft = await worker_stream(work_client, B, lost_prompt,
+                                         "b-lost")
+        for _ in range(50):          # the failures in B's next stats
+            b = (await work_client.collect_stats())[B]
+            if b["remote_fetch_failures_total"] >= f0 + 2:
+                break
+            await asyncio.sleep(0.1)
+        out = {"equal": toks == lost_ref, "ttft_ms": ttft,
+               "s": time.monotonic() - t0,
+               "fetch_failures": b["remote_fetch_failures_total"] - f0}
+        if not out["equal"] or out["fetch_failures"] != 2:
+            raise RuntimeError(f"12c lost peer (and torn): {out}")
+        return out
+    aux["lost_task"] = asyncio.run_coroutine_threadsafe(lost(), loop)
+    got = on_loop(loop, worker_stream(work_client, B, torn_prompt, "b-torn"))
+    fig["torn"] = {"equal": got[0] == torn_ref}
+    if got[0] != torn_ref:
+        raise RuntimeError(f"12c torn: {fig['torn']}")
+    log(f"12c peers {json.dumps(fig)} [{card}]")
+    return fig
 
 
 # ``--ab DIR``: phase 3's attention kernels (K1-K4 at the 8B shapes) and
@@ -8444,9 +9267,16 @@ def main() -> int:
     # --remote-prefill decode worker as processes of their own
     with phase("11"):
         by_path.update(disagg_phase(cfg, dev, seed, card))
+
+    # 12. the fleet KV fabric at the 8B width and depth: the data plane,
+    # prefill-as-a-service over the object tier, peer fetch between two
+    # worker processes with its rungs, and the recorded remote restores
+    # replayed
+    with phase("12"):
+        by_path.update(fabric_phase(cfg, dev, seed, card))
     rest = [p for p in PATH_KERNELS if p not in LATER_PATHS] \
         + list(CHAT_PATHS) + list(SPEC_PATHS) + list(TIER_PATHS) \
-        + [ROUTED_PATH] + list(DISAGG_PATHS)
+        + [ROUTED_PATH] + list(DISAGG_PATHS) + list(FABRIC_PATHS)
     for e in entries:
         mode = e.get("mode", "")
         if mode == SPEC_MODE_TAG:

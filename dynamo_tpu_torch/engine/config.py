@@ -557,6 +557,19 @@ class EngineConfig:
     # Needs both fields and host_kv_blocks > 0
     kv_disk_dir: str = ""
     kv_disk_blocks: int = 0           # disk tier capacity; 0 = off
+    # remote (G4) KV tier (llm/kv/remotestore.py, llm/kv/fabric.py): an
+    # object store rooted at kv_remote_dir (a directory the fleet shares),
+    # fed write-behind by the disk tier's capacity evictions and by
+    # prefill-publish workers; any worker on the same root admits its
+    # blocks. Peer fetch over the fabric needs no directory (the
+    # launcher's --kv-fabric). Needs the disk tier; kv_remote_blocks 0 =
+    # no object capacity bound
+    kv_remote_dir: str = ""
+    kv_remote_blocks: int = 0
+    # remote-hit admission (fabric.AdmissionGate): "auto" promotes only
+    # when the modeled fetch beats the modeled recompute; "always" /
+    # "never" override the model
+    kv_remote_admission: str = "auto"
     # JAX's simulated device→host link for the write-back (GB/s). The
     # card's copies are real pinned copies: only 0 (the real link) is
     # accepted
@@ -711,6 +724,18 @@ class EngineConfig:
             raise ValueError(
                 "the disk KV tier sits under the host tier (spill feeds "
                 "on host evictions) — set host_kv_blocks > 0 too")
+        if self.kv_remote_dir and self.kv_disk_blocks <= 0:
+            raise ValueError(
+                "the remote (G4) object tier sits under the disk tier "
+                "(promotion feeds on disk evictions) — set kv_disk_dir/"
+                "kv_disk_blocks too")
+        if self.kv_remote_blocks > 0 and not self.kv_remote_dir:
+            raise ValueError(
+                "kv_remote_blocks needs kv_remote_dir (the object-store "
+                "root); the peer fabric alone has no local capacity")
+        if self.kv_remote_admission not in ("auto", "always", "never"):
+            raise ValueError(
+                "kv_remote_admission must be auto | always | never")
         if self.ragged_dispatch:
             if self.ragged_max_seq_rows <= 0:
                 raise ValueError("ragged_max_seq_rows must be > 0")

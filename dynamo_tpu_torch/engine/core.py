@@ -49,13 +49,22 @@ KV tiers (``EngineConfig.host_kv_blocks``, ``kv_disk_dir`` /
 ``kv_disk_blocks``): a finished request's full blocks are written back to a
 host pool (``llm/kv/offload.py``; pinned memory on the card) and host
 evictions spill to a durable disk store (``llm/kv/diskstore.py``) that the
-next engine on the same directory warm-starts from. An admission whose
-prefix misses the device pool but hits a tier reserves its slot and
-onboards off the loop: a thread reads the host and disk rows into pinned
-memory and copies them to the card on the tier stream; the loop then
-scatters them in place (``engine/block_copy.py``) and admits, while the
-other slots keep decoding. An idle defrag pass (``kv_defrag_threshold``)
-moves the worst-fragmented sequence's own blocks into a free run. Every
+next engine on the same directory warm-starts from. Under the disk, the
+remote tier (``kv_remote_dir``, ``llm/kv/remotestore.py``): an object
+store the disk's evictions promote into and any engine on the same root
+admits from, to which ``publish_prefix_to_remote`` writes a prefix
+(prefill-as-a-service), and, with a fleet fabric attached
+(``attach_kv_fabric``, ``llm/kv/fabric.py``), the host and disk blocks of
+peer workers; its hits pass the fabric's admission gate, which prices
+recompute with ``measured_prefill_tok_per_s``. An admission whose prefix
+misses the device pool but hits a tier reserves its slot and onboards off
+the loop: a thread fetches the remote blocks (a failed fetch drops them
+and the prefill recomputes those tokens), reads them with the host and
+disk rows into pinned memory and copies them to the card on the tier
+stream; the loop then scatters them in place (``engine/block_copy.py``)
+and admits, while the other slots keep decoding. An idle defrag pass
+(``kv_defrag_threshold``) moves the worst-fragmented sequence's own
+blocks into a free run. Every
 tier and defrag write into the pool is in place: the programs' CUDA graphs
 hold the pool tensors' addresses.
 
@@ -92,7 +101,9 @@ import torch
 from ..llm.kv.blocks import TokenBlockSequence
 from ..llm.kv.diskstore import DiskKvStore, DiskSpillEngine, SpillJob
 from ..llm.kv.offload import KvOffloadEngine, OffloadJob, make_host_pool
+from ..llm.kv.fabric import PrefillRateEstimator
 from ..llm.kv.pool import KvBlockManager
+from ..llm.kv.remotestore import ObjectKvBackend, RemoteKvStore, stack_wire
 from ..llm.kv.stream import LayeredHarvest, LayerStreamPayload
 from ..llm.kv_transport import DeviceKvPayload, scatter_blocks_device
 from ..llm.protocols.common import FinishReason
@@ -256,6 +267,28 @@ class ForwardPassMetrics:
     disagg_stream_fallbacks_total: int = 0
     disagg_stream_overlap_ratio: float = 0.0
     disagg_stream_layers: int = 0
+    # the remote (G4) tier and the fabric (llm/kv/remotestore.py,
+    # llm/kv/fabric.py): object occupancy, peer-held blocks, hits,
+    # failed fetches, gate rejections, the measured link, the data
+    # plane's fetches and fallbacks, the breakers; the blocks this worker
+    # published as a prefill-publish worker; and the transfer-vs-
+    # recompute model's units the router prices with
+    remote_used_blocks: int = 0
+    remote_capacity_blocks: int = 0
+    remote_peer_blocks: int = 0
+    remote_stored_total: int = 0
+    remote_hit_rate: float = 0.0
+    remote_fetch_failures_total: int = 0
+    remote_admission_rejects_total: int = 0
+    remote_link_gbps: float = 0.0
+    remote_link_rtt_s: float = 0.0
+    remote_dataplane_fetches_total: int = 0
+    remote_dataplane_fallbacks_total: int = 0
+    remote_breaker_open_peers: int = 0
+    remote_breaker_trips_total: int = 0
+    prefill_published_blocks_total: int = 0
+    kv_bytes_per_block: int = 0
+    prefill_tok_per_s: float = 0.0
 
     def to_dict(self) -> dict:
         """The wire form a worker publishes as its stats (read by
@@ -264,6 +297,9 @@ class ForwardPassMetrics:
 
 
 _FINISH = object()  # queue sentinel
+# an onboard whose tier hits all fell away (a failed remote fetch with no
+# host or disk rows): the admission goes on with nothing to scatter
+_NO_ONBOARD = object()
 FINISH_SENTINEL = _FINISH
 
 
@@ -434,6 +470,20 @@ class EngineCore:
             self.spill_engine = DiskSpillEngine(
                 self.disk_store, on_commit=self._emit_kv_disk_store)
             host_pool.on_evict = self._on_host_evict
+        # the remote (G4) tier under the disk: the object store the disk's
+        # capacity evictions promote into (write-behind, acknowledged when
+        # durable), shared with every worker on the same root; a fabric
+        # (llm/kv/fabric.py, attach_kv_fabric) adds peer fetch at run time
+        self.remote_store = None
+        self.remote_spill_engine = None
+        self.kv_fabric = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        if engine_cfg.kv_remote_dir:
+            self.remote_store = RemoteKvStore(ObjectKvBackend(
+                engine_cfg.kv_remote_dir, engine_cfg.kv_remote_blocks))
+            self.remote_spill_engine = DiskSpillEngine(
+                self.remote_store, on_commit=self._emit_kv_remote_store)
+            self.disk_store.on_evict = self._on_disk_evict
         # the KV event stream for a KV-aware router
         # (llm/kv_router/publisher.py; the launcher's wire_kv_events sets
         # it), fed by the tier-aware pool hooks
@@ -443,15 +493,18 @@ class EngineCore:
             enable_reuse=engine_cfg.enable_prefix_reuse,
             on_stored=self._on_block_stored,
             on_removed=self._on_block_removed,
-            host_pool=host_pool, disk_store=self.disk_store)
+            host_pool=host_pool, disk_store=self.disk_store,
+            remote_store=self.remote_store)
         if host_pool is not None:
             self.offload_engine = KvOffloadEngine(
                 host_pool, engine_cfg.kv_block_size,
                 get_kv=lambda: self.kv, num_heads=self._wire_heads,
                 release_holds=self.kv_manager.pool.release,
                 on_store=self._emit_kv_store, stream=self._tier_stream)
-        # tier onboards: (req, slot, plan, h2d Transfer or None) whose
-        # off-loop read finished, and the tasks still reading
+        # tier onboards whose off-loop read finished, (req, slot, plan,
+        # h2d, remote values): h2d a Transfer, _NO_ONBOARD or None (the
+        # read failed), the fetched remote values kept for a recorder or
+        # None; and the tasks still reading
         self._onboards: List[tuple] = []
         self._onboard_tasks: set = set()
         self.M = engine_cfg.max_blocks_per_seq
@@ -542,6 +595,15 @@ class EngineCore:
         self.disk_onboards = 0         # ... of which read from disk
         self.disk_onboarded_blocks = 0
         self.onboard_cold_retries = 0  # re-admitted cold after a failed read
+        self.remote_onboards = 0       # ... with remote-tier blocks
+        self.remote_fetch_failures = 0  # remote fetches that fell back
+        self.prefill_published_blocks = 0  # publish_prefix_to_remote's puts
+        # the measured prefill rate the fabric's admission gate prices
+        # recompute with, age-weighted: each prefill admission's tokens
+        # over its wall seconds from the admission's start (an onboard's
+        # scatter included) to the prefill's return (its dispatch, on the
+        # card), as the JAX engine measures it
+        self.prefill_rate_estimator = PrefillRateEstimator()
         # disaggregation: the layer-stream onboards, with their seconds
         # scattering (hidden) and waiting on frames (exposed)
         self.disagg_stream_admits = 0
@@ -575,6 +637,7 @@ class EngineCore:
         if self._loop_task is None or self._loop_task.done():
             self._stopping = False
             self._work_event = asyncio.Event()
+            self._loop = asyncio.get_running_loop()
             self._loop_task = asyncio.get_running_loop().create_task(
                 self._run_loop(), name="engine-core-loop")
             self.flight.start_lag_probe()
@@ -609,7 +672,7 @@ class EngineCore:
         if tasks:
             await asyncio.gather(*tasks, return_exceptions=True)
         if self._onboards:                # release reserved onboards
-            for req, slot, plan, _h2d in self._onboards:
+            for req, slot, plan, _h2d, _rv in self._onboards:
                 self.slots[slot] = None
                 self.kv_manager.pool.release(plan.all_blocks)
                 self._unpin_plan(plan)
@@ -634,6 +697,10 @@ class EngineCore:
                 logger.warning("host→disk flush timed out on stop")
             await self.spill_engine.stop()
             self.disk_store.close()
+        if self.remote_spill_engine is not None:
+            # after the disk pump: the flush may have forced disk
+            # evictions whose promotions are still queued
+            await self.remote_spill_engine.stop()
 
     async def flush_host_to_disk(self) -> int:
         """Persist every host-resident block to the disk tier now and wait
@@ -706,6 +773,18 @@ class EngineCore:
                          .spill_engine.dropped_jobs_total,
                          disk_spill_shed_total=self
                          .spill_engine.shed_writes_total)
+        if self.kv_fabric is not None:
+            tiers.update(self.kv_fabric.metrics())
+        elif self.remote_store is not None:
+            rs = self.remote_store
+            tiers.update(
+                remote_used_blocks=rs.used_blocks,
+                remote_capacity_blocks=rs.capacity,
+                remote_peer_blocks=rs.peer_block_count(),
+                remote_stored_total=rs.stored_blocks_total,
+                remote_hit_rate=rs.hit_rate(),
+                remote_fetch_failures_total=rs.fetch_failures_total,
+                remote_admission_rejects_total=rs.admission_rejects_total)
         wall = self.disagg_stream_hidden_s + self.disagg_stream_exposed_s
         tiers.update(
             disagg_stream_layers_total=self.disagg_stream_layers_scattered,
@@ -727,6 +806,9 @@ class EngineCore:
             requests_deadline_exceeded_total=self
             .requests_deadline_exceeded_total,
             kv_block_size=self.cfg.kv_block_size,
+            kv_bytes_per_block=self.kv_bytes_per_block(),
+            prefill_tok_per_s=self.measured_prefill_tok_per_s(),
+            prefill_published_blocks_total=self.prefill_published_blocks,
             preemptions_total=self.preemptions,
             prefill_tokens_total=self.total_prefill_tokens,
             decode_tokens_total=self.total_decode_tokens,
@@ -943,9 +1025,9 @@ class EngineCore:
             self.kv_manager.abort_plan(plan)
             self._finish_request(req, FinishReason.LENGTH)
             return True
-        if plan.host_slots or plan.disk_hashes:
-            # host / disk tier hits: the reads run off the loop, and the
-            # admission completes once they have (the batch keeps
+        if plan.host_slots or plan.disk_hashes or plan.remote_hashes:
+            # host / disk / remote tier hits: the reads run off the loop,
+            # and the admission completes once they have (the batch keeps
             # decoding meanwhile)
             self._start_onboard(req, slot, plan)
             return True
@@ -954,24 +1036,49 @@ class EngineCore:
 
     def _unpin_plan(self, plan) -> None:
         """Release the tier pins an onboard held: its host slots (pinned
-        at the onboard's start) and its disk hashes (pinned at the
-        match)."""
+        at the onboard's start), its disk and remote hashes (pinned at
+        the match)."""
         if self.kv_manager.host_pool is not None:
             self.kv_manager.host_pool.unpin(plan.host_slots)
         if plan.disk_hashes and self.disk_store is not None:
             self.disk_store.unpin(plan.disk_hashes)
+        if plan.remote_hashes and self.remote_store is not None:
+            self.remote_store.unpin(plan.remote_hashes)
 
-    def _read_tier_rows(self, plan) -> dict:
-        """The plan's host rows, then its disk rows, ``{key: [n, L, H, bs,
-        D]}`` in one staging buffer per key (pinned on the card). Runs off
-        the loop: the host slots and disk hashes are pinned."""
+    def _fetch_remote(self, req: EngineRequest, plan, timing: dict):
+        """The plan's remote blocks (per-block dicts), read off the loop
+        from the object store or a peer. A fetch that fails (a peer gone,
+        a torn object or frame) is not an error: the remote tail leaves
+        the plan, unpinned, and the prefill recomputes those tokens."""
+        t0 = time.monotonic()
+        try:
+            return self.remote_store.fetch_blocks(plan.remote_hashes)
+        except Exception:  # noqa: BLE001
+            logger.warning("remote KV fetch of %d block(s) failed for %s — "
+                           "recomputing the tail", len(plan.remote_hashes),
+                           req.rid, exc_info=True)
+            self.remote_fetch_failures += 1
+            self.remote_store.unpin(plan.remote_hashes)
+            plan.remote_hashes = []
+            return []
+        finally:
+            timing["fabric_fetch_ms"] = round(1e3 * (time.monotonic() - t0),
+                                              3)
+
+    def _read_tier_rows(self, plan, remote_blocks=()) -> Optional[dict]:
+        """The plan's host rows, then its disk rows, then its remote
+        blocks, ``{key: [n, L, H, bs, D]}`` in one staging buffer per key
+        (pinned on the card); None when there are none. Runs off the
+        loop: the host slots and disk hashes are pinned."""
         host = self.kv_manager.host_pool
         nh = len(plan.host_slots)
-        disk_blocks = [self.disk_store.read_block(h)
-                       for h in plan.disk_hashes]
+        cold = ([self.disk_store.read_block(h) for h in plan.disk_hashes]
+                + list(remote_blocks))
+        n = nh + len(cold)
+        if n == 0:
+            return None
         template = ({k: a[0] for k, a in host._arena.items()} if nh
-                    else disk_blocks[0])
-        n = nh + len(disk_blocks)
+                    else cold[0])
         pin = self.device.type == "cuda"
         rows = {k: torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
                                pin_memory=pin)
@@ -979,23 +1086,27 @@ class EngineCore:
         if nh:
             host.fetch_rows(plan.host_slots,
                             out={k: v[:nh] for k, v in rows.items()})
-        for i, b in enumerate(disk_blocks):
+        for i, b in enumerate(cold):
             for k, v in b.items():
                 rows[k][nh + i].copy_(v)
         return rows
 
     def _start_onboard(self, req: EngineRequest, slot: int, plan) -> None:
-        """Reserve the slot and read the plan's host and disk rows off the
-        loop: a thread fills a pinned staging buffer and copies it to the
+        """Reserve the slot and read the plan's host, disk and remote rows
+        off the loop: a thread fetches the remote blocks (the object
+        store, or a peer through the fabric, whose loop this is not
+        waiting on), fills a pinned staging buffer and copies it to the
         card on the tier stream (waiting for the copy there, not on the
         loop); the loop's onboard step then scatters and admits. The host
-        slots are pinned here, the disk hashes were pinned at the match;
-        both unpin in _complete_onboards, after the copy has run.
+        slots are pinned here, the disk and remote hashes were pinned at
+        the match; all unpin in _complete_onboards, after the copy has
+        run.
 
         The flight recorder's ``onboard`` record, written when the read
         ends, carries its window: ``t_start`` (the reservation) to ``t``,
-        the read's and the host→device copy's milliseconds (``h2d_copy_ms``
-        the copy's own on the card) and the bytes copied."""
+        the remote fetch's, the read's and the host→device copy's
+        milliseconds (``h2d_copy_ms`` the copy's own on the card) and the
+        bytes copied."""
         req.slot = slot
         req.ready = False
         self.slots[slot] = req            # reserve (skipped by dispatch)
@@ -1003,13 +1114,24 @@ class EngineCore:
         if plan.disk_hashes:
             self.disk_onboards += 1
             self.disk_onboarded_blocks += len(plan.disk_hashes)
+        if plan.remote_hashes:
+            self.remote_onboards += 1
+        n_remote = len(plan.remote_hashes)
         self.kv_manager.host_pool.pin(plan.host_slots)
         t_start = time.time()
         timing = {}
+        # the recorder's kv_remote_restore event carries the fetched bytes
+        kept: dict = {}
 
         def prep():
+            remote_blocks = (self._fetch_remote(req, plan, timing)
+                             if plan.remote_hashes else [])
+            if remote_blocks and self.recorder is not None:
+                kept["values"] = stack_wire(remote_blocks)
             t0 = time.monotonic()
-            rows = self._read_tier_rows(plan)
+            rows = self._read_tier_rows(plan, remote_blocks)
+            if rows is None:
+                return _NO_ONBOARD   # every tier hit fell away: no copy
             t1 = time.monotonic()
             h2d = start_h2d(rows, self.device, stream=self._tier_stream)
             h2d.wait()
@@ -1033,10 +1155,14 @@ class EngineCore:
             finally:
                 self.flight.record(
                     "onboard", rid=req.rid, host_blocks=len(plan.host_slots),
-                    disk_blocks=len(plan.disk_hashes), t_start=t_start,
+                    disk_blocks=len(plan.disk_hashes),
+                    remote_blocks=len(plan.remote_hashes),
+                    remote_failed=n_remote - len(plan.remote_hashes),
+                    t_start=t_start,
                     total_ms=round(1e3 * (time.monotonic() - t0), 3),
                     **timing)
-                self._onboards.append((req, slot, plan, h2d))
+                self._onboards.append((req, slot, plan, h2d,
+                                       kept.get("values")))
                 self._work_event.set()
 
         task = asyncio.get_running_loop().create_task(
@@ -1046,7 +1172,7 @@ class EngineCore:
 
     def _complete_onboards(self) -> None:
         pending, self._onboards = self._onboards, []
-        for req, slot, plan, h2d in pending:
+        for req, slot, plan, h2d, remote_values in pending:
             self.slots[slot] = None       # _admit_with_plan re-reserves
             try:
                 if req.cancelled or h2d is None:
@@ -1070,10 +1196,13 @@ class EngineCore:
                     else:
                         self._finish_request(req, FinishReason.ERROR)
                     continue
-                self._admit_with_plan(req, slot, plan, h2d)
+                self._admit_with_plan(
+                    req, slot, plan, None if h2d is _NO_ONBOARD else h2d,
+                    remote_values=remote_values)
             finally:
                 # the host→device copy has run (the read thread waited for
-                # it): the tier rows may go now
+                # it): the tier rows may go now (a failed remote fetch
+                # already unpinned and cleared its hashes)
                 self._unpin_plan(plan)
 
     def _emit_kv_store(self, items: list) -> None:
@@ -1115,6 +1244,113 @@ class EngineCore:
             if not self.kv_manager.pool.peek_prefix([h]):
                 pub.publish_stored(-1, h, th, ph, tier="disk")
 
+    def _on_disk_evict(self, seq_hash: int, tokens_hash, parent_hash,
+                       values: dict) -> None:
+        """Disk capacity-eviction hook: offer the block to the remote
+        tier's promotion pump, so a prefix leaving this worker's disk
+        survives in the object store. It fires on the spill pump's thread:
+        the offer hops to the loop."""
+        if self.remote_spill_engine is None or self._loop is None:
+            return
+        job = SpillJob(seq_hash=seq_hash, tokens_hash=tokens_hash,
+                       parent_hash=parent_hash, values=values)
+        try:
+            self._loop.call_soon_threadsafe(self.remote_spill_engine.offer,
+                                            job)
+        except RuntimeError:
+            pass                           # the loop is closed (shutdown)
+
+    def _emit_kv_remote_store(self, items: list) -> None:
+        """Remote promotion commit hook: [(hash, tokens_hash, parent,
+        evicted)] a durably acknowledged object put. Announces the
+        promoted prefixes with tier "remote", unless a warmer tier still
+        holds the hash (its announce stands at a better weight)."""
+        pub = self.kv_event_publisher
+        if pub is None:
+            return
+        host = self.kv_manager.host_pool
+        for h, th, ph, evicted in items:
+            for gone in evicted:
+                self._publish_tier_removed(gone)
+            if self.kv_manager.pool.peek_prefix([h]):
+                continue
+            if host is not None and host.contains(h):
+                continue
+            if self.disk_store is not None and self.disk_store.contains(h):
+                continue
+            pub.publish_stored(-1, h, th, ph, tier="remote")
+
+    def attach_kv_fabric(self, fabric) -> None:
+        """Wire an attached fleet fabric (``llm/kv/fabric.py``): its
+        RemoteKvStore (this engine's own when ``kv_remote_dir`` built one)
+        becomes the cascade's remote rung."""
+        self.kv_fabric = fabric
+        self.remote_store = fabric.store
+        self.kv_manager.remote_store = fabric.store
+
+    def kv_bytes_per_block(self) -> int:
+        """The bytes one KV block holds over all layers and keys: the
+        admission gate's and the router's transfer unit."""
+        total = sum(v.numel() * v.element_size() for v in self.kv.values())
+        return max(total // max(self.cfg.num_kv_blocks, 1), 1)
+
+    def measured_prefill_tok_per_s(self) -> float:
+        """The measured, age-weighted prefill rate (the gate's recompute
+        side); 0.0 while unknown (the gate then admits)."""
+        return self.prefill_rate_estimator.rate()
+
+    async def publish_prefix_to_remote(self, seq) -> int:
+        """Prefill-as-a-service's publish (``components/prefill_service
+        .py``): every still-registered full block of ``seq``'s chain goes
+        from the device pool to the object store, keyed by the chained
+        hashes every tier uses; any engine on the same root then admits
+        the prefix through its cascade. The gather is dispatched on the
+        loop (on the compute stream, before any later replay writes the
+        pool); the fetch to the host (on the tier stream), the packing and
+        the object puts run off the loop. A block the store already holds
+        is skipped. Returns the blocks written."""
+        rs = self.remote_store
+        if rs is None or rs.object is None:
+            return 0
+        pool = self.kv_manager.pool
+        # holds on the longest still-registered run: not evicted under
+        # the gather
+        bids = pool.match_prefix(seq.sequence_hashes)
+        if not bids:
+            return 0
+        hashes = seq.sequence_hashes
+        try:
+            with torch.inference_mode():
+                gathered = gather_blocks_dispatch(self.kv, bids,
+                                                  self.cfg.kv_block_size)
+
+            def publish_all() -> int:
+                values = fetch_wire(gathered, len(bids), self._wire_heads,
+                                    stream=self._tier_stream)
+                n = 0
+                for i in range(len(bids)):
+                    if rs.object.contains(hashes[i]):
+                        continue           # content-addressed: written
+                    try:
+                        rs.put(hashes[i],
+                               {k: v[:, :, i] for k, v in values.items()},
+                               tokens_hash=seq.block_hashes[i],
+                               parent_hash=hashes[i - 1] if i else None)
+                    except OSError as e:
+                        # a refusing object store forfeits this block's
+                        # publish: decode fleets recompute it
+                        logger.warning("prefix publish of %x failed: %s",
+                                       hashes[i] & 0xFFFFFFFFFFFFFFFF, e)
+                        continue
+                    n += 1
+                return n
+
+            n = await asyncio.to_thread(publish_all)
+        finally:
+            pool.release(bids)
+        self.prefill_published_blocks += n
+        return n
+
     # ------------------------------------------------------ KV event stream
     def reannounce_kv(self) -> int:
         """Replay every stored-block announcement into the KV event
@@ -1134,12 +1370,23 @@ class EngineCore:
                     self.kv_event_publisher.publish_stored(
                         -1, h, th, ph, tier="disk")
                     n += 1
+        # the object store's blocks this worker can fetch back (peer-held
+        # hashes are the peer's to announce)
+        if self.remote_store is not None:
+            for h, th, ph in self.remote_store.registered_entries():
+                if (not self.kv_manager.pool.peek_prefix([h])
+                        and not (self.disk_store is not None
+                                 and self.disk_store.contains(h))):
+                    self.kv_event_publisher.publish_stored(
+                        -1, h, th, ph, tier="remote")
+                    n += 1
         return n
 
     def _publish_tier_removed(self, seq_hash: int) -> None:
         """Removed-from-disk announce, suppressed while a warmer tier
         still holds the hash (the router would otherwise lose a prefix
-        this worker can still serve)."""
+        this worker can still serve); a block the object store holds
+        re-announces with tier "remote" instead."""
         pub = self.kv_event_publisher
         if pub is None:
             return
@@ -1147,6 +1394,10 @@ class EngineCore:
         if self.kv_manager.pool.peek_prefix([seq_hash]):
             return
         if host is not None and host.contains(seq_hash):
+            return
+        if (self.remote_store is not None
+                and self.remote_store.holds_durable(seq_hash)):
+            pub.publish_stored(-1, seq_hash, None, None, tier="remote")
             return
         pub.publish_removed([seq_hash])
 
@@ -1174,6 +1425,9 @@ class EngineCore:
                 pub.publish_stored(-1, h, th, ph, tier="host")
             elif self.disk_store is not None and self.disk_store.contains(h):
                 pub.publish_stored(-1, h, None, None, tier="disk")
+            elif (self.remote_store is not None
+                  and self.remote_store.holds_durable(h)):
+                pub.publish_stored(-1, h, None, None, tier="remote")
             else:
                 gone.append(h)
         if gone:
@@ -1208,14 +1462,15 @@ class EngineCore:
         return pf
 
     def _admit_with_plan(self, req: EngineRequest, slot: int, plan,
-                         onboard=None) -> None:
+                         onboard=None, remote_values=None) -> None:
         n_prompt = len(req.prompt)
         t0 = time.monotonic()
         req.slot = slot
         req.blocks = plan.all_blocks
         req.seq = plan.seq
         n_host = len(plan.host_slots)
-        n_onboard = n_host + len(plan.disk_hashes)
+        n_hd = n_host + len(plan.disk_hashes)
+        n_onboard = n_hd + len(plan.remote_hashes)
         if n_onboard:
             # tier hits: scatter the onboarded rows (on the card already,
             # ``onboard``) into their device blocks in place, on the
@@ -1233,14 +1488,30 @@ class EngineCore:
                     bid, plan.seq.sequence_hashes[j],
                     plan.seq.block_hashes[j], parent)
         req.prefix_hit_tokens = (plan.hit_tokens + plan.host_hit_tokens
-                                 + plan.disk_hit_tokens)
+                                 + plan.disk_hit_tokens
+                                 + plan.remote_hit_tokens)
         n_already = len(plan.hit_blocks) + n_onboard
         suffix_len = n_prompt - req.prefix_hit_tokens
         if self.recorder is not None and req.prefix_hit_tokens > 0:
+            if plan.remote_hashes:
+                # the fleet-shared tier cannot be re-walked by a replay:
+                # the restore is an event of its own with the fetched
+                # hashes and bytes, before hit_transfer, so the replayed
+                # scatter gives the remote targets their writer before
+                # the hit walk reads them (replay.
+                # exec_kv_remote_restore_event; fetch-or-bytes)
+                if remote_values is None:
+                    raise RuntimeError(
+                        "recorded remote onboarding without captured "
+                        "fetch values")
+                self.recorder.rec(
+                    "kv_remote_restore", rid=req.rid,
+                    remote_hashes=list(plan.remote_hashes),
+                    remote_targets=list(plan.new_blocks[n_hd:n_onboard]),
+                    values=remote_values)
             # before the prefill's record: read rights over the shared
             # prefix, and for a tier hit the slots / hashes and targets a
             # mirror restores from (replay.exec_host_restore_event)
-            n_hd = n_onboard
             self.recorder.rec(
                 "hit_transfer", rid=req.rid, hit=req.prefix_hit_tokens,
                 host_hit=plan.host_hit_tokens, disk_hit=plan.disk_hit_tokens,
@@ -1283,6 +1554,10 @@ class EngineCore:
         else:
             toks, logprobs, pf_seq, use_sp = self._prefill(req, slot)
             self.total_prefill_tokens += suffix_len
+            # the admission gate's recompute rate (the JAX engine's wall:
+            # from the plan to the dispatched prefill)
+            self.prefill_rate_estimator.observe(suffix_len,
+                                                time.monotonic() - t0)
         # the first token: a handoff ships it as it is (the device plane's
         # stays on the card); a device tensor's fetch is deferred past the
         # next decode dispatch (overlap_admission_fetch), or waited for now
@@ -1327,9 +1602,10 @@ class EngineCore:
         self._block_tables[slot, :len(req.blocks)] = req.blocks
         self._set_slot_sampling(slot, req)
         logger.debug("admitted %s into slot %d (prompt=%d, hit=%d+%dhost+"
-                     "%ddisk, sp=%s, precomputed=%s, %.1fms)", req.rid, slot,
-                     n_prompt, plan.hit_tokens, plan.host_hit_tokens,
-                     plan.disk_hit_tokens, use_sp, remote,
+                     "%ddisk+%dremote, sp=%s, precomputed=%s, %.1fms)",
+                     req.rid, slot, n_prompt, plan.hit_tokens,
+                     plan.host_hit_tokens, plan.disk_hit_tokens,
+                     plan.remote_hit_tokens, use_sp, remote,
                      1e3 * (time.monotonic() - t0))
         self._record_prefill(req, plan, suffix_len, remote, t0)
         if req.ready:
@@ -1386,15 +1662,15 @@ class EngineCore:
 
     def _record_prefill(self, req: EngineRequest, plan, planned: int,
                         precomputed: bool, t0: float) -> None:
-        """The admission's ``prefill`` flight record (``hit_remote`` is 0
-        until the port has the remote tier, ROADMAP A7)."""
+        """The admission's ``prefill`` flight record."""
         now = time.monotonic()
         self.flight.record(
             "prefill", rid=req.rid, prompt=len(req.prompt),
             planned_tokens=planned,
             batch_fill=sum(1 for s in self.slots if s is not None),
             hit_device=plan.hit_tokens, hit_host=plan.host_hit_tokens,
-            hit_disk=plan.disk_hit_tokens, hit_remote=0,
+            hit_disk=plan.disk_hit_tokens,
+            hit_remote=plan.remote_hit_tokens,
             precomputed=precomputed, host_ms=round(1e3 * (now - t0), 3),
             queue_wait_ms=round(1e3 * (t0 - req.enqueue_time), 3))
 

@@ -32,9 +32,12 @@ disk tier restore's slots, hashes and targets) and the tiers' commits,
 host pool (``offload.make_host_pool``) fed by gathering the same device
 blocks from the replay's pool at each ``kv_store``, and an in-memory disk
 mirror fed from the staged rows of the spilled evictions; a restore
-scatters from the mirrors into the same targets. ``kv_remote_restore``
-and ``handoff_gather`` wait for the remote tier and disaggregation
-(ROADMAP A7), pipeline-parallel replay for pp (A9).
+scatters from the mirrors into the same targets. A remote-tier restore
+is an event of its own, ``kv_remote_restore``, carrying the fetched
+hashes, targets and bytes: the replay scatters the bytes, or, with the
+values stripped, fetches the hashes from the replaying core's remote
+store (the object root is content-addressed: an equal hash is equal
+bytes). Pipeline-parallel replay waits for pp (ROADMAP A9).
 
 Recording copies small host arrays only; it does not synchronize the
 device.
@@ -311,6 +314,24 @@ def exec_host_restore_event(kv, ev: dict, pool, block_size: int,
     scatter_blocks_from_host(kv, targets, vals, block_size)
 
 
+def exec_kv_remote_restore_event(kv, ev: dict, block_size: int,
+                                 remote_store=None) -> None:
+    """Re-execute a remote-tier restore: the recorded fetched bytes (wire
+    ``{key: [L, H, n, bs, D]}``) into the same device targets, in place.
+    Fetch-or-bytes: an event without ``values`` fetches its hashes from
+    ``remote_store`` (a store on the recording engine's object root)."""
+    vals = ev.get("values")
+    if vals is None:
+        if remote_store is None:
+            raise ValueError(
+                "kv_remote_restore carries no values and no remote store "
+                "was provided — replay with the recorded engine config "
+                "(kv_remote_dir) or a recording with the bytes")
+        vals = remote_store.fetch(list(ev["remote_hashes"]))
+    scatter_blocks_from_host(kv, list(ev["remote_targets"]), vals,
+                             block_size)
+
+
 class _MemDiskMirror:
     """In-memory stand-in for ``DiskKvStore`` in a replay (the replayer
     applies the live engine's literal disk placements; durability is the
@@ -438,6 +459,15 @@ def replay(core, events: List[dict], fingerprint: bool = False) -> dict:
                 written.update(int(b) * bs + o for b in ev["targets"]
                                for o in range(bs))
             fp(("kv_layer_stream", ev.get("rid"), int(ev["layer"])))
+            continue
+        if kind == "kv_remote_restore":
+            # ordered before the admission's hit_transfer: the restored
+            # blocks gain their in-log writer before the hit walk reads them
+            exec_kv_remote_restore_event(kv, ev, bs,
+                                         remote_store=core.remote_store)
+            written.update(int(b) * bs + o for b in ev["remote_targets"]
+                           for o in range(bs))
+            fp(("kv_remote_restore", ev.get("rid")))
             continue
         if kind == "hit_transfer":
             if int(ev.get("disk_hit", 0)) > 0 and disk_mirror is None:

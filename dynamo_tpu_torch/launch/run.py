@@ -47,8 +47,15 @@ un-cached part exceeds ``--max-local-prefill-length`` (live in the KV
 store, ``DisaggregatedRouter``) to that queue, or every prompt with
 ``--unconditional-disagg``, and prefills locally when no prefill worker
 answers. Both need ``--runtime-server`` across processes.
-``--role prefill-publish`` (prefill-as-a-service over the remote KV tier)
-is not ported (ROADMAP A7).
+``--role prefill-publish`` (prefill-as-a-service,
+``components/prefill_service.py``) serves ``publish`` / ``status`` RPCs at
+``in=dyn://...`` (by default ``dyn://dynamo/prefill/prefill_publish``)
+and pulls the ``prefill_publish`` queue: each prompt's prefix KV lands in
+the ``--kv-remote-dir`` object store, which any engine on the same root
+admits from. ``--kv-fabric`` makes a ``dyn://`` worker join the fleet KV
+fabric (``llm/kv/fabric.py``): it serves its host and disk blocks to its
+peers and fetches theirs behind the ``--kv-remote-admission`` gate. The
+fabric's and the service's counters are logged at stop.
 """
 
 from __future__ import annotations
@@ -92,7 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--role", choices=["serve", "prefill-publish"],
                    default="serve",
                    help="prefill-publish: the prefill-as-a-service worker "
-                        "(not ported yet)")
+                        "(publishes prompts' prefix KV to --kv-remote-dir)")
     p.add_argument("--max-local-prefill-length", type=int, default=512,
                    help="--remote-prefill: prompts with more un-cached "
                         "tokens than this prefill remotely")
@@ -123,6 +130,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "--host-kv-blocks")
     p.add_argument("--kv-disk-blocks", type=int, default=0,
                    help="disk KV tier capacity in blocks (0 = off)")
+    p.add_argument("--kv-remote-dir", default="",
+                   help="remote (G4) object-store root (llm/kv/"
+                        "remotestore.py, a directory the fleet shares): "
+                        "disk-tier evictions promote here write-behind and "
+                        "any worker on the same root reuses them; needs "
+                        "the disk tier")
+    p.add_argument("--kv-remote-blocks", type=int, default=0,
+                   help="object tier capacity in blocks (0 = unbounded)")
+    p.add_argument("--kv-fabric", action="store_true",
+                   help="join the fleet KV fabric (llm/kv/fabric.py): "
+                        "serve this worker's host and disk KV to peers at "
+                        "a kv_fabric endpoint and fetch peers' prefixes "
+                        "instead of recomputing them, behind a "
+                        "latency-aware admission gate (in=dyn:// workers)")
+    p.add_argument("--kv-remote-admission",
+                   choices=["auto", "always", "never"], default="auto",
+                   help="remote-hit admission: auto = promote only when "
+                        "the modeled fetch beats the modeled recompute")
     p.add_argument("--no-prefix-reuse", action="store_true")
     p.add_argument("--quantization", default="none",
                    choices=list(WEIGHT_QUANTIZATIONS),
@@ -240,6 +265,9 @@ def build_core(args, mesh=None):
                             host_kv_blocks=args.host_kv_blocks,
                             kv_disk_dir=args.kv_disk_dir,
                             kv_disk_blocks=args.kv_disk_blocks,
+                            kv_remote_dir=args.kv_remote_dir,
+                            kv_remote_blocks=args.kv_remote_blocks,
+                            kv_remote_admission=args.kv_remote_admission,
                             quantization=args.quantization,
                             kv_quantization=args.kv_quantization,
                             ragged_dispatch=args.ragged,
@@ -461,7 +489,8 @@ async def run_worker_endpoint(args, engine, core, runtime, path: str,
     core's ForwardPassMetrics; KV events go to the component's kv_events
     subject for KV-aware routers. ``--protocol tokens`` serves the bare
     core engine (a KV-routing processor tokenizes and detokenizes: the
-    examples/llm Processor→Router→Worker shape)."""
+    examples/llm Processor→Router→Worker shape). ``--kv-fabric`` attaches
+    the fleet KV fabric beside the endpoint (``core.kv_fabric``)."""
     from ..llm.protocols.annotated import encode_annotated_json
     from ..llm.protocols.common import PreprocessedRequest
     from ..runtime.distributed import Endpoint
@@ -484,6 +513,9 @@ async def run_worker_endpoint(args, engine, core, runtime, path: str,
             d["kernel_launches"] = kernel_launches()
             return d
         await wire_kv_events(core, runtime, endpoint)
+        if args.kv_fabric:
+            from ..llm.kv.fabric import KvFabric
+            await KvFabric.attach(core, runtime, endpoint)
     log_device_memory(core)
     await endpoint.serve(
         engine,
@@ -575,6 +607,57 @@ async def run_prefill_worker(core, runtime) -> None:
         logger.info("prefill worker stats %s", json.dumps(worker.stats()))
 
 
+async def run_prefill_publish(core, runtime, src: str) -> None:
+    """--role prefill-publish: serve publish / status RPCs at ``src``
+    (``in=dyn://...``) or ``dyn://dynamo/prefill/prefill_publish``
+    and pull the ``prefill_publish`` queue until cancelled; the service's
+    counters are logged at stop."""
+    from ..components.prefill_service import (PREFILL_PUBLISH_ENDPOINT,
+                                              PrefillService)
+    from ..runtime.distributed import Endpoint
+    try:
+        svc = await PrefillService(core, runtime).start()
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if src.startswith("dyn://"):
+        endpoint = Endpoint.parse_path(runtime, src)
+    else:
+        endpoint = Endpoint(runtime, "dynamo", "prefill",
+                            PREFILL_PUBLISH_ENDPOINT)
+
+    def stats_handler():
+        d = core.metrics().to_dict()
+        d.update(svc.stats())
+        d["kernel_launches"] = kernel_launches()
+        return d
+
+    await endpoint.serve(svc, decode_req=json.loads,
+                         stats_handler=stats_handler)
+    log_device_memory(core)
+    logger.info("prefill-publish worker serving %s (object root %s)",
+                endpoint.path, core.cfg.kv_remote_dir)
+    print(f"READY {endpoint.path} prefill-publish worker "
+          f"{runtime.worker_id:x}", flush=True)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await svc.stop()
+        st = core.remote_store.object.store
+        logger.info("prefill-publish stats %s", json.dumps(dict(
+            svc.stats(), object_puts=st.put_objects_total,
+            object_put_bytes=st.put_bytes_total,
+            object_put_s=st.put_seconds_total)))
+
+
+async def close_fabric(core) -> None:
+    """Close an attached fabric (before the runtime's shutdown, whose
+    transports it uses) and log its counters."""
+    fabric = getattr(core, "kv_fabric", None)
+    if fabric is not None:
+        await fabric.close()
+        logger.info("kv fabric stats %s", json.dumps(fabric.stats()))
+
+
 def log_device_memory(core) -> None:
     """The card's memory the process holds once its engine is up."""
     if core is not None and core.device.type == "cuda":
@@ -596,11 +679,12 @@ def log_disagg_stats(engine) -> None:
 
 
 def check_disagg_flags(args, out: str) -> None:
-    if args.role == "prefill-publish":
-        raise SystemExit(
-            "--role prefill-publish (prefill-as-a-service over the remote "
-            "KV tier: components/prefill_service.py, llm/kv/remotestore.py)"
-            " is not ported yet (ROADMAP A7)")
+    if args.role == "prefill-publish" and out != "torch":
+        raise SystemExit("--role prefill-publish needs out=torch")
+    if args.role == "prefill-publish" and (args.remote_prefill
+                                           or args.is_prefill_worker):
+        raise SystemExit("--role prefill-publish excludes --remote-prefill "
+                         "and --is-prefill-worker")
     if (args.remote_prefill or args.is_prefill_worker) and out != "torch":
         raise SystemExit("--remote-prefill and --is-prefill-worker need "
                          "out=torch")
@@ -614,18 +698,22 @@ async def amain(argv=None) -> None:
     src, out = parse_io(args.io)
     check_disagg_flags(args, out)
     dyn = src.startswith("dyn://")
-    if dyn and args.protocol == "openai":
+    publish = args.role == "prefill-publish"
+    if dyn and args.protocol == "openai" and not publish:
         raise SystemExit(
             "in=dyn:// with --protocol openai (the full pipeline on the "
             "worker, registered for discovery-driven frontends) needs "
             "llm/discovery.py and the registry card (ROADMAP A7, A10); "
             "serve --protocol tokens behind components/processor.py")
-    if dyn or src == "none" or args.is_prefill_worker:
+    if dyn or src == "none" or args.is_prefill_worker or publish:
         engine, mdc, core = build_engine_parts(args, out)
         runtime = await make_runtime(args)
         try:
             if args.is_prefill_worker:
                 await run_prefill_worker(core, runtime)
+                return
+            if publish:
+                await run_prefill_publish(core, runtime, src)
                 return
             if args.remote_prefill:
                 engine = await disagg_engine(args, core, runtime)
@@ -641,6 +729,7 @@ async def amain(argv=None) -> None:
                     log_disagg_stats(engine)
         finally:
             if core is not None:
+                await close_fabric(core)
                 await core.stop()
                 logger.info("kernel launches %s",
                             json.dumps(kernel_launches()))

@@ -130,6 +130,11 @@ class DiskKvStore:
         self._pins: Dict[int, int] = {}
         self._manifest_f = None
         self.meta: dict = {}
+        # capacity-eviction hook, on_evict(hash, tokens_hash, parent_hash,
+        # values), fired before the block's file goes: the remote tier's
+        # promotion feed. It runs on the writer's thread (usually the
+        # spill pump's) under _io_lock only; the callee owns the values
+        self.on_evict: Optional[Callable] = None
         # stats
         self.stored_blocks_total = 0
         self.evicted_blocks_total = 0
@@ -330,6 +335,15 @@ class DiskKvStore:
             return [(e.seq_hash, e.tokens_hash, e.parent_hash)
                     for e in self._entries.values()]
 
+    def meta_for(self, seq_hash: int) -> tuple:
+        """A resident block's (tokens_hash, parent_hash); KeyError when it
+        is not resident."""
+        with self._lock:
+            e = self._entries.get(seq_hash)
+        if e is None:
+            raise KeyError(f"disk KV block {seq_hash:#x} is not resident")
+        return e.tokens_hash, e.parent_hash
+
     # ---------------------------------------------------------------- reads
     def read_block(self, seq_hash: int) -> dict:
         """One resident block's values ``{key: [L, H, bs, D]}``."""
@@ -398,6 +412,21 @@ class DiskKvStore:
             evicted.append(e)
         return evicted
 
+    def _promote(self, evicted: List["_Entry"]) -> None:
+        """Under ``_io_lock``: hand each capacity victim's values to
+        ``on_evict`` before its file goes. Best effort: a failed read
+        forfeits the promotion, never the eviction."""
+        if self.on_evict is None:
+            return
+        for e in evicted:
+            try:
+                with np.load(os.path.join(self.root, e.fname)) as z:
+                    values = _unpack_block(z)
+                self.on_evict(e.seq_hash, e.tokens_hash, e.parent_hash,
+                              values)
+            except Exception:  # noqa: BLE001
+                logger.exception("disk-tier evict hook failed")
+
     def _delete_files(self, evicted: List["_Entry"]) -> None:
         """Under ``_io_lock``: the manifest ``del`` lines BEFORE the
         unlinks, so a crash between them leaves an orphan the next open
@@ -431,6 +460,7 @@ class DiskKvStore:
                     evicted = self._evict_for_capacity()
                 except BlockingIOError:
                     return None
+            self._promote(evicted)
             self._delete_files(evicted)
             self._validate_layout(values)
             nbytes = self._write_block(seq_hash, values, tokens_hash,

@@ -278,6 +278,10 @@ class HostKvPool:
     def contains(self, seq_hash: int) -> bool:
         return seq_hash in self._by_hash
 
+    def slot_of(self, seq_hash: int) -> Optional[int]:
+        """The slot holding ``seq_hash``, or None (LRU order untouched)."""
+        return self._by_hash.get(seq_hash)
+
     def meta_for(self, seq_hash: int) -> tuple:
         """(tokens_hash, parent_hash) recorded at store time (None, None
         when the storer carried no chain info)."""

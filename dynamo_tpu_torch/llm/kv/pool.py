@@ -469,6 +469,13 @@ class PrefillPlan:
     # by the same onboard; pinned against spill-pump eviction from the
     # match until the onboard's read has run
     disk_hashes: List[int] = dataclasses.field(default_factory=list)
+    # remote (G4) tier hits: chained hashes reachable through the
+    # RemoteKvStore (the shared object store, or a peer's host / disk over
+    # the fabric), the onboard run's tail after the disk hits. The store's
+    # match went through the admission gate; object-held entries are
+    # pinned until the onboard's read, and a failed fetch clears this list
+    # (the engine recomputes those tokens)
+    remote_hashes: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def all_blocks(self) -> List[int]:
@@ -482,15 +489,22 @@ class PrefillPlan:
     def disk_hit_tokens(self) -> int:
         return len(self.disk_hashes) * self.seq.block_size
 
+    @property
+    def remote_hit_tokens(self) -> int:
+        return len(self.remote_hashes) * self.seq.block_size
+
 
 class KvBlockManager:
     """Pool + hashing glue the engine admit path calls, optionally backed
-    by a host tier and a disk tier under it: device misses cascade
-    device → host → disk (reference ``prepare_prefill_offload``)."""
+    by a host tier, a disk tier under it and a remote tier under that:
+    device misses cascade device → host → disk → remote (reference
+    ``prepare_prefill_offload``, down the Device → Host → Disk → Remote
+    ladder)."""
 
     def __init__(self, num_blocks: int, block_size: int,
                  on_stored=None, on_removed=None, enable_reuse: bool = True,
-                 host_pool=None, disk_store=None, prefer_native: bool = True):
+                 host_pool=None, disk_store=None, remote_store=None,
+                 prefer_native: bool = True):
         self.block_size = block_size
         self.pool = make_kv_block_pool(num_blocks, on_stored=on_stored,
                                        on_removed=on_removed,
@@ -498,6 +512,7 @@ class KvBlockManager:
         self.enable_reuse = enable_reuse
         self.host_pool = host_pool
         self.disk_store = disk_store
+        self.remote_store = remote_store
 
     def prepare_prefill(self, prompt: Sequence[int], extra_blocks: int = 1,
                         seq: Optional[TokenBlockSequence] = None,
@@ -507,8 +522,8 @@ class KvBlockManager:
         ``extra_blocks`` of generation). None = out of memory. At least
         one prompt token is always left to recompute so prefill produces
         the first-token logits. ``seq`` may carry the prompt's
-        already-computed hash chain. ``cold=True`` skips the host and disk
-        cascade (the engine's retry after a tier read failed)."""
+        already-computed hash chain. ``cold=True`` skips the host, disk and
+        remote cascade (the engine's retry after a tier read failed)."""
         if seq is None:
             seq = TokenBlockSequence(self.block_size, prompt)
         matchable = seq.sequence_hashes
@@ -530,20 +545,31 @@ class KvBlockManager:
             # thread) until the onboard has read them (the engine unpins)
             disk_hashes = self.disk_store.match_prefix(
                 matchable[len(hit_blocks) + len(host_slots):], pin=True)
-        # from the pin-taking match to the returned plan (which hands the
-        # pins to the caller), an unexpected raise must release the device
-        # holds and the disk pins before it propagates
+        remote_hashes: List[int] = []
+        # from the pin-taking matches to the returned plan (which hands the
+        # pins to the caller), an unexpected raise (a faulty remote store,
+        # a native-pool ABI error) must release the device holds and the
+        # tier pins before it propagates
         try:
+            if (self.enable_reuse and not cold
+                    and self.remote_store is not None):
+                # the run past the disk hits, reachable through the
+                # remote tier; its match is admission-gated (a miss when
+                # the modeled fetch loses to the modeled recompute) and
+                # pins the object-held entries against the reaper
+                remote_hashes = self.remote_store.match_prefix(
+                    matchable[len(hit_blocks) + len(host_slots)
+                              + len(disk_hashes):], pin=True)
             total_needed = (len(prompt) + extra_blocks * self.block_size
                             + self.block_size - 1) // self.block_size
             new_blocks = self.pool.alloc_uninit(total_needed
                                                 - len(hit_blocks))
             if new_blocks is None:
                 self.pool.release(hit_blocks)
-                if disk_hashes:
-                    self.disk_store.unpin(disk_hashes)
+                self._unpin_tiers(disk_hashes, remote_hashes)
                 return None
-            if len(new_blocks) < len(host_slots) + len(disk_hashes):
+            if len(new_blocks) < (len(host_slots) + len(disk_hashes)
+                                  + len(remote_hashes)):
                 # the onboard scatters the tier hits into
                 # new_blocks[:n_onboard]: a plan whose allocation cannot
                 # cover them would drop them or scatter past it. The
@@ -554,23 +580,29 @@ class KvBlockManager:
                     f"prepare_prefill invariant violated: "
                     f"{len(new_blocks)} new blocks cannot cover "
                     f"{len(host_slots)} host + {len(disk_hashes)} disk "
-                    f"tier hits (prompt {len(prompt)}, device hits "
-                    f"{len(hit_blocks)})")
+                    f"+ {len(remote_hashes)} remote tier hits (prompt "
+                    f"{len(prompt)}, device hits {len(hit_blocks)})")
         except Exception:
             self.pool.release(hit_blocks)
-            if disk_hashes:
-                self.disk_store.unpin(disk_hashes)
+            self._unpin_tiers(disk_hashes, remote_hashes)
             raise
         return PrefillPlan(hit_blocks=hit_blocks, new_blocks=new_blocks,
                            hit_tokens=hit_tokens, seq=seq,
-                           host_slots=host_slots, disk_hashes=disk_hashes)
+                           host_slots=host_slots, disk_hashes=disk_hashes,
+                           remote_hashes=remote_hashes)
+
+    def _unpin_tiers(self, disk_hashes: List[int],
+                     remote_hashes: List[int]) -> None:
+        if disk_hashes:
+            self.disk_store.unpin(disk_hashes)
+        if remote_hashes:
+            self.remote_store.unpin(remote_hashes)
 
     def abort_plan(self, plan: "PrefillPlan") -> None:
         """Release a plan that will never admit: the device holds drop and
-        the disk pins taken at the match release."""
+        the disk and remote pins taken at the match release."""
         self.pool.release(plan.all_blocks)
-        if plan.disk_hashes and self.disk_store is not None:
-            self.disk_store.unpin(plan.disk_hashes)
+        self._unpin_tiers(plan.disk_hashes, plan.remote_hashes)
 
     def register_full_blocks(self, plan_blocks: List[int],
                              seq: TokenBlockSequence,

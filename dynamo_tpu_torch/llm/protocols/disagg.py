@@ -70,9 +70,9 @@ class RemotePrefillRequest:
 
 @dataclasses.dataclass
 class PrefillPublishRequest:
-    """One unit of work on the prefill-PUBLISH queue: the wire dataclass of
-    prefill-as-a-service, whose worker and object tier are not ported
-    (ROADMAP A7)."""
+    """One unit of work on the prefill-PUBLISH queue of prefill-as-a-service
+    (``components/prefill_service.py``); ``trace`` is carried and ignored
+    (request tracing waits for ROADMAP A10)."""
 
     request_id: str
     token_ids: List[int]

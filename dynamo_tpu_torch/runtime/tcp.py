@@ -1,6 +1,7 @@
-"""Response-plane TCP transport (a copy of ``dynamo_tpu.runtime.tcp`` with
-the Python sender only): callers run a stream server; workers dial back and
-stream response frames.
+"""Response-plane TCP transport (a copy of ``dynamo_tpu.runtime.tcp``):
+callers run a stream server; workers dial back and stream response frames,
+through the C++ data-plane sender (``native_tcp``) unless
+``DYN_NATIVE_DATAPLANE=0`` asks for the asyncio sender below.
 
 Reference: lib/runtime/src/pipeline/network/tcp/{server,client}.rs — the
 request travels over the message bus, but the response is a raw TCP stream
@@ -16,6 +17,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import os
 import socket
 import uuid
 from typing import Callable, Dict, Optional
@@ -32,9 +34,15 @@ __all__ = ["TcpStreamServer", "StreamReceiver", "StreamSender",
 async def open_stream_sender(info: "ConnectionInfo",
                              error: Optional[str] = None,
                              timeout: float = 10.0):
-    """Sender factory: the asyncio StreamSender below. The JAX package's
-    C++ data-plane sender (``native_tcp``, ``csrc/data_plane.cpp``) is not
-    ported yet (ROADMAP A7); its frames are the same."""
+    """Sender factory: the C++ data-plane sender (``native_tcp``,
+    ``csrc/host/data_plane.cpp``) unless ``DYN_NATIVE_DATAPLANE=0``, else
+    the asyncio StreamSender below; both write the same frames. The JAX
+    package falls back to the asyncio sender when its library does not
+    load; here a library that does not build or load raises."""
+    if os.environ.get("DYN_NATIVE_DATAPLANE", "1") != "0":
+        from .native_tcp import NativeStreamSender
+        return await NativeStreamSender.connect(info, error=error,
+                                                timeout=timeout)
     return await StreamSender.connect(info, error=error, timeout=timeout)
 
 

@@ -1,6 +1,7 @@
 """Host C++ library loader: builds a source under ``dynamo_tpu_torch/csrc/host/``
 into a shared library under ``build/dynamo_tpu_torch/`` on first use, and
-memoizes the loaded library.
+memoizes the loaded library. A library may ask for extra compiler flags
+(the data plane's ``-pthread``); they enter its digest like the sources.
 
 Modelled on ``dynamo_tpu.utils.native`` without its sanitizer modes. The
 library's name carries a digest of its sources and flags, so an edited
@@ -31,10 +32,11 @@ _CACHE: Dict[str, ctypes.CDLL] = {}
 
 
 def library_path(name: str, sources: Sequence[str],
-                 build_dir: Optional[str] = None) -> str:
-    """Where ``lib{name}`` of these sources lives once built (under
-    ``build_dir``, by default ``BUILD_DIR``)."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+                 build_dir: Optional[str] = None,
+                 extra_flags: Sequence[str] = ()) -> str:
+    """Where ``lib{name}`` of these sources and flags lives once built
+    (under ``build_dir``, by default ``BUILD_DIR``)."""
+    h = hashlib.sha256(" ".join((*CXX_FLAGS, *extra_flags)).encode())
     for src in sources:
         with open(os.path.join(HOST_SRC_DIR, src), "rb") as f:
             h.update(src.encode() + f.read())
@@ -43,11 +45,12 @@ def library_path(name: str, sources: Sequence[str],
 
 
 def build(name: str, sources: Sequence[str],
-          build_dir: Optional[str] = None) -> str:
+          build_dir: Optional[str] = None,
+          extra_flags: Sequence[str] = ()) -> str:
     """Compile ``sources`` with ``c++`` (if not built yet) and return the
     library's path. Raises ``RuntimeError`` when the compiler is missing or
     fails."""
-    path = library_path(name, sources, build_dir)
+    path = library_path(name, sources, build_dir, extra_flags)
     if os.path.exists(path):
         return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -55,7 +58,7 @@ def build(name: str, sources: Sequence[str],
                                dir=os.path.dirname(path))
     os.close(fd)
     cmd = ["c++", *CXX_FLAGS, "-o", tmp,
-           *[os.path.join(HOST_SRC_DIR, s) for s in sources]]
+           *[os.path.join(HOST_SRC_DIR, s) for s in sources], *extra_flags]
     try:
         try:
             res = subprocess.run(cmd, stdout=subprocess.PIPE,
@@ -72,12 +75,13 @@ def build(name: str, sources: Sequence[str],
 
 
 def load(name: str, sources: Sequence[str],
-         build_dir: Optional[str] = None) -> ctypes.CDLL:
+         build_dir: Optional[str] = None,
+         extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and dlopen ``lib{name}``; memoized per path."""
     with _LOCK:
-        path = library_path(name, sources, build_dir)
+        path = library_path(name, sources, build_dir, extra_flags)
         lib = _CACHE.get(path)
         if lib is None:
-            lib = ctypes.CDLL(build(name, sources, build_dir))
+            lib = ctypes.CDLL(build(name, sources, build_dir, extra_flags))
             _CACHE[path] = lib
         return lib

@@ -911,8 +911,8 @@ async def test_cross_package_pairs_over_one_daemon(want, monkeypatch):
 
 def test_launcher_disagg_flags():
     """The launcher's disaggregation flags (the JAX launcher's, with their
-    defaults), and the refusals: the publish role waits for the remote
-    tier, and both roles need out=torch."""
+    defaults), and the refusals: the roles need out=torch, and the
+    prefill-publish role excludes the disaggregation roles."""
     p = launcher.build_parser()
     a = p.parse_args(["in=none", "out=torch", "--is-prefill-worker"])
     assert a.is_prefill_worker and not a.remote_prefill
@@ -922,8 +922,11 @@ def test_launcher_disagg_flags():
                       "--unconditional-disagg"])
     assert a.remote_prefill and a.max_local_prefill_length == 64
     assert a.unconditional_disagg and a.role == "serve"
-    with pytest.raises(SystemExit, match="ROADMAP A7"):
+    with pytest.raises(SystemExit, match="excludes"):
         asyncio.run(launcher.amain(["in=none", "out=torch", "--role",
+                                    "prefill-publish", "--remote-prefill"]))
+    with pytest.raises(SystemExit, match="needs out=torch"):
+        asyncio.run(launcher.amain(["in=none", "out=echo_core", "--role",
                                     "prefill-publish"]))
     with pytest.raises(SystemExit, match="out=torch"):
         asyncio.run(launcher.amain(["in=none", "out=echo_core",

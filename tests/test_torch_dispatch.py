@@ -17,7 +17,9 @@ equal across the two engines. The cases are the JAX suite's own
   with and without the pipeline; the second request is submitted inside
   the engine's own put of the first's n-th token (``TokenTap``), so both
   engines admit it at the same point of the first's stream, whatever the
-  host's load;
+  host's load (under preemption the pipelined port engine is held against
+  an unpipelined JAX engine: the JAX pipelined engine leaves its
+  uncontended streams on a loaded host);
 - two prompts posted back to back, with the first token's fetch deferred
   (``overlap_admission_fetch``, the default: the second admission finds no
   ready slot and prefills) and fetched at once (it lane-admits): lane
@@ -76,11 +78,14 @@ def np_params():
     return {k: np.asarray(v) for k, v in p.items()}
 
 
-def make_cores(np_params, **cfg):
+def make_cores(np_params, jax_over=None, **cfg):
+    """A JAX and a port engine with the same EngineConfig fields (``cfg``);
+    ``jax_over`` overrides some of them on the JAX side only."""
     kw = dict(max_model_len=256, kv_block_size=8, num_kv_blocks=64,
               max_num_seqs=4, prefill_buckets=[16, 32, 64, 128])
     kw.update(cfg)
-    jcore = JEngineCore(JModelConfig(**GEOM), JEngineConfig(**kw),
+    jcore = JEngineCore(JModelConfig(**GEOM),
+                        JEngineConfig(**dict(kw, **(jax_over or {}))),
                         params={k: jnp.asarray(v)
                                 for k, v in np_params.items()},
                         attn_impl="xla", param_dtype=jnp.float32)
@@ -176,11 +181,11 @@ class Side:
         return await asyncio.gather(self.drain(ra), self.drain(rb))
 
 
-async def on_both(np_params, scenario, **cfg):
+async def on_both(np_params, scenario, jax_over=None, **cfg):
     """Run ``scenario(side)`` on a JAX and a port engine built with the
-    same dispatch fields; returns (jax result, port result, jcore,
-    tcore)."""
-    jcore, tcore = make_cores(np_params, **cfg)
+    same dispatch fields (``jax_over`` overrides some on the JAX side);
+    returns (jax result, port result, jcore, tcore)."""
+    jcore, tcore = make_cores(np_params, jax_over=jax_over, **cfg)
     out = []
     for core, jax_side in ((jcore, True), (tcore, False)):
         try:
@@ -361,10 +366,15 @@ async def test_lane_under_preemption_matches_jax(np_params, pipeline):
                                     max_new_b=max_new)
 
     # 11 usable blocks of 8 tokens, 9 per sequence at full length: one
-    # must be preempted (recompute) while the other runs
+    # must be preempted (recompute) while the other runs. The reference is
+    # an unpipelined JAX engine: uncontended its streams and recompute
+    # points are the pipelined one's, but on a loaded host the JAX
+    # pipelined engine leaves its uncontended streams (2 of 62 recorded
+    # runs, from a's 27th token, or a's 10th and b's 2nd, at the same
+    # preemption point), where the port's stays on them
     jout, tout, jcore, tcore = await on_both(
-        np_params, scenario, **dict(LANES, num_kv_blocks=12,
-                                    decode_dispatch_pipeline=pipeline))
+        np_params, scenario, jax_over=dict(decode_dispatch_pipeline=False),
+        **dict(LANES, num_kv_blocks=12, decode_dispatch_pipeline=pipeline))
     assert jcore.lane_admissions >= 1 and tcore.lane_admissions >= 1
     assert jcore.preemptions > 0 and tcore.preemptions > 0
     for (jt, jr, jq), (tt, tr, tq) in zip(jout, tout):

@@ -13,7 +13,12 @@ Both engines run the same tiny model (the JAX init, converted with
   near-tie may legitimately flip there (the JAX package's own contract);
 - the same two schedules with ``quantization="int4"`` and
   ``kv_quantization="int8"`` on both engines (hidden 256, so every layer
-  matmul passes the grouped-int4 kernel's shape rule);
+  matmul passes the grouped-int4 kernel's shape rule); the JAX side of
+  both is one engine, built and compiled once (``jax_quant_streams``),
+  whose pool holds the second schedule's two requests: a stream depends
+  neither on the batch it rides nor on the pool's size before a recompute,
+  so the port's preempted streams must equal those up to the port's first
+  recompute boundary;
 - seeded sampled requests (temperature 0.7, top_p 0.9) beside a greedy
   one, and under preemption: each engine keys a token by (engine seed,
   request seed, the request's key_step), so the sampled streams are
@@ -45,6 +50,18 @@ pytestmark = pytest.mark.asyncio
 GEOM = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
             num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
             max_position_embeddings=512)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny engines run on one intra-op thread: their ops are too
+    small to split, and the suite runs beside other workers (eight threads
+    a process oversubscribe the cores there, and the int4 path's CPU ops
+    then take tens of times longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -80,6 +97,12 @@ def make_cores(np_params, num_kv_blocks, max_num_seqs, geom=GEOM, **extra):
                         params={k: jnp.asarray(v)
                                 for k, v in np_params.items()},
                         attn_impl="xla", param_dtype=jnp.float32)
+    return jcore, make_port_core(np_params, num_kv_blocks, max_num_seqs,
+                                 geom, **extra)
+
+
+def make_port_core(np_params, num_kv_blocks, max_num_seqs, geom=GEOM,
+                   **extra):
     cfg = ModelConfig(**geom)
     tcore = EngineCore(cfg, EngineConfig(dtype="float32",
                                          **_engine_kwargs(num_kv_blocks,
@@ -88,7 +111,7 @@ def make_cores(np_params, num_kv_blocks, max_num_seqs, geom=GEOM, **extra):
                        params=params_from_numpy(np_params, cfg, "cpu",
                                                 torch.float32),
                        device="cpu")
-    return jcore, tcore
+    return tcore
 
 
 async def _collect(core, req, sentinel):
@@ -104,23 +127,32 @@ async def _collect(core, req, sentinel):
 GREEDY = dict(temperature=0.0)
 
 
-async def run_both(jcore, tcore, prompts, max_new, sampling=None):
-    """Serve ``prompts`` concurrently on each engine; ``sampling[i]`` is
-    request i's ``SlotSampling`` fields (default: greedy)."""
+async def serve_all(core, prompts, max_new, sampling=None):
+    """Serve ``prompts`` concurrently on ``core`` (a JAX or a port engine);
+    ``sampling[i]`` is request i's ``SlotSampling`` fields (default:
+    greedy)."""
     sampling = sampling or [GREEDY] * len(prompts)
-    jreqs = [JEngineRequest(rid=f"j{i}", prompt=list(p),
-                            sampling=JSlotSampling(**sampling[i]),
-                            max_new_tokens=max_new, eos_ids=frozenset())
-             for i, p in enumerate(prompts)]
-    treqs = [EngineRequest(rid=f"t{i}", prompt=list(p),
-                           sampling=SlotSampling(**sampling[i]),
-                           max_new_tokens=max_new, eos_ids=frozenset())
-             for i, p in enumerate(prompts)]
+    if isinstance(core, JEngineCore):
+        reqs = [JEngineRequest(rid=f"j{i}", prompt=list(p),
+                               sampling=JSlotSampling(**sampling[i]),
+                               max_new_tokens=max_new, eos_ids=frozenset())
+                for i, p in enumerate(prompts)]
+        sentinel = J_FINISH
+    else:
+        reqs = [EngineRequest(rid=f"t{i}", prompt=list(p),
+                              sampling=SlotSampling(**sampling[i]),
+                              max_new_tokens=max_new, eos_ids=frozenset())
+                for i, p in enumerate(prompts)]
+        sentinel = FINISH_SENTINEL
+    return await asyncio.gather(*(_collect(core, r, sentinel)
+                                  for r in reqs))
+
+
+async def run_both(jcore, tcore, prompts, max_new, sampling=None):
+    """Serve ``prompts`` concurrently on each engine, then stop both."""
     try:
-        jout = await asyncio.gather(*(_collect(jcore, r, J_FINISH)
-                                      for r in jreqs))
-        tout = await asyncio.gather(*(_collect(tcore, r, FINISH_SENTINEL)
-                                      for r in treqs))
+        jout = await serve_all(jcore, prompts, max_new, sampling)
+        tout = await serve_all(tcore, prompts, max_new, sampling)
     finally:
         await jcore.stop()
         await tcore.stop()
@@ -171,30 +203,69 @@ async def test_preemption_streams_match_jax(np_params):
         assert tt[:boundary] == jt[:boundary]
 
 
-async def test_quantized_concurrent_greedy_streams_match_jax(np_qparams):
+def _quant_prompts():
+    """The quantized schedules' prompts: four sharing a 16-token prefix,
+    and two of 30 tokens for the preemption."""
     rng = np.random.default_rng(4)
     prefix = rng.integers(1, 256, size=16).tolist()
-    prompts = [prefix + rng.integers(1, 256, size=n).tolist()
-               for n in (3, 9, 17, 30)]
-    jcore, tcore = make_cores(np_qparams, 64, 4, QGEOM, **QUANT)
+    shared = [prefix + rng.integers(1, 256, size=n).tolist()
+              for n in (3, 9, 17, 30)]
+    rng = np.random.default_rng(24)
+    return shared, [rng.integers(1, 256, size=30).tolist() for _ in range(2)]
+
+
+@pytest.fixture(scope="module")
+def jax_quant_streams(np_qparams):
+    """The JAX engine's int4 + int8-KV runs of both quantized schedules,
+    on ONE engine (64 blocks, 4 slots; its programs compiled once): the
+    four prefix-sharing prompts together (16 tokens), with its prefix hits
+    after them, then the two 30-token prompts together (40 tokens; the
+    pool holds both, so nothing preempts). Shared by the two quantized
+    cases."""
+    cache = {}
+
+    async def get():
+        if not cache:
+            jcore = make_cores(np_qparams, 64, 4, QGEOM, **QUANT)[0]
+            shared, preempted = _quant_prompts()
+            try:
+                cache["shared"] = await serve_all(jcore, shared, 16)
+                cache["match_hits"] = jcore.kv_manager.pool.match_hits
+                cache["preempted"] = await serve_all(jcore, preempted, 40)
+                cache["preemptions"] = jcore.preemptions
+            finally:
+                await jcore.stop()
+        return cache
+    return get
+
+
+async def test_quantized_concurrent_greedy_streams_match_jax(
+        np_qparams, jax_quant_streams):
+    ref = await jax_quant_streams()
+    tcore = make_port_core(np_qparams, 64, 4, QGEOM, **QUANT)
     assert tcore.kv["k"].dtype == torch.int8
-    jout, tout = await run_both(jcore, tcore, prompts, max_new=16)
-    for (jt, jr, _), (tt, tr, _) in zip(jout, tout):
+    try:
+        tout = await serve_all(tcore, _quant_prompts()[0], 16)
+    finally:
+        await tcore.stop()
+    for (jt, jr, _), (tt, tr, _) in zip(ref["shared"], tout):
         assert len(tt) == 16 and tr.value == jr.value == "length"
         assert tt == jt
-    assert (tcore.kv_manager.pool.match_hits
-            == jcore.kv_manager.pool.match_hits > 0)
+    assert tcore.kv_manager.pool.match_hits == ref["match_hits"] > 0
 
 
-async def test_quantized_preemption_streams_match_jax(np_qparams):
-    rng = np.random.default_rng(24)
-    prompts = [rng.integers(1, 256, size=30).tolist() for _ in range(2)]
-    jcore, tcore = make_cores(np_qparams, 16, 2, QGEOM, **QUANT)
-    jout, tout = await run_both(jcore, tcore, prompts, max_new=40)
-    assert jcore.preemptions > 0 and tcore.preemptions > 0
-    for (jt, jr, jq), (tt, tr, tq) in zip(jout, tout):
+async def test_quantized_preemption_streams_match_jax(np_qparams,
+                                                      jax_quant_streams):
+    ref = await jax_quant_streams()
+    tcore = make_port_core(np_qparams, 16, 2, QGEOM, **QUANT)
+    try:
+        tout = await serve_all(tcore, _quant_prompts()[1], 40)
+    finally:
+        await tcore.stop()
+    assert tcore.preemptions > 0 and ref["preemptions"] == 0
+    for (jt, jr, _), (tt, tr, tq) in zip(ref["preempted"], tout):
         assert tr.value == jr.value == "length" and len(tt) == len(jt) == 40
-        boundary = _first_boundary(jq, tq)
+        boundary = _first_boundary(tq)
         assert tt[:boundary] == jt[:boundary]
 
 

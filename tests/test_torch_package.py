@@ -155,22 +155,21 @@ def test_entry_points_default_to_the_card():
 
 # the JAX EngineConfig's fields the port does not implement yet (ROADMAP A):
 # each is not a field of the port's EngineConfig, so passing it raises
-UNPORTED_ENGINE_FIELDS = (
-    "tp", "dp", "ep", "pp", "kv_remote_dir", "kv_remote_blocks",
-    "kv_remote_admission")
+UNPORTED_ENGINE_FIELDS = ("tp", "dp", "ep", "pp")
 
 
 @pytest.mark.parametrize("field", UNPORTED_ENGINE_FIELDS)
 def test_unported_engine_fields_raise(field):
     import dataclasses
     from dynamo_tpu_torch.engine.config import EngineConfig
-    assert len(UNPORTED_ENGINE_FIELDS) == 7
+    assert len(UNPORTED_ENGINE_FIELDS) == 4
     assert field not in {f.name for f in dataclasses.fields(EngineConfig)}
     with pytest.raises(TypeError):
         EngineConfig(**{field: 1})
 
 
-# the KV-tier and defrag fields the port took from the JAX EngineConfig,
+# the KV-tier (remote tier included) and defrag fields the port took from
+# the JAX EngineConfig,
 # each with invalid settings (beside the field itself, what they need)
 PORTED_TIER_FIELDS = {
     "host_kv_blocks": [{"kv_disk_dir": "d", "kv_disk_blocks": 4,
@@ -182,6 +181,12 @@ PORTED_TIER_FIELDS = {
     "kv_defrag_threshold": [{"kv_defrag_threshold": -0.1},
                             {"kv_defrag_threshold": 1.5}],
     "kv_defrag_max_blocks": [],
+    "kv_remote_dir": [{"kv_remote_dir": "r"},
+                      {"kv_remote_dir": "r", "host_kv_blocks": 4}],
+    "kv_remote_blocks": [{"kv_remote_blocks": 8},
+                         {"kv_remote_blocks": 8, "kv_disk_dir": "d",
+                          "kv_disk_blocks": 4, "host_kv_blocks": 4}],
+    "kv_remote_admission": [{"kv_remote_admission": "sometimes"}],
 }
 # of those, the fields the port accepts only at JAX's default: a setting
 # the JAX package takes, which the port refuses
@@ -196,7 +201,7 @@ def test_ported_tier_fields_follow_jax(field):
     import re
     from dynamo_tpu.engine.config import EngineConfig as JEngineConfig
     from dynamo_tpu_torch.engine.config import EngineConfig
-    assert len(PORTED_TIER_FIELDS) == 7
+    assert len(PORTED_TIER_FIELDS) == 10
     assert getattr(EngineConfig(), field) == getattr(JEngineConfig(), field)
     for bad in PORTED_TIER_FIELDS[field]:
         with pytest.raises(ValueError) as want:

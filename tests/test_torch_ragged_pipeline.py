@@ -59,6 +59,18 @@ COUNTERS = ("ragged_dispatches", "ragged_rows_total",
             "host_roundtrips", "total_prefill_tokens", "total_decode_tokens")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny engines run on one intra-op thread: their ops are too
+    small to split, and the suite runs beside other workers (eight threads
+    a process oversubscribe the cores there, and the int4 path's CPU ops
+    then take tens of times longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _llama_params(geom, seed):
     p = jllama.init_params(JModelConfig(**geom), jax.random.PRNGKey(seed),
                            dtype=jnp.float32)
